@@ -1,0 +1,71 @@
+"""Runtime flags — the port's own copy of ``paddle_tpu/framework/flags.py``.
+
+Same surface: every flag is overridable through a ``FLAGS_<name>``
+environment variable and through :func:`set_flags`. Only the flags this
+package reads are registered.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict
+
+_lock = threading.Lock()
+_registry: Dict[str, "_Flag"] = {}
+
+
+class _Flag:
+    __slots__ = ("name", "default", "value", "help", "type")
+
+    def __init__(self, name: str, default: Any, help_str: str):
+        self.name = name
+        self.default = default
+        self.help = help_str
+        self.type = type(default)
+        env = os.environ.get("FLAGS_" + name)
+        self.value = self._parse(env) if env is not None else default
+
+    def _parse(self, text: str) -> Any:
+        if self.type is bool:
+            return text.lower() in ("1", "true", "yes", "on")
+        if self.type is int:
+            return int(text)
+        if self.type is float:
+            return float(text)
+        return text
+
+
+def define_flag(name: str, default: Any, help_str: str = "") -> None:
+    with _lock:
+        if name not in _registry:
+            _registry[name] = _Flag(name, default, help_str)
+
+
+def _key(name: str) -> str:
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _registry:
+        raise ValueError(f"Unknown flag: {name}")
+    return key
+
+
+def get_flag(name: str) -> Any:
+    return _registry[_key(name)].value
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    for n, v in flags.items():
+        f = _registry[_key(n)]
+        f.value = (f._parse(v) if isinstance(v, str) and f.type is not str
+                   else f.type(v))
+
+
+define_flag("fused_decode", True,
+            "Decode-step op chains route through the fusion pass "
+            "(ops/kernels/fusion.py): rms_norm folds into the following "
+            "matmul and rope+KV-append+paged-attention collapse into one "
+            "kernel. Off = the unfused op-by-op chain.")
+define_flag("fused_decode_fusions", "norm_matmul,rope_append_attend",
+            "Comma-separated subset of the fusion pass's patterns to "
+            "enable (under fused_decode): 'norm_matmul' and/or "
+            "'rope_append_attend'.")

@@ -1,0 +1,362 @@
+"""Llama serving in PyTorch (``paddle_tpu/models/llama.py``, serving half).
+
+The slice ported here is greedy ``generate_paged``: a bucketed prompt
+prefill (causal flash attention, kernel K1) that fills a paged KV cache,
+then one decode step per new token whose per-layer attention tail is the
+fused rope -> append -> attend kernel (K3); every rms_norm folds into the
+matmuls that follow it (K2). Weights keep the JAX package's parameter
+names and its (in, out) layout, so ``models/bridge.py`` copies a JAX
+model's parameters without transposing.
+
+PyTorch runs eagerly: the JAX package's jitted prefill and ``lax.scan``
+decode loop become a plain function and a Python loop, and the page pools
+are updated in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..framework.dtype import to_torch_dtype
+from ..framework.place import resolve_device
+from ..framework.random import make_generator
+from ..nn import Embedding, Layer, Linear, RMSNorm
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def llama3_8b(**kw):
+        return LlamaConfig(**{**dict(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=8, rope_theta=500000.0), **kw})
+
+    @staticmethod
+    def tiny(**kw):
+        """Test-scale config."""
+        return LlamaConfig(**{**dict(
+            vocab_size=256, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=128,
+            rope_theta=10000.0), **kw})
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def _rope_tables(seq_len: int, head_dim: int, theta: float,
+                 dtype=torch.float32, device=None):
+    """cos/sin tables (S, D)."""
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)                  # (S, D/2)
+    emb = torch.cat([freqs, freqs], dim=-1)           # (S, D)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rotary_pos_emb(q, k, cos, sin):
+    """q, k: (B, S, H, D); cos/sin: (S, D)."""
+    cos = cos[None, :, None, :]
+    sin = sin[None, :, None, :]
+    q2 = q * cos + _rotate_half(q) * sin
+    k2 = k * cos + _rotate_half(k) * sin
+    return q2.to(q.dtype), k2.to(k.dtype)
+
+
+def apply_rotary_rows(q, k, cos, sin):
+    """Rope over a flat row batch: q (T, H, D), k (T, Hk, D), cos/sin (T, D)
+    at each row's own position. f32 rotate-half, cast back to the input
+    dtype — the serving decode rope (K3 reproduces it)."""
+    cq, sq = cos[:, None, :], sin[:, None, :]
+    q32, k32 = q.float(), k.float()
+    q2 = q32 * cq + _rotate_half(q32) * sq
+    k2 = k32 * cq + _rotate_half(k32) * sq
+    return q2.to(q.dtype), k2.to(k.dtype)
+
+
+def _pure_rms(x, w, eps):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _wmm(x, w):
+    """x @ w for a dense (K, N) weight (weight-only quantized weights are
+    a later slice)."""
+    return x @ w
+
+
+def _pure_decoder_layer(prms, i, hidden, eps, attend, enabled=None):
+    """One decoder block through the fusion pass (ops/kernels/fusion.py);
+    ``attend`` maps the flat q/k/v projections to the flat attention
+    output. ``enabled`` overrides the flag-resolved fusion set."""
+    from ..ops.kernels import fusion
+
+    return fusion.run_decoder_layer(prms, i, hidden, eps, attend,
+                                    enabled=enabled)
+
+
+def _pure_lm_head_logits(prms, hidden, eps, tied, enabled=None):
+    """Final norm + head on (..., hidden) states — raw logits."""
+    if tied:
+        hidden = _pure_rms(hidden, prms["model.norm.weight"], eps)
+        return hidden @ prms["model.embed_tokens.weight"].T
+    from ..ops.kernels import fusion
+
+    return fusion.run_lm_head(prms, hidden, eps, enabled=enabled)
+
+
+def _greedy(logits):
+    """Greedy pick (first index among equal maxima) as int32 token ids."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _pow2_bucket(n: int, cap: int, floor: int = 1) -> int:
+    """Smallest ``floor * 2**k`` covering n, capped at ``cap``."""
+    from ..jit.bucketing import bucket_for, default_buckets
+
+    return bucket_for(min(n, cap), default_buckets(cap, floor))
+
+
+def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False):
+    """Full-prompt logits (B, S, V): embed -> decoder blocks with causal
+    flash attention -> LM head. ``plain=True`` runs every kernel's plain
+    version instead (no fusion, plain attention) — the on-card reference
+    the kernel path is held against."""
+    from ..ops.kernels.flash_attention import (_reference_attention,
+                                               flash_attention_pure)
+
+    attention = _reference_attention if plain else flash_attention_pure
+    enabled = () if plain else None
+    embed = prms["model.embed_tokens.weight"]
+    ids = torch.as_tensor(ids, device=embed.device).long()
+    b, s = ids.shape
+    nh, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    hidden = embed[ids]
+    cos, sin = _rope_tables(s, hd, cfg.rope_theta, device=hidden.device)
+    for i in range(cfg.num_hidden_layers):
+        def attend(q, k, v):
+            q = q.reshape(b, s, nh, hd)
+            k = k.reshape(b, s, hk, hd)
+            v = v.reshape(b, s, hk, hd)
+            q, k = apply_rotary_pos_emb(q.float(), k.float(), cos, sin)
+            q, k = q.to(hidden.dtype), k.to(hidden.dtype)
+            return attention(q, k, v, causal=True).reshape(b, s, nh * hd)
+
+        hidden = _pure_decoder_layer(prms, i, hidden, cfg.rms_norm_eps,
+                                     attend, enabled=enabled)
+    return _pure_lm_head_logits(prms, hidden, cfg.rms_norm_eps, tied,
+                                enabled=enabled)
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter containers with the JAX package's names)
+# ---------------------------------------------------------------------------
+class LlamaAttention(Layer):
+    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+        super().__init__()
+        h, hd = cfg.hidden_size, cfg.head_dim
+        nh, hk = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.q_proj = Linear(h, nh * hd, dtype, device, gen)
+        self.k_proj = Linear(h, hk * hd, dtype, device, gen)
+        self.v_proj = Linear(h, hk * hd, dtype, device, gen)
+        self.o_proj = Linear(nh * hd, h, dtype, device, gen)
+
+
+class LlamaMLP(Layer):
+    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+        super().__init__()
+        h, m = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Linear(h, m, dtype, device, gen)
+        self.up_proj = Linear(h, m, dtype, device, gen)
+        self.down_proj = Linear(m, h, dtype, device, gen)
+
+
+class LlamaDecoderLayer(Layer):
+    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, dtype, device)
+        self.self_attn = LlamaAttention(cfg, dtype, device, gen)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, dtype,
+                                                device)
+        self.mlp = LlamaMLP(cfg, dtype, device, gen)
+
+
+class LlamaModel(Layer):
+    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+        super().__init__()
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, dtype,
+                                      device, gen)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(cfg, dtype, device, gen)
+             for _ in range(cfg.num_hidden_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, dtype, device)
+
+
+class LlamaForCausalLM(Layer):
+    """Llama with an LM head. Runs on ``cuda`` unless ``device="cpu"``;
+    weights are drawn from ``seed`` (N(0, 0.02²) matmul and embedding
+    weights, unit norm weights) in ``config.dtype``."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        self.config = config
+        self.device = resolve_device(device)
+        dtype = to_torch_dtype(config.dtype)
+        gen = make_generator(seed, self.device)
+        self.model = LlamaModel(config, dtype, self.device, gen)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Linear(config.hidden_size, config.vocab_size, dtype,
+                               self.device, gen))
+
+    def forward(self, input_ids):
+        """Prompt logits (B, S, V)."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        with torch.inference_mode():
+            return prompt_logits_pure(self.param_dict(), ids, self.config,
+                                      tied=self.lm_head is None)
+
+    def generate_paged(self, input_ids, max_new_tokens: int = 16,
+                       page_size: int = 16, return_logits: bool = False):
+        """Greedy decode over a paged KV cache. ``input_ids`` (B, S0)
+        → (B, S0 + max_new_tokens) int32 on the model's device; with
+        ``return_logits`` also the (B, max_new_tokens, V) f32 logits each
+        new token was picked from.
+
+        The prompt pads to a power-of-two bucket W (capped at the page-
+        padded capacity), one prefill fills the cache and picks the first
+        token, then each decode step appends one token per sequence."""
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, "
+                             f"got {max_new_tokens}")
+        cfg = self.config
+        prms = self.param_dict()
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        b, s0 = ids.shape
+        cap = s0 + max_new_tokens
+        cap_pad = -(-cap // page_size) * page_size
+        w = _pow2_bucket(s0, cap_pad)
+        cos_full, sin_full = _rope_tables(cap_pad, cfg.head_dim,
+                                          cfg.rope_theta, device=self.device)
+        with torch.inference_mode():
+            prefill = self._build_paged_prefill(b, w, cap_pad, page_size)
+            step = self._build_paged_step(b)
+            ids_pad = torch.nn.functional.pad(ids, (0, w - s0))
+            lengths = torch.full((b,), s0, dtype=torch.int32,
+                                 device=self.device)
+            logits, cache = prefill(prms, ids_pad, lengths, cos_full,
+                                    sin_full)
+            kept = [logits.float()] if return_logits else None
+            toks = [_greedy(logits)]
+            for _ in range(max_new_tokens - 1):
+                logits, cache = step(prms, toks[-1], cache, cos_full,
+                                     sin_full)
+                if return_logits:
+                    kept.append(logits.float())
+                toks.append(_greedy(logits))
+            out = torch.cat([ids.to(torch.int32), torch.stack(toks, 1)], 1)
+            return (out, torch.stack(kept, 1)) if return_logits else out
+
+    def _build_paged_prefill(self, b, w, cap, page_size):
+        """Prompt prefill at bucket width ``w``: ids (B, w) zero-padded,
+        lengths (B,) the true prompt lengths → (last-position logits (B, V),
+        paged cache filled through each length). Padded positions write K/V past
+        each length that the causal mask and ``seq_lens`` keep unread."""
+        from ..ops.kernels.flash_attention import flash_attention_pure
+        from .kv_cache import create_paged_cache, prefill_paged_cache
+
+        cfg = self.config
+        tied = self.lm_head is None
+        n_layers = cfg.num_hidden_layers
+        hd, hk = cfg.head_dim, cfg.num_key_value_heads
+        nh = cfg.num_attention_heads
+
+        def prefill(prms, ids, lengths, cos_full, sin_full):
+            hidden = prms["model.embed_tokens.weight"][ids]  # (B, w, h)
+            cos, sin = cos_full[:w], sin_full[:w]
+            cache = create_paged_cache(n_layers, b, cap, hk, hd,
+                                       page_size=page_size,
+                                       dtype=hidden.dtype,
+                                       device=hidden.device)
+            for i in range(n_layers):
+                def attend(q, k, v, i=i):
+                    nonlocal cache
+                    q = q.reshape(b, w, nh, hd)
+                    k = k.reshape(b, w, hk, hd)
+                    v = v.reshape(b, w, hk, hd)
+                    q, k = apply_rotary_pos_emb(q.float(), k.float(), cos,
+                                                sin)
+                    q, k = q.to(hidden.dtype), k.to(hidden.dtype)
+                    out = flash_attention_pure(q, k, v, causal=True)
+                    cache = prefill_paged_cache(cache, i, k, v, lengths)
+                    return out.reshape(b, w, nh * hd)
+
+                hidden = _pure_decoder_layer(prms, i, hidden,
+                                             cfg.rms_norm_eps, attend)
+            idx = torch.clamp(lengths.long() - 1, min=0)
+            h_last = hidden[torch.arange(b, device=hidden.device), idx]
+            return (_pure_lm_head_logits(prms, h_last, cfg.rms_norm_eps,
+                                         tied), cache)
+
+        return prefill
+
+    def _build_paged_step(self, b):
+        """The per-token decode step: token (B,) → (next-token logits
+        (B, V), cache). The per-layer rope→append→attention tail routes through
+        the fusion seam (``fusion.decode_attend``)."""
+        from ..ops.kernels import fusion
+        from .kv_cache import advance
+
+        cfg = self.config
+        tied = self.lm_head is None
+        n_layers = cfg.num_hidden_layers
+        hd, hk = cfg.head_dim, cfg.num_key_value_heads
+        nh = cfg.num_attention_heads
+
+        def step(prms, token, cache, cos_full, sin_full):
+            pos = cache.seq_lens.long()
+            hidden = prms["model.embed_tokens.weight"][token.long()]
+            cos, sin = cos_full[pos], sin_full[pos]               # (B, D)
+            for i in range(n_layers):
+                def attend(q, k, v, i=i):
+                    nonlocal cache
+                    out, cache = fusion.decode_attend(
+                        q.reshape(b, nh, hd), k.reshape(b, hk, hd),
+                        v.reshape(b, hk, hd), cos, sin, cache, i)
+                    return out.reshape(b, nh * hd)
+
+                hidden = _pure_decoder_layer(prms, i, hidden,
+                                             cfg.rms_norm_eps, attend)
+            cache = advance(cache)
+            return (_pure_lm_head_logits(prms, hidden, cfg.rms_norm_eps,
+                                         tied), cache)
+
+        return step
+

@@ -1,0 +1,149 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device (decided in the
+``gen`` fixture, never at import). Run on a GPU host with
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q -m cuda
+
+(``--noconftest``: the root conftest imports JAX, which a GPU host need
+not have; this file imports only torch and the port.)
+
+chip_smoke.py checks the kernels at the Llama-3-8B serving shapes; these
+cases cover the edges those shapes do not reach: ragged M, N and sequence
+lengths, Sk > Sq, every GQA group size the kernels take, a cache position
+on a page boundary and at the capacity's last cell, and the wrappers'
+refusals (a kernel's wrapper, and the fusion executor when a flag turns
+a fusion off). Tolerances as in chip_smoke.py: one bf16 output rounding
+plus f32 summation-order differences; pool cells bit-exact.
+"""
+
+from __future__ import annotations
+
+import math
+
+import pytest
+import torch
+
+from paddle_tpu_torch.framework import flags
+from paddle_tpu_torch.models import kv_cache
+from paddle_tpu_torch.models.llama import _rope_tables
+from paddle_tpu_torch.ops.kernels import flash_attention as k1
+from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
+from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
+from paddle_tpu_torch.ops.kernels import fusion
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on a GPU host with -m cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk", [
+    (1, 64, 64, 1, 1), (2, 100, 100, 8, 2), (1, 128, 300, 4, 4),
+    (3, 37, 37, 8, 1), (1, 200, 200, 16, 8)])
+def test_flash_attention_fwd_matches_plain(gen, b, sq, sk, h, hk):
+    q = _randn(gen, b, sq, h, 128)
+    k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
+    out, lse = k1.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = k1.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= k1.fwd_tolerance(q, k, v, ref, causal=True)).all())
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def test_flash_attention_fwd_not_causal(gen):
+    q, k, v = (_randn(gen, 2, 96, 4, 128) for _ in range(3))
+    out, _ = k1.flash_attention_fwd(q, k, v, causal=False)
+    ref, _ = k1.flash_attention_fwd_reference(q, k, v, causal=False)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= k1.fwd_tolerance(q, k, v, ref)).all())
+
+
+@pytest.mark.parametrize("m,kdim,n", [(1, 128, 8), (5, 256, 40),
+                                      (16, 512, 1000), (17, 384, 264),
+                                      (300, 1024, 520)])
+def test_norm_matmul_matches_plain(gen, m, kdim, n):
+    x = _randn(gen, m, kdim)
+    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    w = _randn(gen, kdim, n, scale=1 / math.sqrt(kdim))
+    y = k2.fused_norm_matmul_pure(x, nw, 1e-5, w)
+    ref = k2._reference(x, nw, 1e-5, w)
+    diff = (y.float() - ref.float()).abs()
+    assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("g,lens", [(1, (0, 15, 16)), (2, (31, 1, 47)),
+                                    (8, (5, 32, 40))])
+def test_rope_append_attend_matches_plain(gen, g, lens):
+    b, hk, d, page, cap = len(lens), 2, 128, 16, 48
+    cache = kv_cache.create_paged_cache(2, b, cap, hk, d, page,
+                                        dtype=torch.bfloat16, device="cuda")
+    for pool in (cache.k_pages, cache.v_pages):
+        pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda"))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cache = cache._replace(seq_lens=lens_t)
+    q = _randn(gen, b, hk * g, d)
+    k, v = _randn(gen, b, hk, d), _randn(gen, b, hk, d)
+    cos_t, sin_t = _rope_tables(cap, d, 10000.0, device="cuda")
+    cos, sin = cos_t[lens_t.long()], sin_t[lens_t.long()]
+    ck = cache._replace(k_pages=cache.k_pages.clone(),
+                        v_pages=cache.v_pages.clone())
+    cp = cache._replace(k_pages=cache.k_pages.clone(),
+                        v_pages=cache.v_pages.clone())
+    out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck, 1)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= 1e-2 + 1e-2 * ref.float().abs()).all())
+    assert torch.equal(ck.k_pages, cp.k_pages)
+    assert torch.equal(ck.v_pages, cp.v_pages)
+    assert torch.equal(ck.k_pages[0], cache.k_pages[0])  # other layer
+
+
+def test_wrappers_raise_instead_of_falling_back(gen):
+    x = _randn(gen, 4, 100)                              # K % 128 != 0
+    with pytest.raises(ValueError):
+        k2.fused_norm_matmul_pure(x, x[0], 1e-5, _randn(gen, 100, 8))
+    x32 = torch.randn((4, 128), device="cuda")            # f32 on the card
+    with pytest.raises(ValueError):
+        k2.fused_norm_matmul_pure(x32, x32[0], 1e-5,
+                                  torch.randn((128, 8), device="cuda"))
+    q = _randn(gen, 1, 64, 2, 64)                         # head_dim 64
+    with pytest.raises(ValueError):
+        k1.flash_attention_fwd(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("fusions", ["rope_append_attend", ""])
+def test_fusion_flags_off_raise_on_the_card(gen, fusions):
+    """With norm_matmul off, the flag-resolved layer and head plans would
+    run plain rms_norm and matmul on the card in place of K2: they raise.
+    Only an explicit ``enabled=()`` (the plain reference) runs them."""
+    h = 128
+    prms = {n: _randn(gen, h, h) for n in ("lm_head.weight",)}
+    prms["model.norm.weight"] = torch.ones(h, device="cuda",
+                                           dtype=torch.bfloat16)
+    hidden = _randn(gen, 2, h)
+    old = flags.get_flag("fused_decode_fusions")
+    try:
+        flags.set_flags({"fused_decode_fusions": fusions})
+        with pytest.raises(NotImplementedError):
+            fusion.run_lm_head(prms, hidden, 1e-5)
+        with pytest.raises(NotImplementedError):
+            fusion.run_decoder_layer(prms, 0, hidden, 1e-5, attend=None)
+        ref = fusion.run_lm_head(prms, hidden, 1e-5, enabled=())
+    finally:
+        flags.set_flags({"fused_decode_fusions": old})
+    y = fusion.run_lm_head(prms, hidden, 1e-5)           # flags restored: K2
+    diff = (y.float() - ref.float()).abs()
+    assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
