@@ -6,13 +6,19 @@ module names (``framework/``, ``nn/``, ``jit/``, ``models/``,
 find. It imports ``torch`` and numpy only — never ``jax`` and never
 ``paddle_tpu``.
 
-The first slice is Llama greedy paged serving
-(``models.llama.LlamaForCausalLM.generate_paged``) on one NVIDIA H100,
-with three hand-written CUDA kernels under ``csrc/``:
+It serves Llama greedy paged decoding
+(``models.llama.LlamaForCausalLM.generate_paged``) on one NVIDIA H100, in
+bf16 or with weight-only int8/int4 weights and an int8 KV cache
+(``quantize_for_inference``, ``cache_dtype="int8"``), with four
+hand-written CUDA kernels under ``csrc/``:
 
   flash_attention_fwd         prefill causal GQA attention
   norm_matmul                 rms_norm folded into every following matmul
-  rope_append_attend_decode   per-layer decode attention tail
+                              (dense, int8 or int4 weights)
+  rope_append_attend_decode   per-layer decode attention tail (bf16 or
+                              int8 cache)
+  quant_matmul                weight-only int8/int4 matmul (o_proj,
+                              down_proj)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.

@@ -4,6 +4,12 @@ The caller builds the numpy dict (``{n: np.asarray(p._array) for n, p in
 jax_model.named_parameters()}``); this module never imports the JAX
 package. Names and shapes must match exactly — linear weights keep the
 (in, out) layout on both sides, so nothing is transposed.
+
+``quantized_params_from_numpy`` does the same for a weight-only quantized
+params dict (the JAX package's ``quantize_for_inference`` output): each
+quantized entry is any object with ``codes``, ``scales``, ``weight_dtype``,
+``group_size`` and ``shape`` (the JAX ``QuantizedWeight`` works as is),
+read through numpy.
 """
 
 from __future__ import annotations
@@ -32,3 +38,69 @@ def load_numpy_params(model, params: dict) -> None:
             if a.dtype.kind != "f" or a.dtype.itemsize < 4:
                 a = a.astype(np.float32)  # e.g. bfloat16 from ml_dtypes
             own[name].copy_(torch.tensor(a))
+
+
+def _check_quantized(name, qw, want_shape):
+    """Raise unless ``qw``'s metadata and arrays agree with each other and
+    with the model parameter's (K, N) shape."""
+    shape = tuple(qw.shape)
+    if shape != tuple(want_shape):
+        raise ValueError(f"{name}: logical shape {shape} != "
+                         f"{tuple(want_shape)}")
+    if qw.weight_dtype not in ("int8", "int4"):
+        raise ValueError(f"{name}: weight_dtype {qw.weight_dtype!r}")
+    k, n = shape
+    rows = -(-k // 2) if qw.weight_dtype == "int4" else k
+    gs = int(qw.group_size)
+    if gs not in (-1, 64, 128):
+        raise ValueError(f"{name}: group_size {gs}")
+    s_shape = (n,) if gs == -1 else (-(-k // gs), n)
+    codes, scales = np.asarray(qw.codes), np.asarray(qw.scales)
+    if codes.dtype != np.int8 or codes.shape != (rows, n):
+        raise ValueError(f"{name}: codes {codes.dtype}{codes.shape}, "
+                         f"expected int8{(rows, n)} for {qw.weight_dtype}")
+    if scales.dtype != np.float32 or scales.shape != s_shape:
+        raise ValueError(f"{name}: scales {scales.dtype}{scales.shape}, "
+                         f"expected float32{s_shape} for group_size {gs}")
+    return codes, scales
+
+
+def quantized_params_from_numpy(model, params: dict) -> dict:
+    """The port's serving params from a quantized params dict: quantized
+    entries become ``QuantizedWeight``s of torch tensors, the rest tensors
+    in the model parameter's dtype, all on the model's device. Raises on a
+    missing or extra name, a shape mismatch or inconsistent metadata; the
+    model itself is not changed."""
+    from ..ops.kernels.quant_matmul import QuantizedWeight
+
+    own = dict(model.named_parameters())
+    missing = sorted(set(own) - set(params))
+    extra = sorted(set(params) - set(own))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing}, "
+                       f"extra {extra}")
+    arrays = {}
+    for name, val in params.items():
+        if hasattr(val, "codes"):
+            arrays[name] = _check_quantized(name, val, own[name].shape)
+        else:
+            a = np.asarray(val)
+            if tuple(a.shape) != tuple(own[name].shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)} != "
+                                 f"{tuple(own[name].shape)}")
+            arrays[name] = a
+    out = {}
+    for name, val in params.items():
+        dev = own[name].device
+        if hasattr(val, "codes"):
+            codes, scales = arrays[name]
+            out[name] = QuantizedWeight(
+                torch.tensor(codes, device=dev),
+                torch.tensor(scales, device=dev), val.weight_dtype,
+                val.group_size, val.shape)
+        else:
+            a = arrays[name]
+            if a.dtype.kind != "f" or a.dtype.itemsize < 4:
+                a = a.astype(np.float32)
+            out[name] = torch.tensor(a, device=dev).to(own[name].dtype)
+    return out

@@ -1,8 +1,11 @@
 """Paged KV cache for incremental decode (``paddle_tpu/models/kv_cache.py``).
 
-Float cache only; the int8 cache (per-cell scales) is a later slice, so
-``k_scales``/``v_scales`` stay ``None`` here and ``layer_scales`` returns
-``(None, None)``.
+A float cache holds K/V verbatim. An int8 cache (``create_paged_cache(
+dtype=torch.int8)``) holds symmetric-absmax codes, with one f32 scale per
+written (head, token) cell in the scale pools ``k_scales``/``v_scales``
+(L, Hk, P, page, 1); every writer quantizes on write through
+``_quantize_cells``, and ``layer_scales`` gives the readers the scales
+(``(None, None)`` on a float cache).
 
 Page pool layout: ``(L, Hk, P, page, D)`` with ``P = batch *
 pages_per_seq``; sequence b owns the contiguous physical pages
@@ -32,6 +35,29 @@ class PagedCacheState(NamedTuple):
     def page_size(self):
         return self.k_pages.shape[3]
 
+    @property
+    def quantized(self):
+        return self.k_scales is not None
+
+
+def _quantize_cells(x):
+    """Symmetric absmax int8 over the last (head_dim) axis: one scale per
+    cell. Returns (codes int8, scales f32 (..., 1)): scale = max(max|x| /
+    127, 1e-12), code = clip(round-half-even(x / scale), -127, 127) — THE
+    quantize-on-write rule (K3 repeats it in-kernel). The divisor is a
+    tensor: CUDA turns a division by a Python scalar into a multiplication
+    by its reciprocal, which can miss the IEEE quotient by an ulp."""
+    xf = x.float()
+    scale = torch.clamp(
+        xf.abs().amax(dim=-1, keepdim=True) / xf.new_tensor(127.0),
+        min=1e-12)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+#: public name of the write rule
+quantize_cells = _quantize_cells
+
 
 def layer_scales(state: PagedCacheState, layer: int):
     """(k_scales, v_scales) for ``layer`` — (None, None) on a float cache."""
@@ -43,19 +69,41 @@ def layer_scales(state: PagedCacheState, layer: int):
 def create_paged_cache(num_layers: int, batch: int, max_len: int,
                        num_kv_heads: int, head_dim: int, page_size: int = 16,
                        dtype=torch.float32, device=None) -> PagedCacheState:
-    if not dtype.is_floating_point:
-        raise ValueError(f"only a float KV cache is supported, got {dtype}")
+    """``dtype`` a float dtype (pages hold K/V verbatim) or ``torch.int8``
+    (code pools plus f32 scale pools (L, Hk, P, page, 1))."""
+    quantized = dtype == torch.int8
+    if not (dtype.is_floating_point or quantized):
+        raise ValueError(f"KV cache dtype must be a float dtype or int8, "
+                         f"got {dtype}")
     pages_per_seq = -(-max_len // page_size)
     p_total = batch * pages_per_seq
     shape = (num_layers, num_kv_heads, p_total, page_size, head_dim)
+    s_shape = shape[:-1] + (1,)
     bt = (torch.arange(batch, device=device)[:, None] * pages_per_seq
           + torch.arange(pages_per_seq, device=device)[None, :])
+
+    def scales():
+        return (torch.zeros(s_shape, dtype=torch.float32, device=device)
+                if quantized else None)
+
     return PagedCacheState(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),
         v_pages=torch.zeros(shape, dtype=dtype, device=device),
         block_tables=bt.to(torch.int32),
         seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scales=scales(), v_scales=scales(),
     )
+
+
+def kv_page_nbytes(num_layers: int, num_kv_heads: int, page_size: int,
+                   head_dim: int, dtype=torch.float32) -> int:
+    """Bytes one KV page takes across every layer's K and V pools; an int8
+    cache adds 4 bytes of f32 scale per cell."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    cell = page_size * head_dim * itemsize
+    if dtype == torch.int8:
+        cell += page_size * 4
+    return 2 * num_layers * num_kv_heads * cell
 
 
 def _to_identity_pool(x, pps: int, page: int):
@@ -84,6 +132,10 @@ def prefill_paged_cache(state: PagedCacheState, layer: int, k, v,
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
         return _to_identity_pool(x, pages_per_seq, page)
 
+    if state.quantized:
+        (k, ks), (v, vs) = _quantize_cells(k), _quantize_cells(v)
+        state.k_scales[layer] = to_pool(ks)
+        state.v_scales[layer] = to_pool(vs)
     state.k_pages[layer] = to_pool(k).to(state.k_pages.dtype)
     state.v_pages[layer] = to_pool(v).to(state.v_pages.dtype)
     return state._replace(seq_lens=torch.as_tensor(
@@ -102,8 +154,13 @@ def append_token_masked(state: PagedCacheState, layer: int, k_new, v_new,
     rows = torch.arange(pos.shape[0], device=pos.device)
     phys = state.block_tables[rows, logical].long()
     m = active[None, :, None]
-    for pool, new in ((state.k_pages[layer], k_new),
-                      (state.v_pages[layer], v_new)):
+    pairs = [(state.k_pages[layer], k_new), (state.v_pages[layer], v_new)]
+    if state.quantized:
+        # quantize-on-write: per-cell scales keep the append local
+        (kq, ks), (vq, vs) = _quantize_cells(k_new), _quantize_cells(v_new)
+        pairs = [(state.k_pages[layer], kq), (state.v_pages[layer], vq),
+                 (state.k_scales[layer], ks), (state.v_scales[layer], vs)]
+    for pool, new in pairs:
         # pool view (Hk, P, page, D); [:, (B,), (B,), :] is (Hk, B, D)
         pool[:, phys, off, :] = torch.where(
             m, new.transpose(0, 1).to(pool.dtype), pool[:, phys, off, :])

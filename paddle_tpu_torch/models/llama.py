@@ -4,9 +4,13 @@ The slice ported here is greedy ``generate_paged``: a bucketed prompt
 prefill (causal flash attention, kernel K1) that fills a paged KV cache,
 then one decode step per new token whose per-layer attention tail is the
 fused rope -> append -> attend kernel (K3); every rms_norm folds into the
-matmuls that follow it (K2). Weights keep the JAX package's parameter
-names and its (in, out) layout, so ``models/bridge.py`` copies a JAX
-model's parameters without transposing.
+matmuls that follow it (K2). With ``params=quantize_for_inference(model)``
+every matmul weight is weight-only int8/int4: K2 dequantizes it in its
+tiles and the two matmuls no norm precedes (o_proj, down_proj) run the
+weight-only matmul kernel (K4); ``cache_dtype="int8"`` stores the paged
+cache as int8 codes with per-cell scales. Weights keep the JAX package's
+parameter names and its (in, out) layout, so ``models/bridge.py`` copies a
+JAX model's parameters without transposing.
 
 PyTorch runs eagerly: the JAX package's jitted prefill and ``lax.scan``
 decode loop become a plain function and a Python loop, and the page pools
@@ -106,30 +110,44 @@ def _pure_rms(x, w, eps):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def _wmm(x, w):
-    """x @ w for a dense (K, N) weight (weight-only quantized weights are
-    a later slice)."""
+def _wmm(x, w, plain=False):
+    """x @ w where w is a dense (K, N) weight or a weight-only
+    ``QuantizedWeight`` (K4 on CUDA tensors). ``plain`` takes the quantized
+    matmul's plain version on any device (the on-card reference)."""
+    from ..ops.kernels.quant_matmul import (QuantizedWeight,
+                                            quant_matmul_qw,
+                                            quant_matmul_reference)
+
+    if isinstance(w, QuantizedWeight):
+        if plain:
+            return quant_matmul_reference(x, w.codes, w.scales,
+                                          w.weight_dtype, w.group_size)
+        return quant_matmul_qw(x, w)
     return x @ w
 
 
-def _pure_decoder_layer(prms, i, hidden, eps, attend, enabled=None):
+def _pure_decoder_layer(prms, i, hidden, eps, attend, enabled=None,
+                        plain=False):
     """One decoder block through the fusion pass (ops/kernels/fusion.py);
     ``attend`` maps the flat q/k/v projections to the flat attention
-    output. ``enabled`` overrides the flag-resolved fusion set."""
+    output. ``enabled`` overrides the flag-resolved fusion set; ``plain``
+    runs quantized matmuls through their plain version."""
     from ..ops.kernels import fusion
 
     return fusion.run_decoder_layer(prms, i, hidden, eps, attend,
-                                    enabled=enabled)
+                                    enabled=enabled, plain=plain)
 
 
-def _pure_lm_head_logits(prms, hidden, eps, tied, enabled=None):
+def _pure_lm_head_logits(prms, hidden, eps, tied, enabled=None,
+                         plain=False):
     """Final norm + head on (..., hidden) states — raw logits."""
     if tied:
         hidden = _pure_rms(hidden, prms["model.norm.weight"], eps)
         return hidden @ prms["model.embed_tokens.weight"].T
     from ..ops.kernels import fusion
 
-    return fusion.run_lm_head(prms, hidden, eps, enabled=enabled)
+    return fusion.run_lm_head(prms, hidden, eps, enabled=enabled,
+                              plain=plain)
 
 
 def _greedy(logits):
@@ -146,9 +164,10 @@ def _pow2_bucket(n: int, cap: int, floor: int = 1) -> int:
 
 def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False):
     """Full-prompt logits (B, S, V): embed -> decoder blocks with causal
-    flash attention -> LM head. ``plain=True`` runs every kernel's plain
-    version instead (no fusion, plain attention) — the on-card reference
-    the kernel path is held against."""
+    flash attention -> LM head, for a params dict of dense tensors or
+    ``QuantizedWeight`` entries. ``plain=True`` runs every kernel's plain
+    version instead (no fusion, plain attention, plain dequant-matmuls) —
+    the on-card reference the kernel path is held against."""
     from ..ops.kernels.flash_attention import (_reference_attention,
                                                flash_attention_pure)
 
@@ -171,9 +190,36 @@ def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False):
             return attention(q, k, v, causal=True).reshape(b, s, nh * hd)
 
         hidden = _pure_decoder_layer(prms, i, hidden, cfg.rms_norm_eps,
-                                     attend, enabled=enabled)
+                                     attend, enabled=enabled, plain=plain)
     return _pure_lm_head_logits(prms, hidden, cfg.rms_norm_eps, tied,
-                                enabled=enabled)
+                                enabled=enabled, plain=plain)
+
+
+def quantize_for_inference(params, algo="weight_only_int8", group_size=-1):
+    """A flat params dict (or a model) in the weight-only serving format:
+    every 2-D matmul weight becomes a ``QuantizedWeight`` (int8 / packed
+    int4 codes with per-channel or group-wise scales), quantized from f32
+    on the weight's own device; embeddings (a gather) and 1-D norm weights
+    stay as they are. The dict drops into ``generate_paged(params=...)``.
+
+    algo: "weight_only_int8" | "weight_only_int4"; group_size: -1
+    (per output channel) | 64 | 128."""
+    from ..ops.extra_vision import _weight_quantize_pure
+    from ..ops.kernels.quant_matmul import QuantizedWeight
+
+    if hasattr(params, "param_dict"):
+        params = params.param_dict()
+    wd = "int4" if algo == "weight_only_int4" else "int8"
+    out = {}
+    for name, p in params.items():
+        if p.dim() == 2 and "embed_tokens" not in name:
+            codes, scales = _weight_quantize_pure(p.float(), algo=algo,
+                                                  group_size=group_size)
+            out[name] = QuantizedWeight(codes, scales, wd, group_size,
+                                        p.shape)
+        else:
+            out[name] = p
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +290,17 @@ class LlamaForCausalLM(Layer):
                                       tied=self.lm_head is None)
 
     def generate_paged(self, input_ids, max_new_tokens: int = 16,
-                       page_size: int = 16, return_logits: bool = False):
+                       page_size: int = 16, return_logits: bool = False,
+                       params=None, cache_dtype=None):
         """Greedy decode over a paged KV cache. ``input_ids`` (B, S0)
         → (B, S0 + max_new_tokens) int32 on the model's device; with
         ``return_logits`` also the (B, max_new_tokens, V) f32 logits each
         new token was picked from.
+
+        ``params`` overrides the model's own parameters (e.g. the
+        ``quantize_for_inference`` dict); ``cache_dtype="int8"`` (or
+        ``torch.int8``) stores the cache as int8 codes with per-cell
+        scales.
 
         The prompt pads to a power-of-two bucket W (capped at the page-
         padded capacity), one prefill fills the cache and picks the first
@@ -256,8 +308,12 @@ class LlamaForCausalLM(Layer):
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
+        if cache_dtype is not None and cache_dtype not in ("int8",
+                                                           torch.int8):
+            raise ValueError(f"cache_dtype must be None or 'int8', "
+                             f"got {cache_dtype!r}")
         cfg = self.config
-        prms = self.param_dict()
+        prms = self.param_dict() if params is None else params
         ids = torch.as_tensor(input_ids, device=self.device).long()
         b, s0 = ids.shape
         cap = s0 + max_new_tokens
@@ -266,7 +322,9 @@ class LlamaForCausalLM(Layer):
         cos_full, sin_full = _rope_tables(cap_pad, cfg.head_dim,
                                           cfg.rope_theta, device=self.device)
         with torch.inference_mode():
-            prefill = self._build_paged_prefill(b, w, cap_pad, page_size)
+            prefill = self._build_paged_prefill(
+                b, w, cap_pad, page_size,
+                cache_dtype=None if cache_dtype is None else torch.int8)
             step = self._build_paged_step(b)
             ids_pad = torch.nn.functional.pad(ids, (0, w - s0))
             lengths = torch.full((b,), s0, dtype=torch.int32,
@@ -284,11 +342,13 @@ class LlamaForCausalLM(Layer):
             out = torch.cat([ids.to(torch.int32), torch.stack(toks, 1)], 1)
             return (out, torch.stack(kept, 1)) if return_logits else out
 
-    def _build_paged_prefill(self, b, w, cap, page_size):
+    def _build_paged_prefill(self, b, w, cap, page_size, cache_dtype=None):
         """Prompt prefill at bucket width ``w``: ids (B, w) zero-padded,
         lengths (B,) the true prompt lengths → (last-position logits (B, V),
         paged cache filled through each length). Padded positions write K/V past
-        each length that the causal mask and ``seq_lens`` keep unread."""
+        each length that the causal mask and ``seq_lens`` keep unread.
+        ``cache_dtype`` None keeps the activations' dtype; ``torch.int8``
+        makes the quantized cache."""
         from ..ops.kernels.flash_attention import flash_attention_pure
         from .kv_cache import create_paged_cache, prefill_paged_cache
 
@@ -303,7 +363,7 @@ class LlamaForCausalLM(Layer):
             cos, sin = cos_full[:w], sin_full[:w]
             cache = create_paged_cache(n_layers, b, cap, hk, hd,
                                        page_size=page_size,
-                                       dtype=hidden.dtype,
+                                       dtype=cache_dtype or hidden.dtype,
                                        device=hidden.device)
             for i in range(n_layers):
                 def attend(q, k, v, i=i):

@@ -4,10 +4,12 @@ Each module holding a kernel keeps a plain PyTorch version beside it and a
 plain-integer ``launches`` counter that only its launch site increments.
 """
 
-from . import flash_attention, fused_norm_matmul, fused_rope_attend
+from . import (flash_attention, fused_norm_matmul, fused_rope_attend,
+               quant_matmul)
 
-#: the modules whose wrappers launch a kernel of this slice
-KERNEL_MODULES = (flash_attention, fused_norm_matmul, fused_rope_attend)
+#: the modules whose wrappers launch a kernel
+KERNEL_MODULES = (flash_attention, fused_norm_matmul, fused_rope_attend,
+                  quant_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -33,8 +33,14 @@ _SIGNATURES = {
     "pt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _P],
     "pt_norm_matmul": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "pt_norm_matmul_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P],
+    "pt_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pt_rope_append_attend_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "pt_rope_append_attend_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,13 @@
-"""Fused RMSNorm + matmul (``paddle_tpu/ops/pallas/fused_norm_matmul.py``).
+"""Fused RMSNorm + (quant-)matmul (``paddle_tpu/ops/pallas/fused_norm_matmul.py``).
 
 Kernel K2 (``csrc/norm_matmul.cu``) replaces both TPU variants — the
 resident ``_pallas_fnm`` (M <= 1024) and the streamed ``_pallas_fnm_streamed``
 (M > 1024) — with one kernel that handles any M: the normalized rows are
 built tile by tile in shared memory and never written to device memory.
-Dense bf16 weights only; weight-only int8/int4 is a later slice.
+The weight is dense bf16 or a weight-only ``QuantizedWeight`` (int8 or
+packed int4, per-channel or group-wise scales); a quantized B tile is
+dequantized in shared memory exactly as ``_fnm_kernel`` does it,
+bf16(code) * bf16(scale) rounded to bf16, before the bf16 MMA.
 
 On CPU tensors ``fused_norm_matmul_pure`` runs the unfused chain
 (``_reference``); on CUDA tensors it launches K2 or raises.
@@ -17,23 +20,26 @@ import math
 import torch
 
 from . import _build
+from .quant_matmul import WEIGHT_TYPES, QuantizedWeight, check_quantized
 
 #: K2 launches since the last reset (incremented only where it launches)
 launches = 0
 
 
 def _reference(x, norm_w, eps, w):
-    """The unfused chain — rms_norm then the matmul."""
+    """The unfused chain — rms_norm then the plain (dequant-)matmul."""
     from ...models.llama import _pure_rms, _wmm
 
-    return _wmm(_pure_rms(x, norm_w, eps), w)
+    return _wmm(_pure_rms(x, norm_w, eps), w, plain=True)
 
 
 def fused_norm_matmul_pure(x, norm_w, eps, w):
-    """y = rms_norm(x, norm_w, eps) @ w; x (..., K), w (K, N)."""
+    """y = rms_norm(x, norm_w, eps) @ w; x (..., K), w (K, N) dense or a
+    ``QuantizedWeight`` of logical shape (K, N)."""
     global launches
     if not x.is_cuda:
         return _reference(x, norm_w, eps, w)
+    quantized = isinstance(w, QuantizedWeight)
     kdim, n = w.shape
     m = int(math.prod(x.shape[:-1]))
     if x.shape[-1] != kdim or kdim % 128 or n % 8:
@@ -46,11 +52,22 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
     x2 = x.reshape(m, kdim)
     _build.check_cuda("x", x2, torch.bfloat16)
     _build.check_cuda("norm_w", norm_w, torch.bfloat16, (kdim,))
-    _build.check_cuda("w", w, torch.bfloat16)
+    if quantized:
+        check_quantized("w", w.codes, w.scales, w.weight_dtype,
+                        w.group_size, kdim, n)
+    else:
+        _build.check_cuda("w", w, torch.bfloat16)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
-        _build.launch("pt_norm_matmul", x2.data_ptr(), norm_w.data_ptr(),
-                      w.data_ptr(), y.data_ptr(), m, kdim, n, float(eps),
-                      _build.stream_of(x))
+        if quantized:
+            _build.launch("pt_norm_matmul_quant", x2.data_ptr(),
+                          norm_w.data_ptr(), w.codes.data_ptr(),
+                          w.scales.data_ptr(), y.data_ptr(), m, kdim, n,
+                          WEIGHT_TYPES[w.weight_dtype], w.group_size,
+                          float(eps), _build.stream_of(x))
+        else:
+            _build.launch("pt_norm_matmul", x2.data_ptr(), norm_w.data_ptr(),
+                          w.data_ptr(), y.data_ptr(), m, kdim, n, float(eps),
+                          _build.stream_of(x))
         launches += 1
     return y.reshape(x.shape[:-1] + (n,))

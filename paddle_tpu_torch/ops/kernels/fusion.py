@@ -8,6 +8,9 @@ rewrites adjacent ops into fused kernels:
   rope_append_attend   rope -> KV-append -> paged attention collapse into
                        one kernel (K3, fused_rope_attend.py)
 
+A matmul left unfused (o_proj, down_proj) is ``x @ w`` for a dense weight
+and the weight-only kernel K4 (quant_matmul.py) for a ``QuantizedWeight``.
+
 ``flags.fused_decode`` gates the pass and ``flags.fused_decode_fusions``
 selects patterns; with a pattern off the executor runs the unfused chain.
 That chain runs on CPU tensors only: on CUDA tensors a flag-resolved plan
@@ -150,19 +153,25 @@ def kernel_launches_per_token(num_layers: int, tied: bool = False,
 
 
 def planned_kernel_launches(num_layers: int, tied: bool = False,
-                            enabled=None) -> dict:
+                            enabled=None, quantized: bool = False) -> dict:
     """Fused-kernel launches per decode token by node kind, from the same
     plans ``kernel_launches_per_token`` counts:
     ``{"norm_matmul": n, "rope_append_attend": n}``. ``enabled``
     overrides the flag-resolved fusion set. The prefill runs the same
     layer and head plans, with flash attention in place of the attend
-    chain."""
+    chain. ``quantized`` (weight-only params) adds ``"quant_matmul"``:
+    every matmul left unfused runs the weight-only matmul kernel."""
     lp, ap = layer_plan(enabled), attend_plan(enabled)
     hp = () if tied else head_plan(enabled)
-    return {kind: num_layers * (sum(n.kind == kind for n in lp)
-                                + sum(n.kind == kind for n in ap))
-            + sum(n.kind == kind for n in hp)
-            for kind in ("norm_matmul", "rope_append_attend")}
+    kinds = ("norm_matmul", "rope_append_attend")
+    out = {kind: num_layers * (sum(n.kind == kind for n in lp)
+                               + sum(n.kind == kind for n in ap))
+           + sum(n.kind == kind for n in hp)
+           for kind in kinds + ("matmul",)}
+    n_matmul = out.pop("matmul")
+    if quantized:
+        out["quant_matmul"] = n_matmul
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -170,9 +179,10 @@ def planned_kernel_launches(num_layers: int, tied: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def _run_plan(plan, prms, env, eps, pfx="", attend=None):
+def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False):
     """THE plan interpreter. ``pfx`` scopes weight names (per-layer vs
-    top-level)."""
+    top-level); ``plain`` runs quantized matmuls through their plain
+    version."""
     from ...models.llama import _pure_rms, _wmm
     from .fused_norm_matmul import fused_norm_matmul_pure
 
@@ -181,7 +191,8 @@ def _run_plan(plan, prms, env, eps, pfx="", attend=None):
             env[node.out] = _pure_rms(env[node.src[0]], prms[pfx + node.w],
                                       eps)
         elif node.kind == "matmul":
-            env[node.out] = _wmm(env[node.src[0]], prms[pfx + node.w])
+            env[node.out] = _wmm(env[node.src[0]], prms[pfx + node.w],
+                                 plain=plain)
         elif node.kind == "norm_matmul":
             nw, mw = node.w
             env[node.out] = fused_norm_matmul_pure(
@@ -213,19 +224,21 @@ def _checked_plan(plan, hidden, enabled):
     return plan
 
 
-def run_decoder_layer(prms, i, hidden, eps, attend, enabled=None):
+def run_decoder_layer(prms, i, hidden, eps, attend, enabled=None,
+                      plain=False):
     """Execute the (fused) layer plan for decoder block ``i``. ``attend``
     maps flat q/k/v projections to the flat attention output."""
     plan = _checked_plan(layer_plan(enabled), hidden, enabled)
     env = _run_plan(plan, prms, {"hidden": hidden}, eps,
-                    pfx=f"model.layers.{i}.", attend=attend)
+                    pfx=f"model.layers.{i}.", attend=attend, plain=plain)
     return env["hidden"]
 
 
-def run_lm_head(prms, hidden, eps, enabled=None):
+def run_lm_head(prms, hidden, eps, enabled=None, plain=False):
     """Execute the (fused) final-norm + untied-LM-head plan."""
     plan = _checked_plan(head_plan(enabled), hidden, enabled)
-    return _run_plan(plan, prms, {"hidden": hidden}, eps)["logits"]
+    return _run_plan(plan, prms, {"hidden": hidden}, eps,
+                     plain=plain)["logits"]
 
 
 def decode_attend(q, k, v, cos, sin, cache, layer):

@@ -6,7 +6,7 @@ Only the plain version, which the plain rope -> append -> attend chain
 is ported in a later slice.
 
 Layout: q (B, H, D); k/v_pages (Hk, P, page, D); block_tables (B, pps)
-int32; seq_lens (B,) int32.
+int32; seq_lens (B,) int32; on an int8 cache k/v_scales (Hk, P, page, 1).
 """
 
 from __future__ import annotations
@@ -19,9 +19,10 @@ _NEG_INF = -1e30
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
-                              scale=None):
+                              scale=None, k_scales=None, v_scales=None):
     """Gather pages densely, masked f32 softmax. seq_lens == 0 returns
-    exact zeros."""
+    exact zeros. With ``k_scales``/``v_scales`` the pages hold int8 codes,
+    dequantized per cell (code * scale in f32) after the gather."""
     hk, _, page, d = k_pages.shape
     b, h, _ = q.shape
     g = h // hk
@@ -29,6 +30,9 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
     bt = block_tables.long()
     k = k_pages[:, bt]                    # (Hk, B, pps, page, D)
     v = v_pages[:, bt]
+    if k_scales is not None:
+        k = k.float() * k_scales[:, bt]
+        v = v.float() * v_scales[:, bt]
     max_len = bt.shape[1] * page
     k = k.transpose(0, 1).reshape(b, hk, max_len, d).float()
     v = v.transpose(0, 1).reshape(b, hk, max_len, d).float()

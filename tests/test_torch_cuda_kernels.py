@@ -13,8 +13,12 @@ cases cover the edges those shapes do not reach: ragged M, N and sequence
 lengths, Sk > Sq, every GQA group size the kernels take, a cache position
 on a page boundary and at the capacity's last cell, and the wrappers'
 refusals (a kernel's wrapper, and the fusion executor when a flag turns
-a fusion off). Tolerances as in chip_smoke.py: one bf16 output rounding
-plus f32 summation-order differences; pool cells bit-exact.
+a fusion off). The weight-only forms (K4, K2 with int8/int4 weights, K3
+on an int8 cache) run at M = 1, 8, 17 and 1024, per channel and group-wise,
+at pages 16 and 32 and lengths 0 and on page boundaries. Tolerances as in
+chip_smoke.py: one bf16 output rounding plus f32 summation-order
+differences (K4: ``quant_matmul.tolerance``, derived from the inputs);
+pool cells bit-exact, int8 codes within 1 with the differing ones counted.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from paddle_tpu_torch.ops.kernels import flash_attention as k1
 from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
 from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
 from paddle_tpu_torch.ops.kernels import fusion
+from paddle_tpu_torch.ops.kernels import quant_matmul as k4
+from paddle_tpu_torch.ops.extra_vision import _weight_quantize_pure
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +153,149 @@ def test_fusion_flags_off_raise_on_the_card(gen, fusions):
     y = fusion.run_lm_head(prms, hidden, 1e-5)           # flags restored: K2
     diff = (y.float() - ref.float()).abs()
     assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+
+
+def _qweight(gen, kdim, n, algo, gs):
+    w = torch.randn((kdim, n), generator=gen, device="cuda") / math.sqrt(kdim)
+    codes, scales = _weight_quantize_pure(w, algo, gs)
+    wd = "int4" if algo == "weight_only_int4" else "int8"
+    return k4.QuantizedWeight(codes, scales, wd, gs, (kdim, n))
+
+
+_QUANT = [("weight_only_int8", -1), ("weight_only_int8", 128),
+          ("weight_only_int4", -1), ("weight_only_int4", 64)]
+
+
+@pytest.mark.parametrize("algo,gs", _QUANT)
+@pytest.mark.parametrize("m,kdim,n", [(1, 128, 16), (8, 512, 4096),
+                                      (17, 384, 272), (1024, 1024, 528)])
+def test_quant_matmul_matches_plain(gen, m, kdim, n, algo, gs):
+    qw = _qweight(gen, kdim, n, algo, gs)
+    x = _randn(gen, m, kdim)
+    y = k4.quant_matmul_qw(x, qw)
+    ref = k4.quant_matmul_reference(x, qw.codes, qw.scales, qw.weight_dtype,
+                                    qw.group_size)
+    torch.cuda.synchronize()
+    tol = k4.tolerance(x, qw.codes, qw.scales, qw.weight_dtype,
+                       qw.group_size, ref)
+    assert bool(((y.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("algo,gs", _QUANT)
+@pytest.mark.parametrize("m,kdim,n", [(1, 128, 16), (8, 512, 4096),
+                                      (17, 384, 272), (1024, 1024, 528)])
+def test_norm_matmul_quantized_matches_plain(gen, m, kdim, n, algo, gs):
+    """K2 dequantizes exactly as the plain chain does: only the summation
+    order differs."""
+    qw = _qweight(gen, kdim, n, algo, gs)
+    x = _randn(gen, m, kdim)
+    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    y = k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)
+    ref = k2._reference(x, nw, 1e-5, qw)
+    diff = (y.float() - ref.float()).abs()
+    assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+
+
+def _int8_cache(gen, n_layers, b, cap, hk, d, page):
+    cache = kv_cache.create_paged_cache(n_layers, b, cap, hk, d, page,
+                                        dtype=torch.int8, device="cuda")
+    for pool in (cache.k_pages, cache.v_pages):
+        pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
+                                 device="cuda", dtype=torch.int8))
+    for pool in (cache.k_scales, cache.v_scales):
+        pool.copy_(torch.rand(pool.shape, generator=gen, device="cuda")
+                   * 0.03)
+    return cache
+
+
+def _clone(c):
+    return c._replace(**{n: getattr(c, n).clone() for n in (
+        "k_pages", "v_pages", "k_scales", "v_scales")})
+
+
+@pytest.mark.parametrize("page,g,lens", [
+    (16, 1, (0, 15, 16)), (16, 4, (31, 1, 47)), (32, 2, (0, 31, 32)),
+    (32, 8, (63, 64, 95)), (32, 4, (5, 40, 159))])
+def test_rope_append_attend_int8_matches_plain(gen, page, g, lens):
+    b, hk, d = len(lens), 2, 128
+    cap = -(-(max(lens) + 1) // page) * page
+    cache = _int8_cache(gen, 2, b, cap, hk, d, page)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cache = cache._replace(seq_lens=lens_t)
+    q = _randn(gen, b, hk * g, d)
+    k, v = _randn(gen, b, hk, d), _randn(gen, b, hk, d)
+    cos_t, sin_t = _rope_tables(cap, d, 10000.0, device="cuda")
+    cos, sin = cos_t[lens_t.long()], sin_t[lens_t.long()]
+    ck, cp = _clone(cache), _clone(cache)
+    out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck, 1)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= 1e-2 + 1e-2 * ref.float().abs()).all())
+    for name in ("k_pages", "v_pages"):
+        dq = (getattr(ck, name).int() - getattr(cp, name).int()).abs()
+        print(f"{name}: {int((dq > 0).sum())} codes differ")
+        assert int(dq.max()) <= 1, name
+    for name in ("k_scales", "v_scales"):
+        assert torch.equal(getattr(ck, name), getattr(cp, name)), name
+        assert torch.equal(getattr(ck, name)[0], getattr(cache, name)[0])
+    assert torch.equal(ck.k_pages[0], cache.k_pages[0])  # other layer
+
+
+def test_quant_wrappers_raise_instead_of_falling_back(gen):
+    qw = _qweight(gen, 256, 64, "weight_only_int8", -1)
+    x = _randn(gen, 4, 256)
+    nw = torch.ones(256, device="cuda", dtype=torch.bfloat16)
+    bad = {
+        "f32 x": (x.float(), qw),
+        "scale shape": (x, k4.QuantizedWeight(qw.codes, qw.scales[:32],
+                                              "int8", -1, (256, 64))),
+        "group scales for per-channel": (x, k4.QuantizedWeight(
+            qw.codes, qw.scales, "int8", 128, (256, 64))),
+        "non-contiguous codes": (x, k4.QuantizedWeight(
+            qw.codes.t().contiguous().t(), qw.scales, "int8", -1,
+            (256, 64))),
+        "N % 16": (x, k4.QuantizedWeight(qw.codes[:, :40].contiguous(),
+                                         qw.scales[:40].contiguous(),
+                                         "int8", -1, (256, 40))),
+    }
+    for what, (xx, w) in bad.items():
+        with pytest.raises(ValueError):
+            k4.quant_matmul_qw(xx, w)
+            pytest.fail(f"K4 accepted {what}")
+        with pytest.raises(ValueError):
+            k2.fused_norm_matmul_pure(xx, nw, 1e-5, w)
+            pytest.fail(f"K2 accepted {what}")
+    cache = _int8_cache(gen, 1, 2, 32, 1, 128, 16)
+    q = _randn(gen, 2, 2, 128)
+    kv = _randn(gen, 2, 1, 128)
+    cos = torch.zeros((2, 128), device="cuda")
+    for what, (qq, c) in {
+            "f32 q": (q.float(), cache),
+            "f32 scale pool as bf16": (q, cache._replace(
+                k_scales=cache.k_scales.to(torch.bfloat16))),
+            "scale pool shape": (q, cache._replace(
+                v_scales=cache.v_scales[:, :, :1].contiguous())),
+            "non-contiguous scale pool": (q, cache._replace(
+                k_scales=cache.k_scales.transpose(2, 3).contiguous()
+                .transpose(2, 3))),
+            "int8 k pool with bf16 v pool": (q, cache._replace(
+                v_pages=cache.v_pages.to(torch.bfloat16)))}.items():
+        with pytest.raises(ValueError):
+            k3.fused_rope_append_attend_decode(qq, kv, kv, cos, cos, c, 0)
+            pytest.fail(f"K3 accepted {what}")
+
+
+@pytest.mark.parametrize("algo,gs", _QUANT)
+def test_quantization_rules_match_the_cpu_bitwise(gen, algo, gs):
+    """Weight codes/scales and the cache's cell codes/scales come out the
+    same on the card as on the CPU (where they equal the JAX package's):
+    every division is IEEE on both."""
+    w = torch.randn((384, 272), generator=gen, device="cuda")
+    for a, b in zip(_weight_quantize_pure(w, algo, gs),
+                    _weight_quantize_pure(w.cpu(), algo, gs)):
+        assert torch.equal(a.cpu(), b)
+    x = torch.randn((8, 5, 128), generator=gen, device="cuda") * 3
+    for a, b in zip(kv_cache.quantize_cells(x),
+                    kv_cache.quantize_cells(x.cpu())):
+        assert torch.equal(a.cpu(), b)
