@@ -15,7 +15,11 @@ by kernel class, device busy share). Phases, in order; any failure raises and th
                kernel / plain / library times and the least time the card
                could take (``bound_ms``): K1, K2, K3 (bf16), then K4
                (weight-only int8, and one int4 group-128 shape), K2 with
-               int8 weights and K3 on an int8 cache (page 32).
+               int8 weights and K3 on an int8 cache (page 32), then the
+               continuous batcher's kernels on its mixed wave (T = 264
+               rows: two prefill chunks, decode rows at lengths 97-600,
+               an idle slot, padding rows): K11, K3's ragged form, K10
+               and K3's masked decode form.
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -23,7 +27,7 @@ by kernel class, device busy share). Phases, in order; any failure raises and th
                (prefill and each decode step) are held against a plain
                teacher-forced forward in f32, with the plain bf16 forward
                as the yardstick and two controls (fp16, a K3-style
-               fault); timing is the median of 5 full rollouts.
+               fault); timing is the median of 3 full rollouts.
 5. serving, int8w+int8kv — the same model quantized on the card
                (``quantize_for_inference``: int8 weights, per-channel
                scales), served with ``cache_dtype="int8"``, page 32; the
@@ -32,7 +36,21 @@ by kernel class, device busy share). Phases, in order; any failure raises and th
                against the plain forward of the quantized function (int8
                weights dequantized per call, decode attention over
                quantize->dequantized K/V) in the same way.
-6. result   — a ``{"kernels": [...]}`` line, then the last line
+6. serving, continuous batching — the bf16 model through
+               ``ContinuousBatcher(max_batch=8, max_seq=640, page_size=16,
+               segment=16, prefill_chunk=256, prefix_caching=False)``: 24
+               seeded requests (prompts 32-512 tokens, 16-64 new tokens,
+               arrivals at segments 0-6), once in the default fused plan
+               (32 K3-ragged per wave, 32 K3-masked per segment step) and
+               once with ``fused_decode_fusions="norm_matmul"`` (32 K11
+               per wave, 32 K10 per step); 161 K2 per wave or step in
+               both. Every request must finish "ok" with exactly its
+               max_new_tokens, no slot step wasted, the counts equal to
+               the plan, and every emitted token must pass the
+               teacher-forced rule (``check_batcher_tokens``), which two
+               fault controls must fail; timing is the median of 3 runs
+               after a warm-up.
+7. result   — a ``{"kernels": [...]}`` line, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the CUDA toolkit; imports nothing of JAX.
@@ -58,7 +76,21 @@ SEED = 0
 B, PROMPT, NEW = 8, 128, 32
 PAGE = 16
 PAGE_INT8 = 32     # the int8 cache's page (docs/SERVING.md: page_size=32)
-ROLLOUTS = 5       # timed full rollouts (and prefills); medians reported
+ROLLOUTS = 3       # timed full rollouts (and prefills); medians reported
+
+# the continuous batcher's configuration (phase 6 and its kernels):
+# ContinuousBatcher(max_batch=8, max_seq=640, page_size=16,
+# prefill_chunk=256) -> waves of T = 264 rows, 40 pages per slot
+BB, BSEQ, BCHUNK = 8, 640, 256
+BT = -(-(BB + BCHUNK) // 8) * 8
+# the kernels phase's mixed wave, by slot: old length and prompt chunk;
+# slots 0 and 1 prefill 100 rows on 64 tokens of context and 156 rows
+# from 0, slot WAVE_IDLE sits out (q_lens 0), the others decode one row at
+# lengths 97-600 (across page boundaries); rows 0, 1 and 5 pad the wave
+WAVE_SEQ = (64, 0, 96, 127, 255, 383, 511, 599)
+WAVE_CHUNK = (100, 156, 0, 0, 0, 0, 0, 0)
+WAVE_IDLE = 5
+N_REQUESTS = 24
 
 
 def log(*a):
@@ -149,11 +181,13 @@ def check_flash(torch, timer, k1):
 
 NM_SHAPES = [(8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024),
              (8, 4096, 128256), (1024, 4096, 14336), (1024, 4096, 4096),
-             (1024, 4096, 1024)]
+             (1024, 4096, 1024), (BT, 4096, 14336), (BT, 4096, 4096),
+             (BT, 4096, 1024)]
 
 
 def check_norm_matmul(torch, timer, k2):
-    """K2 at every decode (M=8) and prefill (M=1024) projection shape."""
+    """K2 at every projection shape of a decode step (M=8), a solo
+    prefill (M=1024) and a batcher wave (M=BT=264)."""
     eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, errs = [], []
@@ -228,7 +262,8 @@ def check_rope_attend(torch, timer, k3, kv_cache, rope_tables):
     ck, cp = clone(cache), clone(cache)
     out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck,
                                                  layer)
-    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, layer)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, layer,
+                                   plain=True)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
@@ -242,7 +277,8 @@ def check_rope_attend(torch, timer, k3, kv_cache, rope_tables):
     assert pool_diff == 0, f"{pool_diff} pool cells differ"
     ms = timer(lambda: k3.fused_rope_append_attend_decode(
         q, k, v, cos, sin, ck, layer))
-    plain = timer(lambda: k3.decode_reference(q, k, v, cos, sin, cp, layer))
+    plain = timer(lambda: k3.decode_reference(q, k, v, cos, sin, cp, layer,
+                                   plain=True))
     cells = int((lens + 1).sum().item())           # cells attended per head
     nbytes = (2 * (q.numel() + 2 * k.numel() + out.numel())
               + 4 * (cos.numel() + sin.numel())
@@ -419,7 +455,8 @@ def check_rope_attend_int8(torch, timer, k3, kv_cache, rope_tables):
     ck, cp = clone(cache), clone(cache)
     out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck,
                                                  layer)
-    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, layer)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, layer,
+                                   plain=True)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
@@ -448,7 +485,8 @@ def check_rope_attend_int8(torch, timer, k3, kv_cache, rope_tables):
             f"{name}: a cell other than the new ones changed"
     ms = timer(lambda: k3.fused_rope_append_attend_decode(
         q, k, v, cos, sin, ck, layer))
-    plain = timer(lambda: k3.decode_reference(q, k, v, cos, sin, cp, layer))
+    plain = timer(lambda: k3.decode_reference(q, k, v, cos, sin, cp, layer,
+                                   plain=True))
     cells = int((lens + 1).sum().item())           # cells attended per head
     cell_bytes = d + 4                             # int8 codes + f32 scale
     nbytes = (2 * (q.numel() + 2 * k.numel() + out.numel())
@@ -472,6 +510,277 @@ def check_rope_attend_int8(torch, timer, k3, kv_cache, rope_tables):
                      f"seq_lens{lens.tolist()}"}
 
 
+def attention_tolerance(ref, abs_ref):
+    """Per element, for an attention kernel against its plain version on
+    the same bf16 inputs: both take f32 scores, softmax and p @ V, in
+    different orders, and round the output to bf16 once. So one bf16 ulp
+    of the output (2^-7 |ref|) plus f32 order noise, bounded by 2^-12 of
+    p @ |V| (``abs_ref``: the plain version with |V| in place of V, the
+    same probabilities). Rows that are exact zeros in both (padding, no
+    visible key) get a tiny floor, so err/tol reads 0 there."""
+    return (2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * abs_ref.float()
+            ).clamp_min(1e-30)
+
+
+def batcher_wave(torch, kv_cache, rope_tables, seed):
+    """The kernels phase's mixed wave at the batcher's shapes: a 2-layer
+    bf16 cache (B=8, Hk=8, page 16, 40 pages per slot) of random K/V at
+    the old lengths WAVE_SEQ; the wave's rows (q (T, 32, 128), k, v
+    (T, 8, 128), cos/sin (T, 128) at each row's position) and its layout
+    (row_slot, row_pos, valid, page_lens, q_start, q_lens, fresh_lens) as
+    ContinuousBatcher._build_ragged_step lays a wave out."""
+    b, h, hk, d = BB, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = kv_cache.create_paged_cache(2, b, BSEQ, hk, d, PAGE,
+                                        dtype=torch.bfloat16, device="cuda")
+    for pool in (cache.k_pages, cache.v_pages):
+        pool.copy_(torch.randn(pool.shape, generator=g, device="cuda"))
+    cache = cache._replace(seq_lens=torch.tensor(
+        WAVE_SEQ, dtype=torch.int32, device="cuda"))
+    row_slot, row_pos = [-1] * BT, [0] * BT
+    q_start, q_lens, fresh, page_lens = [0] * b, [0] * b, [0] * b, [0] * b
+    row = b
+    for i, (seq, chunk) in enumerate(zip(WAVE_SEQ, WAVE_CHUNK)):
+        if chunk:
+            q_start[i], q_lens[i], fresh[i], page_lens[i] = (row, chunk,
+                                                             chunk, seq)
+            row_slot[row:row + chunk] = [i] * chunk
+            row_pos[row:row + chunk] = range(seq, seq + chunk)
+            row += chunk
+        elif i != WAVE_IDLE:
+            q_start[i], q_lens[i], page_lens[i] = i, 1, seq + 1
+            row_slot[i], row_pos[i] = i, seq
+    assert row == BT, row
+    i32 = dict(dtype=torch.int32, device="cuda")
+    rs, rp = torch.tensor(row_slot, **i32), torch.tensor(row_pos, **i32)
+    wave = (rs, rp, rs >= 0, torch.tensor(page_lens, **i32),
+            torch.tensor(q_start, **i32), torch.tensor(q_lens, **i32),
+            torch.tensor(fresh, **i32))
+    cos_t, sin_t = rope_tables(BSEQ, d, 500000.0, device="cuda")
+    rows = tuple(torch.randn(shape, generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+                 for shape in ((BT, h, d), (BT, hk, d), (BT, hk, d)))
+    return cache, rows + (cos_t[rp.long()], sin_t[rp.long()]), wave
+
+
+def _pool_copy(cache, **pools):
+    """The cache with its own copy of its K/V pools (or the given ones)."""
+    return cache._replace(k_pages=pools.get("k", cache.k_pages).clone(),
+                          v_pages=pools.get("v", cache.v_pages).clone())
+
+
+def _written_cells(torch, cache, layer, slots, positions):
+    """(L, Hk, P, page) mask of the cells at (slot, position) in ``layer``."""
+    mask = torch.zeros(cache.k_pages.shape[:-1], dtype=torch.bool,
+                       device="cuda")
+    slots, positions = slots.long(), positions.long()
+    phys = cache.block_tables[slots, positions // PAGE].long()
+    mask[layer, :, phys, positions % PAGE] = True
+    return mask
+
+
+def _check_pools(torch, new, ref, old, written, label):
+    """Pools bit-identical to the plain chain's, and every cell outside
+    the written ones as it was."""
+    for name in ("k_pages", "v_pages"):
+        a, b_, o = (getattr(c, name) for c in (new, ref, old))
+        differing = int((a != b_).sum())
+        assert differing == 0, f"{label}: {differing} {name} values differ"
+        keep = ~written
+        assert torch.equal(a[keep], o[keep]), \
+            f"{label}: a {name} cell other than the written ones changed"
+
+
+def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables):
+    """K11 on the mixed wave (layer 1's pools; q, fresh K/V random)."""
+    cache, (q, kf, vf, _, _), wave = batcher_wave(torch, kv_cache,
+                                                  rope_tables, SEED + 8)
+    kp, vp = cache.k_pages[1], cache.v_pages[1]
+    lens = wave[3:]                       # page_lens, q_start, q_lens, fresh
+    args = (q, kp, vp, cache.block_tables, *lens)
+    out = k11.ragged_paged_attention_pure(*args, kf, vf)
+    ref = k11.ragged_paged_attention_reference(*args, kf, vf)
+    abs_ref = k11.ragged_paged_attention_reference(
+        q, kp, vp.abs(), cache.block_tables, *lens, kf, vf.abs())
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
+    assert worst <= 1, f"ragged_paged_attention worst err/tol {worst:.3f}"
+    pad = wave[0] < 0
+    assert not out[pad].any(), "a padding row is not zero"
+    ms = timer(lambda: k11.ragged_paged_attention_pure(*args, kf, vf))
+    plain = timer(lambda: k11.ragged_paged_attention_reference(*args, kf,
+                                                               vf))
+    page_lens, _, q_lens, fresh = (x.long() for x in lens)
+    # per row: its slot's visible pages plus its causal share of the chunk
+    keys = int((page_lens * q_lens).sum()
+               + (fresh * (fresh + 1) // 2).sum())
+    nbytes = (2 * (q.numel() + kf.numel() + vf.numel() + out.numel())
+              + 2 * 2 * int(page_lens.sum()) * 8 * 128
+              + 4 * (cache.block_tables.numel() + 4 * BB))
+    bms, by = bound(nbytes, 4 * keys * 32 * 128, BF16_FLOPS)
+    log(f"K11 ragged_paged_attention T{BT} H32/8 page{PAGE} chunks "
+        f"{WAVE_CHUNK[:2]} decode lens {lens[0][2:].tolist()}: max_abs_err "
+        f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) kernel_ms "
+        f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by})")
+    return {"name": "ragged_paged_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:244",
+            "max_abs_err": diff.max().item(), "err_over_tol": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} mixed wave"}
+
+
+def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables):
+    """K3's ragged form on the mixed wave: output, the written cells bit
+    for bit against the plain chain, every other cell untouched."""
+    cache, rows, wave = batcher_wave(torch, kv_cache, rope_tables, SEED + 9)
+    layer = 1
+    ck, cp = _pool_copy(cache), _pool_copy(cache)
+    out, ck = k3.fused_rope_append_attend(*rows, ck, layer, *wave)
+    ref, cp = k3.ragged_reference(*rows, cp, layer, *wave, plain=True)
+    q, k, v, cos, sin = rows
+    ca = _pool_copy(cache, v=cache.v_pages.abs())
+    abs_ref, _ = k3.ragged_reference(q, k, v.abs(), cos, sin, ca, layer,
+                                     *wave, plain=True)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
+    assert worst <= 1, f"rope_append_attend ragged worst err/tol {worst:.3f}"
+    valid = wave[2]
+    assert not out[~valid].any(), "a padding row is not zero"
+    written = _written_cells(torch, cache, layer, wave[0][valid],
+                             wave[1][valid])
+    _check_pools(torch, ck, cp, cache, written, "rope_append_attend ragged")
+    ms = timer(lambda: k3.fused_rope_append_attend(*rows, ck, layer, *wave))
+    plain = timer(lambda: k3.ragged_reference(*rows, cp, layer, *wave,
+                                              plain=True))
+    page_lens, _, q_lens, fresh = (x.long() for x in wave[3:])
+    keys = int((page_lens * q_lens).sum() + (fresh * (fresh + 1) // 2).sum())
+    n_valid = int(valid.sum())
+    # decode rows read their own new cell back: pages read = page_lens
+    # minus the cells this wave writes
+    read_cells = int(page_lens.sum()) - int((q_lens * (fresh == 0)).sum())
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+              + 4 * (cos.numel() + sin.numel())
+              + 2 * 2 * (read_cells + n_valid) * 8 * 128
+              + 4 * (cache.block_tables.numel() + BT + 4 * BB))
+    bms, by = bound(nbytes, 4 * keys * 32 * 128, BF16_FLOPS)
+    log(f"K3 rope_append_attend ragged T{BT} H32/8 page{PAGE}: max_abs_err "
+        f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) pool values "
+        f"differing 0, {n_valid} rows written, kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} bound_ms {bms:.4f} ({by})")
+    return {"name": "rope_append_attend_ragged", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
+            "max_abs_err": diff.max().item(), "err_over_tol": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} mixed wave"}
+
+
+def _segment_step_inputs(torch, kv_cache, rope_tables, seed):
+    """A segment step's decode rows at the batcher's shapes: the mixed
+    wave's cache at old lengths WAVE_SEQ, q (8, 32, 128), k/v (8, 8, 128),
+    cos/sin at each slot's position, every slot active but WAVE_IDLE."""
+    cache, _, _ = batcher_wave(torch, kv_cache, rope_tables, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    q = torch.randn((BB, 32, 128), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((BB, 8, 128), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in "kv")
+    cos_t, sin_t = rope_tables(BSEQ, 128, 500000.0, device="cuda")
+    pos = cache.seq_lens.long()
+    active = torch.ones(BB, dtype=torch.bool, device="cuda")
+    active[WAVE_IDLE] = False
+    return cache, (q, k, v, cos_t[pos], sin_t[pos]), active
+
+
+def check_paged_attention(torch, timer, k10, kv_cache, rope_tables):
+    """K10 at a segment step's shape: lengths WAVE_SEQ + 1, 0 for the idle
+    slot."""
+    cache, (q, _, _, _, _), active = _segment_step_inputs(
+        torch, kv_cache, rope_tables, SEED + 10)
+    lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
+    kp, vp = cache.k_pages[1], cache.v_pages[1]
+    args = (q, kp, vp, cache.block_tables, lens)
+    out = k10.paged_attention_pure(*args)
+    ref = k10.paged_attention_reference(*args)
+    abs_ref = k10.paged_attention_reference(q, kp, vp.abs(),
+                                            cache.block_tables, lens)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
+    assert worst <= 1, f"paged_attention worst err/tol {worst:.3f}"
+    assert not out[WAVE_IDLE].any(), "the length-0 slot is not zero"
+    ms = timer(lambda: k10.paged_attention_pure(*args))
+    plain = timer(lambda: k10.paged_attention_reference(*args))
+    cells = int(lens.sum())
+    nbytes = (2 * (q.numel() + out.numel()) + 2 * 2 * cells * 8 * 128
+              + 4 * (cache.block_tables.numel() + BB))
+    bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
+    log(f"K10 paged_attention B{BB} H32/8 page{PAGE} lens {lens.tolist()}: "
+        f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by})")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:142",
+            "max_abs_err": diff.max().item(), "err_over_tol": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"B{BB} H32 Hk8 D128 page{PAGE} lens {lens.tolist()}"}
+
+
+def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
+    """K3's decode form with an active mask at a segment step's shape: the
+    idle slot writes nothing and returns zeros."""
+    cache, rows, active = _segment_step_inputs(torch, kv_cache, rope_tables,
+                                               SEED + 11)
+    layer = 1
+    ck, cp = _pool_copy(cache), _pool_copy(cache)
+    out, ck = k3.fused_rope_append_attend_decode(*rows, ck, layer, active)
+    ref, cp = k3.decode_reference(*rows, cp, layer, active, plain=True)
+    q, k, v, cos, sin = rows
+    ca = _pool_copy(cache, v=cache.v_pages.abs())
+    abs_ref, _ = k3.decode_reference(q, k, v.abs(), cos, sin, ca, layer,
+                                     active, plain=True)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
+    assert worst <= 1, f"rope_append_attend masked worst err/tol {worst:.3f}"
+    assert not out[WAVE_IDLE].any(), "the inactive slot is not zero"
+    slots = torch.arange(BB, device="cuda")[active]
+    written = _written_cells(torch, cache, layer, slots,
+                             cache.seq_lens[active])
+    _check_pools(torch, ck, cp, cache, written, "rope_append_attend masked")
+    ms = timer(lambda: k3.fused_rope_append_attend_decode(*rows, ck, layer,
+                                                          active))
+    plain = timer(lambda: k3.decode_reference(*rows, cp, layer, active,
+                                              plain=True))
+    n_act = int(active.sum())
+    cells = int((cache.seq_lens + 1)[active].sum())
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+              + 4 * (cos.numel() + sin.numel()) + BB
+              + 2 * 2 * (cells - n_act) * 8 * 128   # pages read
+              + 2 * 2 * n_act * 8 * 128             # the new cells written
+              + 4 * (cache.block_tables.numel() + BB))
+    bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
+    log(f"K3 rope_append_attend masked B{BB} H32/8 page{PAGE} lens "
+        f"{cache.seq_lens.tolist()} idle slot {WAVE_IDLE}: max_abs_err "
+        f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) pool values "
+        f"differing 0, kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+        f"{bms:.4f} ({by})")
+    return {"name": "rope_append_attend_masked", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
+            "max_abs_err": diff.max().item(), "err_over_tol": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"B{BB} H32 Hk8 D128 page{PAGE} seq_lens "
+                     f"{list(WAVE_SEQ)} active but slot {WAVE_IDLE}"}
+
+
 def _kernel_class(name):
     if "flash_fwd_kernel" in name:
         return "K1 flash_attention_fwd"
@@ -484,7 +793,13 @@ def _kernel_class(name):
     if "matmul_small_kernel" in name or "matmul_tiled_kernel" in name:
         return "K2/K4 matmul"
     if "rope_append_attend_kernel" in name:
-        return "K3 rope_append_attend"
+        return "K3 rope_append_attend (decode)"
+    if "ragged_attend_kernel<true>" in name:
+        return "K3 rope_append_attend (ragged)"
+    if "ragged_attend_kernel<false>" in name:
+        return "K11 ragged_paged_attention"
+    if "paged_attention_kernel" in name:
+        return "K10 paged_attention"
     if "gemm" in name or "nvjet" in name or "cutlass" in name \
             or "xmma" in name:
         return "cuBLAS matmul (o_proj, down_proj)"
@@ -537,24 +852,34 @@ def profile_window(torch, fn, label):
             "by_class_ms": {c: t / 1e3 for c, (_, t) in by_class.items()}}
 
 
-def attention_missing_own_cell(q, k, v, causal=True, scale=None):
-    """A fault control for the serving check, never used by the port: the
-    plain attention with p kept in f32 (as K3 does), where every query
-    from position PROMPT on (the decode steps) misses its own key, the
-    cell it has just appended -- the fault K3 would have if it read that
-    cell before its write landed."""
+def attention_dropping(keep):
+    """A fault control for the serving checks, never used by the port:
+    the plain attention (p kept in f32, as the kernels keep it) where
+    query i sees key j only if ``keep(i, j)`` (an (S, S) bool mask of the
+    causal positions) — rows with no visible key give zeros, as the
+    kernels do."""
     import torch
 
-    b, s, h, d = q.shape
-    g = h // k.shape[2]
-    kr, vr = (x.repeat_interleave(g, dim=2).float() for x in (k, v))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr)
-    logits = logits * (scale or 1.0 / math.sqrt(d))
-    i = torch.arange(s, device=q.device)
-    keep = (i[None, :] <= i[:, None]) & ~(
-        (i[:, None] >= PROMPT) & (i[None, :] == i[:, None]))
-    p = logits.masked_fill(~keep, -1e30).softmax(dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+    def attention(q, k, v, causal=True, scale=None):
+        b, s, h, d = q.shape
+        g = h // k.shape[2]
+        kr, vr = (x.repeat_interleave(g, dim=2).float() for x in (k, v))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr)
+        logits = logits * (scale or 1.0 / math.sqrt(d))
+        i = torch.arange(s, device=q.device)
+        vis = (i[None, :] <= i[:, None]) & keep(i[:, None], i[None, :])
+        p = logits.masked_fill(~vis, -1e30).softmax(dim=-1)
+        p = p * vis.any(dim=-1)[:, None].to(p.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+
+    return attention
+
+
+def missing_own_cell(start):
+    """The fault K3 would have if it read its new cell before its write
+    landed: every query from position ``start`` on (the decode steps)
+    misses its own key."""
+    return attention_dropping(lambda i, j: ~((i >= start) & (j == i)))
 
 
 def check_logits(logits, ref_f32, ref_bf16, ctl_fp16, ctl_fault, label):
@@ -682,11 +1007,13 @@ def serve(torch, kernels, profile=False):
     plan = fusion.planned_kernel_launches(L, enabled=fusion.FUSIONS)
     # per token: q, k, v, gate, up in every layer plus the head; one K3
     # per layer
-    assert plan == {"norm_matmul": 5 * L + 1, "rope_append_attend": L}, plan
-    expected = {"flash_attention": L,
-                "fused_norm_matmul": plan["norm_matmul"] * (1 + steps),
-                "fused_rope_attend": plan["rope_append_attend"] * steps,
-                "quant_matmul": 0}
+    assert plan == {"norm_matmul": 5 * L + 1, "rope_append_attend": L,
+                    "paged_attention": 0}, plan
+    expected = dict.fromkeys(kernels.launch_counts(), 0)
+    expected.update({
+        "flash_attention": L,
+        "fused_norm_matmul": plan["norm_matmul"] * (1 + steps),
+        "fused_rope_attend": plan["rope_append_attend"] * steps})
 
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -716,7 +1043,7 @@ def serve(torch, kernels, profile=False):
     with torch.inference_mode():
         ref_bf16 = plain_logits(prms)
         fault_attention, k1._reference_attention = (
-            k1._reference_attention, attention_missing_own_cell)
+            k1._reference_attention, missing_own_cell(PROMPT))
         try:
             ctl_fault = plain_logits(prms)
         finally:
@@ -773,12 +1100,13 @@ def serve_int8(torch, kernels, profile=False):
     # per token: K2 for q, k, v, gate, up in every layer plus the head, K4
     # for o_proj and down_proj, one K3 per layer
     assert plan == {"norm_matmul": 161, "rope_append_attend": 32,
-                    "quant_matmul": 64}, plan
+                    "paged_attention": 0, "quant_matmul": 64}, plan
     # 32 K1 + 161 K2 + 64 K4 per prefill, 32 K3 + 161 K2 + 64 K4 per step
-    expected = {"flash_attention": 32,
-                "fused_norm_matmul": 161 * (1 + steps),
-                "fused_rope_attend": 32 * steps,
-                "quant_matmul": 64 * (1 + steps)}
+    expected = dict.fromkeys(kernels.launch_counts(), 0)
+    expected.update({"flash_attention": 32,
+                     "fused_norm_matmul": 161 * (1 + steps),
+                     "fused_rope_attend": 32 * steps,
+                     "quant_matmul": 64 * (1 + steps)})
 
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -824,12 +1152,190 @@ def serve_int8(torch, kernels, profile=False):
         int8_attention = int8_cache_attention(plain_attention)
         ref_bf16 = plain_logits(torch.bfloat16, int8_attention)
         ctl_fault = plain_logits(torch.bfloat16, int8_cache_attention(
-            attention_missing_own_cell))
+            missing_own_cell(PROMPT)))
         ctl_fp16 = plain_logits(torch.float16, int8_attention)
         ref_f32 = plain_logits(torch.float32, int8_attention)
     stats["logits_check"] = check_logits(logits, ref_f32, ref_bf16, ctl_fp16,
                                          ctl_fault, "serving int8w+int8kv")
     return counts, stats
+
+
+def batcher_requests(vocab):
+    """The 24 seeded requests of phase 6: (prompt ids, max_new_tokens,
+    arrival_segment), prompt lengths uniform in 32-512, max_new_tokens in
+    16-64, arrivals in 0-6."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 12)
+    return [(rng.integers(0, vocab, size=int(rng.integers(32, 513)))
+             .astype(np.int32), int(rng.integers(16, 65)),
+             int(rng.integers(0, 7))) for _ in range(N_REQUESTS)]
+
+
+def check_batcher_tokens(torch, cfg, prms, reqs, done, label):
+    """Every emitted token against a teacher-forced plain forward of its
+    request (prompt + the tokens it emitted before): at each generated
+    position, the emitted token's f32 logit must lie within 2 x E of the
+    f32 maximum, E being the plain bf16 forward's largest logit error
+    against the plain f32 forward at that position. (If the kernel path's
+    logits are within E of the f32 ones, its argmax is within 2E of the
+    f32 maximum.) Token identity with solo generate_paged cannot be asked
+    on the card: bf16 summation orders differ and random 8B weights
+    amplify it. Two fault controls must fail the rule somewhere: tokens
+    picked by a plain bf16 forward whose decode positions miss their own
+    cell (a K3/K11 that drops the own cell), and by one whose prompt rows
+    miss their own 256-token chunk (a K11 that drops the fresh source)."""
+    from paddle_tpu_torch.models.llama import prompt_logits_pure
+    from paddle_tpu_torch.ops.kernels import flash_attention as k1
+
+    plain_attention = k1._reference_attention
+    prms32 = {n: p.float() for n, p in prms.items()}
+    worst, n_pos, n_argmax = 0.0, 0, 0
+    ctl = {"missing own cell": [0, 0.0], "fresh source dropped": [0, 0.0]}
+    with torch.inference_mode():
+        for rid, (prompt, n_new, _) in enumerate(reqs):
+            toks = done[rid].tokens
+            n0 = len(prompt)
+            seq = torch.tensor([list(map(int, prompt)) + toks[:-1]],
+                               device="cuda")
+
+            def logits(params, attention=plain_attention):
+                k1._reference_attention = attention
+                try:
+                    return prompt_logits_pure(params, seq, cfg, plain=True)[
+                        0, n0 - 1:].float()
+                finally:
+                    k1._reference_attention = plain_attention
+
+            f32 = logits(prms32)
+            err = (logits(prms) - f32).abs().amax(-1)          # E per position
+            top = f32.amax(-1)
+
+            def ratio(tokens):
+                return ((top - f32.gather(-1, tokens[:, None])[:, 0])
+                        / err.clamp_min(1e-30))
+
+            r = ratio(torch.tensor(toks, device="cuda"))
+            worst = max(worst, r.max().item())
+            n_pos += len(toks)
+            n_argmax += int((f32.argmax(-1).cpu()
+                             == torch.tensor(toks)).sum())
+            faults = {
+                "missing own cell": missing_own_cell(n0),
+                "fresh source dropped": attention_dropping(
+                    lambda i, j: (i >= n0) | (j < i // BCHUNK * BCHUNK))}
+            for name, attention in faults.items():
+                rc = ratio(logits(prms, attention).argmax(-1))
+                ctl[name][0] += int((rc > 2).sum())
+                ctl[name][1] = max(ctl[name][1], rc.max().item())
+            del f32, err
+    del prms32
+    torch.cuda.empty_cache()
+    log(f"{label}: teacher-forced rule over {n_pos} emitted tokens: worst "
+        f"(f32 max - f32 logit of the token) / E {worst:.3f} (bound 2), "
+        f"tokens equal to the f32 argmax {n_argmax}/{n_pos}; controls "
+        + ", ".join(f"{k}: {v[0]}/{n_pos} positions fail, worst {v[1]:.2f}"
+                    for k, v in ctl.items()))
+    assert worst <= 2, f"{label}: an emitted token fails the rule ({worst})"
+    for name, (fails, _) in ctl.items():
+        assert fails > 0, f"{label}: the {name} control passes the rule"
+    return {"worst_ratio": worst, "positions": n_pos,
+            "f32_argmax_agreement": n_argmax / n_pos,
+            "control_failing_positions": {k: v[0] for k, v in ctl.items()},
+            "control_worst_ratio": {k: v[1] for k, v in ctl.items()}}
+
+
+BATCHER_PLANS = (("fused", "norm_matmul,rope_append_attend"),
+                 ("unfused attention", "norm_matmul"))
+
+
+def serve_batcher(torch, kernels, profile=False):
+    """Llama-3-8B bf16 through the continuous batcher at full width, in
+    both attention-tail settings (BATCHER_PLANS)."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import fusion
+
+    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    reqs = batcher_requests(cfg.vocab_size)
+    n_tokens = sum(n for _, n, _ in reqs)
+    log(f"serving, continuous batching: {N_REQUESTS} requests, prompts "
+        f"{sum(len(p) for p, _, _ in reqs)} tokens "
+        f"({min(len(p) for p, _, _ in reqs)}-"
+        f"{max(len(p) for p, _, _ in reqs)}), {n_tokens} new tokens, "
+        f"arrivals {sorted(t for _, _, t in reqs)}")
+
+    def run_once():
+        eng = ContinuousBatcher(model, max_batch=BB, max_seq=BSEQ,
+                                page_size=PAGE, segment=16,
+                                prefill_chunk=BCHUNK, prefix_caching=False)
+        for prompt, n_new, t in reqs:
+            eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return done, eng.stats, time.perf_counter() - t0
+
+    out = {}
+    old = flags.get_flag("fused_decode_fusions")
+    try:
+        for label, fusions in BATCHER_PLANS:
+            flags.set_flags({"fused_decode_fusions": fusions})
+            plan = fusion.planned_kernel_launches(L)
+            run_once()                                   # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            done, st, wall = run_once()                  # THE counted run
+            counts = kernels.launch_counts()
+            waves, steps = st["ragged_steps"], st["decode_steps"]
+            fused = plan["rope_append_attend"] > 0
+            per = plan["rope_append_attend"] + plan["paged_attention"]
+            expected = dict.fromkeys(counts, 0)
+            expected["fused_norm_matmul"] = plan["norm_matmul"] * (waves
+                                                                   + steps)
+            expected["fused_rope_attend_ragged" if fused
+                     else "ragged_paged_attention"] = per * waves
+            expected["fused_rope_attend" if fused
+                     else "paged_attention"] = per * steps
+            log(f"batcher {label}: launches {counts} expected {expected}")
+            assert plan["norm_matmul"] == 5 * L + 1 and per == L, plan
+            assert counts == expected, f"{counts} != plan {expected}"
+            for rid, (prompt, n_new, _) in enumerate(reqs):
+                req = done[rid]
+                assert req.status == "ok", (rid, req.status)
+                assert len(req.tokens) == n_new, (rid, len(req.tokens))
+                assert all(0 <= t < cfg.vocab_size for t in req.tokens)
+            assert st["wasted_slot_steps"] == 0, st
+            assert st["bucket_pad_tokens"] == 0, st
+            walls = [wall] + [run_once()[2] for _ in range(2)]
+            wall_s = statistics.median(walls)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            keys = ("ragged_steps", "segments", "decode_steps",
+                    "host_sync_count", "token_budget_util",
+                    "prefill_tokens_admitted", "tokens_emitted")
+            res = {"wall_s": wall_s, "wall_s_runs": walls,
+                   "generated_tok_s": n_tokens / wall_s,
+                   "max_memory_allocated_gib": peak, "launches": counts,
+                   **{k: st[k] for k in keys}}
+            log(f"batcher {label}: wall {[round(w, 3) for w in walls]} s "
+                f"(median {wall_s:.3f}), {n_tokens / wall_s:.1f} generated "
+                f"tok/s, " + ", ".join(f"{k} {st[k]}" for k in keys)
+                + f", max_memory_allocated {peak:.2f} GiB")
+            if profile:
+                with torch.inference_mode():
+                    res["profile"] = profile_window(
+                        torch, run_once, f"batcher {label}")
+            res["tokens_check"] = check_batcher_tokens(
+                torch, cfg, model.param_dict(), reqs, done,
+                f"batcher {label}")
+            out[label] = res
+    finally:
+        flags.set_flags({"fused_decode_fusions": old})
+    return out
 
 
 def main() -> int:
@@ -845,7 +1351,9 @@ def main() -> int:
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
     from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
     from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
+    from paddle_tpu_torch.ops.kernels import paged_attention as k10
     from paddle_tpu_torch.ops.kernels import quant_matmul as k4
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
 
     # ---- 1. device
     smi = subprocess.run(
@@ -868,42 +1376,68 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             log("  " + line.strip())
 
-    # ---- 3. kernels vs plain
+    # ---- 3. kernels vs plain, each row tagged with the path whose run
+    # gives its launches
     timer = ColdTimer(torch)
-    rows = [check_flash(torch, timer, k1),
-            check_norm_matmul(torch, timer, k2),
-            check_rope_attend(torch, timer, k3, kv_cache, _rope_tables)]
-    rows_int8 = [check_quant_matmul(torch, timer, k4),
-                 check_norm_matmul_int8(torch, timer, k2),
-                 check_rope_attend_int8(torch, timer, k3, kv_cache,
-                                        _rope_tables)]
+    own = [(check_flash(torch, timer, k1), "generate_paged bf16"),
+           (check_norm_matmul(torch, timer, k2), "generate_paged bf16"),
+           (check_rope_attend(torch, timer, k3, kv_cache, _rope_tables),
+            "generate_paged bf16"),
+           (check_quant_matmul(torch, timer, k4), "generate_paged int8"),
+           (check_norm_matmul_int8(torch, timer, k2), "generate_paged int8"),
+           (check_rope_attend_int8(torch, timer, k3, kv_cache, _rope_tables),
+            "generate_paged int8"),
+           (check_ragged_attention(torch, timer, k11, kv_cache, _rope_tables),
+            "batcher unfused attention"),
+           (check_rope_attend_ragged(torch, timer, k3, kv_cache,
+                                     _rope_tables), "batcher fused"),
+           (check_paged_attention(torch, timer, k10, kv_cache, _rope_tables),
+            "batcher unfused attention"),
+           (check_rope_attend_masked(torch, timer, k3, kv_cache,
+                                     _rope_tables), "batcher fused")]
     del timer
     torch.cuda.empty_cache()
 
-    # ---- 4. serving main path (bf16), then 5. int8w+int8kv; each row's
-    # launches come from the run of its own path
+    # ---- 4. serving (bf16), 5. int8w+int8kv, 6. continuous batching;
+    # each path's counts are set to 0 just before its counted run and read
+    # just after
     profile = "--profile" in sys.argv
     counts, stats = serve(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
     counts_int8, stats_int8 = serve_int8(torch, kernels, profile=profile)
-    by_module = {"flash_attention_fwd": "flash_attention",
-                 "norm_matmul": "fused_norm_matmul",
-                 "norm_matmul_int8": "fused_norm_matmul",
-                 "rope_append_attend_decode": "fused_rope_attend",
-                 "rope_append_attend_decode_int8": "fused_rope_attend",
-                 "quant_matmul": "quant_matmul"}
-    for row in rows:
-        row["launches"] = counts[by_module[row["name"]]]
-    rows[0]["launches_int8w_int8kv"] = counts_int8["flash_attention"]
-    for row in rows_int8:
-        row["launches"] = counts_int8[by_module[row["name"]]]
-    rows += rows_int8
+    torch.cuda.empty_cache()
+    stats_batcher = serve_batcher(torch, kernels, profile=profile)
+    paths = {"generate_paged bf16": counts,
+             "generate_paged int8": counts_int8,
+             **{f"batcher {label}": stats_batcher[label]["launches"]
+                for label, _ in BATCHER_PLANS}}
+    counter = {"flash_attention_fwd": "flash_attention",
+               "norm_matmul": "fused_norm_matmul",
+               "norm_matmul_int8": "fused_norm_matmul",
+               "rope_append_attend_decode": "fused_rope_attend",
+               "rope_append_attend_decode_int8": "fused_rope_attend",
+               "quant_matmul": "quant_matmul",
+               "ragged_paged_attention": "ragged_paged_attention",
+               "rope_append_attend_ragged": "fused_rope_attend_ragged",
+               "paged_attention": "paged_attention",
+               "rope_append_attend_masked": "fused_rope_attend"}
+    rows = []
+    for row, path in own:
+        c = counter[row["name"]]
+        row["launches"] = paths[path][c]
+        row["launches_path"] = path
+        row["launches_by_path"] = {p: n[c] for p, n in paths.items()}
+        assert row["launches"] > 0, (row["name"], path)
+        rows.append(row)
     log(f"max_memory_allocated while serving: bf16 "
         f"{stats['max_memory_allocated_gib']:.2f} GiB, int8w+int8kv "
-        f"{stats_int8['max_memory_allocated_gib']:.2f} GiB")
+        f"{stats_int8['max_memory_allocated_gib']:.2f} GiB, batcher "
+        + ", ".join(f"{k} {v['max_memory_allocated_gib']:.2f} GiB"
+                    for k, v in stats_batcher.items()))
 
-    # ---- 6. result
-    log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8}))
+    # ---- 7. result
+    log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8,
+                    "serving_batcher": stats_batcher}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -69,3 +69,27 @@ define_flag("fused_decode_fusions", "norm_matmul,rope_append_attend",
             "Comma-separated subset of the fusion pass's patterns to "
             "enable (under fused_decode): 'norm_matmul' and/or "
             "'rope_append_attend'.")
+define_flag("ragged_batching", True,
+            "ContinuousBatcher admission uses token-budget scheduling: one "
+            "ragged dispatch per step mixes up to prefill_chunk new prompt "
+            "tokens with every active decode slot (no bucket padding, no "
+            "separate prefill phase). Off = the power-of-two bucketed "
+            "prefill pipeline (not ported yet: the batcher raises).")
+define_flag("prefix_caching", True,
+            "ContinuousBatcher admission shares already-computed prompt "
+            "pages through a radix-tree prefix index (not ported yet: a "
+            "batcher that resolves it on raises; pass prefix_caching=False).")
+define_flag("spec_decode", False,
+            "Self-speculative decoding in the ContinuousBatcher (ragged "
+            "path only; not ported yet: a batcher that resolves it on "
+            "raises).")
+define_flag("lora_serving", False,
+            "Batched multi-LoRA serving in the ContinuousBatcher (ragged "
+            "path only; not ported yet: a batcher that resolves it on "
+            "raises).")
+define_flag("kv_host_tier", True,
+            "Second KV page arena in host RAM behind the prefix cache; "
+            "active only with prefix_caching (not ported yet).")
+define_flag("unified_arena", True,
+            "One typed HBM page economy across KV pages and adapter "
+            "slots; active only with prefix_caching (not ported yet).")

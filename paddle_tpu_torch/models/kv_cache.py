@@ -13,7 +13,10 @@ pages_per_seq``; sequence b owns the contiguous physical pages
 
 Unlike the JAX package's pure updates, the writers here update the page
 pools IN PLACE (a decode step would otherwise copy the whole pool per
-layer) and return the state with any new ``seq_lens``.
+layer) and return the state with any new ``seq_lens``. The writers are
+``prefill_paged_cache`` (a whole prompt, identity layout),
+``append_token_masked`` (one token per slot) and ``append_tokens_ragged``
+(a ragged wave of rows, each at its own slot and position).
 """
 
 from __future__ import annotations
@@ -173,6 +176,51 @@ def append_token(state: PagedCacheState, layer: int, k_new,
     active = torch.ones((k_new.shape[0],), dtype=torch.bool,
                         device=k_new.device)
     return append_token_masked(state, layer, k_new, v_new, active)
+
+
+def append_tokens_ragged(state: PagedCacheState, layer: int, k_new, v_new,
+                         row_slot, row_pos, valid) -> PagedCacheState:
+    """Write a ragged wave's K/V (T, Hk, D): row r lands at (slot
+    ``row_slot[r]``, position ``row_pos[r]``); invalid rows write nothing.
+    Does not advance ``seq_lens``; quantizes on write on an int8 cache.
+
+    Valid rows target distinct cells, but an invalid row's clamped cell
+    may be one of them, and a scatter with repeated indices leaves the
+    winner undefined. So every invalid row is routed to the first valid
+    row's cell with that row's value (any winner writes the same bytes),
+    or, when no row is valid, writes that cell's old bytes back. No
+    boolean-mask indexing: nothing here waits for the device."""
+    page = state.page_size
+    n_slots, pps = state.block_tables.shape
+    dev = state.seq_lens.device
+    valid = torch.as_tensor(valid, device=dev).bool()
+    pos = torch.clamp(torch.as_tensor(row_pos, device=dev).long(), min=0)
+    slot = torch.clamp(torch.as_tensor(row_slot, device=dev).long(), 0,
+                       n_slots - 1)
+    phys = state.block_tables[slot, torch.clamp(pos // page, max=pps - 1)]
+    off = pos % page
+    r0 = torch.argmax(valid.int())                 # first valid row, or 0
+    any_valid = valid.any()
+    phys = torch.where(valid, phys.long(), phys[r0].long())
+    off = torch.where(valid, off, off[r0])
+    pairs = [(state.k_pages[layer], k_new), (state.v_pages[layer], v_new)]
+    if state.quantized:
+        (kq, ks), (vq, vs) = _quantize_cells(k_new), _quantize_cells(v_new)
+        pairs = [(state.k_pages[layer], kq), (state.v_pages[layer], vq),
+                 (state.k_scales[layer], ks), (state.v_scales[layer], vs)]
+    m = valid[:, None, None]
+    for pool, new in pairs:
+        # pool (Hk, P, page, X); new (T, Hk, X)
+        new = new.to(pool.dtype)
+        first = torch.where(any_valid, new[r0],
+                            pool[:, phys[r0], off[r0], :])       # (Hk, X)
+        rows = torch.where(m, new, first[None])
+        pool[:, phys, off, :] = rows.transpose(0, 1)
+    return state
+
+
+def advance_masked(state: PagedCacheState, active) -> PagedCacheState:
+    return state._replace(seq_lens=state.seq_lens + active.to(torch.int32))
 
 
 def advance(state: PagedCacheState) -> PagedCacheState:

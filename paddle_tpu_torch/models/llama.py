@@ -14,7 +14,8 @@ JAX model's parameters without transposing.
 
 PyTorch runs eagerly: the JAX package's jitted prefill and ``lax.scan``
 decode loop become a plain function and a Python loop, and the page pools
-are updated in place.
+are updated in place. The continuous-batching server over the same decoder
+blocks is ``inference/continuous_batching.py``.
 """
 
 from __future__ import annotations
@@ -153,6 +154,19 @@ def _pure_lm_head_logits(prms, hidden, eps, tied, enabled=None,
 def _greedy(logits):
     """Greedy pick (first index among equal maxima) as int32 token ids."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _logits_ok(logits):
+    """Per-row poison detector: True where a row's logits are all finite
+    (the serving engine's isolation check; no host sync)."""
+    return torch.isfinite(logits).all(dim=-1)
+
+
+def _normalize_sampling(temperature, top_k, top_p):
+    """The (temperature, top_k, top_p) config, or None for greedy."""
+    if not temperature or float(temperature) <= 0.0:
+        return None
+    return (float(temperature), top_k, top_p)
 
 
 def _pow2_bucket(n: int, cap: int, floor: int = 1) -> int:

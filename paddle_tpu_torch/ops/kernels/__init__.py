@@ -1,23 +1,30 @@
 """Kernel wrappers — counterparts of ``paddle_tpu/ops/pallas/`` by file name.
 
 Each module holding a kernel keeps a plain PyTorch version beside it and a
-plain-integer ``launches`` counter that only its launch site increments.
+plain-integer launch counter that only its launch site increments
+(``fused_rope_attend`` keeps one per entry form).
 """
 
 from . import (flash_attention, fused_norm_matmul, fused_rope_attend,
-               quant_matmul)
+               paged_attention, quant_matmul, ragged_paged_attention)
 
-#: the modules whose wrappers launch a kernel
-KERNEL_MODULES = (flash_attention, fused_norm_matmul, fused_rope_attend,
-                  quant_matmul)
+#: (count name, module, counter attribute) of every kernel's launch site
+KERNEL_COUNTERS = (
+    ("flash_attention", flash_attention, "launches"),
+    ("fused_norm_matmul", fused_norm_matmul, "launches"),
+    ("fused_rope_attend", fused_rope_attend, "launches"),
+    ("fused_rope_attend_ragged", fused_rope_attend, "ragged_launches"),
+    ("paged_attention", paged_attention, "launches"),
+    ("ragged_paged_attention", ragged_paged_attention, "launches"),
+    ("quant_matmul", quant_matmul, "launches"),
+)
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES:
-        mod.launches = 0
+    for _, mod, attr in KERNEL_COUNTERS:
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict:
-    """``{module short name: launches}`` since the last reset."""
-    return {mod.__name__.rsplit(".", 1)[1]: mod.launches
-            for mod in KERNEL_MODULES}
+    """``{count name: launches}`` since the last reset."""
+    return {name: getattr(mod, attr) for name, mod, attr in KERNEL_COUNTERS}

@@ -36,11 +36,11 @@ _SIGNATURES = {
     "pt_norm_matmul_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P],
     "pt_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pt_rope_append_attend_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "pt_rope_append_attend_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                          _P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _I, _I, _F, _P],
+    "pt_rope_append_attend_decode": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "pt_rope_append_attend_decode_int8": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "pt_rope_append_attend_ragged": [_P] * 14 + [_I] * 8 + [_F, _P],
+    "pt_paged_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "pt_ragged_paged_attention": [_P] * 11 + [_I] * 7 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -13,11 +13,14 @@ and the weight-only kernel K4 (quant_matmul.py) for a ``QuantizedWeight``.
 
 ``flags.fused_decode`` gates the pass and ``flags.fused_decode_fusions``
 selects patterns; with a pattern off the executor runs the unfused chain.
-That chain runs on CPU tensors only: on CUDA tensors a flag-resolved plan
-with a pattern off raises, since its attend tail needs the paged-attention
-kernel (not ported yet) and its norm -> matmul would bypass K2. The plain
-reference reaches the unfused chain on the card only by passing
-``enabled=()`` explicitly.
+With ``rope_append_attend`` off, the attend seams run rope and the cache
+write as plain PyTorch ops (the JAX package computes them outside any
+Pallas kernel too) and attention through its kernel: K10
+(paged_attention.py) for decode rows, K11 (ragged_paged_attention.py) for
+a ragged wave. With ``norm_matmul`` off, a flag-resolved plan raises on
+CUDA tensors, since its norm -> matmul would bypass K2; the plain
+reference reaches that chain on the card only by passing ``enabled=()``
+explicitly.
 """
 
 from __future__ import annotations
@@ -154,16 +157,19 @@ def kernel_launches_per_token(num_layers: int, tied: bool = False,
 
 def planned_kernel_launches(num_layers: int, tied: bool = False,
                             enabled=None, quantized: bool = False) -> dict:
-    """Fused-kernel launches per decode token by node kind, from the same
-    plans ``kernel_launches_per_token`` counts:
-    ``{"norm_matmul": n, "rope_append_attend": n}``. ``enabled``
-    overrides the flag-resolved fusion set. The prefill runs the same
-    layer and head plans, with flash attention in place of the attend
-    chain. ``quantized`` (weight-only params) adds ``"quant_matmul"``:
-    every matmul left unfused runs the weight-only matmul kernel."""
+    """Kernel launches per decode token by node kind, from the same plans
+    ``kernel_launches_per_token`` counts: ``{"norm_matmul": n,
+    "rope_append_attend": n, "paged_attention": n}`` (``paged_attention``
+    is the unfused attend tail's attention). ``enabled`` overrides the
+    flag-resolved fusion set. The prefill runs the same layer and head
+    plans, with flash attention in place of the attend chain; a ragged
+    wave runs them with the ragged forms of the attend kernels (K3 ragged
+    for ``rope_append_attend``, K11 for ``paged_attention``).
+    ``quantized`` (weight-only params) adds ``"quant_matmul"``: every
+    matmul left unfused runs the weight-only matmul kernel."""
     lp, ap = layer_plan(enabled), attend_plan(enabled)
     hp = () if tied else head_plan(enabled)
-    kinds = ("norm_matmul", "rope_append_attend")
+    kinds = ("norm_matmul", "rope_append_attend", "paged_attention")
     out = {kind: num_layers * (sum(n.kind == kind for n in lp)
                                + sum(n.kind == kind for n in ap))
            + sum(n.kind == kind for n in hp)
@@ -241,17 +247,36 @@ def run_lm_head(prms, hidden, eps, enabled=None, plain=False):
                      plain=plain)["logits"]
 
 
-def decode_attend(q, k, v, cos, sin, cache, layer):
-    """The decode-row attention tail, routed by the attend plan: K3 when
-    the pattern is enabled, the op-by-op chain otherwise. Returns
-    (out, cache)."""
+def _fused_attend() -> bool:
+    return any(n.kind == "rope_append_attend" for n in attend_plan())
+
+
+def decode_attend(q, k, v, cos, sin, cache, layer, active=None):
+    """The decode-row attention tail (solo paged step, the batcher's
+    segment steps), routed by the attend plan: K3 when the pattern is
+    enabled, the op-by-op chain (attention in K10 on CUDA tensors)
+    otherwise. ``active`` (B,) bool, None for every slot: an inactive slot
+    writes nothing and returns zeros. Returns (out, cache)."""
     from . import fused_rope_attend as fra
 
-    if any(n.kind == "rope_append_attend" for n in attend_plan()):
+    if _fused_attend():
         return fra.fused_rope_append_attend_decode(q, k, v, cos, sin, cache,
-                                                   layer)
-    if q.is_cuda:
-        raise NotImplementedError(
-            "the unfused decode chain needs the paged_attention kernel, "
-            "which is not ported yet; enable the rope_append_attend fusion")
-    return fra.decode_reference(q, k, v, cos, sin, cache, layer)
+                                                   layer, active)
+    return fra.decode_reference(q, k, v, cos, sin, cache, layer, active)
+
+
+def ragged_attend(q, k, v, cos, sin, cache, layer, row_slot, row_pos,
+                  valid, page_lens, q_start, q_lens, fresh_lens):
+    """The ragged-wave attention tail (the batcher's admission step),
+    routed by the attend plan: K3's ragged form when the pattern is
+    enabled, the op-by-op chain (attention in K11 on CUDA tensors)
+    otherwise. Returns (out, cache)."""
+    from . import fused_rope_attend as fra
+
+    if _fused_attend():
+        return fra.fused_rope_append_attend(
+            q, k, v, cos, sin, cache, layer, row_slot, row_pos, valid,
+            page_lens, q_start, q_lens, fresh_lens)
+    return fra.ragged_reference(q, k, v, cos, sin, cache, layer, row_slot,
+                                row_pos, valid, page_lens, q_start, q_lens,
+                                fresh_lens)

@@ -19,6 +19,11 @@ at pages 16 and 32 and lengths 0 and on page boundaries. Tolerances as in
 chip_smoke.py: one bf16 output rounding plus f32 summation-order
 differences (K4: ``quant_matmul.tolerance``, derived from the inputs);
 pool cells bit-exact, int8 codes within 1 with the differing ones counted.
+The batcher's kernels — K10 (paged decode attention), K11 (ragged
+two-source attention) and K3's ragged and masked forms — run on waves
+that mix decode rows, chunks with and without page context, slots with
+no rows and padding rows, at GQA groups 1, 4 and 8; their pools must be
+bit-identical to the plain chain's and every other cell untouched.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ from paddle_tpu_torch.ops.kernels import flash_attention as k1
 from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
 from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
 from paddle_tpu_torch.ops.kernels import fusion
+from paddle_tpu_torch.ops.kernels import paged_attention as k10
 from paddle_tpu_torch.ops.kernels import quant_matmul as k4
+from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
 from paddle_tpu_torch.ops.extra_vision import _weight_quantize_pure
 
 pytestmark = pytest.mark.cuda
@@ -109,7 +116,7 @@ def test_rope_append_attend_matches_plain(gen, g, lens):
     cp = cache._replace(k_pages=cache.k_pages.clone(),
                         v_pages=cache.v_pages.clone())
     out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck, 1)
-    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1, plain=True)
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= 1e-2 + 1e-2 * ref.float().abs()).all())
     assert torch.equal(ck.k_pages, cp.k_pages)
@@ -229,7 +236,7 @@ def test_rope_append_attend_int8_matches_plain(gen, page, g, lens):
     cos, sin = cos_t[lens_t.long()], sin_t[lens_t.long()]
     ck, cp = _clone(cache), _clone(cache)
     out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck, 1)
-    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1, plain=True)
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= 1e-2 + 1e-2 * ref.float().abs()).all())
     for name in ("k_pages", "v_pages"):
@@ -299,3 +306,181 @@ def test_quantization_rules_match_the_cpu_bitwise(gen, algo, gs):
     for a, b in zip(kv_cache.quantize_cells(x),
                     kv_cache.quantize_cells(x.cpu())):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------- the batcher's kernels (K10,
+# K11, K3 ragged and masked)
+
+
+def _bf16_cache(gen, n_layers, b, cap, hk, page):
+    cache = kv_cache.create_paged_cache(n_layers, b, cap, hk, 128, page,
+                                        dtype=torch.bfloat16, device="cuda")
+    for pool in (cache.k_pages, cache.v_pages):
+        pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda"))
+    return cache
+
+
+def _copy(cache):
+    """The cache with its own copy of every pool."""
+    return cache._replace(**{n: getattr(cache, n).clone() for n in (
+        "k_pages", "v_pages", "k_scales", "v_scales")
+        if getattr(cache, n) is not None})
+
+
+def _attn_tol(ref):
+    # attention in f32 in both (order differs), one bf16 output rounding
+    return 1e-2 + 1e-2 * ref.float().abs()
+
+
+@pytest.mark.parametrize("g,lens", [(1, (0, 15, 16)), (4, (31, 1, 47)),
+                                    (8, (5, 32, 40))])
+def test_paged_attention_matches_plain(gen, g, lens):
+    b, hk, page, cap = len(lens), 2, 16, 48
+    cache = _bf16_cache(gen, 1, b, cap, hk, page)
+    q = _randn(gen, b, hk * g, 128)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (q, cache.k_pages[0], cache.v_pages[0], cache.block_tables, seq)
+    out = k10.paged_attention_pure(*args)
+    ref = k10.paged_attention_reference(*args)
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    if lens[0] == 0:
+        assert not out[0].any()
+
+
+def _wave_case(gen, b, hk, g, page, cap, t):
+    """A wave over b slots with old lengths `seq`: slot 0 decodes, slot 1
+    chunk-prefills 20 rows on 40 tokens of context, slot 2 starts a
+    13-row prompt, slot 3 sits out, the rest decode; the last rows pad.
+    Returns (cache, rows (q, k, v, cos, sin), wave args of the attend
+    seams, seq)."""
+    seq = torch.tensor([37, 40, 0, 5] + [16 * i + 15 for i in range(b - 4)],
+                       dtype=torch.int32, device="cuda")
+    cache = _bf16_cache(gen, 2, b, cap, hk, page)._replace(seq_lens=seq)
+    lens_q = [1, 20, 13, 0] + [1] * (b - 4)
+    fresh = [0, 20, 13, 0] + [0] * (b - 4)
+    q_start, row_slot, row_pos, r = [], [], [], 0
+    for i, n in enumerate(lens_q):
+        q_start.append(r if n else 0)
+        row_slot += [i] * n
+        row_pos += [int(seq[i]) + j for j in range(n)]
+        r += n
+    assert r <= t
+    row_slot += [-1] * (t - r)
+    row_pos += [0] * (t - r)
+    dec = [n == 1 and f == 0 for n, f in zip(lens_q, fresh)]
+    page_lens = [int(s) + 1 if d else (int(s) if n else 0)
+                 for s, d, n in zip(seq, dec, lens_q)]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    wave = (torch.tensor(row_slot, **i32), torch.tensor(row_pos, **i32),
+            torch.tensor(row_slot, **i32) >= 0,
+            torch.tensor(page_lens, **i32), torch.tensor(q_start, **i32),
+            torch.tensor(lens_q, **i32), torch.tensor(fresh, **i32))
+    cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
+    pos = wave[1].long()
+    rows = (_randn(gen, t, hk * g, 128), _randn(gen, t, hk, 128),
+            _randn(gen, t, hk, 128), cos_t[pos], sin_t[pos])
+    return cache, rows, wave
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_ragged_attention_matches_plain(gen, g):
+    b, hk, page, cap, t = 6, 2, 16, 64, 48
+    cache, (q, kf, vf, _, _), wave = _wave_case(gen, b, hk, g, page, cap, t)
+    kf[30] = float("nan")               # a poisoned fresh row of slot 1
+    args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+            *wave[3:], kf, vf)
+    out = k11.ragged_paged_attention_pure(*args)
+    ref = k11.ragged_paged_attention_reference(
+        *args[:8], k11.zero_non_finite(kf), vf)
+    torch.cuda.synchronize()
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    assert not out[36:].any()            # padding rows
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_rope_append_attend_ragged_matches_plain(gen, g):
+    b, hk, page, cap, t = 6, 2, 16, 64, 48
+    cache, rows, wave = _wave_case(gen, b, hk, g, page, cap, t)
+    ck, cp = _copy(cache), _copy(cache)
+    out, ck = k3.fused_rope_append_attend(*rows, ck, 1, *wave)
+    ref, cp = k3.ragged_reference(*rows, cp, 1, *wave, plain=True)
+    torch.cuda.synchronize()
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    assert not out[36:].any()
+    # the written cells: the same separately rounded rope in both
+    assert torch.equal(ck.k_pages, cp.k_pages)
+    assert torch.equal(ck.v_pages, cp.v_pages)
+    assert torch.equal(ck.k_pages[0], cache.k_pages[0])   # other layer
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_rope_append_attend_masked_matches_plain(gen, int8):
+    b, hk, g, page = 4, 2, 4, 32 if int8 else 16
+    lens = (31, 0, 47, 64)
+    cap = 96
+    cache = (_int8_cache(gen, 2, b, cap, hk, 128, page) if int8
+             else _bf16_cache(gen, 2, b, cap, hk, page))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cache = cache._replace(seq_lens=lens_t)
+    active = torch.tensor([True, False, True, True], device="cuda")
+    q = _randn(gen, b, hk * g, 128)
+    k, v = _randn(gen, b, hk, 128), _randn(gen, b, hk, 128)
+    cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
+    cos, sin = cos_t[lens_t.long()], sin_t[lens_t.long()]
+    ck, cp = _copy(cache), _copy(cache)
+    out, ck = k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck, 1,
+                                                 active)
+    ref, cp = k3.decode_reference(q, k, v, cos, sin, cp, 1, active,
+                                  plain=True)
+    torch.cuda.synchronize()
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    assert not out[1].any()
+    names = ("k_pages", "v_pages") + (("k_scales", "v_scales") if int8
+                                      else ())
+    for name in names:
+        assert torch.equal(getattr(ck, name), getattr(cp, name)), name
+
+
+def test_batcher_kernels_refuse_int8_pools(gen):
+    cache = _int8_cache(gen, 1, 2, 32, 1, 128, 32)
+    q = _randn(gen, 2, 4, 128)
+    seq = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    ks, vs = kv_cache.layer_scales(cache, 0)
+    with pytest.raises(NotImplementedError):
+        k10.paged_attention_pure(q, cache.k_pages[0], cache.v_pages[0],
+                                 cache.block_tables, seq, k_scales=ks,
+                                 v_scales=vs)
+    kf = _randn(gen, 2, 1, 128)
+    ones = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError):
+        k11.ragged_paged_attention_pure(
+            q, cache.k_pages[0], cache.v_pages[0], cache.block_tables, seq,
+            torch.arange(2, dtype=torch.int32, device="cuda"), ones, ones,
+            kf, kf, k_scales=ks, v_scales=vs)
+    cs = torch.zeros((2, 128), device="cuda")
+    with pytest.raises(NotImplementedError):
+        k3.fused_rope_append_attend(
+            q, kf, kf, cs, cs, cache, 0, seq, seq, seq >= 0, seq,
+            torch.arange(2, dtype=torch.int32, device="cuda"), ones, ones)
+
+
+def test_unfused_attend_seams_launch_k10_and_k11(gen):
+    """With only norm_matmul fused, the attend seams run rope and the
+    cache write as plain ops and attention in K10 / K11 — never the plain
+    attention."""
+    b, hk, g, page, cap, t = 6, 2, 4, 16, 64, 48
+    cache, rows, wave = _wave_case(gen, b, hk, g, page, cap, t)
+    old = flags.get_flag("fused_decode_fusions")
+    n10, n11, n3 = k10.launches, k11.launches, k3.ragged_launches
+    try:
+        flags.set_flags({"fused_decode_fusions": "norm_matmul"})
+        fusion.ragged_attend(*rows, cache, 0, *wave)
+        q, k, v, cos, sin = (x[:b] for x in rows)
+        fusion.decode_attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                             cos.contiguous(), sin.contiguous(), cache, 0,
+                             active=torch.ones(b, dtype=torch.bool,
+                                               device="cuda"))
+    finally:
+        flags.set_flags({"fused_decode_fusions": old})
+    assert (k10.launches - n10, k11.launches - n11,
+            k3.ragged_launches - n3) == (1, 1, 0)

@@ -50,6 +50,7 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for must in ("paddle_tpu_torch/models/llama.py",
+                 "paddle_tpu_torch/inference/continuous_batching.py",
                  "paddle_tpu_torch/ops/kernels/fusion.py",
                  "paddle_tpu_torch/ops/kernels/_build.py", "chip_smoke.py"):
         assert must in names
@@ -58,7 +59,8 @@ def test_scan_covers_the_package():
 def test_import_loads_no_jax():
     code = ("import sys; import paddle_tpu_torch.models.llama, "
             "paddle_tpu_torch.models.bridge, paddle_tpu_torch.ops.kernels."
-            "fusion, paddle_tpu_torch.ops.kernels._build; "
+            "fusion, paddle_tpu_torch.ops.kernels._build, "
+            "paddle_tpu_torch.inference.continuous_batching; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

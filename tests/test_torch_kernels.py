@@ -301,17 +301,19 @@ def test_kernel_launches_per_token_matches_jax(fused, tied):
 def test_planned_kernel_launches_llama3_8b():
     """The per-token launches chip_smoke.py holds the counters to."""
     assert tfusion.planned_kernel_launches(32) == {
-        "norm_matmul": 161, "rope_append_attend": 32}
+        "norm_matmul": 161, "rope_append_attend": 32, "paged_attention": 0}
     assert tfusion.planned_kernel_launches(2, tied=True) == {
-        "norm_matmul": 10, "rope_append_attend": 2}
+        "norm_matmul": 10, "rope_append_attend": 2, "paged_attention": 0}
     old = tflags.get_flag("fused_decode_fusions")
     try:
         tflags.set_flags({"fused_decode_fusions": "rope_append_attend"})
         assert tfusion.planned_kernel_launches(32) == {
-            "norm_matmul": 0, "rope_append_attend": 32}
+            "norm_matmul": 0, "rope_append_attend": 32,
+            "paged_attention": 0}
         assert tfusion.planned_kernel_launches(
             32, enabled=tfusion.FUSIONS) == {
-            "norm_matmul": 161, "rope_append_attend": 32}
+            "norm_matmul": 161, "rope_append_attend": 32,
+            "paged_attention": 0}
     finally:
         tflags.set_flags({"fused_decode_fusions": old})
 

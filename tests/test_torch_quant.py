@@ -353,9 +353,11 @@ def test_planned_kernel_launches_quantized():
     """Weight-only params send the two matmuls no norm precedes (o_proj,
     down_proj) through K4: 64 per token for Llama-3-8B."""
     assert tfusion.planned_kernel_launches(32, quantized=True) == {
-        "norm_matmul": 161, "rope_append_attend": 32, "quant_matmul": 64}
+        "norm_matmul": 161, "rope_append_attend": 32, "paged_attention": 0,
+        "quant_matmul": 64}
     assert tfusion.planned_kernel_launches(2, tied=True, quantized=True) == {
-        "norm_matmul": 10, "rope_append_attend": 2, "quant_matmul": 4}
+        "norm_matmul": 10, "rope_append_attend": 2, "paged_attention": 0,
+        "quant_matmul": 4}
 
 
 def test_cpu_quant_path_never_builds_kernels():
@@ -368,5 +370,7 @@ def test_cpu_quant_path_never_builds_kernels():
     assert _build._lib is None
     assert tkernels.launch_counts() == {
         "flash_attention": 0, "fused_norm_matmul": 0,
-        "fused_rope_attend": 0, "quant_matmul": 0}
+        "fused_rope_attend": 0, "fused_rope_attend_ragged": 0,
+        "paged_attention": 0, "ragged_paged_attention": 0,
+        "quant_matmul": 0}
     assert "pt_quant_matmul" in _build._SIGNATURES
