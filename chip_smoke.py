@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--profile]
 
-``--profile`` adds torch.profiler traces of the serving runs (device time
-by kernel class, device busy share). Phases, in order; any failure raises and the process exits nonzero:
+``--profile`` adds torch.profiler traces of the serving runs and of one
+train step (device time by kernel class, device busy share). Phases, in order; any failure raises and the process exits nonzero:
 
 1. device   — the card's name and power limit (nvidia-smi); TF32 and
                reduced-precision bf16 matmul reductions off, so the plain
@@ -50,7 +50,31 @@ by kernel class, device busy share). Phases, in order; any failure raises and th
                teacher-forced rule (``check_batcher_tokens``), which two
                fault controls must fail; timing is the median of 3 runs
                after a warm-up.
-7. result   — a ``{"kernels": [...]}`` line, then the last line
+7. training kernels — after the serving models are freed, each new
+               kernel against its plain version at the Llama-3-8B train
+               step's shapes, with times, bounds and library yardsticks:
+               K5 (flash backward, B=4 S=2048 32/8 heads; SDPA's
+               backward), K6/K7 (RMSNorm forward/backward at 8192 x
+               4096; F.rms_norm and its backward), K8 (AdamW8bit on a
+               58.7M-element gate_proj-shaped param with its f32 master
+               and on 3,000,001 elements, 3 steps with weight decay:
+               codes bit-identical to the plain version).
+8. gradient check — a 2-layer full-width model (B=1, S=2048): the
+               per-token losses and every parameter's gradient of the
+               kernel path, the plain bf16 path and a plain f32 run;
+               kernel-vs-f32 relative L2 error <= 2 x plain-bf16-vs-f32,
+               which a fault control (K5 with Delta left at zero) must
+               fail.
+9. training — ``jit.TrainStep`` over Llama-3-8B widths cut to 8 layers
+               (bf16, core_attn recompute, fused_head_loss, 4096-token loss
+               chunks) with AdamW8bit(1e-4), B=4 x S=2048 random tokens:
+               one warm-up step, then 3 timed steps whose K1, K2, K5, K6,
+               K7 and K8 counts must equal ``train_kernel_launches_per_step``'s
+               plan (one K8 per parameter tensor: 75); the loss must fall;
+               median step ms, tokens/s, the 6N+attention model-FLOP share
+               of the bf16 peak (``mfu_6n_attn``), peak memory; then the
+               chunked loss's forward + backward timed alone.
+10. result  — a ``{"kernels": [...]}`` line, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the CUDA toolkit; imports nothing of JAX.
@@ -58,6 +82,7 @@ Needs a CUDA device and the CUDA toolkit; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -784,6 +809,14 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
 def _kernel_class(name):
     if "flash_fwd_kernel" in name:
         return "K1 flash_attention_fwd"
+    if "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
+        return "K5 flash_attention_bwd"
+    if "rms_fwd_kernel" in name:
+        return "K6 rms_norm_fwd"
+    if "rms_bwd_kernel" in name:
+        return "K7 rms_norm_bwd"
+    if "adamw8bit_kernel" in name:
+        return "K8 adamw8bit"
     mm = re.search(r"matmul_(?:small|tiled)_kernel<([^>]*)>", name)
     if mm:  # template arguments end with NORM, weight type, scale mode
         norm, wt = (a.strip() for a in mm.group(1).split(",")[-3:-1])
@@ -802,7 +835,8 @@ def _kernel_class(name):
         return "K10 paged_attention"
     if "gemm" in name or "nvjet" in name or "cutlass" in name \
             or "xmma" in name:
-        return "cuBLAS matmul (o_proj, down_proj)"
+        return "cuBLAS matmul (serving: o_proj, down_proj; train: also " \
+            "every backward product and the loss chunks)"
     return "other (elementwise, gather, argmax, copies)"
 
 
@@ -1338,6 +1372,379 @@ def serve_batcher(torch, kernels, profile=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 7-9): the kernels K5-K8 at the train step's shapes, the
+# full-width gradient check, the timed 8-layer train run
+# ---------------------------------------------------------------------------
+
+TB, TS = 4, 2048          # the train batch: B sequences of S tokens
+TRAIN_LAYERS = 8          # of Llama-3-8B's 32: the AdamW8bit state of all
+                          # 32 (~10 B/param, ~75 GB) does not fit one card
+TRAIN_STEPS = 3           # timed steps after one warm-up step
+ODD_NUMEL = 3_000_001     # K8 at a size with a ragged last 2048-block
+
+
+def check_flash_bwd(torch, timer, k1):
+    """K5 at the train step's attention shape: B=4, S=2048, 32/8 heads,
+    D=128, causal, dO random; against its plain version from K1's own
+    (out, lse), each gradient element within ``k1.bwd_tolerance``."""
+    b, s, h, hk, d = TB, TS, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for n in (h, hk, hk, h))
+    out, lse = k1.flash_attention_fwd(q, k, v, causal=True)
+    got = k1.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    tols = k1.bwd_tolerance(q, k, v, do, *ref, causal=True)
+    worst, err = {}, 0.0
+    for name, a, r, t in zip(("dq", "dk", "dv"), got, ref, tols):
+        diff = (a.float() - r.float()).abs()
+        worst[name] = (diff / t).max().item()
+        err = max(err, diff.max().item())
+        del diff
+    del tols
+    log(f"K5 worst err/tol {worst}")
+    assert max(worst.values()) < 1.0, f"flash bwd worst err/tol {worst}"
+    ms = timer(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, True))
+    plain = timer(lambda: k1.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, True), iters=5)
+    del got, ref
+    torch.cuda.empty_cache()
+    # the library yardstick: SDPA's backward alone (its forward outside)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib = timer(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                            retain_graph=True))
+    del o, qt, kt, vt
+    pairs = s * (s + 1) // 2                              # causal, offset 0
+    flops = 5 * 2 * d * pairs * b * h
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + out.numel() + do.numel()) + 4 * lse.numel()
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
+    log(f"K5 flash_attention_bwd B{b} S{s} H{h}/{hk}: max_abs_err {err:.3e} "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+        f"(SDPA backward) bound_ms {bms:.4f} ({by})")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:533",
+            "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal"}
+
+
+def check_rms_norm(torch, timer, k67):
+    """K6 and K7 at the final norm's train shape: (B*S, 4096) bf16."""
+    n, hdim, eps = TB * TS, 4096, 1e-5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x, gr = (torch.randn((n, hdim), generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    w = (torch.rand((hdim,), generator=g, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    out, rstd = k67.rms_norm_fwd(x, w, eps)
+    dx, dw = k67.rms_norm_bwd(x, w, rstd, gr)
+    r_out, r_rstd = k67.rms_norm_fwd_reference(x, w, eps)
+    r_dx, r_dw = k67.rms_norm_bwd_reference(x, w, r_rstd, gr)
+    torch.cuda.synchronize()
+    t_out, t_dx, t_dw = k67.tolerances(x, w, gr, r_out, r_dx, r_dw)
+    worst = {"out": ((out.float() - r_out.float()).abs() / t_out).max().item(),
+             "rstd": ((rstd - r_rstd).abs() / (1e-5 * r_rstd)).max().item(),
+             "dx": ((dx.float() - r_dx.float()).abs() / t_dx).max().item(),
+             "dw": ((dw - r_dw).abs() / t_dw).max().item()}
+    log(f"K6/K7 worst err/tol {worst}")
+    assert max(worst.values()) < 1.0, f"rms_norm worst err/tol {worst}"
+    err6 = (out.float() - r_out.float()).abs().max().item()
+    err7 = (dx.float() - r_dx.float()).abs().max().item()
+    rms_norm = torch.nn.functional.rms_norm
+    xl = x.clone().requires_grad_(True)
+    wl = w.clone().requires_grad_(True)
+    yl = rms_norm(xl, (hdim,), wl, eps)
+    rows = []
+    for name, fn, plain_fn, lib_fn, nbytes, err, src in (
+            ("rms_norm_fwd", lambda: k67.rms_norm_fwd(x, w, eps),
+             lambda: k67.rms_norm_fwd_reference(x, w, eps),
+             lambda: rms_norm(x, (hdim,), w, eps),
+             2 * 2 * n * hdim + 2 * hdim + 4 * n, err6, ":77"),
+            ("rms_norm_bwd", lambda: k67.rms_norm_bwd(x, w, rstd, gr),
+             lambda: k67.rms_norm_bwd_reference(x, w, rstd, gr),
+             lambda: torch.autograd.grad(yl, (xl, wl), gr,
+                                         retain_graph=True),
+             3 * 2 * n * hdim + 2 * hdim + 4 * n + 4 * hdim, err7, ":97")):
+        ms, plain, lib = timer(fn), timer(plain_fn), timer(lib_fn)
+        bms, by = bound(nbytes, 0, BF16_FLOPS)
+        log(f"{name} N{n} H{hdim}: max_abs_err {err:.3e} kernel_ms "
+            f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+            f"(F.rms_norm{' backward' if 'bwd' in name else ''}) bound_ms "
+            f"{bms:.4f} ({by})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/rms_norm.cu",
+                     "replaces": "paddle_tpu/ops/pallas/fused_norm_rope.py"
+                                 + src,
+                     "max_abs_err": err, "worst_err_over_tol": worst,
+                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib,
+                     "shape": f"N{n} H{hdim} bf16"})
+    return rows
+
+
+def check_adamw8bit(torch, timer, k8):
+    """K8 on a gate_proj-shaped bf16 param with its f32 master (4096 x
+    14336 = 58.7M elements) and on an odd size, 3 steps with weight decay:
+    codes bit-identical to the plain version on the card, scales within
+    3e-7 relative, master within step * 3e-7 (the JAX package's bars; the
+    two compute the same IEEE ops, so they should agree exactly)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    kw = dict(weight_decay=0.01, lr_scale=1.0, beta1=0.9, beta2=0.999,
+              eps=1e-8)
+    err, row = 0.0, None
+    for shape in ((4096, 14336), (ODD_NUMEL,)):
+        p = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        st = k8.init_state(p, master=True)
+        p_ref, st_ref = p.clone(), {k: v.clone() for k, v in st.items()}
+        for step in range(1, 4):
+            gr = (torch.randn(shape, generator=g, device="cuda")
+                  * 10.0 ** -step).to(torch.bfloat16)
+            k8.adamw8bit_update(p, gr, st, 1e-4, step, **kw)
+            k8.adamw8bit_update(p_ref, gr, st_ref, 1e-4, step, plain=True,
+                                **kw)
+            torch.cuda.synchronize()
+            for key in ("m_q", "v_q"):
+                diff = (st[key].view(torch.uint8)
+                        != st_ref[key].view(torch.uint8)).sum().item()
+                assert diff == 0, f"K8 {shape} step {step}: {diff} {key} " \
+                                  f"codes differ"
+            for key in ("m_s", "v_s"):
+                rel = ((st[key] - st_ref[key]).abs()
+                       / st_ref[key].abs().clamp(min=1e-30)).max().item()
+                assert rel <= 3e-7, f"K8 {key} rel err {rel}"
+            merr = (st["master"] - st_ref["master"]).abs().max().item()
+            assert merr <= step * 3e-7, f"K8 master err {merr}"
+            err = max(err, merr,
+                      (p.float() - p_ref.float()).abs().max().item())
+        log(f"K8 adamw8bit {shape}: 3 steps, codes bit-identical, master "
+            f"max_abs_err {merr:.3e}")
+        if row is None:                     # time the gate_proj shape
+            n = p.numel()
+            nb = st["m_s"].numel()
+            ms = timer(lambda: k8.adamw8bit_update(p, gr, st, 1e-4, 4, **kw))
+            plain = timer(lambda: k8.adamw8bit_update(
+                p_ref, gr, st_ref, 1e-4, 4, plain=True, **kw), iters=5)
+            # grad 2 B read, master 4 read + 4 written, param 2 written,
+            # codes 2 read + 2 written, scales 2 x 4 read + written
+            nbytes = 16 * n + 16 * nb
+            bms, by = bound(nbytes, 0, BF16_FLOPS)
+            row = {"name": "adamw8bit", "route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/adamw8bit.cu",
+                   "replaces":
+                       "paddle_tpu/ops/pallas/fused_optimizer_update.py:173",
+                   "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                   "bound_by": by, "library_ms": None,
+                   "shape": f"{shape[0]}x{shape[1]} bf16 + f32 master"}
+            log(f"K8 adamw8bit {n} elements: kernel_ms {ms:.4f} plain_ms "
+                f"{plain:.4f} library_ms none bound_ms {bms:.4f} ({by})")
+        del p, st, p_ref, st_ref
+    row["max_abs_err"] = err
+    return row
+
+
+def train_config(layers, **kw):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(
+        dtype="bfloat16", num_hidden_layers=layers, recompute=True,
+        recompute_granularity="core_attn", fused_head_loss=True,
+        loss_chunk_size=4096, **kw)
+
+
+def _loss_and_grads(torch, model, ids, plain=False):
+    """(per-token losses over an f32 head, the loss, {name: grad}) of one
+    forward/backward."""
+    hidden = model(ids, plain=plain)
+    loss = model.loss(hidden, ids)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    with torch.no_grad():
+        logits = hidden[0, :-1].float() @ model.lm_head.weight.float()
+        tok = torch.logsumexp(logits, -1) - logits.gather(
+            1, ids[0, 1:, None])[:, 0]
+        del logits
+    return tok, loss.detach().float(), dict(zip(names, grads))
+
+
+def train_grad_check(torch, k1):
+    """Step-1 loss and every parameter's gradient of a 2-layer full-width
+    model (B=1, S=2048), three ways: the kernel path in bf16, the plain
+    path in bf16 (``plain=True``: unfused plans, the kernels' plain
+    versions), a plain f32 forward/backward. The serving phases' logits
+    rule on the relative L2 errors against f32: kernel <= 2 x plain bf16,
+    for the per-token losses and for each gradient. A fault control (K5 with Delta
+    left at zero) must fail it."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = train_config(2)
+    model = LlamaForCausalLM(cfg, seed=SEED).train()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    ids = torch.randint(0, cfg.vocab_size, (1, TS), generator=g,
+                        device="cuda")
+    kern = _loss_and_grads(torch, model, ids)
+    plain = _loss_and_grads(torch, model, ids, plain=True)
+    fault_delta, k1._delta = (k1._delta, lambda out, do: torch.zeros(
+        (out.shape[0], out.shape[2], out.shape[1]), dtype=torch.float32,
+        device=out.device))
+    try:
+        fault = _loss_and_grads(torch, model, ids)
+    finally:
+        k1._delta = fault_delta
+    m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                           seed=SEED).train()
+    with torch.no_grad():
+        for (_, p32), (_, p) in zip(m32.named_parameters(),
+                                    model.named_parameters()):
+            p32.copy_(p.float())
+    del model
+    torch.cuda.empty_cache()
+    ref = _loss_and_grads(torch, m32, ids, plain=True)
+    del m32
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    rows, worst, fault_worst = {}, 0.0, 0.0
+    items = [("per-token loss", kern[0], plain[0], fault[0], ref[0])] + [
+        (n, kern[2][n], plain[2][n], fault[2][n], ref[2][n])
+        for n in ref[2]]
+    for name, a, b, c, r in items:
+        ek, ep, ef = rel(a, r), rel(b, r), rel(c, r)
+        rows[name] = {"kernel": ek, "plain_bf16": ep, "fault": ef,
+                      "kernel_over_plain": ek / ep,
+                      "fault_over_plain": ef / ep}
+        worst = max(worst, ek / ep)
+        fault_worst = max(fault_worst, ef / ep)
+    for name, r in rows.items():
+        log(f"  grad check {name}: rel L2 err vs f32 kernel "
+            f"{r['kernel']:.3e} plain bf16 {r['plain_bf16']:.3e} "
+            f"ratio {r['kernel_over_plain']:.3f}; Delta=0 control "
+            f"{r['fault_over_plain']:.3f}")
+    losses = {"kernel": kern[1].item(), "plain_bf16": plain[1].item(),
+              "f32": ref[1].item(), "fault": fault[1].item()}
+    log(f"train grad check (2 layers, B1 S{TS}): step-1 loss {losses}; "
+        f"worst kernel/plain ratio {worst:.3f}, Delta=0 control "
+        f"{fault_worst:.3f}")
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    assert worst <= 2, f"kernel/plain bf16 error ratio {worst}"
+    assert fault_worst > 2, (
+        f"the Delta=0 control passed the rule ({fault_worst:.3f}): the "
+        f"check cannot see a broken backward")
+    return {"losses": losses, "worst_ratio": worst,
+            "fault_worst_ratio": fault_worst, "per_tensor": rows}
+
+
+def time_loss(torch, cfg, timer):
+    """The chunked loss's forward + backward alone at the train step's
+    shape (B*(S-1) tokens, the lm_head weight), device ms."""
+    from paddle_tpu_torch.ops.loss_ops import linear_cross_entropy
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    h = torch.randn((TB * (TS - 1), cfg.hidden_size), generator=g,
+                    device="cuda", dtype=torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((cfg.hidden_size, cfg.vocab_size), generator=g,
+                     device="cuda") * 0.02).to(torch.bfloat16)
+    w.requires_grad_(True)
+    lbl = torch.randint(0, cfg.vocab_size, (TB * (TS - 1),), generator=g,
+                        device="cuda")
+
+    def run():
+        loss = linear_cross_entropy(h, w, lbl, chunk_size=cfg.loss_chunk_size)
+        torch.autograd.grad(loss, (h, w))
+
+    return timer(run, iters=3, warmup=1)
+
+
+def train(torch, kernels, profile=False):
+    """The timed train run: Llama-3-8B widths, 8 layers, bf16, core_attn
+    recompute, chunked loss, AdamW8bit(1e-4), B=4 x S=2048 random tokens
+    (the same batch every step): one warm-up step, then TRAIN_STEPS timed
+    steps whose launch counts must equal the plan's."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import fusion
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    assert fusion.enabled_train_fusions() == fusion.TRAIN_FUSIONS, (
+        f"train fusion flags not at their defaults: "
+        f"{fusion.enabled_train_fusions()}")
+    cfg = train_config(TRAIN_LAYERS)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_tensors = sum(1 for _ in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW8bit(learning_rate=1e-4, parameters=model.parameters())
+    step = TrainStep(model, lambda out, lb: model.loss(out, lb), opt)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TB, TS), generator=g,
+                        device="cuda")
+    plan = fusion.train_kernel_launches_per_step(
+        L, n_tensors, recompute=cfg.recompute,
+        granularity=cfg.recompute_granularity,
+        fused_head_loss=cfg.fused_head_loss)
+    assert n_tensors == 9 * L + 3 and plan["adamw8bit"] == n_tensors, plan
+    log(f"train: Llama-3-8B widths, {L} layers, {n_params / 1e9:.3f}B "
+        f"params bf16 ({n_tensors} tensors), init "
+        f"{time.perf_counter() - t0:.1f}s; plan per step {plan}")
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(ids, ids)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms, first_loss = timed_step()                     # warm-up
+    kernels.reset_launch_counts()
+    runs = [timed_step() for _ in range(TRAIN_STEPS)]      # THE counted run
+    counts = kernels.launch_counts()
+    expected = dict.fromkeys(counts, 0)
+    expected.update({k: v * TRAIN_STEPS for k, v in plan.items()})
+    log(f"train: launches over {TRAIN_STEPS} steps {counts} expected "
+        f"{expected}")
+    assert counts == expected, f"launch counts {counts} != plan {expected}"
+    losses = [first_loss] + [l for _, l in runs]
+    assert all(math.isfinite(l) for l in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    step_ms = statistics.median(t for t, _ in runs)
+    tokens = TB * TS
+    fpt = LlamaForCausalLM.flops_per_token(cfg, TS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = {"step_ms": step_ms, "step_ms_runs": [t for t, _ in runs],
+             "warmup_step_ms": warm_ms, "tokens_per_s": tokens / step_ms * 1e3,
+             "mfu_6n_attn": fpt * tokens / (step_ms / 1e3) / BF16_FLOPS,
+             "losses": losses, "max_memory_allocated_gib": peak,
+             "params": n_params, "launches": counts}
+    log(f"train: B{TB} S{TS}, step_ms {[round(t, 1) for t, _ in runs]} "
+        f"(median {step_ms:.1f}, warm-up {warm_ms:.1f}), "
+        f"{stats['tokens_per_s']:.1f} tok/s, mfu_6n_attn "
+        f"{stats['mfu_6n_attn']:.4f}, losses {losses}, "
+        f"max_memory_allocated {peak:.2f} GiB")
+    if profile:
+        stats["profile"] = profile_window(torch, lambda: step(ids, ids),
+                                          "train step")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    timer = ColdTimer(torch)
+    stats["loss_fwd_bwd_ms"] = time_loss(torch, cfg, timer)
+    log(f"train: chunked loss forward + backward alone "
+        f"{stats['loss_fwd_bwd_ms']:.2f} ms")
+    return counts, stats
+
+
 def main() -> int:
     import torch
 
@@ -1350,6 +1757,8 @@ def main() -> int:
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
     from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
+    from paddle_tpu_torch.ops.kernels import fused_optimizer_update as k8
     from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
     from paddle_tpu_torch.ops.kernels import paged_attention as k10
     from paddle_tpu_torch.ops.kernels import quant_matmul as k4
@@ -1407,10 +1816,26 @@ def main() -> int:
     counts_int8, stats_int8 = serve_int8(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
     stats_batcher = serve_batcher(torch, kernels, profile=profile)
+    torch.cuda.empty_cache()
+
+    # ---- 7. training kernels vs plain at the train step's shapes, 8. the
+    # full-width gradient check, 9. the timed train run (its counts set to
+    # 0 just before its counted steps and read just after)
+    timer = ColdTimer(torch)
+    own += [(check_flash_bwd(torch, timer, k1), "train")]
+    own += [(row, "train") for row in check_rms_norm(torch, timer, k67)]
+    own += [(check_adamw8bit(torch, timer, k8), "train")]
+    del timer
+    torch.cuda.empty_cache()
+    grad_check = train_grad_check(torch, k1)
+    torch.cuda.empty_cache()
+    counts_train, stats_train = train(torch, kernels, profile=profile)
+    stats_train["grad_check"] = grad_check
     paths = {"generate_paged bf16": counts,
              "generate_paged int8": counts_int8,
              **{f"batcher {label}": stats_batcher[label]["launches"]
-                for label, _ in BATCHER_PLANS}}
+                for label, _ in BATCHER_PLANS},
+             "train": counts_train}
     counter = {"flash_attention_fwd": "flash_attention",
                "norm_matmul": "fused_norm_matmul",
                "norm_matmul_int8": "fused_norm_matmul",
@@ -1420,7 +1845,11 @@ def main() -> int:
                "ragged_paged_attention": "ragged_paged_attention",
                "rope_append_attend_ragged": "fused_rope_attend_ragged",
                "paged_attention": "paged_attention",
-               "rope_append_attend_masked": "fused_rope_attend"}
+               "rope_append_attend_masked": "fused_rope_attend",
+               "flash_attention_bwd": "flash_attention_bwd",
+               "rms_norm_fwd": "rms_norm_fwd",
+               "rms_norm_bwd": "rms_norm_bwd",
+               "adamw8bit": "adamw8bit"}
     rows = []
     for row, path in own:
         c = counter[row["name"]]
@@ -1435,9 +1864,13 @@ def main() -> int:
         + ", ".join(f"{k} {v['max_memory_allocated_gib']:.2f} GiB"
                     for k, v in stats_batcher.items()))
 
-    # ---- 7. result
+    log(f"max_memory_allocated while training: "
+        f"{stats_train['max_memory_allocated_gib']:.2f} GiB")
+
+    # ---- 10. result
     log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8,
-                    "serving_batcher": stats_batcher}))
+                    "serving_batcher": stats_batcher,
+                    "train": stats_train}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

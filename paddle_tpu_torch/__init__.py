@@ -9,16 +9,19 @@ find. It imports ``torch`` and numpy only — never ``jax`` and never
 It serves Llama greedy paged decoding
 (``models.llama.LlamaForCausalLM.generate_paged``) on one NVIDIA H100, in
 bf16 or with weight-only int8/int4 weights and an int8 KV cache
-(``quantize_for_inference``, ``cache_dtype="int8"``), with four
-hand-written CUDA kernels under ``csrc/``:
+(``quantize_for_inference``, ``cache_dtype="int8"``), and through the
+continuous batcher (``inference.ContinuousBatcher``); it trains Llama
+(``jit.TrainStep`` with ``optimizer.AdamW`` / ``AdamW8bit``). Its
+hand-written CUDA kernels live under ``csrc/``:
 
-  flash_attention_fwd         prefill causal GQA attention
+  flash_attention_fwd / _bwd  causal GQA attention, forward and backward
   norm_matmul                 rms_norm folded into every following matmul
                               (dense, int8 or int4 weights)
-  rope_append_attend_decode   per-layer decode attention tail (bf16 or
-                              int8 cache)
-  quant_matmul                weight-only int8/int4 matmul (o_proj,
-                              down_proj)
+  rope_append_attend          per-layer decode / ragged attention tail
+  paged_attention, ragged_paged_attention   decode and ragged attention
+  quant_matmul                weight-only int8/int4 matmul
+  rms_norm_fwd / _bwd         RMSNorm forward and backward (training)
+  adamw8bit                   the one-sweep AdamW8bit update
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.

@@ -93,3 +93,26 @@ define_flag("kv_host_tier", True,
 define_flag("unified_arena", True,
             "One typed HBM page economy across KV pages and adapter "
             "slots; active only with prefix_caching (not ported yet).")
+define_flag("fused_train", True,
+            "Training forward/backward/update routes through the fusion "
+            "pass's training twin (ops/kernels/fusion.py TRAIN_CHAIN): "
+            "rms_norm folds into the following matmuls (K2 per consumer, "
+            "one gradient for the norm weight), the o-proj + residual add "
+            "ride the attention output as epilogue ops, and the AdamW8bit "
+            "update runs as one sweep (K8). Off = the unfused train plan "
+            "(norms through K6/K7).")
+define_flag("fused_train_fusions",
+            "norm_matmul,attn_epilogue,optimizer_update,moe_grouped_bwd",
+            "Comma-separated subset of the train fusion pass's families to "
+            "enable (under fused_train): 'norm_matmul', 'attn_epilogue', "
+            "'optimizer_update' and/or 'moe_grouped_bwd' (the last is not "
+            "ported: no MoE model yet).")
+define_flag("flash_bwd_impl", "split",
+            "Flash-attention backward: 'split' = the dq + dkv kernels (K5); "
+            "'fused' = the one-pass kernel, not ported yet (raises on the "
+            "card).")
+define_flag("flash_save_residuals", False,
+            "core_attn recompute keeps the attention's (out, lse) from the "
+            "first forward, so the recompute in backward skips the K1 "
+            "re-run. Off (the JAX package's default) = the recompute runs "
+            "the flash forward again.")

@@ -10,6 +10,12 @@ params dict (the JAX package's ``quantize_for_inference`` output): each
 quantized entry is any object with ``codes``, ``scales``, ``weight_dtype``,
 ``group_size`` and ``shape`` (the JAX ``QuantizedWeight`` works as is),
 read through numpy.
+
+``optimizer_state_to_numpy`` / ``optimizer_state_from_numpy`` carry an
+AdamW or AdamW8bit state ({param name: {key: array}}, the JAX package's
+``TrainStep._opt_state`` layout) across; the float8 (e4m3) moment codes
+travel as ``uint8`` views (ml_dtypes on the JAX side, ``float8_e4m3fn``
+here).
 """
 
 from __future__ import annotations
@@ -104,3 +110,49 @@ def quantized_params_from_numpy(model, params: dict) -> dict:
                 a = a.astype(np.float32)
             out[name] = torch.tensor(a, device=dev).to(own[name].dtype)
     return out
+
+
+def optimizer_state_to_numpy(optimizer) -> dict:
+    """{param name: {key: ndarray}} of an optimizer's state; float8 codes as
+    uint8 views."""
+    out = {}
+    for name, st in optimizer.state().items():
+        out[name] = {k: (v.view(torch.uint8) if v.dtype == torch.float8_e4m3fn
+                         else v).detach().cpu().numpy()
+                     for k, v in st.items()}
+    return out
+
+
+def optimizer_state_from_numpy(optimizer, state: dict,
+                               global_step=None) -> None:
+    """Fill an optimizer's state from {param name: {key: ndarray}} (float8
+    codes as uint8 or ml_dtypes arrays), on each parameter's device, and
+    set its step count. Raises on an unknown name, a missing or extra key
+    or a shape mismatch; nothing changes unless every entry matches."""
+    params = dict(optimizer._named)
+    unknown = sorted(set(state) - set(params))
+    if unknown:
+        raise KeyError(f"no parameter named {unknown}")
+    new = {}
+    for name, entries in state.items():
+        proto = optimizer.init_state(params[name])
+        if set(entries) != set(proto):
+            raise KeyError(f"{name}: state keys {sorted(entries)} != "
+                           f"{sorted(proto)}")
+        st = {}
+        for key, arr in entries.items():
+            a = np.asarray(arr)
+            want = proto[key]
+            if tuple(a.shape) != tuple(want.shape):
+                raise ValueError(f"{name}.{key}: shape {tuple(a.shape)} != "
+                                 f"{tuple(want.shape)}")
+            if want.dtype == torch.float8_e4m3fn:
+                st[key] = torch.tensor(a.view(np.uint8)).to(
+                    want.device).view(torch.float8_e4m3fn)
+            else:
+                st[key] = torch.tensor(a.astype(np.float32)).to(
+                    want.device, want.dtype)
+        new[name] = st
+    optimizer._state.update(new)
+    if global_step is not None:
+        optimizer._global_step = int(global_step)

@@ -16,6 +16,17 @@ PyTorch runs eagerly: the JAX package's jitted prefill and ``lax.scan``
 decode loop become a plain function and a Python loop, and the page pools
 are updated in place. The continuous-batching server over the same decoder
 blocks is ``inference/continuous_batching.py``.
+
+Training: ``model.train()`` turns gradients on and ``forward`` into the
+training forward. Each decoder block runs the fusion pass's TRAIN plan
+(``_train_fused_block``: K2 per norm consumer, rope + flash attention with
+its K5 backward, o-proj + residual as the attention's epilogue), under
+per-block recompute (``torch.utils.checkpoint``) when ``config.recompute``;
+with ``fused_head_loss`` the forward returns the final-normed hidden states
+(the norm in K6/K7) and ``loss`` runs the chunked ``linear_cross_entropy``.
+``jit.TrainStep`` drives forward, loss, backward and the optimizer.
+``forward(ids, plain=True)`` runs every kernel's plain version and the
+unfused plans (the on-card reference).
 """
 
 from __future__ import annotations
@@ -43,7 +54,27 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 500000.0
     tie_word_embeddings: bool = False
+    # per-block activation recomputation in training; "full" keeps only the
+    # block input, "core_attn" also the attention's (out, lse) when
+    # flags.flash_save_residuals is on
+    recompute: bool = False
+    recompute_granularity: str = "full"
+    # training forward returns final hidden states and loss() runs the
+    # chunked linear_cross_entropy (the (B, S, V) logits never exist)
+    fused_head_loss: bool = False
+    loss_chunk_size: int = 2048
+    # ring attention over a mesh axis: not ported
+    context_parallel: bool = False
     dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.recompute_granularity not in ("full", "core_attn"):
+            raise ValueError(
+                f"recompute_granularity must be 'full' or 'core_attn', got "
+                f"{self.recompute_granularity!r}")
+        if self.context_parallel:
+            raise NotImplementedError(
+                "context parallelism (ring attention) is not ported")
 
     @property
     def head_dim(self):
@@ -239,9 +270,71 @@ def quantize_for_inference(params, algo="weight_only_int8", group_size=-1):
 # ---------------------------------------------------------------------------
 # Modules (parameter containers with the JAX package's names)
 # ---------------------------------------------------------------------------
+def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None):
+    """The training attend seam: rope (f32 rotate-half, cast back) feeding
+    causal flash attention with a gradient (K1 forward, K5 backward), on
+    flat (B, S, ·) projections; with ``o_w`` the o-proj matmul and the
+    residual add follow as the attention's epilogue."""
+    from ..ops.kernels.flash_attention import flash_attention_train
+
+    b, s = q.shape[:2]
+    nh, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    cos, sin = _rope_tables(s, hd, cfg.rope_theta, device=q.device)
+    qa, ka = q.reshape(b, s, nh, hd), k.reshape(b, s, hk, hd)
+    q2, k2 = apply_rotary_pos_emb(qa.float(), ka.float(), cos, sin)
+    out = flash_attention_train(q2.to(qa.dtype), k2.to(ka.dtype),
+                                v.reshape(b, s, hk, hd), causal=True,
+                                plain=plain, stash=stash)
+    out = out.reshape(b, s, nh * hd)
+    if o_w is None:
+        return out
+    return residual + out @ o_w
+
+
+def _train_fused_block(layer, hidden, plain=False, stash=None):
+    """Training forward of one decoder block through the TRAIN plan
+    (``fusion.run_train_decoder_layer``) over the block's own parameters.
+    With no train family on (``fused_train`` off) it runs the unfused plan,
+    every norm in K6/K7; ``plain`` runs the unfused plan with every
+    kernel's plain version — the on-card reference."""
+    from ..ops.kernels import fusion
+
+    cfg = layer.self_attn.config
+
+    def attend(q, k, v, residual=None, o_w=None):
+        return _train_attend(cfg, q, k, v, plain, stash, residual, o_w)
+
+    unfused = plain or not fusion.enabled_train_fusions()
+    return fusion.run_train_decoder_layer(
+        dict(layer.named_parameters()), hidden, cfg.rms_norm_eps, attend,
+        enabled=() if unfused else None, plain=plain)
+
+
+def _train_head_fusion_active(model) -> bool:
+    """Fold the final norm into the untied LM head on the TRAIN forward?
+    Needs the norm_matmul family and an untied head that runs in forward
+    (``fused_head_loss`` defers the head to the chunked loss)."""
+    from ..ops.kernels import fusion
+
+    return (model.training and fusion.train_fusion_on("norm_matmul")
+            and model.lm_head is not None
+            and not model.config.fused_head_loss)
+
+
+def _train_fused_head(model, hidden):
+    """Final norm + LM head through the TRAIN head plan (K2)."""
+    from ..ops.kernels import fusion
+
+    prms = {"model.norm.weight": model.model.norm.weight,
+            "lm_head.weight": model.lm_head.weight}
+    return fusion.run_train_lm_head(prms, hidden, model.config.rms_norm_eps)
+
+
 class LlamaAttention(Layer):
     def __init__(self, cfg: LlamaConfig, dtype, device, gen):
         super().__init__()
+        self.config = cfg
         h, hd = cfg.hidden_size, cfg.head_dim
         nh, hk = cfg.num_attention_heads, cfg.num_key_value_heads
         self.q_proj = Linear(h, nh * hd, dtype, device, gen)
@@ -262,28 +355,56 @@ class LlamaMLP(Layer):
 class LlamaDecoderLayer(Layer):
     def __init__(self, cfg: LlamaConfig, dtype, device, gen):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, dtype, device)
+        eps = cfg.rms_norm_eps
+        self.input_layernorm = RMSNorm(cfg.hidden_size, dtype, device, eps)
         self.self_attn = LlamaAttention(cfg, dtype, device, gen)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, dtype,
-                                                device)
+                                                device, eps)
         self.mlp = LlamaMLP(cfg, dtype, device, gen)
+
+    def forward(self, hidden, plain=False, stash=None):
+        """Training forward through the TRAIN plan."""
+        return _train_fused_block(self, hidden, plain, stash)
 
 
 class LlamaModel(Layer):
     def __init__(self, cfg: LlamaConfig, dtype, device, gen):
         super().__init__()
+        self.config = cfg
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, dtype,
                                       device, gen)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(cfg, dtype, device, gen)
              for _ in range(cfg.num_hidden_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, dtype, device)
+        self.norm = RMSNorm(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
+
+    def forward(self, input_ids, final_norm=True, plain=False):
+        """Training forward to the final hidden states (normed unless
+        ``final_norm=False``, the head fusion's entry). Under
+        ``config.recompute`` each block's activations are recomputed in
+        backward; ``core_attn`` with ``flags.flash_save_residuals`` keeps
+        the attention's (out, lse) so the recompute skips K1."""
+        from ..distributed.recompute import recompute
+        from ..framework import flags
+
+        cfg = self.config
+        hidden = self.embed_tokens(input_ids)
+        keep = (cfg.recompute_granularity == "core_attn"
+                and bool(flags.get_flag("flash_save_residuals")))
+        for layer in self.layers:
+            if cfg.recompute and self.training:
+                hidden = recompute(layer, hidden, plain=plain,
+                                   stash=[] if keep else None)
+            else:
+                hidden = layer(hidden, plain=plain)
+        return self.norm(hidden, plain=plain) if final_norm else hidden
 
 
 class LlamaForCausalLM(Layer):
     """Llama with an LM head. Runs on ``cuda`` unless ``device="cpu"``;
     weights are drawn from ``seed`` (N(0, 0.02²) matmul and embedding
-    weights, unit norm weights) in ``config.dtype``."""
+    weights, unit norm weights) in ``config.dtype``. Built in eval mode
+    (serving); ``train()`` turns on gradients and the training forward."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -295,13 +416,60 @@ class LlamaForCausalLM(Layer):
         self.lm_head = (None if config.tie_word_embeddings else
                         Linear(config.hidden_size, config.vocab_size, dtype,
                                self.device, gen))
+        self.eval()
 
-    def forward(self, input_ids):
-        """Prompt logits (B, S, V)."""
+    def forward(self, input_ids, plain=False):
+        """Eval: prompt logits (B, S, V), under inference mode. Training:
+        logits with a gradient, or the final hidden states (B, S, H) under
+        ``fused_head_loss`` (``loss`` then projects them chunk by chunk).
+        ``plain``: every kernel's plain version and the unfused plans."""
         ids = torch.as_tensor(input_ids, device=self.device)
-        with torch.inference_mode():
-            return prompt_logits_pure(self.param_dict(), ids, self.config,
-                                      tied=self.lm_head is None)
+        if not self.training:
+            with torch.inference_mode():
+                return prompt_logits_pure(self.param_dict(), ids,
+                                          self.config,
+                                          tied=self.lm_head is None,
+                                          plain=plain)
+        fuse_head = not plain and _train_head_fusion_active(self)
+        hidden = self.model(ids.long(), final_norm=not fuse_head,
+                            plain=plain)
+        if self.config.fused_head_loss:
+            return hidden
+        if fuse_head:
+            return _train_fused_head(self, hidden)
+        if self.lm_head is None:
+            return hidden @ self.model.embed_tokens.weight.T
+        return hidden @ self.lm_head.weight
+
+    def loss(self, out, labels):
+        """Next-token loss of the forward output: (B, S, V) logits, or the
+        (B, S, H) final hidden states under ``fused_head_loss`` in training
+        (projected inside the chunked ``linear_cross_entropy``)."""
+        from ..ops.loss_ops import cross_entropy, linear_cross_entropy
+
+        labels = torch.as_tensor(labels, device=out.device).long()
+        b, s, v = out.shape
+        if self.config.fused_head_loss and self.training:
+            tied = self.lm_head is None
+            w = (self.model.embed_tokens.weight if tied
+                 else self.lm_head.weight)
+            return linear_cross_entropy(
+                out[:, :-1, :], w, labels[:, 1:], transpose_weight=tied,
+                chunk_size=self.config.loss_chunk_size)
+        return cross_entropy(out[:, :-1, :].reshape(b * (s - 1), v),
+                             labels[:, 1:].reshape(b * (s - 1)))
+
+    @staticmethod
+    def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+        """Standard 6N + attention accounting (the JAX package's)."""
+        h, L = config.hidden_size, config.num_hidden_layers
+        kv = config.num_key_value_heads * config.head_dim
+        n_params = (config.vocab_size * h
+                    * (1 if config.tie_word_embeddings else 2)
+                    + L * (h * h + 2 * h * kv + h * h
+                           + 3 * h * config.intermediate_size))
+        attn = 12 * L * h * seq_len / 2  # causal: half the S^2 term
+        return 6.0 * n_params + attn
 
     def generate_paged(self, input_ids, max_new_tokens: int = 16,
                        page_size: int = 16, return_logits: bool = False,

@@ -1,7 +1,9 @@
 """``Linear`` and ``Embedding`` with the JAX package's parameter layouts.
 
 They hold weights; the serving path reads them as a flat ``{name: tensor}``
-dict (``Layer.param_dict``) and applies them through the fusion pass.
+dict (``Layer.param_dict``) and applies them through the fusion pass, as
+the training forward does with ``named_parameters``. ``Embedding.forward``
+is the training forward's token gather.
 """
 
 from __future__ import annotations
@@ -31,3 +33,6 @@ class Embedding(Layer):
         self.weight = self.create_parameter(
             (num_embeddings, embedding_dim), dtype, device, generator,
             std=INIT_STD)
+
+    def forward(self, ids):
+        return self.weight[ids]

@@ -2,11 +2,13 @@
 
 Each module holding a kernel keeps a plain PyTorch version beside it and a
 plain-integer launch counter that only its launch site increments
-(``fused_rope_attend`` keeps one per entry form).
+(``fused_rope_attend`` keeps one per entry form; ``flash_attention`` and
+``fused_norm_rope`` one per direction).
 """
 
-from . import (flash_attention, fused_norm_matmul, fused_rope_attend,
-               paged_attention, quant_matmul, ragged_paged_attention)
+from . import (flash_attention, fused_norm_matmul, fused_norm_rope,
+               fused_optimizer_update, fused_rope_attend, paged_attention,
+               quant_matmul, ragged_paged_attention)
 
 #: (count name, module, counter attribute) of every kernel's launch site
 KERNEL_COUNTERS = (
@@ -17,6 +19,10 @@ KERNEL_COUNTERS = (
     ("paged_attention", paged_attention, "launches"),
     ("ragged_paged_attention", ragged_paged_attention, "launches"),
     ("quant_matmul", quant_matmul, "launches"),
+    ("flash_attention_bwd", flash_attention, "bwd_launches"),
+    ("rms_norm_fwd", fused_norm_rope, "fwd_launches"),
+    ("rms_norm_bwd", fused_norm_rope, "bwd_launches"),
+    ("adamw8bit", fused_optimizer_update, "launches"),
 )
 
 

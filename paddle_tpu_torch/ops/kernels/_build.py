@@ -28,6 +28,7 @@ _NVCC_FLAGS = ("-std=c++17", "-O3", _ARCH, "-Xcompiler", "-fPIC",
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: C entry points and their argument types (each returns a cudaError_t)
 _SIGNATURES = {
     "pt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "pt_rope_append_attend_ragged": [_P] * 14 + [_I] * 8 + [_F, _P],
     "pt_paged_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pt_ragged_paged_attention": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "pt_flash_attention_bwd": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "pt_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _P],
+    "pt_rms_norm_bwd": [_P] * 6 + [_I, _I, _P],
+    "pt_adamw8bit": [_P, _I] + [_P] * 6 + [_L] + [_F] * 9 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -152,3 +157,18 @@ def check_cuda(name: str, t, dtype=None, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a kernel call on these tensors: the
+    ctypes launch is invisible to autograd, so its gradient would be lost
+    silently. Trainable paths reach the kernels through their
+    ``torch.autograd.Function``s, whose forward runs with grad off."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in tensors):
+        raise RuntimeError(
+            f"{name}: a kernel launch on tensors that require grad would "
+            f"drop their gradient; call it through its autograd.Function "
+            f"or under torch.no_grad()")

@@ -11,6 +11,13 @@ bf16(code) * bf16(scale) rounded to bf16, before the bf16 MMA.
 
 On CPU tensors ``fused_norm_matmul_pure`` runs the unfused chain
 (``_reference``); on CUDA tensors it launches K2 or raises.
+
+``fused_norm_multi_matmul_pure`` is the training plan's grouped node (one
+norm, all its matmul consumers) as an ``autograd.Function``: K2 once per
+consumer forward, and a backward that differentiates the plain chain
+(``_multi_reference``) with plain matmuls, as the JAX package's
+``_fnm_multi_call`` custom VJP does outside any kernel; the norm weight gets
+ONE gradient.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
         raise ValueError(f"norm_matmul kernel takes at most {65535 * 64} "
                          f"rows, got {m}")
     x2 = x.reshape(m, kdim)
+    _build.check_no_grad("norm_matmul", x2, norm_w,
+                         w.codes if quantized else w)
     _build.check_cuda("x", x2, torch.bfloat16)
     _build.check_cuda("norm_w", norm_w, torch.bfloat16, (kdim,))
     if quantized:
@@ -71,3 +80,47 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
                           _build.stream_of(x))
         launches += 1
     return y.reshape(x.shape[:-1] + (n,))
+
+
+def _multi_reference(x, norm_w, eps, ws):
+    """The unfused chain for a consumer group: ONE norm feeding N
+    matmuls."""
+    from ...models.llama import _pure_rms
+
+    xn = _pure_rms(x, norm_w, eps)
+    return tuple(xn @ w for w in ws)
+
+
+class _NormMultiMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, norm_w, eps, *ws):
+        ctx.eps = eps
+        ctx.save_for_backward(x, norm_w, *ws)
+        return tuple(fused_norm_matmul_pure(x, norm_w, eps, w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from ...models.llama import _pure_rms
+
+        x, norm_w, *ws = ctx.saved_tensors
+        with torch.enable_grad():
+            xa = x.detach().requires_grad_(True)
+            nwa = norm_w.detach().requires_grad_(True)
+            xn = _pure_rms(xa, nwa, ctx.eps)
+        xn2 = xn.detach().reshape(-1, xn.shape[-1])
+        dws, dxn = [], None
+        for w, g in zip(ws, gs):
+            g2 = g.reshape(-1, g.shape[-1])
+            dws.append(xn2.T @ g2)
+            part = g2 @ w.T
+            dxn = part if dxn is None else dxn + part
+        dx, dnw = torch.autograd.grad(xn, (xa, nwa),
+                                      dxn.reshape(xn.shape))
+        return (dx, dnw, None, *dws)
+
+
+def fused_norm_multi_matmul_pure(x, norm_w, eps, ws):
+    """The training plan's grouped norm->matmul node: rms_norm folded into
+    every matmul consumer in ``ws`` (dense weights). Returns the outputs in
+    consumer order, with a gradient."""
+    return _NormMultiMatmul.apply(x, norm_w, eps, *ws)

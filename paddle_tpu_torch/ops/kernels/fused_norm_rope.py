@@ -1,0 +1,143 @@
+"""RMSNorm forward and backward (``paddle_tpu/ops/pallas/fused_norm_rope.py``).
+
+Kernel K6 (``csrc/rms_norm.cu``, ``pt_rms_norm_fwd``) replaces the TPU's
+``_pallas_rms_fwd``: out = bf16((x * rstd) * w), rounded once, saving rstd.
+Kernel K7 (``pt_rms_norm_bwd``) replaces ``_pallas_rms_bwd``:
+dx = rstd * (g*w - xhat * mean(g*w*xhat)) and per-block dw partials, summed
+here. Bound: bytes (one read of x and g, one write of out or dx).
+
+``fused_rms_norm`` is the ``autograd.Function`` over the two: on CUDA
+tensors the wrappers launch their kernel or raise, on CPU tensors they run
+the plain versions below, which follow the kernels' numerics (one rounding
+of the output, as ``_rms_fwd_kernel``; the JAX package's ``_jnp_rms`` rounds
+twice in bf16 — in f32 the two agree).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+#: K6 and K7 launches since the last reset (incremented only where each
+#: launches)
+fwd_launches = 0
+bwd_launches = 0
+
+#: the kernels hold a row in registers: H <= 256 threads * 8 * 4 vectors
+_MAX_H = 8192
+#: rows per K7 block (one dw partial row each)
+_BWD_ROWS = 32
+
+
+def rms_norm_fwd_reference(x2, w, eps):
+    """K6's plain version: (out (N, H) in x's dtype, rstd (N,) f32)."""
+    x32 = x2.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    out = (x32 * rstd * w.float()).to(x2.dtype)
+    return out, rstd[:, 0]
+
+
+def rms_norm_bwd_reference(x2, w, rstd, g2):
+    """K7's plain version: (dx (N, H) in x's dtype, dw (H,) f32)."""
+    x32, g32, w32 = x2.float(), g2.float(), w.float()
+    xhat = x32 * rstd[:, None]
+    gw = g32 * w32
+    m = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd[:, None] * (gw - xhat * m)).to(x2.dtype)
+    return dx, (g32 * xhat).sum(dim=0)
+
+
+def tolerances(x2, w, g2, ref_out, ref_dx, ref_dw):
+    """Per-element bounds on |K6/K7 - plain| for (out, rstd, dx, dw), from
+    the inputs. The versions sum in different orders and K6 takes rstd
+    from ``rsqrtf`` (2 ulp), so rstd may differ by ~1e-6 relative; out and
+    dx are then rounded to bf16 once each (one ulp, <= 1e-2 * |ref|). dx
+    subtracts two terms that may cancel: its f32 difference is bounded by
+    1e-5 * rstd * (|g*w| + |xhat| * mean|g*w*xhat|); dw (f32, summed over
+    rows) by 1e-5 * sum_rows |g * xhat|."""
+    x32, g32, w32 = x2.float(), g2.float(), w.float()
+    rstd = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True))
+    xhat, gw = (x32 * rstd).abs(), (g32 * w32).abs()
+    big = (gw * xhat).mean(dim=-1, keepdim=True)
+    t_out = 1e-2 * ref_out.float().abs() + 1e-6
+    t_dx = (1e-2 * ref_dx.float().abs() + 1e-5 * rstd * (gw + xhat * big)
+            + 1e-6)
+    t_dw = 1e-5 * (g32.abs() * xhat).sum(dim=0) + 1e-6
+    return t_out, t_dx, t_dw
+
+
+def _check_shapes(name, x2, w):
+    n, h = x2.shape
+    if h % 8 or h > _MAX_H:
+        raise ValueError(f"{name} kernel needs H % 8 == 0 and H <= {_MAX_H}, "
+                         f"got {h}")
+    _build.check_cuda("x", x2, torch.bfloat16)
+    _build.check_cuda("w", w, torch.bfloat16, (h,))
+    return n, h
+
+
+def rms_norm_fwd(x2, w, eps):
+    """(out, rstd) for x2 (N, H) — K6 on CUDA tensors, the plain version on
+    CPU tensors."""
+    global fwd_launches
+    if not x2.is_cuda:
+        return rms_norm_fwd_reference(x2, w, eps)
+    _build.check_no_grad("rms_norm_fwd", x2, w)
+    n, h = _check_shapes("rms_norm_fwd", x2, w)
+    out = torch.empty_like(x2)
+    rstd = torch.empty((n,), dtype=torch.float32, device=x2.device)
+    _build.launch("pt_rms_norm_fwd", x2.data_ptr(), w.data_ptr(),
+                  out.data_ptr(), rstd.data_ptr(), n, h, float(eps),
+                  _build.stream_of(x2))
+    fwd_launches += 1
+    return out, rstd
+
+
+def rms_norm_bwd(x2, w, rstd, g2):
+    """(dx, dw f32) — K7 on CUDA tensors (its per-block dw partials summed
+    here), the plain version on CPU tensors."""
+    global bwd_launches
+    if not x2.is_cuda:
+        return rms_norm_bwd_reference(x2, w, rstd, g2)
+    _build.check_no_grad("rms_norm_bwd", x2, w, g2)
+    n, h = _check_shapes("rms_norm_bwd", x2, w)
+    _build.check_cuda("rstd", rstd, torch.float32, (n,))
+    _build.check_cuda("g", g2, torch.bfloat16, (n, h))
+    dx = torch.empty_like(x2)
+    parts = torch.empty((math.ceil(n / _BWD_ROWS), h), dtype=torch.float32,
+                        device=x2.device)
+    _build.launch("pt_rms_norm_bwd", x2.data_ptr(), w.data_ptr(),
+                  rstd.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                  parts.data_ptr(), n, h, _build.stream_of(x2))
+    bwd_launches += 1
+    return dx, parts.sum(dim=0)
+
+
+class _FusedRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, epsilon, plain):
+        h = x.shape[-1]
+        x2 = x.reshape(-1, h)
+        fwd = rms_norm_fwd_reference if plain else rms_norm_fwd
+        out, rstd = fwd(x2, weight, epsilon)
+        ctx.save_for_backward(x2, weight, rstd)
+        ctx.plain = plain
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, weight, rstd = ctx.saved_tensors
+        bwd = rms_norm_bwd_reference if ctx.plain else rms_norm_bwd
+        dx, dw = bwd(x2, weight, rstd, g.reshape(x2.shape).contiguous())
+        return dx.reshape(g.shape), dw.to(weight.dtype), None, None
+
+
+def fused_rms_norm(x, weight, epsilon=1e-6, plain=False):
+    """rms_norm(x, w) over the last dim with a gradient: K6 forward saving
+    rstd, K7 backward (plain versions on CPU tensors, or with ``plain``:
+    the on-card reference)."""
+    return _FusedRMSNorm.apply(x, weight, epsilon, plain)

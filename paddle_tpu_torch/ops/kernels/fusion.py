@@ -1,4 +1,4 @@
-"""The decode fusion pass (``paddle_tpu/ops/pallas/fusion.py``, decode half).
+"""The fusion pass (``paddle_tpu/ops/pallas/fusion.py``): decode and train.
 
 The llama decoder block is a DECLARATIVE op list; a pattern matcher
 rewrites adjacent ops into fused kernels:
@@ -21,6 +21,15 @@ a ragged wave. With ``norm_matmul`` off, a flag-resolved plan raises on
 CUDA tensors, since its norm -> matmul would bypass K2; the plain
 reference reaches that chain on the card only by passing ``enabled=()``
 explicitly.
+
+The training half (``TRAIN_CHAIN``, ``fuse_train_chain``) runs the same
+block with a rope + flash-attention attend seam: ``norm_matmul`` folds each
+norm into ALL its consumers as one ``norm_multi_matmul`` node (K2 per
+consumer forward, one VJP), ``attn_epilogue`` folds (attend, o-proj,
+residual add) into one node whose o-proj and add follow the attention
+output, and ``optimizer_update`` collapses the AdamW8bit chain into one
+sweep (K8). ``train_kernel_launches_per_step`` derives every kernel's
+launches per train step from the same plans.
 """
 
 from __future__ import annotations
@@ -80,6 +89,39 @@ def enabled_fusions() -> tuple:
     return tuple(f for f in FUSIONS if f in names)
 
 
+# ---------------------------------------------------------------------------
+# Training half
+# ---------------------------------------------------------------------------
+
+#: the training block is the decode block's op list; only the attend
+#: seam's contents differ (rope + flash attention, ``models/llama.py``)
+TRAIN_CHAIN = LAYER_CHAIN
+
+#: the unfused AdamW8bit update as data; optimizer_update makes it one node
+OPT_CHAIN = (
+    _op("dequant_m"), _op("dequant_v"), _op("moment_update_m"),
+    _op("moment_update_v"), _op("bias_correction"), _op("weight_decay"),
+    _op("param_update"), _op("requant_m"), _op("requant_v"),
+)
+
+TRAIN_FUSIONS = ("norm_matmul", "attn_epilogue", "optimizer_update",
+                 "moe_grouped_bwd")
+
+
+def enabled_train_fusions() -> tuple:
+    """The train fusion families active now (flag-resolved)."""
+    if not flags.get_flag("fused_train"):
+        return ()
+    raw = str(flags.get_flag("fused_train_fusions"))
+    names = {s.strip() for s in raw.split(",") if s.strip()}
+    return tuple(f for f in TRAIN_FUSIONS if f in names)
+
+
+def train_fusion_on(name: str) -> bool:
+    """Is one train fusion family active?"""
+    return name in enabled_train_fusions()
+
+
 def _consumers(chain, idx):
     """Indices of nodes reading chain[idx].out, up to its redefinition."""
     name = chain[idx].out
@@ -121,6 +163,109 @@ def fuse_chain(chain: tuple, enabled: tuple) -> tuple:
                 ops[i:i + 3] = [_op("rope_append_attend")]
                 break
     return tuple(ops)
+
+
+@functools.lru_cache(maxsize=None)
+def fuse_train_chain(chain: tuple, enabled: tuple) -> tuple:
+    """The training matcher: ``norm_matmul`` folds each norm into ONE
+    ``norm_multi_matmul`` node over all its (adjacent) matmul consumers, so
+    the norm weight gets one gradient; ``attn_epilogue`` folds (attend,
+    o-proj matmul, residual add) into one ``attend_epilogue`` node."""
+    ops = list(chain)
+    if "norm_matmul" in enabled:
+        out, i = [], 0
+        while i < len(ops):
+            node = ops[i]
+            if node.kind == "rms_norm":
+                uses = _consumers(ops, i)
+                if uses and all(ops[j].kind == "matmul" for j in uses):
+                    if uses != list(range(i + 1, i + 1 + len(uses))):
+                        raise ValueError("norm consumers not adjacent")
+                    out.append(OpNode(
+                        "norm_multi_matmul", tuple(ops[j].out for j in uses),
+                        node.src, (node.w, tuple(ops[j].w for j in uses))))
+                    i += 1 + len(uses)
+                    continue
+            out.append(node)
+            i += 1
+        ops = out
+    if "attn_epilogue" in enabled:
+        for i in range(len(ops) - 2):
+            a, m, r = ops[i], ops[i + 1], ops[i + 2]
+            if (a.kind == "attend" and m.kind == "matmul"
+                    and m.src == (a.out,) and r.kind == "add"
+                    and set(r.src) == {r.out, m.out}):
+                ops[i:i + 3] = [OpNode("attend_epilogue", r.out,
+                                       a.src + (r.out,), m.w)]
+                break
+    return tuple(ops)
+
+
+def train_layer_plan(enabled=None) -> tuple:
+    """The (fused) training plan of one decoder block."""
+    return fuse_train_chain(
+        TRAIN_CHAIN, enabled_train_fusions() if enabled is None else enabled)
+
+
+def train_head_plan(enabled=None) -> tuple:
+    """Final norm + untied LM head for the TRAIN forward (a
+    single-consumer group under ``norm_matmul``)."""
+    enabled = enabled_train_fusions() if enabled is None else enabled
+    return fuse_train_chain(
+        HEAD_CHAIN, ("norm_matmul",) if "norm_matmul" in enabled else ())
+
+
+def train_opt_plan(enabled=None) -> tuple:
+    """The optimizer update's plan: one fused node, or the unfused list."""
+    enabled = enabled_train_fusions() if enabled is None else enabled
+    if "optimizer_update" in enabled:
+        return (_op("fused_adamw8bit"),)
+    return OPT_CHAIN
+
+
+def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
+                            recompute: bool, granularity: str = "full",
+                            fused_head_loss: bool, tied: bool = False,
+                            optimizer: str = "adamw8bit",
+                            enabled=None) -> dict:
+    """Kernel launches of one train step (forward, backward, update) by
+    counter name, from the train plans: K2 per consumer of each
+    ``norm_multi_matmul`` node, K1 per attend node, each again when
+    per-block recompute re-runs the block in backward (K1 not, under
+    ``core_attn`` with ``flash_save_residuals``: the first forward's
+    (out, lse) are kept), K5 once per attend node; the final norm in K6/K7
+    when the head runs in the chunked loss (``fused_head_loss``), else in
+    K2 through the head plan; one K8 per parameter tensor (``n_params``)
+    for AdamW8bit with ``optimizer_update``. With no family enabled
+    (``fused_train`` off) the blocks run the unfused plan: every norm in
+    K6/K7. ``enabled`` overrides the flag-resolved families."""
+    enabled = enabled_train_fusions() if enabled is None else enabled
+    lp = fuse_train_chain(TRAIN_CHAIN, enabled)
+    k2 = sum(len(n.w[1]) for n in lp if n.kind == "norm_multi_matmul")
+    k1 = sum(n.kind in ("attend", "attend_epilogue") for n in lp)
+    keep = (granularity == "core_attn"
+            and bool(flags.get_flag("flash_save_residuals")))
+    runs = 2 if recompute else 1
+    out = {"flash_attention": num_layers * k1 * (1 if keep else runs),
+           "flash_attention_bwd": num_layers * k1,
+           "fused_norm_matmul": num_layers * k2 * runs,
+           "rms_norm_fwd": 0, "rms_norm_bwd": 0,
+           "adamw8bit": (n_params if optimizer == "adamw8bit"
+                         and "optimizer_update" in enabled else 0)}
+    if not enabled:
+        # fused_train off: the unfused plan, every norm node in K6 (again
+        # under recompute) and K7
+        n_norms = sum(n.kind == "rms_norm" for n in lp)
+        out["rms_norm_fwd"] = num_layers * n_norms * runs
+        out["rms_norm_bwd"] = num_layers * n_norms
+    if fused_head_loss or tied or not enabled:
+        out["rms_norm_fwd"] += 1
+        out["rms_norm_bwd"] += 1
+    else:
+        out["fused_norm_matmul"] += sum(
+            len(n.w[1]) for n in train_head_plan(enabled)
+            if n.kind == "norm_multi_matmul")
+    return out
 
 
 def layer_plan(enabled=None) -> tuple:
@@ -185,17 +330,21 @@ def planned_kernel_launches(num_layers: int, tied: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False):
+def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False,
+              train=False):
     """THE plan interpreter. ``pfx`` scopes weight names (per-layer vs
-    top-level); ``plain`` runs quantized matmuls through their plain
-    version."""
+    top-level); ``plain`` runs quantized matmuls, and on a train plan the
+    norms, through their plain versions; ``train`` runs each unfused
+    rms_norm as ``fused_rms_norm`` (K6 forward, K7 backward)."""
     from ...models.llama import _pure_rms, _wmm
     from .fused_norm_matmul import fused_norm_matmul_pure
+    from .fused_norm_rope import fused_rms_norm
 
     for node in plan:
         if node.kind == "rms_norm":
-            env[node.out] = _pure_rms(env[node.src[0]], prms[pfx + node.w],
-                                      eps)
+            norm = (functools.partial(fused_rms_norm, plain=plain) if train
+                    else _pure_rms)
+            env[node.out] = norm(env[node.src[0]], prms[pfx + node.w], eps)
         elif node.kind == "matmul":
             env[node.out] = _wmm(env[node.src[0]], prms[pfx + node.w],
                                  plain=plain)
@@ -203,8 +352,22 @@ def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False):
             nw, mw = node.w
             env[node.out] = fused_norm_matmul_pure(
                 env[node.src[0]], prms[pfx + nw], eps, prms[pfx + mw])
+        elif node.kind == "norm_multi_matmul":
+            from .fused_norm_matmul import fused_norm_multi_matmul_pure
+
+            nw, mws = node.w
+            outs = fused_norm_multi_matmul_pure(
+                env[node.src[0]], prms[pfx + nw], eps,
+                tuple(prms[pfx + w] for w in mws))
+            env.update(zip(node.out, outs))
         elif node.kind == "attend":
             env[node.out] = attend(*[env[s] for s in node.src])
+        elif node.kind == "attend_epilogue":
+            # the folded (attend, o-proj matmul, residual add): the o-proj
+            # and the add follow the attention output in the attend seam
+            env[node.out] = attend(
+                env[node.src[0]], env[node.src[1]], env[node.src[2]],
+                residual=env[node.src[3]], o_w=prms[pfx + node.w])
         elif node.kind == "add":
             env[node.out] = env[node.src[0]] + env[node.src[1]]
         elif node.kind == "silu_mul":
@@ -226,7 +389,8 @@ def _checked_plan(plan, hidden, enabled):
         raise NotImplementedError(
             "the unfused rms_norm -> matmul chain does not run on CUDA "
             "tensors; enable the norm_matmul fusion (flags fused_decode, "
-            "fused_decode_fusions)")
+            "fused_decode_fusions; for training fused_train, "
+            "fused_train_fusions)")
     return plan
 
 
@@ -245,6 +409,27 @@ def run_lm_head(prms, hidden, eps, enabled=None, plain=False):
     plan = _checked_plan(head_plan(enabled), hidden, enabled)
     return _run_plan(plan, prms, {"hidden": hidden}, eps,
                      plain=plain)["logits"]
+
+
+def run_train_decoder_layer(prms, hidden, eps, attend, enabled=None,
+                            plain=False):
+    """Execute the (fused) TRAIN plan for one decoder block over its own
+    params (layer-local names). ``attend`` maps flat q/k/v to the flat
+    attention output (rope + flash attention); under ``attn_epilogue`` it
+    also takes ``residual=`` and ``o_w=``. On CUDA tensors a flag-resolved
+    plan with an unfused norm raises; an explicit ``enabled=()`` runs the
+    unfused plan (norms in K6/K7, or their plain versions with
+    ``plain``)."""
+    plan = _checked_plan(train_layer_plan(enabled), hidden, enabled)
+    return _run_plan(plan, prms, {"hidden": hidden}, eps, attend=attend,
+                     plain=plain, train=True)["hidden"]
+
+
+def run_train_lm_head(prms, hidden, eps, enabled=None, plain=False):
+    """Execute the (fused) final-norm + untied-LM-head TRAIN plan."""
+    plan = _checked_plan(train_head_plan(enabled), hidden, enabled)
+    return _run_plan(plan, prms, {"hidden": hidden}, eps, plain=plain,
+                     train=True)["logits"]
 
 
 def _fused_attend() -> bool:

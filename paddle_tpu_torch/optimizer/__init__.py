@@ -1,0 +1,4 @@
+from .optimizer import Optimizer
+from .optimizers import AdamW, AdamW8bit
+
+__all__ = ["AdamW", "AdamW8bit", "Optimizer"]

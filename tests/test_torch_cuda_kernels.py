@@ -24,6 +24,14 @@ two-source attention) and K3's ragged and masked forms — run on waves
 that mix decode rows, chunks with and without page context, slots with
 no rows and padding rows, at GQA groups 1, 4 and 8; their pools must be
 bit-identical to the plain chain's and every other cell untouched.
+The training kernels: K5 (flash backward) at sequence lengths that are not
+multiples of its 64-row tiles, GQA groups 1 and 4, Sk > Sq; K6/K7 (RMSNorm
+forward/backward) at row counts that are not multiples of K7's 32-row
+blocks; K8 (AdamW8bit) at 1, 2047 and 2049 elements and on a block of zero
+grads (the 1e-30 scale floor), with a master, on an f32 param and on a bf16
+param without one, over 3 steps: codes, scales and params bit-identical to
+the plain version on the card. Their wrappers, the autograd entries and the
+train fusion executor launch or raise.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from paddle_tpu_torch.models import kv_cache
 from paddle_tpu_torch.models.llama import _rope_tables
 from paddle_tpu_torch.ops.kernels import flash_attention as k1
 from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
+from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
+from paddle_tpu_torch.ops.kernels import fused_optimizer_update as k8
 from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
 from paddle_tpu_torch.ops.kernels import fusion
 from paddle_tpu_torch.ops.kernels import paged_attention as k10
@@ -484,3 +494,189 @@ def test_unfused_attend_seams_launch_k10_and_k11(gen):
         flags.set_flags({"fused_decode_fusions": old})
     assert (k10.launches - n10, k11.launches - n11,
             k3.ragged_launches - n3) == (1, 1, 0)
+
+
+# --------------------------------------------------------------------------
+# training kernels: K5 flash backward, K6/K7 RMSNorm, K8 AdamW8bit
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal", [
+    (1, 100, 100, 4, 4, True), (2, 130, 130, 8, 2, True),
+    (1, 64, 200, 4, 1, True), (1, 77, 77, 4, 1, False)])
+def test_flash_attention_bwd_matches_plain(gen, b, sq, sk, h, hk, causal):
+    q = _randn(gen, b, sq, h, 128)
+    k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
+    do = _randn(gen, b, sq, h, 128)
+    out, lse = k1.flash_attention_fwd(q, k, v, causal=causal)
+    got = k1.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    tols = k1.bwd_tolerance(q, k, v, do, *ref, causal=causal)
+    for name, a, r, t in zip(("dq", "dk", "dv"), got, ref, tols):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        worst = ((a.float() - r.float()).abs() / t).max().item()
+        assert worst <= 1.0, f"{name} worst err/tol {worst:.3f}"
+
+
+@pytest.mark.parametrize("n,h", [(37, 4096), (1, 256), (65, 1000)])
+def test_rms_norm_fwd_bwd_match_plain(gen, n, h):
+    x, g = _randn(gen, n, h), _randn(gen, n, h)
+    w = (torch.rand((h,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    out, rstd = k67.rms_norm_fwd(x, w, 1e-5)
+    dx, dw = k67.rms_norm_bwd(x, w, rstd, g)
+    r_out, r_rstd = k67.rms_norm_fwd_reference(x, w, 1e-5)
+    r_dx, r_dw = k67.rms_norm_bwd_reference(x, w, r_rstd, g)
+    torch.cuda.synchronize()
+    t_out, t_dx, t_dw = k67.tolerances(x, w, g, r_out, r_dx, r_dw)
+    assert bool(((out.float() - r_out.float()).abs() <= t_out).all())
+    assert bool(((rstd - r_rstd).abs() <= 1e-5 * r_rstd).all())
+    assert bool(((dx.float() - r_dx.float()).abs() <= t_dx).all())
+    assert bool(((dw - r_dw).abs() <= t_dw).all())
+
+
+def _adam_case(gen, n, dtype, master, zero_block=False):
+    p = (torch.randn((n,), generator=gen, device="cuda") * 0.02).to(dtype)
+    st = k8.init_state(p, master)
+    grads = []
+    for step in range(3):
+        gg = torch.randn((n,), generator=gen, device="cuda") * 10 ** -step
+        if zero_block:
+            gg[:k8.Q8_BLOCK] = 0
+        grads.append(gg.to(torch.bfloat16 if dtype == torch.bfloat16
+                           else torch.float32))
+    return p, st, grads
+
+
+@pytest.mark.parametrize("n,dtype,master,zero", [
+    (1, torch.bfloat16, True, False), (2047, torch.bfloat16, True, False),
+    (2049, torch.bfloat16, True, False), (4100, torch.bfloat16, True, True),
+    (2049, torch.float32, False, False), (3000, torch.bfloat16, False,
+                                          False)])
+def test_adamw8bit_matches_plain_bitwise(gen, n, dtype, master, zero):
+    p, st, grads = _adam_case(gen, n, dtype, master, zero)
+    p_ref, st_ref = p.clone(), {k: v.clone() for k, v in st.items()}
+    for step, g in enumerate(grads, start=1):
+        for wd in (0.01,):
+            k8.adamw8bit_update(p, g, st, 1e-3, step, wd, 1.0, 0.9, 0.999,
+                                1e-8)
+            k8.adamw8bit_update(p_ref, g, st_ref, 1e-3, step, wd, 1.0, 0.9,
+                                0.999, 1e-8, plain=True)
+        torch.cuda.synchronize()
+        for key in ("m_q", "v_q"):
+            assert torch.equal(st[key].view(torch.uint8),
+                               st_ref[key].view(torch.uint8)), (key, step)
+        for key in ("m_s", "v_s") + (("master",) if master else ()):
+            assert torch.equal(st[key], st_ref[key]), (key, step)
+        assert torch.equal(p, p_ref), step
+    if zero:
+        assert st["m_s"][0].item() == pytest.approx(1e-30)
+
+
+def test_training_wrappers_raise_instead_of_falling_back(gen):
+    q = _randn(gen, 1, 64, 2, 128)
+    out, lse = k1.flash_attention_fwd(q, q, q, causal=True)
+    with pytest.raises(ValueError):                       # CPU/CUDA mix
+        k1.flash_attention_bwd(q, q, q, out, lse.cpu(), q, causal=True)
+    with pytest.raises(ValueError):                       # f32 do
+        k1.flash_attention_bwd(q, q, q, out, lse, q.float(), causal=True)
+    with pytest.raises(ValueError):                       # not contiguous
+        k1.flash_attention_bwd(q, q, q, out, lse, q.transpose(1, 2)
+                               .contiguous().transpose(1, 2), causal=True)
+    old = flags.get_flag("flash_bwd_impl")
+    try:
+        flags.set_flags({"flash_bwd_impl": "fused"})
+        with pytest.raises(NotImplementedError):
+            k1.flash_attention_bwd(q, q, q, out, lse, q, causal=True)
+    finally:
+        flags.set_flags({"flash_bwd_impl": old})
+    x = _randn(gen, 4, 256)
+    with pytest.raises(ValueError):
+        k67.rms_norm_fwd(x, x[0].float(), 1e-5)          # f32 weight
+    with pytest.raises(ValueError):
+        k67.rms_norm_fwd(x[:, :128], x[0, :128], 1e-5)   # not contiguous
+    out, rstd = k67.rms_norm_fwd(x, x[0], 1e-5)
+    with pytest.raises(ValueError):
+        k67.rms_norm_bwd(x, x[0], rstd.cpu(), x)
+    xg = x.clone().requires_grad_(True)                   # grad would drop
+    with pytest.raises(RuntimeError):
+        k67.rms_norm_fwd(xg, x[0], 1e-5)
+    with pytest.raises(RuntimeError):
+        k2.fused_norm_matmul_pure(xg, x[0], 1e-5, _randn(gen, 256, 8))
+    with pytest.raises(RuntimeError):
+        k1.flash_attention_fwd(q.clone().requires_grad_(True), q, q)
+    p = _randn(gen, 100)
+    st = k8.init_state(p, True)
+    with pytest.raises(ValueError):                       # int8 param
+        k8.adamw8bit_update(torch.zeros(100, dtype=torch.int8,
+                                        device="cuda"), p, st, 1e-3, 1,
+                            0.0, 1.0, 0.9, 0.999, 1e-8)
+    with pytest.raises(ValueError):                       # CPU grad
+        k8.adamw8bit_update(p, p.cpu(), st, 1e-3, 1, 0.0, 1.0, 0.9, 0.999,
+                            1e-8)
+    with pytest.raises(ValueError):                       # f16 grad
+        k8.adamw8bit_update(p, p.half(), st, 1e-3, 1, 0.0, 1.0, 0.9,
+                            0.999, 1e-8)
+    old = flags.get_flag("fused_train_fusions")
+    try:
+        flags.set_flags({"fused_train_fusions": "norm_matmul"})
+        with pytest.raises(NotImplementedError):
+            k8.adamw8bit_update(p, p, st, 1e-3, 1, 0.0, 1.0, 0.9, 0.999,
+                                1e-8)
+    finally:
+        flags.set_flags({"fused_train_fusions": old})
+
+
+def test_train_executor_raises_with_norm_matmul_off(gen):
+    """With the norm_matmul train family off, the flag-resolved TRAIN plans
+    would run the q/k/v, gate/up and head matmuls apart from their norm,
+    bypassing K2, on the card: they raise; ``enabled=()`` runs the
+    unfused chain (the norm in K6)."""
+    h = 128
+    prms = {"lm_head.weight": _randn(gen, h, h),
+            "model.norm.weight": torch.ones(h, device="cuda",
+                                            dtype=torch.bfloat16)}
+    hidden = _randn(gen, 2, h)
+    old = flags.get_flag("fused_train_fusions")
+    try:
+        flags.set_flags({"fused_train_fusions": "attn_epilogue,"
+                                                "optimizer_update"})
+        with pytest.raises(NotImplementedError):
+            fusion.run_train_lm_head(prms, hidden, 1e-5)
+        with pytest.raises(NotImplementedError):
+            fusion.run_train_decoder_layer(prms, hidden, 1e-5, attend=None)
+        n6 = k67.fwd_launches
+        ref = fusion.run_train_lm_head(prms, hidden, 1e-5, enabled=())
+        assert k67.fwd_launches - n6 == 1
+    finally:
+        flags.set_flags({"fused_train_fusions": old})
+    n2 = k2.launches
+    y = fusion.run_train_lm_head(prms, hidden, 1e-5)     # K2, with a VJP
+    assert k2.launches - n2 == 1
+    diff = (y.float() - ref.float()).abs()
+    assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+
+
+def test_autograd_entries_launch_the_kernels(gen):
+    """fused_rms_norm and flash_attention_train launch K6/K7 and K1/K5
+    under autograd; their gradients equal the wrappers' own."""
+    x = _randn(gen, 33, 512).requires_grad_(True)
+    w = (torch.rand((512,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16).requires_grad_(True)
+    g = _randn(gen, 33, 512)
+    n6, n7 = k67.fwd_launches, k67.bwd_launches
+    y = k67.fused_rms_norm(x, w, 1e-5)
+    y.backward(g)
+    assert (k67.fwd_launches - n6, k67.bwd_launches - n7) == (1, 1)
+    with torch.no_grad():
+        _, rstd = k67.rms_norm_fwd(x, w, 1e-5)
+        dx, dw = k67.rms_norm_bwd(x, w, rstd, g)
+    assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw.to(w.dtype))
+    q = _randn(gen, 1, 70, 4, 128).requires_grad_(True)
+    kv = _randn(gen, 1, 70, 2, 128).requires_grad_(True)
+    do = _randn(gen, 1, 70, 4, 128)
+    n1, n5 = k1.launches, k1.bwd_launches
+    k1.flash_attention_train(q, kv, kv).backward(do)
+    assert (k1.launches - n1, k1.bwd_launches - n5) == (1, 1)
+    assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
