@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--profile]
 
 ``--profile`` adds torch.profiler traces of the serving runs and of one
-train step (device time by kernel class, device busy share). Phases, in order; any failure raises and the process exits nonzero:
+Llama and one MoE train step (device time by kernel class, device busy
+share). Phases, in order; any failure raises and the process exits nonzero:
 
 1. device   — the card's name and power limit (nvidia-smi); TF32 and
                reduced-precision bf16 matmul reductions off, so the plain
@@ -74,7 +75,35 @@ train step (device time by kernel class, device busy share). Phases, in order; a
                median step ms, tokens/s, the 6N+attention model-FLOP share
                of the bf16 peak (``mfu_6n_attn``), peak memory; then the
                chunked loss's forward + backward timed alone.
-10. result  — a ``{"kernels": [...]}`` line, then the last line
+10. MoE kernels — after the Llama train model is freed, K13 (grouped
+               matmul: forward at 4096 -> 14336 and 14336 -> 4096, and its
+               transposed dX form) and K14 (segment dW at both weight
+               shapes, bf16 out) against their plain versions at the
+               Mixtral-8x7B train shapes: T = 16,384 routed rows split
+               unevenly over 8 experts (one empty, one with 30%,
+               boundaries off the 128-row tile); per-element tolerances
+               from the inputs, K14's empty group all zeros; times,
+               bounds and ``torch._grouped_mm`` as the library yardstick
+               where this torch has it.
+11. MoE gradient check — one full-width Mixtral layer's experts at B=1
+               x S=2048 under a routing computed once in f32: y, dx and
+               the three dWs of the kernel path, the plain bf16 path and
+               the plain f32 path; kernel-vs-f32 relative L2 <= 2 x
+               plain-bf16-vs-f32, which two controls (a group boundary
+               moved by one row, a group's last 64-row dW slice left
+               out) must fail; then a 1-layer full-width MoEForCausalLM:
+               per-token losses against its plain f32 forward and the
+               token copies routed to another expert.
+12. MoE training — cell mixtral-8x7b-3L-train: ``jit.TrainStep`` over
+               Mixtral-8x7B widths cut to 3 layers (bf16, dropless
+               routing, top-2 of 8 experts) with AdamW8bit(1e-4), B=4 x
+               S=2048 random tokens: one warm-up step, then 3 timed steps
+               whose K1, K2, K5, K6, K7, K8, K13 and K14 counts must
+               equal ``moe_train_kernel_launches_per_step``'s plan; the
+               loss must fall; median step ms, tokens/s, ``mfu_6n_attn``
+               over the active (top-2) parameters, peak memory, each
+               layer's aux loss and routed rows per expert.
+13. result  — a ``{"kernels": [...]}`` line, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the CUDA toolkit; imports nothing of JAX.
@@ -83,6 +112,7 @@ Needs a CUDA device and the CUDA toolkit; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -817,6 +847,12 @@ def _kernel_class(name):
         return "K7 rms_norm_bwd"
     if "adamw8bit_kernel" in name:
         return "K8 adamw8bit"
+    if "grouped_matmul_kernel<false>" in name:
+        return "K13 grouped_matmul (forward)"
+    if "grouped_matmul_kernel<true>" in name:
+        return "K13 grouped_matmul (dX form)"
+    if "segment_dw_kernel" in name:
+        return "K14 segment_dw"
     mm = re.search(r"matmul_(?:small|tiled)_kernel<([^>]*)>", name)
     if mm:  # template arguments end with NORM, weight type, scale mode
         norm, wt = (a.strip() for a in mm.group(1).split(",")[-3:-1])
@@ -1745,6 +1781,392 @@ def train(torch, kernels, profile=False):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# MoE training (phases 10-12): K13 and K14 at the Mixtral-8x7B train
+# shapes, the full-width MoE gradient check, the timed 3-layer train run
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 3            # of Mixtral-8x7B's 32: 4.62B params, ~46 GB of
+                          # AdamW8bit state (all 32 would need ~470 GB)
+MOE_T = TB * TS * 2       # routed rows of one train step: B*S tokens, top-2
+# the kernels phase's routing: rows per expert (one empty, one with 30%,
+# boundaries off the 128-row tile), 16,384 in all
+MOE_COUNTS = (1843, 0, 4915, 2011, 1777, 2049, 1901, 1888)
+DW_SLICE = 64             # the rows K14 takes per slice (grouped_tiles.cuh BK)
+
+
+def mixtral_config(layers, **kw):
+    """Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+    config.json), cut to ``layers`` layers, bf16."""
+    from paddle_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(**{**dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=layers, num_attention_heads=32,
+        num_key_value_heads=8, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, rope_theta=1e6, num_experts=8, top_k=2,
+        moe_aux_loss_coef=0.02, dtype="bfloat16"), **kw})
+
+
+def _library(torch, fn, want, tol, label):
+    """(``fn``, None) when the library call ``fn`` runs on this torch and
+    agrees with the plain version ``want`` within ``tol``, else (None, why
+    not). A yardstick only: the port never calls it."""
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        why = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    else:
+        if tuple(out.shape) == tuple(want.shape) and bool(
+                ((out.float() - want.float()).abs() <= tol).all()):
+            return fn, None
+        why = "disagrees with the plain version"
+    log(f"  no library yardstick for {label}: {why}")
+    return None, why
+
+
+def check_grouped_matmul(torch, timer, gm):
+    """K13 (forward at gate/up 4096 -> 14336 and down 14336 -> 4096, and
+    its transposed dX form at 14336 -> 4096) and K14 (dW at both weight
+    shapes, bf16 out) at the Mixtral train shapes, T = 16,384 routed rows
+    split by MOE_COUNTS; each element within ``gm.tolerance`` /
+    ``gm.dw_tolerance`` of the plain version, K14's empty group all
+    zeros. Library: ``torch._grouped_mm`` where this torch has it."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
+                       dtype=torch.int32, device="cuda")
+    t, e = MOE_T, len(MOE_COUNTS)
+    assert int(off[-1]) == t
+    h, m = 4096, 14336
+    rows = []
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    cases = [("grouped_matmul", h, m, False), ("grouped_matmul_down", m, h,
+                                                False),
+             ("grouped_matmul_dx", m, h, True)]
+    for name, kdim, n, trans in cases:
+        x = rnd(t, kdim)
+        w = rnd(e, n, kdim, scale=0.02) if trans else rnd(e, kdim, n,
+                                                          scale=0.02)
+        got = gm.gmm(x, off, w, trans_w=trans)
+        ref = gm.grouped_matmul_reference(x, off, w, trans_w=trans)
+        torch.cuda.synchronize()
+        tol = gm.tolerance(x, off, w, ref, trans_w=trans)
+        diff = (got.float() - ref.float()).abs()
+        worst = (diff / tol).max().item()
+        err = diff.max().item()
+        del got, diff
+        log(f"K13 {name}: worst err/tol {worst:.3f}")
+        assert worst < 1.0, f"{name} worst err/tol {worst}"
+        # torch._grouped_mm (group ends as offs) wants B column-major:
+        # w^T (E, N, K) lies so for the dX form; else a column-major copy,
+        # made outside the timing
+        ends = off[1:].contiguous()
+        wl = (w.transpose(1, 2) if trans
+              else w.transpose(1, 2).contiguous().transpose(1, 2))
+        lib_fn, why = _library(torch, lambda: torch._grouped_mm(
+            x, wl, offs=ends), ref, tol, name)
+        lib_note = "torch._grouped_mm" if lib_fn else f"none: {why}"
+        del ref, tol
+        ms = timer(lambda: gm.gmm(x, off, w, trans_w=trans))
+        plain = timer(lambda: gm.grouped_matmul_reference(
+            x, off, w, trans_w=trans), iters=5)
+        lib = timer(lib_fn) if lib_fn else None
+        del wl
+        flops = 2 * t * kdim * n
+        nbytes = 2 * (x.numel() + w.numel() + t * n) + 4 * off.numel()
+        bms, by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"K13 {name} T{t} K{kdim} N{n}: max_abs_err {err:.3e} kernel_ms "
+            f"{ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain:.4f} "
+            f"library_ms {lib if lib is None else round(lib, 4)} "
+            f"({lib_note}) bound_ms {bms:.4f} ({by})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
+                     "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:200",
+                     "max_abs_err": err, "worst_err_over_tol": worst,
+                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib,
+                     "library_note": lib_note,
+                     "shape": f"T{t} K{kdim} N{n} E{e} rows {MOE_COUNTS}"
+                              + (" w^T (dX form)" if trans else "")})
+        del x, w
+        torch.cuda.empty_cache()
+
+    for name, kdim, n in (("segment_dw", h, m), ("segment_dw_down", m, h)):
+        x, dy = rnd(t, kdim), rnd(t, n)
+        got = gm.segment_dw(x, dy, off, e, out_dtype=torch.bfloat16)
+        ep = (("cast", torch.bfloat16),)
+        ref = gm.segment_dw_reference(x, dy, off, e, ep)
+        torch.cuda.synchronize()
+        tol = gm.dw_tolerance(x, dy, off, e, ref)
+        diff = (got.float() - ref.float()).abs()
+        worst = (diff / tol).max().item()
+        err = diff.max().item()
+        empty = [i for i, c in enumerate(MOE_COUNTS) if not c]
+        assert all(not got[i].any() for i in empty), "K14: empty group"
+        del got, diff
+        log(f"K14 {name}: worst err/tol {worst:.3f}, empty group {empty} "
+            f"all zeros")
+        assert worst < 1.0, f"{name} worst err/tol {worst}"
+        # torch._grouped_mm's grouped-K form (x^T @ dy, group ends on T)
+        # asserts on the device, poisoning the context, unless every
+        # group's rows are a multiple of 8 (16 bytes): these are not, so
+        # there is no one-call yardstick; the plain version is the
+        # per-expert cuBLAS loop
+        assert any(c % 8 for c in MOE_COUNTS)
+        lib, lib_note = None, ("none: torch._grouped_mm's grouped-K form "
+                               "needs each group's rows % 8 == 0")
+        del ref, tol
+        ms = timer(lambda: gm.segment_dw(x, dy, off, e,
+                                         out_dtype=torch.bfloat16))
+        plain = timer(lambda: gm.segment_dw_reference(x, dy, off, e, ep),
+                      iters=5)
+        flops = 2 * t * kdim * n
+        nbytes = 2 * (x.numel() + dy.numel() + e * kdim * n) + 4 * off.numel()
+        bms, by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"K14 {name} T{t} K{kdim} N{n}: max_abs_err {err:.3e} kernel_ms "
+            f"{ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain:.4f} "
+            f"library_ms {lib if lib is None else round(lib, 4)} "
+            f"({lib_note}) bound_ms {bms:.4f} ({by})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/segment_dw.cu",
+                     "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:469",
+                     "max_abs_err": err, "worst_err_over_tol": worst,
+                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib,
+                     "library_note": lib_note,
+                     "shape": f"T{t} K{kdim} N{n} E{e} rows {MOE_COUNTS} "
+                              f"bf16 out"})
+        del x, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_expert_run(torch, moe, gm, x, dy, ws, routing, dtype, plain,
+                    offsets=None, drop_chunk=None):
+    """y, dx and the three dWs of the expert half of one MoE layer
+    (dispatch -> grouped SwiGLU -> combine) under a FIXED routing, in
+    ``dtype``; ``offsets`` overrides the routing's (a control);
+    ``drop_chunk`` = (lo, hi): rows [lo, hi) of dy are zeroed in every dW
+    outer product (a control: a group's last row slice left out)."""
+    _, wcomb, order, off = routing
+    off = off if offsets is None else offsets
+    xr = x.to(dtype).detach().requires_grad_(True)
+    wr = [w.detach().to(dtype).requires_grad_(True) for w in ws]
+    real_dw = gm.segment_dw_pure
+    if drop_chunk is not None:
+        def dropped(x2, dy2, o, e, epilogue=None, plain=False):
+            dy2 = dy2.clone()
+            dy2[drop_chunk[0]:drop_chunk[1]] = 0
+            return real_dw(x2, dy2, o, e, epilogue, plain)
+        gm.segment_dw_pure = dropped
+    try:
+        xs = moe._dispatch(xr, order, 2)
+        ys = moe._grouped_swiglu(xs, off, *wr, plain=plain)
+        y = moe._combine(ys, order, wcomb, dtype)
+        y.backward(dy.to(dtype))
+    finally:
+        gm.segment_dw_pure = real_dw
+    return [y.detach(), xr.grad] + [w.grad for w in wr]
+
+
+def moe_grad_check(torch, gm):
+    """One full-width Mixtral layer's experts at B=1 x S=2048: the routing
+    (ids, order, offsets, combine weights) is computed ONCE in f32 from the
+    router and shared by three runs of dispatch -> grouped SwiGLU ->
+    combine and its backward: the kernel path (K13, K14) in bf16, the plain
+    path in bf16 and the plain path in f32. For y, dx, dW_gate, dW_up and
+    dW_down: kernel-vs-f32 relative L2 <= 2 x plain-bf16-vs-f32 (phase 8's
+    rule). Two controls must fail it: K13 fed offsets with one group
+    boundary moved by one row, and dW with one group's last 64-row slice
+    of dy left out. Then a 1-layer full-width MoEForCausalLM: the
+    per-token losses of the kernel path against the plain f32 forward,
+    and the count of token copies routed to another expert."""
+    from paddle_tpu_torch.models import moe
+
+    cfg = mixtral_config(1)
+    h, s = cfg.hidden_size, TS
+    mlp = moe.MoEMLP(cfg, torch.bfloat16, torch.device("cuda"),
+                     torch.Generator(device="cuda").manual_seed(SEED + 31))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    x = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
+    ws = (mlp.w_gate, mlp.w_up, mlp.w_down)
+    with torch.no_grad():
+        routing = moe._dropless_routing(
+            (x.float() @ mlp.gate.weight.float())[None], cfg.top_k)
+    off = routing[3].tolist()
+    sizes = [b - a for a, b in zip(off, off[1:])]
+    log(f"moe grad check: routed rows per expert {sizes}")
+    kern = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
+                           torch.bfloat16, False)
+    plain = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
+                            torch.bfloat16, True)
+    ref = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
+                          torch.float32, True)
+    # control (a): the first boundary between two non-empty groups moves
+    # down one row (that row computes with its neighbour's expert)
+    j = next(i for i in range(1, len(off) - 1)
+             if off[i] > off[i - 1] and off[i + 1] > off[i])
+    moved = routing[3].clone()
+    moved[j] += 1
+    ctl_a = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
+                            torch.bfloat16, False, offsets=moved)
+    # control (b): the largest group's last K14 row slice left out of dW
+    big = max(range(len(sizes)), key=lambda i: sizes[i])
+    hi = off[big + 1]
+    chunk = (hi - ((sizes[big] - 1) % DW_SLICE + 1), hi)
+    ctl_b = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
+                            torch.bfloat16, False, drop_chunk=chunk)
+
+    def rel(a, r):
+        return ((a.float() - r).norm() / r.norm()).item()
+
+    names = ("y", "dx", "dW_gate", "dW_up", "dW_down")
+    rows, worst, ctl = {}, 0.0, {"a": 0.0, "b": 0.0}
+    for i, name in enumerate(names):
+        ek, ep = rel(kern[i], ref[i]), rel(plain[i], ref[i])
+        ea, eb = rel(ctl_a[i], ref[i]), rel(ctl_b[i], ref[i])
+        rows[name] = {"kernel": ek, "plain_bf16": ep,
+                      "kernel_over_plain": ek / ep,
+                      "moved_boundary_over_plain": ea / ep,
+                      "dropped_slice_over_plain": eb / ep}
+        worst = max(worst, ek / ep)
+        ctl["a"], ctl["b"] = max(ctl["a"], ea / ep), max(ctl["b"], eb / ep)
+        log(f"  moe grad check {name}: rel L2 err vs f32 kernel {ek:.3e} "
+            f"plain bf16 {ep:.3e} ratio {ek / ep:.3f}; controls: moved "
+            f"boundary {ea / ep:.3f}, dropped dW slice {eb / ep:.3f}")
+    del kern, plain, ref, ctl_a, ctl_b, mlp
+    torch.cuda.empty_cache()
+    assert worst <= 2, f"MoE kernel/plain bf16 error ratio {worst}"
+    assert ctl["a"] > 2 and ctl["b"] > 2, (
+        f"a control passed the rule {ctl}: the check cannot see a fault")
+
+    # the 1-layer model: per-token losses and routing flips, kernel path
+    # (bf16) against the plain f32 forward of the same weights
+    model = moe.MoEForCausalLM(cfg, seed=SEED)
+    ids = torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                        device="cuda")
+    m32 = moe.MoEForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                             seed=SEED)
+    probes, tok = {}, {}
+    with torch.no_grad():
+        for p32, p in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p.float())
+        for label, mdl, plain_ in (("kernel", model, False),
+                                   ("f32", m32, True)):
+            probes[label] = []
+            logits, _ = mdl(ids, router_probe=probes[label], plain=plain_)
+            lg = logits[0, :-1].float()
+            tok[label] = torch.logsumexp(lg, -1) - lg.gather(
+                1, ids[0, 1:, None])[:, 0]
+            del logits, lg
+    del model, m32
+    torch.cuda.empty_cache()
+    sel = {k: moe._topk_select(torch.softmax(v[0].float(), -1), 2)[0]
+           for k, v in probes.items()}
+    flips = int((sel["kernel"] != sel["f32"]).sum())
+    loss_rel = rel(tok["kernel"], tok["f32"])
+    log(f"moe 1-layer model (B1 S{s}): per-token loss rel L2 err vs f32 "
+        f"{loss_rel:.3e}, mean loss kernel {tok['kernel'].mean():.5f} f32 "
+        f"{tok['f32'].mean():.5f}; token copies routed to another expert "
+        f"than in f32: {flips} of {2 * s}")
+    assert all(torch.isfinite(v).all() for v in tok.values())
+    return {"routed_rows": sizes, "per_tensor": rows, "worst_ratio": worst,
+            "control_worst_ratio": ctl, "one_layer_loss_rel_err": loss_rel,
+            "one_layer_routing_flips": flips}
+
+
+def moe_train(torch, kernels, profile=False):
+    """The timed MoE train run (cell mixtral-8x7b-3L-train): Mixtral-8x7B
+    widths, 3 layers, bf16, AdamW8bit(1e-4) with f32 masters, B=4 x S=2048
+    random tokens (the same batch every step): one warm-up step, then
+    TRAIN_STEPS timed steps whose launch counts must equal the plan."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import moe
+    from paddle_tpu_torch.ops.kernels import fusion
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    assert fusion.enabled_train_fusions() == fusion.TRAIN_FUSIONS
+    cfg = mixtral_config(MOE_LAYERS)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = moe.MoEForCausalLM(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_tensors = sum(1 for _ in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW8bit(learning_rate=1e-4, parameters=model.parameters())
+    step = TrainStep(model, lambda out, lb: model.loss(out, lb), opt)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TB, TS), generator=g,
+                        device="cuda")
+    plan = fusion.moe_train_kernel_launches_per_step(L, n_tensors)
+    assert n_tensors == 10 * L + 3 and plan["adamw8bit"] == n_tensors, plan
+    log(f"moe train: Mixtral-8x7B widths, {L} layers, {n_params / 1e9:.3f}B "
+        f"params bf16 ({n_tensors} tensors), init "
+        f"{time.perf_counter() - t0:.1f}s; plan per step {plan}")
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(ids, ids)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms, first_loss = timed_step()                     # warm-up
+    kernels.reset_launch_counts()
+    runs = [timed_step() for _ in range(TRAIN_STEPS)]      # THE counted run
+    counts = kernels.launch_counts()
+    expected = dict.fromkeys(counts, 0)
+    expected.update({k: v * TRAIN_STEPS for k, v in plan.items()})
+    log(f"moe train: launches over {TRAIN_STEPS} steps {counts} expected "
+        f"{expected}")
+    assert counts == expected, f"launch counts {counts} != plan {expected}"
+    losses = [first_loss] + [l for _, l in runs]
+    assert all(math.isfinite(l) for l in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    step_ms = statistics.median(t for t, _ in runs)
+    tokens = TB * TS
+    fpt = moe.MoEForCausalLM.flops_per_token(cfg, TS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = {"step_ms": step_ms, "step_ms_runs": [t for t, _ in runs],
+             "warmup_step_ms": warm_ms, "tokens_per_s": tokens / step_ms * 1e3,
+             "mfu_6n_attn": fpt * tokens / (step_ms / 1e3) / BF16_FLOPS,
+             "losses": losses, "max_memory_allocated_gib": peak,
+             "params": n_params, "launches": counts}
+    if profile:
+        stats["profile"] = profile_window(torch, lambda: step(ids, ids),
+                                          "moe train step")
+    # each layer's aux loss and routed rows per expert on the batch, after
+    # the timed steps (the probe's forward is not counted)
+    probe = []
+    with torch.no_grad():
+        model.eval()
+        model(ids, router_probe=probe)
+    stats["aux_per_layer"], stats["routed_rows_per_layer"] = [], []
+    for lg in probe:
+        aux, _, _, off = moe._dropless_routing(lg, cfg.top_k)
+        stats["aux_per_layer"].append(aux.item())
+        off = off.tolist()
+        stats["routed_rows_per_layer"].append(
+            [b - a for a, b in zip(off, off[1:])])
+    log(f"moe train: B{TB} S{TS}, step_ms {[round(t, 1) for t, _ in runs]} "
+        f"(median {step_ms:.1f}, warm-up {warm_ms:.1f}), "
+        f"{stats['tokens_per_s']:.1f} tok/s, mfu_6n_attn "
+        f"{stats['mfu_6n_attn']:.4f}, losses {losses}, "
+        f"max_memory_allocated {peak:.2f} GiB, aux per layer "
+        f"{stats['aux_per_layer']}, routed rows per expert "
+        f"{stats['routed_rows_per_layer']}")
+    del step, opt, model, probe
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
 def main() -> int:
     import torch
 
@@ -1760,6 +2182,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
     from paddle_tpu_torch.ops.kernels import fused_optimizer_update as k8
     from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as k1314
     from paddle_tpu_torch.ops.kernels import paged_attention as k10
     from paddle_tpu_torch.ops.kernels import quant_matmul as k4
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
@@ -1831,11 +2254,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_train, stats_train = train(torch, kernels, profile=profile)
     stats_train["grad_check"] = grad_check
+    torch.cuda.empty_cache()
+
+    # ---- 10. the MoE kernels vs plain at the Mixtral train shapes, 11. the
+    # MoE gradient check, 12. the timed MoE train run (its counts set to 0
+    # just before its counted steps and read just after)
+    timer = ColdTimer(torch)
+    own += [(row, "moe train") for row in check_grouped_matmul(torch, timer,
+                                                                k1314)]
+    del timer
+    torch.cuda.empty_cache()
+    moe_check = moe_grad_check(torch, k1314)
+    torch.cuda.empty_cache()
+    counts_moe, stats_moe = moe_train(torch, kernels, profile=profile)
+    stats_moe["grad_check"] = moe_check
     paths = {"generate_paged bf16": counts,
              "generate_paged int8": counts_int8,
              **{f"batcher {label}": stats_batcher[label]["launches"]
                 for label, _ in BATCHER_PLANS},
-             "train": counts_train}
+             "train": counts_train, "moe train": counts_moe}
     counter = {"flash_attention_fwd": "flash_attention",
                "norm_matmul": "fused_norm_matmul",
                "norm_matmul_int8": "fused_norm_matmul",
@@ -1849,7 +2286,11 @@ def main() -> int:
                "flash_attention_bwd": "flash_attention_bwd",
                "rms_norm_fwd": "rms_norm_fwd",
                "rms_norm_bwd": "rms_norm_bwd",
-               "adamw8bit": "adamw8bit"}
+               "adamw8bit": "adamw8bit",
+               "grouped_matmul": "grouped_matmul",
+               "grouped_matmul_down": "grouped_matmul",
+               "grouped_matmul_dx": "grouped_matmul",
+               "segment_dw": "segment_dw", "segment_dw_down": "segment_dw"}
     rows = []
     for row, path in own:
         c = counter[row["name"]]
@@ -1864,13 +2305,14 @@ def main() -> int:
         + ", ".join(f"{k} {v['max_memory_allocated_gib']:.2f} GiB"
                     for k, v in stats_batcher.items()))
 
-    log(f"max_memory_allocated while training: "
-        f"{stats_train['max_memory_allocated_gib']:.2f} GiB")
+    log(f"max_memory_allocated while training: Llama "
+        f"{stats_train['max_memory_allocated_gib']:.2f} GiB, MoE "
+        f"{stats_moe['max_memory_allocated_gib']:.2f} GiB")
 
-    # ---- 10. result
+    # ---- 13. result
     log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8,
                     "serving_batcher": stats_batcher,
-                    "train": stats_train}))
+                    "train": stats_train, "moe_train": stats_moe}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ It serves Llama greedy paged decoding
 bf16 or with weight-only int8/int4 weights and an int8 KV cache
 (``quantize_for_inference``, ``cache_dtype="int8"``), and through the
 continuous batcher (``inference.ContinuousBatcher``); it trains Llama
-(``jit.TrainStep`` with ``optimizer.AdamW`` / ``AdamW8bit``). Its
+and the dropless mixture-of-experts family (``models.moe``) with
+``jit.TrainStep`` and ``optimizer.AdamW`` / ``AdamW8bit``. Its
 hand-written CUDA kernels live under ``csrc/``:
 
   flash_attention_fwd / _bwd  causal GQA attention, forward and backward
@@ -22,6 +23,8 @@ hand-written CUDA kernels live under ``csrc/``:
   quant_matmul                weight-only int8/int4 matmul
   rms_norm_fwd / _bwd         RMSNorm forward and backward (training)
   adamw8bit                   the one-sweep AdamW8bit update
+  grouped_matmul, segment_dw  the MoE experts' grouped matmul (forward and
+                              dX) and per-expert dW
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.

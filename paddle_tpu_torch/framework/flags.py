@@ -105,8 +105,9 @@ define_flag("fused_train_fusions",
             "norm_matmul,attn_epilogue,optimizer_update,moe_grouped_bwd",
             "Comma-separated subset of the train fusion pass's families to "
             "enable (under fused_train): 'norm_matmul', 'attn_epilogue', "
-            "'optimizer_update' and/or 'moe_grouped_bwd' (the last is not "
-            "ported: no MoE model yet).")
+            "'optimizer_update' and/or 'moe_grouped_bwd' (the MoE "
+            "backward's per-expert dW through the segment-dW kernel K14, "
+            "its cast riding as an epilogue op).")
 define_flag("flash_bwd_impl", "split",
             "Flash-attention backward: 'split' = the dq + dkv kernels (K5); "
             "'fused' = the one-pass kernel, not ported yet (raises on the "
@@ -116,3 +117,18 @@ define_flag("flash_save_residuals", False,
             "first forward, so the recompute in backward skips the K1 "
             "re-run. Off (the JAX package's default) = the recompute runs "
             "the flash forward again.")
+define_flag("grouped_matmul_kernel", True,
+            "Grouped (segmented) matmul over expert-sorted token rows runs "
+            "the grouped kernel (ops/kernels/grouped_matmul.py, K13): one "
+            "grid walks per-expert contiguous row blocks described by a "
+            "group_offsets vector, group boundaries handled in-kernel (no "
+            "per-expert padding). Off = the plain per-expert slices, on "
+            "CPU tensors only: a CUDA tensor raises.")
+define_flag("moe_dropless", True,
+            "MoE routing uses the sort-based dropless fast path: top-k "
+            "gating -> argsort by expert id -> grouped SwiGLU through the "
+            "grouped matmul -> combine by weight. Every routed token is "
+            "computed (dropped_token_rate == 0 by construction); FLOPs "
+            "scale with tokens actually routed. Off = the GShard "
+            "dense-einsum dispatch with capacity padding and overflow "
+            "drops.")

@@ -292,12 +292,15 @@ def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None):
     return residual + out @ o_w
 
 
-def _train_fused_block(layer, hidden, plain=False, stash=None):
+def _train_fused_block(layer, hidden, plain=False, stash=None,
+                       attn_only=False):
     """Training forward of one decoder block through the TRAIN plan
     (``fusion.run_train_decoder_layer``) over the block's own parameters.
     With no train family on (``fused_train`` off) it runs the unfused plan,
     every norm in K6/K7; ``plain`` runs the unfused plan with every
-    kernel's plain version — the on-card reference."""
+    kernel's plain version — the on-card reference. ``attn_only`` runs the
+    attention half and returns the post-attention residual stream (the MoE
+    decoder block's share; its routed MLP keeps its own dispatch)."""
     from ..ops.kernels import fusion
 
     cfg = layer.self_attn.config
@@ -308,7 +311,7 @@ def _train_fused_block(layer, hidden, plain=False, stash=None):
     unfused = plain or not fusion.enabled_train_fusions()
     return fusion.run_train_decoder_layer(
         dict(layer.named_parameters()), hidden, cfg.rms_norm_eps, attend,
-        enabled=() if unfused else None, plain=plain)
+        enabled=() if unfused else None, plain=plain, attn_only=attn_only)
 
 
 def _train_head_fusion_active(model) -> bool:

@@ -3,12 +3,13 @@
 Each module holding a kernel keeps a plain PyTorch version beside it and a
 plain-integer launch counter that only its launch site increments
 (``fused_rope_attend`` keeps one per entry form; ``flash_attention`` and
-``fused_norm_rope`` one per direction).
+``fused_norm_rope`` one per direction; ``grouped_matmul`` one for K13, both
+forms, and one for K14).
 """
 
 from . import (flash_attention, fused_norm_matmul, fused_norm_rope,
-               fused_optimizer_update, fused_rope_attend, paged_attention,
-               quant_matmul, ragged_paged_attention)
+               fused_optimizer_update, fused_rope_attend, grouped_matmul,
+               paged_attention, quant_matmul, ragged_paged_attention)
 
 #: (count name, module, counter attribute) of every kernel's launch site
 KERNEL_COUNTERS = (
@@ -23,6 +24,8 @@ KERNEL_COUNTERS = (
     ("rms_norm_fwd", fused_norm_rope, "fwd_launches"),
     ("rms_norm_bwd", fused_norm_rope, "bwd_launches"),
     ("adamw8bit", fused_optimizer_update, "launches"),
+    ("grouped_matmul", grouped_matmul, "launches"),
+    ("segment_dw", grouped_matmul, "dw_launches"),
 )
 
 

@@ -46,6 +46,9 @@ _SIGNATURES = {
     "pt_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _P],
     "pt_rms_norm_bwd": [_P] * 6 + [_I, _I, _P],
     "pt_adamw8bit": [_P, _I] + [_P] * 6 + [_L] + [_F] * 9 + [_I, _P],
+    "pt_grouped_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    "pt_group_tile_walk": [_P] + [_I] * 6 + [_P] * 5,
+    "pt_segment_dw": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -29,7 +29,10 @@ consumer forward, one VJP), ``attn_epilogue`` folds (attend, o-proj,
 residual add) into one node whose o-proj and add follow the attention
 output, and ``optimizer_update`` collapses the AdamW8bit chain into one
 sweep (K8). ``train_kernel_launches_per_step`` derives every kernel's
-launches per train step from the same plans.
+launches per train step from the same plans. MoE blocks run the attention
+half alone (``TRAIN_ATTN_CHAIN``) and route their MLP through the grouped
+matmul; ``moe_train_kernel_launches_per_step`` counts their step (K13,
+and K14 under the ``moe_grouped_bwd`` family).
 """
 
 from __future__ import annotations
@@ -96,6 +99,9 @@ def enabled_fusions() -> tuple:
 #: the training block is the decode block's op list; only the attend
 #: seam's contents differ (rope + flash attention, ``models/llama.py``)
 TRAIN_CHAIN = LAYER_CHAIN
+#: the attention half alone (through the post-attention residual add):
+#: MoE decoder blocks run this plan and keep their routed MLP wiring
+TRAIN_ATTN_CHAIN = LAYER_CHAIN[:7]
 
 #: the unfused AdamW8bit update as data; optimizer_update makes it one node
 OPT_CHAIN = (
@@ -201,10 +207,12 @@ def fuse_train_chain(chain: tuple, enabled: tuple) -> tuple:
     return tuple(ops)
 
 
-def train_layer_plan(enabled=None) -> tuple:
-    """The (fused) training plan of one decoder block."""
+def train_layer_plan(enabled=None, attn_only: bool = False) -> tuple:
+    """The (fused) training plan of one decoder block, or of its attention
+    half alone (``attn_only``, the MoE block's share)."""
     return fuse_train_chain(
-        TRAIN_CHAIN, enabled_train_fusions() if enabled is None else enabled)
+        TRAIN_ATTN_CHAIN if attn_only else TRAIN_CHAIN,
+        enabled_train_fusions() if enabled is None else enabled)
 
 
 def train_head_plan(enabled=None) -> tuple:
@@ -266,6 +274,33 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
             len(n.w[1]) for n in train_head_plan(enabled)
             if n.kind == "norm_multi_matmul")
     return out
+
+
+def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
+                                       enabled=None) -> dict:
+    """Kernel launches of one MoE train step (``models/moe.py``, no
+    per-block recompute, as in the JAX package) by counter name: the
+    attention half's plan as ``train_kernel_launches_per_step`` counts it
+    (K2 per ``norm_multi_matmul`` consumer, K1 and K5 per attend node, its
+    norm in K6/K7 when unfused), the post-attention norm and the final
+    norm in K6/K7, three K13 forward and three K13 dX a layer (gate, up,
+    down), three K14 dW under ``moe_grouped_bwd`` (on the card the step
+    raises with the family off), one K8 per parameter tensor
+    (``n_params``) for AdamW8bit under ``optimizer_update``."""
+    enabled = enabled_train_fusions() if enabled is None else enabled
+    lp = train_layer_plan(enabled, attn_only=True)
+    k1 = sum(n.kind in ("attend", "attend_epilogue") for n in lp)
+    norms = 1 + sum(n.kind == "rms_norm" for n in lp)
+    return {"flash_attention": num_layers * k1,
+            "flash_attention_bwd": num_layers * k1,
+            "fused_norm_matmul": num_layers * sum(
+                len(n.w[1]) for n in lp if n.kind == "norm_multi_matmul"),
+            "rms_norm_fwd": num_layers * norms + 1,
+            "rms_norm_bwd": num_layers * norms + 1,
+            "grouped_matmul": num_layers * 6,
+            "segment_dw": (num_layers * 3 if "moe_grouped_bwd" in enabled
+                           else 0),
+            "adamw8bit": n_params if "optimizer_update" in enabled else 0}
 
 
 def layer_plan(enabled=None) -> tuple:
@@ -412,15 +447,17 @@ def run_lm_head(prms, hidden, eps, enabled=None, plain=False):
 
 
 def run_train_decoder_layer(prms, hidden, eps, attend, enabled=None,
-                            plain=False):
+                            plain=False, attn_only=False):
     """Execute the (fused) TRAIN plan for one decoder block over its own
     params (layer-local names). ``attend`` maps flat q/k/v to the flat
     attention output (rope + flash attention); under ``attn_epilogue`` it
-    also takes ``residual=`` and ``o_w=``. On CUDA tensors a flag-resolved
-    plan with an unfused norm raises; an explicit ``enabled=()`` runs the
-    unfused plan (norms in K6/K7, or their plain versions with
-    ``plain``)."""
-    plan = _checked_plan(train_layer_plan(enabled), hidden, enabled)
+    also takes ``residual=`` and ``o_w=``. ``attn_only`` runs the attention
+    half (the MoE block's share) and returns the post-attention residual
+    stream. On CUDA tensors a flag-resolved plan with an unfused norm
+    raises; an explicit ``enabled=()`` runs the unfused plan (norms in
+    K6/K7, or their plain versions with ``plain``)."""
+    plan = _checked_plan(train_layer_plan(enabled, attn_only), hidden,
+                         enabled)
     return _run_plan(plan, prms, {"hidden": hidden}, eps, attend=attend,
                      plain=plain, train=True)["hidden"]
 

@@ -1,0 +1,305 @@
+"""Grouped (segmented) matmul over expert-sorted token rows (``paddle_tpu/ops/pallas/grouped_matmul.py``).
+
+The dropless-MoE primitive: tokens sorted by expert id give each expert
+one contiguous row block, described by ``group_offsets`` (E + 1 int32,
+rows ``offsets[e] .. offsets[e+1]`` are group e's, ``offsets[E] == T``),
+and ``y[r] = x[r] @ w[group_of(r)]`` runs with no per-expert padding.
+
+Kernel K13 (``csrc/grouped_matmul.cu``) replaces ``_pallas_grouped_matmul``:
+one block per (step, n-tile) of the ``group_tile_walk`` over 128-row tiles,
+each block computing its own step from the offsets on the card, so no
+count returns to the host. Its transposed form reads the stacked weight as
+(E, N, K) and multiplies by ``w[g]^T`` in place: the backward's dX.
+Kernel K14 (``csrc/segment_dw.cu``) replaces ``_pallas_segment_dw``:
+``dw[e] = x_e^T @ dy_e`` in f32, an optional scale, cast at the end; an
+empty group writes zeros. Both bound by tensor-core operations at the
+MoE train shapes.
+
+``grouped_matmul`` is the ``autograd.Function`` the MoE route calls (the
+JAX package's custom VJP): K13 forward, K13's transposed form for dX, and
+dW through ``segment_dw_pure``'s epilogue seam (K14 with the cast riding
+it), which runs K14 when the ``moe_grouped_bwd`` train family is on. On
+CUDA tensors every wrapper launches its kernel or raises (also with
+``flags.grouped_matmul_kernel`` or the family off); only ``plain=True``
+runs the plain versions there. On CPU tensors they run the plain
+versions, which loop over the groups' row slices with f32 accumulation
+(never the JAX reference's (E, T, K) masked tensors).
+
+Weight-only quantized expert weights (int8/int4 codes and scales) are
+not ported yet: they raise (ROADMAP Queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...framework import flags
+from . import _build
+
+#: K13 launches (both forms) and K14 launches since the last reset
+#: (incremented only where each launches)
+launches = 0
+dw_launches = 0
+
+#: epilogue op kinds the dW seam understands (JAX ``DW_EPILOGUE_OPS``)
+DW_EPILOGUE_OPS = ("scale", "cast")
+
+_NOT_PORTED_QUANT = (
+    "weight-only quantized expert weights (int8/int4) are not ported yet "
+    "(ROADMAP Queue 1 item 8: quantized experts, K13's int8/int4 forms)")
+
+
+def group_tile_walk(group_offsets, bm, n_tiles, n_groups,
+                    min_one_step: bool = False):
+    """The (tile_m, group, row_lo, row_hi) int32 vectors of the step walk,
+    each ``n_tiles + n_groups - 1`` long: step i covers rows
+    [row_lo[i], row_hi[i]) of m-tile tile_m[i] against group[i]'s weight;
+    steps past the walk are parked on the last tile with an empty range.
+    ``min_one_step`` gives each EMPTY group one empty step too (the TPU
+    segment-dW kernel's output blocks are per group). The same integers as
+    the JAX package's; K13 computes its own step the same way on the card
+    (``walk_step`` in ``csrc/grouped_tiles.cuh``)."""
+    off = group_offsets.to(torch.int64)
+    sizes = off[1:] - off[:-1]
+    start_tile = torch.div(off[:-1], bm, rounding_mode="floor")
+    end_tile = torch.clamp(torch.div(off[1:] - 1, bm, rounding_mode="floor"),
+                           min=0)
+    count = torch.where(sizes > 0, end_tile - start_tile + 1,
+                        1 if min_one_step else 0)
+    cum = torch.cumsum(count, 0)
+    i = torch.arange(n_tiles + n_groups - 1, device=off.device)
+    g = torch.searchsorted(cum, i, right=True)
+    parked = g >= n_groups
+    gc = torch.clamp(g, max=n_groups - 1)
+    prev = torch.where(gc > 0, cum[torch.clamp(gc - 1, min=0)], 0)
+    tile = torch.clamp(start_tile[gc] + (i - prev), max=n_tiles - 1)
+    tile = torch.where(parked, n_tiles - 1, tile)
+    row_lo = torch.where(parked, 0, torch.maximum(off[gc], tile * bm))
+    row_hi = torch.where(parked, 0, torch.minimum(off[gc + 1],
+                                                  (tile + 1) * bm))
+    return tuple(v.to(torch.int32) for v in (tile, gc, row_lo, row_hi))
+
+
+def _bounds(group_offsets):
+    """The offsets as Python ints (a host read: plain versions only)."""
+    return [int(v) for v in group_offsets.tolist()]
+
+
+def grouped_matmul_reference(x, group_offsets, w, scales=None,
+                             weight_dtype="fp", group_size=-1,
+                             trans_w=False):
+    """K13's plain version: for each group, its row slice times its weight
+    (``w[e]``, or ``w[e]^T`` for the (E, N, K) stack with ``trans_w``),
+    f32-accumulated, rounded once to x's dtype; rows in no group are 0."""
+    from ..loss_ops import _mm_f32
+
+    if weight_dtype not in (None, "fp") or scales is not None:
+        raise NotImplementedError(_NOT_PORTED_QUANT)
+    n = w.shape[1] if trans_w else w.shape[2]
+    y = torch.zeros((x.shape[0], n), dtype=x.dtype, device=x.device)
+    off = _bounds(group_offsets)
+    for e in range(w.shape[0]):
+        lo, hi = off[e], off[e + 1]
+        if hi > lo:
+            y[lo:hi] = _mm_f32(x[lo:hi], w[e].T if trans_w else w[e]).to(
+                x.dtype)
+    return y
+
+
+def _apply_dw_epilogue(dw, epilogue):
+    for kind, arg in (epilogue or ()):
+        if kind == "scale":
+            dw = dw * arg
+        elif kind == "cast":
+            dw = dw.to(arg)
+        else:
+            raise ValueError(f"unknown dw epilogue op {kind!r}")
+    return dw
+
+
+def segment_dw_reference(x, dy, group_offsets, e, epilogue=None):
+    """K14's plain version: ``dw[g] = x_g^T @ dy_g`` per group's row slice
+    in f32 (zeros for an empty group), then the epilogue ops."""
+    from ..loss_ops import _mm_f32
+
+    dw = torch.zeros((e, x.shape[1], dy.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    off = _bounds(group_offsets)
+    for g in range(e):
+        lo, hi = off[g], off[g + 1]
+        if hi > lo:
+            dw[g] = _mm_f32(x[lo:hi].T, dy[lo:hi])
+    return _apply_dw_epilogue(dw, epilogue)
+
+
+def tolerance(x, group_offsets, w, ref, trans_w=False):
+    """Per-element bound on |K13 - plain| from the inputs. Both sum the
+    exact products of bf16 values in f32, in different orders: each sum is
+    ~K/16 tensor-core accumulations, each rounding by at most 2^-24 of a
+    running sum below S = |x| @ |w| (taken per group), so they differ by at
+    most ~K/8 * 2^-24 * S; K/4 * 2^-24 * S leaves a factor 2. Each output
+    is then rounded to bf16 once in both: one ulp, 2^-7 * |out| ->
+    1e-2 * |ref|."""
+    k = x.shape[1]
+    spread = grouped_matmul_reference(x.abs(), group_offsets, w.abs(),
+                                      trans_w=trans_w).float()
+    return k / 4 * 2.0 ** -24 * spread + 1e-2 * ref.float().abs() + 1e-6
+
+
+def dw_tolerance(x, dy, group_offsets, e, ref):
+    """Per-element bound on |K14 - plain| (as ``tolerance``, over each
+    group's n_e rows: n_e / 4 * 2^-24 * (|x_e|^T @ |dy_e|), plus one bf16
+    ulp when the output is bf16)."""
+    spread = segment_dw_reference(x.abs(), dy.abs(), group_offsets, e)
+    off = group_offsets.to(torch.float32)
+    rows = (off[1:] - off[:-1]).reshape(e, 1, 1)
+    ulp = 1e-2 if ref.dtype == torch.bfloat16 else 0.0
+    return rows / 4 * 2.0 ** -24 * spread + ulp * ref.float().abs() + 1e-6
+
+
+def _check(name, x, group_offsets, w_name, w, w_k, n, n_groups):
+    """Raise unless x (T, K) meets a K-deep operand ``w`` of N columns as
+    the kernels take them: contiguous bf16, K and N multiples of 8, int32
+    offsets of E + 1 entries, all on the card."""
+    if x.dim() != 2 or x.shape[1] != w_k or w_k % 8 or n % 8:
+        raise ValueError(f"{name} kernel needs x (T, K) against {w_name} "
+                         f"of K rows, K % 8 == 0 and N % 8 == 0; got x "
+                         f"{tuple(x.shape)}, {w_name} {tuple(w.shape)}")
+    _build.check_cuda("x", x, torch.bfloat16)
+    _build.check_cuda(w_name, w, torch.bfloat16)
+    _build.check_cuda("group_offsets", group_offsets, torch.int32,
+                      (n_groups + 1,))
+
+
+def gmm(x, group_offsets, w, trans_w=False):
+    """y (T, N) = x[r] @ w[group(r)] for x (T, K) and w (E, K, N) (or x[r] @
+    w[group(r)]^T for w (E, N, K) with ``trans_w``): K13 on CUDA tensors,
+    the plain version on CPU tensors."""
+    global launches
+    if not x.is_cuda:
+        return grouped_matmul_reference(x, group_offsets, w, trans_w=trans_w)
+    if not flags.get_flag("grouped_matmul_kernel"):
+        raise NotImplementedError(
+            "the grouped matmul runs as kernel K13 on CUDA tensors; "
+            "flags.grouped_matmul_kernel is off (plain=True runs the plain "
+            "version)")
+    _build.check_no_grad("grouped_matmul", x, w)
+    e = w.shape[0]
+    n, w_k = (w.shape[1], w.shape[2]) if trans_w else (w.shape[2],
+                                                       w.shape[1])
+    _check("grouped_matmul", x, group_offsets, "w", w, w_k, n, e)
+    t, kdim = x.shape
+    y = torch.empty((t, n), dtype=x.dtype, device=x.device)
+    if t:
+        _build.launch("pt_grouped_matmul", x.data_ptr(),
+                      group_offsets.data_ptr(), w.data_ptr(), y.data_ptr(),
+                      t, kdim, n, e, int(trans_w), _build.stream_of(x))
+        launches += 1
+    return y
+
+
+def segment_dw(x, dy, group_offsets, e, scale=None, out_dtype=torch.float32):
+    """dw (E, K, N) = scale * x_g^T @ dy_g per group, cast to ``out_dtype``
+    (f32 or bf16): K14 on CUDA tensors, the plain version on CPU tensors."""
+    global dw_launches
+    epilogue = ((() if scale is None else (("scale", scale),))
+                + (("cast", out_dtype),))
+    if not x.is_cuda:
+        return segment_dw_reference(x, dy, group_offsets, e, epilogue)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"segment_dw kernel writes float32 or bfloat16, "
+                         f"got {out_dtype}")
+    _build.check_no_grad("segment_dw", x, dy)
+    if dy.dim() != 2 or dy.shape[0] != x.shape[0]:
+        raise ValueError(f"segment_dw needs dy (T, N) beside x (T, K), got "
+                         f"{tuple(dy.shape)} and {tuple(x.shape)}")
+    _check("segment_dw", x, group_offsets, "dy", dy, x.shape[1],
+           dy.shape[1], e)
+    t, kdim = x.shape
+    n = dy.shape[1]
+    dw = torch.empty((e, kdim, n), dtype=out_dtype, device=x.device)
+    _build.launch("pt_segment_dw", x.data_ptr(), dy.data_ptr(),
+                  group_offsets.data_ptr(), dw.data_ptr(), t, kdim, n, e,
+                  float(1.0 if scale is None else scale),
+                  int(out_dtype == torch.float32), _build.stream_of(x))
+    dw_launches += 1
+    return dw
+
+
+def segment_dw_pure(x, dy, group_offsets, e, epilogue=None, plain=False):
+    """The backward's per-group outer product with an EPILOGUE SEAM (the
+    train fusion pass's ``moe_grouped_bwd`` family): on CUDA tensors K14
+    with a leading ``("scale", s)`` and a trailing ``("cast", dtype)``
+    applied as each block flushes — it raises when the family is off
+    (flag-resolved) or the epilogue holds anything else; on CPU tensors,
+    or with ``plain``, the plain outer products then the epilogue ops."""
+    from . import fusion
+
+    epilogue = tuple(epilogue or ())
+    if not x.is_cuda or plain:
+        return segment_dw_reference(x, dy, group_offsets, e, epilogue)
+    scale, out_dtype = None, torch.float32
+    for j, (kind, arg) in enumerate(epilogue):
+        if kind not in DW_EPILOGUE_OPS:
+            raise ValueError(f"unknown dw epilogue op {kind!r}")
+        if kind == "scale" and j == 0:
+            scale = arg
+        elif kind == "cast" and j == len(epilogue) - 1:
+            out_dtype = arg
+        else:
+            raise NotImplementedError(
+                f"dw epilogue {epilogue}: K14 takes a leading scale and a "
+                f"trailing cast only")
+    if not fusion.train_fusion_on("moe_grouped_bwd"):
+        raise NotImplementedError(
+            "the segment dW runs as kernel K14 on CUDA tensors; the "
+            "moe_grouped_bwd train family is off (flags fused_train, "
+            "fused_train_fusions; plain=True runs the plain version)")
+    return segment_dw(x, dy, group_offsets, e, scale, out_dtype)
+
+
+def _gmm(x, group_offsets, w, trans_w, plain):
+    if plain:
+        return grouped_matmul_reference(x, group_offsets, w, trans_w=trans_w)
+    return gmm(x, group_offsets, w, trans_w)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_offsets, w, plain):
+        ctx.save_for_backward(x, group_offsets, w)
+        ctx.plain = plain
+        return _gmm(x, group_offsets, w, False, plain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, offs, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the transpose grouped matmul: the same offsets against w^T
+            dx = _gmm(dy, offs, w.to(dy.dtype), True, ctx.plain).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            # the cast that follows the outer product rides the seam
+            dw = segment_dw_pure(x, dy, offs, w.shape[0],
+                                 epilogue=(("cast", w.dtype),),
+                                 plain=ctx.plain)
+        return dx, None, dw, None
+
+
+def grouped_matmul(x, group_offsets, w, scales=None, weight_dtype="fp",
+                   group_size=-1, plain=False):
+    """``y[r] = x[r] @ w[group_of(r)]`` for expert-sorted rows, with a
+    gradient: x (T, K), group_offsets (E + 1,) int32, w (E, K, N). K13
+    forward, K13's transposed form for dx, K14 for dw (``segment_dw_pure``,
+    the cast to w's dtype as its epilogue); the offsets take no gradient.
+    ``plain`` runs the plain versions on any device (the on-card
+    reference)."""
+    if weight_dtype not in (None, "fp") or scales is not None:
+        raise NotImplementedError(_NOT_PORTED_QUANT)
+    return _GroupedMatmul.apply(x, group_offsets, w, plain)
+
+
+def quantize_grouped_weight(w, algo="weight_only_int8", group_size=-1):
+    """Not ported yet: the stacked expert-weight quantization."""
+    raise NotImplementedError(_NOT_PORTED_QUANT)

@@ -32,6 +32,17 @@ grads (the 1e-30 scale floor), with a master, on an f32 param and on a bf16
 param without one, over 3 steps: codes, scales and params bit-identical to
 the plain version on the card. Their wrappers, the autograd entries and the
 train fusion executor launch or raise.
+The MoE kernels: K13 (grouped matmul) in both forms and K14 (segment dW,
+f32 and bf16 outputs, with a scale) on uneven group offsets with an empty
+first, middle or last group, one group holding every row, boundaries and
+row counts that are not multiples of the 128-row tile, and K and N that
+are not multiples of the 32- and 128-wide slices (tolerances from the
+inputs: ``grouped_matmul.tolerance``, ``dw_tolerance``); K14's empty
+groups exactly zero; the step walk the kernels compute on the card equal
+to ``group_tile_walk``; the autograd entry's gradients against its plain
+version; a small MoE train step whose launches equal its plan; and the
+wrappers' refusals (the ``grouped_matmul_kernel`` flag or the
+``moe_grouped_bwd`` family off, wrong dtype, shape or offsets).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
 from paddle_tpu_torch.ops.kernels import fused_optimizer_update as k8
 from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
 from paddle_tpu_torch.ops.kernels import fusion
+from paddle_tpu_torch.ops.kernels import grouped_matmul as k1314
 from paddle_tpu_torch.ops.kernels import paged_attention as k10
 from paddle_tpu_torch.ops.kernels import quant_matmul as k4
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
@@ -680,3 +692,164 @@ def test_autograd_entries_launch_the_kernels(gen):
     k1.flash_attention_train(q, kv, kv).backward(do)
     assert (k1.launches - n1, k1.bwd_launches - n5) == (1, 1)
     assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
+
+
+#: (group sizes, K, N): an empty middle group with boundaries inside
+#: tiles, an empty first and last group, every row in one group, T = 1,
+#: and K / N off the 32- and 128-wide slices
+_GROUPS = [((37, 0, 200, 91), 256, 384), ((0, 300, 5, 0), 72, 200),
+           ((0, 0, 513, 0), 128, 136), ((1,), 4096, 128),
+           ((128, 128, 129, 127), 1024, 2048)]
+
+
+def _offsets(sizes):
+    off = [0]
+    for n in sizes:
+        off.append(off[-1] + n)
+    return torch.tensor(off, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("sizes,kdim,n", _GROUPS)
+@pytest.mark.parametrize("trans", [False, True])
+def test_grouped_matmul_matches_plain(gen, sizes, kdim, n, trans):
+    off = _offsets(sizes)
+    t, e = int(off[-1]), len(sizes)
+    x = _randn(gen, t, kdim)
+    w = _randn(gen, e, n, kdim, scale=0.05) if trans else _randn(
+        gen, e, kdim, n, scale=0.05)
+    n0 = k1314.launches
+    got = k1314.gmm(x, off, w, trans_w=trans)
+    assert k1314.launches - n0 == 1
+    ref = k1314.grouped_matmul_reference(x, off, w, trans_w=trans)
+    torch.cuda.synchronize()
+    tol = k1314.tolerance(x, off, w, ref, trans_w=trans)
+    err = ((got.float() - ref.float()).abs() / tol).max().item()
+    assert err < 1.0, err
+
+
+@pytest.mark.parametrize("sizes,kdim,n", _GROUPS)
+@pytest.mark.parametrize("scale,dtype", [(None, torch.float32),
+                                         (0.5, torch.bfloat16)])
+def test_segment_dw_matches_plain(gen, sizes, kdim, n, scale, dtype):
+    off = _offsets(sizes)
+    t, e = int(off[-1]), len(sizes)
+    x, dy = _randn(gen, t, kdim), _randn(gen, t, n)
+    n0 = k1314.dw_launches
+    got = k1314.segment_dw(x, dy, off, e, scale=scale, out_dtype=dtype)
+    assert k1314.dw_launches - n0 == 1 and got.dtype == dtype
+    ep = ((("scale", scale),) if scale else ()) + (("cast", dtype),)
+    ref = k1314.segment_dw_reference(x, dy, off, e, ep)
+    torch.cuda.synchronize()
+    tol = k1314.dw_tolerance(x, dy, off, e, ref)
+    err = ((got.float() - ref.float()).abs() / tol).max().item()
+    assert err < 1.0, err
+    for g, size in enumerate(sizes):
+        if not size:
+            assert not got[g].any(), f"empty group {g} not zero"
+
+
+@pytest.mark.parametrize("sizes,bm", [((37, 0, 200, 91), 128),
+                                      ((0, 300, 5, 0), 128),
+                                      ((0, 0, 513, 0), 16), ((1,), 128)])
+@pytest.mark.parametrize("min_one_step", [False, True])
+def test_group_walk_on_the_card_matches_group_tile_walk(gen, sizes, bm,
+                                                        min_one_step):
+    from paddle_tpu_torch.ops.kernels import _build
+
+    off = _offsets(sizes)
+    t, e = int(off[-1]), len(sizes)
+    n_tiles = -(-t // bm)
+    n_steps = n_tiles + e - 1
+    out = [torch.empty(n_steps, dtype=torch.int32, device="cuda")
+           for _ in range(4)]
+    _build.launch("pt_group_tile_walk", off.data_ptr(), e, t, bm, n_tiles,
+                  int(min_one_step), n_steps, *(o.data_ptr() for o in out),
+                  _build.stream_of(off))
+    ref = k1314.group_tile_walk(off, bm, n_tiles, e, min_one_step)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), (a, b)
+
+
+def test_grouped_matmul_autograd_matches_plain(gen):
+    off = _offsets((100, 0, 200, 57))
+    x = _randn(gen, 357, 256).requires_grad_(True)
+    w = _randn(gen, 4, 256, 512, scale=0.05).requires_grad_(True)
+    dy = _randn(gen, 357, 512)
+    n13, n14 = k1314.launches, k1314.dw_launches
+    k1314.grouped_matmul(x, off, w).backward(dy)
+    assert (k1314.launches - n13, k1314.dw_launches - n14) == (2, 1)
+    xp, wp = (a.detach().clone().requires_grad_(True) for a in (x, w))
+    k1314.grouped_matmul(xp, off, wp, plain=True).backward(dy)
+    assert (k1314.launches - n13, k1314.dw_launches - n14) == (2, 1)
+    with torch.no_grad():
+        t_dx = k1314.tolerance(dy, off, w, xp.grad, trans_w=True)
+        t_dw = k1314.dw_tolerance(x, dy, off, 4, wp.grad)
+    assert ((x.grad.float() - xp.grad.float()).abs() / t_dx).max() < 1
+    assert ((w.grad.float() - wp.grad.float()).abs() / t_dw).max() < 1
+    assert not w.grad[1].any()
+
+
+def test_moe_train_step_launches_its_plan(gen):
+    """A small bf16 MoE (every projection a multiple of 128) takes one
+    AdamW8bit TrainStep on the card: the launches equal its plan and the
+    loss is finite."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.moe import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    cfg = MoEConfig(vocab_size=512, hidden_size=256, intermediate_size=384,
+                    num_hidden_layers=2, num_attention_heads=2,
+                    num_key_value_heads=1, num_experts=4, top_k=2,
+                    dtype="bfloat16")
+    model = MoEForCausalLM(cfg, seed=0)
+    n_tensors = sum(1 for _ in model.parameters())
+    step = TrainStep(model, lambda o, lb: model.loss(o, lb),
+                     AdamW8bit(learning_rate=1e-3,
+                               parameters=model.parameters()))
+    ids = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    loss = step(ids, ids)
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(fusion.moe_train_kernel_launches_per_step(2, n_tensors))
+    assert counts == want
+    assert math.isfinite(loss.item())
+
+
+def test_grouped_wrappers_raise_instead_of_falling_back(gen):
+    off = _offsets((10, 0, 22))
+    x, w, dy = _randn(gen, 32, 128), _randn(gen, 3, 128, 64), _randn(gen,
+                                                                      32, 64)
+    for name, val in (("grouped_matmul_kernel", False),
+                      ("fused_train_fusions", "norm_matmul")):
+        old = flags.get_flag(name)
+        try:
+            flags.set_flags({name: val})
+            with pytest.raises(NotImplementedError):
+                if name == "grouped_matmul_kernel":
+                    k1314.gmm(x, off, w)
+                else:
+                    k1314.segment_dw_pure(x, dy, off, 3,
+                                          epilogue=(("cast", w.dtype),))
+        finally:
+            flags.set_flags({name: old})
+    with pytest.raises(ValueError):                       # f32 x
+        k1314.gmm(x.float(), off, w)
+    with pytest.raises(ValueError):                       # K % 8
+        k1314.gmm(x[:, :100].contiguous(), off, w[:, :100].contiguous())
+    with pytest.raises(ValueError):                       # K mismatch
+        k1314.gmm(x, off, w, trans_w=True)
+    with pytest.raises(ValueError):                       # int64 offsets
+        k1314.gmm(x, off.long(), w)
+    with pytest.raises(ValueError):                       # E + 1 offsets
+        k1314.gmm(x, off[:-1], w)
+    with pytest.raises(ValueError):                       # dy rows
+        k1314.segment_dw(x, dy[:16], off, 3)
+    with pytest.raises(ValueError):                       # f16 output
+        k1314.segment_dw(x, dy, off, 3, out_dtype=torch.float16)
+    with pytest.raises(NotImplementedError):              # epilogue order
+        k1314.segment_dw_pure(x, dy, off, 3, epilogue=(
+            ("cast", torch.float32), ("scale", 2.0)))
+    with pytest.raises(RuntimeError):                     # grad would drop
+        k1314.gmm(x.clone().requires_grad_(True), off, w)
