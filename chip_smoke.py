@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--profile]
 
 ``--profile`` adds torch.profiler traces of the serving runs and of one
-Llama and one MoE train step (device time by kernel class, device busy
-share). Phases, in order; any failure raises and the process exits nonzero:
+Llama, one fine-tuning and one MoE train step (device time by kernel
+class, device busy share). Phases, in order; any failure raises and the process exits nonzero:
 
 1. device   — the card's name and power limit (nvidia-smi); TF32 and
                reduced-precision bf16 matmul reductions off, so the plain
@@ -59,13 +59,24 @@ share). Phases, in order; any failure raises and the process exits nonzero:
                4096; F.rms_norm and its backward), K8 (AdamW8bit on a
                58.7M-element gate_proj-shaped param with its f32 master
                and on 3,000,001 elements, 3 steps with weight decay:
-               codes bit-identical to the plain version).
+               codes bit-identical to the plain version); then, at the same
+               attention shape with rows left-padded to real lengths
+               (2048, 1792, 1280, 768), K1 and K5 with the key bias and
+               K9 (the one-pass backward) with it (K9 and K5 also timed
+               without it; SDPA forward and backward under the same bool
+               mask as the library), and K12 (rope) forward and backward
+               at (4, 2048, 32, 128) and (4, 2048, 8, 128), bit-equal to
+               its plain version.
 8. gradient check — a 2-layer full-width model (B=1, S=2048): the
                per-token losses and every parameter's gradient of the
                kernel path, the plain bf16 path and a plain f32 run;
                kernel-vs-f32 relative L2 error <= 2 x plain-bf16-vs-f32,
                which a fault control (K5 with Delta left at zero) must
-               fail.
+               fail; then the same rule on a left-padded batch (B=2, row 1
+               holding 1,100 real tokens, the key-padding mask through
+               every block) under ``flash_bwd_impl`` "split" (K5 with the
+               bias) and "fused" (K9), which two controls must fail: the
+               bias dropped inside K1 and K9, and K9 with Delta at zero.
 9. training — ``jit.TrainStep`` over Llama-3-8B widths cut to 8 layers
                (bf16, core_attn recompute, fused_head_loss, 4096-token loss
                chunks) with AdamW8bit(1e-4), B=4 x S=2048 random tokens:
@@ -75,6 +86,21 @@ share). Phases, in order; any failure raises and the process exits nonzero:
                median step ms, tokens/s, the 6N+attention model-FLOP share
                of the bf16 peak (``mfu_6n_attn``), peak memory; then the
                chunked loss's forward + backward timed alone.
+9b. fine-tuning — cell llama3-8b-8L-sft, after the phase-9 model is
+               freed: the same model and recipe with
+               ``flash_bwd_impl="fused"`` and ``AdamW8bit(LinearWarmup(
+               CosineAnnealingDecay(1e-4, 1000), 2, 1e-5, 1e-4),
+               grad_clip=ClipGradByGlobalNorm(1.0))`` on the batch
+               left-padded to real lengths (2048, 1792, 1280, 768), a
+               bool (B, S) mask, labels -100 on the pads and each row's
+               first quarter: ``step((ids, mask), labels)``, one warm-up
+               and 3 timed steps whose launches must equal the plan (16 K1
+               + 80 K2 + 8 K9 + 0 K5 + 1 K6 + 1 K7 + 75 K8 a step, no
+               plain-attention route); the loss must fall, each step's lr
+               follow the schedule and the clipped global norm be <= 1;
+               step ms, tokens/s (real and all positions),
+               ``mfu_6n_attn``, peak memory. Then K12's path: the
+               ``fused_rope`` entry with its gradient at both shapes.
 10. MoE kernels — after the Llama train model is freed, K13 (grouped
                matmul: forward at 4096 -> 14336 and 14336 -> 4096, and its
                transposed dX form) and K14 (segment dW at both weight
@@ -839,6 +865,10 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
 def _kernel_class(name):
     if "flash_fwd_kernel" in name:
         return "K1 flash_attention_fwd"
+    if "flash_bwd_fused_kernel" in name or "flash_dq_reduce_kernel" in name:
+        return "K9 flash_attention_bwd_fused"
+    if "rope_kernel" in name and "append" not in name:
+        return "K12 rope"
     if "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
         return "K5 flash_attention_bwd"
     if "rms_fwd_kernel" in name:
@@ -1782,6 +1812,485 @@ def train(torch, kernels, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# Fine-tuning (phases 7-9, extended, and 9b): K1/K5 with a key bias, K9 (the
+# one-pass flash backward) and K12 (rope) at the train step's shapes, the
+# masked gradient check under both backwards, and the timed cell
+# llama3-8b-8L-sft
+# ---------------------------------------------------------------------------
+
+SFT_LENGTHS = (2048, 1792, 1280, 768)    # real tokens per row, left-padded
+SFT_CLIP = 1.0
+GRAD_PAD_REAL = 1100                      # the masked grad check's short row
+
+
+def left_pad_mask(torch, lengths, s):
+    """(B, S) bool: True on each row's last lengths[i] positions."""
+    pos = torch.arange(s, device="cuda")[None, :]
+    return pos >= s - torch.tensor(lengths, device="cuda")[:, None]
+
+
+def sft_scheduler():
+    """The cell's schedule: 2 linear warm-up steps from 1e-5 to 1e-4, then
+    a cosine decay over 1000 steps."""
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=1000),
+                           warmup_steps=2, start_lr=1e-5, end_lr=1e-4)
+
+
+def _masked_inputs(torch, k1, b, s, h, hk, d, seed):
+    """q, k, v, dO at the train shape with the cell's left-padded key bias
+    (dO random on every row, those that see no key included)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for n in (h, hk, hk, h))
+    keep = left_pad_mask(torch, SFT_LENGTHS, s)
+    bias = k1._key_bias_from_mask(keep, b, s)[0]
+    return q, k, v, do, bias, keep
+
+
+def _sdpa_mask(torch, keep):
+    """The bool (B, 1, S, S) mask SDPA takes for causal + key padding."""
+    s = keep.shape[1]
+    causal = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    return causal[None, None] & keep[:, None, None, :]
+
+
+def _live_pairs(lengths, s):
+    """(query, key) pairs a causal, left-padded batch needs: each row's
+    real queries over its real keys up to the diagonal."""
+    return sum(n * (n + 1) // 2 for n in lengths if n <= s)
+
+
+def check_flash_masked(torch, timer, k1):
+    """K1 and K5 with the cell's key bias, and K9 with and without it, at
+    the train step's attention shape (B=4, S=2048, 32/8 heads, D=128,
+    causal), rows left-padded to SFT_LENGTHS: K1 within
+    ``k1.fwd_tolerance`` and K5 and K9 within ``k1.bwd_tolerance`` on every
+    row, those that see no key included (dO random there too).
+    Library yardsticks: SDPA forward and backward under the same mask."""
+    b, s, h, hk, d = TB, TS, 32, 8, 128
+    q, k, v, do, bias, keep = _masked_inputs(torch, k1, b, s, h, hk, d,
+                                             SEED + 25)
+    out, lse = k1.flash_attention_fwd(q, k, v, True, None, bias)
+    ref, ref_lse = k1.flash_attention_fwd_reference(q, k, v, True, None,
+                                                    bias)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all()), "K1 bias: non-finite"
+    tol = k1.fwd_tolerance(q, k, v, ref, causal=True, bias=bias)
+    worst1 = ((out.float() - ref.float()).abs() / tol).max().item()
+    err1 = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del tol, ref_lse
+    log(f"K1 with key bias: worst err/tol {worst1:.3f}, lse_err "
+        f"{lse_err:.3e}")
+    assert worst1 < 1.0 and lse_err <= 1e-3, (worst1, lse_err)
+    rows = []
+    ms_fwd = timer(lambda: k1.flash_attention_fwd(q, k, v, True, None, bias))
+    ms_fwd_free = timer(lambda: k1.flash_attention_fwd(q, k, v, True))
+    plain_fwd = timer(lambda: k1.flash_attention_fwd_reference(
+        q, k, v, True, None, bias), iters=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    amask = _sdpa_mask(torch, keep)
+    lib_fwd = timer(lambda: sdpa(qt, kt, vt, attn_mask=amask,
+                                 enable_gqa=True))
+    pairs = _live_pairs(SFT_LENGTHS, s)
+    fbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
+        + 4 * (lse.numel() + bias.numel())
+    bms, by = bound(fbytes, 4 * d * pairs * h, BF16_FLOPS)
+    log(f"K1 flash_attention_fwd with key bias B{b} S{s} H{h}/{hk}: "
+        f"max_abs_err {err1:.3e} kernel_ms {ms_fwd:.4f} (without the bias "
+        f"{ms_fwd_free:.4f}) plain_ms {plain_fwd:.4f} library_ms "
+        f"{lib_fwd:.4f} (SDPA, bool mask) bound_ms {bms:.4f} ({by})")
+    rows.append({"name": "flash_attention_fwd_bias", "route": "cuda",
+                 "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": "paddle_tpu/ops/pallas/flash_attention.py:481",
+                 "max_abs_err": err1, "worst_err_over_tol": worst1,
+                 "ms": ms_fwd, "ms_without_bias": ms_fwd_free,
+                 "plain_ms": plain_fwd, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib_fwd,
+                 "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal, key bias "
+                          f"lengths {SFT_LENGTHS}"})
+    del ref
+    torch.cuda.empty_cache()
+    ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, True,
+                                           None, bias)
+    tols = k1.bwd_tolerance(q, k, v, do, *ref, causal=True, bias=bias)
+    bbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + out.numel() + do.numel()) + 4 * (lse.numel()
+                                                     + bias.numel())
+    bflops = 5 * 2 * d * pairs * h
+    qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                  for x in (qt, kt, vt))
+    o = sdpa(qg, kg, vg, attn_mask=amask, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_bwd = timer(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                                retain_graph=True))
+    for name, fn, src, line in (
+            ("flash_attention_bwd_bias", k1.flash_attention_bwd,
+             "flash_attention_bwd.cu", ":533"),
+            ("flash_attention_bwd_fused", k1.flash_attention_bwd_fused,
+             "flash_attention_bwd_fused.cu", ":610")):
+        got = fn(q, k, v, out, lse, do, True, None, bias)
+        torch.cuda.synchronize()
+        worst, err = {}, 0.0
+        for gname, a, r, t in zip(("dq", "dk", "dv"), got, ref, tols):
+            assert bool(torch.isfinite(a.float()).all()), (name, gname)
+            diff = (a.float() - r.float()).abs()
+            worst[gname] = (diff / t).max().item()
+            err = max(err, diff.max().item())
+            del diff
+        del got
+        log(f"{name} worst err/tol {worst}")
+        assert max(worst.values()) < 1.0, (name, worst)
+        ms = timer(lambda: fn(q, k, v, out, lse, do, True, None, bias))
+        plain = timer(lambda: k1.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, True, None, bias), iters=5)
+        bms, by = bound(bbytes, bflops, BF16_FLOPS)
+        row = {"name": name, "route": "cuda",
+               "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": f"paddle_tpu/ops/pallas/flash_attention.py{line}",
+               "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+               "library_ms": lib_bwd,
+               "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal, key bias "
+                        f"lengths {SFT_LENGTHS}"}
+        if name == "flash_attention_bwd_fused":
+            # K9 and K5 without a mask, in turns, at the same shape
+            row["ms_without_bias"] = timer(lambda: fn(q, k, v, out, lse, do,
+                                                      True))
+            row["k5_ms_without_bias"] = timer(
+                lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, True))
+            row["dq_partials_gib"] = (b * h * k1.fused_partial_pairs(
+                s, s, True) * 64 * d * 4) / 2**30
+        log(f"{name} B{b} S{s} H{h}/{hk} with key bias: max_abs_err "
+            f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+            f"{lib_bwd:.4f} (SDPA backward, bool mask) bound_ms {bms:.4f} "
+            f"({by})" + (f"; without the bias K9 {row['ms_without_bias']:.4f}"
+                         f" K5 {row['k5_ms_without_bias']:.4f}"
+                         if "ms_without_bias" in row else ""))
+        rows.append(row)
+    del ref, tols, o, qg, kg, vg
+    torch.cuda.empty_cache()
+    return rows
+
+
+ROPE_SHAPES = ((TB, TS, 32, 128), (TB, TS, 8, 128))
+
+
+def _rope_inputs(torch, shape, seed):
+    from paddle_tpu_torch.models.llama import _rope_tables
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, gr = (torch.randn(shape, generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    cos, sin = _rope_tables(shape[1], shape[3], 500000.0, device="cuda")
+    return x, gr, cos.contiguous(), sin.contiguous()
+
+
+def rope_path(torch, kernels, k67):
+    """K12's path (no model path calls it, as in the JAX package): the
+    ``fused_rope`` entry point with its gradient, at the Llama-3-8B q and
+    k shapes; returns the launch counts of that run."""
+    kernels.reset_launch_counts()
+    for i, shape in enumerate(ROPE_SHAPES):
+        x, gr, cos, sin = _rope_inputs(torch, shape, SEED + 26 + i)
+        x.requires_grad_(True)
+        k67.fused_rope(x, cos, sin).backward(gr)
+        assert x.grad is not None and x.grad.shape == x.shape
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"rope path: launches {counts}")
+    return counts
+
+
+def check_rope(torch, timer, k67):
+    """K12 forward and backward (the same kernel with sin' =
+    -swap_halves(sin)) at the q and k shapes of the train step: bit-equal
+    to the plain version (the same separately rounded f32 ops)."""
+    rows = []
+    for i, shape in enumerate(ROPE_SHAPES):
+        x, gr, cos, sin = _rope_inputs(torch, shape, SEED + 26 + i)
+        sin_b = k67.rope_bwd_table(sin).contiguous()
+        for name, inp, tab in (("fused_rope", x, sin),
+                               ("fused_rope_bwd", gr, sin_b)):
+            got = k67.rope_fwd(inp, cos, tab)
+            ref = k67.rope_reference(inp, cos, tab)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            assert torch.equal(got, ref), f"{name} {shape}: max_abs_err {err}"
+            ms = timer(lambda: k67.rope_fwd(inp, cos, tab))
+            plain = timer(lambda: k67.rope_reference(inp, cos, tab))
+            nbytes = 2 * 2 * inp.numel() + 2 * 4 * cos.numel()
+            bms, by = bound(nbytes, 0, BF16_FLOPS)
+            log(f"K12 {name} {shape}: bit-equal to plain, kernel_ms "
+                f"{ms:.4f} plain_ms {plain:.4f} library_ms none bound_ms "
+                f"{bms:.4f} ({by})")
+            rows.append({"name": f"{name}_h{shape[2]}", "route": "cuda",
+                         "source": "paddle_tpu_torch/csrc/rope.cu",
+                         "replaces":
+                             "paddle_tpu/ops/pallas/fused_norm_rope.py:211",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bms, "bound_by": by, "library_ms": None,
+                         "shape": f"{shape} bf16, (S, D) f32 tables"})
+    return rows
+
+
+def _masked_loss_and_grads(torch, model, ids, mask, labels, plain=False):
+    """(per-token losses of the real labelled tokens over an f32 head, the
+    loss, {name: grad}) of one masked forward/backward."""
+    hidden = model(ids, mask, plain=plain)
+    loss = model.loss(hidden, labels)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    with torch.no_grad():
+        lb = labels[:, 1:]
+        sel = lb != -100
+        h = hidden[:, :-1][sel].float()
+        logits = h @ model.lm_head.weight.float()
+        tok = torch.logsumexp(logits, -1) - logits.gather(
+            1, lb[sel][:, None])[:, 0]
+        del logits, h
+    return tok, loss.detach().float(), dict(zip(names, grads))
+
+
+def train_grad_check_masked(torch, k1, kernels):
+    """The gradient check on a left-padded batch: 2 full-width layers,
+    B=2 x S=2048, row 0 full and row 1 left-padded to GRAD_PAD_REAL real
+    tokens (labels -100 on its pads), the key-padding mask through every
+    block. The kernel path under ``flash_bwd_impl="split"`` (K1 and K5 with
+    the key bias) and under ``"fused"`` (K1 and K9), the plain bf16 path
+    and a plain f32 run: per-token losses of the real tokens and every
+    gradient, kernel-vs-f32 relative L2 <= 2 x plain-bf16-vs-f32. Two
+    controls under "fused" must fail it: the bias dropped inside K1 and K9
+    (the kernels get a null bias pointer), and K9 with Delta at zero.
+    Returns the readings and the split run's launch counts (the K5-with-
+    bias path)."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = train_config(2)
+    model = LlamaForCausalLM(cfg, seed=SEED).train()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    ids = torch.randint(0, cfg.vocab_size, (2, TS), generator=g,
+                        device="cuda")
+    mask = left_pad_mask(torch, (TS, GRAD_PAD_REAL), TS)
+    ids = ids.masked_fill(~mask, 0)
+    labels = ids.masked_fill(~mask, -100)
+    old = flags.get_flag("flash_bwd_impl")
+    runs = {}
+    try:
+        for impl in ("split", "fused"):
+            flags.set_flags({"flash_bwd_impl": impl})
+            kernels.reset_launch_counts()
+            runs[impl] = _masked_loss_and_grads(torch, model, ids, mask,
+                                                labels)
+            torch.cuda.synchronize()
+            runs[impl + " counts"] = (kernels.launch_counts(),
+                                      kernels.route_counts())
+        flags.set_flags({"flash_bwd_impl": "fused"})
+        bias_arg, k1._bias_arg = k1._bias_arg, lambda bias: 0
+        try:
+            runs["bias dropped"] = _masked_loss_and_grads(
+                torch, model, ids, mask, labels)
+        finally:
+            k1._bias_arg = bias_arg
+        fault_delta, k1._delta = (k1._delta, lambda out, do: torch.zeros(
+            (out.shape[0], out.shape[2], out.shape[1]), dtype=torch.float32,
+            device=out.device))
+        try:
+            runs["delta 0"] = _masked_loss_and_grads(torch, model, ids, mask,
+                                                     labels)
+        finally:
+            k1._delta = fault_delta
+    finally:
+        flags.set_flags({"flash_bwd_impl": old})
+    split_counts, split_routes = runs["split counts"]
+    fused_counts, _ = runs["fused counts"]
+    L = cfg.num_hidden_layers
+    assert (split_counts["flash_attention_bwd"],
+            split_counts["flash_attention_bwd_fused"]) == (L, 0), split_counts
+    assert (fused_counts["flash_attention_bwd"],
+            fused_counts["flash_attention_bwd_fused"]) == (0, L), fused_counts
+    assert split_routes["plain_attention_route"] == 0, split_routes
+    plain = _masked_loss_and_grads(torch, model, ids, mask, labels,
+                                   plain=True)
+    m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                           seed=SEED).train()
+    with torch.no_grad():
+        for (_, p32), (_, p) in zip(m32.named_parameters(),
+                                    model.named_parameters()):
+            p32.copy_(p.float())
+    del model
+    torch.cuda.empty_cache()
+    ref = _masked_loss_and_grads(torch, m32, ids, mask, labels, plain=True)
+    del m32
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    names = ["per-token loss"] + list(ref[2])
+
+    def pick(run, n):
+        return run[0] if n == "per-token loss" else run[2][n]
+
+    out = {}
+    for label in ("split", "fused", "bias dropped", "delta 0"):
+        ratios = {n: rel(pick(runs[label], n), pick(ref, n))
+                  / rel(pick(plain, n), pick(ref, n)) for n in names}
+        out[label] = {"worst_ratio": max(ratios.values()),
+                      "loss": runs[label][1].item(),
+                      "per_tensor": ratios}
+        log(f"masked grad check, {label}: worst kernel/plain ratio "
+            f"{out[label]['worst_ratio']:.3f} (per-token loss "
+            f"{ratios['per-token loss']:.3f}), loss {out[label]['loss']:.5f}")
+    out["losses"] = {"plain_bf16": plain[1].item(), "f32": ref[1].item()}
+    log(f"masked grad check (2 layers, B2 S{TS}, row 1 "
+        f"{GRAD_PAD_REAL} real tokens): plain bf16 loss "
+        f"{out['losses']['plain_bf16']:.5f}, f32 {out['losses']['f32']:.5f}")
+    for label in ("split", "fused"):
+        assert math.isfinite(out[label]["loss"]), out[label]
+        assert out[label]["worst_ratio"] <= 2, (label, out[label])
+    for label in ("bias dropped", "delta 0"):
+        assert out[label]["worst_ratio"] > 2, (
+            f"the {label} control passed the rule: the check cannot see it")
+    return out, split_counts
+
+
+def sft_train(torch, kernels, profile=False):
+    """Cell llama3-8b-8L-sft: ``jit.TrainStep`` over Llama-3-8B widths cut
+    to 8 layers (phase 9's recipe) with ``flash_bwd_impl="fused"`` and
+    ``AdamW8bit(LinearWarmup(CosineAnnealingDecay(1e-4, 1000), 2, 1e-5,
+    1e-4), grad_clip=ClipGradByGlobalNorm(1.0))``, on B=4 x S=2048 random
+    tokens left-padded to SFT_LENGTHS with a bool (B, S) mask, labels -100
+    on the pads and on each row's first quarter of real tokens: one
+    warm-up step, then TRAIN_STEPS timed steps whose launches must equal
+    the plan (K9 in place of K5, no plain-attention route); the loss must
+    fall, each step's lr follow the schedule, and the clipped global norm
+    be <= 1.0."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import fusion
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    assert fusion.enabled_train_fusions() == fusion.TRAIN_FUSIONS
+    old = flags.get_flag("flash_bwd_impl")
+    flags.set_flags({"flash_bwd_impl": "fused"})
+    try:
+        return _sft_train(torch, kernels, profile, TrainStep,
+                          LlamaForCausalLM, ClipGradByGlobalNorm, fusion,
+                          AdamW8bit)
+    finally:
+        flags.set_flags({"flash_bwd_impl": old})
+
+
+def _sft_train(torch, kernels, profile, TrainStep, LlamaForCausalLM,
+               ClipGradByGlobalNorm, fusion, AdamW8bit):
+    cfg = train_config(TRAIN_LAYERS)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_tensors = sum(1 for _ in model.parameters())
+    clip = ClipGradByGlobalNorm(SFT_CLIP)
+    opt = AdamW8bit(learning_rate=sft_scheduler(),
+                    parameters=model.parameters(), grad_clip=clip)
+    step = TrainStep(model, lambda out, lb: model.loss(out, lb), opt)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TB, TS), generator=g,
+                        device="cuda")
+    mask = left_pad_mask(torch, SFT_LENGTHS, TS)
+    ids = ids.masked_fill(~mask, 0)
+    pos = torch.arange(TS, device="cuda")[None, :]
+    prompt_end = TS - torch.tensor(SFT_LENGTHS, device="cuda")[:, None] \
+        + torch.tensor([n // 4 for n in SFT_LENGTHS], device="cuda")[:, None]
+    labels = ids.masked_fill(pos < prompt_end, -100)
+    plan = fusion.train_kernel_launches_per_step(
+        L, n_tensors, recompute=cfg.recompute,
+        granularity=cfg.recompute_granularity,
+        fused_head_loss=cfg.fused_head_loss,
+        attn_shape=(TB, TS, cfg.num_attention_heads, cfg.head_dim))
+    assert (plan["flash_attention_bwd_fused"], plan["flash_attention_bwd"]) \
+        == (L, 0), plan
+    log(f"sft: Llama-3-8B widths, {L} layers, init "
+        f"{time.perf_counter() - t0:.1f}s, lengths {SFT_LENGTHS}, "
+        f"flash_bwd_impl fused; plan per step {plan}")
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step((ids, mask), labels)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) * 1e3, loss.item(), step.last_lr,
+                clip.last_global_norm.item())
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = timed_step()                                    # warm-up
+    kernels.reset_launch_counts()
+    runs = [timed_step() for _ in range(TRAIN_STEPS)]      # THE counted run
+    counts, routes = kernels.launch_counts(), kernels.route_counts()
+    expected = dict.fromkeys(counts, 0)
+    expected.update({k: v * TRAIN_STEPS for k, v in plan.items()})
+    log(f"sft: launches over {TRAIN_STEPS} steps {counts} expected "
+        f"{expected}; routes {routes}")
+    assert counts == expected, f"launch counts {counts} != plan {expected}"
+    assert routes == {"plain_attention_route": 0}, routes
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    all_runs = [warm] + runs
+    losses = [r[1] for r in all_runs]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    sched = sft_scheduler()
+    want_lrs = []
+    for _ in all_runs:
+        want_lrs.append(sched())
+        sched.step()
+    lrs = [r[2] for r in all_runs]
+    assert lrs == want_lrs, f"lrs {lrs} != schedule {want_lrs}"
+    norms = [r[3] for r in all_runs]
+    # the last step's gradients (p.grad) clipped again: their global norm
+    pairs = [(p, p.grad) for _, p in sorted(model.named_parameters())]
+    torch.cuda.synchronize()
+    t_clip = time.perf_counter()
+    out = clip(pairs)                   # the step's clip alone, timed
+    torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t_clip) * 1e3
+    clipped = clip.global_norm(out).item()
+    del pairs, out
+    assert clip.last_global_norm.item() == norms[-1]
+    assert clipped <= SFT_CLIP * (1 + 1e-3), clipped
+    step_ms = statistics.median(r[0] for r in runs)
+    real = sum(SFT_LENGTHS)
+    fpt = LlamaForCausalLM.flops_per_token(cfg, TS)
+    stats = {"step_ms": step_ms, "step_ms_runs": [r[0] for r in runs],
+             "warmup_step_ms": warm[0],
+             "tokens_per_s_real": real / step_ms * 1e3,
+             "tokens_per_s_all": TB * TS / step_ms * 1e3,
+             "mfu_6n_attn": fpt * TB * TS / (step_ms / 1e3) / BF16_FLOPS,
+             "losses": losses, "lrs": lrs, "preclip_global_norms": norms,
+             "clipped_global_norm": clipped, "clip_ms": clip_ms,
+             "max_memory_allocated_gib": peak, "launches": counts}
+    log(f"sft: B{TB} S{TS} ({real} real tokens), step_ms "
+        f"{[round(r[0], 1) for r in runs]} (median {step_ms:.1f}, warm-up "
+        f"{warm[0]:.1f}), {stats['tokens_per_s_real']:.1f} real tok/s "
+        f"({stats['tokens_per_s_all']:.1f} over all positions), mfu_6n_attn "
+        f"{stats['mfu_6n_attn']:.4f}, losses {losses}, lrs {lrs}, "
+        f"pre-clip global norms {norms}, clipped {clipped:.6f} (the clip "
+        f"alone {clip_ms:.1f} ms), "
+        f"max_memory_allocated {peak:.2f} GiB")
+    if profile:
+        stats["profile"] = profile_window(
+            torch, lambda: step((ids, mask), labels), "sft step")
+    del step, opt, model, clip
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+# ---------------------------------------------------------------------------
 # MoE training (phases 10-12): K13 and K14 at the Mixtral-8x7B train
 # shapes, the full-width MoE gradient check, the timed 3-layer train run
 # ---------------------------------------------------------------------------
@@ -2248,12 +2757,33 @@ def main() -> int:
     own += [(check_flash_bwd(torch, timer, k1), "train")]
     own += [(row, "train") for row in check_rms_norm(torch, timer, k67)]
     own += [(check_adamw8bit(torch, timer, k8), "train")]
+    own += [(row, {"flash_attention_fwd_bias": "sft",
+                   "flash_attention_bwd_bias": "grad check split, mask",
+                   "flash_attention_bwd_fused": "sft"}[row["name"]])
+            for row in check_flash_masked(torch, timer, k1)]
+    own += [(row, "rope") for row in check_rope(torch, timer, k67)]
     del timer
     torch.cuda.empty_cache()
     grad_check = train_grad_check(torch, k1)
     torch.cuda.empty_cache()
+    masked_check, counts_grad_split = train_grad_check_masked(torch, k1,
+                                                              kernels)
+    torch.cuda.empty_cache()
     counts_train, stats_train = train(torch, kernels, profile=profile)
     stats_train["grad_check"] = grad_check
+    torch.cuda.empty_cache()
+
+    # ---- 9b. the fine-tuning cell (its counts set to 0 just before its
+    # counted steps and read just after), then K12's path: the fused_rope
+    # entry point with its gradient
+    counts_sft, stats_sft = sft_train(torch, kernels, profile=profile)
+    stats_sft["grad_check_masked"] = masked_check
+    log(f"sft step (K9, key bias) {stats_sft['step_ms']:.1f} ms against "
+        f"the train step (K5, no mask) {stats_train['step_ms']:.1f} ms; "
+        f"peak {stats_sft['max_memory_allocated_gib']:.2f} against "
+        f"{stats_train['max_memory_allocated_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    counts_rope = rope_path(torch, kernels, k67)
     torch.cuda.empty_cache()
 
     # ---- 10. the MoE kernels vs plain at the Mixtral train shapes, 11. the
@@ -2272,7 +2802,9 @@ def main() -> int:
              "generate_paged int8": counts_int8,
              **{f"batcher {label}": stats_batcher[label]["launches"]
                 for label, _ in BATCHER_PLANS},
-             "train": counts_train, "moe train": counts_moe}
+             "train": counts_train, "moe train": counts_moe,
+             "grad check split, mask": counts_grad_split, "sft": counts_sft,
+             "rope": counts_rope}
     counter = {"flash_attention_fwd": "flash_attention",
                "norm_matmul": "fused_norm_matmul",
                "norm_matmul_int8": "fused_norm_matmul",
@@ -2290,7 +2822,13 @@ def main() -> int:
                "grouped_matmul": "grouped_matmul",
                "grouped_matmul_down": "grouped_matmul",
                "grouped_matmul_dx": "grouped_matmul",
-               "segment_dw": "segment_dw", "segment_dw_down": "segment_dw"}
+               "segment_dw": "segment_dw", "segment_dw_down": "segment_dw",
+               "flash_attention_fwd_bias": "flash_attention",
+               "flash_attention_bwd_bias": "flash_attention_bwd",
+               "flash_attention_bwd_fused": "flash_attention_bwd_fused",
+               **{f"{n}_h{hh}": "fused_rope" for n in ("fused_rope",
+                                                        "fused_rope_bwd")
+                  for hh in (32, 8)}}
     rows = []
     for row, path in own:
         c = counter[row["name"]]
@@ -2306,13 +2844,15 @@ def main() -> int:
                     for k, v in stats_batcher.items()))
 
     log(f"max_memory_allocated while training: Llama "
-        f"{stats_train['max_memory_allocated_gib']:.2f} GiB, MoE "
+        f"{stats_train['max_memory_allocated_gib']:.2f} GiB, fine-tuning "
+        f"{stats_sft['max_memory_allocated_gib']:.2f} GiB, MoE "
         f"{stats_moe['max_memory_allocated_gib']:.2f} GiB")
 
     # ---- 13. result
     log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8,
                     "serving_batcher": stats_batcher,
-                    "train": stats_train, "moe_train": stats_moe}))
+                    "train": stats_train, "sft": stats_sft,
+                    "moe_train": stats_moe}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

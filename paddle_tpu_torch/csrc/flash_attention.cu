@@ -1,4 +1,5 @@
-// K1 flash_attention_fwd: causal GQA online-softmax attention, out + lse.
+// K1 flash_attention_fwd: causal GQA online-softmax attention, out + lse,
+// with an optional key bias.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py:_pallas_fwd (_fwd_kernel).
 // The TPU walks a sequential (bh, q_block, k_block) grid carrying m/l/acc in
@@ -8,9 +9,16 @@
 // the repeated K/V are never materialized (the TPU's index-map gather).
 //
 // Numerics follow _fwd_kernel: Q.K^T in bf16 with f32 accumulation, times
-// sm_scale; masked logits set to -1e30; p = exp(s - m) in f32, summed in
+// sm_scale, plus the (B, Sk) f32 key bias of a key-padding mask (b_ref at
+// _fwd_kernel :125; a null pointer without a mask), each rounded; then
+// causally masked logits set to -1e30; p = exp(s - m) in f32, summed in
 // f32, and CAST TO V's DTYPE before P.V; out = acc / max(l, 1e-30) and
-// lse = m + log(max(l, 1e-30)).
+// lse = m + log(max(l, 1e-30)). A query that sees no key (every logit
+// -1e30: a left-pad query under a key-padding mask, or a query before the
+// first key when Sq > Sk) writes zeros and lse = -1e30; the wrapper then
+// gives such rows the mean of V over all keys, the JAX package's reference
+// lowering (a softmax over equal logits). The TPU kernel instead averages
+// over its live tiles' keys, an answer that depends on its tile size.
 //
 // Bound on an H100: at prefill (S = 128..2048, D = 128) the work is
 // tensor-core operations, ~4*S^2*D/2 per head causal. This first version
@@ -58,8 +66,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int b, int
 
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int B, int Sq, int Sk, int H, int Hk, int causal, float scale) {
+                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                 bf16* __restrict__ out, float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                 int Hk, int causal, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + Q_BYTES);
@@ -129,6 +138,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < 32; ++c) {
       const int kpos = k0 + half * 32 + c;
       float sv = srow[c] * scale;
+      if (bias != nullptr && kpos < Sk) sv = __fadd_rn(sv, bias[(size_t)b * Sk + kpos]);
       if (kpos >= Sk || (causal && kpos > q_pos)) sv = pt::kNegInf;
       srow[c] = sv;
       mx = fmaxf(mx, sv);
@@ -172,13 +182,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   if (q_row < Sq) {
     const float denom = fmaxf(l, 1e-30f);
+    const bool dead = m <= 0.5f * pt::kNegInf;  // the row sees no key
     const float* orow = Ow + r * LDO + half * (D / 2);
     bf16* dst = out + (((size_t)b * Sq + q_row) * H + h) * D + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; c += 8) {
       float f[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = orow[c + j] / denom;
+      for (int j = 0; j < 8; ++j) f[j] = dead ? 0.f : orow[c + j] / denom;
       *reinterpret_cast<uint4*>(dst + c) = pt::pack8(f);
     }
     if (half == 0) lse[((size_t)b * H + h) * Sq + q_row] = m + logf(denom);
@@ -187,17 +198,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
-// q (B, Sq, H, D), k/v (B, Sk, Hk, D) bf16 contiguous, D = 128;
-// out (B, Sq, H, D) bf16, lse (B, H, Sq) f32.
-PT_EXPORT int pt_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                     void* lse, int B, int Sq, int Sk, int H, int Hk,
-                                     int causal, float scale, void* stream) {
+// q (B, Sq, H, D), k/v (B, Sk, Hk, D) bf16 contiguous, D = 128; bias
+// (B, Sk) f32 or null (no mask); out (B, Sq, H, D) bf16, lse (B, H, Sq) f32.
+PT_EXPORT int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                     const void* bias, void* out, void* lse, int B, int Sq,
+                                     int Sk, int H, int Hk, int causal, float scale,
+                                     void* stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), B, Sq, Sk, H, Hk, causal, scale);
+      static_cast<const float*>(bias), static_cast<bf16*>(out), static_cast<float*>(lse), B,
+      Sq, Sk, H, Hk, causal, scale);
   return cudaGetLastError();
 }

@@ -6,6 +6,9 @@ activations are dropped after the forward and rebuilt by running the block
 again when backward first needs them. What a granularity keeps beyond the
 block input is the caller's choice (``models/llama.py``: under
 ``core_attn`` with ``flash_save_residuals`` the attention's (out, lse)).
+Every argument rides the recompute as an input, never as a closure: an
+attention mask passed here reaches the recomputed block as the same tensor
+and gets no gradient (the attention returns none for it).
 """
 
 from __future__ import annotations

@@ -110,8 +110,9 @@ define_flag("fused_train_fusions",
             "its cast riding as an epilogue op).")
 define_flag("flash_bwd_impl", "split",
             "Flash-attention backward: 'split' = the dq + dkv kernels (K5); "
-            "'fused' = the one-pass kernel, not ported yet (raises on the "
-            "card).")
+            "'fused' = the one-pass kernel (K9) wherever the JAX package "
+            "takes its fused backward (its dQ partials within 512 MiB, "
+            "flash_attention.bwd_uses_fused), K5 elsewhere.")
 define_flag("flash_save_residuals", False,
             "core_attn recompute keeps the attention's (out, lse) from the "
             "first forward, so the recompute in backward skips the K1 "

@@ -6,12 +6,18 @@ is forward, loss, ``backward()``, then one optimizer sweep over the
 parameters, updating them in place. ``accumulate_steps`` > 1 merges the
 gradients of that many microbatches (inputs and labels carry a leading
 microbatch dim) in f32 before the one update, as the JAX package's scan
-does. Sharding plans and donation are not ported.
+does. Under an ``LRScheduler`` the step reads ``optimizer.get_lr()`` before
+the update and steps the scheduler after it, as the JAX package's does;
+``last_lr`` keeps the rate of the last update. Inputs are passed to the
+model positionally: ``step((ids, attn_mask), labels)``. Sharding plans and
+donation are not ported.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..optimizer.lr import LRScheduler
 
 
 class TrainStep:
@@ -22,6 +28,7 @@ class TrainStep:
         self.accumulate_steps = int(accumulate_steps)
         self._named = list(model.named_parameters())
         optimizer.register_named(self._named)
+        self.last_lr = None
 
     def _loss(self, inputs, labels):
         return self.loss_fn(self.model(*inputs), *labels)
@@ -31,6 +38,13 @@ class TrainStep:
         inputs = inputs if isinstance(inputs, (tuple, list)) else (inputs,)
         labels = labels if isinstance(labels, (tuple, list)) else (labels,)
         self.optimizer.clear_grad()
+        self.last_lr = self.optimizer.get_lr()
+        loss = self._update(inputs, labels)
+        if isinstance(self.optimizer._lr, LRScheduler):
+            self.optimizer._lr.step()
+        return loss
+
+    def _update(self, inputs, labels):
         m = self.accumulate_steps
         if m == 1:
             loss = self._loss(inputs, labels)

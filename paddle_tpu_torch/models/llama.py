@@ -25,6 +25,9 @@ per-block recompute (``torch.utils.checkpoint``) when ``config.recompute``;
 with ``fused_head_loss`` the forward returns the final-normed hidden states
 (the norm in K6/K7) and ``loss`` runs the chunked ``linear_cross_entropy``.
 ``jit.TrainStep`` drives forward, loss, backward and the optimizer.
+``forward(ids, attn_mask)`` takes a key-padding mask (bool or additive,
+(B, S) or (B, 1, 1, S)) into every block's attention, where it rides the
+flash kernels as a key bias, in training and in eval alike.
 ``forward(ids, plain=True)`` runs every kernel's plain version and the
 unfused plans (the on-card reference).
 """
@@ -207,12 +210,15 @@ def _pow2_bucket(n: int, cap: int, floor: int = 1) -> int:
     return bucket_for(min(n, cap), default_buckets(cap, floor))
 
 
-def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False):
+def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False,
+                       attn_mask=None):
     """Full-prompt logits (B, S, V): embed -> decoder blocks with causal
     flash attention -> LM head, for a params dict of dense tensors or
-    ``QuantizedWeight`` entries. ``plain=True`` runs every kernel's plain
-    version instead (no fusion, plain attention, plain dequant-matmuls) —
-    the on-card reference the kernel path is held against."""
+    ``QuantizedWeight`` entries. ``attn_mask``: an optional mask for the
+    attention (``flash_attention_pure``'s). ``plain=True`` runs every
+    kernel's plain version instead (no fusion, plain attention, plain
+    dequant-matmuls) — the on-card reference the kernel path is held
+    against."""
     from ..ops.kernels.flash_attention import (_reference_attention,
                                                flash_attention_pure)
 
@@ -232,7 +238,12 @@ def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False):
             v = v.reshape(b, s, hk, hd)
             q, k = apply_rotary_pos_emb(q.float(), k.float(), cos, sin)
             q, k = q.to(hidden.dtype), k.to(hidden.dtype)
-            return attention(q, k, v, causal=True).reshape(b, s, nh * hd)
+            if attn_mask is None:
+                out = attention(q, k, v, causal=True)
+            else:
+                out = flash_attention_pure(q, k, v, causal=True,
+                                           attn_mask=attn_mask, plain=plain)
+            return out.reshape(b, s, nh * hd)
 
         hidden = _pure_decoder_layer(prms, i, hidden, cfg.rms_norm_eps,
                                      attend, enabled=enabled, plain=plain)
@@ -270,11 +281,13 @@ def quantize_for_inference(params, algo="weight_only_int8", group_size=-1):
 # ---------------------------------------------------------------------------
 # Modules (parameter containers with the JAX package's names)
 # ---------------------------------------------------------------------------
-def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None):
+def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None,
+                  attn_mask=None):
     """The training attend seam: rope (f32 rotate-half, cast back) feeding
-    causal flash attention with a gradient (K1 forward, K5 backward), on
-    flat (B, S, ·) projections; with ``o_w`` the o-proj matmul and the
-    residual add follow as the attention's epilogue."""
+    causal flash attention with a gradient (K1 forward, K5 or K9 backward)
+    under ``attn_mask``, on flat (B, S, ·) projections; with ``o_w`` the
+    o-proj matmul and the residual add follow as the attention's
+    epilogue."""
     from ..ops.kernels.flash_attention import flash_attention_train
 
     b, s = q.shape[:2]
@@ -285,17 +298,19 @@ def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None):
     q2, k2 = apply_rotary_pos_emb(qa.float(), ka.float(), cos, sin)
     out = flash_attention_train(q2.to(qa.dtype), k2.to(ka.dtype),
                                 v.reshape(b, s, hk, hd), causal=True,
-                                plain=plain, stash=stash)
+                                plain=plain, stash=stash,
+                                attn_mask=attn_mask)
     out = out.reshape(b, s, nh * hd)
     if o_w is None:
         return out
     return residual + out @ o_w
 
 
-def _train_fused_block(layer, hidden, plain=False, stash=None,
-                       attn_only=False):
+def _train_fused_block(layer, hidden, attn_mask=None, plain=False,
+                       stash=None, attn_only=False):
     """Training forward of one decoder block through the TRAIN plan
-    (``fusion.run_train_decoder_layer``) over the block's own parameters.
+    (``fusion.run_train_decoder_layer``) over the block's own parameters,
+    its attention under ``attn_mask``.
     With no train family on (``fused_train`` off) it runs the unfused plan,
     every norm in K6/K7; ``plain`` runs the unfused plan with every
     kernel's plain version — the on-card reference. ``attn_only`` runs the
@@ -306,7 +321,8 @@ def _train_fused_block(layer, hidden, plain=False, stash=None,
     cfg = layer.self_attn.config
 
     def attend(q, k, v, residual=None, o_w=None):
-        return _train_attend(cfg, q, k, v, plain, stash, residual, o_w)
+        return _train_attend(cfg, q, k, v, plain, stash, residual, o_w,
+                             attn_mask)
 
     unfused = plain or not fusion.enabled_train_fusions()
     return fusion.run_train_decoder_layer(
@@ -365,9 +381,9 @@ class LlamaDecoderLayer(Layer):
                                                 device, eps)
         self.mlp = LlamaMLP(cfg, dtype, device, gen)
 
-    def forward(self, hidden, plain=False, stash=None):
+    def forward(self, hidden, attn_mask=None, plain=False, stash=None):
         """Training forward through the TRAIN plan."""
-        return _train_fused_block(self, hidden, plain, stash)
+        return _train_fused_block(self, hidden, attn_mask, plain, stash)
 
 
 class LlamaModel(Layer):
@@ -381,12 +397,15 @@ class LlamaModel(Layer):
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
 
-    def forward(self, input_ids, final_norm=True, plain=False):
+    def forward(self, input_ids, attn_mask=None, final_norm=True,
+                plain=False):
         """Training forward to the final hidden states (normed unless
-        ``final_norm=False``, the head fusion's entry). Under
-        ``config.recompute`` each block's activations are recomputed in
-        backward; ``core_attn`` with ``flags.flash_save_residuals`` keeps
-        the attention's (out, lse) so the recompute skips K1."""
+        ``final_norm=False``, the head fusion's entry), every block's
+        attention under ``attn_mask``. Under ``config.recompute`` each
+        block's activations are recomputed in backward (the mask rides the
+        recompute as an input); ``core_attn`` with
+        ``flags.flash_save_residuals`` keeps the attention's (out, lse) so
+        the recompute skips K1."""
         from ..distributed.recompute import recompute
         from ..framework import flags
 
@@ -396,10 +415,10 @@ class LlamaModel(Layer):
                 and bool(flags.get_flag("flash_save_residuals")))
         for layer in self.layers:
             if cfg.recompute and self.training:
-                hidden = recompute(layer, hidden, plain=plain,
+                hidden = recompute(layer, hidden, attn_mask, plain=plain,
                                    stash=[] if keep else None)
             else:
-                hidden = layer(hidden, plain=plain)
+                hidden = layer(hidden, attn_mask, plain=plain)
         return self.norm(hidden, plain=plain) if final_norm else hidden
 
 
@@ -421,20 +440,25 @@ class LlamaForCausalLM(Layer):
                                self.device, gen))
         self.eval()
 
-    def forward(self, input_ids, plain=False):
+    def forward(self, input_ids, attn_mask=None, plain=False):
         """Eval: prompt logits (B, S, V), under inference mode. Training:
         logits with a gradient, or the final hidden states (B, S, H) under
         ``fused_head_loss`` (``loss`` then projects them chunk by chunk).
-        ``plain``: every kernel's plain version and the unfused plans."""
+        ``attn_mask``: a mask for every block's attention (a key-padding
+        mask (B, S) or (B, 1, 1, S), bool or additive, rides the flash
+        kernels as a key bias). ``plain``: every kernel's plain version and
+        the unfused plans."""
         ids = torch.as_tensor(input_ids, device=self.device)
+        if attn_mask is not None:
+            attn_mask = torch.as_tensor(attn_mask, device=self.device)
         if not self.training:
             with torch.inference_mode():
                 return prompt_logits_pure(self.param_dict(), ids,
                                           self.config,
                                           tied=self.lm_head is None,
-                                          plain=plain)
+                                          plain=plain, attn_mask=attn_mask)
         fuse_head = not plain and _train_head_fusion_active(self)
-        hidden = self.model(ids.long(), final_norm=not fuse_head,
+        hidden = self.model(ids.long(), attn_mask, final_norm=not fuse_head,
                             plain=plain)
         if self.config.fused_head_loss:
             return hidden

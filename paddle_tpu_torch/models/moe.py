@@ -300,11 +300,14 @@ class MoEDecoderLayer(Layer):
                                                 device, eps)
         self.mlp = MoEMLP(config, dtype, device, gen)
 
-    def forward(self, hidden, router_probe=None, plain=False):
-        """The attention half through the train plan (K2 folds, K1/K5,
-        the o-proj and residual as the attention's epilogue), then the
-        routed MLP on the post-attention norm (K6/K7)."""
-        h = _train_fused_block(self, hidden, plain=plain, attn_only=True)
+    def forward(self, hidden, attn_mask=None, router_probe=None,
+                plain=False):
+        """The attention half through the train plan (K2 folds, K1 and K5
+        or K9, the o-proj and residual as the attention's epilogue) under
+        ``attn_mask``, then the routed MLP on the post-attention norm
+        (K6/K7)."""
+        h = _train_fused_block(self, hidden, attn_mask, plain=plain,
+                               attn_only=True)
         y, aux = self.mlp(self.post_attention_layernorm(h, plain=plain),
                           router_probe=router_probe, plain=plain)
         return h + y, aux
@@ -333,15 +336,19 @@ class MoEForCausalLM(Layer):
                               self.device, gen)
         self.eval()
 
-    def forward(self, input_ids, router_probe=None, plain=False):
-        """(logits (B, S, V), the summed aux loss). ``plain``: every
-        kernel's plain version and the unfused plans (the on-card
+    def forward(self, input_ids, attn_mask=None, router_probe=None,
+                plain=False):
+        """(logits (B, S, V), the summed aux loss). ``attn_mask``: a mask
+        for every block's attention (as ``LlamaForCausalLM``'s). ``plain``:
+        every kernel's plain version and the unfused plans (the on-card
         reference)."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
+        if attn_mask is not None:
+            attn_mask = torch.as_tensor(attn_mask, device=self.device)
         hidden = self.embed_tokens(ids)
         aux_total = None
         for layer in self.layers:
-            hidden, aux = layer(hidden, router_probe=router_probe,
+            hidden, aux = layer(hidden, attn_mask, router_probe=router_probe,
                                 plain=plain)
             aux_total = aux if aux_total is None else aux_total + aux
         return self.norm(hidden, plain=plain) @ self.lm_head.weight, aux_total

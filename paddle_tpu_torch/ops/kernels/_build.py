@@ -31,8 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: C entry points and their argument types (each returns a cudaError_t)
 _SIGNATURES = {
-    "pt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _F, _P],
+    "pt_flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pt_norm_matmul": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pt_norm_matmul_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P],
@@ -42,7 +41,9 @@ _SIGNATURES = {
     "pt_rope_append_attend_ragged": [_P] * 14 + [_I] * 8 + [_F, _P],
     "pt_paged_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pt_ragged_paged_attention": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "pt_flash_attention_bwd": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "pt_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "pt_flash_attention_bwd_fused": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "pt_rope": [_P] * 4 + [_I] * 5 + [_P],
     "pt_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _P],
     "pt_rms_norm_bwd": [_P] * 6 + [_I, _I, _P],
     "pt_adamw8bit": [_P, _I] + [_P] * 6 + [_L] + [_F] * 9 + [_I, _P],

@@ -1,4 +1,4 @@
-"""RMSNorm forward and backward (``paddle_tpu/ops/pallas/fused_norm_rope.py``).
+"""RMSNorm and rope (``paddle_tpu/ops/pallas/fused_norm_rope.py``).
 
 Kernel K6 (``csrc/rms_norm.cu``, ``pt_rms_norm_fwd``) replaces the TPU's
 ``_pallas_rms_fwd``: out = bf16((x * rstd) * w), rounded once, saving rstd.
@@ -11,6 +11,13 @@ tensors the wrappers launch their kernel or raise, on CPU tensors they run
 the plain versions below, which follow the kernels' numerics (one rounding
 of the output, as ``_rms_fwd_kernel``; the JAX package's ``_jnp_rms`` rounds
 twice in bf16 — in f32 the two agree).
+
+Kernel K12 (``csrc/rope.cu``, ``pt_rope``) replaces ``_pallas_rope``: the
+rotate-half rope x * cos + concat(-x2, x1) * sin in f32 over (B, S, H, D)
+rows with (S, D) tables, cast back to x's dtype. ``fused_rope`` is its
+``autograd.Function`` (the JAX package's ``_rope_core`` custom VJP): the
+backward is K12 again with sin' = -swap_halves(sin) (``_rope_bwd``). Like
+the JAX package's ``fused_rope``, no model path calls it. Bound: bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from . import _build
 #: launches)
 fwd_launches = 0
 bwd_launches = 0
+#: K12 launches since the last reset, forward and backward
+rope_launches = 0
 
 #: the kernels hold a row in registers: H <= 256 threads * 8 * 4 vectors
 _MAX_H = 8192
@@ -141,3 +150,72 @@ def fused_rms_norm(x, weight, epsilon=1e-6, plain=False):
     rstd, K7 backward (plain versions on CPU tensors, or with ``plain``:
     the on-card reference)."""
     return _FusedRMSNorm.apply(x, weight, epsilon, plain)
+
+
+# ---------------------------------------------------------------------------
+# Rope (K12)
+# ---------------------------------------------------------------------------
+
+
+def rope_reference(x, cos, sin):
+    """K12's plain version: x (B, S, H, D) with (S, D) tables ->
+    x * cos + concat(-x2, x1) * sin in f32, cast back to x's dtype (the
+    JAX package's ``_jnp_rope``, each op rounded once)."""
+    half = x.shape[-1] // 2
+    x32 = x.float()
+    rot = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
+    return (x32 * cos[None, :, None, :].float()
+            + rot * sin[None, :, None, :].float()).to(x.dtype)
+
+
+def rope_fwd(x, cos, sin):
+    """The rope of x (B, S, H, D) with (S, D) f32 tables — K12 on CUDA
+    tensors, the plain version on CPU tensors."""
+    global rope_launches
+    if not x.is_cuda:
+        return rope_reference(x, cos, sin)
+    b, s, h, d = x.shape
+    if d % 2:
+        raise ValueError(f"rope needs an even head_dim, got {d}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x: expected bfloat16 or float32, got {x.dtype}")
+    _build.check_no_grad("rope", x, cos, sin)
+    _build.check_cuda("x", x, x.dtype)
+    _build.check_cuda("cos", cos, torch.float32, (s, d))
+    _build.check_cuda("sin", sin, torch.float32, (s, d))
+    out = torch.empty_like(x)
+    _build.launch("pt_rope", x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                  out.data_ptr(), b, s, h, d,
+                  int(x.dtype == torch.bfloat16), _build.stream_of(x))
+    rope_launches += 1
+    return out
+
+
+def rope_bwd_table(sin):
+    """sin' = -swap_halves(sin): the rope with it is the rope's VJP
+    (``_rope_bwd``), for any table."""
+    half = sin.shape[-1] // 2
+    return -torch.cat([sin[..., half:], sin[..., :half]], dim=-1)
+
+
+class _FusedRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin, plain):
+        ctx.save_for_backward(cos, sin)
+        ctx.plain = plain
+        return (rope_reference if plain else rope_fwd)(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        fn = rope_reference if ctx.plain else rope_fwd
+        return fn(g.contiguous(), cos, rope_bwd_table(sin).contiguous()), \
+            None, None, None
+
+
+def fused_rope(x, cos, sin, plain=False):
+    """Rotary position embedding of x (B, S, H, D) with (S, D) tables, with
+    a gradient for x: K12 forward and backward (plain versions on CPU
+    tensors, or with ``plain``: the on-card reference). The tables get no
+    gradient, as in the JAX package."""
+    return _FusedRope.apply(x, cos, sin, plain)

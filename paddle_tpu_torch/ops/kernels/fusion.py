@@ -231,17 +231,36 @@ def train_opt_plan(enabled=None) -> tuple:
     return OPT_CHAIN
 
 
+def _bwd_kernel_counts(n: int, attn_shape) -> dict:
+    """``n`` attention backwards by counter: K9 where the flash backward's
+    dispatch (``flash_attention.bwd_uses_fused``) picks it at
+    ``attn_shape`` = (batch, seq, heads, head_dim), else K5. Under
+    ``flash_bwd_impl="fused"`` the shape decides, so it must be given."""
+    from . import flash_attention
+
+    fused = False
+    if flags.get_flag("flash_bwd_impl") == "fused":
+        if attn_shape is None:
+            raise ValueError("flash_bwd_impl='fused': the launch plan needs "
+                             "attn_shape=(batch, seq, heads, head_dim)")
+        b, s, h, d = attn_shape
+        fused = flash_attention.bwd_uses_fused(b, s, s, h, d)
+    return {"flash_attention_bwd": 0 if fused else n,
+            "flash_attention_bwd_fused": n if fused else 0}
+
+
 def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
                             recompute: bool, granularity: str = "full",
                             fused_head_loss: bool, tied: bool = False,
                             optimizer: str = "adamw8bit",
-                            enabled=None) -> dict:
+                            enabled=None, attn_shape=None) -> dict:
     """Kernel launches of one train step (forward, backward, update) by
     counter name, from the train plans: K2 per consumer of each
     ``norm_multi_matmul`` node, K1 per attend node, each again when
     per-block recompute re-runs the block in backward (K1 not, under
     ``core_attn`` with ``flash_save_residuals``: the first forward's
-    (out, lse) are kept), K5 once per attend node; the final norm in K6/K7
+    (out, lse) are kept), K5 or K9 once per attend node (K9 where the
+    backward's dispatch picks it at ``attn_shape``); the final norm in K6/K7
     when the head runs in the chunked loss (``fused_head_loss``), else in
     K2 through the head plan; one K8 per parameter tensor (``n_params``)
     for AdamW8bit with ``optimizer_update``. With no family enabled
@@ -255,7 +274,7 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
             and bool(flags.get_flag("flash_save_residuals")))
     runs = 2 if recompute else 1
     out = {"flash_attention": num_layers * k1 * (1 if keep else runs),
-           "flash_attention_bwd": num_layers * k1,
+           **_bwd_kernel_counts(num_layers * k1, attn_shape),
            "fused_norm_matmul": num_layers * k2 * runs,
            "rms_norm_fwd": 0, "rms_norm_bwd": 0,
            "adamw8bit": (n_params if optimizer == "adamw8bit"
@@ -277,11 +296,12 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
 
 
 def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
-                                       enabled=None) -> dict:
+                                       enabled=None, attn_shape=None) -> dict:
     """Kernel launches of one MoE train step (``models/moe.py``, no
     per-block recompute, as in the JAX package) by counter name: the
     attention half's plan as ``train_kernel_launches_per_step`` counts it
-    (K2 per ``norm_multi_matmul`` consumer, K1 and K5 per attend node, its
+    (K2 per ``norm_multi_matmul`` consumer, K1 and K5 or K9 per attend
+    node, K9 where the backward's dispatch picks it at ``attn_shape``, its
     norm in K6/K7 when unfused), the post-attention norm and the final
     norm in K6/K7, three K13 forward and three K13 dX a layer (gate, up,
     down), three K14 dW under ``moe_grouped_bwd`` (on the card the step
@@ -292,7 +312,7 @@ def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     k1 = sum(n.kind in ("attend", "attend_epilogue") for n in lp)
     norms = 1 + sum(n.kind == "rms_norm" for n in lp)
     return {"flash_attention": num_layers * k1,
-            "flash_attention_bwd": num_layers * k1,
+            **_bwd_kernel_counts(num_layers * k1, attn_shape),
             "fused_norm_matmul": num_layers * sum(
                 len(n.w[1]) for n in lp if n.kind == "norm_multi_matmul"),
             "rms_norm_fwd": num_layers * norms + 1,

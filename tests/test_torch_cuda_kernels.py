@@ -32,6 +32,13 @@ grads (the 1e-30 scale floor), with a master, on an f32 param and on a bf16
 param without one, over 3 steps: codes, scales and params bit-identical to
 the plain version on the card. Their wrappers, the autograd entries and the
 train fusion executor launch or raise.
+K9 (the one-pass flash backward) on the same shapes as K5 and Sq > Sk;
+K1, K5 and K9 with a left-padded key bias, rows that see no key included
+(dO not 0 there: every output and gradient within the tolerance of the
+plain version, which follows the JAX package's reference lowering on
+such rows); K12 (rope) forward and backward bit-identical to
+the plain version in bf16 and f32, D = 128 and an odd half-width; the
+gradient clip's f32 scaling bit-identical to the CPU's and to numpy's.
 The MoE kernels: K13 (grouped matmul) in both forms and K14 (segment dW,
 f32 and bf16 outputs, with a scale) on uneven group offsets with an empty
 first, middle or last group, one group holding every row, boundaries and
@@ -597,10 +604,12 @@ def test_training_wrappers_raise_instead_of_falling_back(gen):
         k1.flash_attention_bwd(q, q, q, out, lse, q.transpose(1, 2)
                                .contiguous().transpose(1, 2), causal=True)
     old = flags.get_flag("flash_bwd_impl")
-    try:
+    try:                          # the fused flag launches K9, not K5
         flags.set_flags({"flash_bwd_impl": "fused"})
-        with pytest.raises(NotImplementedError):
-            k1.flash_attention_bwd(q, q, q, out, lse, q, causal=True)
+        qg = q.clone().requires_grad_(True)
+        n5, n9 = k1.bwd_launches, k1.bwd_fused_launches
+        k1.flash_attention_train(qg, q, q).backward(q)
+        assert (k1.bwd_launches - n5, k1.bwd_fused_launches - n9) == (0, 1)
     finally:
         flags.set_flags({"flash_bwd_impl": old})
     x = _randn(gen, 4, 256)
@@ -853,3 +862,168 @@ def test_grouped_wrappers_raise_instead_of_falling_back(gen):
             ("cast", torch.float32), ("scale", 2.0)))
     with pytest.raises(RuntimeError):                     # grad would drop
         k1314.gmm(x.clone().requires_grad_(True), off, w)
+
+
+
+# --------------------------------------------------------------------------
+# fine-tuning: K1/K5 with a key bias, K9 one-pass backward, K12 rope, clip
+# --------------------------------------------------------------------------
+
+
+def _left_pad_bias(b, sk, pads):
+    """The (B, Sk) f32 key bias of a left-padded batch: row i's first
+    pads[i] keys masked (-1e30)."""
+    keep = torch.arange(sk, device="cuda")[None, :] >= torch.tensor(
+        pads, device="cuda")[:, None]
+    return k1._key_bias_from_mask(keep, b, sk)[0], keep
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal,pads", [
+    (2, 130, 130, 8, 2, True, (0, 70)), (2, 100, 100, 4, 4, True, (99, 3)),
+    (1, 64, 200, 4, 1, True, (150,)), (2, 77, 77, 4, 1, False, (10, 0))])
+@pytest.mark.parametrize("impl", ["split", "fused"])
+def test_flash_attention_bias_forms_match_plain(gen, b, sq, sk, h, hk,
+                                                causal, pads, impl):
+    q = _randn(gen, b, sq, h, 128)
+    k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
+    bias, _ = _left_pad_bias(b, sk, pads)
+    do = _randn(gen, b, sq, h, 128)      # not 0 on the rows that see no key
+    out, lse = k1.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
+    ref, r_lse = k1.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                  bias)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.isfinite(lse).all())
+    t = k1.fwd_tolerance(q, k, v, ref, causal=causal, bias=bias)
+    worst = ((out.float() - ref.float()).abs() / t).max().item()
+    assert worst <= 1.0, f"K1 with bias: worst err/tol {worst:.3f}"
+    lse_err = (lse - r_lse).abs().max().item()
+    assert lse_err <= 1e-3
+    bwd = (k1.flash_attention_bwd_fused if impl == "fused"
+           else k1.flash_attention_bwd)
+    got = bwd(q, k, v, out, lse, do, causal=causal, bias=bias)
+    r = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                         None, bias)
+    torch.cuda.synchronize()
+    tols = k1.bwd_tolerance(q, k, v, do, *r, causal=causal, bias=bias)
+    for name, a, rr, tt in zip(("dq", "dk", "dv"), got, r, tols):
+        assert bool(torch.isfinite(a.float()).all()), name
+        w = ((a.float() - rr.float()).abs() / tt).max().item()
+        assert w <= 1.0, f"{impl} {name} worst err/tol {w:.3f}"
+    # the bias matters: without it the real rows' output moves
+    free, _ = k1.flash_attention_fwd(q, k, v, causal=causal)
+    if any(pads):
+        assert ((free.float() - ref.float()).abs() / t).max() > 1.0
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal", [
+    (1, 100, 100, 4, 4, True), (2, 130, 130, 8, 2, True),
+    (1, 64, 200, 4, 1, True), (1, 77, 77, 4, 1, False),
+    (1, 200, 64, 4, 2, True)])
+def test_flash_attention_bwd_fused_matches_plain(gen, b, sq, sk, h, hk,
+                                                 causal):
+    q = _randn(gen, b, sq, h, 128)
+    k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
+    do = _randn(gen, b, sq, h, 128)
+    out, lse = k1.flash_attention_fwd(q, k, v, causal=causal)
+    n9 = k1.bwd_fused_launches
+    got = k1.flash_attention_bwd_fused(q, k, v, out, lse, do, causal=causal)
+    assert k1.bwd_fused_launches - n9 == 1
+    ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    tols = k1.bwd_tolerance(q, k, v, do, *ref, causal=causal)
+    for name, a, r, t in zip(("dq", "dk", "dv"), got, ref, tols):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        worst = ((a.float() - r.float()).abs() / t).max().item()
+        assert worst <= 1.0, f"{name} worst err/tol {worst:.3f}"
+
+
+def test_flash_fused_wrapper_raises_instead_of_falling_back(gen):
+    q = _randn(gen, 1, 64, 2, 128)
+    out, lse = k1.flash_attention_fwd(q, q, q, causal=True)
+    bias, _ = _left_pad_bias(1, 64, (3,))
+    for bad in (dict(lse=lse.cpu()), dict(do=q.float()),
+                dict(do=q.transpose(1, 2).contiguous().transpose(1, 2)),
+                dict(bias=bias.to(torch.bfloat16)), dict(bias=bias[:, :32]),
+                dict(q=_randn(gen, 1, 64, 2, 64))):
+        args = dict(q=q, k=q, v=q, out=out, lse=lse, do=q, bias=bias)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            k1.flash_attention_bwd_fused(args["q"], args["k"], args["v"],
+                                         args["out"], args["lse"],
+                                         args["do"], causal=True,
+                                         bias=args["bias"])
+    with pytest.raises(ValueError):                       # f16 bias in K1
+        k1.flash_attention_fwd(q, q, q, True, None, bias.half())
+    with pytest.raises(RuntimeError):                     # grad would drop
+        k1.flash_attention_bwd_fused(q.clone().requires_grad_(True), q, q,
+                                     out, lse, q, causal=True)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 37, 3, 128), torch.bfloat16), ((1, 5, 2, 6), torch.float32),
+    ((4, 64, 8, 128), torch.float32), ((1, 9, 1, 250), torch.bfloat16)])
+def test_rope_matches_plain_bitwise(gen, shape, dtype):
+    b, s, h, d = shape
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    emb = torch.randn((s, d), generator=gen, device="cuda")
+    cos, sin = emb.cos(), emb.sin()               # random tables
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    n = k67.rope_launches
+    xk = x.clone().requires_grad_(True)
+    y = k67.fused_rope(xk, cos, sin)
+    y.backward(g)
+    assert k67.rope_launches - n == 2
+    xr = x.clone().requires_grad_(True)
+    yr = k67.fused_rope(xr, cos, sin, plain=True)
+    yr.backward(g)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.equal(y, yr)
+    assert torch.equal(xk.grad, xr.grad)
+    # the VJP: <rope(x), g> = <x, rope^T(g)> up to f32 rounding
+    lhs = (yr.double() * g.double()).sum()
+    rhs = (x.double() * xr.grad.double()).sum()
+    assert abs(lhs - rhs) <= 1e-2 * (1 + abs(lhs))
+
+
+def test_rope_wrapper_raises_instead_of_falling_back(gen):
+    x = _randn(gen, 1, 8, 2, 128)
+    cos = torch.ones((8, 128), device="cuda")
+    for bad in (dict(x=x.half()), dict(x=x.cpu()), dict(cos=cos.half()),
+                dict(cos=cos[:4]), dict(sin=cos.t().contiguous()[:8]),
+                dict(x=x.transpose(1, 2)), dict(x=_randn(gen, 1, 8, 2, 7))):
+        args = dict(x=x, cos=cos, sin=cos)
+        args.update(bad)
+        with pytest.raises((ValueError, RuntimeError)):
+            k67.rope_fwd(args["x"], args["cos"], args["sin"])
+    with pytest.raises(RuntimeError):                     # grad would drop
+        k67.rope_fwd(x.clone().requires_grad_(True), cos, cos)
+
+
+def test_clip_scale_matches_the_cpu_bitwise(gen):
+    """ClipGradByGlobalNorm multiplies a bf16 gradient by its f32 scale in
+    f32 and casts once, as the JAX package's ``(g * scale).astype``: the
+    card, the CPU and numpy's f32 product agree bit for bit. The gradients'
+    squares sum exactly (small multiples of 1/8), so the norm and the scale
+    do not depend on the summation order."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    vals = torch.randint(-24, 25, (3, 4097), generator=gen, device="cuda")
+    grads = [(vals[i] / 8).to(dt) for i, dt in enumerate(
+        (torch.bfloat16, torch.bfloat16, torch.float32))]
+    params = [torch.nn.Parameter(torch.zeros_like(g)) for g in grads]
+    clip = ClipGradByGlobalNorm(1.0)
+    got = [g for _, g in clip(list(zip(params, grads)))]
+    cpu = [g for _, g in clip([(p.cpu(), g.cpu()) for p, g in
+                               zip(params, grads)])]
+    cpu_norm = clip.last_global_norm
+    sq = sum(np.square(g.float().cpu().numpy().astype(np.float64)).sum()
+             for g in grads)                      # exact, and so in f32
+    norm = np.sqrt(np.float32(sq))
+    want_scale = np.minimum(np.float32(1.0) / norm, np.float32(1.0))
+    for a, c, g in zip(got, cpu, grads):
+        assert a.dtype == g.dtype and torch.equal(a.cpu(), c)
+        ref = g.float().cpu().numpy() * want_scale
+        assert torch.equal(c, torch.from_numpy(ref).to(g.dtype))
+    assert cpu_norm.item() == float(norm)

@@ -216,7 +216,7 @@ def test_moe_launch_plan_counts(monkeypatch):
     plan = fusion.moe_train_kernel_launches_per_step(
         3, 33, enabled=fusion.TRAIN_FUSIONS)
     assert plan == {"flash_attention": 3, "flash_attention_bwd": 3,
-                    "fused_norm_matmul": 9, "rms_norm_fwd": 4,
+                    "flash_attention_bwd_fused": 0, "fused_norm_matmul": 9, "rms_norm_fwd": 4,
                     "rms_norm_bwd": 4, "grouped_matmul": 18,
                     "segment_dw": 9, "adamw8bit": 33}
     off = fusion.moe_train_kernel_launches_per_step(3, 33, enabled=())

@@ -26,7 +26,20 @@ counterpart, which on CPU tensors runs the kernel's plain version:
     kernel, ``tests/test_train_fusion.py``);
   * the chunked ``linear_cross_entropy`` (a chunk that does not divide N,
     ignored labels, untied and tied weights): loss and gradients vs the
-    JAX package's, f32, 1e-5 relative.
+    JAX package's, f32, 1e-5 relative;
+  * the key-bias forms of K1 and K5, and K9 (the one-pass backward): the
+    port's plain versions vs ``_flash_core`` with a left-padded key bias
+    (``_pallas_fwd``, ``_pallas_bwd``) and under ``flash_bwd_impl="fused"``
+    (``_pallas_bwd_fused``, spied), causal and not, GQA groups 1 and 4, S
+    not a multiple of the 128-row blocks; the bars as for K5, over the
+    real query rows (a fully masked row's output depends on each side's
+    tiles; it is finite, and its dO is 0 as a loss leaves it);
+  * K12 (rope): the plain forward and its VJP vs ``_rope_core`` in
+    interpret mode (``_pallas_rope`` both ways), random tables, f32 within
+    1e-6 (XLA may fuse a multiply-add), bf16 within one bf16 ulp;
+  * ``_key_bias_from_mask`` on every mask form, against the JAX package's;
+  * the backward dispatch (``bwd_uses_fused``) against the JAX package's
+    ``_bwd_prologue`` choice on shapes on both sides of its 512 MiB cap.
 """
 
 from __future__ import annotations
@@ -244,3 +257,214 @@ def test_linear_cross_entropy_matches_jax(tied):
                                 else torch.tensor(w))
     ce = loss_ops.cross_entropy(logits, torch.tensor(lbl))
     np.testing.assert_allclose(ce.item(), float(loss_j), rtol=1e-5)
+
+
+# ------------------------------------------------------------ K1/K5 bias, K9
+
+
+def _left_pad(b, sk, pads):
+    keep = np.arange(sk)[None, :] >= np.asarray(pads)[:, None]
+    return np.where(keep, 0.0, -1e30).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["split", "fused"])
+@pytest.mark.parametrize("s,h,hk,causal,pads", [
+    (192, 4, 1, True, (0, 70)), (128, 4, 4, True, (100, 5)),
+    (192, 4, 4, False, (20, 0)), (128, 8, 2, True, None)])
+def test_flash_bias_and_fused_plain_match_pallas(monkeypatch, dtype, impl, s,
+                                                h, hk, causal, pads):
+    from paddle_tpu.framework import flags as jflags
+
+    monkeypatch.setattr(fa, "_INTERPRET", True)
+    seen = []
+    for name in ("_pallas_bwd", "_pallas_bwd_fused"):
+        orig = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _o=orig, _n=name, **kw: (
+            seen.append(_n), _o(*a, **kw))[1])
+    rng = np.random.default_rng(s + h + hk)
+    b, d = 2, 128
+    (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
+        _pair(rng.normal(size=shape) * 0.3, dtype)
+        for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                      (b, s, h, d)))
+    scale = 1.0 / np.sqrt(d)
+    bias = None if pads is None else _left_pad(b, s, pads)
+    live = np.ones((b, s), bool)
+    if pads is not None:           # rows that see no unmasked key
+        pos = np.arange(s)[None, :] + (0 if causal else s - 1)
+        live = pos >= np.asarray(pads)[:, None]
+        gj = jnp.where(jnp.asarray(live)[:, :, None, None], gj, 0)
+        gt = gt * torch.tensor(live)[:, :, None, None]
+    jb = None if bias is None else jnp.asarray(bias)
+    old = jflags.get_flag("flash_bwd_impl")
+    jflags.set_flags({"flash_bwd_impl": impl})
+    try:
+        out_j, vjp = jax.vjp(
+            lambda q, k, v: fa._flash_core(q, k, v, jb, causal, scale),
+            qj, kj, vj)
+        grads_j = vjp(gj)[:3]
+    finally:
+        jflags.set_flags({"flash_bwd_impl": old})
+    assert seen == ["_pallas_bwd" if impl == "split" else
+                    "_pallas_bwd_fused"]
+    tb = None if bias is None else torch.tensor(bias)
+    out_t, lse_t = k1.flash_attention_fwd(qt, kt, vt, causal, None, tb)
+    bwd = (k1.flash_attention_bwd_fused if impl == "fused"
+           else k1.flash_attention_bwd)
+    grads_t = bwd(qt, kt, vt, out_t, lse_t, gt, causal, None, tb)
+    assert np.isfinite(_np(out_t)).all()
+    rel = 2e-5 if dtype == "float32" else 3e-2
+    for name, a, r in zip(("out", "dq", "dk", "dv"),
+                          (out_t,) + tuple(grads_t),
+                          (out_j,) + tuple(grads_j)):
+        a, r = _np(a), _np(r)
+        assert np.isfinite(a).all(), name
+        if name in ("out", "dq"):        # per query row: the real ones
+            a, r = a[live], r[live]
+        err = np.abs(a - r).max() / np.abs(r).max()
+        assert err <= rel, f"{name}: {err:.2e} > {rel}"
+
+
+@pytest.mark.parametrize("causal,sq,sk,pads", [
+    (True, 130, 130, (0, 70)), (True, 200, 64, (0, 0)),
+    (False, 77, 77, (77, 3))])
+def test_dead_row_completion_equals_the_plain_version(causal, sq, sk, pads):
+    """K1 writes zeros for a query that sees no key and K5/K9 give it no
+    term; the wrappers' completion (``_fill_dead_rows``,
+    ``_add_dead_rows_dv``) turns that into the plain version's answer,
+    contiguous, as the kernels' next launch needs. Emulated on CPU: the
+    plain version with such rows zeroed (forward) or with their dO zeroed
+    (backward) stands in for the kernel."""
+    rng = np.random.default_rng(sq + sk)
+    b, h, hk, d = 2, 4, 2, 128
+    q, do = (torch.tensor(rng.normal(size=(b, sq, h, d)), dtype=torch.float32)
+             for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(b, sk, hk, d)),
+                         dtype=torch.float32) for _ in range(2))
+    bias = torch.tensor(_left_pad(b, sk, pads))
+    out, lse = k1.flash_attention_fwd_reference(q, k, v, causal, None, bias)
+    dead = k1._dead_rows(lse).transpose(1, 2)[..., None]
+    assert bool(dead.any())
+    filled = k1._fill_dead_rows(out.masked_fill(dead, 0.0), v, lse)
+    assert filled.is_contiguous()
+    torch.testing.assert_close(filled, out, rtol=1e-5, atol=1e-6)
+    ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                           None, bias)
+    part = k1.flash_attention_bwd_reference(q, k, v, out, lse,
+                                            do.masked_fill(dead, 0.0),
+                                            causal, None, bias)
+    dv = k1._add_dead_rows_dv(part[2], do, lse)
+    assert dv.is_contiguous()
+    torch.testing.assert_close(dv, ref[2], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(part[0], ref[0])        # no dQ, dK terms
+    torch.testing.assert_close(part[1], ref[1])
+
+
+def test_key_bias_from_mask_matches_jax():
+    rng = np.random.default_rng(9)
+    b, sk = 3, 10
+    keep = rng.random((b, sk)) > 0.3
+    add = rng.normal(size=(b, sk)).astype(np.float32)
+    cases = [keep, keep[:1], keep[0], keep[:, None, None, :],
+             keep[:1, None, None, :], add, add[:1], add[0],
+             add[:, None, None, :], None,
+             keep[:, None, :, None].repeat(sk, 2),     # general: (B,1,S,S)
+             np.ones((b, 1, 4, sk), bool), keep[:2]]   # general shapes
+    for m in cases:
+        jb, jok = fa._key_bias_from_mask(None if m is None else jnp.asarray(m),
+                                         b, sk)
+        tb, tok = k1._key_bias_from_mask(None if m is None else
+                                         torch.tensor(m), b, sk)
+        assert tok == jok
+        if jb is None:
+            assert tb is None
+            continue
+        assert tb.dtype == torch.float32 and tb.shape == (b, sk)
+        assert tb.is_contiguous()
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 8192, 16, 128), (1, 8192, 17, 128), (4, 2048, 32, 128),
+    (2, 192, 4, 128), (1, 130, 4, 64), (64, 2048, 32, 128)])
+@pytest.mark.parametrize("impl", ["split", "fused"])
+def test_bwd_dispatch_matches_jax_prologue(shape, impl):
+    """``bwd_uses_fused`` against the kernel ``_bwd_prologue`` picks,
+    traced abstractly (no arrays are made): (1, 8192, 16, 128) sits at
+    the 512 MiB cap exactly (fused), 17 heads just past it (split)."""
+    from paddle_tpu.framework import flags as jflags
+    from paddle_tpu_torch.framework import flags as tflags
+
+    b, s, h, d = shape
+    picked = []
+
+    def prologue(q, k, v, out, do):
+        r = fa._bwd_prologue(q, k, v, None, out, do, True)
+        picked.append(r[-1])
+        return r[0]
+
+    old = jflags.get_flag("flash_bwd_impl"), tflags.get_flag("flash_bwd_impl")
+    jflags.set_flags({"flash_bwd_impl": impl})
+    tflags.set_flags({"flash_bwd_impl": impl})
+    try:
+        sds = [jax.ShapeDtypeStruct(x, jnp.bfloat16) for x in
+               ((b, s, h, d), (b, s, 1, d), (b, s, 1, d), (b, s, h, d),
+                (b, s, h, d))]
+        jax.eval_shape(prologue, *sds)
+        fused = k1.bwd_uses_fused(b, s, s, h, d)
+    finally:
+        jflags.set_flags({"flash_bwd_impl": old[0]})
+        tflags.set_flags({"flash_bwd_impl": old[1]})
+    assert fused == (picked[0] is fa._pallas_bwd_fused)
+    if impl == "fused" and shape[:3] in ((1, 8192, 16), (4, 2048, 32)):
+        assert fused
+    if shape[:3] in ((1, 8192, 17), (64, 2048, 32)) or impl == "split":
+        assert not fused
+
+
+def test_fused_partial_pairs_count_the_live_tiles():
+    """K9's dQ partial buffer holds the causally live (query tile, key
+    tile) pairs: 528 of 32 x 32 at S = 2048; all of them without the
+    causal mask; none for queries before the first key."""
+    assert k1.fused_partial_pairs(2048, 2048, True) == 32 * 33 // 2
+    assert k1.fused_partial_pairs(2048, 2048, False) == 32 * 32
+    assert k1.fused_partial_pairs(100, 100, True) == 3
+    assert k1.fused_partial_pairs(200, 64, True) == 2
+    for sq, sk in ((130, 130), (64, 200), (77, 300), (200, 64), (1, 1)):
+        # a pair is live iff some query of its tile sees some key of it
+        live = {(i // 64, j // 64) for i in range(sq) for j in range(sk)
+                if j <= i + sk - sq}
+        assert k1.fused_partial_pairs(sq, sk, True) == len(live)
+
+
+# ------------------------------------------------------------------ K12
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 6, 4, 128), (1, 5, 3, 256)])
+def test_rope_plain_matches_pallas(monkeypatch, dtype, shape):
+    monkeypatch.setattr(fnr, "_INTERPRET", True)
+    calls = []
+    orig = fnr._pallas_rope
+    monkeypatch.setattr(fnr, "_pallas_rope", lambda *a: (
+        calls.append(1), orig(*a))[1])
+    rng = np.random.default_rng(sum(shape))
+    b, s, h, d = shape
+    xj, xt = _pair(rng.normal(size=shape), dtype)
+    gj, gt = _pair(rng.normal(size=shape), dtype)
+    emb = rng.normal(size=(s, d)).astype(np.float32)    # random tables
+    cos, sin = np.cos(emb), np.sin(emb)
+    out_j, vjp = jax.vjp(lambda x: fnr._rope_core(x, jnp.asarray(cos),
+                                                   jnp.asarray(sin)), xj)
+    dx_j, = vjp(gj)
+    assert len(calls) == 2                          # forward and its VJP
+    xt.requires_grad_(True)
+    out_t = k67.fused_rope(xt, torch.tensor(cos), torch.tensor(sin))
+    out_t.backward(gt)
+    assert out_t.dtype == xt.dtype and k67.rope_launches == 0
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -7
+    for name, a, r in (("out", out_t, out_j), ("dx", xt.grad, dx_j)):
+        a, r = _np(a), _np(r)
+        err = np.abs(a - r).max() / np.abs(r).max()
+        assert err <= tol, f"{name}: {err:.2e} > {tol}"
