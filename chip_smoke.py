@@ -54,8 +54,10 @@ class, device busy share). Phases, in order; any failure raises and the process 
 7. training kernels — after the serving models are freed, each new
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
-               K5 (flash backward, B=4 S=2048 32/8 heads; SDPA's
-               backward), K6/K7 (RMSNorm forward/backward at 8192 x
+               K1 without a mask (B=4 S=2048 32/8 heads, causal; SDPA
+               causal with no mask), K5 (flash backward at that shape;
+               SDPA's backward; achieved TFLOP/s and bound share, two
+               calls bitwise equal), K6/K7 (RMSNorm forward/backward at 8192 x
                4096; F.rms_norm and its backward), K8 (AdamW8bit on a
                58.7M-element gate_proj-shaped param with its f32 master
                and on 3,000,001 elements, 3 steps with weight decay:
@@ -64,7 +66,10 @@ class, device busy share). Phases, in order; any failure raises and the process 
                (2048, 1792, 1280, 768), K1 and K5 with the key bias and
                K9 (the one-pass backward) with it (K9 and K5 also timed
                without it; SDPA forward and backward under the same bool
-               mask as the library), and K12 (rope) forward and backward
+               mask as the library; K5 and K9 each two calls bitwise
+               equal, with TFLOP/s and bound share; K9's skipped key-tile
+               blocks, which must be > 0 and equal the pure-Python model
+               of the left pads, and its dS partials' bytes), and K12 (rope) forward and backward
                at (4, 2048, 32, 128) and (4, 2048, 8, 128), bit-equal to
                its plain version.
 8. gradient check — a 2-layer full-width model (B=1, S=2048): the
@@ -863,6 +868,8 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
 
 
 def _kernel_class(name):
+    if "flash_delta_kernel" in name:
+        return "K5/K9 delta (the backward's first pass)"
     if "flash_fwd_kernel" in name:
         return "K1 flash_attention_fwd"
     if "flash_bwd_fused_kernel" in name or "flash_dq_reduce_kernel" in name:
@@ -1450,14 +1457,71 @@ TRAIN_STEPS = 3           # timed steps after one warm-up step
 ODD_NUMEL = 3_000_001     # K8 at a size with a ragged last 2048-block
 
 
+def _rate(row, flops):
+    """Achieved TFLOP/s and bound share of a timed kernel row, in place."""
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return f"{row['tflops']:.1f} TFLOP/s, bound share {row['bound_share']:.3f}"
+
+
+def _same_bits(torch, fn):
+    """Whether two calls of fn give bitwise-equal tensors."""
+    a, b = fn(), fn()
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_flash_train_fwd(torch, timer, k1, q, k, v):
+    """K1 at the train step's attention shape without a mask (B=4,
+    S=2048, 32/8 heads, causal) against its plain version, with SDPA
+    causal (``is_causal=True, enable_gqa=True``) as the library."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    out, lse = k1.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = k1.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = k1.fwd_tolerance(q, k, v, ref, causal=True)
+    worst = ((out.float() - ref.float()).abs() / tol).max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del tol, ref, ref_lse
+    assert worst < 1.0 and lse_err <= 1e-3, (worst, lse_err)
+    ms = timer(lambda: k1.flash_attention_fwd(q, k, v, causal=True))
+    plain = timer(lambda: k1.flash_attention_fwd_reference(q, k, v, True),
+                  iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    del qt, kt, vt
+    flops = 4 * d * (s * (s + 1) // 2) * b * h           # causal, offset 0
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
+        + 4 * lse.numel()
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
+    row = {"name": "flash_attention_fwd_train", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "replaces": "paddle_tpu/ops/pallas/flash_attention.py:481",
+           "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
+           "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+           "library_ms": lib, "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal"}
+    log(f"K1 flash_attention_fwd B{b} S{s} H{h}/{hk} no mask: worst err/tol "
+        f"{worst:.3f} max_abs_err {err:.3e} kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (SDPA causal, no mask) "
+        f"bound_ms {bms:.4f} ({by}); {_rate(row, flops)}; factor "
+        f"{ms / lib:.2f}")
+    return row
+
+
 def check_flash_bwd(torch, timer, k1):
     """K5 at the train step's attention shape: B=4, S=2048, 32/8 heads,
     D=128, causal, dO random; against its plain version from K1's own
-    (out, lse), each gradient element within ``k1.bwd_tolerance``."""
+    (out, lse), each gradient element within ``k1.bwd_tolerance``; two
+    calls bitwise equal. Also K1 there without a mask
+    (``check_flash_train_fwd``). Returns both rows."""
     b, s, h, hk, d = TB, TS, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda",
                                dtype=torch.bfloat16) for n in (h, hk, hk, h))
+    fwd_row = check_flash_train_fwd(torch, timer, k1, q, k, v)
+    torch.cuda.empty_cache()
     out, lse = k1.flash_attention_fwd(q, k, v, causal=True)
     got = k1.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
@@ -1472,6 +1536,8 @@ def check_flash_bwd(torch, timer, k1):
     del tols
     log(f"K5 worst err/tol {worst}")
     assert max(worst.values()) < 1.0, f"flash bwd worst err/tol {worst}"
+    assert _same_bits(torch, lambda: k1.flash_attention_bwd(
+        q, k, v, out, lse, do, True)), "K5: two calls differ"
     ms = timer(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, True))
     plain = timer(lambda: k1.flash_attention_bwd_reference(
         q, k, v, out, lse, do, True), iters=5)
@@ -1491,15 +1557,18 @@ def check_flash_bwd(torch, timer, k1):
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                   + out.numel() + do.numel()) + 4 * lse.numel()
     bms, by = bound(nbytes, flops, BF16_FLOPS)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "paddle_tpu/ops/pallas/flash_attention.py:533",
+           "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
+           "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+           "library_ms": lib, "deterministic": True,
+           "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal"}
     log(f"K5 flash_attention_bwd B{b} S{s} H{h}/{hk}: max_abs_err {err:.3e} "
         f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-        f"(SDPA backward) bound_ms {bms:.4f} ({by})")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:533",
-            "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal"}
+        f"(SDPA backward) bound_ms {bms:.4f} ({by}); {_rate(row, flops)} "
+        f"(5 products; the split kernel runs 7); two calls bitwise equal")
+    return [fwd_row, row]
 
 
 def check_rms_norm(torch, timer, k67):
@@ -1658,13 +1727,14 @@ def train_grad_check(torch, k1):
                         device="cuda")
     kern = _loss_and_grads(torch, model, ids)
     plain = _loss_and_grads(torch, model, ids, plain=True)
-    fault_delta, k1._delta = (k1._delta, lambda out, do: torch.zeros(
-        (out.shape[0], out.shape[2], out.shape[1]), dtype=torch.float32,
-        device=out.device))
+    fault_delta, k1._bwd_delta = (
+        k1._bwd_delta, lambda out, do: torch.zeros(
+            (out.shape[0], out.shape[2], out.shape[1]), dtype=torch.float32,
+            device=out.device))
     try:
         fault = _loss_and_grads(torch, model, ids)
     finally:
-        k1._delta = fault_delta
+        k1._bwd_delta = fault_delta
     m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
                            seed=SEED).train()
     with torch.no_grad():
@@ -1862,6 +1932,50 @@ def _live_pairs(lengths, s):
     return sum(n * (n + 1) // 2 for n in lengths if n <= s)
 
 
+def _k9_extras(torch, timer, k1, row, fn, bias, args):
+    """K9's row beside its with-bias time: the key tiles it skips (the
+    device liveness against the pure-Python model of the left pads, which
+    must agree and be > 0), its dS partials' bytes and their time at the
+    HBM rate, and K9 and K5 without the bias (in turns, the same shape;
+    K9's time there with its rate and bound share)."""
+    q, k, v, out, lse, do = args
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    nk = -(-s // 64)
+    # a key tile is live iff it holds one of the row's last n (real) keys
+    model = [[int(kt * 64 + 64 > s - n) for kt in range(nk)]
+             for n in SFT_LENGTHS]
+    walks = k1._dkv_walks(b, s, s, h, hk, True, model)
+    skipped_model = sum(1 for *_, walk in walks if not walk)
+    live = k1._key_tile_live(bias, s)
+    skipped = int((live == 0).sum().item()) * hk
+    assert live.tolist() == model, "tile liveness differs from the model"
+    assert skipped == skipped_model > 0, (skipped, skipped_model)
+    row["key_tile_blocks_skipped"] = skipped
+    row["key_tile_blocks"] = len(walks)
+    pairs = k1.fused_partial_pairs(s, s, True)
+    row["ds_partials_gib"] = b * h * pairs * 64 * 64 * 2 / 2**30
+    part_ms = 2 * b * h * pairs * 64 * 64 * 2 / HBM_BYTES_S * 1e3
+    row["bound_ms_with_partials"] = row["bound_ms"] + part_ms
+    free = timer(lambda: fn(q, k, v, out, lse, do, True))
+    row["k5_ms_without_bias"] = timer(
+        lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, True))
+    free_flops = 5 * 2 * d * (s * (s + 1) // 2) * b * h
+    free_bound = bound(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                            + out.numel() + do.numel()) + 4 * lse.numel(),
+                       free_flops, BF16_FLOPS)[0]
+    row["ms_without_bias"] = free
+    row["tflops_without_bias"] = free_flops / free / 1e9
+    row["bound_share_without_bias"] = free_bound / free
+    return (f"key-tile blocks skipped {skipped} of {len(walks)} (model "
+            f"{skipped_model}); dS partials {row['ds_partials_gib']:.3f} GiB "
+            f"written and read, {part_ms:.4f} ms at the HBM rate (bound with "
+            f"them {row['bound_ms_with_partials']:.4f} ms); without the "
+            f"bias K9 {free:.4f} ms ({row['tflops_without_bias']:.1f} "
+            f"TFLOP/s, bound share {row['bound_share_without_bias']:.3f}), "
+            f"K5 {row['k5_ms_without_bias']:.4f} ms")
+
+
 def check_flash_masked(torch, timer, k1):
     """K1 and K5 with the cell's key bias, and K9 with and without it, at
     the train step's attention shape (B=4, S=2048, 32/8 heads, D=128,
@@ -1944,6 +2058,8 @@ def check_flash_masked(torch, timer, k1):
         del got
         log(f"{name} worst err/tol {worst}")
         assert max(worst.values()) < 1.0, (name, worst)
+        assert _same_bits(torch, lambda: fn(q, k, v, out, lse, do, True, None,
+                                            bias)), f"{name}: two calls differ"
         ms = timer(lambda: fn(q, k, v, out, lse, do, True, None, bias))
         plain = timer(lambda: k1.flash_attention_bwd_reference(
             q, k, v, out, lse, do, True, None, bias), iters=5)
@@ -1953,23 +2069,18 @@ def check_flash_masked(torch, timer, k1):
                "replaces": f"paddle_tpu/ops/pallas/flash_attention.py{line}",
                "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
                "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-               "library_ms": lib_bwd,
+               "library_ms": lib_bwd, "deterministic": True,
                "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal, key bias "
                         f"lengths {SFT_LENGTHS}"}
+        rate = _rate(row, bflops)
+        extra = ""
         if name == "flash_attention_bwd_fused":
-            # K9 and K5 without a mask, in turns, at the same shape
-            row["ms_without_bias"] = timer(lambda: fn(q, k, v, out, lse, do,
-                                                      True))
-            row["k5_ms_without_bias"] = timer(
-                lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, True))
-            row["dq_partials_gib"] = (b * h * k1.fused_partial_pairs(
-                s, s, True) * 64 * d * 4) / 2**30
+            extra = "; " + _k9_extras(torch, timer, k1, row, fn, bias,
+                                      (q, k, v, out, lse, do))
         log(f"{name} B{b} S{s} H{h}/{hk} with key bias: max_abs_err "
             f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
             f"{lib_bwd:.4f} (SDPA backward, bool mask) bound_ms {bms:.4f} "
-            f"({by})" + (f"; without the bias K9 {row['ms_without_bias']:.4f}"
-                         f" K5 {row['k5_ms_without_bias']:.4f}"
-                         if "ms_without_bias" in row else ""))
+            f"({by}); {rate}{extra}")
         rows.append(row)
     del ref, tols, o, qg, kg, vg
     torch.cuda.empty_cache()
@@ -2096,14 +2207,15 @@ def train_grad_check_masked(torch, k1, kernels):
                 torch, model, ids, mask, labels)
         finally:
             k1._bias_arg = bias_arg
-        fault_delta, k1._delta = (k1._delta, lambda out, do: torch.zeros(
-            (out.shape[0], out.shape[2], out.shape[1]), dtype=torch.float32,
-            device=out.device))
+        fault_delta, k1._bwd_delta = (
+            k1._bwd_delta, lambda out, do: torch.zeros(
+                (out.shape[0], out.shape[2], out.shape[1]),
+                dtype=torch.float32, device=out.device))
         try:
             runs["delta 0"] = _masked_loss_and_grads(torch, model, ids, mask,
                                                      labels)
         finally:
-            k1._delta = fault_delta
+            k1._bwd_delta = fault_delta
     finally:
         flags.set_flags({"flash_bwd_impl": old})
     split_counts, split_routes = runs["split counts"]
@@ -2754,7 +2866,7 @@ def main() -> int:
     # full-width gradient check, 9. the timed train run (its counts set to
     # 0 just before its counted steps and read just after)
     timer = ColdTimer(torch)
-    own += [(check_flash_bwd(torch, timer, k1), "train")]
+    own += [(row, "train") for row in check_flash_bwd(torch, timer, k1)]
     own += [(row, "train") for row in check_rms_norm(torch, timer, k67)]
     own += [(check_adamw8bit(torch, timer, k8), "train")]
     own += [(row, {"flash_attention_fwd_bias": "sft",
@@ -2806,6 +2918,7 @@ def main() -> int:
              "grad check split, mask": counts_grad_split, "sft": counts_sft,
              "rope": counts_rope}
     counter = {"flash_attention_fwd": "flash_attention",
+               "flash_attention_fwd_train": "flash_attention",
                "norm_matmul": "fused_norm_matmul",
                "norm_matmul_int8": "fused_norm_matmul",
                "rope_append_attend_decode": "fused_rope_attend",

@@ -7,23 +7,26 @@
 // (_bwd_prologue). Each live (query tile, key tile) pair computes
 //   P = exp(S * scale + bias - lse) once,  dV += P^T dO,
 //   dS = P * (dO V^T - delta),            dK += dS^T Q,
-//   dQ partial = dS K
+//   dQ += dS K
 // that is five tile products, where K5's two kernels recompute S and dP in
 // each and take seven.
 //
-// Design (the TPU's own order, deterministic): one block per (b*hk, 64-key
-// tile) walks the g query heads of its KV group and, for each, the live
-// query tiles, accumulating dK and dV in f32 shared memory as K5's dkv
-// kernel does (the group sum inside the block). Blocks run in parallel, so
-// dQ cannot accumulate across key tiles inside one; each live pair writes
-// its 64 x 128 f32 dQ partial straight from the MMA fragments into a
-// buffer, and a second kernel (flash_dq_reduce_kernel) sums each query
-// tile's partials in ascending key-tile order, scales and casts once, as
-// _pallas_bwd_fused sums its partials outside (dqp.sum(axis=0)). No
-// atomics: the result does not depend on the block order. Only causally
-// live pairs are written and summed: the buffer holds, for each (b, h),
-// the pairs in query-tile order, sum_qt live_key_tiles(qt) of them
-// (528 at S = 2048 causal: 2.06 GiB f32 at B=4, H=32), transient.
+// Design (deterministic, no atomics): one block per (b*hk, 64-key tile)
+// walks the g query heads of its KV group and, for each, the live query
+// tiles, accumulating dK and dV in f32 registers as K5's dkv kernel does
+// (the group sum inside the block, the same ring, tiles and products:
+// flash_bwd_tiles.cuh). Blocks run in parallel, so dQ cannot accumulate
+// across key tiles inside one. The TPU kernel writes each pair's f32 dQ
+// partial (dS K, 64 x 128) and sums them after; here each live pair writes
+// its bf16 dS tile (64 x 64, the operand the dQ product rounds to anyway),
+// a quarter of the bytes, and a second kernel (flash_dq_reduce_kernel)
+// runs the dQ product: for each query tile, dQ = sum over its live key
+// tiles in ascending order of dS K, in f32 registers, scaled and cast
+// once. The result does not depend on the block order. The buffer holds,
+// for each (b, h), the live pairs in query-tile order, sum_qt
+// live_key_tiles(qt) of them (528 at S = 2048 causal: 0.52 GiB of bf16 at
+// B=4, H=32, transient); pairs of a key tile the bias masks whole are
+// neither written nor read.
 //
 // Numerics: those of K5 (flash_bwd_tiles.cuh): bf16 products with f32
 // accumulation, P cast to dO's dtype before the dV product and dS to
@@ -32,10 +35,14 @@
 // says why, and what the wrapper adds for it).
 //
 // Bound on an H100: tensor-core operations (5 products of 2*S*S*D/2 per
-// query head, causal), plus the partials' write and read (2 x 2.06 GiB at
-// the Llama-3-8B train shape, ~1.3 ms at 3.35 TB/s). nvcuda::wmma bf16
-// tiles as in K5 (~187 KB of shared memory, one block per SM); wgmma with
-// register accumulators is a later PR's work.
+// query head, causal: 0.34 TFLOP at the Llama-3-8B train shape, 0.35 ms at
+// the bf16 peak), plus the dS partials' write and read (2 x 0.52 GiB,
+// 0.33 ms at 3.35 TB/s; the f32 dQ partials they replace took 1.3 ms).
+// Hopper features as in K5: ldmatrix + mma.sync for all five products,
+// a 2-stage cp.async ring for Q/dO/lse/delta (one pass) and for dS/K (the
+// dQ product), longest walks first in both grids. Shared memory: 113 KB
+// for the one-pass kernel (two blocks an SM), 48 KB for the dQ product
+// (three).
 #include "flash_bwd_tiles.cuh"
 
 using pt::bf16;
@@ -45,7 +52,12 @@ namespace k9 {
 
 using namespace pt::fb;
 
-constexpr int RT = 256;  // threads of the reduce kernel
+constexpr int KV_STAGE = 2 * TILE + 2 * VEC;  // Q, dO, lse, delta
+constexpr int FUSED_SMEM = 2 * TILE + 2 * KV_STAGE + 2 * PTILE;
+static_assert(FUSED_SMEM <= 115712, "two blocks an SM");
+constexpr int DS_TILE = BT * BT;  // bf16 elements of one dS partial
+constexpr int RED_STAGE = PTILE + TILE;  // dS, K
+constexpr int RED_SMEM = 2 * RED_STAGE;
 
 // index of the first partial of query tile qt among its (b, h)'s pairs
 __device__ __forceinline__ int pair_base(int qt, int Sq, int Sk, int causal) {
@@ -54,109 +66,136 @@ __device__ __forceinline__ int pair_base(int qt, int Sq, int Sk, int causal) {
   return base;
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ bias,
-                       const bf16* __restrict__ dout, const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, float* __restrict__ dq_part, int n_pairs, int Sq,
-                       int Sk, int H, int Hk, int causal, float scale) {
+                       const int* __restrict__ tile_live, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, bf16* __restrict__ ds_part,
+                       int n_pairs, int Sq, int Sk, int H, int Hk, int causal, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = reinterpret_cast<bf16*>(smem + TILE);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + 2 * TILE);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + 3 * TILE);
-  float* Sf = reinterpret_cast<float*>(smem + 4 * TILE);
-  float* dPf = reinterpret_cast<float*>(smem + 4 * TILE + SF);
-  bf16* Pb = reinterpret_cast<bf16*>(smem + 4 * TILE + 2 * SF);
-  bf16* dSb = reinterpret_cast<bf16*>(smem + 4 * TILE + 2 * SF + PB);
-  float* dKacc = reinterpret_cast<float*>(smem + 4 * TILE + 2 * SF + 2 * PB);
-  float* dVacc = reinterpret_cast<float*>(smem + 4 * TILE + 2 * SF + 2 * PB + ACC);
-  float* lse_s = reinterpret_cast<float*>(smem + 4 * TILE + 2 * SF + 2 * PB + 2 * ACC);
-  float* dl_s = lse_s + BT;
-  float* bias_s = lse_s + 2 * BT;
+  unsigned char* ring = smem + 2 * TILE;
+  bf16* Pb = reinterpret_cast<bf16*>(ring + 2 * KV_STAGE);
+  bf16* dSb = reinterpret_cast<bf16*>(ring + 2 * KV_STAGE + PTILE);
 
-  const int w = threadIdx.x / 32;
-  const int bhk = blockIdx.y, b = bhk / Hk, hk = bhk % Hk;
+  const int bhk = blockIdx.x, b = bhk / Hk, hk = bhk % Hk;
   const int g = H / Hk;
-  const int kt = blockIdx.x, k0 = kt * BT;
+  const int nk = (Sk + BT - 1) / BT;
+  const int kt = blockIdx.y, k0 = kt * BT;  // the longest walks first
   const int offset = Sk - Sq;
 
-  load_rows(Ks, k, b, hk, k0, Sk, Hk);
-  load_rows(Vs, v, b, hk, k0, Sk, Hk);
-  load_bias(bias_s, bias, b, k0, Sk);
-  zero_acc(dKacc);
-  zero_acc(dVacc);
+  Acc dK, dV;
+  zero(dK);
+  zero(dV);
+  if (!tile_is_live(tile_live, b, nk, kt)) {  // every key masked: no term
+    store_acc(dk, dK, scale, b, hk, k0, Sk, Hk);
+    store_acc(dv, dV, 1.f, b, hk, k0, Sk, Hk);
+    return;
+  }
 
   const int nq = (Sq + BT - 1) / BT;
   const int qt0 = first_query_tile(k0, Sq, Sk, causal);
+  const int nqt = nq - qt0;
+  const int n = g * nqt;  // (head, query tile) pairs, head-major
+  auto load_q = [&](int s, int i) {
+    unsigned char* st = ring + s * KV_STAGE;
+    const int h = hk * g + i / nqt, q0 = (qt0 + i % nqt) * BT;
+    const size_t row0 = ((size_t)b * H + h) * Sq;
+    stage_rows(reinterpret_cast<bf16*>(st), q, b, h, q0, Sq, H);
+    stage_rows(reinterpret_cast<bf16*>(st + TILE), dout, b, h, q0, Sq, H);
+    stage_vec(reinterpret_cast<float*>(st + 2 * TILE), lse, row0 + q0, row0 + Sq);
+    stage_vec(reinterpret_cast<float*>(st + 2 * TILE + VEC), delta, row0 + q0, row0 + Sq);
+  };
+
+  // the key tile's biases are read from global memory (L1), as in K5's
+  // dkv kernel
+  const float* bias_k = bias != nullptr ? bias + (size_t)b * Sk + k0 : nullptr;
+  stage_rows(Ks, k, b, hk, k0, Sk, Hk);
+  stage_rows(Vs, v, b, hk, k0, Sk, Hk);
+  if (n > 0) load_q(0, 0);
+  cp_async_commit();
   const int base0 = pair_base(qt0, Sq, Sk, causal);
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = hk * g + hh;
-    float* part = dq_part + ((size_t)b * H + h) * n_pairs * (BT * D);
-    int base = base0;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();  // the previous tile's reads of Q, dO, P, dS are done
-      load_rows(Qs, q, b, h, q0, Sq, H);
-      load_rows(dOs, dout, b, h, q0, Sq, H);
-      load_stats(lse_s, dl_s, lse, delta, b, h, H, q0, Sq);
-      __syncthreads();
-      warp_abt(Qs + w * 16 * LDQ, Ks, Sf + w * 16 * LDS);
-      warp_abt(dOs + w * 16 * LDQ, Vs, dPf + w * 16 * LDS);
-      __syncwarp();
-      p_and_ds(Sf, dPf, Pb, dSb, lse_s, dl_s, bias_s, bias != nullptr, q0,
-               k0, Sq, Sk, offset, causal, scale);
-      __syncthreads();  // every query row's P and dS are in place
-      warp_acc_atb(Pb, dOs, dVacc, w);
-      warp_acc_atb(dSb, Qs, dKacc, w);
-      // this pair's dQ partial, the warp's 16 query rows: dS (16 x 64) . K
-      float* dst = part + ((size_t)(base + kt) * BT + w * 16) * D;
-#pragma unroll 1
-      for (int j = 0; j < D / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        wmma::fill_fragment(o, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < BT; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-          wmma::load_matrix_sync(a, dSb + w * 16 * LDP + kk, LDP);
-          wmma::load_matrix_sync(bm, Ks + kk * LDQ + j * 16, LDQ);
-          wmma::mma_sync(o, a, bm, o);
-        }
-        wmma::store_matrix_sync(dst + j * 16, o, D, wmma::mem_row_major);
-      }
-      base += live_key_tiles(qt, Sq, Sk, causal);
+  int base = base0;
+  for (int i = 0; i < n; ++i) {
+    const int qt = qt0 + i % nqt;
+    if (qt == qt0) base = base0;  // a new head starts its walk
+    cp_async_wait<0>();
+    __syncthreads();  // pair i landed; the other stage, P and dS are free
+    if (i + 1 < n) load_q((i + 1) % 2, i + 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (i % 2) * KV_STAGE;
+    const bf16* Qs = reinterpret_cast<const bf16*>(st);
+    const bf16* dOs = reinterpret_cast<const bf16*>(st + TILE);
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * TILE);
+    Score s, dp;
+    score(Qs, Ks, s);
+    score(dOs, Vs, dp);
+    p_and_ds(s, dp, Pb, dSb, lse_s, lse_s + BT, bias_k, bias != nullptr, qt * BT, k0, Sq, Sk,
+             offset, causal, scale);
+    sync_key_half();  // this key half's P and dS are in place
+    accumulate<true>(Pb, dOs, dV);
+    accumulate<true>(dSb, Qs, dK);
+    // this pair's dS tile, each key half by the warps that formed it, 16
+    // bytes a thread twice
+    const int h = hk * g + i / nqt;
+    bf16* dst = ds_part + (((size_t)b * H + h) * n_pairs + base + kt) * DS_TILE;
+    for (int e = threadIdx.x % 128; e < DS_TILE / 16; e += 128) {
+      const int r = e / 4, c = 32 * (threadIdx.x / 128) + (e % 4) * 8;
+      *reinterpret_cast<uint4*>(dst + r * BT + c) =
+          *reinterpret_cast<const uint4*>(dSb + sw<BT>(r, c));
     }
+    base += live_key_tiles(qt, Sq, Sk, causal);
   }
-  __syncthreads();
-  store_rows(dk, dKacc, scale, b, hk, k0, Sk, Hk);
-  store_rows(dv, dVacc, 1.f, b, hk, k0, Sk, Hk);
+  cp_async_wait<0>();  // nothing in flight at exit (n == 0: K and V)
+  store_acc(dk, dK, scale, b, hk, k0, Sk, Hk);
+  store_acc(dv, dV, 1.f, b, hk, k0, Sk, Hk);
 }
 
-// dq rows of query tile blockIdx.x at (b, h) = blockIdx.y: the sum of the
-// tile's live partials in ascending key-tile order, times scale, in bf16
-__global__ void __launch_bounds__(RT)
-flash_dq_reduce_kernel(const float* __restrict__ dq_part, bf16* __restrict__ dq, int n_pairs,
-                       int Sq, int Sk, int H, int causal, float scale) {
-  const int qt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int n = live_key_tiles(qt, Sq, Sk, causal);
-  const float* part = dq_part + ((size_t)bh * n_pairs + pair_base(qt, Sq, Sk, causal)) * (BT * D);
-  for (int i = threadIdx.x; i < BT * (D / 8); i += RT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int s = qt * BT + r;
-    if (s >= Sq) continue;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int t = 0; t < n; ++t) {
-      const float4* src = reinterpret_cast<const float4*>(part + ((size_t)t * BT + r) * D + c);
-      const float4 a = src[0], e = src[1];
-      f[0] += a.x; f[1] += a.y; f[2] += a.z; f[3] += a.w;
-      f[4] += e.x; f[5] += e.y; f[6] += e.z; f[7] += e.w;
+// dq rows of query tile qt at (b, h) = blockIdx.x: dS K summed over the
+// tile's live key tiles in ascending order (a 2-stage cp.async ring of dS
+// partials and K tiles), times scale, in bf16; the longest walks first
+__global__ void __launch_bounds__(NT, 3)
+flash_dq_reduce_kernel(const bf16* __restrict__ ds_part, const bf16* __restrict__ k,
+                       const int* __restrict__ tile_live, bf16* __restrict__ dq, int n_pairs,
+                       int Sq, int Sk, int H, int Hk, int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hk);
+  const int nq = (Sq + BT - 1) / BT, nk = (Sk + BT - 1) / BT;
+  const int qt = nq - 1 - blockIdx.y;
+  const int n_tiles = live_key_tiles(qt, Sq, Sk, causal);
+  const bf16* part = ds_part + ((size_t)bh * n_pairs + pair_base(qt, Sq, Sk, causal)) * DS_TILE;
+
+  auto load = [&](int s, int t) {
+    bf16* dS = reinterpret_cast<bf16*>(smem + s * RED_STAGE);
+    const bf16* src = part + (size_t)t * DS_TILE;
+    for (int e = threadIdx.x; e < DS_TILE / 8; e += NT) {
+      const int r = e / (BT / 8), c = (e % (BT / 8)) * 8;
+      cp_async16(dS + sw<BT>(r, c), src + r * BT + c, true);
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] *= scale;
-    *reinterpret_cast<uint4*>(dq + (((size_t)b * Sq + s) * H + h) * D + c) = pt::pack8(f);
+    stage_rows(reinterpret_cast<bf16*>(smem + s * RED_STAGE + PTILE), k, b, hk, t * BT, Sk, Hk);
+  };
+
+  int t = next_live_tile(tile_live, b, nk, 0, n_tiles);
+  if (t < n_tiles) load(0, t);
+  cp_async_commit();
+  Acc acc;
+  zero(acc);
+  for (int i = 0; t < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t landed; the other stage is free
+    const int next = next_live_tile(tile_live, b, nk, t + 1, n_tiles);
+    if (next < n_tiles) load((i + 1) % 2, next);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % 2) * RED_STAGE;
+    accumulate<false>(reinterpret_cast<const bf16*>(st), reinterpret_cast<const bf16*>(st + PTILE),
+                      acc);
+    t = next;
   }
+  cp_async_wait<0>();
+  store_acc(dq, acc, scale, b, h, qt * BT, Sq, H);
 }
 
 }  // namespace k9
@@ -165,33 +204,39 @@ flash_dq_reduce_kernel(const float* __restrict__ dq_part, bf16* __restrict__ dq,
 using namespace pt::k9;
 
 // q, dout (B, Sq, H, D), k/v (B, Sk, Hk, D) bf16 contiguous, D = 128; bias
-// (B, Sk) f32 or null (no mask); lse, delta (B, H, Sq) f32; dq_part
-// (B * H, n_pairs, 64, 128) f32 scratch with n_pairs = the live
-// (query tile, key tile) pairs of one (b, h) -> dq (B, Sq, H, D), dk/dv
-// (B, Sk, Hk, D) bf16.
+// (B, Sk) f32 or null (no mask); tile_live (B, ceil(Sk / 64)) int32, 0
+// where the bias masks every key of the tile, or null; lse, delta
+// (B, H, Sq) f32; ds_part (B * H, n_pairs, 64, 64) bf16 scratch with
+// n_pairs = the live (query tile, key tile) pairs of one (b, h) -> dq
+// (B, Sq, H, D), dk/dv (B, Sk, Hk, D) bf16.
 PT_EXPORT int pt_flash_attention_bwd_fused(const void* q, const void* k, const void* v,
-                                           const void* bias, const void* dout,
-                                           const void* lse, const void* delta, void* dq,
-                                           void* dk, void* dv, void* dq_part, int n_pairs,
-                                           int B, int Sq, int Sk, int H, int Hk, int causal,
-                                           float scale, void* stream) {
+                                           const void* bias, const void* tile_live,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dq, void* dk, void* dv, void* ds_part,
+                                           int n_pairs, int B, int Sq, int Sk, int H, int Hk,
+                                           int causal, float scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, FUSED_SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_dq_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             RED_SMEM);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
+  const int* tl = static_cast<const int*>(tile_live);
+  bf16* part = static_cast<bf16*>(ds_part);
   if (Sk > 0) {
-    flash_bwd_fused_kernel<<<dim3((Sk + BT - 1) / BT, B * Hk), NT, KV_SMEM, s>>>(
+    flash_bwd_fused_kernel<<<dim3(B * Hk, (Sk + BT - 1) / BT), NT, FUSED_SMEM, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(bias), static_cast<const bf16*>(dout),
+        static_cast<const float*>(bias), tl, static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dq_part), n_pairs,
-        Sq, Sk, H, Hk, causal, scale);
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, n_pairs, Sq, Sk, H, Hk, causal,
+        scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (Sq > 0)
-    flash_dq_reduce_kernel<<<dim3((Sq + BT - 1) / BT, B * H), RT, 0, s>>>(
-        static_cast<const float*>(dq_part), static_cast<bf16*>(dq), n_pairs, Sq, Sk, H, causal,
-        scale);
+    flash_dq_reduce_kernel<<<dim3(B * H, (Sq + BT - 1) / BT), NT, RED_SMEM, s>>>(
+        part, static_cast<const bf16*>(k), tl, static_cast<bf16*>(dq), n_pairs, Sq, Sk, H, Hk,
+        causal, scale);
   return cudaGetLastError();
 }

@@ -12,7 +12,7 @@
 // and warp specialization are later work.
 #pragma once
 
-#include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace pt {
 namespace gt {
@@ -35,19 +35,6 @@ constexpr int NI = WN / 8;  // 8-column mma tiles of a warp
 // a warp's f32 accumulators: [16-row tile][8-column tile][4] in the
 // mma.m16n8k16 layout (c0, c1: row g, columns 2t, 2t+1; c2, c3: row g + 8)
 typedef float Acc[FM][NI][4];
-
-// 16 bytes from gmem to smem, asynchronously; zeros when !valid (nothing
-// is read then, but the address stays a valid one)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One step of the walk (paddle_tpu/ops/pallas/grouped_matmul.py
 // group_tile_walk, the same integers): step i of n_tiles + E - 1 covers rows
@@ -92,30 +79,6 @@ __device__ __forceinline__ void swizzle(int bid, int n_band, int n_other, int ba
   const int local = bid - first * n_other;
   *banded = first + local % width;
   *other = local / width;
-}
-
-// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lane l giving
-// the address of one matrix row (lanes 8j..8j+7: matrix j); .trans hands
-// each thread the transposed pairs
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Multiply one staged slice pair with ldmatrix + mma.sync: A is a

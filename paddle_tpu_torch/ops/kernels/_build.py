@@ -41,8 +41,9 @@ _SIGNATURES = {
     "pt_rope_append_attend_ragged": [_P] * 14 + [_I] * 8 + [_F, _P],
     "pt_paged_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pt_ragged_paged_attention": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "pt_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "pt_flash_attention_bwd_fused": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "pt_flash_bwd_delta": [_P] * 3 + [_I] * 3 + [_P],
+    "pt_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "pt_flash_attention_bwd_fused": [_P] * 12 + [_I] * 7 + [_F, _P],
     "pt_rope": [_P] * 4 + [_I] * 5 + [_P],
     "pt_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _P],
     "pt_rms_norm_bwd": [_P] * 6 + [_I, _I, _P],

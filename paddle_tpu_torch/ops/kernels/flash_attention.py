@@ -7,8 +7,11 @@ Kernel K5 (``csrc/flash_attention_bwd.cu``) replaces the split backward
 ``_pallas_bwd`` (``_dq_kernel`` and ``_dkv_kernel``): dQ, and dK/dV summed
 over each KV head's query group. Kernel K9
 (``csrc/flash_attention_bwd_fused.cu``) replaces the one-pass backward
-``_pallas_bwd_fused``: each live tile once, dQ as per-key-tile partials
-summed after it. Layout is the JAX package's (batch, seq, heads, head_dim).
+``_pallas_bwd_fused``: each live tile once, its bf16 dS tiles kept for a
+second kernel that forms dQ from them. K5 and K9 skip the key tiles a key
+bias masks whole (``_key_tile_live``) and run their blocks longest walk
+first (``_dkv_walks``, ``_dq_walks`` model the order). Layout is the JAX
+package's (batch, seq, heads, head_dim).
 
 A mask reaches the kernels as the additive key bias of
 ``_key_bias_from_mask`` (a key-padding mask: bool -> 0 / -1e30); a general
@@ -70,7 +73,8 @@ def _key_bias_from_mask(attn_mask, b, sk):
 
 
 def _bias_arg(bias):
-    """The kernels' bias pointer: null without a mask."""
+    """A kernel's pointer to an optional tensor (the key bias, its tile
+    liveness): null for None."""
     return 0 if bias is None else bias.data_ptr()
 
 
@@ -177,7 +181,8 @@ def _add_dead_rows_dv(dv, do, lse):
     h = do.shape[2]
     dead = _dead_rows(lse).transpose(1, 2).contiguous()[..., None]
     p = torch.tensor(1.0 / sk).to(do.dtype).item()
-    extra = (do.float() * dead).sum(dim=1).reshape(b, hk, h // hk, d).sum(2)
+    extra = torch.where(dead, do, 0).sum(dim=1, dtype=torch.float32)
+    extra = extra.reshape(b, hk, h // hk, d).sum(2)
     return (dv.float() + p * extra[:, None]).to(dv.dtype)
 
 
@@ -249,8 +254,18 @@ bwd_fused_launches = 0
 
 def _delta(out, do):
     """Delta = rowsum(dO * O) in f32, (B, H, Sq) — computed outside the
-    kernels, as ``_pallas_bwd`` does."""
+    kernels, as ``_pallas_bwd`` does (the plain version)."""
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _bwd_delta(out, do):
+    """``_delta`` on the card: the first launch of K5 and of K9
+    (``flash_delta_kernel``), one pass over dO and O."""
+    b, sq, h, _ = out.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+    _build.launch("pt_flash_bwd_delta", out.data_ptr(), do.data_ptr(),
+                  delta.data_ptr(), b, sq, h, _build.stream_of(out))
+    return delta
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
@@ -321,6 +336,20 @@ def bwd_tolerance(q, k, v, do, ref_dq, ref_dk, ref_dv, causal=False,
                  for t, r in ((tq, ref_dq), (tk, ref_dk), (tv, ref_dv)))
 
 
+def _key_tile_live(bias, sk):
+    """(B, ceil(Sk / 64)) int32 on the bias's device: 0 where the bias
+    masks every key of the 64-key tile (each <= -1e30; keys past Sk count
+    as masked), which K5 and K9 skip; None without a bias (every tile is
+    live). Device ops only: no host sync."""
+    if bias is None:
+        return None
+    nk = -(-sk // _TILE)
+    padded = torch.nn.functional.pad(bias, (0, nk * _TILE - sk),
+                                     value=_NEG_INF)
+    live = ~(padded <= _NEG_INF)          # NaN counts as live
+    return live.view(bias.shape[0], nk, _TILE).any(-1).to(torch.int32)
+
+
 def _check_bwd(name, q, k, v, out, lse, do, bias):
     b, sq, h, d = q.shape
     _check_attention(name, q, k, v, bias)
@@ -344,15 +373,16 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
                                              scale, bias)
     _check_bwd("flash_attention_bwd", q, k, v, out, lse, do, bias)
-    delta = _delta(out, do)
+    delta = _bwd_delta(out, do)
+    live = _key_tile_live(bias, sk)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _build.launch("pt_flash_attention_bwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), _bias_arg(bias), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk,
-                  int(bool(causal)), float(scale), _build.stream_of(q))
+                  v.data_ptr(), _bias_arg(bias), _bias_arg(live),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h,
+                  hk, int(bool(causal)), float(scale), _build.stream_of(q))
     bwd_launches += 1
     if _may_have_dead_rows(sq, sk, causal, bias):
         dv = _add_dead_rows_dv(dv, do, lse)
@@ -368,18 +398,69 @@ def _live_key_tiles(qt, sq, sk, causal):
     return 0 if last < 0 else min(nk, last // _TILE + 1)
 
 
+def _first_query_tile(kt, sq, sk, causal):
+    """The first query tile that sees key tile ``kt`` (flash_bwd_tiles.cuh)."""
+    return max(kt * _TILE - (sk - sq), 0) // _TILE if causal else 0
+
+
 def fused_partial_pairs(sq, sk, causal):
-    """The live (query tile, key tile) pairs of one (batch, head): the dQ
-    partials K9 writes and sums."""
+    """The live (query tile, key tile) pairs of one (batch, head): the bf16
+    dS tiles (64 x 64) K9 writes and its dQ product reads."""
     return sum(_live_key_tiles(qt, sq, sk, causal)
                for qt in range(-(-sq // _TILE)))
+
+
+def _pair_slot(qt, kt, sq, sk, causal):
+    """Where K9 keeps the dS tile of pair (qt, kt) among its (b, h)'s
+    ``fused_partial_pairs``: the pairs in query-tile order
+    (flash_attention_bwd_fused.cu ``pair_base(qt) + kt``)."""
+    return sum(_live_key_tiles(t, sq, sk, causal) for t in range(qt)) + kt
+
+
+def _is_live(tile_live, b, kt):
+    return tile_live is None or bool(tile_live[b][kt])
+
+
+def _dkv_walks(b, sq, sk, h, hk, causal, tile_live=None):
+    """K5's dkv kernel and K9's one-pass kernel, block by block in launch
+    order (grid (B*Hk, key tiles), x fastest: key tiles ascending, so under
+    the causal mask the longest walks go first): (b, hk, kt, walk), the
+    walk being the (query head, query tile) pairs in the block's order. A
+    key tile ``tile_live`` marks dead walks nothing."""
+    nq, nk, g = -(-sq // _TILE), -(-sk // _TILE), h // hk
+    blocks = []
+    for kt in range(nk):
+        qt0 = _first_query_tile(kt, sq, sk, causal)
+        for bhk in range(b * hk):
+            bi, j = divmod(bhk, hk)
+            walk = [(j * g + hh, qt) for hh in range(g)
+                    for qt in range(qt0, nq)] \
+                if _is_live(tile_live, bi, kt) else []
+            blocks.append((bi, j, kt, walk))
+    return blocks
+
+
+def _dq_walks(b, sq, sk, h, causal, tile_live=None):
+    """K5's dq kernel and K9's dQ product, block by block in launch order
+    (grid (B*H, query tiles), x fastest: query tiles descending, the
+    longest walks first): (b, h, qt, key tiles in summation order)."""
+    nq = -(-sq // _TILE)
+    blocks = []
+    for y in range(nq):
+        qt = nq - 1 - y
+        for bh in range(b * h):
+            bi, hi = divmod(bh, h)
+            blocks.append((bi, hi, qt, [
+                kt for kt in range(_live_key_tiles(qt, sq, sk, causal))
+                if _is_live(tile_live, bi, kt)]))
+    return blocks
 
 
 def flash_attention_bwd_fused(q, k, v, out, lse, do, causal=False,
                               scale=None, bias=None):
     """(dq, dk, dv) — K9 on CUDA tensors, the plain version on CPU
-    tensors. The dQ partials (B*H, live pairs, 64, 128) f32 are scratch
-    allocated here and freed on return (2.06 GiB at B=4, S=2048, H=32,
+    tensors. The dS tiles (B*H, live pairs, 64, 64) bf16 are scratch
+    allocated here and freed on return (0.52 GiB at B=4, S=2048, H=32,
     causal)."""
     global bwd_fused_launches
     b, sq, h, d = q.shape
@@ -391,19 +472,20 @@ def flash_attention_bwd_fused(q, k, v, out, lse, do, causal=False,
         return flash_attention_bwd_fused_reference(q, k, v, out, lse, do,
                                                    causal, scale, bias)
     _check_bwd("flash_attention_bwd_fused", q, k, v, out, lse, do, bias)
-    delta = _delta(out, do)
+    delta = _bwd_delta(out, do)
+    live = _key_tile_live(bias, sk)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     n_pairs = fused_partial_pairs(sq, sk, causal)
-    parts = torch.empty((b * h, n_pairs, _TILE, d), dtype=torch.float32,
+    parts = torch.empty((b * h, n_pairs, _TILE, _TILE), dtype=q.dtype,
                         device=q.device)
     _build.launch("pt_flash_attention_bwd_fused", q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), _bias_arg(bias), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), parts.data_ptr(), n_pairs, b,
-                  sq, sk, h, hk, int(bool(causal)), float(scale),
-                  _build.stream_of(q))
+                  k.data_ptr(), v.data_ptr(), _bias_arg(bias),
+                  _bias_arg(live), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), parts.data_ptr(), n_pairs, b, sq, sk, h, hk,
+                  int(bool(causal)), float(scale), _build.stream_of(q))
     bwd_fused_launches += 1
     if _may_have_dead_rows(sq, sk, causal, bias):
         dv = _add_dead_rows_dv(dv, do, lse)

@@ -25,15 +25,18 @@ that mix decode rows, chunks with and without page context, slots with
 no rows and padding rows, at GQA groups 1, 4 and 8; their pools must be
 bit-identical to the plain chain's and every other cell untouched.
 The training kernels: K5 (flash backward) at sequence lengths that are not
-multiples of its 64-row tiles, GQA groups 1 and 4, Sk > Sq; K6/K7 (RMSNorm
+multiples of its 64-row tiles, GQA groups 1, 4 and 8, Sk > Sq and Sq > Sk,
+causal and not, two calls bitwise equal; K6/K7 (RMSNorm
 forward/backward) at row counts that are not multiples of K7's 32-row
 blocks; K8 (AdamW8bit) at 1, 2047 and 2049 elements and on a block of zero
 grads (the 1e-30 scale floor), with a master, on an f32 param and on a bf16
 param without one, over 3 steps: codes, scales and params bit-identical to
 the plain version on the card. Their wrappers, the autograd entries and the
 train fusion executor launch or raise.
-K9 (the one-pass flash backward) on the same shapes as K5 and Sq > Sk;
-K1, K5 and K9 with a left-padded key bias, rows that see no key included
+K9 (the one-pass flash backward) on the same shapes as K5, two calls
+bitwise equal; K1, K5 and K9 with a left-padded key bias (whole key tiles
+masked in one row and not in another, so skipped and computed tiles meet),
+rows that see no key included
 (dO not 0 there: every output and gradient within the tolerance of the
 plain version, which follows the JAX package's reference lowering on
 such rows); K12 (rope) forward and backward bit-identical to
@@ -520,9 +523,17 @@ def test_unfused_attend_seams_launch_k10_and_k11(gen):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,sq,sk,h,hk,causal", [
+# the backward's edges: S not a multiple of the 64-row tiles, Sq != Sk both
+# ways, causal and not, GQA groups 1, 4 and 8, walks of one tile and many
+_BWD_EDGES = [
     (1, 100, 100, 4, 4, True), (2, 130, 130, 8, 2, True),
-    (1, 64, 200, 4, 1, True), (1, 77, 77, 4, 1, False)])
+    (1, 64, 200, 4, 1, True), (1, 77, 77, 4, 1, False),
+    (1, 300, 300, 8, 1, True), (1, 130, 70, 8, 8, False),
+    (1, 70, 190, 8, 1, False), (2, 250, 130, 8, 1, True),
+    (1, 129, 130, 4, 2, True)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal", _BWD_EDGES)
 def test_flash_attention_bwd_matches_plain(gen, b, sq, sk, h, hk, causal):
     q = _randn(gen, b, sq, h, 128)
     k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
@@ -880,7 +891,11 @@ def _left_pad_bias(b, sk, pads):
 
 @pytest.mark.parametrize("b,sq,sk,h,hk,causal,pads", [
     (2, 130, 130, 8, 2, True, (0, 70)), (2, 100, 100, 4, 4, True, (99, 3)),
-    (1, 64, 200, 4, 1, True, (150,)), (2, 77, 77, 4, 1, False, (10, 0))])
+    (1, 64, 200, 4, 1, True, (150,)), (2, 77, 77, 4, 1, False, (10, 0)),
+    # the first whole key tiles masked in one row and not in the other:
+    # skipped and computed tiles meet, rows that see no key (dO not 0)
+    (2, 300, 300, 8, 1, True, (200, 0)), (2, 150, 260, 8, 8, False, (0, 140)),
+    (2, 200, 300, 4, 1, True, (129, 64))])
 @pytest.mark.parametrize("impl", ["split", "fused"])
 def test_flash_attention_bias_forms_match_plain(gen, b, sq, sk, h, hk,
                                                 causal, pads, impl):
@@ -915,10 +930,8 @@ def test_flash_attention_bias_forms_match_plain(gen, b, sq, sk, h, hk,
         assert ((free.float() - ref.float()).abs() / t).max() > 1.0
 
 
-@pytest.mark.parametrize("b,sq,sk,h,hk,causal", [
-    (1, 100, 100, 4, 4, True), (2, 130, 130, 8, 2, True),
-    (1, 64, 200, 4, 1, True), (1, 77, 77, 4, 1, False),
-    (1, 200, 64, 4, 2, True)])
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal",
+                         _BWD_EDGES + [(1, 200, 64, 4, 2, True)])
 def test_flash_attention_bwd_fused_matches_plain(gen, b, sq, sk, h, hk,
                                                  causal):
     q = _randn(gen, b, sq, h, 128)
@@ -935,6 +948,25 @@ def test_flash_attention_bwd_fused_matches_plain(gen, b, sq, sk, h, hk,
         assert a.shape == r.shape and a.dtype == r.dtype, name
         worst = ((a.float() - r.float()).abs() / t).max().item()
         assert worst <= 1.0, f"{name} worst err/tol {worst:.3f}"
+
+
+@pytest.mark.parametrize("impl", ["split", "fused"])
+@pytest.mark.parametrize("pads", [None, (130, 0)])
+def test_flash_attention_bwd_is_deterministic(gen, impl, pads):
+    """K5 and K9 sum in a fixed order with no atomics: two calls on the
+    same inputs give the same bits, with and without key tiles skipped."""
+    b, s, h, hk = 2, 260, 8, 2
+    q, do = _randn(gen, b, s, h, 128), _randn(gen, b, s, h, 128)
+    k, v = _randn(gen, b, s, hk, 128), _randn(gen, b, s, hk, 128)
+    bias = None if pads is None else _left_pad_bias(b, s, pads)[0]
+    out, lse = k1.flash_attention_fwd(q, k, v, True, None, bias)
+    bwd = (k1.flash_attention_bwd_fused if impl == "fused"
+           else k1.flash_attention_bwd)
+    first = bwd(q, k, v, out, lse, do, True, None, bias)
+    for _ in range(2):
+        again = bwd(q, k, v, out, lse, do, True, None, bias)
+        for name, a, c in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, c), f"{impl} {name} differs between calls"
 
 
 def test_flash_fused_wrapper_raises_instead_of_falling_back(gen):

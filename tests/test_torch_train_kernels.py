@@ -39,7 +39,13 @@ counterpart, which on CPU tensors runs the kernel's plain version:
     1e-6 (XLA may fuse a multiply-add), bf16 within one bf16 ulp;
   * ``_key_bias_from_mask`` on every mask form, against the JAX package's;
   * the backward dispatch (``bwd_uses_fused``) against the JAX package's
-    ``_bwd_prologue`` choice on shapes on both sides of its 512 MiB cap.
+    ``_bwd_prologue`` choice on shapes on both sides of its 512 MiB cap;
+  * the host-side rules K5 and K9 rely on, each against brute force over
+    positions: the block orders (``_dkv_walks``, ``_dq_walks``) cover
+    every live (batch, key tile, head, query tile) exactly once, longest
+    walks first; the key-tile liveness under a bias (``_key_tile_live``)
+    is "every key <= -1e30"; K9's dS slots (``_pair_slot``) number the
+    live pairs 0 .. ``fused_partial_pairs`` - 1.
 """
 
 from __future__ import annotations
@@ -423,19 +429,121 @@ def test_bwd_dispatch_matches_jax_prologue(shape, impl):
         assert not fused
 
 
+# (Sq, Sk): ragged tiles, Sk > Sq and Sq > Sk, and offsets Sk - Sq of 1
+# and 65, where a key tile's first query sits on a tile's last row
+_WALK_SHAPES = ((130, 130), (64, 200), (77, 300), (200, 64), (1, 1),
+                (129, 130), (100, 165), (2048, 2048))
+
+
+def _brute_live_pairs(sq, sk, causal):
+    """(query tile, key tile) pairs where some query of the tile sees some
+    key of the other, by brute force over the positions."""
+    if not causal:
+        return {(i, j) for i in range(-(-sq // 64))
+                for j in range(-(-sk // 64))}
+    return {(i // 64, j // 64) for i in range(sq) for j in range(sk)
+            if j <= i + sk - sq}
+
+
 def test_fused_partial_pairs_count_the_live_tiles():
-    """K9's dQ partial buffer holds the causally live (query tile, key
+    """K9's dS partial buffer holds the causally live (query tile, key
     tile) pairs: 528 of 32 x 32 at S = 2048; all of them without the
-    causal mask; none for queries before the first key."""
+    causal mask; none for queries before the first key. Each pair has its
+    own slot (``_pair_slot``, the kernel's ``pair_base(qt) + kt``): the
+    slots are 0 .. n_pairs - 1, each once. A slot is a 64 x 64 bf16 dS
+    tile: 0.52 GiB at B=4, H=32, S=2048 causal, a quarter of the f32 dQ
+    partials (64 x 128) it replaced."""
     assert k1.fused_partial_pairs(2048, 2048, True) == 32 * 33 // 2
     assert k1.fused_partial_pairs(2048, 2048, False) == 32 * 32
     assert k1.fused_partial_pairs(100, 100, True) == 3
     assert k1.fused_partial_pairs(200, 64, True) == 2
-    for sq, sk in ((130, 130), (64, 200), (77, 300), (200, 64), (1, 1)):
-        # a pair is live iff some query of its tile sees some key of it
-        live = {(i // 64, j // 64) for i in range(sq) for j in range(sk)
-                if j <= i + sk - sq}
-        assert k1.fused_partial_pairs(sq, sk, True) == len(live)
+    assert 4 * 32 * 528 * 64 * 64 * 2 / 2**30 == pytest.approx(0.515625)
+    for sq, sk in _WALK_SHAPES:
+        for causal in (True, False):
+            live = _brute_live_pairs(sq, sk, causal)
+            n = k1.fused_partial_pairs(sq, sk, causal)
+            assert n == len(live)
+            slots = sorted(k1._pair_slot(qt, kt, sq, sk, causal)
+                           for qt, kt in live)
+            assert slots == list(range(n))
+
+
+def _brute_tile_live(bias, sk):
+    """Per (row, 64-key tile): not every key's bias is <= -1e30."""
+    out = []
+    for row in bias.tolist():
+        out.append([int(any(not (row[j] <= -1e30)
+                            for j in range(t, min(t + 64, sk))))
+                    for t in range(0, sk, 64)])
+    return out
+
+
+@pytest.mark.parametrize("sk", [1, 64, 130, 300])
+def test_key_tile_liveness_is_all_keys_masked(sk):
+    """``_key_tile_live``: a 64-key tile is dead for row b iff every key of
+    it has bias <= -1e30 (a left pad, a mask of -inf, or a masked gap);
+    any other bias (0, -1e4, NaN) keeps it live. No bias: None (every tile
+    live)."""
+    rng = np.random.default_rng(sk)
+    rows = [np.zeros(sk), np.full(sk, -1e30)]
+    for pad in (0, 63, 64, 65, 129, sk - 1, sk):
+        r = np.zeros(sk)
+        r[:min(pad, sk)] = -1e30
+        rows.append(r)
+    gap = np.zeros(sk)
+    gap[64:200] = -np.inf
+    rows.append(gap)
+    mixed = np.where(rng.random(sk) < 0.9, -1e30, -1e4)
+    rows.append(mixed)
+    nan = np.full(sk, -1e30)
+    nan[sk // 2] = np.nan
+    rows.append(nan)
+    bias = torch.tensor(np.stack(rows), dtype=torch.float32)
+    live = k1._key_tile_live(bias, sk)
+    assert live.dtype == torch.int32 and live.shape == (len(rows),
+                                                        -(-sk // 64))
+    assert live.tolist() == _brute_tile_live(bias, sk)
+    keep = torch.arange(sk)[None, :] >= torch.tensor([0, sk // 2])[:, None]
+    mask_bias = k1._key_bias_from_mask(keep, 2, sk)[0]
+    assert k1._key_tile_live(mask_bias, sk).tolist() == \
+        _brute_tile_live(mask_bias, sk)
+    assert k1._key_tile_live(None, sk) is None
+
+
+@pytest.mark.parametrize("sq,sk", _WALK_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hk,g", [(2, 1), (1, 4), (1, 8)])
+def test_bwd_walks_cover_each_live_pair_once(sq, sk, causal, hk, g):
+    """The block orders K5 and K9 launch (``_dkv_walks``: a block per
+    (b, kv head, key tile), key tiles ascending; ``_dq_walks``: a block per
+    (b, head, query tile), query tiles descending) cover every live
+    (b, key tile, head, query tile) exactly once, with and without key
+    tiles a bias masks whole; without a bias each grid runs its longest
+    walks first (the work never grows along the launch order)."""
+    b, h = 2, hk * g
+    pairs = _brute_live_pairs(sq, sk, causal)
+    nk = -(-sk // 64)
+    dead = [[False] * nk, [kt % 3 == 0 for kt in range(nk)]]
+    for tile_live in (None, [[int(not d) for d in row] for row in dead]):
+        want = sorted((bi, kt, hi, qt) for bi in range(b) for hi in range(h)
+                      for qt, kt in pairs
+                      if tile_live is None or tile_live[bi][kt])
+        dkv = k1._dkv_walks(b, sq, sk, h, hk, causal, tile_live)
+        assert len(dkv) == b * hk * nk
+        got = sorted((bi, kt, hi, qt) for bi, j, kt, walk in dkv
+                     for hi, qt in walk)
+        assert got == want
+        assert all(hi // g == j for _, j, _, walk in dkv for hi, _ in walk)
+        dq = k1._dq_walks(b, sq, sk, h, causal, tile_live)
+        assert len(dq) == b * h * -(-sq // 64)
+        got = sorted((bi, kt, hi, qt) for bi, hi, qt, kts in dq
+                     for kt in kts)
+        assert got == want
+        assert all(kts == sorted(kts) for *_, kts in dq)
+        if tile_live is None:
+            for walks in ([len(w) for *_, w in dkv],
+                          [len(kts) for *_, kts in dq]):
+                assert walks == sorted(walks, reverse=True)
 
 
 # ------------------------------------------------------------------ K12
