@@ -14,7 +14,9 @@ class, device busy share). Phases, in order; any failure raises and the process 
 3. kernels  — each kernel against its plain PyTorch version on the card,
                in bf16 at the Llama-3-8B shapes of the serving paths, with
                kernel / plain / library times and the least time the card
-               could take (``bound_ms``): K1, K2, K3 (bf16), then K4
+               could take (``bound_ms``): K1, K2 (also at the train
+               step's M = 8192, with TFLOP/s; two calls bitwise equal),
+               K3 (bf16), then K4
                (weight-only int8, and one int4 group-128 shape), K2 with
                int8 weights and K3 on an int8 cache (page 32), then the
                continuous batcher's kernels on its mixed wave (T = 264
@@ -55,7 +57,8 @@ class, device busy share). Phases, in order; any failure raises and the process 
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
                K1 without a mask (B=4 S=2048 32/8 heads, causal; SDPA
-               causal with no mask), K5 (flash backward at that shape;
+               causal with no mask; two calls bitwise equal), K5 (flash
+               backward at that shape;
                SDPA's backward; achieved TFLOP/s and bound share, two
                calls bitwise equal), K6/K7 (RMSNorm forward/backward at 8192 x
                4096; F.rms_norm and its backward), K8 (AdamW8bit on a
@@ -63,7 +66,9 @@ class, device busy share). Phases, in order; any failure raises and the process 
                and on 3,000,001 elements, 3 steps with weight decay:
                codes bit-identical to the plain version); then, at the same
                attention shape with rows left-padded to real lengths
-               (2048, 1792, 1280, 768), K1 and K5 with the key bias and
+               (2048, 1792, 1280, 768), K1 (its skipped key tiles, which
+               must be > 0 and equal the pure-Python model, and two calls
+               bitwise equal) and K5 with the key bias and
                K9 (the one-pass backward) with it (K9 and K5 also timed
                without it; SDPA forward and backward under the same bool
                mask as the library; K5 and K9 each two calls bitwise
@@ -268,12 +273,14 @@ def check_flash(torch, timer, k1):
 NM_SHAPES = [(8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024),
              (8, 4096, 128256), (1024, 4096, 14336), (1024, 4096, 4096),
              (1024, 4096, 1024), (BT, 4096, 14336), (BT, 4096, 4096),
-             (BT, 4096, 1024)]
+             (BT, 4096, 1024), (8192, 4096, 14336), (8192, 4096, 4096),
+             (8192, 4096, 1024)]
 
 
 def check_norm_matmul(torch, timer, k2):
     """K2 at every projection shape of a decode step (M=8), a solo
-    prefill (M=1024) and a batcher wave (M=BT=264)."""
+    prefill (M=1024), a batcher wave (M=BT=264) and the train step's
+    forward (M=8192: B=4 x S=2048), with each row's TFLOP/s."""
     eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, errs = [], []
@@ -295,19 +302,22 @@ def check_norm_matmul(torch, timer, k2):
         # differ by 1 f32 ulp: |err| <= 1e-2 * |ref| + 2e-2
         ok = bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
         assert ok, f"norm_matmul {m}x{kdim}x{n} max_abs_err {err}"
+        assert _same_bits(torch, lambda: (k2.fused_norm_matmul_pure(
+            x, nw, eps, w),)), f"norm_matmul {m}x{kdim}x{n}: two calls differ"
         ms = timer(lambda: k2.fused_norm_matmul_pure(x, nw, eps, w))
         plain = timer(lambda: k2._reference(x, nw, eps, w))
         lib = (timer(lambda: torch.matmul(rms_norm(x, (kdim,), nw, eps), w))
                if rms_norm is not None else None)
         nbytes = 2 * (m * kdim + kdim + kdim * n + m * n)
         bms, by = bound(nbytes, 2 * m * n * kdim, BF16_FLOPS)
+        row = {"shape": f"M{m} K{kdim} N{n}", "max_abs_err": err,
+               "ms": ms, "plain_ms": plain, "bound_ms": bms,
+               "bound_by": by, "library_ms": lib}
         log(f"K2 norm_matmul M{m} K{kdim} N{n}: max_abs_err {err:.3e} "
             f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
             f"{lib if lib is None else round(lib, 4)} (rms_norm+matmul) "
-            f"bound_ms {bms:.4f} ({by})")
-        rows.append({"shape": f"M{m} K{kdim} N{n}", "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by, "library_ms": lib})
+            f"bound_ms {bms:.4f} ({by}); {_rate(row, 2 * m * n * kdim)}")
+        rows.append(row)
         errs.append(err)
         del x, w, y, ref, diff
     head = rows[0]  # the decode gate/up shape stands for the kernel
@@ -868,6 +878,8 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
 
 
 def _kernel_class(name):
+    if "norm_rstd_kernel" in name or "norm_matmul_kernel" in name:
+        return "K2 norm_matmul (bf16)"  # the dense tiled path's two kernels
     if "flash_delta_kernel" in name:
         return "K5/K9 delta (the backward's first pass)"
     if "flash_fwd_kernel" in name:
@@ -1485,6 +1497,8 @@ def check_flash_train_fwd(torch, timer, k1, q, k, v):
     lse_err = (lse - ref_lse).abs().max().item()
     del tol, ref, ref_lse
     assert worst < 1.0 and lse_err <= 1e-3, (worst, lse_err)
+    assert _same_bits(torch, lambda: k1.flash_attention_fwd(
+        q, k, v, causal=True)), "K1: two calls differ"
     ms = timer(lambda: k1.flash_attention_fwd(q, k, v, causal=True))
     plain = timer(lambda: k1.flash_attention_fwd_reference(q, k, v, True),
                   iters=5)
@@ -1976,6 +1990,28 @@ def _k9_extras(torch, timer, k1, row, fn, bias, args):
             f"K5 {row['k5_ms_without_bias']:.4f} ms")
 
 
+def _k1_skips(k1, row, bias, b, s, h):
+    """K1's skipped key tiles under the cell's left pads: counted from the
+    device liveness over K1's causal walks, against the pure-Python model
+    of the pads (``_fwd_walks``); they must agree and be > 0."""
+    nk = -(-s // 64)
+    model = [[int(kt * 64 + 64 > s - n) for kt in range(nk)]
+             for n in SFT_LENGTHS]
+    walks = k1._fwd_walks(b, s, s, h, True, model)
+    skipped_model = sum(k1._fwd_key_tiles(qt, s, s, True) - len(walk)
+                        for _, _, qt, walk in walks)
+    live = k1._key_tile_live(bias, s).tolist()
+    assert live == model, "tile liveness differs from the model"
+    skipped = h * sum(1 for bi in range(b) for qt in range(-(-s // 128))
+                      for kt in range(k1._fwd_key_tiles(qt, s, s, True))
+                      if not live[bi][kt])
+    assert skipped == skipped_model > 0, (skipped, skipped_model)
+    row["key_tiles_skipped"] = skipped
+    row["key_tiles_walked"] = sum(len(walk) for *_, walk in walks)
+    return (f"key tiles skipped {skipped} of "
+            f"{skipped + row['key_tiles_walked']} (model {skipped_model})")
+
+
 def check_flash_masked(torch, timer, k1):
     """K1 and K5 with the cell's key bias, and K9 with and without it, at
     the train step's attention shape (B=4, S=2048, 32/8 heads, D=128,
@@ -2013,19 +2049,25 @@ def check_flash_masked(torch, timer, k1):
     fbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
         + 4 * (lse.numel() + bias.numel())
     bms, by = bound(fbytes, 4 * d * pairs * h, BF16_FLOPS)
+    row = {"name": "flash_attention_fwd_bias", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "replaces": "paddle_tpu/ops/pallas/flash_attention.py:481",
+           "max_abs_err": err1, "worst_err_over_tol": worst1,
+           "ms": ms_fwd, "ms_without_bias": ms_fwd_free,
+           "plain_ms": plain_fwd, "bound_ms": bms, "bound_by": by,
+           "library_ms": lib_fwd,
+           "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal, key bias "
+                    f"lengths {SFT_LENGTHS}"}
+    skips = _k1_skips(k1, row, bias, b, s, h)
+    assert _same_bits(torch, lambda: k1.flash_attention_fwd(
+        q, k, v, True, None, bias)), "K1 with the bias: two calls differ"
     log(f"K1 flash_attention_fwd with key bias B{b} S{s} H{h}/{hk}: "
         f"max_abs_err {err1:.3e} kernel_ms {ms_fwd:.4f} (without the bias "
         f"{ms_fwd_free:.4f}) plain_ms {plain_fwd:.4f} library_ms "
-        f"{lib_fwd:.4f} (SDPA, bool mask) bound_ms {bms:.4f} ({by})")
-    rows.append({"name": "flash_attention_fwd_bias", "route": "cuda",
-                 "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-                 "replaces": "paddle_tpu/ops/pallas/flash_attention.py:481",
-                 "max_abs_err": err1, "worst_err_over_tol": worst1,
-                 "ms": ms_fwd, "ms_without_bias": ms_fwd_free,
-                 "plain_ms": plain_fwd, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lib_fwd,
-                 "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal, key bias "
-                          f"lengths {SFT_LENGTHS}"})
+        f"{lib_fwd:.4f} (SDPA, bool mask) bound_ms {bms:.4f} ({by}); "
+        f"{_rate(row, 4 * d * pairs * h)} over the live pairs; {skips}; "
+        f"two calls bitwise equal")
+    rows.append(row)
     del ref
     torch.cuda.empty_cache()
     ref = k1.flash_attention_bwd_reference(q, k, v, out, lse, do, True,

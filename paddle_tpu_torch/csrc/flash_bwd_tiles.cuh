@@ -1,7 +1,9 @@
 // The pieces shared by the two flash backward kernels, K5 (split: dq and
 // dkv kernels, flash_attention_bwd.cu) and K9 (one pass,
-// flash_attention_bwd_fused.cu): 64-row tiles of Q, K, V and dO staged by
-// cp.async, the bf16 ldmatrix + mma.sync.m16n8k16 products with f32
+// flash_attention_bwd_fused.cu), whose tiles, swizzle, staging and
+// key-tile liveness K1 (flash_attention.cu) uses too: 64-row tiles of Q,
+// K, V and dO staged by cp.async, the bf16 ldmatrix + mma.sync.m16n8k16
+// products with f32
 // accumulators in registers, the per-tile P = exp(S * scale + bias - lse),
 // dS = P * (dP - delta) rule applied to the score fragments in registers,
 // the causal tile liveness and the key-tile liveness under a key bias.

@@ -1,15 +1,17 @@
-// The pieces shared by K13 (grouped_matmul.cu) and K14 (segment_dw.cu):
+// The pieces shared by K13 (grouped_matmul.cu), K14 (segment_dw.cu) and
+// K2's dense tiled path (norm_matmul.cu):
 // the (tile, group) walk over expert-sorted rows, the 128 x 128 block
 // tile (8 warps of 64 x 32, bf16 ldmatrix + mma.sync m16n8k16 with f32
 // accumulators in registers), the cp.async ring that feeds it 16-byte
 // vectors, the register epilogue, and the block-order swizzle that keeps
 // one operand's band resident in L2.
 //
-// Both kernels are bound by tensor-core operations at the MoE train
-// shapes (2 * T * K * N FLOPs against ~1.5 GB moved). They stage 64-deep
-// slices with cp.async, three in flight, so the loads of slice k+2 overlap
-// the MMAs of slice k, and pass one block barrier per slice. wgmma, TMA
-// and warp specialization are later work.
+// K13 and K14 are bound by tensor-core operations at the MoE train shapes
+// (2 * T * K * N FLOPs against ~1.5 GB moved), K2 at the train and prefill
+// shapes. All three stage 64-deep slices with cp.async, three in flight,
+// so the loads of slice k+2 overlap the MMAs of slice k, and pass one
+// block barrier per slice. wgmma, TMA and warp specialization are later
+// work.
 #pragma once
 
 #include "mma_sync.cuh"
@@ -33,7 +35,10 @@ static_assert(BM == BN, "one slice size serves both operands");
 
 constexpr int NI = WN / 8;  // 8-column mma tiles of a warp
 // a warp's f32 accumulators: [16-row tile][8-column tile][4] in the
-// mma.m16n8k16 layout (c0, c1: row g, columns 2t, 2t+1; c2, c3: row g + 8)
+// mma.m16n8k16 layout (c0, c1: row g, columns 2t, 2t+1; c2, c3: row g + 8).
+// The body below also runs with fewer 16-row tiles a warp (FM_ < FM: a
+// block tile of 2 x 16 FM_ rows in the same stages), deduced from the
+// accumulator the caller passes.
 typedef float Acc[FM][NI][4];
 
 // One step of the walk (paddle_tpu/ops/pallas/grouped_matmul.py
@@ -87,16 +92,16 @@ __device__ __forceinline__ void swizzle(int bid, int n_band, int n_other, int ba
 // (B_COL: a [BN][LD_COL] slice of w[g] rows, whose transpose is B: K13's
 // dX form). Padded rows (144 or 272 bytes) keep every ldmatrix phase on
 // distinct banks.
-template <bool A_COL, bool B_COL>
+template <bool A_COL, bool B_COL, int FM_>
 __device__ __forceinline__ void mma_slice(const bf16* As, const bf16* Bs, int wm, int wn,
-                                          Acc& acc) {
+                                          float (&acc)[FM_][NI][4]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
-    unsigned a[FM][4], b[NI][2];
+    unsigned a[FM_][4], b[NI][2];
 #pragma unroll
-    for (int i = 0; i < FM; ++i) {
-      const int m = wm * WM + i * 16;
+    for (int i = 0; i < FM_; ++i) {
+      const int m = wm * 16 * FM_ + i * 16;
       if constexpr (A_COL)
         ldsm4_t(a[i], As + (kk + lane % 8 + (lane / 16) * 8) * LD_ROW + m + ((lane / 8) % 2) * 8);
       else
@@ -116,20 +121,28 @@ __device__ __forceinline__ void mma_slice(const bf16* As, const bf16* Bs, int wm
       b[j + 1][1] = r[3];
     }
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < FM_; ++i)
 #pragma unroll
       for (int j = 0; j < NI; ++j) mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
   }
 }
 
 // The cp.async ring over n_k slices: load(stage, k) stages slice k. Slice
-// k + STAGES - 1 is requested while slice k is multiplied.
-template <bool A_COL, bool B_COL, typename Load>
-__device__ __forceinline__ void run_ring(unsigned char* smem, int n_k, Load load, Acc& acc) {
+// k + STAGES - 1 is requested while slice k is multiplied. prep(stage, k)
+// runs in each thread once its own copies of slice k have landed, before
+// the barrier that hands the slice to every warp: it may rewrite the
+// 16-byte vectors this thread copied (K2 normalizes its x rows there).
+struct NoPrep {
+  __device__ __forceinline__ void operator()(unsigned char*, int) const {}
+};
+
+template <bool A_COL, bool B_COL, typename Load, int FM_, typename Prep = NoPrep>
+__device__ __forceinline__ void run_ring(unsigned char* smem, int n_k, Load load,
+                                         float (&acc)[FM_][NI][4], Prep prep = Prep()) {
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < FM_; ++i)
 #pragma unroll
     for (int j = 0; j < NI; ++j)
 #pragma unroll
@@ -141,6 +154,7 @@ __device__ __forceinline__ void run_ring(unsigned char* smem, int n_k, Load load
   }
   for (int k = 0; k < n_k; ++k) {
     cp_async_wait<STAGES - 2>();
+    prep(smem + (k % STAGES) * STAGE_BYTES, k);
     __syncthreads();  // slice k landed for every thread; slice k - 1's stage is free
     const int next = k + STAGES - 1;
     if (next < n_k) load(smem + (next % STAGES) * STAGE_BYTES, next);
@@ -156,15 +170,15 @@ __device__ __forceinline__ void run_ring(unsigned char* smem, int n_k, Load load
 // The epilogue, straight from the registers: store(row, col, v0, v1) for
 // each pair of adjacent columns a thread holds (row, col relative to the
 // block tile); the caller masks and writes.
-template <typename Store>
-__device__ __forceinline__ void epilogue(const Acc& acc, Store store) {
+template <int FM_, typename Store>
+__device__ __forceinline__ void epilogue(const float (&acc)[FM_][NI][4], Store store) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < FM_; ++i)
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
-      const int r = wm * WM + i * 16 + lane / 4, c = wn * WN + j * 8 + (lane % 4) * 2;
+      const int r = wm * 16 * FM_ + i * 16 + lane / 4, c = wn * WN + j * 8 + (lane % 4) * 2;
       store(r, c, acc[i][j][0], acc[i][j][1]);
       store(r + 8, c, acc[i][j][2], acc[i][j][3]);
     }

@@ -23,8 +23,10 @@
 //     slices in flight in registers during its MMAs (4 KB dense, 8 KB of
 //     codes quantized); partials meet in shared memory in a fixed order
 //     (deterministic). Bound by the bytes of W.
-//   tiled (prefill): 64x128 tiles, 4 warps of 32x64, bound by tensor-core
-//     operations. No cp.async/TMA/wgmma yet (a later PR's work).
+//   tiled (M > 16 with quantized W: K2's int8/int4 forms, K4): 64x128
+//     tiles, 4 warps of 32x64, bound by tensor-core operations. No
+//     cp.async/TMA/wgmma yet (K2's dense form runs grouped_tiles.cuh's
+//     body instead, norm_matmul.cu).
 #pragma once
 
 #include <mma.h>

@@ -31,8 +31,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: C entry points and their argument types (each returns a cudaError_t)
 _SIGNATURES = {
-    "pt_flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "pt_norm_matmul": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "pt_flash_attention_fwd": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "pt_norm_matmul": [_P] * 5 + [_I] * 3 + [_F, _P],
     "pt_norm_matmul_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P],
     "pt_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -2,7 +2,9 @@
 
 Kernel K1 (``csrc/flash_attention.cu``) replaces the TPU forward
 ``_pallas_fwd``: causal (with offset Sk - Sq), GQA, an optional (B, Sk) f32
-key bias, D = 128, bf16, writing the output and the per-row log-sum-exp.
+key bias, D = 128, bf16, writing the output and the per-row log-sum-exp;
+it runs its 128-row query tiles longest walk first and skips the key
+tiles a bias masks whole (``_fwd_walks`` models the order).
 Kernel K5 (``csrc/flash_attention_bwd.cu``) replaces the split backward
 ``_pallas_bwd`` (``_dq_kernel`` and ``_dkv_kernel``): dQ, and dK/dV summed
 over each KV head's query group. Kernel K9
@@ -40,8 +42,11 @@ _NEG_INF = -1e30
 _LANE = 128
 #: the JAX package's cap on the fused backward's dQ partials (bytes)
 _FUSED_PARTIALS_CAP = 512 * 1024 * 1024
-#: rows of the kernels' query and key tiles (csrc/flash_bwd_tiles.cuh BT)
+#: rows of the kernels' key tiles, and of K5's and K9's query tiles
+#: (csrc/flash_bwd_tiles.cuh BT)
 _TILE = 64
+#: rows of K1's query tiles (csrc/flash_attention.cu BQ)
+_FWD_TILE = 128
 
 #: K1 launches since the last reset (incremented only where it launches)
 launches = 0
@@ -213,12 +218,13 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, bias=None):
     if not q.is_cuda:
         return flash_attention_fwd_reference(q, k, v, causal, scale, bias)
     _check_attention("flash_attention_fwd", q, k, v, bias)
+    live = _key_tile_live(bias, sk)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _build.launch("pt_flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), _bias_arg(bias), out.data_ptr(),
-                  lse.data_ptr(), b, sq, sk, h, hk, int(bool(causal)),
-                  float(scale), _build.stream_of(q))
+                  v.data_ptr(), _bias_arg(bias), _bias_arg(live),
+                  out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hk,
+                  int(bool(causal)), float(scale), _build.stream_of(q))
     launches += 1
     if _may_have_dead_rows(sq, sk, causal, bias):
         out = _fill_dead_rows(out, v, lse)
@@ -396,6 +402,33 @@ def _live_key_tiles(qt, sq, sk, causal):
         return nk
     last = min(qt * _TILE + _TILE - 1, sq - 1) + (sk - sq)
     return 0 if last < 0 else min(nk, last // _TILE + 1)
+
+
+def _fwd_key_tiles(qt, sq, sk, causal):
+    """Key tiles K1's 128-row query tile ``qt`` reads
+    (csrc/flash_attention.cu ``key_tiles``)."""
+    nk = -(-sk // _TILE)
+    if not causal:
+        return nk
+    last = min(qt * _FWD_TILE + _FWD_TILE - 1, sq - 1) + (sk - sq)
+    return 0 if last < 0 else min(nk, last // _TILE + 1)
+
+
+def _fwd_walks(b, sq, sk, h, causal, tile_live=None):
+    """K1, block by block in launch order (grid (B*H, 128-row query
+    tiles), x fastest: query tiles descending, so under the causal mask
+    the longest walks go first): (b, h, qt, key tiles in walk order). A
+    key tile ``tile_live`` marks dead is neither loaded nor multiplied."""
+    nq = -(-sq // _FWD_TILE)
+    blocks = []
+    for y in range(nq):
+        qt = nq - 1 - y
+        for bh in range(b * h):
+            bi, hi = divmod(bh, h)
+            blocks.append((bi, hi, qt, [
+                kt for kt in range(_fwd_key_tiles(qt, sq, sk, causal))
+                if _is_live(tile_live, bi, kt)]))
+    return blocks
 
 
 def _first_query_tile(kt, sq, sk, causal):

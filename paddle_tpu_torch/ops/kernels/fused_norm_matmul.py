@@ -2,8 +2,12 @@
 
 Kernel K2 (``csrc/norm_matmul.cu``) replaces both TPU variants — the
 resident ``_pallas_fnm`` (M <= 1024) and the streamed ``_pallas_fnm_streamed``
-(M > 1024) — with one kernel that handles any M: the normalized rows are
-built tile by tile in shared memory and never written to device memory.
+(M > 1024) — with one entry point that handles any M: the normalized rows
+are built tile by tile in shared memory and never written to device
+memory. With dense weights and M > 16 it launches two kernels: each row's
+rstd once (M floats of scratch), then 128 x 128 (or 64 x 128) tiles that
+normalize their x slices as they land, in the order ``_block_order``
+models.
 The weight is dense bf16 or a weight-only ``QuantizedWeight`` (int8 or
 packed int4, per-channel or group-wise scales); a quantized B tile is
 dequantized in shared memory exactly as ``_fnm_kernel`` does it,
@@ -31,6 +35,39 @@ from .quant_matmul import WEIGHT_TYPES, QuantizedWeight, check_quantized
 
 #: K2 launches since the last reset (incremented only where it launches)
 launches = 0
+#: the dense tiled path's block tile columns (csrc/grouped_tiles.cuh BN)
+_BLOCK_N = 128
+#: SMs of an H100 SXM, for ``_block_order``'s tile choice (the kernel
+#: reads its card's count)
+H100_SMS = 132
+
+
+def _block_order(m, n, kdim, sms=H100_SMS):
+    """The dense tiled path's blocks in launch order (csrc/norm_matmul.cu
+    ``pt_norm_matmul``, grouped_tiles.cuh ``swizzle``): (first row, rows
+    its body computes, column tile). Row tiles are 128 rows, or 64 where
+    128-row tiles would give fewer blocks than SMs; ``band`` row tiles
+    (their x rows ~16 MB together, 1 to 16) walk fastest, then the column
+    tiles, band after band, so the blocks in flight share a band of x rows
+    and a run of W columns in L2. A last row tile that M cuts gets a band
+    of its own where the bands would hold every row tile (its blocks launch
+    last) and computes 32, 64 or 128 rows: the fewest that hold its rows."""
+    n_nt = -(-n // _BLOCK_N)
+    tm = 128 if -(-m // 128) * n_nt >= sms else 64
+    n_mt = -(-m // tm)
+    band = min(max((16 << 20) // (tm * kdim * 2), 1), 16)
+    if m % tm and 1 < n_mt <= band:
+        band = n_mt - 1
+    order = []
+    for bid in range(n_mt * n_nt):
+        first = bid // (band * n_nt) * band
+        width = min(band, n_mt - first)
+        local = bid - first * n_nt
+        mt, nt = first + local % width, local // width
+        left = m - mt * tm
+        rows = 32 if left <= 32 else 64 if left <= 64 else tm
+        order.append((mt * tm, rows, nt))
+    return order
 
 
 def _reference(x, norm_w, eps, w):
@@ -75,9 +112,10 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
                           WEIGHT_TYPES[w.weight_dtype], w.group_size,
                           float(eps), _build.stream_of(x))
         else:
+            rstd = torch.empty((m,), dtype=torch.float32, device=x.device)
             _build.launch("pt_norm_matmul", x2.data_ptr(), norm_w.data_ptr(),
-                          w.data_ptr(), y.data_ptr(), m, kdim, n, float(eps),
-                          _build.stream_of(x))
+                          w.data_ptr(), rstd.data_ptr(), y.data_ptr(), m,
+                          kdim, n, float(eps), _build.stream_of(x))
         launches += 1
     return y.reshape(x.shape[:-1] + (n,))
 

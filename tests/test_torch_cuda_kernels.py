@@ -33,6 +33,12 @@ grads (the 1e-30 scale floor), with a master, on an f32 param and on a bf16
 param without one, over 3 steps: codes, scales and params bit-identical to
 the plain version on the card. Their wrappers, the autograd entries and the
 train fusion executor launch or raise.
+K1 (flash forward) at query and key tile edges, Sq < Sk and Sq > Sk,
+causal and not, with and without a key bias; with whole key tiles a bias
+masks in one row and not another (the skipped and computed tiles meet,
+rows that see no key included); two calls bitwise equal. K2's dense tiled
+path at M = 17 .. 1024 against ragged N and N = 14336, two calls bitwise
+equal.
 K9 (the one-pass flash backward) on the same shapes as K5, two calls
 bitwise equal; K1, K5 and K9 with a left-padded key bias (whole key tiles
 masked in one row and not in another, so skipped and computed tiles meet),
@@ -115,6 +121,82 @@ def test_flash_attention_fwd_not_causal(gen):
     assert bool((diff <= k1.fwd_tolerance(q, k, v, ref)).all())
 
 
+# K1 at tile edges: Sq, Sk not multiples of the 128-row query tiles or the
+# 64-key tiles, Sq < Sk and Sq > Sk (queries before the first key), causal
+# and not, GQA groups 1, 2 and 4, with and without a left-padded key bias
+_FWD_EDGES = [
+    (1, 129, 129, 4, 1, True, None), (2, 200, 333, 8, 2, True, (0, 100)),
+    (1, 255, 130, 4, 4, False, None), (2, 130, 257, 8, 4, False, (65, 0)),
+    (1, 300, 100, 4, 2, True, None), (2, 300, 100, 4, 2, True, (30, 0)),
+    (1, 64, 64, 2, 1, True, (63,))]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal,pads", _FWD_EDGES)
+def test_flash_attention_fwd_tile_edges_match_plain(gen, b, sq, sk, h, hk,
+                                                    causal, pads):
+    q = _randn(gen, b, sq, h, 128)
+    k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
+    bias = None if pads is None else _left_pad_bias(b, sk, pads)[0]
+    out, lse = k1.flash_attention_fwd(q, k, v, causal, None, bias)
+    ref, ref_lse = k1.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                    bias)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    tol = k1.fwd_tolerance(q, k, v, ref, causal, None, bias)
+    worst = ((out.float() - ref.float()).abs() / tol).max().item()
+    assert worst <= 1.0, f"worst err/tol {worst:.3f}"
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+# whole key tiles masked in one row and not in another: skipped and
+# computed tiles meet within a query tile, and left-pad rows see no key
+_SKIP_CASES = [(2, 384, 384, 8, 2, True, (192, 0)),
+               (2, 520, 520, 4, 1, True, (300, 64)),
+               (3, 260, 260, 4, 4, False, (128, 0, 256)),
+               (2, 200, 450, 8, 1, True, (0, 257))]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal,pads", _SKIP_CASES)
+def test_flash_attention_fwd_skipped_tiles_match_plain(gen, b, sq, sk, h,
+                                                       hk, causal, pads):
+    """K1 leaves out the key tiles a bias masks whole (no switch forces
+    them live): the output and lse still hold the plain version's bounds
+    on every row, those that see no key included, and the skips happen."""
+    q = _randn(gen, b, sq, h, 128)
+    k, v = _randn(gen, b, sk, hk, 128), _randn(gen, b, sk, hk, 128)
+    bias, _ = _left_pad_bias(b, sk, pads)
+    live = k1._key_tile_live(bias, sk).tolist()
+    assert any(0 in row for row in live) and any(1 in row for row in live)
+    walks = k1._fwd_walks(b, sq, sk, h, causal, live)
+    assert sum(k1._fwd_key_tiles(qt, sq, sk, causal) - len(w)
+               for _, _, qt, w in walks) > 0
+    out, lse = k1.flash_attention_fwd(q, k, v, causal, None, bias)
+    ref, ref_lse = k1.flash_attention_fwd_reference(q, k, v, causal, None,
+                                                    bias)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.isfinite(lse).all())
+    tol = k1.fwd_tolerance(q, k, v, ref, causal, None, bias)
+    worst = ((out.float() - ref.float()).abs() / tol).max().item()
+    assert worst <= 1.0, f"worst err/tol {worst:.3f}"
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert bool((k1._dead_rows(lse) == k1._dead_rows(ref_lse)).all())
+
+
+@pytest.mark.parametrize("pads", [None, (130, 0)])
+def test_flash_attention_fwd_is_deterministic(gen, pads):
+    """K1 sums in a fixed order: two calls give the same bits, with and
+    without key tiles skipped."""
+    b, s, h, hk = 2, 300, 8, 2
+    q = _randn(gen, b, s, h, 128)
+    k, v = _randn(gen, b, s, hk, 128), _randn(gen, b, s, hk, 128)
+    bias = None if pads is None else _left_pad_bias(b, s, pads)[0]
+    first = k1.flash_attention_fwd(q, k, v, True, None, bias)
+    for _ in range(2):
+        again = k1.flash_attention_fwd(q, k, v, True, None, bias)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
 @pytest.mark.parametrize("m,kdim,n", [(1, 128, 8), (5, 256, 40),
                                       (16, 512, 1000), (17, 384, 264),
                                       (300, 1024, 520)])
@@ -127,6 +209,24 @@ def test_norm_matmul_matches_plain(gen, m, kdim, n):
     ref = k2._reference(x, nw, 1e-5, w)
     diff = (y.float() - ref.float()).abs()
     assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("n", [520, 1000, 14336])
+@pytest.mark.parametrize("m", [17, 129, 264, 300, 1024])
+def test_norm_matmul_tiled_path_matches_plain(gen, m, n):
+    """K2's dense tiled path (M > 16: rstd once per row, then 128 x 128
+    tiles) at ragged M and N and at the model's N = 14336, K = 4096; two
+    calls give the same bits (no split-K)."""
+    kdim = 4096
+    x = _randn(gen, m, kdim)
+    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    w = _randn(gen, kdim, n, scale=1 / math.sqrt(kdim))
+    y = k2.fused_norm_matmul_pure(x, nw, 1e-5, w)
+    ref = k2._reference(x, nw, 1e-5, w)
+    diff = (y.float() - ref.float()).abs()
+    assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+    assert torch.equal(y, k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
 
 
 @pytest.mark.parametrize("g,lens", [(1, (0, 15, 16)), (2, (31, 1, 47)),

@@ -129,6 +129,46 @@ def test_norm_matmul_matches_jax_kernel(monkeypatch, m, variant):
     assert tfnm.launches == 0
 
 
+@pytest.mark.parametrize("m,n,kdim", [
+    (17, 264, 384), (129, 1000, 4096), (264, 14336, 4096), (300, 520, 1024),
+    (1024, 14336, 4096), (1024, 4096, 4096), (8192, 1024, 4096),
+    (2049, 136, 4096), (4000, 8, 256), (600, 14336, 4096)])
+def test_norm_matmul_block_order_covers_each_tile_once(m, n, kdim):
+    """K2's dense tiled path (``_block_order``, the kernel's tile choice
+    and swizzle): every (row, 128-column tile) of a ragged M x N output is
+    computed by exactly one block, whose body holds all of its rows; 64-row
+    tiles exactly where 128-row ones give fewer blocks than the H100's 132
+    SMs; the first band's row tiles run fastest; a cut last row tile
+    computes only the 32 or 64 rows it needs and, where one band would
+    hold every row tile, launches last."""
+    n_nt = -(-n // 128)
+    order = tfnm._block_order(m, n, kdim)
+    tm = 128 if -(-m // 128) * n_nt >= 132 else 64
+    n_mt = -(-m // tm)
+    assert len(order) == n_mt * n_nt
+    seen = {}
+    for row0, rows, nt in order:
+        assert row0 % tm == 0 and rows in (32, 64, 128) and rows <= tm
+        assert rows >= min(tm, m - row0)
+        for r in range(row0, min(row0 + rows, m)):
+            seen[r, nt] = seen.get((r, nt), 0) + 1
+    assert seen == {(r, nt): 1 for r in range(m) for nt in range(n_nt)}
+    light = [i for i, (row0, rows, _) in enumerate(order) if rows < tm]
+    if m % tm and m % tm <= tm // 2:
+        assert len(light) == n_nt
+        if n_mt <= 16:
+            assert light == list(range(len(order) - n_nt, len(order)))
+    else:
+        assert not light
+    band = min(max(16 * 2**20 // (tm * kdim * 2), 1), 16)
+    band = n_mt - 1 if m % tm and 1 < n_mt <= band else band
+    width = min(band, n_mt)
+    first = order[:width * n_nt]
+    assert {row0 // tm for row0, _, _ in first} == set(range(width))
+    for i in range(0, len(first), width):
+        assert len({nt for _, _, nt in first[i:i + width]}) == 1
+
+
 def test_norm_matmul_keeps_leading_dims():
     rng = np.random.default_rng(3)
     x = _t(rng.normal(size=(2, 5, 64)).astype(np.float32))

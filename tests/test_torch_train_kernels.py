@@ -41,9 +41,11 @@ counterpart, which on CPU tensors runs the kernel's plain version:
   * the backward dispatch (``bwd_uses_fused``) against the JAX package's
     ``_bwd_prologue`` choice on shapes on both sides of its 512 MiB cap;
   * the host-side rules K5 and K9 rely on, each against brute force over
-    positions: the block orders (``_dkv_walks``, ``_dq_walks``) cover
-    every live (batch, key tile, head, query tile) exactly once, longest
-    walks first; the key-tile liveness under a bias (``_key_tile_live``)
+    positions: the block orders (``_dkv_walks``, ``_dq_walks``, and K1's
+    ``_fwd_walks`` over its 128-row query tiles) cover every live (batch,
+    key tile, head, query tile) exactly once, longest walks first, leaving
+    out the key tiles a bias masks whole; the key-tile liveness under a
+    bias (``_key_tile_live``)
     is "every key <= -1e30"; K9's dS slots (``_pair_slot``) number the
     live pairs 0 .. ``fused_partial_pairs`` - 1.
 """
@@ -544,6 +546,52 @@ def test_bwd_walks_cover_each_live_pair_once(sq, sk, causal, hk, g):
             for walks in ([len(w) for *_, w in dkv],
                           [len(kts) for *_, kts in dq]):
                 assert walks == sorted(walks, reverse=True)
+
+
+def _brute_fwd_pairs(b, sq, sk, causal, tile_live):
+    """Per batch row: the (128-row query tile, 64-key tile) pairs where
+    some query of the first sees some key of the second and the bias
+    leaves the key tile live, by brute force over the positions."""
+    out = []
+    for bi in range(b):
+        pairs = {(i // 128, j // 64) for i in range(sq) for j in range(sk)
+                 if not causal or j <= i + sk - sq}
+        out.append({(qt, kt) for qt, kt in pairs
+                    if tile_live is None or tile_live[bi][kt]})
+    return out
+
+
+@pytest.mark.parametrize("sq,sk", _WALK_SHAPES + ((300, 700), (700, 300)))
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_walks_cover_each_live_pair_once(sq, sk, causal):
+    """K1's block order (``_fwd_walks``: a block per (b, head, 128-row
+    query tile), query tiles descending) walks every live (query tile, key
+    tile) pair of every head exactly once, key tiles ascending; a key tile
+    the bias masks whole (``_key_tile_live`` 0) is left out; without a bias
+    the longest walks come first. Sq != Sk both ways, causal and not."""
+    b, h = 2, 3
+    nk = -(-sk // 64)
+    dead = [[False] * nk, [kt % 3 == 1 or kt < 2 for kt in range(nk)]]
+    for tile_live in (None, [[int(not d) for d in row] for row in dead]):
+        want = _brute_fwd_pairs(b, sq, sk, causal, tile_live)
+        blocks = k1._fwd_walks(b, sq, sk, h, causal, tile_live)
+        assert len(blocks) == b * h * -(-sq // 128)
+        for bi in range(b):
+            for hi in range(h):
+                got = [(qt, kt) for bb, hh, qt, kts in blocks
+                       if (bb, hh) == (bi, hi) for kt in kts]
+                assert len(got) == len(set(got))
+                assert set(got) == want[bi]
+        assert all(kts == sorted(kts) for *_, kts in blocks)
+        assert [qt for *_, qt, _ in blocks] == sorted(
+            (qt for *_, qt, _ in blocks), reverse=True)
+        if tile_live is None:
+            walks = [len(kts) for *_, kts in blocks]
+            assert walks == sorted(walks, reverse=True)
+        else:  # the dead tiles are left out, the causal range kept
+            for bb, _, qt, kts in blocks:
+                n = k1._fwd_key_tiles(qt, sq, sk, causal)
+                assert kts == [kt for kt in range(n) if tile_live[bb][kt]]
 
 
 # ------------------------------------------------------------------ K12
