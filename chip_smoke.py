@@ -118,15 +118,19 @@ class, device busy share). Phases, in order; any failure raises and the process 
                Mixtral-8x7B train shapes: T = 16,384 routed rows split
                unevenly over 8 experts (one empty, one with 30%,
                boundaries off the 128-row tile); per-element tolerances
-               from the inputs, K14's empty group all zeros; times,
-               bounds and ``torch._grouped_mm`` as the library yardstick
-               where this torch has it.
+               from the inputs, K14's empty group all zeros, each form's
+               two calls bitwise equal; times, TFLOP/s, bound shares, the
+               kernels' registers and spills from the build log,
+               ``torch._grouped_mm`` as the library yardstick where this
+               torch has it, and for K14 (whose routing the library's
+               grouped-K form refuses) the library and K14 again on the
+               counts rounded to multiples of 8.
 11. MoE gradient check — one full-width Mixtral layer's experts at B=1
                x S=2048 under a routing computed once in f32: y, dx and
                the three dWs of the kernel path, the plain bf16 path and
                the plain f32 path; kernel-vs-f32 relative L2 <= 2 x
                plain-bf16-vs-f32, which two controls (a group boundary
-               moved by one row, a group's last 64-row dW slice left
+               moved by 64 rows, a group's last 64-row dW slice left
                out) must fail; then a 1-layer full-width MoEForCausalLM:
                per-token losses against its plain f32 forward and the
                token copies routed to another expert.
@@ -2455,7 +2459,8 @@ MOE_T = TB * TS * 2       # routed rows of one train step: B*S tokens, top-2
 # the kernels phase's routing: rows per expert (one empty, one with 30%,
 # boundaries off the 128-row tile), 16,384 in all
 MOE_COUNTS = (1843, 0, 4915, 2011, 1777, 2049, 1901, 1888)
-DW_SLICE = 64             # the rows K14 takes per slice (grouped_tiles.cuh BK)
+DW_SLICE = 64             # the rows K14 takes per slice (wgmma_tiles.cuh BK)
+MOVE = 64                 # rows the moved-boundary control shifts
 
 
 def mixtral_config(layers, **kw):
@@ -2489,13 +2494,54 @@ def _library(torch, fn, want, tol, label):
     return None, why
 
 
+def ptxas_report(*kernels):
+    """{kernel<template args>: {registers, spill_stores, spill_loads}}
+    for the build log's entry functions whose name holds one of
+    ``kernels``."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    log = (_build.library_path().parent / "build.log").read_text()
+    rep, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:  # mangled: ...<name>ILb0E... is <name><false>
+            cur = next((f"{k}<{'true' if b.group(1) == '1' else 'false'}>"
+                        for k in kernels
+                        for b in [re.search(k + r"ILb([01])E", m.group(1))]
+                        if b), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep.setdefault(cur, {})["registers"] = int(m.group(1))
+    return rep
+
+
+def aligned_counts(counts):
+    """``counts`` rounded down to multiples of 8, the rows lost added to
+    the largest group: the same T, a routing the library's grouped-K
+    form takes."""
+    out = [c // 8 * 8 for c in counts]
+    out[counts.index(max(counts))] += sum(counts) - sum(out)
+    assert sum(out) == sum(counts) and all(c % 8 == 0 for c in out)
+    return tuple(out)
+
+
 def check_grouped_matmul(torch, timer, gm):
     """K13 (forward at gate/up 4096 -> 14336 and down 14336 -> 4096, and
     its transposed dX form at 14336 -> 4096) and K14 (dW at both weight
     shapes, bf16 out) at the Mixtral train shapes, T = 16,384 routed rows
     split by MOE_COUNTS; each element within ``gm.tolerance`` /
     ``gm.dw_tolerance`` of the plain version, K14's empty group all
-    zeros. Library: ``torch._grouped_mm`` where this torch has it."""
+    zeros, two calls of each form bitwise equal. Library:
+    ``torch._grouped_mm`` where this torch has it; for K14 its grouped-K
+    form, and K14 again, on ``aligned_counts(MOE_COUNTS)``."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 30)
     off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
                        dtype=torch.int32, device="cuda")
@@ -2503,6 +2549,8 @@ def check_grouped_matmul(torch, timer, gm):
     assert int(off[-1]) == t
     h, m = 4096, 14336
     rows = []
+    ptxas = ptxas_report("grouped_matmul_kernel", "segment_dw_kernel")
+    log(f"K13/K14 ptxas: {ptxas}")
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device="cuda")
@@ -2525,6 +2573,8 @@ def check_grouped_matmul(torch, timer, gm):
         del got, diff
         log(f"K13 {name}: worst err/tol {worst:.3f}")
         assert worst < 1.0, f"{name} worst err/tol {worst}"
+        assert _same_bits(torch, lambda: (gm.gmm(x, off, w, trans_w=trans),)
+                          ), f"K13 {name}: two calls differ"
         # torch._grouped_mm (group ends as offs) wants B column-major:
         # w^T (E, N, K) lies so for the dX form; else a column-major copy,
         # made outside the timing
@@ -2544,16 +2594,18 @@ def check_grouped_matmul(torch, timer, gm):
         nbytes = 2 * (x.numel() + w.numel() + t * n) + 4 * off.numel()
         bms, by = bound(nbytes, flops, BF16_FLOPS)
         log(f"K13 {name} T{t} K{kdim} N{n}: max_abs_err {err:.3e} kernel_ms "
-            f"{ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain:.4f} "
-            f"library_ms {lib if lib is None else round(lib, 4)} "
-            f"({lib_note}) bound_ms {bms:.4f} ({by})")
+            f"{ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s, bound share "
+            f"{bms / ms:.3f}) plain_ms {plain:.4f} library_ms "
+            f"{lib if lib is None else round(lib, 4)} ({lib_note}) "
+            f"bound_ms {bms:.4f} ({by}); two calls bitwise equal")
         rows.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
                      "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:200",
                      "max_abs_err": err, "worst_err_over_tol": worst,
                      "ms": ms, "plain_ms": plain, "bound_ms": bms,
                      "bound_by": by, "library_ms": lib,
-                     "library_note": lib_note,
+                     "library_note": lib_note, "bitwise_repeat": True,
+                     "ptxas": ptxas.get(f"grouped_matmul_kernel<{str(trans).lower()}>"),
                      "shape": f"T{t} K{kdim} N{n} E{e} rows {MOE_COUNTS}"
                               + (" w^T (dX form)" if trans else "")})
         del x, w
@@ -2575,11 +2627,14 @@ def check_grouped_matmul(torch, timer, gm):
         log(f"K14 {name}: worst err/tol {worst:.3f}, empty group {empty} "
             f"all zeros")
         assert worst < 1.0, f"{name} worst err/tol {worst}"
+        assert _same_bits(torch, lambda: (gm.segment_dw(
+            x, dy, off, e, out_dtype=torch.bfloat16),)), (
+            f"K14 {name}: two calls differ")
         # torch._grouped_mm's grouped-K form (x^T @ dy, group ends on T)
         # asserts on the device, poisoning the context, unless every
         # group's rows are a multiple of 8 (16 bytes): these are not, so
-        # there is no one-call yardstick; the plain version is the
-        # per-expert cuBLAS loop
+        # there is no one-call yardstick on this routing; the plain
+        # version is the per-expert cuBLAS loop
         assert any(c % 8 for c in MOE_COUNTS)
         lib, lib_note = None, ("none: torch._grouped_mm's grouped-K form "
                                "needs each group's rows % 8 == 0")
@@ -2588,20 +2643,47 @@ def check_grouped_matmul(torch, timer, gm):
                                          out_dtype=torch.bfloat16))
         plain = timer(lambda: gm.segment_dw_reference(x, dy, off, e, ep),
                       iters=5)
+        # the library on the aligned routing: the same T, K14 beside it
+        counts_a = aligned_counts(MOE_COUNTS)
+        off_a = torch.tensor([0, *itertools.accumulate(counts_a)],
+                             dtype=torch.int32, device="cuda")
+        got_a = gm.segment_dw(x, dy, off_a, e, out_dtype=torch.bfloat16)
+        ref_a = gm.segment_dw_reference(x, dy, off_a, e, ep)
+        tol_a = gm.dw_tolerance(x, dy, off_a, e, ref_a)
+        worst_a = ((got_a.float() - ref_a.float()).abs() / tol_a).max().item()
+        assert worst_a < 1.0, f"{name} aligned worst err/tol {worst_a}"
+        ends_a, xt = off_a[1:].contiguous(), x.t()
+        lib_a_fn, why_a = _library(torch, lambda: torch._grouped_mm(
+            xt, dy, offs=ends_a), ref_a, tol_a, f"{name} aligned")
+        del got_a, ref_a, tol_a
+        ms_a = timer(lambda: gm.segment_dw(x, dy, off_a, e,
+                                           out_dtype=torch.bfloat16))
+        lib_a = timer(lib_a_fn) if lib_a_fn else None
         flops = 2 * t * kdim * n
         nbytes = 2 * (x.numel() + dy.numel() + e * kdim * n) + 4 * off.numel()
         bms, by = bound(nbytes, flops, BF16_FLOPS)
         log(f"K14 {name} T{t} K{kdim} N{n}: max_abs_err {err:.3e} kernel_ms "
-            f"{ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) plain_ms {plain:.4f} "
-            f"library_ms {lib if lib is None else round(lib, 4)} "
-            f"({lib_note}) bound_ms {bms:.4f} ({by})")
+            f"{ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s, bound share "
+            f"{bms / ms:.3f}) plain_ms {plain:.4f} library_ms "
+            f"{lib if lib is None else round(lib, 4)} ({lib_note}) "
+            f"bound_ms {bms:.4f} ({by}); two calls bitwise equal; on the "
+            f"aligned routing {counts_a}: kernel_ms {ms_a:.4f} (worst "
+            f"err/tol {worst_a:.3f}) library_ms "
+            f"{lib_a if lib_a is None else round(lib_a, 4)}"
+            + ("" if lib_a_fn else f" ({why_a})"))
         rows.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/csrc/segment_dw.cu",
                      "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:469",
                      "max_abs_err": err, "worst_err_over_tol": worst,
                      "ms": ms, "plain_ms": plain, "bound_ms": bms,
                      "bound_by": by, "library_ms": lib,
-                     "library_note": lib_note,
+                     "library_note": lib_note, "bitwise_repeat": True,
+                     "aligned_counts": counts_a, "aligned_ms": ms_a,
+                     "library_aligned_ms": lib_a,
+                     "library_aligned_note": (
+                         "torch._grouped_mm grouped-K form" if lib_a_fn
+                         else f"none: {why_a}"),
+                     "ptxas": ptxas.get("segment_dw_kernel<false>"),
                      "shape": f"T{t} K{kdim} N{n} E{e} rows {MOE_COUNTS} "
                               f"bf16 out"})
         del x, dy
@@ -2645,7 +2727,7 @@ def moe_grad_check(torch, gm):
     path in bf16 and the plain path in f32. For y, dx, dW_gate, dW_up and
     dW_down: kernel-vs-f32 relative L2 <= 2 x plain-bf16-vs-f32 (phase 8's
     rule). Two controls must fail it: K13 fed offsets with one group
-    boundary moved by one row, and dW with one group's last 64-row slice
+    boundary moved by MOVE rows, and dW with one group's last 64-row slice
     of dy left out. Then a 1-layer full-width MoEForCausalLM: the
     per-token losses of the kernel path against the plain f32 forward,
     and the count of token copies routed to another expert."""
@@ -2671,12 +2753,13 @@ def moe_grad_check(torch, gm):
                             torch.bfloat16, True)
     ref = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
                           torch.float32, True)
-    # control (a): the first boundary between two non-empty groups moves
-    # down one row (that row computes with its neighbour's expert)
+    # control (a): the first boundary after a non-empty group whose next
+    # group holds at least MOVE rows moves down MOVE rows (those rows
+    # compute with their neighbour's expert)
     j = next(i for i in range(1, len(off) - 1)
-             if off[i] > off[i - 1] and off[i + 1] > off[i])
+             if off[i] > off[i - 1] and off[i + 1] - off[i] >= MOVE)
     moved = routing[3].clone()
-    moved[j] += 1
+    moved[j] += MOVE
     ctl_a = _moe_expert_run(torch, moe, gm, x, dy, ws, routing,
                             torch.bfloat16, False, offsets=moved)
     # control (b): the largest group's last K14 row slice left out of dW

@@ -1,17 +1,16 @@
-// The pieces shared by K13 (grouped_matmul.cu), K14 (segment_dw.cu) and
-// K2's dense tiled path (norm_matmul.cu):
-// the (tile, group) walk over expert-sorted rows, the 128 x 128 block
-// tile (8 warps of 64 x 32, bf16 ldmatrix + mma.sync m16n8k16 with f32
-// accumulators in registers), the cp.async ring that feeds it 16-byte
-// vectors, the register epilogue, and the block-order swizzle that keeps
-// one operand's band resident in L2.
+// K2's dense tiled body (norm_matmul.cu), and the walk K13 and K14 share:
+// the (tile, group) walk over expert-sorted rows (walk_step, clamp_off),
+// the 128 x 128 block tile (8 warps of 64 x 32, bf16 ldmatrix + mma.sync
+// m16n8k16 with f32 accumulators in registers), the cp.async ring that
+// feeds it 16-byte vectors, the register epilogue, and the block-order
+// swizzle that keeps one operand's band resident in L2 (K13's items use it
+// too). K13 (grouped_matmul.cu) and K14 (segment_dw.cu) run
+// wgmma_tiles.cuh's body instead.
 //
-// K13 and K14 are bound by tensor-core operations at the MoE train shapes
-// (2 * T * K * N FLOPs against ~1.5 GB moved), K2 at the train and prefill
-// shapes. All three stage 64-deep slices with cp.async, three in flight,
-// so the loads of slice k+2 overlap the MMAs of slice k, and pass one
-// block barrier per slice. wgmma, TMA and warp specialization are later
-// work.
+// K2 is bound by tensor-core operations at the train and prefill shapes.
+// It stages 64-deep slices with cp.async, three in flight, so the loads of
+// slice k+2 overlap the MMAs of slice k, and passes one block barrier per
+// slice.
 #pragma once
 
 #include "mma_sync.cuh"

@@ -6,14 +6,19 @@ rows ``offsets[e] .. offsets[e+1]`` are group e's, ``offsets[E] == T``),
 and ``y[r] = x[r] @ w[group_of(r)]`` runs with no per-expert padding.
 
 Kernel K13 (``csrc/grouped_matmul.cu``) replaces ``_pallas_grouped_matmul``:
-one block per (step, n-tile) of the ``group_tile_walk`` over 128-row tiles,
-each block computing its own step from the offsets on the card, so no
-count returns to the host. Its transposed form reads the stacked weight as
+its work items are the (step, n-tile) pairs of the ``group_tile_walk`` over
+128-row tiles, each decoded on the card from the offsets, so no count
+returns to the host. Its transposed form reads the stacked weight as
 (E, N, K) and multiplies by ``w[g]^T`` in place: the backward's dX.
 Kernel K14 (``csrc/segment_dw.cu``) replaces ``_pallas_segment_dw``:
 ``dw[e] = x_e^T @ dy_e`` in f32, an optional scale, cast at the end; an
 empty group writes zeros. Both bound by tensor-core operations at the
-MoE train shapes.
+MoE train shapes, both run ``csrc/wgmma_tiles.cuh``: 128 x 256 tiles,
+``wgmma`` on TMA-fed stages, one producer warp and two consumer
+warpgroups, a persistent grid of one block an SM. ``gmm_items``,
+``sdw_items``, ``sdw_slices`` and ``persistent_blocks`` model the order
+in which the blocks take their items and the rows each item reads; the
+card tests hold the kernels' own decoding to them.
 
 ``grouped_matmul`` is the ``autograd.Function`` the MoE route calls (the
 JAX package's custom VJP): K13 forward, K13's transposed form for dX, and
@@ -40,6 +45,12 @@ from . import _build
 #: (incremented only where each launches)
 launches = 0
 dw_launches = 0
+
+#: K13/K14's block tile rows and columns and their reduction slice
+#: (``csrc/wgmma_tiles.cuh`` BM, BN, BK)
+TILE_M, TILE_N, SLICE = 128, 256, 64
+#: the H100's SMs: the persistent grid's blocks (one an SM)
+H100_SMS = 132
 
 #: epilogue op kinds the dW seam understands (JAX ``DW_EPILOGUE_OPS``)
 DW_EPILOGUE_OPS = ("scale", "cast")
@@ -78,6 +89,78 @@ def group_tile_walk(group_offsets, bm, n_tiles, n_groups,
     row_hi = torch.where(parked, 0, torch.minimum(off[gc + 1],
                                                   (tile + 1) * bm))
     return tuple(v.to(torch.int32) for v in (tile, gc, row_lo, row_hi))
+
+
+def _band(kdim):
+    """K13's band: the row tiles whose x rows fill ~16 MB of L2."""
+    return min(max((16 << 20) // (TILE_M * kdim * 2), 1), 16)
+
+
+def _swizzle(bid, n_band, n_other, band):
+    """``swizzle`` of ``csrc/grouped_tiles.cuh``: item ``bid`` walks
+    ``band`` indices of the banded axis fastest, then the other axis."""
+    first = bid // (band * n_other) * band
+    width = min(band, n_band - first)
+    local = bid - first * n_other
+    return first + local % width, local // width
+
+
+def gmm_items(group_offsets, t, kdim, n):
+    """K13's work items in walk order, as the kernel decodes them: one
+    (tile, group, lo, hi, n_tile, slices) per (step, n-tile) of the banded
+    walk over the ``group_tile_walk``'s n_tiles + E - 1 steps of 128 rows.
+    The item writes rows [lo, hi) of ``tile`` against ``group``'s weight
+    in columns [256 n_tile, 256 n_tile + 256); a parked step has lo == hi
+    and no slices."""
+    e = len(group_offsets) - 1
+    n_tiles = -(-t // TILE_M)
+    walk = [v.tolist() for v in group_tile_walk(
+        torch.as_tensor(group_offsets, dtype=torch.int32), TILE_M, n_tiles,
+        e)]
+    n_steps, n_nt, band = n_tiles + e - 1, -(-n // TILE_N), _band(kdim)
+    items = []
+    for i in range(n_steps * n_nt):
+        step, nt = _swizzle(i, n_steps, n_nt, band)
+        tile, g, lo, hi = (v[step] for v in walk)
+        items.append((tile, g, lo, hi, nt, -(-kdim // SLICE) if hi > lo
+                      else 0))
+    return items
+
+
+def sdw_items(group_offsets, t, kdim, n):
+    """K14's work items in walk order, as the kernel decodes them: one
+    (group, k_tile, n_tile, lo, hi, slices) per output tile, the groups
+    ranked by rows, most first (ties by index), and within a group the
+    smaller of the two output axes fastest. The item sums rows [lo, hi)
+    (``sdw_slices``); an empty group's items run no slice and write
+    zeros."""
+    off = [min(max(int(v), 0), t) for v in group_offsets]
+    e = len(off) - 1
+    rows = [max(0, off[g + 1] - off[g]) for g in range(e)]
+    n_mt, n_nt = -(-kdim // TILE_M), -(-n // TILE_N)
+    items = []
+    for g in sorted(range(e), key=lambda g: (-rows[g], g)):
+        lo, hi = off[g], max(off[g], off[g + 1])
+        for local in range(n_mt * n_nt):
+            mt, nt = ((local % n_mt, local // n_mt) if kdim <= n
+                      else (local // n_nt, local % n_nt))
+            items.append((g, mt, nt, lo, hi, -(-(hi - lo) // SLICE)))
+    return items
+
+
+def sdw_slices(lo, hi):
+    """The (first row, rows kept) of each 64-row slice a K14 item reads
+    for group rows [lo, hi): the first starts at lo; the last one's other
+    ``SLICE - kept`` rows belong to the next group (or lie past T), and
+    the kernel zeroes them in shared memory before its products."""
+    return [(r, min(SLICE, hi - r)) for r in range(lo, hi, SLICE)]
+
+
+def persistent_blocks(n_items, sms=H100_SMS):
+    """The item indices each block of K13's and K14's persistent grid
+    takes: min(n_items, sms) blocks, block b items b, b + grid, ..."""
+    grid = min(n_items, sms)
+    return [list(range(b, n_items, grid)) for b in range(grid)]
 
 
 def _bounds(group_offsets):
@@ -159,8 +242,9 @@ def dw_tolerance(x, dy, group_offsets, e, ref):
 
 def _check(name, x, group_offsets, w_name, w, w_k, n, n_groups):
     """Raise unless x (T, K) meets a K-deep operand ``w`` of N columns as
-    the kernels take them: contiguous bf16, K and N multiples of 8, int32
-    offsets of E + 1 entries, all on the card."""
+    the kernels take them: contiguous bf16 on 16-byte-aligned addresses
+    (TMA's), K and N multiples of 8, int32 offsets of E + 1 entries, all
+    on the card."""
     if x.dim() != 2 or x.shape[1] != w_k or w_k % 8 or n % 8:
         raise ValueError(f"{name} kernel needs x (T, K) against {w_name} "
                          f"of K rows, K % 8 == 0 and N % 8 == 0; got x "

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time K2, K13 and K14 of two checkouts of the port on one card, in turns.
+
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
+
+Each tree is the root of a checkout (the directory that holds
+``paddle_tpu_torch/``), e.g. the parent commit unpacked with ``git
+archive`` into a git-ignored directory, and ``.``. One child process runs
+per (tree, turn), in the order old, new, new, old for each round: the
+child puts its tree first on ``sys.path``, builds that tree's kernels
+into the tree's own ``build/`` and times, on the same seeded inputs,
+
+  * K2's dense path (``fused_norm_matmul_pure``) at ``chip_smoke.py``'s
+    phase-3/7 shapes with N = 14336: M = 8 (the decode kernel), 264, 1024
+    and 8192, K = 4096;
+  * K13 (forward 4096 -> 14336 and 14336 -> 4096, and the dX form) and
+    K14 (both weight shapes, bf16 out) at phase 10's: T = 16,384 rows
+    split over 8 experts as ``MOE_COUNTS`` below;
+
+each the median device ms of 20 calls with the L2 flushed before each and
+a spin kernel holding the stream while the host enqueues (as
+``chip_smoke.py``'s ColdTimer). It prints one JSON line per turn, then a
+summary line: each shape's median over the turns of each tree, and new
+over old. Needs one CUDA card and the CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+#: rows per expert of chip_smoke.py's phase 10 (one empty, one with 30%)
+MOE_COUNTS = (1843, 0, 4915, 2011, 1777, 2049, 1901, 1888)
+K2_SHAPES = [(8, 4096, 14336), (264, 4096, 14336), (1024, 4096, 14336),
+             (8192, 4096, 14336)]
+GMM_FORMS = [("grouped_matmul", 4096, 14336, False),
+             ("grouped_matmul_down", 14336, 4096, False),
+             ("grouped_matmul_dx", 14336, 4096, True)]
+SDW_FORMS = [("segment_dw", 4096, 14336), ("segment_dw_down", 14336, 4096)]
+
+
+def _cold_ms(torch, flush, fn, iters=20, warmup=2):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def child() -> None:
+    import itertools
+
+    import torch
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
+
+    _build.build()
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    out = {}
+    with torch.no_grad():
+        for m, kdim, n in K2_SHAPES:
+            x, w = rnd(m, kdim), rnd(kdim, n, scale=kdim ** -0.5)
+            nw = (torch.rand((kdim,), generator=g, device="cuda")
+                  + 0.5).to(torch.bfloat16)
+            out[f"K2 M{m} K{kdim} N{n}"] = _cold_ms(
+                torch, flush, lambda: k2.fused_norm_matmul_pure(
+                    x, nw, 1e-5, w))
+            del x, w
+        off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
+                           dtype=torch.int32, device="cuda")
+        t, e = sum(MOE_COUNTS), len(MOE_COUNTS)
+        for name, kdim, n, trans in GMM_FORMS:
+            x = rnd(t, kdim)
+            w = rnd(e, *((n, kdim) if trans else (kdim, n)), scale=0.02)
+            out[f"K13 {name}"] = _cold_ms(
+                torch, flush, lambda: gm.gmm(x, off, w, trans_w=trans))
+            del x, w
+        for name, kdim, n in SDW_FORMS:
+            x, dy = rnd(t, kdim), rnd(t, n)
+            out[f"K14 {name}"] = _cold_ms(
+                torch, flush, lambda: gm.segment_dw(
+                    x, dy, off, e, out_dtype=torch.bfloat16))
+            del x, dy
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--child"]:
+        child()
+        return 0
+    rounds = 1
+    if "--rounds" in args:
+        i = args.index("--rounds")
+        rounds = int(args[i + 1])
+        del args[i:i + 2]
+    old, new = (os.path.abspath(a) for a in args)
+    runs = {old: [], new: []}
+    for _ in range(rounds):
+        for tree in (old, new, new, old):
+            env = {**os.environ, "PYTHONPATH": tree}
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--child"],
+                cwd=tree, env=env, capture_output=True, text=True,
+                check=True)
+            got = json.loads(res.stdout.strip().splitlines()[-1])
+            runs[tree].append(got)
+            print(json.dumps({"tree": tree, "ms": got}), flush=True)
+    summary = {}
+    for key in runs[old][0]:
+        a = statistics.median(r[key] for r in runs[old])
+        b = statistics.median(r[key] for r in runs[new])
+        summary[key] = {"old_ms": a, "new_ms": b, "new_over_old": b / a}
+    print(json.dumps({"summary": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,10 +55,14 @@ row counts that are not multiples of the 128-row tile, and K and N that
 are not multiples of the 32- and 128-wide slices (tolerances from the
 inputs: ``grouped_matmul.tolerance``, ``dw_tolerance``); K14's empty
 groups exactly zero; the step walk the kernels compute on the card equal
-to ``group_tile_walk``; the autograd entry's gradients against its plain
-version; a small MoE train step whose launches equal its plan; and the
-wrappers' refusals (the ``grouped_matmul_kernel`` flag or the
-``moe_grouped_bwd`` family off, wrong dtype, shape or offsets).
+to ``group_tile_walk``; the work items the kernels decode on the card
+equal to the Python model (``gmm_items``, ``sdw_items``); groups of 1,
+63, 65 and 4,915 rows with more items than two per SM of the
+persistent grid; each form's two calls bitwise equal; the autograd
+entry's gradients against its plain version; a small MoE train step
+whose launches equal its plan; and the wrappers' refusals (the
+``grouped_matmul_kernel`` flag or the ``moe_grouped_bwd`` family off,
+wrong dtype, shape or offsets, an operand not on a 16-byte boundary).
 """
 
 from __future__ import annotations
@@ -822,6 +826,18 @@ _GROUPS = [((37, 0, 200, 91), 256, 384), ((0, 300, 5, 0), 72, 200),
            ((128, 128, 129, 127), 1024, 2048)]
 
 
+#: groups of 1, 63, 65 and 4,915 rows: more K13 and K14 items (387 and
+#: 288, ``gmm_items`` / ``sdw_items``) than two per SM of the persistent
+#: grid
+_MANY = ((1, 63, 65, 4915), 1024, 2304)
+#: 64 experts, a third of them empty and many of equal size (the order
+#: K14 ranks on the card), boundaries anywhere
+_WIDE = (tuple(0 if i % 3 == 0 else (i * 37) % 5 * 16 + i % 7
+               for i in range(64)), 256, 512)
+#: K and N narrower than one 64-column TMA box
+_NARROW = ((5, 0, 3), 8, 16)
+
+
 def _offsets(sizes):
     off = [0]
     for n in sizes:
@@ -829,7 +845,7 @@ def _offsets(sizes):
     return torch.tensor(off, dtype=torch.int32, device="cuda")
 
 
-@pytest.mark.parametrize("sizes,kdim,n", _GROUPS)
+@pytest.mark.parametrize("sizes,kdim,n", _GROUPS + [_MANY, _WIDE, _NARROW])
 @pytest.mark.parametrize("trans", [False, True])
 def test_grouped_matmul_matches_plain(gen, sizes, kdim, n, trans):
     off = _offsets(sizes)
@@ -847,7 +863,8 @@ def test_grouped_matmul_matches_plain(gen, sizes, kdim, n, trans):
     assert err < 1.0, err
 
 
-@pytest.mark.parametrize("sizes,kdim,n", _GROUPS)
+@pytest.mark.parametrize("sizes,kdim,n", _GROUPS + [_MANY, _WIDE, _NARROW,
+                                                     ((0, 0, 0), 128, 256)])
 @pytest.mark.parametrize("scale,dtype", [(None, torch.float32),
                                          (0.5, torch.bfloat16)])
 def test_segment_dw_matches_plain(gen, sizes, kdim, n, scale, dtype):
@@ -888,6 +905,63 @@ def test_group_walk_on_the_card_matches_group_tile_walk(gen, sizes, bm,
     ref = k1314.group_tile_walk(off, bm, n_tiles, e, min_one_step)
     for a, b in zip(out, ref):
         assert torch.equal(a, b), (a, b)
+
+
+@pytest.mark.parametrize("sizes,kdim,n", [_GROUPS[0], _GROUPS[1], _MANY,
+                                         _WIDE])
+def test_grouped_schedules_on_the_card_match_the_model(gen, sizes, kdim, n):
+    from paddle_tpu_torch.ops.kernels import _build
+
+    off = _offsets(sizes)
+    t, e = int(off[-1]), len(sizes)
+    for entry, model, args in (
+            ("pt_grouped_matmul_items", k1314.gmm_items, (t, kdim, n, e)),
+            ("pt_segment_dw_items", k1314.sdw_items, (t, kdim, n, e))):
+        want = model(off.tolist(), t, kdim, n)
+        out = torch.full((len(want), 6), -1, dtype=torch.int32, device="cuda")
+        _build.launch(entry, off.data_ptr(), *args, out.data_ptr(),
+                      _build.stream_of(off))
+        assert out.cpu().tolist() == [list(it) for it in want], entry
+
+
+@pytest.mark.parametrize("form", ["forward", "dx", "dw_f32", "dw_bf16"])
+def test_grouped_kernels_are_deterministic(gen, form):
+    off = _offsets((300, 0, 517, 211))
+    t = int(off[-1])
+    x = _randn(gen, t, 512)
+    if form in ("forward", "dx"):   # w (E, K, N), or (E, N, K) for dX
+        w = _randn(gen, 4, *((768, 512) if form == "dx" else (512, 768)),
+                   scale=0.05)
+        calls = [k1314.gmm(x, off, w, trans_w=form == "dx")
+                 for _ in range(2)]
+    else:
+        dy = _randn(gen, t, 768)
+        dt = torch.float32 if form == "dw_f32" else torch.bfloat16
+        calls = [k1314.segment_dw(x, dy, off, 4, scale=0.5, out_dtype=dt)
+                 for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*calls)
+
+
+def test_grouped_kernels_launch_from_a_fresh_thread(gen):
+    """The first launch of a thread (an autograd worker's, say) binds the
+    context the tensor maps need: each form from a new thread matches the
+    same call from this one."""
+    import threading
+
+    off = _offsets((100, 0, 200, 57))
+    x, dy = _randn(gen, 357, 256), _randn(gen, 357, 512)
+    w = _randn(gen, 4, 256, 512, scale=0.05)
+    forms = [lambda: k1314.gmm(x, off, w),
+             lambda: k1314.gmm(dy, off, w, trans_w=True),
+             lambda: k1314.segment_dw(x, dy, off, 4)]
+    for fn in forms:
+        got = []
+        worker = threading.Thread(target=lambda: got.append(fn()))
+        worker.start()
+        worker.join()
+        torch.cuda.synchronize()
+        assert len(got) == 1 and torch.equal(got[0], fn())
 
 
 def test_grouped_matmul_autograd_matches_plain(gen):
@@ -973,6 +1047,20 @@ def test_grouped_wrappers_raise_instead_of_falling_back(gen):
             ("cast", torch.float32), ("scale", 2.0)))
     with pytest.raises(RuntimeError):                     # grad would drop
         k1314.gmm(x.clone().requires_grad_(True), off, w)
+    # an operand off a 16-byte boundary (TMA's): a contiguous view one
+    # element into its storage
+    def shifted(a):
+        return torch.cat([a.reshape(-1), a.reshape(-1)[:8]])[
+            1:1 + a.numel()].view(a.shape)
+
+    for a in (shifted(x), shifted(w), shifted(dy)):
+        assert a.is_contiguous() and a.data_ptr() % 16
+    with pytest.raises(ValueError):
+        k1314.gmm(shifted(x), off, w)
+    with pytest.raises(ValueError):
+        k1314.gmm(x, off, shifted(w))
+    with pytest.raises(ValueError):
+        k1314.segment_dw(x, shifted(dy), off, 3)
 
 
 

@@ -18,7 +18,8 @@ reaches a Pallas kernel, it runs in interpret mode (``_INTERPRET``), as
     1e-5; bf16 at one bf16 ulp), empty groups exactly zero;
   * gating (``_top_k_gating``, ``_topk_select`` with ties: ids equal,
     ``_aux_loss``, ``dense_dropped_token_rate``) at 1e-6;
-  * both routes and the model's logits, aux and router probe at 1e-5
+  * both routes (top_k 1, 2 and 3) and the model's logits, aux and
+    router probe at 1e-5
     (the logits measured ~1.4e-6 here), with a shared expert too;
   * the quantized and expert-parallel forms raise; the CPU wrappers run
     their plain versions and never build; the bridge refuses a missing,
@@ -249,19 +250,21 @@ def test_topk_select_and_aux_loss_match_jax(k, ties):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("route", ["dropless", "dense"])
-def test_routes_match_jax(route):
+@pytest.mark.parametrize("route,k", [
+    pytest.param(r, k, id=r if k == 2 else f"{r}-top{k}")
+    for r in ("dropless", "dense") for k in (2, 1, 3)])
+def test_routes_match_jax(route, k):
     x, lg, wg, wu, wd = _arrays((2, 16, 32), (2, 16, 4), (4, 32, 64),
                                 (4, 32, 64), (4, 64, 32), seed=5)
     wg, wu, wd = wg * 0.1, wu * 0.1, wd * 0.1
     j = [jnp.asarray(a) for a in (x, lg, wg, wu, wd)]
     t = [torch.tensor(a) for a in (x, lg, wg, wu, wd)]
     if route == "dropless":
-        jy, ja = jmoe._dropless_route(*j, 2)
-        ty, ta = tmoe._dropless_route(*t, 2)
+        jy, ja = jmoe._dropless_route(*j, k)
+        ty, ta = tmoe._dropless_route(*t, k)
     else:
-        jy, ja = jmoe._dense_route(*j, 2, 6)
-        ty, ta = tmoe._dense_route(*t, 2, 6)
+        jy, ja = jmoe._dense_route(*j, k, 6)
+        ty, ta = tmoe._dense_route(*t, k, 6)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-6)
