@@ -17,8 +17,13 @@ class, device busy share). Phases, in order; any failure raises and the process 
                could take (``bound_ms``): K1, K2 (also at the train
                step's M = 8192, with TFLOP/s; two calls bitwise equal),
                K3 (bf16), then K4
-               (weight-only int8, and one int4 group-128 shape), K2 with
-               int8 weights and K3 on an int8 cache (page 32), then the
+               (weight-only int8 at the decode and prefill o_proj and
+               down_proj shapes, down_proj also int8 and int4 group 128)
+               and K2 with int8 weights (the decode shapes and every
+               prefill projection, gate/up also int4 group 128): at M =
+               1024 two calls bitwise equal, TFLOP/s, and a fault control
+               (the scales shifted by 16 columns) that must fail each
+               rule; K3 on an int8 cache (page 32), then the
                continuous batcher's kernels on its mixed wave (T = 264
                rows: two prefill chunks, decode rows at lengths 97-600,
                an idle slot, padding rows): K11, K3's ragged form, K10
@@ -402,7 +407,11 @@ def check_rope_attend(torch, timer, k3, kv_cache, rope_tables):
 QMM_SHAPES = [(8, 4096, 4096, "int8", -1), (8, 14336, 4096, "int8", -1),
               (1024, 4096, 4096, "int8", -1),
               (1024, 14336, 4096, "int8", -1),
+              (1024, 14336, 4096, "int8", 128),
+              (1024, 14336, 4096, "int4", 128),
               (8, 14336, 4096, "int4", 128)]
+#: the scale columns the fault control shifts the scales by
+SHIFT = 16
 
 
 def _quantize(torch, g, kdim, n, wd="int8", gs=-1):
@@ -417,9 +426,35 @@ def _quantize(torch, g, kdim, n, wd="int8", gs=-1):
         torch.bfloat16)
 
 
+def _shifted(qw):
+    """The fault control's weight: qw with its scales shifted by SHIFT
+    columns (every column scaled by another column's scale)."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
+
+    return QuantizedWeight(qw.codes, qw.scales.roll(SHIFT, -1).contiguous(),
+                           qw.weight_dtype, qw.group_size, qw.shape)
+
+
+def _tiled_checks(torch, row, fn, ctl_worst, flops):
+    """The tiled (M > 16) form's extra checks, into ``row``: two calls
+    bitwise equal, TFLOP/s and bound share, and the shifted-scale control
+    (its worst err/tol), which must fail the rule."""
+    assert _same_bits(torch, lambda: (fn(),)), (
+        f"{row['shape']}: two calls differ")
+    row["control_worst_err_over_tol"] = ctl_worst
+    assert ctl_worst > 1, (f"{row['shape']}: the shifted-scale control "
+                           f"passed (worst err/tol {ctl_worst:.3f})")
+    return f"{_rate(row, flops)}; shifted-scale control worst err/tol " \
+        f"{ctl_worst:.3f} (fails, as it must)"
+
+
 def check_quant_matmul(torch, timer, k4):
     """K4 at the o_proj and down_proj shapes of decode (M=8) and prefill
-    (M=1024), int8 per channel, and one decode shape int4 group 128."""
+    (M=1024), int8 per channel, and down_proj int8 and int4 group 128 at
+    M = 1024, int4 group 128 at M = 8. At M = 1024 (the tiled body): two
+    calls bitwise equal, TFLOP/s,
+    and the kernel with its scales shifted by SHIFT columns must fail
+    ``k4.tolerance``."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows, errs = [], []
     for m, kdim, n, wd, gs in QMM_SHAPES:
@@ -448,15 +483,24 @@ def check_quant_matmul(torch, timer, k4):
         nbytes = (2 * m * kdim + qw.codes.numel() + 4 * qw.scales.numel()
                   + 2 * m * n)
         bms, by = bound(nbytes, 2 * m * n * kdim, BF16_FLOPS)
+        row = {"shape": f"M{m} K{kdim} N{n} {wd} g{gs}",
+               "max_abs_err": err, "err_over_tol": worst, "ms": ms,
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+               "library_ms": lib, "bf16_matmul_ms": dense}
+        extra = ""
+        if m > 16:
+            ctl = k4.quant_matmul_qw(x, _shifted(qw))
+            ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
+            extra = "; " + _tiled_checks(
+                torch, row, lambda: k4.quant_matmul_pure(x, *args),
+                ctl_worst, 2 * m * n * kdim)
+            del ctl
         log(f"K4 quant_matmul M{m} K{kdim} N{n} {wd} g{gs}: max_abs_err "
             f"{err:.3e} (worst err/tol {worst:.3f}) kernel_ms {ms:.4f} "
             f"plain_ms {plain:.4f} library_ms "
             f"{lib if lib is None else round(lib, 4)} (dequant + matmul) "
-            f"bf16_matmul_ms {dense:.4f} bound_ms {bms:.4f} ({by})")
-        rows.append({"shape": f"M{m} K{kdim} N{n} {wd} g{gs}",
-                     "max_abs_err": err, "err_over_tol": worst, "ms": ms,
-                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                     "library_ms": lib, "bf16_matmul_ms": dense})
+            f"bf16_matmul_ms {dense:.4f} bound_ms {bms:.4f} ({by}){extra}")
+        rows.append(row)
         errs.append(err)
         del x, qw, wb, y, ref, diff, tol
     head = rows[1]  # the decode down_proj shape stands for the kernel
@@ -469,24 +513,32 @@ def check_quant_matmul(torch, timer, k4):
             "shape": head["shape"], "shapes": rows}
 
 
-NM_INT8_SHAPES = [(8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024),
-                  (8, 4096, 128256), (1024, 4096, 14336)]
+NM_INT8_SHAPES = [(8, 4096, 14336, "int8", -1), (8, 4096, 4096, "int8", -1),
+                  (8, 4096, 1024, "int8", -1), (8, 4096, 128256, "int8", -1),
+                  (1024, 4096, 14336, "int8", -1),
+                  (1024, 4096, 4096, "int8", -1),
+                  (1024, 4096, 1024, "int8", -1),
+                  (1024, 4096, 14336, "int4", 128)]
 
 
 def check_norm_matmul_int8(torch, timer, k2):
-    """K2 with int8 weights (per channel) at the decode shapes and the
-    prefill gate/up shape. The kernel dequantizes each weight exactly as
-    the plain chain does, so only the summation order differs."""
+    """K2 with quantized weights: int8 per channel at the decode shapes
+    and every prefill projection shape (q, k/v, gate/up), and the prefill
+    gate/up shape in int4 group 128. The kernel dequantizes each weight
+    exactly as the plain chain does, so only the summation order differs.
+    At M = 1024 (the tiled body): two calls bitwise equal, TFLOP/s, and
+    the kernel with its scales shifted by SHIFT columns must fail the
+    rule."""
     eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     rows, errs = [], []
     rms_norm = getattr(torch.nn.functional, "rms_norm", None)
-    for m, kdim, n in NM_INT8_SHAPES:
+    for m, kdim, n, wd, gs in NM_INT8_SHAPES:
         x = torch.randn((m, kdim), generator=g, device="cuda",
                         dtype=torch.bfloat16)
         nw = (torch.rand((kdim,), generator=g, device="cuda") + 0.5).to(
             torch.bfloat16)
-        qw, _ = _quantize(torch, g, kdim, n)
+        qw, _ = _quantize(torch, g, kdim, n, wd, gs)
         y = k2.fused_norm_matmul_pure(x, nw, eps, qw)
         ref = k2._reference(x, nw, eps, qw)
         torch.cuda.synchronize()
@@ -494,26 +546,36 @@ def check_norm_matmul_int8(torch, timer, k2):
         err = diff.max().item()
         # as K2 dense: one bf16 output rounding in both, f32 sums in a
         # different order, rstd within 1 f32 ulp
-        ok = bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
-        assert ok, f"norm_matmul int8 {m}x{kdim}x{n} max_abs_err {err}"
+        tol = 2e-2 + 1e-2 * ref.float().abs()
+        ok = bool((diff <= tol).all())
+        assert ok, f"norm_matmul {wd} g{gs} {m}x{kdim}x{n} max_abs_err {err}"
         ms = timer(lambda: k2.fused_norm_matmul_pure(x, nw, eps, qw))
         plain = timer(lambda: k2._reference(x, nw, eps, qw))
         lib = (timer(lambda: torch.matmul(
             rms_norm(x, (kdim,), nw, eps),
             qw.codes.to(torch.bfloat16) * qw.scales.to(torch.bfloat16)))
-            if rms_norm is not None else None)
+            if rms_norm is not None and (wd, gs) == ("int8", -1) else None)
         nbytes = (2 * (m * kdim + kdim + m * n) + qw.codes.numel()
                   + 4 * qw.scales.numel())
         bms, by = bound(nbytes, 2 * m * n * kdim, BF16_FLOPS)
-        log(f"K2 norm_matmul int8 M{m} K{kdim} N{n}: max_abs_err {err:.3e} "
-            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+        row = {"shape": f"M{m} K{kdim} N{n} {wd} g{gs}", "max_abs_err": err,
+               "ms": ms, "plain_ms": plain, "bound_ms": bms,
+               "bound_by": by, "library_ms": lib}
+        extra = ""
+        if m > 16:
+            ctl = k2.fused_norm_matmul_pure(x, nw, eps, _shifted(qw))
+            ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
+            extra = "; " + _tiled_checks(
+                torch, row, lambda: k2.fused_norm_matmul_pure(x, nw, eps, qw),
+                ctl_worst, 2 * m * n * kdim)
+            del ctl
+        log(f"K2 norm_matmul {wd} g{gs} M{m} K{kdim} N{n}: max_abs_err "
+            f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
             f"{lib if lib is None else round(lib, 4)} (rms_norm + dequant "
-            f"+ matmul) bound_ms {bms:.4f} ({by})")
-        rows.append({"shape": f"M{m} K{kdim} N{n} int8", "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by, "library_ms": lib})
+            f"+ matmul) bound_ms {bms:.4f} ({by}){extra}")
+        rows.append(row)
         errs.append(err)
-        del x, qw, y, ref, diff
+        del x, qw, y, ref, diff, tol
     head = rows[0]  # the decode gate/up shape stands for the kernel
     return {"name": "norm_matmul_int8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/norm_matmul.cu",
@@ -882,8 +944,10 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
 
 
 def _kernel_class(name):
-    if "norm_rstd_kernel" in name or "norm_matmul_kernel" in name:
-        return "K2 norm_matmul (bf16)"  # the dense tiled path's two kernels
+    if "norm_matmul_kernel" in name:
+        return "K2 norm_matmul (bf16)"  # the dense tiled path
+    if "norm_rstd_kernel" in name:  # every K2 call with M > 16 runs it first
+        return "K2 norm_rstd"
     if "flash_delta_kernel" in name:
         return "K5/K9 delta (the backward's first pass)"
     if "flash_fwd_kernel" in name:
@@ -906,13 +970,13 @@ def _kernel_class(name):
         return "K13 grouped_matmul (dX form)"
     if "segment_dw_kernel" in name:
         return "K14 segment_dw"
-    mm = re.search(r"matmul_(?:small|tiled)_kernel<([^>]*)>", name)
-    if mm:  # template arguments end with NORM, weight type, scale mode
-        norm, wt = (a.strip() for a in mm.group(1).split(",")[-3:-1])
+    mm = re.search(r"(?:matmul_small|quant_wgmma)_kernel<([^>]*)>", name)
+    if mm:  # template arguments start with NORM, weight type
+        norm, wt = (a.strip() for a in mm.group(1).split(",")[:2])
         wd = {"0": "bf16", "1": "int8", "2": "int4"}.get(wt, wt)
         return (f"K2 norm_matmul ({wd})" if norm == "true"
                 else f"K4 quant_matmul ({wd})")
-    if "matmul_small_kernel" in name or "matmul_tiled_kernel" in name:
+    if "matmul_small_kernel" in name or "quant_wgmma_kernel" in name:
         return "K2/K4 matmul"
     if "rope_append_attend_kernel" in name:
         return "K3 rope_append_attend (decode)"

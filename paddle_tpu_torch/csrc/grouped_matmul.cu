@@ -89,7 +89,7 @@ struct Gmm {
   __device__ void prep(unsigned char*, const Item&, int) const {}
   __device__ void store(const float (&acc)[128], const Item& it, int c) const {
     const int r0 = it.tile * BM + 64 * c, c0 = it.nt * BN;
-    wg::store_bf16(acc, 1.f, [&](int r, int col, uint4 v) {
+    wg::store_bf16(acc, wg::Uniform{1.f}, [&](int r, int col, uint4 v) {
       const int row = r0 + r, cc = c0 + col;
       if (row >= it.lo && row < it.hi && cc < N)
         *reinterpret_cast<uint4*>(y + (size_t)row * N + cc) = v;

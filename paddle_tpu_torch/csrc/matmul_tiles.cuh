@@ -1,4 +1,5 @@
-// The matmul bodies shared by K2 (norm_matmul.cu) and K4 (quant_matmul.cu):
+// The small-M body shared by K2 (norm_matmul.cu) and K4 (quant_matmul.cu),
+// and the helpers of every K2/K4 body:
 //
 //   y = A @ B,  A = rms_norm(x) (NORM, K2) or x (K4),  B = W (K, N)
 //
@@ -12,21 +13,17 @@
 //      product x * code is exact in f32 (the TPU's _qmm_kernel); the scale
 //      multiplies the f32 sum once at the end per channel (kEnd), each
 //      K-group's partial sum group-wise (kGroup).
-// The B-tile loader (global codes -> bf16 in shared memory) is written once,
-// here. One 16-byte global vector holds 8 bf16 columns of one K row, 16
-// int8 columns of one row, or 16 int4 columns of two rows (packed byte i:
-// row 2i in the low nibble, row 2i+1 in the high one, sign-extended).
+// One 16-byte global vector holds 8 bf16 columns of one K row, 16 int8
+// columns of one row, or 16 int4 columns of two rows (packed byte i: row
+// 2i in the low nibble, row 2i+1 in the high one, sign-extended).
 //
-// Two kernels, one entry per shape class:
-//   small (M <= 16, decode): one 16x32 output tile per block; the 4 warps
-//     split K with no block barrier in the K loop, each keeping its next W
-//     slices in flight in registers during its MMAs (4 KB dense, 8 KB of
-//     codes quantized); partials meet in shared memory in a fixed order
-//     (deterministic). Bound by the bytes of W.
-//   tiled (M > 16 with quantized W: K2's int8/int4 forms, K4): 64x128
-//     tiles, 4 warps of 32x64, bound by tensor-core operations. No
-//     cp.async/TMA/wgmma yet (K2's dense form runs grouped_tiles.cuh's
-//     body instead, norm_matmul.cu).
+// matmul_small_kernel (M <= 16, decode): one 16x32 output tile per block;
+// the 4 warps split K with no block barrier in the K loop, each keeping its
+// next W slices in flight in registers during its MMAs (4 KB dense, 8 KB
+// of codes quantized); partials meet in shared memory in a fixed order
+// (deterministic). Bound by the bytes of W. Larger M runs
+// grouped_tiles.cuh's body (K2, dense W) or wgmma_quant_tiles.cuh's (K2
+// and K4, quantized W).
 #pragma once
 
 #include <mma.h>
@@ -92,6 +89,21 @@ __device__ __forceinline__ uint4 a8(const bf16* __restrict__ x, const bf16* __re
 #pragma unroll
   for (int j = 0; j < 8; ++j) o[j] = __bfloat162float(__float2bfloat16(xf[j] * rs)) * wf[j];
   return pack8(o);
+}
+
+// 8 normalized values: bf16(x * rs) * w_norm, rounded to bf16 (the exact
+// product of two bf16 values rounded once, which __hmul2 computes)
+__device__ __forceinline__ uint4 norm8(const uint4& xv, const uint4& wv, float rs) {
+  const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xv);
+  const __nv_bfloat162* wh = reinterpret_cast<const __nv_bfloat162*>(&wv);
+  uint4 o;
+  __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(xh[j]);
+    oh[j] = __hmul2(__floats2bfloat162_rn(f.x * rs, f.y * rs), wh[j]);
+  }
+  return o;
 }
 
 // the 16-byte vector of W at packed row `prow` of the K slice starting at
@@ -299,178 +311,15 @@ matmul_small_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nw,
   }
 }
 
-// ---- larger M (prefill): (BM, BN) tiles, warps split the tile
-template <int BM, int BN, int BK, int WM, int WN>
-struct Tile {
-  static constexpr int kWarpsM = BM / WM;
-  static constexpr int kWarpsN = BN / WN;
-  static constexpr int kThreads = kWarpsM * kWarpsN * 32;
-  static constexpr int kLda = BK + 8;  // bf16; rows stay 32-byte aligned
-  static constexpr int kLdb = BN + 8;
-  static constexpr int kLdc = BN + 4;  // f32
-  static constexpr int kABytes = BM * kLda * 2;
-  static constexpr int kBBytes = BK * kLdb * 2;
-  static constexpr int kLoopBytes = kABytes + kBBytes + BM * 4;
-  static constexpr int kEpiBytes = BM * kLdc * 4;
-  static constexpr int kSmem = kLoopBytes > kEpiBytes ? kLoopBytes : kEpiBytes;
-};
-
-template <int BM, int BN, int BK, int WM, int WN, bool NORM, int WT, int SM>
-__global__ void __launch_bounds__(Tile<BM, BN, BK, WM, WN>::kThreads)
-matmul_tiled_kernel(const bf16* __restrict__ x, const bf16* __restrict__ nw,
-                    const unsigned char* __restrict__ w, const float* __restrict__ scales,
-                    bf16* __restrict__ y, int M, int K, int N, int gs, float eps) {
-  using T = Tile<BM, BN, BK, WM, WN>;
-  using V = WVec<WT>;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  constexpr int NT = T::kThreads, NWARPS = NT / 32;
-  constexpr int PER_ROW = BN / V::kCols;
-  constexpr bool TILE_SCALE = WT != kBf16 && SM == kTile;
-  constexpr bool GROUP = SM == kGroup;
-  static_assert(NT % PER_ROW == 0, "a thread's W columns are the same in every slice");
-  __shared__ __align__(128) unsigned char smem[T::kSmem];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + T::kABytes);
-  float* rstd = reinterpret_cast<float*>(smem + T::kABytes + T::kBBytes);
-  float* Cs = reinterpret_cast<float*>(smem);  // epilogue / group-flush reuse
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int c_thr = (tid % PER_ROW) * V::kCols;  // this thread's W columns
-
-  if (NORM) rows_rstd(x, rstd, m0, BM, M, K, eps, NWARPS);  // once per block
-  __syncthreads();
-
-  float sreg[16];  // TILE_SCALE: this thread's column scales
-  if (TILE_SCALE && !gs) scales16(scales, 0, n0 + c_thr, N, sreg);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-  // kGroup: the scaled total (acc holds the current group's sum)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> tot[GROUP ? FM : 1][GROUP ? FN : 1];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      if constexpr (GROUP) wmma::fill_fragment(tot[i][j], 0.f);
-    }
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-  float* Cw = Cs + (wm * WM) * T::kLdc + wn * WN;  // this warp's sub-tile
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x slice -> A tile (normalized with NORM)
-    for (int i = tid; i < BM * (BK / 8); i += NT) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + r * T::kLda + c) =
-          a8<NORM>(x, nw, m0 + r, M, K, k0 + c, NORM ? rstd[r] : 0.f);
-    }
-    // W slice -> bf16 B tile
-    if (TILE_SCALE && gs) scales16(scales, k0 / gs, n0 + c_thr, N, sreg);
-    for (int i = tid; i < (BK / V::kRows) * PER_ROW; i += NT) {
-      const int prow = i / PER_ROW;
-      put_w<WT, TILE_SCALE>(Bs, T::kLdb, prow, c_thr, load_w<WT>(w, k0, prow, n0 + c_thr, N),
-                            sreg);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * WM + i * 16) * T::kLda + kk, T::kLda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * T::kLdb + wn * WN + j * 16, T::kLdb);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    // kGroup: at the end of a K-group, the group's sum times its scales
-    // joins the total (a block-uniform branch)
-    if constexpr (GROUP) {
-      if ((k0 + BK) % gs != 0) continue;
-      const int srow = k0 / gs;
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::store_matrix_sync(Cw + i * 16 * T::kLdc + j * 16, acc[i][j], T::kLdc,
-                                  wmma::mem_row_major);
-      __syncwarp();
-      for (int c = lane; c < WN; c += 32) {
-        const int col = n0 + wn * WN + c;
-        const float s = col < N ? scales[(size_t)srow * N + col] : 0.f;
-        for (int r = 0; r < WM; ++r) Cw[r * T::kLdc + c] *= s;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
-          wmma::load_matrix_sync(part, Cw + i * 16 * T::kLdc + j * 16, T::kLdc,
-                                 wmma::mem_row_major);
-#pragma unroll
-          for (int e = 0; e < part.num_elements; ++e) tot[i][j].x[e] += part.x[e];
-          wmma::fill_fragment(acc[i][j], 0.f);
-        }
-      __syncthreads();  // Cs overlaps the next slice's A/B tiles
-    }
-  }
-  if constexpr (GROUP) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) acc[i][j] = tot[i][j];
-  }
-
-  // ---- epilogue: f32 tile through shared memory, one bf16 rounding
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cw + i * 16 * T::kLdc + j * 16, acc[i][j], T::kLdc,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * (BN / 8); i += NT) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    const int row = m0 + r, col = n0 + c;
-    if (row < M && col < N) {
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float v = Cs[r * T::kLdc + c + e];
-        f[e] = SM == kEnd ? v * scales[col + e] : v;  // kEnd: scale the f32 sum once
-      }
-      *reinterpret_cast<uint4*>(y + (size_t)row * N + col) = pack8(f);
-    }
-  }
-}
-
-// y (M, N) bf16 = A @ W for any M: the small kernel up to M = 16, 64x128
-// tiles above. Requires K % 128 == 0 (and % gs), N % 8 (bf16) or % 16.
+// y (M, N) bf16 = A @ W for M <= 16. Requires K % 128 == 0 (and % gs),
+// N % 8 (bf16) or % 16.
 template <bool NORM, int WT, int SM>
-cudaError_t launch(const void* x, const void* nw, const void* w, const void* scales, void* y,
-                   int M, int K, int N, int gs, float eps, cudaStream_t stream) {
-  auto xp = static_cast<const bf16*>(x);
-  auto nwp = static_cast<const bf16*>(nw);
-  auto wp = static_cast<const unsigned char*>(w);
-  auto sp = static_cast<const float*>(scales);
-  auto yp = static_cast<bf16*>(y);
-  if (M <= small::BM) {
-    matmul_small_kernel<NORM, WT, SM>
-        <<<(N + small::BN - 1) / small::BN, small::NT, 0, stream>>>(xp, nwp, wp, sp, yp, M, K, N,
-                                                                   gs, eps);
-  } else {
-    constexpr int BM = 64, BN = 128, BK = 32, WM = 32, WN = 64;
-    using T = Tile<BM, BN, BK, WM, WN>;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    matmul_tiled_kernel<BM, BN, BK, WM, WN, NORM, WT, SM>
-        <<<grid, T::kThreads, 0, stream>>>(xp, nwp, wp, sp, yp, M, K, N, gs, eps);
-  }
+cudaError_t launch_small(const void* x, const void* nw, const void* w, const void* scales,
+                         void* y, int M, int K, int N, int gs, float eps, cudaStream_t stream) {
+  matmul_small_kernel<NORM, WT, SM><<<(N + small::BN - 1) / small::BN, small::NT, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(nw),
+      static_cast<const unsigned char*>(w), static_cast<const float*>(scales),
+      static_cast<bf16*>(y), M, K, N, gs, eps);
   return cudaGetLastError();
 }
 

@@ -46,19 +46,26 @@
 //     by the bytes of W: 16x32 output tiles over >= 128 blocks at N =
 //     4096, the 4 warps split K with no block barrier in the K loop, each
 //     prefetching its next W slice into registers during its MMAs.
-//   quantized W, M > 16: matmul_tiled_kernel (matmul_tiles.cuh, shared
-//     with K4): 64 x 128 nvcuda::wmma tiles, each block computing its rows'
-//     rstd itself.
+//   quantized W, M > 16: norm_rstd_kernel as above, then
+//     quant_wgmma_kernel (wgmma_quant_tiles.cuh, shared with K4): the
+//     K13/K14 Hopper body (TMA ring, producer warp, two consumer
+//     warpgroups on wgmma, persistent banded grid) whose ring carries the
+//     raw codes; the consumers dequantize each slice into a bf16 B tile
+//     (bf16(code) * bf16(scale), as _fnm_kernel) while three warps of
+//     the producer warpgroup normalize the x slice in place, both before
+//     the slice's wgmmas.
 //
 // Bound on an H100: at M = 8192, K = 4096, N = 14336 (the train step's
 // gate/up projections) 0.96 TFLOP of bf16 products, 0.97 ms at the 989
 // TFLOP/s peak, against 0.42 GB of bytes (0.12 ms): operations. At the
 // batcher's M = 264 the bytes of W bound it (0.038 ms at N = 14336).
 // Shared memory 108 KB a block (3 stages of an x and a W slice), 128
-// registers a thread (ptxas spills ~30 bytes): two blocks an SM. wgmma
-// and TMA are the next step, in one body with K13/K14.
+// registers a thread (ptxas spills ~30 bytes): two blocks an SM. The
+// quantized forms are bound by operations at prefill too (M = 1024:
+// 0.12 ms at N = 14336).
 #include "grouped_tiles.cuh"
 #include "matmul_tiles.cuh"
+#include "wgmma_quant_tiles.cuh"
 
 namespace pt {
 namespace k2 {
@@ -74,20 +81,6 @@ norm_rstd_kernel(const bf16* __restrict__ x, float* __restrict__ rstd, int M, in
   pt::mm::rows_rstd(x, r, m0, RSTD_ROWS, M, K, eps, RSTD_ROWS);
   __syncthreads();
   if (threadIdx.x < RSTD_ROWS && m0 + threadIdx.x < M) rstd[m0 + threadIdx.x] = r[threadIdx.x];
-}
-
-// 8 normalized values: bf16(x * rs) * w_norm, rounded to bf16
-__device__ __forceinline__ uint4 norm8(const uint4& xv, const uint4& wv, float rs) {
-  const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xv);
-  const __nv_bfloat162* wh = reinterpret_cast<const __nv_bfloat162*>(&wv);
-  uint4 o;
-  __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(xh[j]);
-    oh[j] = __hmul2(__floats2bfloat162_rn(f.x * rs, f.y * rs), wh[j]);
-  }
-  return o;
 }
 
 // The x vectors a thread copies and normalizes: rows tid / 8 + 32 i of
@@ -138,7 +131,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ x, const bf16* __r
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
       uint4* p = reinterpret_cast<uint4*>(As + (ar + i * (NT / (BK / 8))) * LD_COL + ac);
-      *p = norm8(*p, wv, rs[i]);
+      *p = mm::norm8(*p, wv, rs[i]);
     }
   };
   float acc[FM_][NI][4];
@@ -227,15 +220,25 @@ PT_EXPORT int pt_norm_matmul(const void* x, const void* nw, const void* w, void*
 
 // The same with a weight-only quantized W: codes int8 (K, N) (wt = 1) or
 // packed int4 (K/2, N) (wt = 2); scales f32 (N,) (group_size -1) or
-// (K/group_size, N). Requires K % 128 == 0, K % group_size == 0, N % 16 == 0.
+// (K/group_size, N); rstd as above. Requires K % 128 == 0,
+// K % group_size == 0, N % 16 == 0.
 PT_EXPORT int pt_norm_matmul_quant(const void* x, const void* nw, const void* codes,
-                                   const void* scales, void* y, int M, int K, int N, int wt,
-                                   int group_size, float eps, void* stream) {
+                                   const void* scales, void* rstd, void* y, int M, int K, int N,
+                                   int wt, int group_size, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const int gs = group_size > 0 ? group_size : 0;
-  if (wt == kInt8)
-    return launch<true, kInt8, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s);
-  if (wt == kInt4)
-    return launch<true, kInt4, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s);
-  return cudaErrorInvalidValue;
+  if (wt != kInt8 && wt != kInt4) return cudaErrorInvalidValue;
+  if (M <= small::BM)
+    return wt == kInt8
+               ? launch_small<true, kInt8, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s)
+               : launch_small<true, kInt4, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s);
+  auto rp = static_cast<float*>(rstd);
+  pt::k2::norm_rstd_kernel<<<(M + pt::k2::RSTD_ROWS - 1) / pt::k2::RSTD_ROWS,
+                             pt::k2::RSTD_ROWS * 32, 0, s>>>(static_cast<const pt::bf16*>(x), rp,
+                                                             M, K, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return wt == kInt8
+             ? pt::wq::launch<true, kInt8, kTile>(x, nw, rp, codes, scales, y, M, K, N, gs, s)
+             : pt::wq::launch<true, kInt4, kTile>(x, nw, rp, codes, scales, y, M, K, N, gs, s);
 }

@@ -128,7 +128,7 @@ struct Sdw {
     if constexpr (OUT_F32)
       wg::store_f32(acc, scale, put);
     else
-      wg::store_bf16(acc, scale, put);
+      wg::store_bf16(acc, wg::Uniform{scale}, put);
   }
 };
 

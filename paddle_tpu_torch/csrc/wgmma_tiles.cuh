@@ -30,7 +30,8 @@
 //            k16 step is 2048 bytes; wgmma reads them transposed.
 // K13's forward takes A = x rows (K-major) against B = w[g] (K, N)
 // (MN-major); its dX form B = w[g] (N, K) (K-major); K14 A = x_e^T and
-// B = dy_e, both MN-major.
+// B = dy_e, both MN-major. wgmma_quant_tiles.cuh (K2's and K4's
+// quantized forms) builds its own mainloop from the pieces here.
 #pragma once
 
 #include <cuda.h>
@@ -215,20 +216,29 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&w)[4], int q) {
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// bf16: lane q writes chunk 4G + q of each row (8 values, 16 bytes)
-template <typename Put>
-__device__ __forceinline__ void store_bf16(const float (&d)[128], float scale, Put put) {
+// the factors of store_bf16's column pairs: one for every column
+struct Uniform {
+  float s;
+  __device__ __forceinline__ float2 operator()(int) const { return make_float2(s, s); }
+};
+
+// bf16, for a 64 x (NACC / 2) tile (m64n256: NACC = 128; m64n128: 64):
+// columns col, col + 1 (col = 8 j + 2 q) times scale2(col); lane q writes
+// chunk 4G + q of each row (8 values, 16 bytes)
+template <int NACC, typename Scale2, typename Put>
+__device__ __forceinline__ void store_bf16(const float (&d)[NACC], Scale2 scale2, Put put) {
   const int t = threadIdx.x % 128, w = t / 32, g = t % 32 / 4, q = t % 4;
 #pragma unroll
-  for (int G = 0; G < 8; ++G)
+  for (int G = 0; G < NACC / 16; ++G)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t word[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = 4 * G + c;
+        const float2 s = scale2(8 * j + 2 * q);
         const __nv_bfloat162 v =
-            __floats2bfloat162_rn(d[4 * j + 2 * h] * scale, d[4 * j + 2 * h + 1] * scale);
+            __floats2bfloat162_rn(d[4 * j + 2 * h] * s.x, d[4 * j + 2 * h + 1] * s.y);
         word[c] = *reinterpret_cast<const uint32_t*>(&v);
       }
       put(16 * w + g + 8 * h, 8 * (4 * G + q), quad_transpose(word, q));

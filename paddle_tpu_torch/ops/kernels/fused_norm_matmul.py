@@ -11,7 +11,9 @@ models.
 The weight is dense bf16 or a weight-only ``QuantizedWeight`` (int8 or
 packed int4, per-channel or group-wise scales); a quantized B tile is
 dequantized in shared memory exactly as ``_fnm_kernel`` does it,
-bf16(code) * bf16(scale) rounded to bf16, before the bf16 MMA.
+bf16(code) * bf16(scale) rounded to bf16, before the bf16 MMA. With M > 16
+that is K4's Hopper body (``quant_matmul.quant_tiles`` models its walk)
+after the same rstd kernel, the x slices normalized in shared memory.
 
 On CPU tensors ``fused_norm_matmul_pure`` runs the unfused chain
 (``_reference``); on CUDA tensors it launches K2 or raises.
@@ -90,9 +92,6 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
         raise ValueError(f"norm_matmul kernel needs K % 128 == 0 and "
                          f"N % 8 == 0, got x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}")
-    if m > 65535 * 64:
-        raise ValueError(f"norm_matmul kernel takes at most {65535 * 64} "
-                         f"rows, got {m}")
     x2 = x.reshape(m, kdim)
     _build.check_no_grad("norm_matmul", x2, norm_w,
                          w.codes if quantized else w)
@@ -105,14 +104,14 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
         _build.check_cuda("w", w, torch.bfloat16)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
+        rstd = torch.empty((m,), dtype=torch.float32, device=x.device)
         if quantized:
             _build.launch("pt_norm_matmul_quant", x2.data_ptr(),
                           norm_w.data_ptr(), w.codes.data_ptr(),
-                          w.scales.data_ptr(), y.data_ptr(), m, kdim, n,
-                          WEIGHT_TYPES[w.weight_dtype], w.group_size,
-                          float(eps), _build.stream_of(x))
+                          w.scales.data_ptr(), rstd.data_ptr(), y.data_ptr(),
+                          m, kdim, n, WEIGHT_TYPES[w.weight_dtype],
+                          w.group_size, float(eps), _build.stream_of(x))
         else:
-            rstd = torch.empty((m,), dtype=torch.float32, device=x.device)
             _build.launch("pt_norm_matmul", x2.data_ptr(), norm_w.data_ptr(),
                           w.data_ptr(), rstd.data_ptr(), y.data_ptr(), m,
                           kdim, n, float(eps), _build.stream_of(x))

@@ -6,7 +6,11 @@ with the codes kept packed all the way into shared memory. As on the TPU,
 the raw codes (exact in bf16) meet x in the tensor cores with f32
 accumulation; a per-channel scale multiplies the sum once at the end, a
 group-wise scale multiplies each K-group's partial sum. One entry point
-takes any M (a small-M path for decode, a tiled one for prefill).
+takes any M: a small-M kernel for decode (M <= 16), and for prefill the
+Hopper body of ``csrc/wgmma_quant_tiles.cuh`` (shared with K2's quantized
+forms): the codes ride a TMA ring and become a bf16 tile in shared memory
+before the ``wgmma``s, on a persistent grid of one block an SM whose walk
+over the output tiles ``quant_tiles`` models.
 
 Layout (the JAX package's): codes int8 (K, N), or nibble-packed int8
 (ceil(K/2), N) for int4 (byte i: row 2i low nibble, row 2i+1 high nibble);
@@ -24,6 +28,10 @@ import math
 import torch
 
 from . import _build
+from .grouped_matmul import H100_SMS, _band, _swizzle
+
+#: the tiled body's block tile rows (``csrc/wgmma_quant_tiles.cuh`` BM)
+TILE_M = 128
 
 #: K4 launches since the last reset (incremented only where it launches)
 launches = 0
@@ -71,6 +79,27 @@ def dequant_weight(codes, scales, weight_dtype="int8", group_size=-1,
     if group_size == -1 or s.dim() == 1:
         return w * s.reshape(1, -1)
     return w * s.repeat_interleave(group_size, dim=0)[:w.shape[0]]
+
+
+def block_n(m, n, group_size=-1, fused_norm=False, sms=H100_SMS):
+    """The tiled body's block tile columns (``block_n`` in
+    ``csrc/wgmma_quant_tiles.cuh``): 128 for K4's group-wise form (its
+    second accumulator set) and where 256-wide tiles would fill at most
+    half the SMs, else 256."""
+    if group_size > 0 and not fused_norm:
+        return 128
+    return 128 if 2 * -(-m // TILE_M) * -(-n // 256) <= sms else 256
+
+
+def quant_tiles(m, kdim, n, bn):
+    """The tiled body's output tiles (row tile, column tile) in walk order,
+    as its blocks decode them (M > 16): tiles of ``TILE_M`` rows x ``bn``
+    columns, ``_band(kdim)`` row tiles (their x rows ~16 MB together)
+    walking fastest, then the column tiles, band after band. Block b of
+    the persistent grid takes tiles b, b + grid, ...
+    (``grouped_matmul.persistent_blocks``)."""
+    n_mt, n_nt = -(-m // TILE_M), -(-n // bn)
+    return [_swizzle(i, n_mt, n_nt, _band(kdim)) for i in range(n_mt * n_nt)]
 
 
 def quant_matmul_reference(x, codes, scales, weight_dtype="int8",
@@ -130,9 +159,6 @@ def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
     if kdim % 128:
         raise ValueError(f"quant_matmul kernel needs K % 128 == 0, got x "
                          f"{tuple(x.shape)}")
-    if m > 65535 * 64:
-        raise ValueError(f"quant_matmul kernel takes at most {65535 * 64} "
-                         f"rows, got {m}")
     x2 = x.reshape(m, kdim)
     _build.check_cuda("x", x2, torch.bfloat16)
     check_quantized("w", codes, scales, weight_dtype, group_size, kdim, n)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K2, K13 and K14 of two checkouts of the port on one card, in turns.
+"""Time K2, K4, K13 and K14 of two checkouts of the port on one card, in turns.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
 
@@ -13,6 +13,10 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
   * K2's dense path (``fused_norm_matmul_pure``) at ``chip_smoke.py``'s
     phase-3/7 shapes with N = 14336: M = 8 (the decode kernel), 264, 1024
     and 8192, K = 4096;
+  * the weight-only int8 (per channel) forms at the int8 prefill's
+    shapes, M = 1024: K4 (``quant_matmul_qw``) for o_proj and down_proj,
+    K2 (``fused_norm_matmul_pure`` on a ``QuantizedWeight``) for gate/up,
+    q and k/v;
   * K13 (forward 4096 -> 14336 and 14336 -> 4096, and the dX form) and
     K14 (both weight shapes, bf16 out) at phase 10's: T = 16,384 rows
     split over 8 experts as ``MOE_COUNTS`` below;
@@ -40,6 +44,10 @@ GMM_FORMS = [("grouped_matmul", 4096, 14336, False),
              ("grouped_matmul_down", 14336, 4096, False),
              ("grouped_matmul_dx", 14336, 4096, True)]
 SDW_FORMS = [("segment_dw", 4096, 14336), ("segment_dw_down", 14336, 4096)]
+#: (kernel, M, K, N) of the int8 prefill's weight-only products
+QUANT_SHAPES = [("K4", 1024, 4096, 4096), ("K4", 1024, 14336, 4096),
+                ("K2", 1024, 4096, 14336), ("K2", 1024, 4096, 4096),
+                ("K2", 1024, 4096, 1024)]
 
 
 def _cold_ms(torch, flush, fn, iters=20, warmup=2):
@@ -65,7 +73,9 @@ def child() -> None:
     import torch
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
+    from paddle_tpu_torch.ops.extra_vision import _weight_quantize_pure
     from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.ops.kernels import quant_matmul as k4
 
     _build.build()
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -85,6 +95,18 @@ def child() -> None:
                 torch, flush, lambda: k2.fused_norm_matmul_pure(
                     x, nw, 1e-5, w))
             del x, w
+        for kind, m, kdim, n in QUANT_SHAPES:
+            x = rnd(m, kdim)
+            codes, scales = _weight_quantize_pure(
+                rnd(kdim, n, scale=kdim ** -0.5).float(), "weight_only_int8",
+                -1)
+            qw = k4.QuantizedWeight(codes, scales, "int8", -1, (kdim, n))
+            nw = (torch.rand((kdim,), generator=g, device="cuda")
+                  + 0.5).to(torch.bfloat16)
+            fn = ((lambda: k4.quant_matmul_qw(x, qw)) if kind == "K4" else
+                  (lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)))
+            out[f"{kind} int8 M{m} K{kdim} N{n}"] = _cold_ms(torch, flush, fn)
+            del x, qw
         off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
                            dtype=torch.int32, device="cuda")
         t, e = sum(MOE_COUNTS), len(MOE_COUNTS)

@@ -14,8 +14,12 @@ lengths, Sk > Sq, every GQA group size the kernels take, a cache position
 on a page boundary and at the capacity's last cell, and the wrappers'
 refusals (a kernel's wrapper, and the fusion executor when a flag turns
 a fusion off). The weight-only forms (K4, K2 with int8/int4 weights, K3
-on an int8 cache) run at M = 1, 8, 17 and 1024, per channel and group-wise,
-at pages 16 and 32 and lengths 0 and on page boundaries. Tolerances as in
+on an int8 cache) run at M = 1, 8, 17, 300 and 1024, per channel and
+group-wise, at pages 16 and 32 and lengths 0 and on page boundaries; the
+tiled (M > 16) form of K2 and K4 also with M, N and K all off its tiles
+(K wrapping its ring several times), two calls bitwise equal in every form,
+from a fresh thread, and with the tiles its blocks decode equal to
+``quant_matmul.quant_tiles``. Tolerances as in
 chip_smoke.py: one bf16 output rounding plus f32 summation-order
 differences (K4: ``quant_matmul.tolerance``, derived from the inputs);
 pool cells bit-exact, int8 codes within 1 with the differing ones counted.
@@ -307,11 +311,15 @@ def _qweight(gen, kdim, n, algo, gs):
 
 _QUANT = [("weight_only_int8", -1), ("weight_only_int8", 128),
           ("weight_only_int4", -1), ("weight_only_int4", 64)]
+#: M, K and N all off the tiled body's 128 x 256 (128) x 64 tiles, K
+#: wrapping its 4-stage ring four and a half times
+_OFF_TILE = (300, 1152, 784)
+_QUANT_SHAPES = [(1, 128, 16), (8, 512, 4096), (17, 384, 272),
+                 (1024, 1024, 528), _OFF_TILE]
 
 
 @pytest.mark.parametrize("algo,gs", _QUANT)
-@pytest.mark.parametrize("m,kdim,n", [(1, 128, 16), (8, 512, 4096),
-                                      (17, 384, 272), (1024, 1024, 528)])
+@pytest.mark.parametrize("m,kdim,n", _QUANT_SHAPES)
 def test_quant_matmul_matches_plain(gen, m, kdim, n, algo, gs):
     qw = _qweight(gen, kdim, n, algo, gs)
     x = _randn(gen, m, kdim)
@@ -325,8 +333,7 @@ def test_quant_matmul_matches_plain(gen, m, kdim, n, algo, gs):
 
 
 @pytest.mark.parametrize("algo,gs", _QUANT)
-@pytest.mark.parametrize("m,kdim,n", [(1, 128, 16), (8, 512, 4096),
-                                      (17, 384, 272), (1024, 1024, 528)])
+@pytest.mark.parametrize("m,kdim,n", _QUANT_SHAPES)
 def test_norm_matmul_quantized_matches_plain(gen, m, kdim, n, algo, gs):
     """K2 dequantizes exactly as the plain chain does: only the summation
     order differs."""
@@ -338,6 +345,64 @@ def test_norm_matmul_quantized_matches_plain(gen, m, kdim, n, algo, gs):
     ref = k2._reference(x, nw, 1e-5, qw)
     diff = (y.float() - ref.float()).abs()
     assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+
+
+def _quant_forms(gen, algo, gs, shape=_OFF_TILE):
+    """K4 and K2 on one quantized weight at ``shape``: the two calls."""
+    m, kdim, n = shape
+    qw = _qweight(gen, kdim, n, algo, gs)
+    x = _randn(gen, m, kdim)
+    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    return {"K4": lambda: k4.quant_matmul_qw(x, qw),
+            "K2": lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)}
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K2"])
+@pytest.mark.parametrize("algo,gs", _QUANT + [("weight_only_int8", 64),
+                                              ("weight_only_int4", 128)])
+def test_quant_tiled_forms_are_deterministic(gen, kernel, algo, gs):
+    """The tiled body has no split-K and no atomics: two calls give the
+    same bits in every form."""
+    fn = _quant_forms(gen, algo, gs)[kernel]
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_quant_tiled_forms_launch_from_a_fresh_thread(gen):
+    """The first launch of a thread binds the context the tensor maps need:
+    each form from a new thread matches the same call from this one."""
+    import threading
+
+    for algo, gs in _QUANT:
+        for kernel, fn in _quant_forms(gen, algo, gs).items():
+            got = []
+            worker = threading.Thread(target=lambda: got.append(fn()))
+            worker.start()
+            worker.join()
+            torch.cuda.synchronize()
+            assert len(got) == 1 and torch.equal(got[0], fn()), (kernel, algo,
+                                                                gs)
+
+
+@pytest.mark.parametrize("m,kdim,n,gs,fused_norm", [
+    (17, 128, 16, -1, False), (300, 1152, 784, 64, False),
+    (1024, 4096, 14336, -1, True), (1024, 4096, 1024, -1, True),
+    (1024, 14336, 4096, 128, False), (8192, 4096, 14336, -1, False)])
+def test_quant_tiles_on_the_card_match_the_model(gen, m, kdim, n, gs,
+                                                 fused_norm):
+    """The output tiles the tiled body's blocks decode, in walk order, are
+    ``quant_matmul.quant_tiles``' at the tile width ``block_n`` picks."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    bn = k4.block_n(m, n, gs, fused_norm,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    want = k4.quant_tiles(m, kdim, n, bn)
+    out = torch.full((len(want), 2), -1, dtype=torch.int32, device="cuda")
+    _build.launch("pt_quant_matmul_items", m, kdim, n, bn, out.data_ptr(),
+                  _build.stream_of(out))
+    assert out.cpu().tolist() == [list(t) for t in want]
 
 
 def _int8_cache(gen, n_layers, b, cap, hk, d, page):
