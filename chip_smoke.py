@@ -14,9 +14,12 @@ class, device busy share). Phases, in order; any failure raises and the process 
 3. kernels  — each kernel against its plain PyTorch version on the card,
                in bf16 at the Llama-3-8B shapes of the serving paths, with
                kernel / plain / library times and the least time the card
-               could take (``bound_ms``): K1, K2 (also at the train
-               step's M = 8192, with TFLOP/s; two calls bitwise equal),
-               K3 (bf16), then K4
+               could take (``bound_ms``): K1, K2 (M = 8, and the tiled
+               path at the batcher's M = 264, the prefill's 1024 and the
+               train step's 8192, each at N = 1024, 4096 and 14336: TFLOP/s,
+               two calls bitwise equal, the tiles the card decodes equal to
+               the Python walk model, and a fault control, w_norm shifted
+               by 64 elements, that must fail the rule), K3 (bf16), then K4
                (weight-only int8 at the decode and prefill o_proj and
                down_proj shapes, down_proj also int8 and int4 group 128)
                and K2 with int8 weights (the decode shapes and every
@@ -289,7 +292,10 @@ NM_SHAPES = [(8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024),
 def check_norm_matmul(torch, timer, k2):
     """K2 at every projection shape of a decode step (M=8), a solo
     prefill (M=1024), a batcher wave (M=BT=264) and the train step's
-    forward (M=8192: B=4 x S=2048), with each row's TFLOP/s."""
+    forward (M=8192: B=4 x S=2048), with each row's TFLOP/s. The tiled
+    path (M > 16): two calls bitwise equal, its tiles as the Python walk
+    model has them, and w_norm shifted by 64 elements must fail the
+    rule."""
     eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, errs = [], []
@@ -309,7 +315,8 @@ def check_norm_matmul(torch, timer, k2):
         # both round one f32 dot per element to bf16 (1 ulp = 2^-8
         # relative); the f32 sums differ only in order, and rstd may
         # differ by 1 f32 ulp: |err| <= 1e-2 * |ref| + 2e-2
-        ok = bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+        tol = 2e-2 + 1e-2 * ref.float().abs()
+        ok = bool((diff <= tol).all())
         assert ok, f"norm_matmul {m}x{kdim}x{n} max_abs_err {err}"
         assert _same_bits(torch, lambda: (k2.fused_norm_matmul_pure(
             x, nw, eps, w),)), f"norm_matmul {m}x{kdim}x{n}: two calls differ"
@@ -322,13 +329,23 @@ def check_norm_matmul(torch, timer, k2):
         row = {"shape": f"M{m} K{kdim} N{n}", "max_abs_err": err,
                "ms": ms, "plain_ms": plain, "bound_ms": bms,
                "bound_by": by, "library_ms": lib}
+        extra = _rate(row, 2 * m * n * kdim)
+        if m > 16:
+            ctl = k2.fused_norm_matmul_pure(x, nw.roll(64).contiguous(), eps,
+                                            w)
+            ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
+            extra = _tiled_checks(
+                torch, row, lambda: k2.fused_norm_matmul_pure(x, nw, eps, w),
+                ctl_worst, 2 * m * n * kdim, "w_norm-shift") \
+                + "; " + _walk_check(torch, row, m, kdim, n)
+            del ctl
         log(f"K2 norm_matmul M{m} K{kdim} N{n}: max_abs_err {err:.3e} "
             f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
             f"{lib if lib is None else round(lib, 4)} (rms_norm+matmul) "
-            f"bound_ms {bms:.4f} ({by}); {_rate(row, 2 * m * n * kdim)}")
+            f"bound_ms {bms:.4f} ({by}); {extra}")
         rows.append(row)
         errs.append(err)
-        del x, w, y, ref, diff
+        del x, w, y, ref, diff, tol
     head = rows[0]  # the decode gate/up shape stands for the kernel
     return {"name": "norm_matmul", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/norm_matmul.cu",
@@ -435,17 +452,37 @@ def _shifted(qw):
                            qw.weight_dtype, qw.group_size, qw.shape)
 
 
-def _tiled_checks(torch, row, fn, ctl_worst, flops):
+def _tiled_checks(torch, row, fn, ctl_worst, flops, control="shifted-scale"):
     """The tiled (M > 16) form's extra checks, into ``row``: two calls
-    bitwise equal, TFLOP/s and bound share, and the shifted-scale control
-    (its worst err/tol), which must fail the rule."""
+    bitwise equal, TFLOP/s and bound share, and the fault control (its
+    worst err/tol), which must fail the rule."""
     assert _same_bits(torch, lambda: (fn(),)), (
         f"{row['shape']}: two calls differ")
     row["control_worst_err_over_tol"] = ctl_worst
-    assert ctl_worst > 1, (f"{row['shape']}: the shifted-scale control "
+    assert ctl_worst > 1, (f"{row['shape']}: the {control} control "
                            f"passed (worst err/tol {ctl_worst:.3f})")
-    return f"{_rate(row, flops)}; shifted-scale control worst err/tol " \
+    return f"{_rate(row, flops)}; {control} control worst err/tol " \
         f"{ctl_worst:.3f} (fails, as it must)"
+
+
+def _walk_check(torch, row, m, kdim, n):
+    """The output tiles the tiled body's blocks decode (in walk order) must
+    equal ``quant_matmul.quant_tiles`` at the width ``block_n`` picks for
+    this card (K2 dense: ``block_n(m, n)``)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import quant_matmul as k4
+
+    bn = k4.block_n(m, n, sms=torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    want = k4.quant_tiles(m, kdim, n, bn)
+    out = torch.full((len(want), 2), -1, dtype=torch.int32, device="cuda")
+    _build.launch("pt_quant_matmul_items", m, kdim, n, bn, out.data_ptr(),
+                  _build.stream_of(out))
+    assert out.cpu().tolist() == [list(t) for t in want], (
+        f"{row['shape']}: the tiles decoded on the card differ from "
+        f"quant_matmul.quant_tiles at block_n {bn}")
+    row["block_n"], row["tiles"] = bn, len(want)
+    return f"{len(want)} tiles of 128 x {bn} as the model walks them"
 
 
 def check_quant_matmul(torch, timer, k4):
@@ -944,8 +981,6 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
 
 
 def _kernel_class(name):
-    if "norm_matmul_kernel" in name:
-        return "K2 norm_matmul (bf16)"  # the dense tiled path
     if "norm_rstd_kernel" in name:  # every K2 call with M > 16 runs it first
         return "K2 norm_rstd"
     if "flash_delta_kernel" in name:

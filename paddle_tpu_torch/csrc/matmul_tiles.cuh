@@ -22,8 +22,7 @@
 // next W slices in flight in registers during its MMAs (4 KB dense, 8 KB
 // of codes quantized); partials meet in shared memory in a fixed order
 // (deterministic). Bound by the bytes of W. Larger M runs
-// grouped_tiles.cuh's body (K2, dense W) or wgmma_quant_tiles.cuh's (K2
-// and K4, quantized W).
+// wgmma_quant_tiles.cuh's body (K2, dense or quantized W, and K4).
 #pragma once
 
 #include <mma.h>

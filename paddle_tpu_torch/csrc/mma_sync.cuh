@@ -1,5 +1,5 @@
-// The PTX pieces of the port's mma.sync kernels (K2's dense path through
-// grouped_tiles.cuh, K1/K5/K9 through flash_bwd_tiles.cuh): cp.async copies
+// The PTX pieces of the port's mma.sync kernels (K1/K5/K9 through
+// flash_bwd_tiles.cuh): cp.async copies
 // into shared memory, ldmatrix fragment loads, and the bf16
 // mma.sync.m16n8k16 with f32 accumulators in registers.
 #pragma once

@@ -17,7 +17,7 @@
 //     bound by the bytes of the codes (K*N int8, K*N/2 int4): o_proj 16.8
 //     MB = 5.0 us, down_proj 58.7 MB = 17.5 us at 3.35 TB/s;
 //   M > 16 (prefill): quant_wgmma_kernel (wgmma_quant_tiles.cuh, shared
-//     with K2's quantized forms): the raw codes ride a TMA ring beside x,
+//     with K2's tiled forms): the raw codes ride a TMA ring beside x,
 //     the two consumer warpgroups turn each slice's codes into a bf16 B
 //     tile in shared memory and run wgmma on it, 128 x 256 tiles per
 //     channel, 128 x 128 group-wise (a second accumulator set), on a

@@ -1,46 +1,52 @@
-// The Hopper body of the weight-only quantized tiled product (M > 16):
+// The Hopper body of K2's and K4's tiled product (M > 16):
 //
-//   y = A @ dequant(codes, scales),  A = rms_norm(x) (NORM, K2) or x (K4)
+//   y = A @ B,  A = rms_norm(x) (NORM, K2) or x (K4),
+//   B = W (dense bf16, K2) or dequant(codes, scales) (K2, K4)
 //
-// shared by K2's int8/int4 forms (norm_matmul.cu, scale mode kTile) and K4
-// (quant_matmul.cu, kEnd per channel, kGroup group-wise): the prefill
-// forms of paddle_tpu/ops/pallas/quant_matmul.py:_pallas_quant_matmul
-// (_qmm_kernel) and of fused_norm_matmul.py:_pallas_fnm / _pallas_fnm_streamed
-// with quantized weights. It is wgmma_tiles.cuh's shape (K13/K14) with one
-// stage added inside the ring: the weight reaches shared memory as its raw
-// codes and becomes a bf16 B tile there.
+// K2's forms (norm_matmul.cu; dense W, or int8/int4 with scale mode kTile)
+// and K4's (quant_matmul.cu, kEnd per channel, kGroup group-wise): the
+// prefill and train forms of paddle_tpu/ops/pallas/fused_norm_matmul.py:
+// _pallas_fnm / _pallas_fnm_streamed and of quant_matmul.py:
+// _pallas_quant_matmul (_qmm_kernel). It is wgmma_tiles.cuh's shape
+// (K13/K14); a quantized weight adds one stage inside the ring: it reaches
+// shared memory as its raw codes and becomes a bf16 B tile there.
 //
 // A block is three warpgroups on one SM. Warpgroup 0 is the producer:
 // one thread keeps STAGES slices of TMA loads in flight, each stage 128
 // rows x 64 k of x (a 128-byte-swizzled K-major box, as K13) and the
-// slice's codes: int8 (K, N) or nibble-packed int4 (K/2, N), in
-// unswizzled 128-column byte boxes, so a stage carries half (int8) or a
-// quarter (int4) of the bytes of a bf16 weight slice. With NORM (K2) its
-// warps 1-3 normalize each landed x slice in place (bf16(x * rstd) *
-// w_norm, rstd from norm_rstd_kernel), fence it to the async proxy and
-// arrive on the stage's normed barrier: the consumers' own slice work is
-// the dequant alone. Warpgroups 1 and 2 are the consumers, 64 rows of the
-// 128-row tile each. For each slice they
+// slice of W:
+//   dense (DENSE): 64 k-rows of bf16 W as 64-column MN-major boxes with
+//     the 128-byte swizzle, K13's forward B operand, read by wgmma straight
+//     from the stage;
+//   quantized: int8 (K, N) or nibble-packed int4 (K/2, N) codes in
+//     unswizzled 128-column byte boxes, half (int8) or a quarter (int4) of
+//     the bytes of a bf16 slice.
+// With NORM (K2) its warps 1-3 normalize each landed x slice in place
+// (bf16(x * rstd) * w_norm, rstd from norm_rstd_kernel), fence it to the
+// async proxy and arrive on the stage's normed barrier. Warpgroups 1 and 2
+// are the consumers, 64 rows of the 128-row tile each. For each slice they
 //   1. wait on the stage's full barrier;
-//   2. dequantize its codes into a bf16 B tile in the layout TMA would
-//      have written (64-column boxes of 64 k-rows, 128-byte swizzle, read
-//      MN-major by wgmma): each of the 256 threads turns 8-byte pieces of
-//      codes into 16-byte bf16 vectors with integer ops (the byte placed
-//      under a float's exponent, then one subtraction: exact), nibbles
-//      sign-extended as matmul_tiles.cuh put_w does; kTile also
-//      multiplies by the column's scale there (_fnm_kernel's rule:
+//   2. (quantized) dequantize its codes into a bf16 B tile in the layout
+//      TMA would have written for a dense W: each of the 256 threads turns
+//      8-byte pieces of codes into 16-byte bf16 vectors with integer ops
+//      (the byte placed under a float's exponent, then one subtraction:
+//      exact), nibbles sign-extended as matmul_tiles.cuh put_w does; kTile
+//      also multiplies by the column's scale there (_fnm_kernel's rule:
 //      bf16(code) * bf16(scale), rounded to bf16 once);
-//   3. fence those writes to the async proxy, wait on the normed barrier
-//      (NORM) and meet at one named barrier of the 256 consumer threads
-//      (both read the same B tile);
+//   3. wait on the normed barrier (NORM); quantized: fence the B tile's
+//      writes to the async proxy and meet at one named barrier of the 256
+//      consumer threads (both read the same B tile);
 //   4. issue the slice's four k16 wgmmas (m64n256k16 on a 256-wide tile,
 //      m64n128k16 on a 128-wide one), keep one group in flight and
 //      release the slice before.
-// Step 2 of a slice overlaps the previous slice's wgmmas. The B tile has
-// three buffers, not two: when one warpgroup converts slice s, the other
-// may still be running slice s - 1's wgmmas and has only been seen (at
-// slice s - 1's barrier) to have finished slice s - 2's, so slice s may
-// reuse only slice s - 3's buffer.
+// With a dense W, a consumer warpgroup whose 64 rows all lie past M (the
+// upper half of a cut last row tile: M = 264 leaves 8 rows in the last)
+// issues no wgmma and stores nothing, but walks the ring and releases each
+// stage. Step 2 of a slice overlaps the previous slice's wgmmas. The
+// B tile has three buffers, not two: when one warpgroup converts slice s,
+// the other may still be running slice s - 1's wgmmas and has only been
+// seen (at slice s - 1's barrier) to have finished slice s - 2's, so slice
+// s may reuse only slice s - 3's buffer.
 //
 // Scales: kEnd multiplies the f32 sum by its column's scale once, in the
 // epilogue (_qmm_kernel's flush); kGroup multiplies each K-group's f32
@@ -48,23 +54,23 @@
 // (so a 128-wide tile: 64 + 64 registers), waiting for the group's
 // wgmmas at each group's end; kTile scales inside the B tile. Tiles are
 // 256 wide, or 128 where 256-wide ones would fill at most half the SMs
-// (block_n). The epilogue writes 16-byte bf16 vectors from the registers
-// (as K13); rows past M and columns past N, which TMA read as zeros, are
-// not written.
+// (block_n, every form but kGroup). The epilogue writes 16-byte bf16
+// vectors from the registers (as K13); rows past M and columns past N,
+// which TMA read as zeros, are not written.
 //
 // The grid is persistent (one block an SM): block b takes output tiles b,
 // b + grid, ... in bands of row tiles (grouped_tiles.cuh swizzle, K13's
-// band): a band's x rows and the codes of the column tiles in flight stay
-// in L2. No split-K, no atomics: two calls give the same bits.
-// quant_matmul.quant_tiles models the walk.
+// band): a band's x rows and the W columns of the tiles in flight stay in
+// L2. No split-K, no atomics: two calls give the same bits.
+// quant_matmul.quant_tiles and quant_matmul.block_n model the walk.
 //
-// Shared memory: STAGES x (16 KB of x + the codes) + three B tiles, 225
-// KB for int8 at BN = 256. Registers (setmaxnreg): producer warpgroup 40,
-// or 88 with the normalizers; consumers 232, or 200. Bound on an H100:
-// tensor-core operations at prefill (2 M K N bf16 products); the ring
-// moves fewer bytes than K13's, but the conversion adds a 32 KB write and
-// a 16 KB (int8) read of shared memory a slice to wgmma's reads, and K2's
-// norm a 16 KB read and write.
+// Shared memory: STAGES x (16 KB of x + the W slice), plus three B tiles
+// when quantized: 193 KB dense at BN = 256, 225 KB int8. Registers
+// (setmaxnreg): producer warpgroup 40, or 104 with the normalizers;
+// consumers 232, or 192 (faster at every K2 shape than 88 / 200). Bound on an H100: tensor-core operations at
+// prefill and train (2 M K N bf16 products); the norm adds a 16 KB read
+// and write of shared memory a slice to wgmma's reads, the conversion a
+// 32 KB write and a 16 KB (int8) read.
 #pragma once
 
 #include "grouped_tiles.cuh"
@@ -75,6 +81,7 @@ namespace pt {
 namespace wq {
 namespace {  // each including source gets its own copy
 
+using mm::kBf16;
 using mm::kEnd;
 using mm::kGroup;
 using mm::kInt4;
@@ -87,10 +94,11 @@ constexpr int CONSUMERS = 256;  // threads of the two consumer warpgroups
 // NORM: the producer warpgroup's warps 1-3 normalize each x slice, up to
 // NORM_ROWS rows a thread, with more registers than a bare producer
 constexpr int NORMALIZERS = 96, NORM_ROWS = (BM * 8 + NORMALIZERS - 1) / NORMALIZERS;
-constexpr int NORM_PRODUCER_REGS = 88, NORM_CONSUMER_REGS = 200;
+constexpr int NORM_PRODUCER_REGS = 104, NORM_CONSUMER_REGS = 192;
 
 template <int WT, int BN_>
 struct Geo {
+  static constexpr bool DENSE = WT == kBf16;          // W rides the ring as bf16 B boxes
   static constexpr int BN = BN_;                      // block tile columns
   static constexpr int NACC = BN / 2;                 // f32 accumulators a consumer thread
   static constexpr int PACK = WT == kInt4 ? 2 : 1;    // K rows a code byte holds
@@ -98,9 +106,10 @@ struct Geo {
   static constexpr int CODE_BOXES = BN / 128;         // 128-column byte boxes a slice
   static constexpr int CODE_BOX_BYTES = CODE_ROWS * 128;
   static constexpr int A_BYTES = BM * BK * 2;
-  static constexpr int STAGE_BYTES = A_BYTES + CODE_BOXES * CODE_BOX_BYTES;
   static constexpr int B_BYTES = BK * BN * 2;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + B_BUFS * B_BYTES + 1024;
+  // a stage: the x slice, then W's (its B boxes, or its codes)
+  static constexpr int STAGE_BYTES = A_BYTES + (DENSE ? B_BYTES : CODE_BOXES * CODE_BOX_BYTES);
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + (DENSE ? 0 : B_BUFS * B_BYTES) + 1024;
   // a consumer thread's 8-byte code pieces a slice, and a box's
   static constexpr int PIECES = CODE_BOXES * CODE_BOX_BYTES / 8 / CONSUMERS;
   static constexpr int BOX_PIECES = CODE_BOX_BYTES / 8 / CONSUMERS;
@@ -282,13 +291,13 @@ __device__ __forceinline__ float2 scales2(const float* __restrict__ scales, int 
 
 template <bool NORM, int WT, int SM, int BN>
 __global__ void __launch_bounds__(wg::NT, 1)
-quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tc,
+quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                    const bf16* __restrict__ nw, const float* __restrict__ rstd,
                    const float* __restrict__ scales, bf16* __restrict__ y, int M, int K, int N,
                    int gs, int band) {
   using G = Geo<WT, BN>;
   static_assert(SM != kGroup || BN == 128, "kGroup holds a second accumulator set");
-  constexpr bool GROUP = SM == kGroup, TILE_SCALE = SM == kTile;
+  constexpr bool GROUP = SM == kGroup, TILE_SCALE = SM == kTile && !G::DENSE;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], normed[STAGES];
   unsigned char* ring = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
@@ -341,10 +350,17 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
         wg::mbar_arrive_expect_tx(&full[stage], G::STAGE_BYTES);
         unsigned char* st = ring + stage * G::STAGE_BYTES;
         wg::tma_load_2d(st, &tx, &full[stage], kt * BK, mt * BM);  // x rows: 128 x 64
+        if constexpr (G::DENSE) {
 #pragma unroll
-        for (int cb = 0; cb < G::CODE_BOXES; ++cb)  // codes: CODE_ROWS x 128 bytes
-          wg::tma_load_2d(st + G::A_BYTES + cb * G::CODE_BOX_BYTES, &tc, &full[stage],
-                          nt * G::BN + 128 * cb, kt * G::CODE_ROWS);
+          for (int b = 0; b < G::BN / 64; ++b)  // W rows k: 64 x 64 columns a box
+            wg::tma_load_2d(st + G::A_BYTES + b * wg::BOX_BYTES, &tb, &full[stage],
+                            nt * G::BN + 64 * b, kt * BK);
+        } else {
+#pragma unroll
+          for (int cb = 0; cb < G::CODE_BOXES; ++cb)  // codes: CODE_ROWS x 128 bytes
+            wg::tma_load_2d(st + G::A_BYTES + cb * G::CODE_BOX_BYTES, &tb, &full[stage],
+                            nt * G::BN + 128 * cb, kt * G::CODE_ROWS);
+        }
         if (++stage == STAGES) stage = 0, phase ^= 1;
       }
     }
@@ -365,6 +381,19 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     gt::swizzle(i, n_mt, n_nt, band, &mt, &nt);
     const int m0 = mt * BM, n0 = nt * G::BN;
     if (TILE_SCALE && !gs) tile_scales<G>(sc, scales, 0, n0, N, t);
+    if (G::DENSE && m0 + 64 * c >= M) {
+      // dense: every row of this warpgroup lies past M (a cut last row
+      // tile): walk the ring and release each stage, with no wgmma and no
+      // store. (A quantized warpgroup converts its half of each shared B
+      // tile all the same, so it keeps the live path.) A loop of its own: a
+      // wgmma under a branch inside the loop makes ptxas serialize them.
+      for (int kt = 0; kt < n_k; ++kt) {
+        wg::mbar_wait(&full[stage], phase);
+        if (signals) wg::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < G::NACC; ++j) acc[j] = 0.f;
     if constexpr (GROUP) {
@@ -375,12 +404,18 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     for (int kt = 0; kt < n_k; ++kt) {
       wg::mbar_wait(&full[stage], phase);
       unsigned char* st = ring + stage * G::STAGE_BYTES;
-      unsigned char* bt = btiles + buf * G::B_BYTES;
-      if (TILE_SCALE && gs && kt * BK % gs == 0) tile_scales<G>(sc, scales, kt * BK / gs, n0, N, t);
-      dequant<G, WT, TILE_SCALE>(st + G::A_BYTES, bt, t, sc);
+      // dense: B is the stage's W slice; quantized: the converted B tile
+      unsigned char* bt = G::DENSE ? st + G::A_BYTES : btiles + buf * G::B_BYTES;
+      if constexpr (!G::DENSE) {
+        if (TILE_SCALE && gs && kt * BK % gs == 0)
+          tile_scales<G>(sc, scales, kt * BK / gs, n0, N, t);
+        dequant<G, WT, TILE_SCALE>(st + G::A_BYTES, bt, t, sc);
+      }
       if (NORM) wg::mbar_wait(&normed[stage], phase);  // the x slice is normalized
-      wg::fence_proxy_async();
-      wg::named_barrier(1, CONSUMERS);
+      if constexpr (!G::DENSE) {
+        wg::fence_proxy_async();
+        wg::named_barrier(1, CONSUMERS);
+      }
       wg::wgmma_fence();
       mma_slice(acc, st + c * wg::BOX_BYTES, bt);
       wg::wgmma_commit();
@@ -462,42 +497,51 @@ inline cudaError_t u8_map(CUtensorMap* map, const void* base, int cols, int rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// w: the dense (K, N) bf16 W, or the codes
 template <bool NORM, int WT, int SM, int BN>
-cudaError_t launch_bn(const void* x, const void* nw, const float* rstd, const void* codes,
+cudaError_t launch_bn(const void* x, const void* nw, const float* rstd, const void* w,
                       const void* scales, void* y, int M, int K, int N, int gs,
                       cudaStream_t stream) {
   using G = Geo<WT, BN>;
-  CUtensorMap tx, tc;
+  CUtensorMap tx, tb;
   const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint32_t bx[2] = {64, BM};
   cudaError_t err = wg::bf16_map(&tx, x, 2, dx, bx);
   if (err != cudaSuccess) return err;
-  err = u8_map(&tc, codes, N, K / G::PACK, G::CODE_ROWS);
+  if constexpr (G::DENSE) {  // 64 k-rows x 64 columns a box (K13's forward B)
+    const cuuint64_t dw[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint32_t bw[2] = {64, BK};
+    err = wg::bf16_map(&tb, w, 2, dw, bw);
+  } else {
+    err = u8_map(&tb, w, N, K / G::PACK, G::CODE_ROWS);
+  }
   if (err != cudaSuccess) return err;
   return wg::launch_persistent(quant_wgmma_kernel<NORM, WT, SM, BN>, item_count(M, N, BN),
-                               G::SMEM_BYTES, stream, tx, tc, static_cast<const bf16*>(nw), rstd,
+                               G::SMEM_BYTES, stream, tx, tb, static_cast<const bf16*>(nw), rstd,
                                static_cast<const float*>(scales), static_cast<bf16*>(y), M, K, N,
                                gs, band_for(K));
 }
 
-// The block tile's columns: 128 for kGroup (its second accumulator set)
-// and where 256-wide tiles would fill at most half the SMs (K2's k/v
-// projections at prefill), else 256
+// The block tile's columns, the one rule for every form: 128 for kGroup
+// (its second accumulator set) and where 256-wide tiles would fill at most
+// half the SMs (K2's k/v projections at prefill, q and k/v in the
+// batcher's waves), else 256
 inline int block_n(int M, int N, int sm, int sms) {
   return sm == kGroup || 2 * item_count(M, N, 256) <= sms ? 128 : 256;
 }
 
-// y (M, N) bf16 = A @ dequant(codes, scales) for M > 16 on a persistent
-// grid; rstd (NORM): M floats from norm_rstd_kernel. Requires K % 128 ==
-// 0, K % gs == 0, N % 16 == 0 and 16-byte-aligned x and codes.
+// y (M, N) bf16 = A @ B for M > 16 on a persistent grid; w: the dense
+// bf16 W (WT kBf16, SM kTile) or the codes; rstd (NORM): M floats from
+// norm_rstd_kernel. Requires K % 128 == 0, K % gs == 0, N % 8 == 0 (dense)
+// or N % 16 == 0, and 16-byte-aligned x and w.
 template <bool NORM, int WT, int SM>
-cudaError_t launch(const void* x, const void* nw, const float* rstd, const void* codes,
+cudaError_t launch(const void* x, const void* nw, const float* rstd, const void* w,
                    const void* scales, void* y, int M, int K, int N, int gs, cudaStream_t stream) {
   if constexpr (SM != kGroup) {
     if (block_n(M, N, SM, wg::num_sms()) == 256)
-      return launch_bn<NORM, WT, SM, 256>(x, nw, rstd, codes, scales, y, M, K, N, gs, stream);
+      return launch_bn<NORM, WT, SM, 256>(x, nw, rstd, w, scales, y, M, K, N, gs, stream);
   }
-  return launch_bn<NORM, WT, SM, 128>(x, nw, rstd, codes, scales, y, M, K, N, gs, stream);
+  return launch_bn<NORM, WT, SM, 128>(x, nw, rstd, w, scales, y, M, K, N, gs, stream);
 }
 
 }  // namespace

@@ -4,16 +4,17 @@ Kernel K2 (``csrc/norm_matmul.cu``) replaces both TPU variants — the
 resident ``_pallas_fnm`` (M <= 1024) and the streamed ``_pallas_fnm_streamed``
 (M > 1024) — with one entry point that handles any M: the normalized rows
 are built tile by tile in shared memory and never written to device
-memory. With dense weights and M > 16 it launches two kernels: each row's
-rstd once (M floats of scratch), then 128 x 128 (or 64 x 128) tiles that
-normalize their x slices as they land, in the order ``_block_order``
-models.
-The weight is dense bf16 or a weight-only ``QuantizedWeight`` (int8 or
-packed int4, per-channel or group-wise scales); a quantized B tile is
-dequantized in shared memory exactly as ``_fnm_kernel`` does it,
-bf16(code) * bf16(scale) rounded to bf16, before the bf16 MMA. With M > 16
-that is K4's Hopper body (``quant_matmul.quant_tiles`` models its walk)
-after the same rstd kernel, the x slices normalized in shared memory.
+memory. With M > 16 it launches two kernels: each row's rstd once (M
+floats of scratch), then the Hopper body of ``csrc/wgmma_quant_tiles.cuh``
+(shared with K4): x and W slices ride a TMA ring, three producer warps
+normalize each x slice in place, and two consumer warpgroups run
+``wgmma`` on 128 x 256 (or 128 x 128) tiles of a persistent grid whose
+walk ``quant_matmul.quant_tiles`` models at the width
+``quant_matmul.block_n`` picks. A dense bf16 W reaches ``wgmma`` straight
+from the ring; a weight-only ``QuantizedWeight`` (int8 or packed int4,
+per-channel or group-wise scales) is dequantized in shared memory exactly
+as ``_fnm_kernel`` does it, bf16(code) * bf16(scale) rounded to bf16,
+before the bf16 products. With M <= 16 one small-M kernel does both.
 
 On CPU tensors ``fused_norm_matmul_pure`` runs the unfused chain
 (``_reference``); on CUDA tensors it launches K2 or raises.
@@ -37,39 +38,6 @@ from .quant_matmul import WEIGHT_TYPES, QuantizedWeight, check_quantized
 
 #: K2 launches since the last reset (incremented only where it launches)
 launches = 0
-#: the dense tiled path's block tile columns (csrc/grouped_tiles.cuh BN)
-_BLOCK_N = 128
-#: SMs of an H100 SXM, for ``_block_order``'s tile choice (the kernel
-#: reads its card's count)
-H100_SMS = 132
-
-
-def _block_order(m, n, kdim, sms=H100_SMS):
-    """The dense tiled path's blocks in launch order (csrc/norm_matmul.cu
-    ``pt_norm_matmul``, grouped_tiles.cuh ``swizzle``): (first row, rows
-    its body computes, column tile). Row tiles are 128 rows, or 64 where
-    128-row tiles would give fewer blocks than SMs; ``band`` row tiles
-    (their x rows ~16 MB together, 1 to 16) walk fastest, then the column
-    tiles, band after band, so the blocks in flight share a band of x rows
-    and a run of W columns in L2. A last row tile that M cuts gets a band
-    of its own where the bands would hold every row tile (its blocks launch
-    last) and computes 32, 64 or 128 rows: the fewest that hold its rows."""
-    n_nt = -(-n // _BLOCK_N)
-    tm = 128 if -(-m // 128) * n_nt >= sms else 64
-    n_mt = -(-m // tm)
-    band = min(max((16 << 20) // (tm * kdim * 2), 1), 16)
-    if m % tm and 1 < n_mt <= band:
-        band = n_mt - 1
-    order = []
-    for bid in range(n_mt * n_nt):
-        first = bid // (band * n_nt) * band
-        width = min(band, n_mt - first)
-        local = bid - first * n_nt
-        mt, nt = first + local % width, local // width
-        left = m - mt * tm
-        rows = 32 if left <= 32 else 64 if left <= 64 else tm
-        order.append((mt * tm, rows, nt))
-    return order
 
 
 def _reference(x, norm_w, eps, w):

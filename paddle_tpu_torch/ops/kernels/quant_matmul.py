@@ -7,7 +7,7 @@ the raw codes (exact in bf16) meet x in the tensor cores with f32
 accumulation; a per-channel scale multiplies the sum once at the end, a
 group-wise scale multiplies each K-group's partial sum. One entry point
 takes any M: a small-M kernel for decode (M <= 16), and for prefill the
-Hopper body of ``csrc/wgmma_quant_tiles.cuh`` (shared with K2's quantized
+Hopper body of ``csrc/wgmma_quant_tiles.cuh`` (shared with K2's tiled
 forms): the codes ride a TMA ring and become a bf16 tile in shared memory
 before the ``wgmma``s, on a persistent grid of one block an SM whose walk
 over the output tiles ``quant_tiles`` models.
@@ -83,9 +83,10 @@ def dequant_weight(codes, scales, weight_dtype="int8", group_size=-1,
 
 def block_n(m, n, group_size=-1, fused_norm=False, sms=H100_SMS):
     """The tiled body's block tile columns (``block_n`` in
-    ``csrc/wgmma_quant_tiles.cuh``): 128 for K4's group-wise form (its
-    second accumulator set) and where 256-wide tiles would fill at most
-    half the SMs, else 256."""
+    ``csrc/wgmma_quant_tiles.cuh``), one rule for K4 and for K2 with a
+    dense or quantized W (``fused_norm``; K2 dense is ``block_n(m, n)``):
+    128 for K4's group-wise form (its second accumulator set) and where
+    256-wide tiles would fill at most half the SMs, else 256."""
     if group_size > 0 and not fused_norm:
         return 128
     return 128 if 2 * -(-m // TILE_M) * -(-n // 256) <= sms else 256
@@ -160,6 +161,7 @@ def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
         raise ValueError(f"quant_matmul kernel needs K % 128 == 0, got x "
                          f"{tuple(x.shape)}")
     x2 = x.reshape(m, kdim)
+    _build.check_no_grad("quant_matmul", x2, codes)
     _build.check_cuda("x", x2, torch.bfloat16)
     check_quantized("w", codes, scales, weight_dtype, group_size, kdim, n)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)

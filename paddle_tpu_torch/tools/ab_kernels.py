@@ -2,6 +2,7 @@
 """Time K2, K4, K13 and K14 of two checkouts of the port on one card, in turns.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --batcher [--rounds R]
 
 Each tree is the root of a checkout (the directory that holds
 ``paddle_tpu_torch/``), e.g. the parent commit unpacked with ``git
@@ -11,8 +12,12 @@ child puts its tree first on ``sys.path``, builds that tree's kernels
 into the tree's own ``build/`` and times, on the same seeded inputs,
 
   * K2's dense path (``fused_norm_matmul_pure``) at ``chip_smoke.py``'s
-    phase-3/7 shapes with N = 14336: M = 8 (the decode kernel), 264, 1024
-    and 8192, K = 4096;
+    phase-3 shapes: M = 8 (the decode kernel) at N = 14336, and the tiled
+    path at M = 264 (a batcher wave), 1024 (a solo prefill) and 8192 (a
+    train step) against N = 1024 (k/v), 4096 (q) and 14336 (gate/up), K =
+    4096; and the host time of one K2 call at M = 264 (``host_us``: the
+    wrapper, the tensor-map encodes and the launches, enqueued behind a
+    spin kernel: the median of 5 means of 100 calls);
   * the weight-only int8 (per channel) forms at the int8 prefill's
     shapes, M = 1024: K4 (``quant_matmul_qw``) for o_proj and down_proj,
     K2 (``fused_norm_matmul_pure`` on a ``QuantizedWeight``) for gate/up,
@@ -23,9 +28,13 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
 
 each the median device ms of 20 calls with the L2 flushed before each and
 a spin kernel holding the stream while the host enqueues (as
-``chip_smoke.py``'s ColdTimer). It prints one JSON line per turn, then a
-summary line: each shape's median over the turns of each tree, and new
-over old. Needs one CUDA card and the CUDA toolkit.
+``chip_smoke.py``'s ColdTimer). With ``--batcher`` each turn instead
+serves ``chip_smoke.py``'s phase-6 requests through the continuous batcher
+(Llama-3-8B, random bf16 weights, fused and unfused attention) and reads
+the untraced wall seconds of each plan (median of 3 runs after a
+warm-up). It prints one JSON line per turn, then a summary line: each
+key's median over the turns of each tree, and new over old. Needs one
+CUDA card and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -38,8 +47,10 @@ import sys
 
 #: rows per expert of chip_smoke.py's phase 10 (one empty, one with 30%)
 MOE_COUNTS = (1843, 0, 4915, 2011, 1777, 2049, 1901, 1888)
-K2_SHAPES = [(8, 4096, 14336), (264, 4096, 14336), (1024, 4096, 14336),
-             (8192, 4096, 14336)]
+K2_SHAPES = [(8, 4096, 14336)] + [(m, 4096, n) for m in (264, 1024, 8192)
+                                  for n in (1024, 4096, 14336)]
+#: (M, N) of the K2 calls whose host time is read (K = 4096)
+K2_HOST = [(264, 14336), (264, 1024)]
 GMM_FORMS = [("grouped_matmul", 4096, 14336, False),
              ("grouped_matmul_down", 14336, 4096, False),
              ("grouped_matmul_dx", 14336, 4096, True)]
@@ -65,6 +76,59 @@ def _cold_ms(torch, flush, fn, iters=20, warmup=2):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def _host_us(torch, fn, calls=100, reps=5):
+    """Host microseconds a call takes to enqueue: the median over ``reps``
+    runs of the mean of ``calls`` calls, each run behind a spin kernel
+    long enough that the card never drains the queue."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def child_batcher() -> None:
+    import time
+
+    import chip_smoke as cs
+    import torch
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.build()
+    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=cs.SEED)
+    reqs = cs.batcher_requests(cfg.vocab_size)
+    out = {}
+    for label, fusions in cs.BATCHER_PLANS:
+        flags.set_flags({"fused_decode_fusions": fusions})
+        walls = []
+        for _ in range(4):
+            eng = ContinuousBatcher(model, max_batch=cs.BB, max_seq=cs.BSEQ,
+                                    page_size=cs.PAGE, segment=16,
+                                    prefill_chunk=cs.BCHUNK,
+                                    prefix_caching=False)
+            for prompt, n_new, t in reqs:
+                eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"batcher {label} wall_s"] = statistics.median(walls[1:])
+    print(json.dumps(out), flush=True)
 
 
 def child() -> None:
@@ -94,6 +158,9 @@ def child() -> None:
             out[f"K2 M{m} K{kdim} N{n}"] = _cold_ms(
                 torch, flush, lambda: k2.fused_norm_matmul_pure(
                     x, nw, 1e-5, w))
+            if (m, n) in K2_HOST:
+                out[f"K2 host_us M{m} K{kdim} N{n}"] = _host_us(
+                    torch, lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
             del x, w
         for kind, m, kdim, n in QUANT_SHAPES:
             x = rnd(m, kdim)
@@ -128,20 +195,22 @@ def child() -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--child"]:
-        child()
+        child_batcher() if "--batcher" in args else child()
         return 0
     rounds = 1
     if "--rounds" in args:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
+    mode = ["--batcher"] if "--batcher" in args else []
+    args = [a for a in args if a != "--batcher"]
     old, new = (os.path.abspath(a) for a in args)
     runs = {old: [], new: []}
     for _ in range(rounds):
         for tree in (old, new, new, old):
             env = {**os.environ, "PYTHONPATH": tree}
             res = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--child"],
+                [sys.executable, os.path.abspath(__file__), "--child", *mode],
                 cwd=tree, env=env, capture_output=True, text=True,
                 check=True)
             got = json.loads(res.stdout.strip().splitlines()[-1])

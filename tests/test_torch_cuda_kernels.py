@@ -41,8 +41,9 @@ K1 (flash forward) at query and key tile edges, Sq < Sk and Sq > Sk,
 causal and not, with and without a key bias; with whole key tiles a bias
 masks in one row and not another (the skipped and computed tiles meet,
 rows that see no key included); two calls bitwise equal. K2's dense tiled
-path at M = 17 .. 1024 against ragged N and N = 14336, two calls bitwise
-equal.
+path (the wgmma body) at M = 17 .. 8192 against ragged N and N = 1024,
+4096 and 14336, two calls bitwise equal, from a fresh thread, and with the
+tiles its blocks decode equal to ``quant_matmul.quant_tiles``.
 K9 (the one-pass flash backward) on the same shapes as K5, two calls
 bitwise equal; K1, K5 and K9 with a left-padded key bias (whole key tiles
 masked in one row and not in another, so skipped and computed tiles meet),
@@ -219,12 +220,13 @@ def test_norm_matmul_matches_plain(gen, m, kdim, n):
     assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
 
 
-@pytest.mark.parametrize("n", [520, 1000, 14336])
-@pytest.mark.parametrize("m", [17, 129, 264, 300, 1024])
+@pytest.mark.parametrize("n", [520, 1000, 1024, 4096, 14336])
+@pytest.mark.parametrize("m", [17, 129, 264, 300, 1024, 8192])
 def test_norm_matmul_tiled_path_matches_plain(gen, m, n):
-    """K2's dense tiled path (M > 16: rstd once per row, then 128 x 128
-    tiles) at ragged M and N and at the model's N = 14336, K = 4096; two
-    calls give the same bits (no split-K)."""
+    """K2's dense tiled path (M > 16: rstd once per row, then the wgmma
+    body on 128 x 256 or 128 x 128 tiles) at ragged M and N and at the
+    model's N = 1024, 4096 and 14336, K = 4096, up to the train step's
+    M = 8192; two calls give the same bits (no split-K)."""
     kdim = 4096
     x = _randn(gen, m, kdim)
     nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
@@ -372,18 +374,47 @@ def test_quant_tiled_forms_are_deterministic(gen, kernel, algo, gs):
 
 def test_quant_tiled_forms_launch_from_a_fresh_thread(gen):
     """The first launch of a thread binds the context the tensor maps need:
-    each form from a new thread matches the same call from this one."""
+    each form from a new thread matches the same call from this one, K2's
+    dense tiled form too."""
     import threading
 
-    for algo, gs in _QUANT:
-        for kernel, fn in _quant_forms(gen, algo, gs).items():
-            got = []
-            worker = threading.Thread(target=lambda: got.append(fn()))
-            worker.start()
-            worker.join()
-            torch.cuda.synchronize()
-            assert len(got) == 1 and torch.equal(got[0], fn()), (kernel, algo,
-                                                                gs)
+    m, kdim, n = _OFF_TILE
+    x = _randn(gen, m, kdim)
+    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    w = _randn(gen, kdim, n, scale=1 / math.sqrt(kdim))
+    forms = [("K2 dense", None,
+              lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))]
+    forms += [(kernel, (algo, gs), fn) for algo, gs in _QUANT
+              for kernel, fn in _quant_forms(gen, algo, gs).items()]
+    for kernel, quant, fn in forms:
+        got = []
+        worker = threading.Thread(target=lambda: got.append(fn()))
+        worker.start()
+        worker.join()
+        torch.cuda.synchronize()
+        assert len(got) == 1 and torch.equal(got[0], fn()), (kernel, quant)
+
+
+@pytest.mark.parametrize("m,kdim,n", [
+    (17, 384, 264), (300, 1024, 520), (264, 4096, 1024), (264, 4096, 4096),
+    (264, 4096, 14336), (1024, 4096, 1024), (1024, 4096, 4096),
+    (1024, 4096, 14336), (8192, 4096, 1024), (8192, 4096, 4096),
+    (8192, 4096, 14336)])
+def test_norm_matmul_tiles_on_the_card_match_the_model(gen, m, kdim, n):
+    """K2's dense tiled path runs the tiled body's walk: the output tiles
+    its blocks decode, in walk order, are ``quant_matmul.quant_tiles``' at
+    the width ``quant_matmul.block_n(m, n)`` picks for this card, at the
+    batcher's, the prefill's and the train step's shapes."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    bn = k4.block_n(m, n, sms=torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    want = k4.quant_tiles(m, kdim, n, bn)
+    out = torch.full((len(want), 2), -1, dtype=torch.int32, device="cuda")
+    _build.launch("pt_quant_matmul_items", m, kdim, n, bn, out.data_ptr(),
+                  _build.stream_of(out))
+    assert out.cpu().tolist() == [list(t) for t in want]
 
 
 @pytest.mark.parametrize("m,kdim,n,gs,fused_norm", [
@@ -805,6 +836,8 @@ def test_training_wrappers_raise_instead_of_falling_back(gen):
         k67.rms_norm_fwd(xg, x[0], 1e-5)
     with pytest.raises(RuntimeError):
         k2.fused_norm_matmul_pure(xg, x[0], 1e-5, _randn(gen, 256, 8))
+    with pytest.raises(RuntimeError):               # K4 would drop it too
+        k4.quant_matmul_qw(xg, _qweight(gen, 256, 16, "weight_only_int8", -1))
     with pytest.raises(RuntimeError):
         k1.flash_attention_fwd(q.clone().requires_grad_(True), q, q)
     p = _randn(gen, 100)

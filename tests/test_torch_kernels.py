@@ -45,7 +45,9 @@ from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import fused_norm_matmul as tfnm
 from paddle_tpu_torch.ops.kernels import fused_rope_attend as tfra
 from paddle_tpu_torch.ops.kernels import fusion as tfusion
+from paddle_tpu_torch.ops.kernels import grouped_matmul as tgm
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from paddle_tpu_torch.ops.kernels import quant_matmul as tqm
 
 # importlib: the package re-exports a flash_attention op under this name
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -132,41 +134,34 @@ def test_norm_matmul_matches_jax_kernel(monkeypatch, m, variant):
 @pytest.mark.parametrize("m,n,kdim", [
     (17, 264, 384), (129, 1000, 4096), (264, 14336, 4096), (300, 520, 1024),
     (1024, 14336, 4096), (1024, 4096, 4096), (8192, 1024, 4096),
-    (2049, 136, 4096), (4000, 8, 256), (600, 14336, 4096)])
+    (2049, 136, 4096), (4000, 8, 256), (600, 14336, 4096),
+    (264, 1024, 4096), (8192, 14336, 4096)])
 def test_norm_matmul_block_order_covers_each_tile_once(m, n, kdim):
-    """K2's dense tiled path (``_block_order``, the kernel's tile choice
-    and swizzle): every (row, 128-column tile) of a ragged M x N output is
-    computed by exactly one block, whose body holds all of its rows; 64-row
-    tiles exactly where 128-row ones give fewer blocks than the H100's 132
-    SMs; the first band's row tiles run fastest; a cut last row tile
-    computes only the 32 or 64 rows it needs and, where one band would
-    hold every row tile, launches last."""
-    n_nt = -(-n // 128)
-    order = tfnm._block_order(m, n, kdim)
-    tm = 128 if -(-m // 128) * n_nt >= 132 else 64
-    n_mt = -(-m // tm)
-    assert len(order) == n_mt * n_nt
-    seen = {}
-    for row0, rows, nt in order:
-        assert row0 % tm == 0 and rows in (32, 64, 128) and rows <= tm
-        assert rows >= min(tm, m - row0)
-        for r in range(row0, min(row0 + rows, m)):
-            seen[r, nt] = seen.get((r, nt), 0) + 1
-    assert seen == {(r, nt): 1 for r in range(m) for nt in range(n_nt)}
-    light = [i for i, (row0, rows, _) in enumerate(order) if rows < tm]
-    if m % tm and m % tm <= tm // 2:
-        assert len(light) == n_nt
-        if n_mt <= 16:
-            assert light == list(range(len(order) - n_nt, len(order)))
-    else:
-        assert not light
-    band = min(max(16 * 2**20 // (tm * kdim * 2), 1), 16)
-    band = n_mt - 1 if m % tm and 1 < n_mt <= band else band
-    width = min(band, n_mt)
-    first = order[:width * n_nt]
-    assert {row0 // tm for row0, _, _ in first} == set(range(width))
-    for i in range(0, len(first), width):
-        assert len({nt for _, _, nt in first[i:i + width]}) == 1
+    """K2's dense tiled path runs the tiled body of K4 and K2's quantized
+    forms, so its walk is ``quant_matmul.quant_tiles`` at the width
+    ``quant_matmul.block_n(m, n)`` picks: 128-wide tiles exactly where
+    256-wide ones would fill at most half of the H100's 132 SMs; every
+    element of the ragged M x N output lies in exactly one 128-row tile
+    (a last row tile that M cuts included); ``_band(K)`` row tiles walk
+    fastest, then the column tiles, band after band; the persistent
+    blocks take every tile once."""
+    bn = tqm.block_n(m, n)
+    assert bn == (128 if 2 * -(-m // 128) * -(-n // 256) <= 132 else 256)
+    tiles = tqm.quant_tiles(m, kdim, n, bn)
+    n_mt, n_nt = -(-m // 128), -(-n // bn)
+    assert len(tiles) == n_mt * n_nt
+    # the tiles partition a grid whose last row and column tiles hold
+    # y's last rows and columns: each element lies in exactly one tile
+    assert sorted(tiles) == [(mt, nt) for mt in range(n_mt)
+                             for nt in range(n_nt)]
+    assert (n_mt - 1) * 128 < m <= n_mt * 128
+    assert (n_nt - 1) * bn < n <= n_nt * bn
+    band = min(max(16 * 2**20 // (128 * kdim * 2), 1), 16)
+    assert tiles == [(mt, nt) for first in range(0, n_mt, band)
+                     for nt in range(n_nt)
+                     for mt in range(first, min(first + band, n_mt))]
+    blocks = tgm.persistent_blocks(len(tiles))
+    assert sorted(i for b in blocks for i in b) == list(range(len(tiles)))
 
 
 def test_norm_matmul_keeps_leading_dims():
