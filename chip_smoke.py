@@ -14,19 +14,21 @@ class, device busy share). Phases, in order; any failure raises and the process 
 3. kernels  — each kernel against its plain PyTorch version on the card,
                in bf16 at the Llama-3-8B shapes of the serving paths, with
                kernel / plain / library times and the least time the card
-               could take (``bound_ms``): K1, K2 (M = 8, and the tiled
-               path at the batcher's M = 264, the prefill's 1024 and the
-               train step's 8192, each at N = 1024, 4096 and 14336: TFLOP/s,
-               two calls bitwise equal, the tiles the card decodes equal to
-               the Python walk model, and a fault control, w_norm shifted
-               by 64 elements, that must fail the rule), K3 (bf16), then K4
-               (weight-only int8 at the decode and prefill o_proj and
-               down_proj shapes, down_proj also int8 and int4 group 128)
-               and K2 with int8 weights (the decode shapes and every
-               prefill projection, gate/up also int4 group 128): at M =
-               1024 two calls bitwise equal, TFLOP/s, and a fault control
-               (the scales shifted by 16 columns) that must fail each
-               rule; K3 on an int8 cache (page 32), then the
+               could take (``bound_ms``): K1, K2 (the small-M body at
+               M = 8 for every decode width and at M = 16 for gate/up,
+               and the tiled path at the batcher's M = 264, the prefill's
+               1024 and the train step's 8192, each at N = 1024, 4096 and
+               14336), K3 (bf16), then K4 (weight-only int8 at the decode
+               and prefill o_proj and down_proj shapes and at M = 16
+               down_proj, down_proj also int8 and int4 group 128) and K2
+               with int8 weights (the decode shapes, gate/up at M = 16,
+               every prefill projection, gate/up also int4 group 128): at
+               every K2 and K4 shape TFLOP/s, two calls bitwise equal, the
+               work the card's CTAs decode equal to the Python walk model
+               (tiles; and for M <= 16 cluster ranks and K ranges), and a
+               fault control that must fail the rule (w_norm shifted by
+               64 elements for dense W, the scales by 16 columns for
+               quantized W); K3 on an int8 cache (page 32), then the
                continuous batcher's kernels on its mixed wave (T = 264
                rows: two prefill chunks, decode rows at lengths 97-600,
                an idle slot, padding rows): K11, K3's ragged form, K10
@@ -283,19 +285,21 @@ def check_flash(torch, timer, k1):
 
 
 NM_SHAPES = [(8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024),
-             (8, 4096, 128256), (1024, 4096, 14336), (1024, 4096, 4096),
+             (8, 4096, 128256), (16, 4096, 14336), (1024, 4096, 14336),
+             (1024, 4096, 4096),
              (1024, 4096, 1024), (BT, 4096, 14336), (BT, 4096, 4096),
              (BT, 4096, 1024), (8192, 4096, 14336), (8192, 4096, 4096),
              (8192, 4096, 1024)]
 
 
 def check_norm_matmul(torch, timer, k2):
-    """K2 at every projection shape of a decode step (M=8), a solo
-    prefill (M=1024), a batcher wave (M=BT=264) and the train step's
-    forward (M=8192: B=4 x S=2048), with each row's TFLOP/s. The tiled
-    path (M > 16): two calls bitwise equal, its tiles as the Python walk
-    model has them, and w_norm shifted by 64 elements must fail the
-    rule."""
+    """K2 at every projection shape of a decode step (M=8, and gate/up at
+    M=16: the small-M body's n16 bucket), a solo prefill (M=1024), a
+    batcher wave (M=BT=264) and the train step's forward (M=8192: B=4 x
+    S=2048), with each row's TFLOP/s. At every shape: two calls bitwise
+    equal, the work its CTAs decode as the Python walk model has it (the
+    tiled body's tiles, or the small-M body's tiles, cluster ranks and K
+    ranges), and w_norm shifted by 64 elements must fail the rule."""
     eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows, errs = [], []
@@ -329,16 +333,13 @@ def check_norm_matmul(torch, timer, k2):
         row = {"shape": f"M{m} K{kdim} N{n}", "max_abs_err": err,
                "ms": ms, "plain_ms": plain, "bound_ms": bms,
                "bound_by": by, "library_ms": lib}
-        extra = _rate(row, 2 * m * n * kdim)
-        if m > 16:
-            ctl = k2.fused_norm_matmul_pure(x, nw.roll(64).contiguous(), eps,
-                                            w)
-            ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
-            extra = _tiled_checks(
-                torch, row, lambda: k2.fused_norm_matmul_pure(x, nw, eps, w),
-                ctl_worst, 2 * m * n * kdim, "w_norm-shift") \
-                + "; " + _walk_check(torch, row, m, kdim, n)
-            del ctl
+        ctl = k2.fused_norm_matmul_pure(x, nw.roll(64).contiguous(), eps, w)
+        ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
+        extra = _form_checks(
+            torch, row, lambda: k2.fused_norm_matmul_pure(x, nw, eps, w),
+            ctl_worst, 2 * m * n * kdim, "w_norm-shift") \
+            + "; " + _walk_check(torch, row, m, kdim, n)
+        del ctl
         log(f"K2 norm_matmul M{m} K{kdim} N{n}: max_abs_err {err:.3e} "
             f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
             f"{lib if lib is None else round(lib, 4)} (rms_norm+matmul) "
@@ -422,7 +423,7 @@ def check_rope_attend(torch, timer, k3, kv_cache, rope_tables):
 
 
 QMM_SHAPES = [(8, 4096, 4096, "int8", -1), (8, 14336, 4096, "int8", -1),
-              (1024, 4096, 4096, "int8", -1),
+              (16, 14336, 4096, "int8", -1), (1024, 4096, 4096, "int8", -1),
               (1024, 14336, 4096, "int8", -1),
               (1024, 14336, 4096, "int8", 128),
               (1024, 14336, 4096, "int4", 128),
@@ -452,10 +453,10 @@ def _shifted(qw):
                            qw.weight_dtype, qw.group_size, qw.shape)
 
 
-def _tiled_checks(torch, row, fn, ctl_worst, flops, control="shifted-scale"):
-    """The tiled (M > 16) form's extra checks, into ``row``: two calls
-    bitwise equal, TFLOP/s and bound share, and the fault control (its
-    worst err/tol), which must fail the rule."""
+def _form_checks(torch, row, fn, ctl_worst, flops, control="shifted-scale"):
+    """A K2 or K4 row's extra checks, into ``row``: two calls bitwise
+    equal, TFLOP/s and bound share, and the fault control (its worst
+    err/tol), which must fail the rule."""
     assert _same_bits(torch, lambda: (fn(),)), (
         f"{row['shape']}: two calls differ")
     row["control_worst_err_over_tol"] = ctl_worst
@@ -465,15 +466,34 @@ def _tiled_checks(torch, row, fn, ctl_worst, flops, control="shifted-scale"):
         f"{ctl_worst:.3f} (fails, as it must)"
 
 
-def _walk_check(torch, row, m, kdim, n):
-    """The output tiles the tiled body's blocks decode (in walk order) must
-    equal ``quant_matmul.quant_tiles`` at the width ``block_n`` picks for
-    this card (K2 dense: ``block_n(m, n)``)."""
+def _walk_check(torch, row, m, kdim, n, gs=-1, fused_norm=True):
+    """The work the CTAs decode on the card must equal the Python model of
+    the body the call runs, for this card's SM count: with M > 16 the
+    tiled body's output tiles in walk order (``quant_matmul.quant_tiles``
+    at the width ``block_n`` picks; K2 dense: ``block_n(m, n)``), with
+    M <= 16 the small-M body's (tile, cluster rank) items: CTA, step and K
+    range (``quant_matmul.small_items``)."""
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import quant_matmul as k4
 
-    bn = k4.block_n(m, n, sms=torch.cuda.get_device_properties(0)
-                    .multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if m <= k4.SMALL_MAX_M:
+        cs, grid = k4.small_plan(kdim, n, sms)
+        want = k4.small_items(kdim, n, sms)
+        tiles = -(-n // k4.SMALL_BN)
+        out = torch.full((tiles * k4.SMALL_MAX_CS, 4), -1, dtype=torch.int32,
+                         device="cuda")
+        _build.launch("pt_small_matmul_items", kdim, n, out.data_ptr(),
+                      _build.stream_of(out))
+        got = out.cpu().tolist()
+        assert got[:len(want)] == [list(r) for r in want] and all(
+            r == [-1] * 4 for r in got[len(want):]), (
+            f"{row['shape']}: the items decoded on the card differ from "
+            f"quant_matmul.small_items (cs {cs}, grid {grid})")
+        row["cluster"], row["ctas"], row["tiles"] = cs, grid, tiles
+        return (f"{tiles} tiles of 64 x {cs} cluster ranks on {grid} CTAs "
+                f"as the model walks them")
+    bn = k4.block_n(m, n, gs, fused_norm, sms)
     want = k4.quant_tiles(m, kdim, n, bn)
     out = torch.full((len(want), 2), -1, dtype=torch.int32, device="cuda")
     _build.launch("pt_quant_matmul_items", m, kdim, n, bn, out.data_ptr(),
@@ -486,12 +506,12 @@ def _walk_check(torch, row, m, kdim, n):
 
 
 def check_quant_matmul(torch, timer, k4):
-    """K4 at the o_proj and down_proj shapes of decode (M=8) and prefill
-    (M=1024), int8 per channel, and down_proj int8 and int4 group 128 at
-    M = 1024, int4 group 128 at M = 8. At M = 1024 (the tiled body): two
-    calls bitwise equal, TFLOP/s,
-    and the kernel with its scales shifted by SHIFT columns must fail
-    ``k4.tolerance``."""
+    """K4 at the o_proj and down_proj shapes of decode (M=8; down_proj
+    also at M=16) and prefill (M=1024), int8 per channel, and down_proj
+    int8 and int4 group 128 at M = 1024, int4 group 128 at M = 8. At every
+    shape: two calls bitwise equal, TFLOP/s, the work the CTAs decode as
+    the Python walk model has it, and the kernel with its scales shifted
+    by SHIFT columns must fail ``k4.tolerance``."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows, errs = [], []
     for m, kdim, n, wd, gs in QMM_SHAPES:
@@ -524,14 +544,13 @@ def check_quant_matmul(torch, timer, k4):
                "max_abs_err": err, "err_over_tol": worst, "ms": ms,
                "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                "library_ms": lib, "bf16_matmul_ms": dense}
-        extra = ""
-        if m > 16:
-            ctl = k4.quant_matmul_qw(x, _shifted(qw))
-            ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
-            extra = "; " + _tiled_checks(
-                torch, row, lambda: k4.quant_matmul_pure(x, *args),
-                ctl_worst, 2 * m * n * kdim)
-            del ctl
+        ctl = k4.quant_matmul_qw(x, _shifted(qw))
+        ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
+        extra = "; " + _form_checks(
+            torch, row, lambda: k4.quant_matmul_pure(x, *args), ctl_worst,
+            2 * m * n * kdim) + "; " + _walk_check(
+                torch, row, m, kdim, n, gs, fused_norm=False)
+        del ctl
         log(f"K4 quant_matmul M{m} K{kdim} N{n} {wd} g{gs}: max_abs_err "
             f"{err:.3e} (worst err/tol {worst:.3f}) kernel_ms {ms:.4f} "
             f"plain_ms {plain:.4f} library_ms "
@@ -552,6 +571,7 @@ def check_quant_matmul(torch, timer, k4):
 
 NM_INT8_SHAPES = [(8, 4096, 14336, "int8", -1), (8, 4096, 4096, "int8", -1),
                   (8, 4096, 1024, "int8", -1), (8, 4096, 128256, "int8", -1),
+                  (16, 4096, 14336, "int8", -1),
                   (1024, 4096, 14336, "int8", -1),
                   (1024, 4096, 4096, "int8", -1),
                   (1024, 4096, 1024, "int8", -1),
@@ -560,10 +580,11 @@ NM_INT8_SHAPES = [(8, 4096, 14336, "int8", -1), (8, 4096, 4096, "int8", -1),
 
 def check_norm_matmul_int8(torch, timer, k2):
     """K2 with quantized weights: int8 per channel at the decode shapes
-    and every prefill projection shape (q, k/v, gate/up), and the prefill
-    gate/up shape in int4 group 128. The kernel dequantizes each weight
-    exactly as the plain chain does, so only the summation order differs.
-    At M = 1024 (the tiled body): two calls bitwise equal, TFLOP/s, and
+    (gate/up also at M = 16) and every prefill projection shape (q, k/v,
+    gate/up), and the prefill gate/up shape in int4 group 128. The kernel
+    dequantizes each weight exactly as the plain chain does, so only the
+    summation order differs. At every shape: two calls bitwise equal,
+    TFLOP/s, the work the CTAs decode as the Python walk model has it, and
     the kernel with its scales shifted by SHIFT columns must fail the
     rule."""
     eps = 1e-5
@@ -598,14 +619,13 @@ def check_norm_matmul_int8(torch, timer, k2):
         row = {"shape": f"M{m} K{kdim} N{n} {wd} g{gs}", "max_abs_err": err,
                "ms": ms, "plain_ms": plain, "bound_ms": bms,
                "bound_by": by, "library_ms": lib}
-        extra = ""
-        if m > 16:
-            ctl = k2.fused_norm_matmul_pure(x, nw, eps, _shifted(qw))
-            ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
-            extra = "; " + _tiled_checks(
-                torch, row, lambda: k2.fused_norm_matmul_pure(x, nw, eps, qw),
-                ctl_worst, 2 * m * n * kdim)
-            del ctl
+        ctl = k2.fused_norm_matmul_pure(x, nw, eps, _shifted(qw))
+        ctl_worst = ((ctl.float() - ref.float()).abs() / tol).max().item()
+        extra = "; " + _form_checks(
+            torch, row, lambda: k2.fused_norm_matmul_pure(x, nw, eps, qw),
+            ctl_worst, 2 * m * n * kdim) + "; " + _walk_check(
+                torch, row, m, kdim, n, gs)
+        del ctl
         log(f"K2 norm_matmul {wd} g{gs} M{m} K{kdim} N{n}: max_abs_err "
             f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
             f"{lib if lib is None else round(lib, 4)} (rms_norm + dequant "
@@ -1005,13 +1025,13 @@ def _kernel_class(name):
         return "K13 grouped_matmul (dX form)"
     if "segment_dw_kernel" in name:
         return "K14 segment_dw"
-    mm = re.search(r"(?:matmul_small|quant_wgmma)_kernel<([^>]*)>", name)
+    mm = re.search(r"(?:skinny|quant)_wgmma_kernel<([^>]*)>", name)
     if mm:  # template arguments start with NORM, weight type
         norm, wt = (a.strip() for a in mm.group(1).split(",")[:2])
         wd = {"0": "bf16", "1": "int8", "2": "int4"}.get(wt, wt)
         return (f"K2 norm_matmul ({wd})" if norm == "true"
                 else f"K4 quant_matmul ({wd})")
-    if "matmul_small_kernel" in name or "quant_wgmma_kernel" in name:
+    if "skinny_wgmma_kernel" in name or "quant_wgmma_kernel" in name:
         return "K2/K4 matmul"
     if "rope_append_attend_kernel" in name:
         return "K3 rope_append_attend (decode)"

@@ -4,10 +4,10 @@
 // M <= 1024; _fnm_kernel :79) and :_pallas_fnm_streamed (M > 1024;
 // _fnm_stream_kernel :189) with ONE entry point that takes any M. The
 // normalized activations never touch device memory — the point of the TPU
-// fusion; only rstd (M floats) does. W is dense bf16 or weight-only int8 /
-// packed int4 with per-channel or group-wise scales, dequantized into the
-// bf16 B tile as _fnm_kernel does (bf16(code) * bf16(scale), rounded to
-// bf16).
+// fusion; only rstd (M floats, M > 16) does. W is dense bf16 or
+// weight-only int8 / packed int4 with per-channel or group-wise scales,
+// dequantized into a bf16 tile in shared memory as _fnm_kernel does
+// (bf16(code) * bf16(scale), rounded to bf16).
 //
 // Numerics follow _pure_rms / _fnm_kernel: rstd = 1 / sqrtf(mean(x32^2) +
 // eps) in f32; bf16(x32 * rstd), times w_norm, rounded to bf16 (the exact
@@ -28,18 +28,19 @@
 //     K13's forward B operand; quantized codes are dequantized into a bf16
 //     B tile first. No split-K: two calls give the same bits
 //     (quant_matmul.quant_tiles and block_n model the walk).
-//   M <= 16 (decode), any W: matmul_small_kernel (matmul_tiles.cuh), bound
-//     by the bytes of W: 16x32 output tiles over >= 128 blocks at N =
-//     4096, the 4 warps split K with no block barrier in the K loop, each
-//     prefetching its next W slice into registers during its MMAs.
+//   M <= 16 (decode), any W: one kernel, skinny_wgmma_kernel
+//     (skinny_tiles.cuh, shared with K4), bound by the bytes of W: a TMA
+//     ring of W slices on every SM, operands swapped (W^T . x^T, no MMA row
+//     of padding), rstd computed in the block in rows_rstd's order while W
+//     streams, K split across a thread-block cluster and summed in rank
+//     order (deterministic).
 //
 // Bound on an H100: at M = 8192, K = 4096, N = 14336 (the train step's
 // gate/up projections) 0.96 TFLOP of bf16 products, 0.97 ms at the 989
 // TFLOP/s peak, against 0.42 GB of bytes (0.12 ms): operations; so at
 // prefill (M = 1024: 0.12 ms at N = 14336). At the batcher's M = 264 the
 // bytes of W bound it (0.038 ms at N = 14336).
-#include "matmul_tiles.cuh"
-#include "wgmma_quant_tiles.cuh"
+#include "skinny_tiles.cuh"
 
 namespace pt {
 namespace k2 {
@@ -50,7 +51,7 @@ __global__ void __launch_bounds__(RSTD_ROWS * 32)
 norm_rstd_kernel(const bf16* __restrict__ x, float* __restrict__ rstd, int M, int K, float eps) {
   __shared__ float r[RSTD_ROWS];
   const int m0 = blockIdx.x * RSTD_ROWS;
-  pt::mm::rows_rstd(x, r, m0, RSTD_ROWS, M, K, eps, RSTD_ROWS);
+  pt::mm::rows_rstd(x, r, m0, RSTD_ROWS, M, K, eps, threadIdx.x / 32, RSTD_ROWS);
   __syncthreads();
   if (threadIdx.x < RSTD_ROWS && m0 + threadIdx.x < M) rstd[m0 + threadIdx.x] = r[threadIdx.x];
 }
@@ -68,18 +69,13 @@ cudaError_t launch_rstd(const void* x, float* rstd, int M, int K, float eps, cud
 using namespace pt::mm;
 
 // x (M, K) bf16, nw (K,) bf16, w (K, N) bf16 row-major, y (M, N) bf16;
-// rstd: M f32 of scratch (written and read when M > 16). Requires K % 128
-// == 0, N % 8 == 0 and 16-byte-aligned x and w (checked by the Python
-// wrapper).
+// rstd: M f32 of scratch when M > 16 (unused, may be null, when M <= 16).
+// Requires K % 128 == 0, N % 8 == 0 and 16-byte-aligned x and w (checked by
+// the Python wrapper).
 PT_EXPORT int pt_norm_matmul(const void* x, const void* nw, const void* w, void* rstd, void* y,
                              int M, int K, int N, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (M <= small::BM) {
-    matmul_small_kernel<true, kBf16, kTile><<<(N + small::BN - 1) / small::BN, small::NT, 0, s>>>(
-        static_cast<const pt::bf16*>(x), static_cast<const pt::bf16*>(nw),
-        static_cast<const unsigned char*>(w), nullptr, static_cast<pt::bf16*>(y), M, K, N, 0, eps);
-    return cudaGetLastError();
-  }
+  if (M <= 16) return pt::sk::launch<true, kBf16, kTile>(x, nw, w, nullptr, y, M, K, N, 0, eps, s);
   auto rp = static_cast<float*>(rstd);
   const cudaError_t err = pt::k2::launch_rstd(x, rp, M, K, eps, s);
   if (err != cudaSuccess) return err;
@@ -96,10 +92,10 @@ PT_EXPORT int pt_norm_matmul_quant(const void* x, const void* nw, const void* co
   auto s = static_cast<cudaStream_t>(stream);
   const int gs = group_size > 0 ? group_size : 0;
   if (wt != kInt8 && wt != kInt4) return cudaErrorInvalidValue;
-  if (M <= small::BM)
+  if (M <= 16)
     return wt == kInt8
-               ? launch_small<true, kInt8, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s)
-               : launch_small<true, kInt4, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s);
+               ? pt::sk::launch<true, kInt8, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s)
+               : pt::sk::launch<true, kInt4, kTile>(x, nw, codes, scales, y, M, K, N, gs, eps, s);
   auto rp = static_cast<float*>(rstd);
   const cudaError_t err = pt::k2::launch_rstd(x, rp, M, K, eps, s);
   if (err != cudaSuccess) return err;

@@ -12,17 +12,19 @@
 // (unpack_int4_tile's rule, sign-extended).
 //
 // One entry point for any M, as K2:
-//   M <= 16 (decode): matmul_small_kernel (matmul_tiles.cuh), 4 warps
-//     splitting K, each prefetching its next code slice into registers;
-//     bound by the bytes of the codes (K*N int8, K*N/2 int4): o_proj 16.8
-//     MB = 5.0 us, down_proj 58.7 MB = 17.5 us at 3.35 TB/s;
+//   M <= 16 (decode): skinny_wgmma_kernel (skinny_tiles.cuh, shared with
+//     K2's M <= 16 forms): a TMA ring of raw code slices on every SM,
+//     dequantized into a bf16 tile that wgmma reads as its A operand
+//     (W^T . x^T), K split across a thread-block cluster and summed in rank
+//     order; bound by the bytes of the codes (K*N int8, K*N/2 int4): o_proj
+//     16.8 MB = 5.0 us, down_proj 58.7 MB = 17.5 us at 3.35 TB/s;
 //   M > 16 (prefill): quant_wgmma_kernel (wgmma_quant_tiles.cuh, shared
 //     with K2's tiled forms): the raw codes ride a TMA ring beside x,
 //     the two consumer warpgroups turn each slice's codes into a bf16 B
 //     tile in shared memory and run wgmma on it, 128 x 256 tiles per
 //     channel, 128 x 128 group-wise (a second accumulator set), on a
 //     persistent banded grid; bound by tensor-core operations (2*M*K*N).
-#include "wgmma_quant_tiles.cuh"
+#include "skinny_tiles.cuh"
 
 using namespace pt::mm;
 
@@ -35,15 +37,13 @@ PT_EXPORT int pt_quant_matmul(const void* x, const void* codes, const void* scal
   auto s = static_cast<cudaStream_t>(stream);
   const int gs = group_size > 0 ? group_size : 0;
   if (wt != kInt8 && wt != kInt4) return cudaErrorInvalidValue;
-  if (M <= small::BM) {
+  if (M <= 16) {
+    using pt::sk::launch;
     if (wt == kInt8)
-      return gs ? launch_small<false, kInt8, kGroup>(x, nullptr, codes, scales, y, M, K, N, gs,
-                                                     0.f, s)
-                : launch_small<false, kInt8, kEnd>(x, nullptr, codes, scales, y, M, K, N, 0, 0.f,
-                                                   s);
-    return gs ? launch_small<false, kInt4, kGroup>(x, nullptr, codes, scales, y, M, K, N, gs, 0.f,
-                                                   s)
-              : launch_small<false, kInt4, kEnd>(x, nullptr, codes, scales, y, M, K, N, 0, 0.f, s);
+      return gs ? launch<false, kInt8, kGroup>(x, nullptr, codes, scales, y, M, K, N, gs, 0.f, s)
+                : launch<false, kInt8, kEnd>(x, nullptr, codes, scales, y, M, K, N, 0, 0.f, s);
+    return gs ? launch<false, kInt4, kGroup>(x, nullptr, codes, scales, y, M, K, N, gs, 0.f, s)
+              : launch<false, kInt4, kEnd>(x, nullptr, codes, scales, y, M, K, N, 0, 0.f, s);
   }
   using pt::wq::launch;
   if (wt == kInt8)
@@ -64,4 +64,13 @@ PT_EXPORT int pt_quant_matmul_items(int M, int K, int N, int block_n, void* out,
   pt::wq::items_kernel<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       M, N, block_n, pt::wq::band_for(K), n, static_cast<int*>(out));
   return cudaGetLastError();
+}
+
+// The small-M body's walk (M <= 16, every form) as its CTAs decode it, for
+// the plan this card gets: out holds tiles * 8 rows of 4 int32 (tiles =
+// ceil(N / 64)); row tile * cs + rank = (CTA, its step at that tile, first
+// slice, end slice) of 128 k-rows, rows past tiles * cs untouched (the card
+// tests hold it to quant_matmul.small_items).
+PT_EXPORT int pt_small_matmul_items(int K, int N, void* out, void* stream) {
+  return pt::sk::items(K, N, static_cast<int*>(out), static_cast<cudaStream_t>(stream));
 }

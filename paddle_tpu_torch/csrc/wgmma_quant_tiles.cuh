@@ -30,9 +30,10 @@
 //      TMA would have written for a dense W: each of the 256 threads turns
 //      8-byte pieces of codes into 16-byte bf16 vectors with integer ops
 //      (the byte placed under a float's exponent, then one subtraction:
-//      exact), nibbles sign-extended as matmul_tiles.cuh put_w does; kTile
-//      also multiplies by the column's scale there (_fnm_kernel's rule:
-//      bf16(code) * bf16(scale), rounded to bf16 once);
+//      exact), nibbles sign-extended (a code byte's low nibble is k-row 2i,
+//      its high nibble k-row 2i + 1); kTile also multiplies by the
+//      column's scale there (_fnm_kernel's rule: bf16(code) * bf16(scale),
+//      rounded to bf16 once);
 //   3. wait on the normed barrier (NORM); quantized: fence the B tile's
 //      writes to the async proxy and meet at one named barrier of the 256
 //      consumer threads (both read the same B tile);
@@ -163,29 +164,34 @@ __device__ __forceinline__ uint4 codes8(uint32_t w0, uint32_t w1, float bias, co
   return o;
 }
 
+// The f32 scales of columns [n, n + 8) in scale row srow, rounded to bf16
+// as the dequant rule reads them, as 4 bf16x2 words (zeros past N)
+__device__ __forceinline__ void scales8(uint32_t (&s)[4], const float* __restrict__ scales,
+                                        int srow, int n, int N) {
+  float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (n < N) {
+    const float4* p = reinterpret_cast<const float4*>(scales + (size_t)srow * N + n);
+    const float4 a = __ldg(p), b = __ldg(p + 1);
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z,
+    f[7] = b.w;
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * p], f[2 * p + 1]);
+    s[p] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
 // The 16 columns whose codes consumer thread t converts: 8 at
-// cb * 128 + (t % 16) * 8 for each code box cb. Their scales in scale row
-// srow, rounded to bf16 as the dequant rule reads them (zeros past N).
+// cb * 128 + (t % 16) * 8 for each code box cb, their scales in scale row
+// srow (scales8)
 template <class G>
 __device__ __forceinline__ void tile_scales(uint32_t (&s)[G::CODE_BOXES][4],
                                             const float* __restrict__ scales, int srow, int n0,
                                             int N, int t) {
 #pragma unroll
-  for (int cb = 0; cb < G::CODE_BOXES; ++cb) {
-    const int n = n0 + cb * 128 + (t % 16) * 8;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (n < N) {
-      const float4* p = reinterpret_cast<const float4*>(scales + (size_t)srow * N + n);
-      const float4 a = __ldg(p), b = __ldg(p + 1);
-      f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z,
-      f[7] = b.w;
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * p], f[2 * p + 1]);
-      s[cb][p] = *reinterpret_cast<const uint32_t*>(&v);
-    }
-  }
+  for (int cb = 0; cb < G::CODE_BOXES; ++cb)
+    scales8(s[cb], scales, srow, n0 + cb * 128 + (t % 16) * 8, N);
 }
 
 // One slice's codes (the stage's byte boxes) into the bf16 B tile bt.
@@ -479,16 +485,18 @@ __global__ void items_kernel(int M, int N, int BN, int band, int n, int* out) {
 // ---- host side ---------------------------------------------------------------
 
 // A map over a row-major (rows, cols) byte array cut into unswizzled boxes
-// of 128 columns x box_rows; bytes past an edge read as zeros. base must
-// be 16-byte aligned and cols a multiple of 16.
-inline cudaError_t u8_map(CUtensorMap* map, const void* base, int cols, int rows, int box_rows) {
+// of box_cols (a multiple of 16, <= 256) columns x box_rows; bytes past an
+// edge read as zeros. base must be 16-byte aligned and cols a multiple of
+// 16.
+inline cudaError_t u8_map(CUtensorMap* map, const void* base, int cols, int rows, int box_rows,
+                          int box_cols = 128) {
   const wg::EncodeTiled fn = wg::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cudaError_t err = wg::bind_context();
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t ones[2] = {1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, ones,

@@ -14,7 +14,12 @@ walk ``quant_matmul.quant_tiles`` models at the width
 from the ring; a weight-only ``QuantizedWeight`` (int8 or packed int4,
 per-channel or group-wise scales) is dequantized in shared memory exactly
 as ``_fnm_kernel`` does it, bf16(code) * bf16(scale) rounded to bf16,
-before the bf16 products. With M <= 16 one small-M kernel does both.
+before the bf16 products. With M <= 16 (decode) one kernel does both, the
+small-M body of ``csrc/skinny_tiles.cuh`` (shared with K4): a TMA ring
+streams W on every SM as the ``wgmma``'s A operand (W^T . x^T), rstd is
+computed inside it, and K is split across a thread-block cluster whose
+partials are summed in rank order (``quant_matmul.small_plan`` and
+``small_items`` model the walk); no rstd scratch.
 
 On CPU tensors ``fused_norm_matmul_pure`` runs the unfused chain
 (``_reference``); on CUDA tensors it launches K2 or raises.
@@ -34,7 +39,8 @@ import math
 import torch
 
 from . import _build
-from .quant_matmul import WEIGHT_TYPES, QuantizedWeight, check_quantized
+from .quant_matmul import (SMALL_MAX_M, WEIGHT_TYPES, QuantizedWeight,
+                           check_quantized)
 
 #: K2 launches since the last reset (incremented only where it launches)
 launches = 0
@@ -72,16 +78,20 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
         _build.check_cuda("w", w, torch.bfloat16)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
-        rstd = torch.empty((m,), dtype=torch.float32, device=x.device)
+        # rstd scratch for the tiled body (M > 16); the small-M body keeps
+        # rstd in shared memory
+        scratch = (torch.empty((m,), dtype=torch.float32, device=x.device)
+                   if m > SMALL_MAX_M else None)
+        rstd = 0 if scratch is None else scratch.data_ptr()
         if quantized:
             _build.launch("pt_norm_matmul_quant", x2.data_ptr(),
                           norm_w.data_ptr(), w.codes.data_ptr(),
-                          w.scales.data_ptr(), rstd.data_ptr(), y.data_ptr(),
+                          w.scales.data_ptr(), rstd, y.data_ptr(),
                           m, kdim, n, WEIGHT_TYPES[w.weight_dtype],
                           w.group_size, float(eps), _build.stream_of(x))
         else:
             _build.launch("pt_norm_matmul", x2.data_ptr(), norm_w.data_ptr(),
-                          w.data_ptr(), rstd.data_ptr(), y.data_ptr(), m,
+                          w.data_ptr(), rstd, y.data_ptr(), m,
                           kdim, n, float(eps), _build.stream_of(x))
         launches += 1
     return y.reshape(x.shape[:-1] + (n,))

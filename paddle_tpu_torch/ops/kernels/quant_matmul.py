@@ -6,11 +6,16 @@ with the codes kept packed all the way into shared memory. As on the TPU,
 the raw codes (exact in bf16) meet x in the tensor cores with f32
 accumulation; a per-channel scale multiplies the sum once at the end, a
 group-wise scale multiplies each K-group's partial sum. One entry point
-takes any M: a small-M kernel for decode (M <= 16), and for prefill the
-Hopper body of ``csrc/wgmma_quant_tiles.cuh`` (shared with K2's tiled
-forms): the codes ride a TMA ring and become a bf16 tile in shared memory
-before the ``wgmma``s, on a persistent grid of one block an SM whose walk
-over the output tiles ``quant_tiles`` models.
+takes any M. For decode (M <= 16) the small-M body of
+``csrc/skinny_tiles.cuh`` (shared with K2's M <= 16 forms): the raw codes
+stream through a TMA ring on every SM and become a bf16 tile that
+``wgmma`` reads as its A operand (W^T . x^T); K is split across a
+thread-block cluster and the partials summed in rank order, on the grid
+``small_plan`` gives and ``small_items`` models. For prefill the Hopper
+body of ``csrc/wgmma_quant_tiles.cuh`` (shared with K2's tiled forms): the
+codes ride a TMA ring and become a bf16 tile in shared memory before the
+``wgmma``s, on a persistent grid of one block an SM whose walk over the
+output tiles ``quant_tiles`` models.
 
 Layout (the JAX package's): codes int8 (K, N), or nibble-packed int8
 (ceil(K/2), N) for int4 (byte i: row 2i low nibble, row 2i+1 high nibble);
@@ -32,6 +37,10 @@ from .grouped_matmul import H100_SMS, _band, _swizzle
 
 #: the tiled body's block tile rows (``csrc/wgmma_quant_tiles.cuh`` BM)
 TILE_M = 128
+
+#: the largest M the small-M body takes, its output tile width and ring
+#: slice depth, and its largest cluster (``csrc/skinny_tiles.cuh``)
+SMALL_MAX_M, SMALL_BN, SMALL_BK, SMALL_MAX_CS = 16, 64, 128, 8
 
 #: K4 launches since the last reset (incremented only where it launches)
 launches = 0
@@ -90,6 +99,37 @@ def block_n(m, n, group_size=-1, fused_norm=False, sms=H100_SMS):
     if group_size > 0 and not fused_norm:
         return 128
     return 128 if 2 * -(-m // TILE_M) * -(-n // 256) <= sms else 256
+
+
+def small_plan(kdim, n, sms=H100_SMS):
+    """The small-M body's grid (``plan_for`` in ``csrc/skinny_tiles.cuh``),
+    one rule for every form and every M <= 16: (cluster size, CTAs). T =
+    ceil(N / 64) output tiles; the cluster size is the least power of two
+    (at most 8, and at most K / 128 slices) whose T x cs CTAs cover 7/8 of
+    the SMs; where T x cs would exceed two CTAs an SM, a persistent grid
+    of 2 x SMs CTAs (cs is then 1)."""
+    tiles, slices = -(-n // SMALL_BN), kdim // SMALL_BK
+    cs = 1
+    while cs < SMALL_MAX_CS and 2 * cs <= slices and 8 * tiles * cs < 7 * sms:
+        cs *= 2
+    return cs, (2 * sms if tiles * cs > 2 * sms else tiles * cs)
+
+
+def small_items(kdim, n, sms=H100_SMS):
+    """The small-M body's work as its CTAs decode it (``items_kernel``):
+    row ``tile * cs + rank`` is (CTA, its step at that tile, first slice,
+    end slice), slices of ``SMALL_BK`` k-rows. Cluster c = CTA // cs takes
+    tiles c, c + grid / cs, ...; rank r = CTA % cs takes the contiguous
+    slices S r / cs .. S (r + 1) / cs of the S = K / 128."""
+    cs, grid = small_plan(kdim, n, sms)
+    tiles, slices = -(-n // SMALL_BN), kdim // SMALL_BK
+    rows = [None] * (tiles * cs)
+    for b in range(grid):
+        rank, clusters = b % cs, grid // cs
+        for step, tile in enumerate(range(b // cs, tiles, clusters)):
+            rows[tile * cs + rank] = (b, step, slices * rank // cs,
+                                      slices * (rank + 1) // cs)
+    return rows
 
 
 def quant_tiles(m, kdim, n, bn):

@@ -3,6 +3,7 @@
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --batcher [--rounds R]
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --decode [--rounds R]
 
 Each tree is the root of a checkout (the directory that holds
 ``paddle_tpu_torch/``), e.g. the parent commit unpacked with ``git
@@ -12,13 +13,17 @@ child puts its tree first on ``sys.path``, builds that tree's kernels
 into the tree's own ``build/`` and times, on the same seeded inputs,
 
   * K2's dense path (``fused_norm_matmul_pure``) at ``chip_smoke.py``'s
-    phase-3 shapes: M = 8 (the decode kernel) at N = 14336, and the tiled
-    path at M = 264 (a batcher wave), 1024 (a solo prefill) and 8192 (a
-    train step) against N = 1024 (k/v), 4096 (q) and 14336 (gate/up), K =
-    4096; and the host time of one K2 call at M = 264 (``host_us``: the
-    wrapper, the tensor-map encodes and the launches, enqueued behind a
-    spin kernel: the median of 5 means of 100 calls);
-  * the weight-only int8 (per channel) forms at the int8 prefill's
+    phase-3 shapes: M = 8 (the decode body) at N = 1024 (k/v), 4096 (q),
+    14336 (gate/up) and 128256 (the LM head), and the tiled path at M =
+    264 (a batcher wave), 1024 (a solo prefill) and 8192 (a train step)
+    against N = 1024, 4096 and 14336, K = 4096; and the host time of one
+    K2 call at M = 264 and at M = 8 (N = 1024 and 14336), and of one K4
+    call at M = 8 (down_proj) (``host_us``: the wrapper, the tensor-map
+    encodes and the launches, enqueued behind a spin kernel: the median
+    of 5 means of 100 calls);
+  * the weight-only forms of decode (M = 8): K2 int8 at the four K2
+    widths, K4 int8 at o_proj and down_proj and int4 group 128 at
+    down_proj; and the int8 (per channel) forms at the int8 prefill's
     shapes, M = 1024: K4 (``quant_matmul_qw``) for o_proj and down_proj,
     K2 (``fused_norm_matmul_pure`` on a ``QuantizedWeight``) for gate/up,
     q and k/v;
@@ -32,9 +37,13 @@ a spin kernel holding the stream while the host enqueues (as
 serves ``chip_smoke.py``'s phase-6 requests through the continuous batcher
 (Llama-3-8B, random bf16 weights, fused and unfused attention) and reads
 the untraced wall seconds of each plan (median of 3 runs after a
-warm-up). It prints one JSON line per turn, then a summary line: each
-key's median over the turns of each tree, and new over old. Needs one
-CUDA card and the CUDA toolkit.
+warm-up). With ``--decode`` each turn runs phases 4 and 5's solo serving
+(Llama-3-8B, B = 8, prompt 128, 32 new tokens; bf16, then the model
+quantized to int8 weights with an int8 cache at page 32) and reads the
+untraced decode ms per step: the median of 3 full rollouts less the
+median of 3 prefills, over the 31 steps. It prints one JSON line per turn,
+then a summary line: each key's median over the turns of each tree, and
+new over old. Needs one CUDA card and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -44,21 +53,29 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 #: rows per expert of chip_smoke.py's phase 10 (one empty, one with 30%)
 MOE_COUNTS = (1843, 0, 4915, 2011, 1777, 2049, 1901, 1888)
-K2_SHAPES = [(8, 4096, 14336)] + [(m, 4096, n) for m in (264, 1024, 8192)
-                                  for n in (1024, 4096, 14336)]
+K2_SHAPES = [(8, 4096, n) for n in (1024, 4096, 14336, 128256)] + [
+    (m, 4096, n) for m in (264, 1024, 8192) for n in (1024, 4096, 14336)]
 #: (M, N) of the K2 calls whose host time is read (K = 4096)
-K2_HOST = [(264, 14336), (264, 1024)]
+K2_HOST = [(264, 14336), (264, 1024), (8, 14336), (8, 1024)]
 GMM_FORMS = [("grouped_matmul", 4096, 14336, False),
              ("grouped_matmul_down", 14336, 4096, False),
              ("grouped_matmul_dx", 14336, 4096, True)]
 SDW_FORMS = [("segment_dw", 4096, 14336), ("segment_dw_down", 14336, 4096)]
-#: (kernel, M, K, N) of the int8 prefill's weight-only products
-QUANT_SHAPES = [("K4", 1024, 4096, 4096), ("K4", 1024, 14336, 4096),
-                ("K2", 1024, 4096, 14336), ("K2", 1024, 4096, 4096),
-                ("K2", 1024, 4096, 1024)]
+#: (kernel, M, K, N, weight type, group size) of the weight-only products
+#: of decode (M = 8) and of the int8 prefill (M = 1024)
+QUANT_SHAPES = [("K2", 8, 4096, n, "int8", -1) for n in (1024, 4096, 14336,
+                                                          128256)] + [
+    ("K4", 8, 4096, 4096, "int8", -1), ("K4", 8, 14336, 4096, "int8", -1),
+    ("K4", 8, 14336, 4096, "int4", 128),
+    ("K4", 1024, 4096, 4096, "int8", -1), ("K4", 1024, 14336, 4096, "int8", -1),
+    ("K2", 1024, 4096, 14336, "int8", -1), ("K2", 1024, 4096, 4096, "int8", -1),
+    ("K2", 1024, 4096, 1024, "int8", -1)]
+#: the K4 call whose host time is read: decode's down_proj
+K4_HOST = (8, 14336, 4096)
 
 
 def _cold_ms(torch, flush, fn, iters=20, warmup=2):
@@ -82,8 +99,6 @@ def _host_us(torch, fn, calls=100, reps=5):
     """Host microseconds a call takes to enqueue: the median over ``reps``
     runs of the mean of ``calls`` calls, each run behind a spin kernel
     long enough that the card never drains the queue."""
-    import time
-
     fn()
     torch.cuda.synchronize()
     runs = []
@@ -98,8 +113,6 @@ def _host_us(torch, fn, calls=100, reps=5):
 
 
 def child_batcher() -> None:
-    import time
-
     import chip_smoke as cs
     import torch
     from paddle_tpu_torch.framework import flags
@@ -128,6 +141,43 @@ def child_batcher() -> None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         out[f"batcher {label} wall_s"] = statistics.median(walls[1:])
+    print(json.dumps(out), flush=True)
+
+
+def child_decode() -> None:
+    import chip_smoke as cs
+    import torch
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               quantize_for_inference)
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
+
+    _build.build()
+    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=cs.SEED)
+    ids = cs.prompt_ids(torch, cfg)
+
+    def step_ms(**kw):
+        def run(n_new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate_paged(ids, max_new_tokens=n_new, **kw)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        run(cs.NEW)  # warm-up at the full length
+        total = statistics.median(run(cs.NEW) for _ in range(cs.ROLLOUTS))
+        prefill = statistics.median(run(1) for _ in range(cs.ROLLOUTS))
+        return (total - prefill) / (cs.NEW - 1)
+
+    out = {"decode bf16 ms/step": step_ms(page_size=cs.PAGE)}
+    qparams = quantize_for_inference(model)   # as phase 5: codes only
+    for name, p in model.named_parameters():
+        if isinstance(qparams[name], QuantizedWeight):
+            p.data = p.data.new_empty(0)
+    torch.cuda.empty_cache()
+    out["decode int8w+int8kv ms/step"] = step_ms(
+        page_size=cs.PAGE_INT8, params=qparams, cache_dtype="int8")
     print(json.dumps(out), flush=True)
 
 
@@ -162,17 +212,21 @@ def child() -> None:
                 out[f"K2 host_us M{m} K{kdim} N{n}"] = _host_us(
                     torch, lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
             del x, w
-        for kind, m, kdim, n in QUANT_SHAPES:
+        for kind, m, kdim, n, wd, gs in QUANT_SHAPES:
             x = rnd(m, kdim)
             codes, scales = _weight_quantize_pure(
-                rnd(kdim, n, scale=kdim ** -0.5).float(), "weight_only_int8",
-                -1)
-            qw = k4.QuantizedWeight(codes, scales, "int8", -1, (kdim, n))
+                rnd(kdim, n, scale=kdim ** -0.5).float(),
+                f"weight_only_{wd}", gs)
+            qw = k4.QuantizedWeight(codes, scales, wd, gs, (kdim, n))
             nw = (torch.rand((kdim,), generator=g, device="cuda")
                   + 0.5).to(torch.bfloat16)
             fn = ((lambda: k4.quant_matmul_qw(x, qw)) if kind == "K4" else
                   (lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)))
-            out[f"{kind} int8 M{m} K{kdim} N{n}"] = _cold_ms(torch, flush, fn)
+            form = wd if gs < 0 else f"{wd} g{gs}"
+            out[f"{kind} {form} M{m} K{kdim} N{n}"] = _cold_ms(torch, flush,
+                                                             fn)
+            if kind == "K4" and (m, kdim, n) == K4_HOST and gs < 0:
+                out[f"K4 host_us M{m} K{kdim} N{n}"] = _host_us(torch, fn)
             del x, qw
         off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
                            dtype=torch.int32, device="cuda")
@@ -195,15 +249,20 @@ def child() -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--child"]:
-        child_batcher() if "--batcher" in args else child()
+        if "--batcher" in args:
+            child_batcher()
+        elif "--decode" in args:
+            child_decode()
+        else:
+            child()
         return 0
     rounds = 1
     if "--rounds" in args:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
-    mode = ["--batcher"] if "--batcher" in args else []
-    args = [a for a in args if a != "--batcher"]
+    mode = [a for a in args if a in ("--batcher", "--decode")]
+    args = [a for a in args if a not in ("--batcher", "--decode")]
     old, new = (os.path.abspath(a) for a in args)
     runs = {old: [], new: []}
     for _ in range(rounds):

@@ -14,12 +14,16 @@ lengths, Sk > Sq, every GQA group size the kernels take, a cache position
 on a page boundary and at the capacity's last cell, and the wrappers'
 refusals (a kernel's wrapper, and the fusion executor when a flag turns
 a fusion off). The weight-only forms (K4, K2 with int8/int4 weights, K3
-on an int8 cache) run at M = 1, 8, 17, 300 and 1024, per channel and
-group-wise, at pages 16 and 32 and lengths 0 and on page boundaries; the
-tiled (M > 16) form of K2 and K4 also with M, N and K all off its tiles
-(K wrapping its ring several times), two calls bitwise equal in every form,
-from a fresh thread, and with the tiles its blocks decode equal to
-``quant_matmul.quant_tiles``. Tolerances as in
+on an int8 cache) run at M = 1, 5, 8, 9, 16, 17, 300 and 1024, per channel
+and group-wise, at pages 16 and 32 and lengths 0 and on page boundaries;
+the small-M body (M <= 16, K2 dense and quantized, K4) at M in both MMA
+buckets, N off its 64-wide tile and at the decode widths, and K of one
+slice, 4096 and 14336 (K split over clusters of up to 8 ranks); the tiled
+(M > 16) form of K2 and K4 also with M, N and K all off its tiles (K
+wrapping its ring several times); both bodies two calls bitwise equal in
+every form, from a fresh thread, and with the work their CTAs decode
+equal to the Python model (``quant_matmul.quant_tiles``,
+``quant_matmul.small_items``). Tolerances as in
 chip_smoke.py: one bf16 output rounding plus f32 summation-order
 differences (K4: ``quant_matmul.tolerance``, derived from the inputs);
 pool cells bit-exact, int8 codes within 1 with the differing ones counted.
@@ -206,10 +210,19 @@ def test_flash_attention_fwd_is_deterministic(gen, pads):
         assert all(torch.equal(a, c) for a, c in zip(first, again))
 
 
-@pytest.mark.parametrize("m,kdim,n", [(1, 128, 8), (5, 256, 40),
-                                      (16, 512, 1000), (17, 384, 264),
-                                      (300, 1024, 520)])
+#: the small-M body's edges: M in both MMA buckets (n8: 1, 5, 8; n16: 9,
+#: 16), N off its 64-wide tile (8, 40, 1000) and the decode widths, K of
+#: one slice (cs 1), 4096 (cs 8 at N <= 1024) and K4's down_proj 14336
+_SMALL_M = [(m, kdim, n) for m in (1, 5, 8, 9, 16)
+            for n in (8, 40, 1000, 1024, 4096) for kdim in (128, 4096, 14336)]
+
+
+@pytest.mark.parametrize("m,kdim,n", [(5, 256, 40), (16, 512, 1000),
+                                      (17, 384, 264), (300, 1024, 520)]
+                         + _SMALL_M)
 def test_norm_matmul_matches_plain(gen, m, kdim, n):
+    """K2 dense against the plain chain; two calls give the same bits (the
+    small-M body's split-K sums its ranks in a fixed order)."""
     x = _randn(gen, m, kdim)
     nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
         torch.bfloat16)
@@ -218,6 +231,7 @@ def test_norm_matmul_matches_plain(gen, m, kdim, n):
     ref = k2._reference(x, nw, 1e-5, w)
     diff = (y.float() - ref.float()).abs()
     assert bool((diff <= 2e-2 + 1e-2 * ref.float().abs()).all())
+    assert torch.equal(y, k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
 
 
 @pytest.mark.parametrize("n", [520, 1000, 1024, 4096, 14336])
@@ -316,8 +330,13 @@ _QUANT = [("weight_only_int8", -1), ("weight_only_int8", 128),
 #: M, K and N all off the tiled body's 128 x 256 (128) x 64 tiles, K
 #: wrapping its 4-stage ring four and a half times
 _OFF_TILE = (300, 1152, 784)
-_QUANT_SHAPES = [(1, 128, 16), (8, 512, 4096), (17, 384, 272),
-                 (1024, 1024, 528), _OFF_TILE]
+#: the small-M body's edges as in ``_SMALL_M``, N rounded up to the codes'
+#: multiple of 16 (8 -> 16, 40 -> 48, 1000 -> 1008)
+_SMALL_QUANT = [(m, kdim, -(-n // 16) * 16) for m, kdim, n in _SMALL_M]
+_QUANT_SHAPES = [(8, 512, 4096), (17, 384, 272), (1024, 1024, 528),
+                 _OFF_TILE] + _SMALL_QUANT
+#: the small-M body with K split over a cluster of 8 ranks and the n16 bucket
+_SMALL_SPLIT = (9, 14336, 1008)
 
 
 @pytest.mark.parametrize("algo,gs", _QUANT)
@@ -360,13 +379,15 @@ def _quant_forms(gen, algo, gs, shape=_OFF_TILE):
             "K2": lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)}
 
 
+@pytest.mark.parametrize("shape", [_OFF_TILE, _SMALL_SPLIT])
 @pytest.mark.parametrize("kernel", ["K4", "K2"])
 @pytest.mark.parametrize("algo,gs", _QUANT + [("weight_only_int8", 64),
                                               ("weight_only_int4", 128)])
-def test_quant_tiled_forms_are_deterministic(gen, kernel, algo, gs):
-    """The tiled body has no split-K and no atomics: two calls give the
+def test_quant_tiled_forms_are_deterministic(gen, kernel, algo, gs, shape):
+    """Neither body uses atomics: the tiled one has no split-K, the small-M
+    one sums its cluster ranks' partials in rank order. Two calls give the
     same bits in every form."""
-    fn = _quant_forms(gen, algo, gs)[kernel]
+    fn = _quant_forms(gen, algo, gs, shape)[kernel]
     a, b = fn(), fn()
     torch.cuda.synchronize()
     assert torch.equal(a, b)
@@ -374,19 +395,22 @@ def test_quant_tiled_forms_are_deterministic(gen, kernel, algo, gs):
 
 def test_quant_tiled_forms_launch_from_a_fresh_thread(gen):
     """The first launch of a thread binds the context the tensor maps need:
-    each form from a new thread matches the same call from this one, K2's
-    dense tiled form too."""
+    each form of both bodies (tiled and small-M) from a new thread matches
+    the same call from this one, K2's dense forms too."""
     import threading
 
-    m, kdim, n = _OFF_TILE
-    x = _randn(gen, m, kdim)
-    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
-        torch.bfloat16)
-    w = _randn(gen, kdim, n, scale=1 / math.sqrt(kdim))
-    forms = [("K2 dense", None,
-              lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))]
-    forms += [(kernel, (algo, gs), fn) for algo, gs in _QUANT
-              for kernel, fn in _quant_forms(gen, algo, gs).items()]
+    forms = []
+    for shape in (_OFF_TILE, _SMALL_SPLIT):  # the tiled and small-M bodies
+        m, kdim, n = shape
+        x = _randn(gen, m, kdim)
+        nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+            torch.bfloat16)
+        w = _randn(gen, kdim, n, scale=1 / math.sqrt(kdim))
+        forms.append(("K2 dense", shape, lambda x=x, nw=nw, w=w:
+                      k2.fused_norm_matmul_pure(x, nw, 1e-5, w)))
+        forms += [(kernel, (algo, gs, shape), fn) for algo, gs in _QUANT
+                  for kernel, fn in _quant_forms(gen, algo, gs,
+                                                 shape).items()]
     for kernel, quant, fn in forms:
         got = []
         worker = threading.Thread(target=lambda: got.append(fn()))
@@ -415,6 +439,28 @@ def test_norm_matmul_tiles_on_the_card_match_the_model(gen, m, kdim, n):
     _build.launch("pt_quant_matmul_items", m, kdim, n, bn, out.data_ptr(),
                   _build.stream_of(out))
     assert out.cpu().tolist() == [list(t) for t in want]
+
+
+@pytest.mark.parametrize("kdim,n", [
+    (4096, 1024), (4096, 4096), (4096, 14336), (4096, 128256),
+    (14336, 4096), (128, 8), (128, 40), (4096, 1000), (14336, 1008)])
+def test_small_items_on_the_card_match_the_model(gen, kdim, n):
+    """The small-M body's work as its CTAs decode it for this card's plan
+    (each (tile, rank): CTA, step, slice range) is
+    ``quant_matmul.small_items``' at the card's SM count, at the decode
+    widths of K2 and K4 and off the tile."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    want = k4.small_items(kdim, n, torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    tiles = -(-n // k4.SMALL_BN)
+    out = torch.full((tiles * k4.SMALL_MAX_CS, 4), -1, dtype=torch.int32,
+                     device="cuda")
+    _build.launch("pt_small_matmul_items", kdim, n, out.data_ptr(),
+                  _build.stream_of(out))
+    got = out.cpu().tolist()
+    assert got[:len(want)] == [list(r) for r in want]
+    assert all(r == [-1] * 4 for r in got[len(want):])
 
 
 @pytest.mark.parametrize("m,kdim,n,gs,fused_norm", [

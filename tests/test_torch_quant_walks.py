@@ -12,9 +12,28 @@ the tiles, and at grids smaller than the 132 SMs:
   * the tiles come band after band of ``_band(K)`` row tiles, the row
     tiles of a band fastest, then the column tiles;
   * the persistent blocks take every tile once, min(tiles, SMs) blocks.
+
+``quant_matmul.small_plan`` and ``small_items`` do the same for the
+small-M body (M <= 16: ``csrc/skinny_tiles.cuh``): the cluster size and
+CTAs of its one rule, and the (output tile, cluster rank) items its CTAs
+decode; the card test ``test_small_items_on_the_card_match_the_model``
+holds the kernel to them. Here, at the decode widths of K2 and K4, at N
+off the 64-wide tile and at K of one and of a few slices, for M = 1, 8
+and 16 and per-channel and group-wise (64, 128) scales:
+
+  * every (tile, rank) is one item, and a tile's ranks cover its K once,
+    in rank order;
+  * every K range is whole 128-row slices and whole scale groups;
+  * CTA b is rank b % cs of cluster b // cs, which takes tiles b // cs,
+    b // cs + grid / cs, ...;
+  * the cluster is the least that covers 7/8 of the SMs, and the grid
+    turns persistent (cs 1, two CTAs an SM) only past two CTAs an SM;
+  * the grid covers 7/8 of the SMs at every main-path width.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import pytest
@@ -80,3 +99,76 @@ def test_quant_tile_walk(check, m, kdim, n, bn, sms):
     (17, 784, -1, False, 128)])
 def test_quant_block_n_fills_the_card(m, n, gs, fused_norm, want):
     assert qm.block_n(m, n, gs, fused_norm) == want
+
+
+# ---- the small-M body (M <= 16: csrc/skinny_tiles.cuh) ----------------------
+
+#: (K, N): the decode step's K2 widths (k/v, q, gate/up, the LM head) and
+#: K4's o_proj and down_proj, N off the 64-wide tile (8, 40, 1000), K of
+#: one slice and of a few
+_SMALL_SHAPES = [(4096, 1024), (4096, 4096), (4096, 14336), (4096, 128256),
+                 (14336, 4096), (128, 8), (128, 40), (4096, 1000),
+                 (384, 40), (1152, 1000)]
+#: the main paths' widths, whose grids must cover the card
+_SMALL_MAIN = {(4096, 1024), (4096, 4096), (4096, 14336), (4096, 128256),
+               (14336, 4096)}
+_SMALL_CHECKS = ["each tile's K once", "whole slices and groups",
+                 "walk order", "the least cluster", "covers the SMs"]
+
+
+@pytest.mark.parametrize("gs", [-1, 64, 128])
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("kdim,n", _SMALL_SHAPES)
+@pytest.mark.parametrize("check", _SMALL_CHECKS)
+def test_small_walk(check, kdim, n, m, gs):
+    """The small-M body's plan and walk (``small_plan``, ``small_items``),
+    by their definitions: one rule for every M <= 16 and scale form."""
+    assert 1 <= m <= qm.SMALL_MAX_M
+    cs, grid = qm.small_plan(kdim, n)
+    rows = qm.small_items(kdim, n)
+    tiles, slices = -(-n // qm.SMALL_BN), kdim // qm.SMALL_BK
+    assert len(rows) == tiles * cs and None not in rows
+    assert cs in (1, 2, 4, 8) and cs <= slices and grid % cs == 0
+    if check == "each tile's K once":
+        # each (tile, rank) once, and a tile's ranks cover K once, in order
+        assert sorted((r[0], r[1]) for r in rows) == sorted(set(
+            (r[0], r[1]) for r in rows))
+        for tile in range(tiles):
+            cover = np.zeros(slices, dtype=np.int32)
+            ranges = [rows[tile * cs + rank][2:] for rank in range(cs)]
+            for lo, hi in ranges:
+                assert lo < hi
+                cover[lo:hi] += 1
+            assert (cover == 1).all()
+            assert [lo for lo, _ in ranges] == sorted(lo for lo, _ in ranges)
+    elif check == "whole slices and groups":
+        for _, _, lo, hi in rows:
+            assert 0 <= lo < hi <= slices
+            if gs > 0:
+                assert (lo * qm.SMALL_BK) % gs == 0
+                assert (hi * qm.SMALL_BK) % gs == 0
+    elif check == "walk order":
+        # CTA b: cluster b // cs, rank b % cs, tiles b // cs + j * grid / cs
+        for tile in range(tiles):
+            for rank in range(cs):
+                b, step, lo, hi = rows[tile * cs + rank]
+                assert b % cs == rank and b < grid
+                assert tile == b // cs + step * (grid // cs)
+                assert (lo, hi) == (slices * rank // cs,
+                                    slices * (rank + 1) // cs)
+    elif check == "the least cluster":
+        if cs > 1:  # half the cluster would not cover 7/8 of the SMs
+            assert 8 * tiles * (cs // 2) < 7 * gm.H100_SMS
+        if cs < 8 and 2 * cs <= slices:
+            assert 8 * tiles * cs >= 7 * gm.H100_SMS
+        if grid < tiles * cs:  # persistent: cs 1, two CTAs an SM, each
+            # taking ceil(T / grid) tiles or one fewer
+            assert cs == 1 and grid == 2 * gm.H100_SMS
+            taken = collections.Counter(r[0] for r in rows)
+            assert len(taken) == grid
+            assert max(taken.values()) == -(-tiles // grid)
+            assert min(taken.values()) == tiles // grid
+    else:
+        assert grid <= 2 * gm.H100_SMS
+        if (kdim, n) in _SMALL_MAIN:
+            assert 8 * grid >= 7 * gm.H100_SMS
