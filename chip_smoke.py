@@ -32,7 +32,14 @@ class, device busy share). Phases, in order; any failure raises and the process 
                continuous batcher's kernels on its mixed wave (T = 264
                rows: two prefill chunks, decode rows at lengths 97-600,
                an idle slot, padding rows): K11, K3's ragged form, K10
-               and K3's masked decode form.
+               and K3's masked decode form. The page walk's forms (K3
+               decode bf16, int8, masked; K10) also log their plan
+               (cluster size, CTAs, pages a CTA), check the (rank, page
+               range) items their CTAs decode on the card against
+               ``paged_attention.walk_items`` and two calls bitwise
+               equal, and run a fault control that must fail the
+               attention rule: the split walk's plain model
+               (``split_walk_reference``) without its last range.
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -398,6 +405,12 @@ def check_rope_attend(torch, timer, k3, kv_cache, rope_tables):
     pool_diff = int((ck.k_pages != cp.k_pages).sum()
                     + (ck.v_pages != cp.v_pages).sum())
     assert pool_diff == 0, f"{pool_diff} pool cells differ"
+    row = {"name": "rope_append_attend_decode"}
+    walk = _walk_checks(
+        torch, row, _decode_walk(kv_cache, (q, k, v, cos, sin), cp, layer,
+                                 lens + 1), ref,
+        lambda: k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck,
+                                                   layer)[:1])
     ms = timer(lambda: k3.fused_rope_append_attend_decode(
         q, k, v, cos, sin, ck, layer))
     plain = timer(lambda: k3.decode_reference(q, k, v, cos, sin, cp, layer,
@@ -413,8 +426,8 @@ def check_rope_attend(torch, timer, k3, kv_cache, rope_tables):
     log(f"K3 rope_append_attend_decode B{b} H{h}/{hk} page{PAGE} lens "
         f"{lens.tolist()}: max_abs_err {err:.3e} pool cells differing "
         f"{pool_diff} kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-        f"{bms:.4f} ({by})")
-    return {"name": "rope_append_attend_decode", "route": "cuda",
+        f"{bms:.4f} ({by}); {walk}")
+    return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -702,6 +715,12 @@ def check_rope_attend_int8(torch, timer, k3, kv_cache, rope_tables):
         assert torch.equal(getattr(ck, name)[keep],
                            getattr(cache, name)[keep]), \
             f"{name}: a cell other than the new ones changed"
+    row = {"name": "rope_append_attend_decode_int8"}
+    walk = _walk_checks(
+        torch, row, _decode_walk(kv_cache, (q, k, v, cos, sin), cp, layer,
+                                 lens + 1), ref,
+        lambda: k3.fused_rope_append_attend_decode(q, k, v, cos, sin, ck,
+                                                   layer)[:1])
     ms = timer(lambda: k3.fused_rope_append_attend_decode(
         q, k, v, cos, sin, ck, layer))
     plain = timer(lambda: k3.decode_reference(q, k, v, cos, sin, cp, layer,
@@ -718,8 +737,8 @@ def check_rope_attend_int8(torch, timer, k3, kv_cache, rope_tables):
     log(f"K3 rope_append_attend_decode int8 B{b} H{h}/{hk} page{PAGE_INT8} "
         f"lens {lens.tolist()}: max_abs_err {err:.3e} codes differing "
         f"{code_diff} scales differing {scale_diff} kernel_ms {ms:.4f} "
-        f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by})")
-    return {"name": "rope_append_attend_decode_int8", "route": "cuda",
+        f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); {walk}")
+    return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             "max_abs_err": err, "codes_differing": code_diff,
@@ -739,6 +758,63 @@ def attention_tolerance(ref, abs_ref):
     visible key) get a tiny floor, so err/tol reads 0 there."""
     return (2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * abs_ref.float()
             ).clamp_min(1e-30)
+
+
+def _walk_checks(torch, row, walk, ref, run):
+    """The page walk's checks for a K10 or K3-decode row, into ``row``.
+    ``walk`` = (q, k_pages, v_pages, block_tables, lens, scales): the
+    row's attention as K10's plain version takes it (for K3, its rotated q
+    over the pools with its own cells written, lens = the walk lengths).
+    The plan (cluster size, CTAs, the most pages a CTA walks); the (rank,
+    first page, end page) the CTAs decode on the card equal to
+    ``paged_attention.walk_items``; two calls of ``run`` bitwise equal;
+    and the fault control, the split walk's plain model with the last
+    range's partial left out, whose worst err/tol against ``ref`` must
+    fail the ``attention_tolerance`` rule."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import paged_attention as k10
+
+    q, kp, vp, bt, lens, scales = walk
+    hk, _, page, _ = kp.shape
+    b, pps = bt.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cs, grid = k10.walk_plan(b, hk, pps, sms)
+    want = k10.walk_items(lens.tolist(), hk, pps, page, sms)
+    out = torch.full((grid, 3), -1, dtype=torch.int32, device="cuda")
+    _build.launch("pt_paged_walk_items", lens.data_ptr(), out.data_ptr(), b,
+                  hk, page, pps, _build.stream_of(out))
+    assert out.cpu().tolist() == [list(r) for r in want], (
+        f"{row['name']}: the items decoded on the card differ from "
+        f"paged_attention.walk_items (cs {cs}, grid {grid})")
+    pages = max(hi - lo for _, lo, hi in want)
+    assert _same_bits(torch, run), f"{row['name']}: two calls differ"
+    control = k10.split_walk_reference(q, kp, vp, bt, lens, **scales, cs=cs,
+                                       drop_last=True)
+    abs_ref = k10.paged_attention_reference(q, kp, vp.abs(), bt, lens,
+                                            **scales)
+    ctl = ((control.float() - ref.float()).abs()
+           / attention_tolerance(ref, abs_ref)).max().item()
+    row.update(cluster=cs, ctas=grid, pages_per_cta=pages,
+               control_worst_err_over_tol=ctl)
+    assert ctl > 1, (f"{row['name']}: the dropped-range control passed "
+                     f"(worst err/tol {ctl:.3f})")
+    return (f"plan: clusters of {cs} on {grid} CTAs, at most {pages} pages "
+            f"a CTA, items on the card = walk_items; two calls bitwise "
+            f"equal; last-range-dropped control worst err/tol {ctl:.3f} "
+            f"(fails, as it must)")
+
+
+def _decode_walk(kv_cache, rows, cache, layer, lens):
+    """``_walk_checks``' ``walk`` for a K3 decode row: the rotated q over
+    the plain chain's pools of ``layer`` (its own cells written) and the
+    walk lengths ``lens`` (int32)."""
+    from paddle_tpu_torch.models.llama import apply_rotary_rows
+
+    q, k, _, cos, sin = rows
+    q2, _ = apply_rotary_rows(q, k, cos, sin)
+    ks, vs = kv_cache.layer_scales(cache, layer)
+    return (q2, cache.k_pages[layer], cache.v_pages[layer],
+            cache.block_tables, lens, dict(k_scales=ks, v_scales=vs))
 
 
 def batcher_wave(torch, kv_cache, rope_tables, seed):
@@ -933,6 +1009,9 @@ def check_paged_attention(torch, timer, k10, kv_cache, rope_tables):
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
     assert worst <= 1, f"paged_attention worst err/tol {worst:.3f}"
     assert not out[WAVE_IDLE].any(), "the length-0 slot is not zero"
+    row = {"name": "paged_attention"}
+    walk = _walk_checks(torch, row, (*args, {}), ref,
+                        lambda: (k10.paged_attention_pure(*args),))
     ms = timer(lambda: k10.paged_attention_pure(*args))
     plain = timer(lambda: k10.paged_attention_reference(*args))
     cells = int(lens.sum())
@@ -941,8 +1020,9 @@ def check_paged_attention(torch, timer, k10, kv_cache, rope_tables):
     bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
     log(f"K10 paged_attention B{BB} H32/8 page{PAGE} lens {lens.tolist()}: "
         f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
-        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by})")
-    return {"name": "paged_attention", "route": "cuda",
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); "
+        f"{walk}")
+    return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:142",
             "max_abs_err": diff.max().item(), "err_over_tol": worst,
@@ -973,6 +1053,12 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
     written = _written_cells(torch, cache, layer, slots,
                              cache.seq_lens[active])
     _check_pools(torch, ck, cp, cache, written, "rope_append_attend masked")
+    row = {"name": "rope_append_attend_masked"}
+    lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
+    walk = _walk_checks(
+        torch, row, _decode_walk(kv_cache, rows, cp, layer, lens), ref,
+        lambda: k3.fused_rope_append_attend_decode(*rows, ck, layer,
+                                                   active)[:1])
     ms = timer(lambda: k3.fused_rope_append_attend_decode(*rows, ck, layer,
                                                           active))
     plain = timer(lambda: k3.decode_reference(*rows, cp, layer, active,
@@ -989,8 +1075,8 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
         f"{cache.seq_lens.tolist()} idle slot {WAVE_IDLE}: max_abs_err "
         f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) pool values "
         f"differing 0, kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-        f"{bms:.4f} ({by})")
-    return {"name": "rope_append_attend_masked", "route": "cuda",
+        f"{bms:.4f} ({by}); {walk}")
+    return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             "max_abs_err": diff.max().item(), "err_over_tol": worst,

@@ -4,52 +4,80 @@
 //
 // Replaces paddle_tpu/ops/pallas/paged_attention.py:_pallas_paged
 // (_paged_kernel), which walks the pages of one (slot, kv head) as the
-// sequential grid axis with the online softmax in VMEM scratch. Here one
-// block per (kv head, slot) runs the page walk K3 uses (paged_walk.cuh):
-// the g query heads of the kv head ride together, q is loaded as
-// bf16 -> f32 * scale (the TPU kernel's q load), the 8 warps split the
-// cells and merge their partial softmax states in shared memory.
+// sequential grid axis with the online softmax in VMEM scratch. Here the
+// g query heads of a kv head ride together through the page walk K3 uses
+// (paged_walk.cuh): each (kv head, slot) walk split over a cluster of CTAs
+// in whole pages, the pages brought in by bulk copies into a ring and
+// scored in chunks on the tensor cores, and the ranks' partial softmax
+// states merged by rank 0 in rank order. The scores are (bf16 q . k) * scale in f32 (the TPU
+// kernel loads q as bf16 -> f32 * scale: the same up to rounding).
 //
 // Bound on an H100: bytes — each call reads every live cell's K and V once
 // (2 * len * Hk * D * 2 bytes per slot) and does ~4 * g * D flops per cell.
-// B * Hk blocks (64 at B = 8, Hk = 8) fill half the 132 SMs; splitting
-// the page walk across blocks is a later PR's work.
 #include "paged_walk.cuh"
 
 using pt::bf16;
+using pt::pw::kD;
 
 namespace {
 
-__global__ void __launch_bounds__(pt::kWalkThreads)
-paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-                       const bf16* __restrict__ v_pages, const int* __restrict__ block_tables,
-                       const int* __restrict__ seq_lens, bf16* __restrict__ out, int H, int Hk,
-                       int P, int page, int pps, float scale) {
-  __shared__ pt::WalkShared sh;
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int g = H / Hk, tid = threadIdx.x;
-  if (tid < pt::kD) {
-    for (int j = 0; j < g; ++j)
-      sh.qs[j][tid] = __bfloat162float(q[((size_t)b * H + kh * g + j) * pt::kD + tid]) * scale;
-  }
+__global__ void __launch_bounds__(pt::pw::NT, 3) paged_attention_kernel(const pt::pw::Args<bf16> a) {
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ pt::pw::Shared sh;
+  // the block-table row (cp.async), q and the slot's length, issued first
+  // and together
+  const int b = blockIdx.y, kh = blockIdx.x / a.cs, g = a.H / a.Hk, tid = threadIdx.x;
+  pt::pw::prefetch_table(dyn, a, b);
+  float qv[pt::pw::kMaxG];
+#pragma unroll
+  for (int j = 0; j < pt::pw::kMaxG; ++j)
+    qv[j] = tid < kD && j < g
+                ? __bfloat162float(a.q[((size_t)b * a.H + kh * g + j) * kD + tid])
+                : 0.f;
+  const pt::pw::Walk w(a.seq_lens[b], a.page, a.pps, a.cs);
+  bf16* out = a.out + ((size_t)b * a.H + kh * g) * kD;
+  if (w.n == 0) return pt::pw::zeros(w, g, out);  // the whole cluster returns
+  const size_t plane = (size_t)w.kh * a.P;
+  pt::pw::begin(sh, dyn, a, w, plane);
+  if (tid < kD)
+#pragma unroll
+    for (int j = 0; j < pt::pw::kMaxG; ++j)
+      if (j < g) sh.part[j][tid] = qv[j];
   __syncthreads();
-  pt::paged_walk<bf16>(sh, g, k_pages, v_pages, nullptr, nullptr, block_tables + (size_t)b * pps,
-                       pps, page, (size_t)kh * P, seq_lens[b], -1,
-                       out + ((size_t)b * H + kh * g) * pt::kD);
+  pt::pw::attend(sh, dyn, a, w, plane, g, -1);
+  pt::pw::merge(sh, dyn, a, w, g, out);
 }
 
 }  // namespace
 
-// q (B, H, D) bf16; k_pages/v_pages (Hk, P, page, D) bf16; block_tables
-// (B, pps) int32; seq_lens (B,) int32; out (B, H, D) bf16.
+// q (B, H, D) bf16; k_pages/v_pages (Hk, P, page, D) bf16, 16-byte
+// aligned; block_tables (B, pps) int32; seq_lens (B,) int32; out (B, H, D)
+// bf16.
 PT_EXPORT int pt_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                  const void* block_tables, const void* seq_lens, void* out,
                                  int B, int H, int Hk, int P, int page, int pps, float scale,
                                  void* stream) {
-  dim3 grid(Hk, B);
-  paged_attention_kernel<<<grid, pt::kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
-      static_cast<const bf16*>(v_pages), static_cast<const int*>(block_tables),
-      static_cast<const int*>(seq_lens), static_cast<bf16*>(out), H, Hk, P, page, pps, scale);
-  return cudaGetLastError();
+  pt::pw::Args<bf16> a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k_pages = static_cast<bf16*>(const_cast<void*>(k_pages));
+  a.v_pages = static_cast<bf16*>(const_cast<void*>(v_pages));
+  a.block_tables = static_cast<const int*>(block_tables);
+  a.seq_lens = static_cast<const int*>(seq_lens);
+  a.out = static_cast<bf16*>(out);
+  a.H = H;
+  a.Hk = Hk;
+  a.P = P;
+  a.page = page;
+  a.pps = pps;
+  a.scale = scale;
+  return pt::pw::launch(paged_attention_kernel, a, B, static_cast<cudaStream_t>(stream));
+}
+
+// The walk's items for walks over lens (B,) int32 at this card's plan: out
+// (B * Hk * cs, 3) int32 rows (rank, first page, end page), row
+// (b * Hk + kh) * cs + rank.
+PT_EXPORT int pt_paged_walk_items(const void* lens, void* out, int B, int Hk, int page, int pps,
+                                  void* stream) {
+  return pt::pw::items(static_cast<const int*>(lens), B, Hk, page, pps, static_cast<int*>(out),
+                       static_cast<cudaStream_t>(stream));
 }

@@ -8,17 +8,25 @@
 // straight into the pool tensors.
 //
 // Decode form (fused_rope_append_attend_decode): one token per slot, an
-// optional `active` mask. One block per (kv head, slot):
-//   0. an inactive slot writes nothing and returns zeros;
-//   1. threads d = 0..127 rotate the slot's k row and its g query rows in
-//      f32 at position seq_lens[b] (apply_rotary_rows: x*cos +
-//      rotate_half(x)*sin with separately rounded products, cast to bf16);
-//   2. the rotated k and the raw v land in page block_tables[b, pos/page],
-//      cell pos % page (logical page clamped like append_token_masked);
-//   3. the page walk of paged_walk.cuh over the seq_lens[b] + 1 cells, q
-//      double-cast (bf16 then f32 * scale, as the TPU kernel's q load); the
-//      just-written cell is read from shared memory, not from the pool (the
-//      TPU kernel's in-register self-cell patch).
+// optional `active` mask, on paged_walk.cuh's cluster-split walk: the walk
+// of each (kv head, slot) over its n = seq_lens[b] + 1 cells (0 for an
+// inactive slot) is split in whole pages across a cluster of CTAs, and
+// rank 0 merges the ranks' partials. In each CTA:
+//   0. an inactive slot: the whole cluster returns; rank 0 writes zeros,
+//      nothing is written to the pool;
+//   1. threads d = 0..127 rotate the slot's g query rows in f32 at position
+//      pos = seq_lens[b] (apply_rotary_rows: x*cos + rotate_half(x)*sin
+//      with separately rounded products, cast to bf16); the scores are
+//      (bf16 q . k) * scale in f32 (the TPU kernel's q load, bf16 then
+//      f32 * scale, up to rounding);
+//   2. the CTA whose page range holds pos (and no other) rotates the k row
+//      the same way and stores the rotated k and the raw v in page
+//      block_tables[b, pos / page], cell pos % page (logical page clamped
+//      like append_token_masked), and keeps that cell in shared memory;
+//   3. the page walk over its range, where the cell at pos is written
+//      from shared memory into the landed copy of its page, never read
+//      from the pool (the TPU kernel's in-register self-cell patch): the
+//      range's bulk copy of that page may race with step 2's write.
 // Cells past seq_lens[b] + 1 are neither read nor written.
 //
 // On an int8 cache (pt_rope_append_attend_decode_int8) the pools hold
@@ -27,9 +35,10 @@
 // to bf16) and the raw v row as kv_cache._quantize_cells does: scale =
 // max(max|x| / 127, 1e-12), code = clip(rint(x / scale), -127, 127), IEEE
 // division and round-half-even, and stores codes and scales in place. Step
-// 3 reads every page cell as code * scale in f32, and the new cell from
-// shared memory as its own code * scale (the TPU kernel's quantize ->
-// dequantize self-cell patch), never as the unquantized row.
+// 3 reads every page cell as code * scale, and the new cell as its own
+// codes and scale (the TPU kernel's quantize -> dequantize self-cell
+// patch), never as the unquantized row. The scale pools ride the same bulk
+// copies (page * 4 bytes each: page % 4 == 0).
 //
 // Ragged form (fused_rope_append_attend, pt_rope_append_attend_ragged):
 // the continuous batcher's admission wave — ragged_attend.cuh with FUSED
@@ -38,15 +47,12 @@
 //
 // Bound on an H100: bytes — each step reads every live cell's K and V once
 // (2 * len * Hk * D * 2 bytes per slot; 2 * len * Hk * (D + 4) on an int8
-// cache) and does ~4*g*D flops per cell. The decode form reads 8 bytes (4
-// on an int8 cache) per lane per cell and has B*Hk blocks, which is fewer
-// than the 132 SMs at B = 8, Hk = 8; splitting the page walk across blocks
-// is a later PR's work.
+// cache) and does ~4*g*D flops per cell.
 #include "paged_walk.cuh"
 #include "ragged_attend.cuh"
 
 using pt::bf16;
-using pt::kD;
+using pt::pw::kD;
 
 namespace {
 
@@ -77,76 +83,112 @@ __device__ __forceinline__ signed char quantize(float x, float amax, float* scal
 // Pool = bf16 (verbatim cache) or signed char (int8 codes; k_sc/v_sc are
 // the scale pools, else unused); active == nullptr: every slot active
 template <typename Pool>
-__global__ void __launch_bounds__(pt::kWalkThreads)
-rope_append_attend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ cos_t,
-                          const float* __restrict__ sin_t, Pool* __restrict__ k_pages,
-                          Pool* __restrict__ v_pages, float* __restrict__ k_sc,
-                          float* __restrict__ v_sc, const int* __restrict__ block_tables,
-                          const int* __restrict__ seq_lens, const bool* __restrict__ active,
-                          bf16* __restrict__ out, int H, int Hk, int P, int page, int pps,
-                          int layer, float scale) {
+__global__ void __launch_bounds__(pt::pw::NT, 3) rope_append_attend_kernel(const pt::pw::Args<Pool> a) {
   constexpr bool QUANT = sizeof(Pool) == 1;
-  __shared__ pt::WalkShared sh;
-  __shared__ float red_k[kD / 32], red_v[kD / 32];
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ pt::pw::Shared sh;
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int g = H / Hk;
-  const int tid = threadIdx.x;
-  bf16* out_b = out + ((size_t)b * H + kh * g) * kD;
-  if (active != nullptr && !active[b]) {
-    if (tid < kD)
-      for (int j = 0; j < g; ++j) out_b[(size_t)j * kD + tid] = __float2bfloat16(0.f);
-    return;
+  // every load that needs no length, issued first and together: the
+  // block-table row (cp.async), q, cos/sin, k and v at dims d and pd (k
+  // and v are used only by the CTA that owns the new cell), the slot's
+  // length and active flag
+  const int b = blockIdx.y, kh = blockIdx.x / a.cs, g = a.H / a.Hk, tid = threadIdx.x;
+  pt::pw::prefetch_table(dyn, a, b);
+  const int d = tid % kD, pd = d < HALF ? d + HALF : d - HALF;
+  float qd[pt::pw::kMaxG], qp[pt::pw::kMaxG];
+#pragma unroll
+  for (int j = 0; j < pt::pw::kMaxG; ++j) {
+    const bf16* qr = a.q + ((size_t)b * a.H + kh * g + (j < g ? j : 0)) * kD;
+    qd[j] = __bfloat162float(qr[d]);
+    qp[j] = __bfloat162float(qr[pd]);
   }
-  const int pos = seq_lens[b];
-  const int* bt = block_tables + (size_t)b * pps;
-  const size_t plane = ((size_t)layer * Hk + kh) * P;
-  const size_t self_cell = (plane + bt[min(pos / page, pps - 1)]) * page + pos % page;
+  const float c = a.cos[(size_t)b * kD + d], s = a.sin[(size_t)b * kD + d];
+  const bf16* kr = a.k + ((size_t)b * a.Hk + kh) * kD;
+  const float kd = __bfloat162float(kr[d]), kp = __bfloat162float(kr[pd]);
+  const float vd = __bfloat162float(a.v[((size_t)b * a.Hk + kh) * kD + d]);
+  const bool on = a.active == nullptr || a.active[b];
+  const int sl = a.seq_lens[b];
 
-  // the new cell: rotated k (rounded to bf16) and raw v, in f32
-  float kn = 0.f, vn = 0.f;
-  if (tid < kD) {
-    const int d = tid, pd = d < HALF ? d + HALF : d - HALF;
-    const float c = cos_t[(size_t)b * kD + d], s = sin_t[(size_t)b * kD + d];
-    const bf16* kr = k + ((size_t)b * Hk + kh) * kD;
-    kn = __bfloat162float(__float2bfloat16(
-        pt::ragged::rope(__bfloat162float(kr[d]), __bfloat162float(kr[pd]), d, c, s)));
-    vn = __bfloat162float(v[((size_t)b * Hk + kh) * kD + d]);
-  }
-  if constexpr (QUANT) {
-    const float kmax = absmax_d(kn, red_k), vmax = absmax_d(vn, red_v);
-    if (tid < kD) {
-      float ks, vs;
-      const signed char kq = quantize(kn, kmax, &ks), vq = quantize(vn, vmax, &vs);
-      k_pages[self_cell * kD + tid] = kq;
-      v_pages[self_cell * kD + tid] = vq;
-      if (tid == 0) {
-        k_sc[self_cell] = ks;
-        v_sc[self_cell] = vs;
+  const int pos = on ? sl : -1;
+  const pt::pw::Walk w(pos + 1, a.page, a.pps, a.cs);
+  bf16* out_b = a.out + ((size_t)b * a.H + kh * g) * kD;
+  if (w.n == 0) return pt::pw::zeros(w, g, out_b);  // the whole cluster returns
+  const int self_page = min(pos / a.page, a.pps - 1);
+  const bool mine = self_page >= w.r.lo && self_page < w.r.hi;  // the same in the whole block
+  const size_t plane = ((size_t)a.layer * a.Hk + w.kh) * a.P;
+  pt::pw::begin(sh, dyn, a, w, plane);
+
+  if (mine) {
+    // the new cell: rotated k (rounded to bf16) and raw v, in f32
+    const size_t self_cell =
+        (plane + a.block_tables[(size_t)b * a.pps + self_page]) * a.page + pos % a.page;
+    const float kn =
+        tid < kD ? __bfloat162float(__float2bfloat16(pt::ragged::rope(kd, kp, d, c, s))) : 0.f;
+    const float vn = tid < kD ? vd : 0.f;
+    if constexpr (QUANT) {
+      const float kmax = absmax_d(kn, sh.red[0]), vmax = absmax_d(vn, sh.red[1]);
+      if (tid < kD) {
+        float ks, vs;
+        const signed char kq = quantize(kn, kmax, &ks), vq = quantize(vn, vmax, &vs);
+        a.k_pages[self_cell * kD + tid] = kq;
+        a.v_pages[self_cell * kD + tid] = vq;
+        if (tid == 0) {
+          a.k_sc[self_cell] = ks;
+          a.v_sc[self_cell] = vs;
+          sh.self_sc[0] = ks;
+          sh.self_sc[1] = vs;
+        }
+        sh.kself[tid] = kq;
+        sh.vself[tid] = vq;
       }
-      sh.kself[tid] = (float)kq * ks;
-      sh.vself[tid] = (float)vq * vs;
+    } else if (tid < kD) {
+      a.k_pages[self_cell * kD + tid] = __float2bfloat16(kn);
+      a.v_pages[self_cell * kD + tid] = __float2bfloat16(vn);
+      sh.kself[tid] = kn;
+      sh.vself[tid] = vn;
     }
-  } else if (tid < kD) {
-    k_pages[self_cell * kD + tid] = __float2bfloat16(kn);
-    v_pages[self_cell * kD + tid] = __float2bfloat16(vn);
-    sh.kself[tid] = kn;
-    sh.vself[tid] = vn;
   }
   if (tid < kD) {
-    const int d = tid, pd = d < HALF ? d + HALF : d - HALF;
-    const float c = cos_t[(size_t)b * kD + d], s = sin_t[(size_t)b * kD + d];
-    for (int j = 0; j < g; ++j) {
-      const bf16* qr = q + ((size_t)b * H + kh * g + j) * kD;
-      const bf16 qb = __float2bfloat16(
-          pt::ragged::rope(__bfloat162float(qr[d]), __bfloat162float(qr[pd]), d, c, s));
-      sh.qs[j][d] = __bfloat162float(qb) * scale;
-    }
+#pragma unroll
+    for (int j = 0; j < pt::pw::kMaxG; ++j)
+      if (j < g)
+        sh.part[j][d] = __bfloat162float(__float2bfloat16(pt::ragged::rope(qd[j], qp[j], d, c, s)));
   }
   __syncthreads();
-  pt::paged_walk<Pool>(sh, g, k_pages, v_pages, k_sc, v_sc, bt, pps, page, plane, pos + 1, pos,
-                       out_b);
+  pt::pw::attend(sh, dyn, a, w, plane, g,
+                 mine ? (self_page - w.r.lo) * a.page + pos % a.page : -1);
+  pt::pw::merge(sh, dyn, a, w, g, out_b);
+}
+
+template <typename Pool>
+int launch_decode(const void* q, const void* k, const void* v, const void* cos_t,
+                  const void* sin_t, void* k_pages, void* v_pages, void* k_scales, void* v_scales,
+                  const void* block_tables, const void* seq_lens, const void* active, void* out,
+                  int B, int H, int Hk, int P, int page, int pps, int layer, float scale,
+                  void* stream) {
+  pt::pw::Args<Pool> a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.cos = static_cast<const float*>(cos_t);
+  a.sin = static_cast<const float*>(sin_t);
+  a.k_pages = static_cast<Pool*>(k_pages);
+  a.v_pages = static_cast<Pool*>(v_pages);
+  a.k_sc = static_cast<float*>(k_scales);
+  a.v_sc = static_cast<float*>(v_scales);
+  a.block_tables = static_cast<const int*>(block_tables);
+  a.seq_lens = static_cast<const int*>(seq_lens);
+  a.active = static_cast<const bool*>(active);
+  a.out = static_cast<bf16*>(out);
+  a.H = H;
+  a.Hk = Hk;
+  a.P = P;
+  a.page = page;
+  a.pps = pps;
+  a.layer = layer;
+  a.scale = scale;
+  return pt::pw::launch(rope_append_attend_kernel<Pool>, a, B,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -154,43 +196,29 @@ rope_append_attend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // q (B, H, D), k/v (B, Hk, D) bf16; cos/sin (B, D) f32 at each slot's
 // position; k_pages/v_pages (L, Hk, P, page, D) bf16, written in place;
 // block_tables (B, pps) int32; seq_lens (B,) int32; active (B,) bool or
-// null; out (B, H, D) bf16.
+// null; out (B, H, D) bf16. Every pointer 16-byte aligned.
 PT_EXPORT int pt_rope_append_attend_decode(const void* q, const void* k, const void* v,
                                            const void* cos_t, const void* sin_t, void* k_pages,
                                            void* v_pages, const void* block_tables,
                                            const void* seq_lens, const void* active, void* out,
                                            int B, int H, int Hk, int P, int page, int pps,
                                            int layer, float scale, void* stream) {
-  dim3 grid(Hk, B);
-  rope_append_attend_kernel<bf16>
-      <<<grid, pt::kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-          static_cast<bf16*>(k_pages), static_cast<bf16*>(v_pages), nullptr, nullptr,
-          static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-          static_cast<const bool*>(active), static_cast<bf16*>(out), H, Hk, P, page, pps, layer,
-          scale);
-  return cudaGetLastError();
+  return launch_decode<bf16>(q, k, v, cos_t, sin_t, k_pages, v_pages, nullptr, nullptr,
+                             block_tables, seq_lens, active, out, B, H, Hk, P, page, pps, layer,
+                             scale, stream);
 }
 
 // The same over an int8 cache: k_pages/v_pages (L, Hk, P, page, D) int8
-// codes and k_scales/v_scales (L, Hk, P, page, 1) f32, all written in place.
+// codes and k_scales/v_scales (L, Hk, P, page, 1) f32, all written in
+// place; page % 4 == 0 (a page's scales are a bulk copy of whole 16 bytes).
 PT_EXPORT int pt_rope_append_attend_decode_int8(
     const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
     void* k_pages, void* v_pages, void* k_scales, void* v_scales, const void* block_tables,
     const void* seq_lens, const void* active, void* out, int B, int H, int Hk, int P, int page,
     int pps, int layer, float scale, void* stream) {
-  dim3 grid(Hk, B);
-  rope_append_attend_kernel<signed char>
-      <<<grid, pt::kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-          static_cast<signed char*>(k_pages), static_cast<signed char*>(v_pages),
-          static_cast<float*>(k_scales), static_cast<float*>(v_scales),
-          static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-          static_cast<const bool*>(active), static_cast<bf16*>(out), H, Hk, P, page, pps, layer,
-          scale);
-  return cudaGetLastError();
+  return launch_decode<signed char>(q, k, v, cos_t, sin_t, k_pages, v_pages, k_scales, v_scales,
+                                    block_tables, seq_lens, active, out, B, H, Hk, P, page, pps,
+                                    layer, scale, stream);
 }
 
 // The ragged form: q (T, H, D), k/v (T, Hk, D) bf16 unrotated; cos/sin

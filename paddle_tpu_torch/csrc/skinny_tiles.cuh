@@ -134,23 +134,6 @@ struct Walk {
 
 // ---- PTX -------------------------------------------------------------------
 
-// every thread of the cluster: arrive (release), then wait (acquire)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
-
-// 4 floats at p in the shared memory of cluster rank `rank`
-__device__ __forceinline__ float4 ld_rank_f4(const void* p, int rank) {
-  uint32_t a;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(wg::smem_u32(p)), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
-
 __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -177,16 +160,6 @@ __device__ __forceinline__ void wgmma_tn(float (&d)[MB / 2], uint64_t da, uint64
 }
 
 // ---- the stages ----------------------------------------------------------------
-
-// a bulk copy of `bytes` (a multiple of 16) from global memory into shared
-// memory, completing on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(wg::smem_u32(dst)), "l"(src), "r"(bytes), "r"(wg::smem_u32(bar))
-      : "memory");
-}
 
 // K2's normalizer thread t (0-95): the landed x slice in place, rows below
 // M (those past M are TMA's zeros). Vector t + 96 i is row (t + 96 i) / 16,
@@ -291,7 +264,7 @@ skinny_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constan
     float4 ra[MAX_CS], rb[MAX_CS];  // every rank's loads in flight, then the sum in rank order
 #pragma unroll
     for (int r = 0; r < MAX_CS; ++r)
-      if (r < cs) ra[r] = ld_rank_f4(p, r), rb[r] = ld_rank_f4(p + 4, r);
+      if (r < cs) ra[r] = wg::ld_rank_f4(p, r), rb[r] = wg::ld_rank_f4(p + 4, r);
     float4 a = ra[0], b = rb[0];
 #pragma unroll
     for (int r = 1; r < MAX_CS; ++r)
@@ -321,7 +294,7 @@ skinny_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constan
         wg::tma_load_2d(st + G::W_BYTES, &tx, &full[stage], s * BK, 0);
         wg::tma_load_2d(st + G::W_BYTES + G::X_BOX, &tx, &full[stage], s * BK + 64, 0);
         if (NORM)
-          bulk_load(nwbuf + stage * G::NW_BYTES, nw + (size_t)s * BK, G::NW_BYTES, &full[stage]);
+          wg::bulk_load(nwbuf + stage * G::NW_BYTES, nw + (size_t)s * BK, G::NW_BYTES, &full[stage]);
         if (++stage == G::STAGES) stage = 0, phase ^= 1;
       }
     };
@@ -463,9 +436,9 @@ skinny_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constan
     }
   }
   if (cs > 1) {  // one tile a CTA: rank 0 reads every rank's partial
-    cluster_sync();
+    wg::cluster_sync();
     if (warp >= 4 && wk.rank == 0) store_tile(wk.first * BN, threadIdx.x - 128);
-    cluster_sync();  // no rank exits while rank 0 reads its shared memory
+    wg::cluster_sync();  // no rank exits while rank 0 reads its shared memory
   }
 }
 

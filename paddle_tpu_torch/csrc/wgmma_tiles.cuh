@@ -115,6 +115,51 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global memory into shared memory, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- thread-block clusters -----------------------------------------------
+
+// every thread of the cluster: arrive (release), then wait (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// the address of p in the shared memory of cluster rank `rank`
+__device__ __forceinline__ uint32_t rank_addr(const void* p, int rank) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// 4 floats at p in the shared memory of cluster rank `rank`
+__device__ __forceinline__ float4 ld_rank_f4(const void* p, int rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(rank_addr(p, rank)));
+  return v;
+}
+
+// store v at p in the shared memory of cluster rank `rank`
+__device__ __forceinline__ void st_rank_f32(void* p, int rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(rank_addr(p, rank)), "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_rank_f4(void* p, int rank, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(rank_addr(p, rank)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));

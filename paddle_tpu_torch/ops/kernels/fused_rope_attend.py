@@ -17,7 +17,10 @@ place and returns the same cache state.
                                    inactive slot writes nothing and
                                    returns zeros)
 
-On an int8 cache the decode form quantizes the rotated k row and the raw v
+The decode form runs K10's page walk (``csrc/paged_walk.cuh``: each
+(kv head, slot) walk split in whole pages across a thread-block cluster,
+``paged_attention.walk_plan``), the CTA whose pages hold the new cell
+writing it. On an int8 cache it quantizes the rotated k row and the raw v
 row on write (``kv_cache._quantize_cells``' rule), dequantizes every page
 cell as code * scale, and reads its own new cell back as code * scale. The
 ragged form reads bf16 pools only; on an int8 cache it raises
@@ -182,6 +185,10 @@ def fused_rope_append_attend_decode(q, k, v, cos, sin, cache, layer,
                          f"at most 8 query heads per kv head, got q "
                          f"{tuple(q.shape)} with {hk} kv heads")
     _check_cache(cache, b, layer)
+    if cache.quantized and page % 4:
+        raise ValueError(f"rope_append_attend kernel copies a page's int8 "
+                         f"scales in 16-byte units: page {page} is not a "
+                         f"multiple of 4")
     bf = torch.bfloat16
     _build.check_cuda("q", q, bf)
     _build.check_cuda("k", k, bf, (b, hk, d))

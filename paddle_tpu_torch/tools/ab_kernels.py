@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time K2, K4, K13 and K14 of two checkouts of the port on one card, in turns.
+"""Time K2, K3, K4, K10, K13 and K14 of two checkouts of the port on one card, in turns.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --walk [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --batcher [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --decode [--rounds R]
 
@@ -30,6 +31,13 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
   * K13 (forward 4096 -> 14336 and 14336 -> 4096, and the dX form) and
     K14 (both weight shapes, bf16 out) at phase 10's: T = 16,384 rows
     split over 8 experts as ``MOE_COUNTS`` below;
+  * the page-walk kernels at phase 3's shapes (B = 8, 32/8 heads): K3's
+    decode form at the first decode step (bf16 cache, page 16, lengths
+    128) and on the int8 cache (page 32, lengths 120-159), K3's masked form
+    and K10 at a batcher segment step (page 16, 40 pages a slot, lengths
+    ``chip_smoke.WAVE_SEQ`` (+ 1), one slot idle), and the host time of
+    one K3 decode call and one K10 call (``host_us``); ``--walk`` times
+    these alone;
 
 each the median device ms of 20 calls with the L2 flushed before each and
 a spin kernel holding the stream while the host enqueues (as
@@ -181,6 +189,69 @@ def child_decode() -> None:
     print(json.dumps(out), flush=True)
 
 
+def _walk_times(torch, flush):
+    """Cold ms of K3's decode forms and K10 at chip_smoke.py's shapes."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.models import kv_cache
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
+    from paddle_tpu_torch.ops.kernels import paged_attention as k10
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b, h, hk, d, cap = cs.B, 32, 8, 128, cs.PROMPT + cs.NEW
+    out = {}
+    for label, page, lens in (
+            ("K3 decode bf16 page16", cs.PAGE, [cs.PROMPT] * b),
+            ("K3 decode int8 page32", cs.PAGE_INT8,
+             [159, 151, 144, 136, 129, 128, 127, 120])):
+        int8 = page == cs.PAGE_INT8
+        cache = kv_cache.create_paged_cache(
+            2, b, cap, hk, d, page, device="cuda",
+            dtype=torch.int8 if int8 else torch.bfloat16)
+        for pool in (cache.k_pages, cache.v_pages):
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=g,
+                                     device="cuda") if int8 else
+                       torch.randn(pool.shape, generator=g, device="cuda"))
+        if int8:
+            for pool in (cache.k_scales, cache.v_scales):
+                pool.copy_(torch.rand(pool.shape, generator=g,
+                                      device="cuda") * 0.03)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cache = cache._replace(seq_lens=lens_t)
+        q = torch.randn((b, h, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, hk, d), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in "kv")
+        cos_t, sin_t = _rope_tables(cap, d, 500000.0, device="cuda")
+        cos, sin = cos_t[lens_t.long()], sin_t[lens_t.long()]
+        fn = (lambda: k3.fused_rope_append_attend_decode(q, k, v, cos, sin,
+                                                          cache, 1))
+        out[label] = _cold_ms(torch, flush, fn)
+        out[f"{label} host_us"] = _host_us(torch, fn)
+    cache, rows, active = cs._segment_step_inputs(torch, kv_cache,
+                                                  _rope_tables, cs.SEED + 11)
+    out["K3 masked segment step"] = _cold_ms(torch, flush, lambda: (
+        k3.fused_rope_append_attend_decode(*rows, cache, 1, active)))
+    lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
+    args = (rows[0], cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+            lens)
+    out["K10 segment step"] = _cold_ms(
+        torch, flush, lambda: k10.paged_attention_pure(*args))
+    out["K10 segment step host_us"] = _host_us(
+        torch, lambda: k10.paged_attention_pure(*args))
+    return out
+
+
+def child_walk() -> None:
+    import torch
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.build()
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        print(json.dumps(_walk_times(torch, flush)), flush=True)
+
+
 def child() -> None:
     import itertools
 
@@ -243,6 +314,7 @@ def child() -> None:
                 torch, flush, lambda: gm.segment_dw(
                     x, dy, off, e, out_dtype=torch.bfloat16))
             del x, dy
+        out.update(_walk_times(torch, flush))
     print(json.dumps(out), flush=True)
 
 
@@ -251,6 +323,8 @@ def main() -> int:
     if args[:1] == ["--child"]:
         if "--batcher" in args:
             child_batcher()
+        elif "--walk" in args:
+            child_walk()
         elif "--decode" in args:
             child_decode()
         else:
@@ -261,8 +335,9 @@ def main() -> int:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
-    mode = [a for a in args if a in ("--batcher", "--decode")]
-    args = [a for a in args if a not in ("--batcher", "--decode")]
+    modes = ("--batcher", "--decode", "--walk")
+    mode = [a for a in args if a in modes]
+    args = [a for a in args if a not in modes]
     old, new = (os.path.abspath(a) for a in args)
     runs = {old: [], new: []}
     for _ in range(rounds):

@@ -31,7 +31,12 @@ The batcher's kernels — K10 (paged decode attention), K11 (ragged
 two-source attention) and K3's ragged and masked forms — run on waves
 that mix decode rows, chunks with and without page context, slots with
 no rows and padding rows, at GQA groups 1, 4 and 8; their pools must be
-bit-identical to the plain chain's and every other cell untouched.
+bit-identical to the plain chain's and every other cell untouched. The
+page walk K10 and K3's decode forms share (split over a cluster of CTAs)
+also runs at caps up to 640 with lengths on page and range edges (K3's
+own cell opening its CTA's range, an inactive slot), each form two calls
+bitwise equal, and the (rank, page range) items its CTAs decode equal to
+``paged_attention.walk_items`` for clusters of 1, 2, 4 and 8.
 The training kernels: K5 (flash backward) at sequence lengths that are not
 multiples of its 64-row tiles, GQA groups 1, 4 and 8, Sk > Sq and Sq > Sk,
 causal and not, two calls bitwise equal; K6/K7 (RMSNorm
@@ -253,10 +258,32 @@ def test_norm_matmul_tiled_path_matches_plain(gen, m, n):
     assert torch.equal(y, k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
 
 
+# positions on page and walk-range edges at caps up to 640: with B x Hk =
+# 28 the walk runs in clusters of 8, whose last rank's range starts at
+# cell 48 and 112 for walks of 49 and 113 cells (K3's own cell first in
+# its CTA's range), and 639 fills the cache
+_LONG_POS = (0, 1, 15, 16, 17, 47, 48, 49, 111, 112, 255, 256, 599, 639)
+
+
+def _self_at_range_start(lens, hk, page, cap):
+    """Whether some slot's own cell (position p, a walk of p + 1 cells)
+    opens the range of the last rank of its cluster on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pps = cap // page
+    cs, _ = k10.walk_plan(len(lens), hk, pps, sms)
+    return cs > 1 and any(
+        k10.walk_range(p + 1, page, pps, cs - 1, cs)[0] * page == p
+        for p in lens)
+
+
 @pytest.mark.parametrize("g,lens", [(1, (0, 15, 16)), (2, (31, 1, 47)),
-                                    (8, (5, 32, 40))])
+                                    (8, (5, 32, 40)), (4, _LONG_POS),
+                                    (8, _LONG_POS[::-1])])
 def test_rope_append_attend_matches_plain(gen, g, lens):
-    b, hk, d, page, cap = len(lens), 2, 128, 16, 48
+    b, hk, d, page = len(lens), 2, 128, 16
+    cap = max(48, -(-(max(lens) + 1) // page) * page)
+    if len(lens) > 3:
+        assert _self_at_range_start(lens, hk, page, cap)
     cache = kv_cache.create_paged_cache(2, b, cap, hk, d, page,
                                         dtype=torch.bfloat16, device="cuda")
     for pool in (cache.k_pages, cache.v_pages):
@@ -501,10 +528,13 @@ def _clone(c):
 
 @pytest.mark.parametrize("page,g,lens", [
     (16, 1, (0, 15, 16)), (16, 4, (31, 1, 47)), (32, 2, (0, 31, 32)),
-    (32, 8, (63, 64, 95)), (32, 4, (5, 40, 159))])
+    (32, 8, (63, 64, 95)), (32, 4, (5, 40, 159)),
+    (32, 4, (0, 1, 31, 32, 33, 63, 64, 65, 95, 96, 224, 255, 256, 639))])
 def test_rope_append_attend_int8_matches_plain(gen, page, g, lens):
     b, hk, d = len(lens), 2, 128
     cap = -(-(max(lens) + 1) // page) * page
+    if len(lens) > 5:
+        assert _self_at_range_start(lens, hk, page, cap)
     cache = _int8_cache(gen, 2, b, cap, hk, d, page)
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     cache = cache._replace(seq_lens=lens_t)
@@ -611,9 +641,11 @@ def _attn_tol(ref):
 
 
 @pytest.mark.parametrize("g,lens", [(1, (0, 15, 16)), (4, (31, 1, 47)),
-                                    (8, (5, 32, 40))])
+                                    (8, (5, 32, 40)), (4, _LONG_POS),
+                                    (1, _LONG_POS[::-1]), (8, (640, 0, 1))])
 def test_paged_attention_matches_plain(gen, g, lens):
-    b, hk, page, cap = len(lens), 2, 16, 48
+    b, hk, page = len(lens), 2, 16
+    cap = max(48, -(-max(lens) // page) * page)
     cache = _bf16_cache(gen, 1, b, cap, hk, page)
     q = _randn(gen, b, hk * g, 128)
     seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -691,16 +723,17 @@ def test_rope_append_attend_ragged_matches_plain(gen, g):
     assert torch.equal(ck.k_pages[0], cache.k_pages[0])   # other layer
 
 
+@pytest.mark.parametrize("lens", [(31, 0, 47, 64), _LONG_POS])
 @pytest.mark.parametrize("int8", [False, True])
-def test_rope_append_attend_masked_matches_plain(gen, int8):
-    b, hk, g, page = 4, 2, 4, 32 if int8 else 16
-    lens = (31, 0, 47, 64)
-    cap = 96
+def test_rope_append_attend_masked_matches_plain(gen, int8, lens):
+    b, hk, g, page = len(lens), 2, 4, 32 if int8 else 16
+    cap = max(96, -(-(max(lens) + 1) // page) * page)
     cache = (_int8_cache(gen, 2, b, cap, hk, 128, page) if int8
              else _bf16_cache(gen, 2, b, cap, hk, page))
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     cache = cache._replace(seq_lens=lens_t)
-    active = torch.tensor([True, False, True, True], device="cuda")
+    # slot 1 inactive (and, on the long case, every third slot)
+    active = torch.arange(b, device="cuda") % (3 if b > 4 else b) != 1
     q = _randn(gen, b, hk * g, 128)
     k, v = _randn(gen, b, hk, 128), _randn(gen, b, hk, 128)
     cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
@@ -717,6 +750,129 @@ def test_rope_append_attend_masked_matches_plain(gen, int8):
                                       else ())
     for name in names:
         assert torch.equal(getattr(ck, name), getattr(cp, name)), name
+
+
+def _walk_form(gen, form, lens, hk=2, g=4):
+    """One page-walk form on fresh inputs: K10 over walk lengths ``lens``;
+    K3's decode form at positions ``lens`` (bf16, int8 at page 32, masked
+    with every third slot inactive). Returns (run, plain): the kernel and
+    its plain version, each on its own copy of the cache, returning the
+    output and the pools."""
+    page = 32 if form == "int8" else 16
+    b = len(lens)
+    cap = max(48, -(-(max(lens) + 1) // page) * page)
+    cache = (_int8_cache(gen, 2, b, cap, hk, 128, page) if form == "int8"
+             else _bf16_cache(gen, 2, b, cap, hk, page))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = _randn(gen, b, hk * g, 128)
+    if form == "paged":
+        args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+                lens_t)
+        return (lambda: (k10.paged_attention_pure(*args),),
+                lambda: (k10.paged_attention_reference(*args),))
+    cache = cache._replace(seq_lens=lens_t)
+    k, v = _randn(gen, b, hk, 128), _randn(gen, b, hk, 128)
+    cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
+    cos, sin = cos_t[lens_t.long()], sin_t[lens_t.long()]
+    active = (torch.arange(b, device="cuda") % 3 != 1 if form == "masked"
+              else None)
+
+    def call(fn, **kw):
+        c = _copy(cache)
+        out, c = fn(q, k, v, cos, sin, c, 1, active, **kw)
+        return (out, c.k_pages, c.v_pages) + (
+            (c.k_scales, c.v_scales) if c.quantized else ())
+
+    return (lambda: call(k3.fused_rope_append_attend_decode),
+            lambda: call(k3.decode_reference, plain=True))
+
+
+_WALK_FORMS = ["paged", "decode", "int8", "masked"]
+
+
+@pytest.mark.parametrize("form", _WALK_FORMS)
+def test_paged_walk_forms_are_deterministic(gen, form):
+    """K10 and K3's decode forms: two calls give the same bits (the ranks'
+    partials merge in rank order, no atomics)."""
+    run, _ = _walk_form(gen, form, _LONG_POS)
+    a, b = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# (B, Hk) of walks in clusters of 1, 2, 4 and 8 on 132 SMs (cap 640)
+_CLUSTER_SHAPES = [(17, 8), (9, 8), (8, 8), (2, 8)]
+
+
+@pytest.mark.parametrize("b,hk", _CLUSTER_SHAPES)
+@pytest.mark.parametrize("form", _WALK_FORMS)
+def test_paged_walk_forms_match_plain_at_every_cluster_size(gen, form, b,
+                                                            hk):
+    """Each form against its plain version on plans of every cluster size,
+    lengths spread over the cap's page and range edges: the output within
+    the attention tolerance, the pools as the plain chain writes them
+    (int8 codes within 1, scales equal)."""
+    lens = [_LONG_POS[i % len(_LONG_POS)] for i in range(b)]
+    run, plain = _walk_form(gen, form, lens, hk=hk)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    diff = (got[0].float() - want[0].float()).abs()
+    assert bool((diff <= _attn_tol(want[0])).all())
+    for x, y in zip(got[1:3], want[1:3]):
+        if form == "int8":  # a rounding boundary may move a code by 1
+            assert int((x.int() - y.int()).abs().max()) <= 1
+        else:
+            assert torch.equal(x, y)
+    for x, y in zip(got[3:], want[3:]):
+        assert torch.equal(x, y)
+
+
+def test_walk_wrappers_refuse_unaligned_copies(gen):
+    """The walk bulk-copies whole pages in 16-byte units: a K10 pool view
+    off a 16-byte boundary raises, and so does an int8 cache whose page is
+    not a multiple of 4 (its page * 4 bytes of scales)."""
+    cache = _bf16_cache(gen, 1, 2, 32, 1, 16)
+    kp = cache.k_pages[0]
+    buf = torch.empty(kp.numel() + 8, dtype=kp.dtype, device="cuda")
+    shifted = buf[1:1 + kp.numel()].view(kp.shape)    # 2 bytes off
+    shifted.copy_(kp)
+    q = _randn(gen, 2, 4, 128)
+    seq = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        k10.paged_attention_pure(q, shifted, cache.v_pages[0],
+                                 cache.block_tables, seq)
+    cache = _int8_cache(gen, 1, 2, 36, 1, 128, 6)._replace(seq_lens=seq)
+    kv = _randn(gen, 2, 1, 128)
+    cs = torch.zeros((2, 128), device="cuda")
+    with pytest.raises(ValueError):
+        k3.fused_rope_append_attend_decode(q, kv, kv, cs, cs, cache, 0)
+
+
+# (B, Hk, cap, page): plans with clusters of 8, 4, 2 and 1 on 132 SMs,
+# and clusters cut short by the pages a slot holds
+_WALK_PLANS = [(2, 8, 640, 16), (8, 8, 640, 16), (12, 8, 160, 32),
+               (9, 8, 640, 16), (17, 8, 640, 16), (3, 2, 48, 16),
+               (1, 1, 16, 16)]
+
+
+@pytest.mark.parametrize("b,hk,cap,page", _WALK_PLANS)
+def test_paged_walk_items_on_the_card_match_the_model(gen, b, hk, cap, page):
+    """The (rank, first page, end page) each CTA of the walk decodes on
+    the card, for walks of every length class (0, inside the first page,
+    on page edges, the capacity), equal ``paged_attention.walk_items`` at
+    this card's SM count."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pps = cap // page
+    pool = (0, 1, page - 1, page, page + 1, cap // 2, cap - 1, cap)
+    lens = [pool[i % len(pool)] for i in range(b)]
+    cs, grid = k10.walk_plan(b, hk, pps, sms)
+    want = k10.walk_items(lens, hk, pps, page, sms)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = torch.full((grid, 3), -1, dtype=torch.int32, device="cuda")
+    _build.launch("pt_paged_walk_items", lens_t.data_ptr(), out.data_ptr(),
+                  b, hk, page, pps, _build.stream_of(out))
+    assert out.cpu().tolist() == [list(r) for r in want], (cs, grid)
 
 
 def test_batcher_kernels_refuse_int8_pools(gen):
