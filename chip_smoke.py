@@ -39,7 +39,18 @@ class, device busy share). Phases, in order; any failure raises and the process 
                ``paged_attention.walk_items`` and two calls bitwise
                equal, and run a fault control that must fail the
                attention rule: the split walk's plain model
-               (``split_walk_reference``) without its last range.
+               (``split_walk_reference``) without its last range. The
+               ragged forms (K11, K3 ragged) run that wave and a second
+               one (a 256-row chunk on 256 cells of context, seven decode
+               rows at lengths 97-600), each timed; on both they log their
+               plan (cluster size, CTAs, tile and walk items, pages a CTA,
+               the clusters with work against the most the card holds at
+               once: all resident), check the items their CTAs decode on
+               the card against ``ragged_paged_attention.ragged_items``,
+               two calls bitwise equal, rows of no segment zeros (K3: the
+               pools bit-identical to the plain chain's), and a fault
+               control that must fail: ``split_ragged_reference`` with
+               every walk's last range left out.
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -202,6 +213,13 @@ BT = -(-(BB + BCHUNK) // 8) * 8
 WAVE_SEQ = (64, 0, 96, 127, 255, 383, 511, 599)
 WAVE_CHUNK = (100, 156, 0, 0, 0, 0, 0, 0)
 WAVE_IDLE = 5
+# the ragged forms' second wave: slot 0 prefills the second 256-row chunk
+# of a 512-token prompt (256 cells of page context for every tile), the
+# other seven decode one row at lengths 97-600
+WAVE2_SEQ = (256, 96, 127, 255, 383, 447, 511, 599)
+WAVE2_CHUNK = (256, 0, 0, 0, 0, 0, 0, 0)
+RAGGED_WAVES = ((WAVE_SEQ, WAVE_CHUNK, WAVE_IDLE),
+                (WAVE2_SEQ, WAVE2_CHUNK, None))
 N_REQUESTS = 24
 
 
@@ -817,13 +835,15 @@ def _decode_walk(kv_cache, rows, cache, layer, lens):
             cache.block_tables, lens, dict(k_scales=ks, v_scales=vs))
 
 
-def batcher_wave(torch, kv_cache, rope_tables, seed):
+def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
+                 chunks=WAVE_CHUNK, idle=WAVE_IDLE):
     """The kernels phase's mixed wave at the batcher's shapes: a 2-layer
     bf16 cache (B=8, Hk=8, page 16, 40 pages per slot) of random K/V at
-    the old lengths WAVE_SEQ; the wave's rows (q (T, 32, 128), k, v
+    the old lengths ``seqs``; the wave's rows (q (T, 32, 128), k, v
     (T, 8, 128), cos/sin (T, 128) at each row's position) and its layout
     (row_slot, row_pos, valid, page_lens, q_start, q_lens, fresh_lens) as
-    ContinuousBatcher._build_ragged_step lays a wave out."""
+    ContinuousBatcher._build_ragged_step lays a wave out: slot i prefills
+    ``chunks[i]`` rows, or decodes one row unless it is ``idle``."""
     b, h, hk, d = BB, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = kv_cache.create_paged_cache(2, b, BSEQ, hk, d, PAGE,
@@ -831,18 +851,18 @@ def batcher_wave(torch, kv_cache, rope_tables, seed):
     for pool in (cache.k_pages, cache.v_pages):
         pool.copy_(torch.randn(pool.shape, generator=g, device="cuda"))
     cache = cache._replace(seq_lens=torch.tensor(
-        WAVE_SEQ, dtype=torch.int32, device="cuda"))
+        seqs, dtype=torch.int32, device="cuda"))
     row_slot, row_pos = [-1] * BT, [0] * BT
     q_start, q_lens, fresh, page_lens = [0] * b, [0] * b, [0] * b, [0] * b
     row = b
-    for i, (seq, chunk) in enumerate(zip(WAVE_SEQ, WAVE_CHUNK)):
+    for i, (seq, chunk) in enumerate(zip(seqs, chunks)):
         if chunk:
             q_start[i], q_lens[i], fresh[i], page_lens[i] = (row, chunk,
                                                              chunk, seq)
             row_slot[row:row + chunk] = [i] * chunk
             row_pos[row:row + chunk] = range(seq, seq + chunk)
             row += chunk
-        elif i != WAVE_IDLE:
+        elif i != idle:
             q_start[i], q_lens[i], page_lens[i] = i, 1, seq + 1
             row_slot[i], row_pos[i] = i, seq
     assert row == BT, row
@@ -886,10 +906,99 @@ def _check_pools(torch, new, ref, old, written, label):
             f"{label}: a {name} cell other than the written ones changed"
 
 
-def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables):
-    """K11 on the mixed wave (layer 1's pools; q, fresh K/V random)."""
+def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens):
+    """The ragged walk's checks for a K11 or K3-ragged wave. ``split`` =
+    (q, k_pages, v_pages, block_tables, page_lens, q_start, q_lens,
+    fresh_lens, k_fresh, v_fresh): the wave's attention as K11's plain
+    version takes it (for K3: its rotated q over the pools with the cells
+    written, the rotated k, non-finite fresh values zeroed). The plan
+    (cluster size, CTAs, tile and walk items, the most pages a CTA walks,
+    the clusters with work against the most the card holds at once, from
+    ``entry``, the form's plan export: all of them resident); the items
+    the CTAs decode on the card equal to ``ragged_items``; two calls of
+    ``run`` bitwise equal; and the fault control, the split walk's plain
+    model with the last range of every walk left out, whose worst err/tol
+    against ``ref`` must fail the ``attention_tolerance`` rule. Returns
+    (the plan's fields, a log line)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
+
+    q, kp, vp, bt = split[:4]
+    hk, _, page, _ = kp.shape
+    t, h, _ = q.shape
+    b, pps = bt.shape
+    g = h // hk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cs, clusters, ctas = k11.ragged_plan(t, b, hk, g, pps, sms)
+    plan = (ctypes.c_int * 4)()
+    _build.launch(entry, t, b, h, hk, page, pps, ctypes.addressof(plan))
+    assert list(plan)[:2] == [cs, clusters], (label, list(plan), cs,
+                                              clusters)
+    page_lens, _, q_lens, fresh = (x.tolist() for x in lens)
+    want = k11.ragged_items(q_lens, page_lens, fresh, t, hk, g, pps, page,
+                            sms)
+    out = torch.full((ctas, 6), -7, dtype=torch.int32, device="cuda")
+    _build.launch("pt_ragged_items", lens[0].data_ptr(), lens[2].data_ptr(),
+                  lens[3].data_ptr(), out.data_ptr(), t, b, h, hk, page, pps,
+                  _build.stream_of(out))
+    assert out.cpu().tolist() == [list(r) for r in want], (
+        f"{label}: the items decoded on the card differ from ragged_items "
+        f"(cs {cs}, grid {ctas})")
+    tiles = sum(r[0] == k11.RAGGED_TILE for r in want)
+    walks = sum(r[0] == k11.RAGGED_WALK for r in want)
+    pages = max(-(-(r[5] - r[4]) // page) if r[0] == k11.RAGGED_WALK
+                else -(-page_lens[r[1]] // page) for r in want if r[0])
+    working = len({(r[2], i // cs) for i, r in enumerate(want) if r[0]})
+    assert working <= plan[3], (f"{label}: {working} clusters with work, "
+                                f"the card holds {plan[3]} at once")
+    assert _same_bits(torch, run), f"{label}: two calls differ"
+    control = k11.split_ragged_reference(*split, cs=cs, drop_last=True)
+    ctl = ((control.float() - ref.float()).abs()
+           / attention_tolerance(ref, abs_ref)).max().item()
+    assert ctl > 1, (f"{label}: the dropped-range control passed (worst "
+                     f"err/tol {ctl:.3f})")
+    fields = dict(cluster=cs, ctas=ctas, tile_items=tiles, walk_items=walks,
+                  pages_per_cta=pages, clusters_with_work=working,
+                  clusters_resident=plan[3], smem_bytes=plan[2],
+                  control_worst_err_over_tol=ctl)
+    return fields, (
+        f"plan: clusters of {cs}, {ctas} CTAs ({tiles} tile items, {walks} "
+        f"walk CTAs), at most {pages} pages a CTA, {working} clusters with "
+        f"work of {plan[3]} resident at once, {plan[2]} B of shared memory; "
+        f"items on the card = ragged_items; two calls bitwise equal; "
+        f"last-range-dropped control worst err/tol {ctl:.3f} (fails, as it "
+        f"must)")
+
+
+def _wave_name(seqs, chunks, idle):
+    parts = [f"chunk {c} on {s}" for s, c in zip(seqs, chunks) if c]
+    dec = [s + 1 for i, (s, c) in enumerate(zip(seqs, chunks))
+           if not c and i != idle]
+    return (", ".join(parts) + f", decode lens {dec}"
+            + (f", slot {idle} idle" if idle is not None else ""))
+
+
+def _ragged_bound(q, out, lens, extra_bytes, written=0):
+    """(bound ms, by) of a ragged wave of the batcher's shapes (8 kv
+    heads): q and out once, ``extra_bytes`` (the fresh K/V, ...), every
+    visible page cell's K and V once (``written`` cells of them written by
+    the call itself and not read), the block tables and layout, 4 D flops
+    a (query row, visible key) pair."""
+    page_lens, _, q_lens, fresh = (x.long() for x in lens)
+    keys = int((page_lens * q_lens).sum() + (fresh * (fresh + 1) // 2).sum())
+    nbytes = (2 * (q.numel() + out.numel()) + extra_bytes
+              + 2 * 2 * (int(page_lens.sum()) - written) * 8 * 128
+              + 4 * (BB * (BSEQ // PAGE) + 4 * BB))
+    return bound(nbytes, 4 * keys * q.shape[1] * 128, BF16_FLOPS)
+
+
+def _k11_wave(torch, timer, k11, kv_cache, rope_tables, seed, spec):
+    """K11 on one wave (layer 1's pools; q, fresh K/V random): checks,
+    plan and times."""
     cache, (q, kf, vf, _, _), wave = batcher_wave(torch, kv_cache,
-                                                  rope_tables, SEED + 8)
+                                                  rope_tables, seed, *spec)
     kp, vp = cache.k_pages[1], cache.v_pages[1]
     lens = wave[3:]                       # page_lens, q_start, q_lens, fresh
     args = (q, kp, vp, cache.block_tables, *lens)
@@ -900,37 +1009,49 @@ def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables):
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
-    assert worst <= 1, f"ragged_paged_attention worst err/tol {worst:.3f}"
-    pad = wave[0] < 0
-    assert not out[pad].any(), "a padding row is not zero"
+    name = _wave_name(*spec)
+    assert worst <= 1, f"K11 ({name}) worst err/tol {worst:.3f}"
+    assert not out[wave[0] < 0].any(), \
+        f"K11 ({name}): a padding row is not zero"
+    plan, walk = _ragged_checks(
+        torch, f"K11 ({name})", "pt_ragged_paged_attention_plan",
+        (*args, kf, vf), ref, abs_ref,
+        lambda: (k11.ragged_paged_attention_pure(*args, kf, vf),), lens)
     ms = timer(lambda: k11.ragged_paged_attention_pure(*args, kf, vf))
     plain = timer(lambda: k11.ragged_paged_attention_reference(*args, kf,
                                                                vf))
-    page_lens, _, q_lens, fresh = (x.long() for x in lens)
-    # per row: its slot's visible pages plus its causal share of the chunk
-    keys = int((page_lens * q_lens).sum()
-               + (fresh * (fresh + 1) // 2).sum())
-    nbytes = (2 * (q.numel() + kf.numel() + vf.numel() + out.numel())
-              + 2 * 2 * int(page_lens.sum()) * 8 * 128
-              + 4 * (cache.block_tables.numel() + 4 * BB))
-    bms, by = bound(nbytes, 4 * keys * 32 * 128, BF16_FLOPS)
-    log(f"K11 ragged_paged_attention T{BT} H32/8 page{PAGE} chunks "
-        f"{WAVE_CHUNK[:2]} decode lens {lens[0][2:].tolist()}: max_abs_err "
-        f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) kernel_ms "
-        f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by})")
+    bms, by = _ragged_bound(q, out, lens, 2 * (kf.numel() + vf.numel()))
+    log(f"K11 ragged_paged_attention T{BT} H32/8 page{PAGE} {name}: "
+        f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); "
+        f"{walk}")
+    return {"max_abs_err": diff.max().item(), "err_over_tol": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, **plan,
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} {name}"}
+
+
+def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables):
+    """K11 on the mixed wave and on the second wave (a 256-row chunk on
+    256 cells of context, seven decode rows)."""
+    first, second = (_k11_wave(torch, timer, k11, kv_cache, rope_tables,
+                               SEED + 8 + 10 * i, spec)
+                     for i, spec in enumerate(RAGGED_WAVES))
     return {"name": "ragged_paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:244",
-            "max_abs_err": diff.max().item(), "err_over_tol": worst,
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
-            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} mixed wave"}
+            **first, "second_wave": second}
 
 
-def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables):
-    """K3's ragged form on the mixed wave: output, the written cells bit
-    for bit against the plain chain, every other cell untouched."""
-    cache, rows, wave = batcher_wave(torch, kv_cache, rope_tables, SEED + 9)
+def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec):
+    """K3's ragged form on one wave: output, the written cells bit for bit
+    against the plain chain, every other cell untouched; plan and
+    times."""
+    from paddle_tpu_torch.models.llama import apply_rotary_rows
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
+
+    cache, rows, wave = batcher_wave(torch, kv_cache, rope_tables, seed,
+                                     *spec)
     layer = 1
     ck, cp = _pool_copy(cache), _pool_copy(cache)
     out, ck = k3.fused_rope_append_attend(*rows, ck, layer, *wave)
@@ -942,37 +1063,54 @@ def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables):
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
-    assert worst <= 1, f"rope_append_attend ragged worst err/tol {worst:.3f}"
+    name = _wave_name(*spec)
+    assert worst <= 1, f"K3 ragged ({name}) worst err/tol {worst:.3f}"
     valid = wave[2]
-    assert not out[~valid].any(), "a padding row is not zero"
+    assert not out[~valid].any(), \
+        f"K3 ragged ({name}): a padding row is not zero"
     written = _written_cells(torch, cache, layer, wave[0][valid],
                              wave[1][valid])
-    _check_pools(torch, ck, cp, cache, written, "rope_append_attend ragged")
+    _check_pools(torch, ck, cp, cache, written, f"K3 ragged ({name})")
+    q2, k2 = apply_rotary_rows(q, k, cos, sin)
+    lens = wave[3:]
+    split = (q2, cp.k_pages[layer], cp.v_pages[layer], cp.block_tables,
+             *lens, k11.zero_non_finite(k2), k11.zero_non_finite(v))
+    plan, walk = _ragged_checks(
+        torch, f"K3 ragged ({name})", "pt_rope_append_attend_ragged_plan",
+        split, ref, abs_ref,
+        lambda: k3.fused_rope_append_attend(*rows, _pool_copy(cache), layer,
+                                            *wave)[:1], lens)
     ms = timer(lambda: k3.fused_rope_append_attend(*rows, ck, layer, *wave))
     plain = timer(lambda: k3.ragged_reference(*rows, cp, layer, *wave,
                                               plain=True))
-    page_lens, _, q_lens, fresh = (x.long() for x in wave[3:])
-    keys = int((page_lens * q_lens).sum() + (fresh * (fresh + 1) // 2).sum())
     n_valid = int(valid.sum())
-    # decode rows read their own new cell back: pages read = page_lens
-    # minus the cells this wave writes
-    read_cells = int(page_lens.sum()) - int((q_lens * (fresh == 0)).sum())
-    nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
-              + 4 * (cos.numel() + sin.numel())
-              + 2 * 2 * (read_cells + n_valid) * 8 * 128
-              + 4 * (cache.block_tables.numel() + BT + 4 * BB))
-    bms, by = bound(nbytes, 4 * keys * 32 * 128, BF16_FLOPS)
-    log(f"K3 rope_append_attend ragged T{BT} H32/8 page{PAGE}: max_abs_err "
-        f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) pool values "
-        f"differing 0, {n_valid} rows written, kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} bound_ms {bms:.4f} ({by})")
+    page_lens, _, q_lens, fresh = (x.long() for x in lens)
+    # decode rows read their own new cell back: the cells this wave writes
+    # are not read from the pool
+    own = int((q_lens * (fresh == 0)).sum())
+    bms, by = _ragged_bound(
+        q, out, lens,
+        2 * (k.numel() + v.numel()) + 4 * (cos.numel() + sin.numel())
+        + 2 * 2 * n_valid * 8 * 128 + 4 * BT, written=own)
+    log(f"K3 rope_append_attend ragged T{BT} H32/8 page{PAGE} {name}: "
+        f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
+        f"pool values differing 0, {n_valid} rows written, kernel_ms "
+        f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); {walk}")
+    return {"max_abs_err": diff.max().item(), "err_over_tol": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, **plan,
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} {name}"}
+
+
+def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables):
+    """K3's ragged form on the mixed wave and on the second wave."""
+    first, second = (_k3_ragged_wave(torch, timer, k3, kv_cache,
+                                     rope_tables, SEED + 9 + 10 * i, spec)
+                     for i, spec in enumerate(RAGGED_WAVES))
     return {"name": "rope_append_attend_ragged", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
-            "max_abs_err": diff.max().item(), "err_over_tol": worst,
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
-            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} mixed wave"}
+            **first, "second_wave": second}
 
 
 def _segment_step_inputs(torch, kv_cache, rope_tables, seed):
@@ -1121,9 +1259,9 @@ def _kernel_class(name):
         return "K2/K4 matmul"
     if "rope_append_attend_kernel" in name:
         return "K3 rope_append_attend (decode)"
-    if "ragged_attend_kernel<true>" in name:
+    if "ragged_walk_kernel<true" in name:
         return "K3 rope_append_attend (ragged)"
-    if "ragged_attend_kernel<false>" in name:
+    if "ragged_walk_kernel<false" in name:
         return "K11 ragged_paged_attention"
     if "paged_attention_kernel" in name:
         return "K10 paged_attention"

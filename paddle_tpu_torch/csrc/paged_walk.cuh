@@ -490,43 +490,57 @@ inline int sms() {
   return n;
 }
 
-// Launch kern on grid (Hk * cs, B) in clusters of cs with `threads`
-// threads and `smem` bytes of dynamic shared memory
-template <typename... T>
-cudaError_t launch_clusters(void (*kern)(T...), int B, int Hk, int cs, int threads, int smem,
-                            cudaStream_t stream, T... args) {
-  const void* fn = reinterpret_cast<const void*>(kern);
-  {  // raise the kernel's dynamic shared memory limit as far as needed, once
-    static std::mutex mu;
-    static std::map<const void*, int> allowed;
-    std::lock_guard<std::mutex> lock(mu);
-    auto it = allowed.find(fn);
-    if (it == allowed.end()) {  // the most shared memory an SM can give, so
-      // that several CTAs of a cluster grid are resident on each SM
-      const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-      if (err != cudaSuccess) return err;
-      it = allowed.emplace(fn, 0).first;
-    }
-    if (smem > it->second) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      it->second = smem;
-    }
+// Raise kernel fn's dynamic shared memory limit to smem (once per kernel
+// and size), with the most shared memory an SM can give, so that several
+// CTAs of a cluster grid are resident on each SM
+inline cudaError_t allow_smem(const void* fn, int smem) {
+  static std::mutex mu;
+  static std::map<const void*, int> allowed;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = allowed.find(fn);
+  if (it == allowed.end()) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    it = allowed.emplace(fn, 0).first;
   }
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = cs;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
+  if (smem > it->second) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    it->second = smem;
+  }
+  return cudaSuccess;
+}
+
+// The launch of `grid` in clusters of cs along x with `threads` threads
+// and `smem` bytes of dynamic shared memory; `cluster` holds its attribute
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int cs, int threads, int smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* cluster) {
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = cs;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(Hk * cs, B);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch kern on `grid` in clusters of cs along x with `threads` threads
+// and `smem` bytes of dynamic shared memory
+template <typename... T>
+cudaError_t launch_clusters(void (*kern)(T...), dim3 grid, int cs, int threads, int smem,
+                            cudaStream_t stream, T... args) {
+  const void* fn = reinterpret_cast<const void*>(kern);
+  const cudaError_t set = allow_smem(fn, smem);
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, cs, threads, smem, stream, &cluster);
   void* argv[] = {&args...};
   const cudaError_t err = cudaLaunchKernelExC(&cfg, fn, argv);
   const cudaError_t last = cudaGetLastError();  // cleared either way
@@ -540,14 +554,15 @@ cudaError_t launch(void (*kern)(Args<Pool>), Args<Pool> a, int B, cudaStream_t s
   a.cs = cluster_size(B, a.Hk, a.pps, sms());
   const Geo geo(a.page, sizeof(Pool), a.pps, a.cs, a.H / a.Hk);
   a.stages = geo.stages;
-  return launch_clusters(kern, B, a.Hk, a.cs, NT, geo.smem, stream, a);
+  return launch_clusters(kern, dim3(a.Hk * a.cs, B), a.cs, NT, geo.smem, stream, a);
 }
 
 // The plan's items for walks over lens (B,) into out (B * Hk * cs rows of 3)
 inline cudaError_t items(const int* lens, int B, int Hk, int page, int pps, int* out,
                          cudaStream_t stream) {
   const int cs = cluster_size(B, Hk, pps, sms());
-  return launch_clusters(items_kernel, B, Hk, cs, 32, 0, stream, lens, Hk, page, pps, cs, out);
+  return launch_clusters(items_kernel, dim3(Hk * cs, B), cs, 32, 0, stream, lens, Hk, page, pps,
+                         cs, out);
 }
 
 }  // namespace

@@ -1,29 +1,28 @@
 // K11 ragged_paged_attention: two-source ragged paged attention for a
-// mixed wave of chunked-prefill and decode rows (ragged_attend.cuh sets
-// out the contract and the design).
+// mixed wave of chunked-prefill and decode rows (ragged_walk.cuh sets out
+// the contract and the design).
 //
 // Replaces paddle_tpu/ops/pallas/ragged_paged_attention.py:_pallas_ragged
 // (_ragged_kernel), whose grid walks (kv head, slot, q-row block, page) in
 // order with the online softmax in VMEM scratch and parks the page index of
-// a q-row block outside the slot's segment. Here the blocks run in
-// parallel: one block per (tile of a slot's rows, kv head, slot), which
-// exits at once when its tile lies past the slot's q_lens, so a wave costs
-// work only where it has rows; within a block the g query heads of the kv
-// head share every K/V tile staged in shared memory.
+// a q-row block outside the slot's segment. Here a grid that depends on
+// shapes only decodes its items on the device: each decode row's page walk
+// split in whole pages across a thread-block cluster and merged in rank
+// order, every chunk in tiles of 64 MMA rows that walk the slot's pages
+// and their causal share of the chunk on the tensor cores, the pages
+// brought in by bulk copies.
 //
 // Bound on an H100: bytes for decode rows (each live cell's K and V read
-// once), operations for long prefill chunks (4 * D flops per query row
-// and visible key, in f32 outside the tensor cores here); this version
-// rereads a slot's pages once per row tile, and its scores and p @ V run
-// on the CUDA cores. Tensor-core tiles are a later PR's work.
-#include "ragged_attend.cuh"
+// once), operations for long prefill chunks (4 * D flops per query row and
+// visible key).
+#include "ragged_walk.cuh"
 
 using pt::bf16;
 
 // q_rows (T, H, D) bf16; k_pages/v_pages (Hk, P, page, D) bf16;
 // block_tables (B, pps), page_lens/q_start/q_lens/fresh_lens (B,) int32;
-// k_fresh/v_fresh (T, Hk, D) bf16; out (T, H, D) bf16, zero-filled by the
-// caller (rows of no segment are not written).
+// k_fresh/v_fresh (T, Hk, D) bf16; out (T, H, D) bf16, every row written
+// (rows of no segment as zeros). Every pointer 16-byte aligned.
 PT_EXPORT int pt_ragged_paged_attention(const void* q_rows, const void* k_pages,
                                         const void* v_pages, const void* block_tables,
                                         const void* page_lens, const void* q_start,
@@ -31,7 +30,7 @@ PT_EXPORT int pt_ragged_paged_attention(const void* q_rows, const void* k_pages,
                                         const void* k_fresh, const void* v_fresh, void* out,
                                         int T, int B, int H, int Hk, int P, int page, int pps,
                                         float scale, void* stream) {
-  pt::ragged::Args a{};
+  pt::rw::Args<bf16> a{};
   a.q = static_cast<const bf16*>(q_rows);
   a.k = static_cast<const bf16*>(k_fresh);
   a.v = static_cast<const bf16*>(v_fresh);
@@ -43,6 +42,8 @@ PT_EXPORT int pt_ragged_paged_attention(const void* q_rows, const void* k_pages,
   a.q_lens = static_cast<const int*>(q_lens);
   a.fresh_lens = static_cast<const int*>(fresh_lens);
   a.out = static_cast<bf16*>(out);
+  a.T = T;
+  a.B = B;
   a.H = H;
   a.Hk = Hk;
   a.P = P;
@@ -50,5 +51,24 @@ PT_EXPORT int pt_ragged_paged_attention(const void* q_rows, const void* k_pages,
   a.pps = pps;
   a.layer = 0;
   a.scale = scale;
-  return pt::ragged::launch_ragged<false>(a, T, B, static_cast<cudaStream_t>(stream));
+  return pt::rw::launch<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The ragged walk's items for a wave at this card's plan (both forms share
+// it): out (clusters * cs * Hk, 6) int32 rows (kind, slot, kv head, rank or
+// tile, first key, end key), row kh * clusters * cs + CTA.
+PT_EXPORT int pt_ragged_items(const void* page_lens, const void* q_lens, const void* fresh_lens,
+                              void* out, int T, int B, int H, int Hk, int page, int pps,
+                              void* stream) {
+  return pt::rw::items(static_cast<const int*>(page_lens), static_cast<const int*>(q_lens),
+                       static_cast<const int*>(fresh_lens), T, B, H, Hk, page, pps,
+                       static_cast<int*>(out), static_cast<cudaStream_t>(stream));
+}
+
+// K11's plan at a wave's shapes, into host memory out[4]: cluster size,
+// clusters a kv head, dynamic shared memory bytes, and the most clusters
+// of the kernel this card holds at once.
+PT_EXPORT int pt_ragged_paged_attention_plan(int T, int B, int H, int Hk, int page, int pps,
+                                             void* out) {
+  return pt::rw::describe<false>(T, B, H, Hk, page, pps, static_cast<int*>(out));
 }

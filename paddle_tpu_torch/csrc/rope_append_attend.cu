@@ -41,7 +41,7 @@
 // copies (page * 4 bytes each: page % 4 == 0).
 //
 // Ragged form (fused_rope_append_attend, pt_rope_append_attend_ragged):
-// the continuous batcher's admission wave — ragged_attend.cuh with FUSED
+// the continuous batcher's admission wave — ragged_walk.cuh with FUSED
 // set, which also writes down why one launch may write and read the pool.
 // bf16 pools only.
 //
@@ -49,7 +49,7 @@
 // (2 * len * Hk * D * 2 bytes per slot; 2 * len * Hk * (D + 4) on an int8
 // cache) and does ~4*g*D flops per cell.
 #include "paged_walk.cuh"
-#include "ragged_attend.cuh"
+#include "ragged_walk.cuh"
 
 using pt::bf16;
 using pt::pw::kD;
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(pt::pw::NT, 3) rope_append_attend_kernel(const
     const size_t self_cell =
         (plane + a.block_tables[(size_t)b * a.pps + self_page]) * a.page + pos % a.page;
     const float kn =
-        tid < kD ? __bfloat162float(__float2bfloat16(pt::ragged::rope(kd, kp, d, c, s))) : 0.f;
+        tid < kD ? __bfloat162float(__float2bfloat16(pt::rw::rope(kd, kp, d, c, s))) : 0.f;
     const float vn = tid < kD ? vd : 0.f;
     if constexpr (QUANT) {
       const float kmax = absmax_d(kn, sh.red[0]), vmax = absmax_d(vn, sh.red[1]);
@@ -152,7 +152,7 @@ __global__ void __launch_bounds__(pt::pw::NT, 3) rope_append_attend_kernel(const
 #pragma unroll
     for (int j = 0; j < pt::pw::kMaxG; ++j)
       if (j < g)
-        sh.part[j][d] = __bfloat162float(__float2bfloat16(pt::ragged::rope(qd[j], qp[j], d, c, s)));
+        sh.part[j][d] = __bfloat162float(__float2bfloat16(pt::rw::rope(qd[j], qp[j], d, c, s)));
   }
   __syncthreads();
   pt::pw::attend(sh, dyn, a, w, plane, g,
@@ -225,14 +225,14 @@ PT_EXPORT int pt_rope_append_attend_decode_int8(
 // (T, D) f32 at each row's position row_pos (T,) int32; k_pages/v_pages
 // (L, Hk, P, page, D) bf16, written in place; block_tables (B, pps),
 // page_lens/q_start/q_lens/fresh_lens (B,) int32; out (T, H, D) bf16,
-// zero-filled by the caller.
+// every row written (rows of no segment as zeros).
 PT_EXPORT int pt_rope_append_attend_ragged(
     const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
     void* k_pages, void* v_pages, const void* block_tables, const void* row_pos,
     const void* page_lens, const void* q_start, const void* q_lens, const void* fresh_lens,
     void* out, int T, int B, int H, int Hk, int P, int page, int pps, int layer, float scale,
     void* stream) {
-  pt::ragged::Args a{};
+  pt::rw::Args<bf16> a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -247,6 +247,8 @@ PT_EXPORT int pt_rope_append_attend_ragged(
   a.q_lens = static_cast<const int*>(q_lens);
   a.fresh_lens = static_cast<const int*>(fresh_lens);
   a.out = static_cast<bf16*>(out);
+  a.T = T;
+  a.B = B;
   a.H = H;
   a.Hk = Hk;
   a.P = P;
@@ -254,5 +256,12 @@ PT_EXPORT int pt_rope_append_attend_ragged(
   a.pps = pps;
   a.layer = layer;
   a.scale = scale;
-  return pt::ragged::launch_ragged<true>(a, T, B, static_cast<cudaStream_t>(stream));
+  return pt::rw::launch<true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The ragged form's plan at a wave's shapes, into host memory out[4] (as
+// pt_ragged_paged_attention_plan).
+PT_EXPORT int pt_rope_append_attend_ragged_plan(int T, int B, int H, int Hk, int page, int pps,
+                                                void* out) {
+  return pt::rw::describe<true>(T, B, H, Hk, page, pps, static_cast<int*>(out));
 }

@@ -127,10 +127,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 // ---- thread-block clusters -----------------------------------------------
 
-// every thread of the cluster: arrive (release), then wait (acquire)
-__device__ __forceinline__ void cluster_sync() {
+// every thread of the cluster: arrive (release), then wait (acquire); the
+// two halves apart let a CTA do other work between them
+__device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 // the address of p in the shared memory of cluster rank `rank`

@@ -17,7 +17,11 @@ place and returns the same cache state.
                                    inactive slot writes nothing and
                                    returns zeros)
 
-The decode form runs K10's page walk (``csrc/paged_walk.cuh``: each
+The ragged form runs K11's body (``csrc/ragged_walk.cuh``: decode rows'
+page walks split across a thread-block cluster, chunk rows in tiles on
+the tensor cores, ``ragged_paged_attention.ragged_plan``), each segment
+row's cell written by the CTA that holds the row. The decode form runs
+K10's page walk (``csrc/paged_walk.cuh``: each
 (kv head, slot) walk split in whole pages across a thread-block cluster,
 ``paged_attention.walk_plan``), the CTA whose pages hold the new cell
 writing it. On an int8 cache it quantizes the rotated k row and the raw v
@@ -154,7 +158,7 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
     for name, x in (("page_lens", page_lens), ("q_start", q_start),
                     ("q_lens", q_lens), ("fresh_lens", fresh_lens)):
         _build.check_cuda(name, x, i32, (b,))
-    out = torch.zeros_like(q)            # rows of no segment stay zero
+    out = torch.empty_like(q)            # K3 writes every row
     _build.launch("pt_rope_append_attend_ragged", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                   cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),

@@ -21,6 +21,15 @@ k/v_fresh (T, Hk, D); on an int8 cache k/v_scales (Hk, P, page, 1).
 On CPU tensors ``ragged_paged_attention_pure`` runs the plain version; on
 CUDA tensors it launches K11 or raises (K11 reads bf16 pools only: an
 int8 cache raises ``NotImplementedError``).
+
+K11 and K3's ragged form share one body (``csrc/ragged_walk.cuh``): a grid
+that depends on shapes only, whose CTAs decode their work on the device —
+a walk item for each decode row (a slot with q_lens 1 and fresh_lens 0),
+its page walk split in whole pages across a thread-block cluster and
+merged in rank order, and tile items of ``RAGGED_ROWS`` MMA rows for every
+other slot's rows. ``ragged_plan`` and ``ragged_items`` model its grid and
+items; ``split_ragged_reference`` is a plain model of its arithmetic
+(tests and ``chip_smoke.py`` use them; the port's paths never call them).
 """
 
 from __future__ import annotations
@@ -30,8 +39,16 @@ import math
 import torch
 
 from . import _build
+from .grouped_matmul import H100_SMS
+from .paged_attention import walk_plan, walk_range
 
 _NEG_INF = -1e30
+
+#: a tile item's MMA rows (``csrc/ragged_walk.cuh`` ROWS): 64 / g wave
+#: rows times the g query heads of one kv head
+RAGGED_ROWS = 64
+#: the kinds of a ragged CTA's item (``ragged_items``' first field)
+RAGGED_EMPTY, RAGGED_WALK, RAGGED_TILE = 0, 1, 2
 
 #: K11 launches since the last reset (incremented only where it launches)
 launches = 0
@@ -138,7 +155,7 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
         _build.check_cuda(name, x, i32, (b,))
     _build.check_cuda("k_fresh", k_fresh, bf, (t, hk, d))
     _build.check_cuda("v_fresh", v_fresh, bf, (t, hk, d))
-    out = torch.zeros_like(q_rows)       # rows of no segment stay zero
+    out = torch.empty_like(q_rows)       # K11 writes every row
     _build.launch("pt_ragged_paged_attention", q_rows.data_ptr(),
                   k_pages.data_ptr(), v_pages.data_ptr(),
                   block_tables.data_ptr(), page_lens.data_ptr(),
@@ -151,11 +168,168 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
 
 
 def check_wave_shapes(q_rows, hk):
-    """The ragged kernels' shape rule: head_dim 128 and a GQA group that
-    divides 32 (one block holds 32 query rows: 32 / g wave rows)."""
+    """The ragged kernels' shape rule: head_dim 128 and a GQA group of 1,
+    2, 4 or 8 (a tile item holds 64 / g wave rows of g heads; a walk item
+    the g heads of one row, padded to 16 MMA rows)."""
     _, h, d = q_rows.shape
     g = h // hk if h % hk == 0 else 0
     if d != 128 or g not in (1, 2, 4, 8):
         raise ValueError(f"the ragged attention kernels need head_dim 128 "
                          f"and 1, 2, 4 or 8 query heads per kv head, got q "
                          f"{tuple(q_rows.shape)} with {hk} kv heads")
+
+
+# ------------------------------------------------ the ragged walk's model
+
+
+def _is_walk(q_len, fresh):
+    return q_len == 1 and fresh == 0
+
+
+def _max_tiles(rows, slots, r):
+    """The most tiles of r rows that ``rows`` wave rows make over at most
+    ``slots`` slots of at least one row each."""
+    if rows <= 0 or slots <= 0:
+        return 0
+    return rows if rows <= slots else slots + (rows - slots) // r
+
+
+def ragged_plan(t, b, hk, g, pps, sms=H100_SMS):
+    """The ragged walk's grid (``csrc/ragged_walk.cuh`` plan): (cluster
+    size, clusters a kv head, CTAs). The cluster size is the page walk's
+    (``walk_plan``); a kv head gets the most clusters any wave of t rows
+    over b slots can need: w walk clusters (one a decode row) and then its
+    tiles of ``RAGGED_ROWS // g`` rows in clusters of cs, maximised over
+    w, at least one. The grid is (clusters x cs, Hk)."""
+    cs, _ = walk_plan(b, hk, pps, sms)
+    r = RAGGED_ROWS // g
+    clusters = max([1] + [w + -(-_max_tiles(t - w, b - w, r) // cs)
+                          for w in range(min(b, t) + 1)])
+    return cs, clusters, clusters * cs * hk
+
+
+def _decode(q_lens, fresh_lens, r, cs, cluster, rank):
+    """The item of (cluster, rank): (kind, slot, rank or tile)."""
+    walks = [b for b, (q, f) in enumerate(zip(q_lens, fresh_lens))
+             if _is_walk(q, f)]
+    if cluster < len(walks):
+        return RAGGED_WALK, walks[cluster], rank
+    tau = (cluster - len(walks)) * cs + rank
+    for b, (q, f) in enumerate(zip(q_lens, fresh_lens)):
+        if q <= 0 or _is_walk(q, f):
+            continue
+        nt = -(-q // r)
+        if tau < nt:
+            return RAGGED_TILE, b, tau
+        tau -= nt
+    return RAGGED_EMPTY, -1, 0
+
+
+def ragged_items(q_lens, page_lens, fresh_lens, t, hk, g, pps, page,
+                 sms=H100_SMS):
+    """The ragged walk as its CTAs decode it (``items_kernel``): one row
+    (kind, slot, kv head, rank or tile, first key, end key) a CTA, in grid
+    order (kv head, then CTA). A walk's keys are its rank's cells [lo page,
+    min(hi page, n)) of the slot's n = page_lens cells (``walk_range``); a
+    tile's are [0, page_lens + its fresh keys), its fresh keys
+    min(fresh_lens, its last row offset + 1); an empty CTA is (0, -1, kh,
+    0, 0, 0)."""
+    q_lens, page_lens, fresh_lens = (
+        [int(x) for x in v] for v in (q_lens, page_lens, fresh_lens))
+    cs, clusters, _ = ragged_plan(t, len(q_lens), hk, g, pps, sms)
+    r = RAGGED_ROWS // g
+    rows = []
+    for kh in range(hk):
+        for cta in range(clusters * cs):
+            kind, b, idx = _decode(q_lens, fresh_lens, r, cs, cta // cs,
+                                   cta % cs)
+            first = end = 0
+            if kind == RAGGED_WALK:
+                lo, hi = walk_range(page_lens[b], page, pps, idx, cs)
+                first, end = lo * page, min(hi * page, page_lens[b])
+            elif kind == RAGGED_TILE:
+                end = page_lens[b] + min(fresh_lens[b],
+                                         min(q_lens[b], (idx + 1) * r))
+            rows.append((kind, b, kh, idx, first, end))
+    return rows
+
+
+def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
+                           page_lens, q_start, q_lens, fresh_lens, k_fresh,
+                           v_fresh, scale=None, cs=1, drop_last=False):
+    """A plain model of the ragged walk's arithmetic, in f32. A walk item
+    (a slot whose one row decodes: q_lens 1, fresh_lens 0): rank r of
+    ``cs`` runs an online softmax over its pages (``walk_range``), one max
+    and one rescale a page, and the ranks' partial (m, l, acc) merge in
+    rank order (``drop_last`` leaves the last range's partial out: a fault
+    the attention checks must catch). Every other slot's rows: one softmax
+    a row over its pages and its causal fresh keys (u <= the row's offset,
+    u < fresh_lens; ``k_fresh`` / ``v_fresh`` as given: the callers zero
+    their non-finite values). out = acc / max(l, 1e-30); rows of no
+    segment and rows with no visible key are zeros. Never called by the
+    port's paths."""
+    hk, _, page, d = k_pages.shape
+    t, h, _ = q_rows.shape
+    g = h // hk
+    pps = block_tables.shape[1]
+    scale = scale or (1.0 / math.sqrt(d))
+    dev = q_rows.device
+    qg = q_rows.reshape(t, hk, g, d).float() * scale
+    out = torch.zeros((t, hk, g, d), dtype=torch.float32, device=dev)
+    for bi in range(block_tables.shape[0]):
+        q0, qn = int(q_start[bi]), int(q_lens[bi])
+        n, fresh = int(page_lens[bi]), int(fresh_lens[bi])
+        if qn <= 0:
+            continue
+        if _is_walk(qn, fresh):
+            parts = []
+            for rank in range(cs):
+                m = torch.full((hk, g), _NEG_INF, device=dev)
+                l = torch.zeros((hk, g), device=dev)
+                acc = torch.zeros((hk, g, d), device=dev)
+                for pg in range(*walk_range(n, page, pps, rank, cs)):
+                    cnt = min(page, n - pg * page)
+                    phys = int(block_tables[bi, pg])
+                    k = k_pages[:, phys, :cnt].float()
+                    v = v_pages[:, phys, :cnt].float()
+                    s = torch.einsum("kgd,knd->kgn", qg[q0], k)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[..., None])
+                    l = l * corr + p.sum(-1)
+                    acc = (acc * corr[..., None]
+                           + torch.einsum("kgn,knd->kgd", p, v))
+                    m = m_new
+                parts.append((m, l, acc))
+            if drop_last:
+                parts = parts[:-1]
+            if not parts:
+                continue
+            mt = torch.stack([pm for pm, _, _ in parts]).amax(0)
+            lt = sum(pl * torch.exp(pm - mt) for pm, pl, _ in parts)
+            at = sum(pa * torch.exp(pm - mt)[..., None]
+                     for pm, _, pa in parts)
+            out[q0] = at / lt.clamp_min(1e-30)[..., None]
+            continue
+        # every row of the slot over its pages and its causal fresh keys
+        pages = block_tables[bi, :min(-(-n // page), pps)].long()
+        k_ctx = k_pages[:, pages].reshape(hk, -1, d)[:, :n].float()
+        v_ctx = v_pages[:, pages].reshape(hk, -1, d)[:, :n].float()
+        k_new = k_fresh[q0:q0 + qn].float().transpose(0, 1)    # (hk, qn, d)
+        v_new = v_fresh[q0:q0 + qn].float().transpose(0, 1)
+        keys = torch.cat([k_ctx, k_new], dim=1)
+        vals = torch.cat([v_ctx, v_new], dim=1)
+        q = qg[q0:q0 + qn].permute(1, 2, 0, 3)                  # (hk, g, qn, d)
+        s = torch.einsum("kgrd,knd->kgrn", q, keys)
+        off = torch.arange(qn, device=dev)
+        u = torch.arange(qn, device=dev)
+        fresh_vis = (u[None, :] <= off[:, None]) & (u[None, :] < fresh)
+        vis = torch.cat([torch.ones((qn, n), dtype=torch.bool, device=dev),
+                         fresh_vis], dim=1)
+        s = torch.where(vis, s, torch.full_like(s, -math.inf))
+        m = s.amax(-1, keepdim=True).clamp_min(_NEG_INF)
+        p = torch.where(vis, torch.exp(s - m), torch.zeros_like(s))
+        o = (torch.einsum("kgrn,knd->kgrd", p, vals)
+             / p.sum(-1, keepdim=True).clamp_min(1e-30))
+        out[q0:q0 + qn] = o.permute(2, 0, 1, 3)
+    return out.reshape(t, h, d).to(q_rows.dtype)

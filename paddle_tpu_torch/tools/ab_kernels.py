@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K2, K3, K4, K10, K13 and K14 of two checkouts of the port on one card, in turns.
+"""Time K2, K3, K4, K10, K11, K13 and K14 of two checkouts of the port on one card, in turns.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --walk [--rounds R]
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --ragged [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --batcher [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --decode [--rounds R]
 
@@ -38,6 +39,13 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
     ``chip_smoke.WAVE_SEQ`` (+ 1), one slot idle), and the host time of
     one K3 decode call and one K10 call (``host_us``); ``--walk`` times
     these alone;
+  * the ragged forms, K11 and K3's ragged form, on ``chip_smoke.py``'s two
+    ragged waves (``RAGGED_WAVES``: T = 264, B = 8, 32/8 heads, page 16;
+    the mixed wave, and a 256-row chunk on 256 cells of context with
+    seven decode rows), built by this tool's own checkout's
+    ``chip_smoke.batcher_wave`` so that both trees get the same waves,
+    and the host time of one call of each on the first wave;
+    ``--ragged`` times these alone;
 
 each the median device ms of 20 calls with the L2 flushed before each and
 a spin kernel holding the stream while the host enqueues (as
@@ -242,6 +250,48 @@ def _walk_times(torch, flush):
     return out
 
 
+def _ragged_times(torch, flush):
+    """Cold ms of K11 and K3's ragged form on chip_smoke.py's ragged
+    waves (this tool's checkout's waves, the tree's kernels)."""
+    import importlib.util
+
+    from paddle_tpu_torch.models import kv_cache
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.kernels import fused_rope_attend as k3
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_waves", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = {}
+    for w, wave_spec in enumerate(cs.RAGGED_WAVES, 1):
+        cache, rows, wave = cs.batcher_wave(torch, kv_cache, _rope_tables,
+                                            cs.SEED + 8, *wave_spec)
+        args = (rows[0], cache.k_pages[1], cache.v_pages[1],
+                cache.block_tables, *wave[3:], rows[1], rows[2])
+        forms = (("K11", lambda: k11.ragged_paged_attention_pure(*args)),
+                 ("K3 ragged", lambda: k3.fused_rope_append_attend(
+                     *rows, cache, 1, *wave)))
+        for label, fn in forms:
+            out[f"{label} wave{w}"] = _cold_ms(torch, flush, fn)
+            if w == 1:
+                out[f"{label} wave1 host_us"] = _host_us(torch, fn)
+    return out
+
+
+def child_ragged() -> None:
+    import torch
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.build()
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        print(json.dumps(_ragged_times(torch, flush)), flush=True)
+
+
 def child_walk() -> None:
     import torch
     from paddle_tpu_torch.ops.kernels import _build
@@ -315,6 +365,7 @@ def child() -> None:
                     x, dy, off, e, out_dtype=torch.bfloat16))
             del x, dy
         out.update(_walk_times(torch, flush))
+        out.update(_ragged_times(torch, flush))
     print(json.dumps(out), flush=True)
 
 
@@ -325,6 +376,8 @@ def main() -> int:
             child_batcher()
         elif "--walk" in args:
             child_walk()
+        elif "--ragged" in args:
+            child_ragged()
         elif "--decode" in args:
             child_decode()
         else:
@@ -335,7 +388,7 @@ def main() -> int:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
-    modes = ("--batcher", "--decode", "--walk")
+    modes = ("--batcher", "--decode", "--walk", "--ragged")
     mode = [a for a in args if a in modes]
     args = [a for a in args if a not in modes]
     old, new = (os.path.abspath(a) for a in args)

@@ -30,7 +30,10 @@ pool cells bit-exact, int8 codes within 1 with the differing ones counted.
 The batcher's kernels — K10 (paged decode attention), K11 (ragged
 two-source attention) and K3's ragged and masked forms — run on waves
 that mix decode rows, chunks with and without page context, slots with
-no rows and padding rows, at GQA groups 1, 4 and 8; their pools must be
+no rows and padding rows (the ragged forms on the edge waves of
+``tests/ragged_wave_cases.py``, at GQA groups 1, 2, 4 and 8, pages 16
+and 32, two calls bitwise equal, and the items their CTAs decode equal to
+``ragged_paged_attention.ragged_items``); their pools must be
 bit-identical to the plain chain's and every other cell untouched. The
 page walk K10 and K3's decode forms share (split over a cluster of CTAs)
 also runs at caps up to 640 with lengths on page and range edges (K3's
@@ -100,6 +103,8 @@ from paddle_tpu_torch.ops.kernels import paged_attention as k10
 from paddle_tpu_torch.ops.kernels import quant_matmul as k4
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
 from paddle_tpu_torch.ops.extra_vision import _weight_quantize_pure
+
+from ragged_wave_cases import edge_waves, layout
 
 pytestmark = pytest.mark.cuda
 
@@ -692,35 +697,125 @@ def _wave_case(gen, b, hk, g, page, cap, t):
     return cache, rows, wave
 
 
-@pytest.mark.parametrize("g", [1, 4, 8])
-def test_ragged_attention_matches_plain(gen, g):
-    b, hk, page, cap, t = 6, 2, 16, 64, 48
-    cache, (q, kf, vf, _, _), wave = _wave_case(gen, b, hk, g, page, cap, t)
-    kf[30] = float("nan")               # a poisoned fresh row of slot 1
+def _edge_case(gen, g, page, name, hk=2):
+    """A wave of ``tests/ragged_wave_cases.py`` on a 2-layer bf16 cache of
+    random K/V (block tables permuted, old lengths in ``seq_lens``): the
+    cache, the rows (q, k, v, cos, sin) and the layout (row_slot, row_pos,
+    valid, page_lens, q_start, q_lens, fresh_lens) as the attend seams
+    take them."""
+    lay = layout(edge_waves(g, page)[name])
+    b, cap, t = len(lay["seq"]), lay["cap"], lay["t"]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    cache = _bf16_cache(gen, 2, b, cap, hk, page)
+    perm = torch.randperm(b * (cap // page), generator=gen, device="cuda")
+    cache = cache._replace(block_tables=perm.reshape(b, -1).to(torch.int32),
+                           seq_lens=torch.tensor(lay["seq"], **i32))
+    rs = torch.tensor(lay["row_slot"], **i32)
+    wave = (rs, torch.tensor(lay["row_pos"], **i32), rs >= 0,
+            *(torch.tensor(lay[k], **i32) for k in (
+                "page_lens", "q_start", "q_lens", "fresh_lens")))
+    cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
+    pos = wave[1].long()
+    rows = (_randn(gen, t, hk * g, 128), _randn(gen, t, hk, 128),
+            _randn(gen, t, hk, 128), cos_t[pos], sin_t[pos])
+    return cache, rows, wave
+
+
+_EDGE_WAVES = [(g, page, name) for g in (1, 2, 4, 8) for page in (16, 32)
+               for name in ("chunks", "walks")]
+
+
+@pytest.mark.parametrize("g,page,name", _EDGE_WAVES)
+def test_ragged_attention_matches_plain(gen, g, page, name):
+    """K11 on the edge waves of the CPU walk tests, for every GQA group:
+    within the attention tolerance of its plain version, rows of no
+    segment exact zeros, a chunk row's non-finite fresh K/V leaking into
+    no other row."""
+    cache, (q, kf, vf, _, _), wave = _edge_case(gen, g, page, name)
+    slot = int((wave[6] >= 2).nonzero()[0])    # a chunk's second row
+    poisoned = int(wave[4][slot]) + 1
+    kf[poisoned], vf[poisoned] = float("nan"), float("inf")
     args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
             *wave[3:], kf, vf)
     out = k11.ragged_paged_attention_pure(*args)
     ref = k11.ragged_paged_attention_reference(
-        *args[:8], k11.zero_non_finite(kf), vf)
+        *args[:8], k11.zero_non_finite(kf), k11.zero_non_finite(vf))
     torch.cuda.synchronize()
     assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
-    assert not out[36:].any()            # padding rows
+    assert not out[~wave[2]].any()       # rows of no segment
 
 
-@pytest.mark.parametrize("g", [1, 4, 8])
-def test_rope_append_attend_ragged_matches_plain(gen, g):
-    b, hk, page, cap, t = 6, 2, 16, 64, 48
-    cache, rows, wave = _wave_case(gen, b, hk, g, page, cap, t)
+@pytest.mark.parametrize("g,page,name", _EDGE_WAVES)
+def test_rope_append_attend_ragged_matches_plain(gen, g, page, name):
+    """K3's ragged form on the same waves: the output within the attention
+    tolerance, rows of no segment zeros, the pools bit-identical to the
+    plain chain's (every segment row's cell, the other layer untouched)."""
+    cache, rows, wave = _edge_case(gen, g, page, name)
     ck, cp = _copy(cache), _copy(cache)
     out, ck = k3.fused_rope_append_attend(*rows, ck, 1, *wave)
     ref, cp = k3.ragged_reference(*rows, cp, 1, *wave, plain=True)
     torch.cuda.synchronize()
     assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
-    assert not out[36:].any()
+    assert not out[~wave[2]].any()
     # the written cells: the same separately rounded rope in both
     assert torch.equal(ck.k_pages, cp.k_pages)
     assert torch.equal(ck.v_pages, cp.v_pages)
     assert torch.equal(ck.k_pages[0], cache.k_pages[0])   # other layer
+
+
+@pytest.mark.parametrize("name", ["chunks", "walks"])
+def test_ragged_forms_are_deterministic(gen, name):
+    """K11 and K3's ragged form: two calls give the same bits (a walk's
+    ranks merge in rank order, no atomics), K3's pools included."""
+    cache, rows, wave = _edge_case(gen, 4, 16, name, hk=8)
+    q, kf, vf = rows[:3]
+    args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+            *wave[3:], kf, vf)
+    assert torch.equal(k11.ragged_paged_attention_pure(*args),
+                       k11.ragged_paged_attention_pure(*args))
+    runs = []
+    for _ in range(2):
+        c = _copy(cache)
+        out, c = k3.fused_rope_append_attend(*rows, c, 1, *wave)
+        runs.append((out, c.k_pages, c.v_pages))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("hk", [2, 8, 16, 32])
+def test_ragged_items_on_the_card_match_the_model(gen, hk):
+    """The (kind, slot, kv head, rank or tile, first key, end key) each CTA
+    of the ragged walk decodes on the card equal
+    ``ragged_paged_attention.ragged_items`` at this card's SM count, on
+    every edge wave and GQA group (kv heads 2, 8, 16 and 32 give plans of
+    several cluster sizes), also padded to T = 264; and the plan the two
+    entries report equals ``ragged_plan``."""
+    from paddle_tpu_torch.ops.kernels import _build
+    import ctypes
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for g, page, name in _EDGE_WAVES:
+        for t in (None, 264):
+            lay = layout(edge_waves(g, page)[name], t)
+            b, pps, t = len(lay["seq"]), lay["cap"] // page, lay["t"]
+            cs, clusters, ctas = k11.ragged_plan(t, b, hk, g, pps, sms)
+            want = k11.ragged_items(lay["q_lens"], lay["page_lens"],
+                                    lay["fresh_lens"], t, hk, g, pps, page,
+                                    sms)
+            lens = [torch.tensor(lay[k], dtype=torch.int32, device="cuda")
+                    for k in ("page_lens", "q_lens", "fresh_lens")]
+            out = torch.full((ctas, 6), -7, dtype=torch.int32, device="cuda")
+            _build.launch("pt_ragged_items", *(x.data_ptr() for x in lens),
+                          out.data_ptr(), t, b, hk * g, hk, page, pps,
+                          _build.stream_of(out))
+            assert out.cpu().tolist() == [list(r) for r in want], (
+                g, page, name, t, cs)
+            for entry in ("pt_ragged_paged_attention_plan",
+                          "pt_rope_append_attend_ragged_plan"):
+                plan = (ctypes.c_int * 4)()
+                _build.launch(entry, t, b, hk * g, hk, page, pps,
+                              ctypes.addressof(plan))
+                assert list(plan)[:2] == [cs, clusters], entry
+                assert plan[3] > 0, entry
 
 
 @pytest.mark.parametrize("lens", [(31, 0, 47, 64), _LONG_POS])
