@@ -50,7 +50,15 @@ class, device busy share). Phases, in order; any failure raises and the process 
                two calls bitwise equal, rows of no segment zeros (K3: the
                pools bit-identical to the plain chain's), and a fault
                control that must fail: ``split_ragged_reference`` with
-               every walk's last range left out.
+               every walk's last range left out. Then the batcher's
+               kernels on an int8 cache (page 32, every cell random K/V
+               quantized on write): K11 and K3's ragged form on both waves
+               and K10 and K3's masked form at the segment step's
+               lengths, with the same plans,
+               items, repeat, rows-of-no-segment and dropped-range checks
+               (K3: codes within 1 of the plain chain's, counted, scales
+               bit-identical, every other cell untouched) and the int8
+               byte bounds (codes and an f32 scale a cell).
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -81,6 +89,21 @@ class, device busy share). Phases, in order; any failure raises and the process 
                teacher-forced rule (``check_batcher_tokens``), which two
                fault controls must fail; timing is the median of 3 runs
                after a warm-up.
+6b. serving, int8w+int8kv continuous batching — the phase-6 model
+               quantized on the card as in phase 5 (bf16 matmul weights
+               freed) through ``ContinuousBatcher(quantized_params=...,
+               cache_dtype="int8", page_size=32, ...)`` on the same 24
+               requests, in both plans: counts equal to the plan plus 64
+               K4 a wave and a step, every request "ok" with its
+               max_new_tokens, no wasted slot step, and the teacher-forced
+               rule held against the quantized function (int8 weights
+               dequantized per call; attention through
+               ``int8_batcher_attention``: a key quantize->dequantized
+               where the batcher read it from its cache, fresh where the
+               row's own chunk gave it, per the request's ``chunk_map``
+               from the batcher's admission record), which its two
+               controls must fail; walls the median of 3 after a warm-up,
+               beside phase 6's.
 7. training kernels — after the serving models are freed, each new
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
@@ -836,19 +859,29 @@ def _decode_walk(kv_cache, rows, cache, layer, lens):
 
 
 def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
-                 chunks=WAVE_CHUNK, idle=WAVE_IDLE):
+                 chunks=WAVE_CHUNK, idle=WAVE_IDLE, int8=False):
     """The kernels phase's mixed wave at the batcher's shapes: a 2-layer
     bf16 cache (B=8, Hk=8, page 16, 40 pages per slot) of random K/V at
-    the old lengths ``seqs``; the wave's rows (q (T, 32, 128), k, v
-    (T, 8, 128), cos/sin (T, 128) at each row's position) and its layout
-    (row_slot, row_pos, valid, page_lens, q_start, q_lens, fresh_lens) as
-    ContinuousBatcher._build_ragged_step lays a wave out: slot i prefills
-    ``chunks[i]`` rows, or decodes one row unless it is ``idle``."""
+    the old lengths ``seqs`` (``int8``: an int8 cache at page 32, 20 pages
+    per slot, every cell random K/V quantized on write); the wave's rows
+    (q (T, 32, 128), k, v (T, 8, 128), cos/sin (T, 128) at each row's
+    position) and its layout (row_slot, row_pos, valid, page_lens, q_start,
+    q_lens, fresh_lens) as ContinuousBatcher._build_ragged_step lays a wave
+    out: slot i prefills ``chunks[i]`` rows, or decodes one row unless it
+    is ``idle``."""
     b, h, hk, d = BB, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(seed)
-    cache = kv_cache.create_paged_cache(2, b, BSEQ, hk, d, PAGE,
-                                        dtype=torch.bfloat16, device="cuda")
-    for pool in (cache.k_pages, cache.v_pages):
+    cache = kv_cache.create_paged_cache(
+        2, b, BSEQ, hk, d, PAGE_INT8 if int8 else PAGE,
+        dtype=torch.int8 if int8 else torch.bfloat16, device="cuda")
+    if int8:
+        for codes, scales in ((cache.k_pages, cache.k_scales),
+                              (cache.v_pages, cache.v_scales)):
+            c, sc = kv_cache.quantize_cells(
+                torch.randn(codes.shape, generator=g, device="cuda"))
+            codes.copy_(c)
+            scales.copy_(sc)
+    for pool in () if int8 else (cache.k_pages, cache.v_pages):
         pool.copy_(torch.randn(pool.shape, generator=g, device="cuda"))
     cache = cache._replace(seq_lens=torch.tensor(
         seqs, dtype=torch.int32, device="cuda"))
@@ -879,34 +912,51 @@ def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
 
 
 def _pool_copy(cache, **pools):
-    """The cache with its own copy of its K/V pools (or the given ones)."""
+    """The cache with its own copy of its K/V pools (or the given ones) and,
+    on an int8 cache, of its scale pools."""
+    scales = {n: getattr(cache, n).clone() for n in ("k_scales", "v_scales")
+              if getattr(cache, n) is not None}
     return cache._replace(k_pages=pools.get("k", cache.k_pages).clone(),
-                          v_pages=pools.get("v", cache.v_pages).clone())
+                          v_pages=pools.get("v", cache.v_pages).clone(),
+                          **scales)
 
 
 def _written_cells(torch, cache, layer, slots, positions):
     """(L, Hk, P, page) mask of the cells at (slot, position) in ``layer``."""
+    page = cache.k_pages.shape[3]
     mask = torch.zeros(cache.k_pages.shape[:-1], dtype=torch.bool,
                        device="cuda")
     slots, positions = slots.long(), positions.long()
-    phys = cache.block_tables[slots, positions // PAGE].long()
-    mask[layer, :, phys, positions % PAGE] = True
+    phys = cache.block_tables[slots, positions // page].long()
+    mask[layer, :, phys, positions % page] = True
     return mask
 
 
 def _check_pools(torch, new, ref, old, written, label):
-    """Pools bit-identical to the plain chain's, and every cell outside
-    the written ones as it was."""
-    for name in ("k_pages", "v_pages"):
+    """Pools bit-identical to the plain chain's (an int8 cache: codes
+    within 1, for a rounding boundary, and scales bit-identical), and every
+    cell outside the written ones as it was. Returns the codes that differ
+    (0 on a bf16 cache)."""
+    codes = 0
+    names = ("k_pages", "v_pages") + (("k_scales", "v_scales")
+                                      if new.quantized else ())
+    for name in names:
         a, b_, o = (getattr(c, name) for c in (new, ref, old))
-        differing = int((a != b_).sum())
-        assert differing == 0, f"{label}: {differing} {name} values differ"
-        keep = ~written
+        if a.dtype == torch.int8:
+            dq = (a.int() - b_.int()).abs()
+            assert int(dq.max()) <= 1, f"{label}: a {name} code differs by > 1"
+            codes += int((dq > 0).sum())
+        else:
+            differing = int((a != b_).sum())
+            assert differing == 0, f"{label}: {differing} {name} values differ"
+        keep = (~written)[..., None].expand_as(a)
         assert torch.equal(a[keep], o[keep]), \
             f"{label}: a {name} cell other than the written ones changed"
+    return codes
 
 
-def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens):
+def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens,
+                   scales=None):
     """The ragged walk's checks for a K11 or K3-ragged wave. ``split`` =
     (q, k_pages, v_pages, block_tables, page_lens, q_start, q_lens,
     fresh_lens, k_fresh, v_fresh): the wave's attention as K11's plain
@@ -917,9 +967,10 @@ def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens):
     ``entry``, the form's plan export: all of them resident); the items
     the CTAs decode on the card equal to ``ragged_items``; two calls of
     ``run`` bitwise equal; and the fault control, the split walk's plain
-    model with the last range of every walk left out, whose worst err/tol
-    against ``ref`` must fail the ``attention_tolerance`` rule. Returns
-    (the plan's fields, a log line)."""
+    model with the last range of every walk left out (``scales``: an int8
+    cache's, as keywords), whose worst err/tol against ``ref`` must fail
+    the ``attention_tolerance`` rule. Returns (the plan's fields, a log
+    line)."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -954,7 +1005,8 @@ def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens):
     assert working <= plan[3], (f"{label}: {working} clusters with work, "
                                 f"the card holds {plan[3]} at once")
     assert _same_bits(torch, run), f"{label}: two calls differ"
-    control = k11.split_ragged_reference(*split, cs=cs, drop_last=True)
+    control = k11.split_ragged_reference(*split, **(scales or {}), cs=cs,
+                                         drop_last=True)
     ctl = ((control.float() - ref.float()).abs()
            / attention_tolerance(ref, abs_ref)).max().item()
     assert ctl > 1, (f"{label}: the dropped-range control passed (worst "
@@ -980,78 +1032,100 @@ def _wave_name(seqs, chunks, idle):
             + (f", slot {idle} idle" if idle is not None else ""))
 
 
-def _ragged_bound(q, out, lens, extra_bytes, written=0):
+def _ragged_bound(q, out, lens, extra_bytes, written=0, int8=False):
     """(bound ms, by) of a ragged wave of the batcher's shapes (8 kv
     heads): q and out once, ``extra_bytes`` (the fresh K/V, ...), every
     visible page cell's K and V once (``written`` cells of them written by
-    the call itself and not read), the block tables and layout, 4 D flops
-    a (query row, visible key) pair."""
+    the call itself and not read; bf16, or ``int8`` codes and an f32
+    scale), the block tables and layout, 4 D flops a (query row, visible
+    key) pair."""
     page_lens, _, q_lens, fresh = (x.long() for x in lens)
     keys = int((page_lens * q_lens).sum() + (fresh * (fresh + 1) // 2).sum())
+    cell = 128 + 4 if int8 else 2 * 128
+    page = PAGE_INT8 if int8 else PAGE
     nbytes = (2 * (q.numel() + out.numel()) + extra_bytes
-              + 2 * 2 * (int(page_lens.sum()) - written) * 8 * 128
-              + 4 * (BB * (BSEQ // PAGE) + 4 * BB))
+              + 2 * (int(page_lens.sum()) - written) * 8 * cell
+              + 4 * (BB * (BSEQ // page) + 4 * BB))
     return bound(nbytes, 4 * keys * q.shape[1] * 128, BF16_FLOPS)
 
 
-def _k11_wave(torch, timer, k11, kv_cache, rope_tables, seed, spec):
+def _scales(cache, layer):
+    """An int8 cache's scale pools of ``layer`` as keywords ({} on bf16)."""
+    if not cache.quantized:
+        return {}
+    return {"k_scales": cache.k_scales[layer],
+            "v_scales": cache.v_scales[layer]}
+
+
+def _k11_wave(torch, timer, k11, kv_cache, rope_tables, seed, spec, int8):
     """K11 on one wave (layer 1's pools; q, fresh K/V random): checks,
     plan and times."""
-    cache, (q, kf, vf, _, _), wave = batcher_wave(torch, kv_cache,
-                                                  rope_tables, seed, *spec)
+    cache, (q, kf, vf, _, _), wave = batcher_wave(
+        torch, kv_cache, rope_tables, seed, *spec, int8=int8)
     kp, vp = cache.k_pages[1], cache.v_pages[1]
+    sc = _scales(cache, 1)
     lens = wave[3:]                       # page_lens, q_start, q_lens, fresh
     args = (q, kp, vp, cache.block_tables, *lens)
-    out = k11.ragged_paged_attention_pure(*args, kf, vf)
-    ref = k11.ragged_paged_attention_reference(*args, kf, vf)
+    out = k11.ragged_paged_attention_pure(*args, kf, vf, **sc)
+    ref = k11.ragged_paged_attention_reference(*args, kf, vf, **sc)
     abs_ref = k11.ragged_paged_attention_reference(
-        q, kp, vp.abs(), cache.block_tables, *lens, kf, vf.abs())
+        q, kp, vp.abs(), cache.block_tables, *lens, kf, vf.abs(), **sc)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
     name = _wave_name(*spec)
-    assert worst <= 1, f"K11 ({name}) worst err/tol {worst:.3f}"
+    form = "K11 int8" if int8 else "K11"
+    assert worst <= 1, f"{form} ({name}) worst err/tol {worst:.3f}"
     assert not out[wave[0] < 0].any(), \
-        f"K11 ({name}): a padding row is not zero"
+        f"{form} ({name}): a padding row is not zero"
     plan, walk = _ragged_checks(
-        torch, f"K11 ({name})", "pt_ragged_paged_attention_plan",
-        (*args, kf, vf), ref, abs_ref,
-        lambda: (k11.ragged_paged_attention_pure(*args, kf, vf),), lens)
-    ms = timer(lambda: k11.ragged_paged_attention_pure(*args, kf, vf))
+        torch, f"{form} ({name})",
+        "pt_ragged_paged_attention_int8_plan" if int8
+        else "pt_ragged_paged_attention_plan", (*args, kf, vf), ref, abs_ref,
+        lambda: (k11.ragged_paged_attention_pure(*args, kf, vf, **sc),), lens,
+        scales=sc)
+    ms = timer(lambda: k11.ragged_paged_attention_pure(*args, kf, vf, **sc))
     plain = timer(lambda: k11.ragged_paged_attention_reference(*args, kf,
-                                                               vf))
-    bms, by = _ragged_bound(q, out, lens, 2 * (kf.numel() + vf.numel()))
-    log(f"K11 ragged_paged_attention T{BT} H32/8 page{PAGE} {name}: "
+                                                               vf, **sc))
+    bms, by = _ragged_bound(q, out, lens, 2 * (kf.numel() + vf.numel()),
+                            int8=int8)
+    page = kp.shape[2]
+    log(f"{form} ragged_paged_attention T{BT} H32/8 page{page} {name}: "
         f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
         f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); "
         f"{walk}")
     return {"max_abs_err": diff.max().item(), "err_over_tol": worst,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None, **plan,
-            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} {name}"}
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{page}"
+                     f"{' int8' if int8 else ''} {name}"}
 
 
-def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables):
+def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables,
+                           int8=False):
     """K11 on the mixed wave and on the second wave (a 256-row chunk on
-    256 cells of context, seven decode rows)."""
+    256 cells of context, seven decode rows); ``int8``: on an int8 cache
+    at page 32."""
     first, second = (_k11_wave(torch, timer, k11, kv_cache, rope_tables,
-                               SEED + 8 + 10 * i, spec)
+                               SEED + 8 + 10 * i + 100 * int8, spec, int8)
                      for i, spec in enumerate(RAGGED_WAVES))
-    return {"name": "ragged_paged_attention", "route": "cuda",
+    return {"name": "ragged_paged_attention" + ("_int8" if int8 else ""),
+            "route": "cuda",
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:244",
             **first, "second_wave": second}
 
 
-def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec):
-    """K3's ragged form on one wave: output, the written cells bit for bit
-    against the plain chain, every other cell untouched; plan and
-    times."""
+def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec,
+                    int8):
+    """K3's ragged form on one wave: output, the written cells against the
+    plain chain (bf16: bit for bit; int8: codes within 1, scales bit for
+    bit), every other cell untouched; plan and times."""
     from paddle_tpu_torch.models.llama import apply_rotary_rows
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
 
     cache, rows, wave = batcher_wave(torch, kv_cache, rope_tables, seed,
-                                     *spec)
+                                     *spec, int8=int8)
     layer = 1
     ck, cp = _pool_copy(cache), _pool_copy(cache)
     out, ck = k3.fused_rope_append_attend(*rows, ck, layer, *wave)
@@ -1064,22 +1138,26 @@ def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec):
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
     name = _wave_name(*spec)
-    assert worst <= 1, f"K3 ragged ({name}) worst err/tol {worst:.3f}"
+    form = "K3 ragged int8" if int8 else "K3 ragged"
+    assert worst <= 1, f"{form} ({name}) worst err/tol {worst:.3f}"
     valid = wave[2]
     assert not out[~valid].any(), \
-        f"K3 ragged ({name}): a padding row is not zero"
+        f"{form} ({name}): a padding row is not zero"
     written = _written_cells(torch, cache, layer, wave[0][valid],
                              wave[1][valid])
-    _check_pools(torch, ck, cp, cache, written, f"K3 ragged ({name})")
+    codes = _check_pools(torch, ck, cp, cache, written, f"{form} ({name})")
     q2, k2 = apply_rotary_rows(q, k, cos, sin)
     lens = wave[3:]
     split = (q2, cp.k_pages[layer], cp.v_pages[layer], cp.block_tables,
              *lens, k11.zero_non_finite(k2), k11.zero_non_finite(v))
     plan, walk = _ragged_checks(
-        torch, f"K3 ragged ({name})", "pt_rope_append_attend_ragged_plan",
+        torch, f"{form} ({name})",
+        "pt_rope_append_attend_ragged_int8_plan" if int8
+        else "pt_rope_append_attend_ragged_plan",
         split, ref, abs_ref,
         lambda: k3.fused_rope_append_attend(*rows, _pool_copy(cache), layer,
-                                            *wave)[:1], lens)
+                                            *wave)[:1], lens,
+        scales=_scales(cp, layer))
     ms = timer(lambda: k3.fused_rope_append_attend(*rows, ck, layer, *wave))
     plain = timer(lambda: k3.ragged_reference(*rows, cp, layer, *wave,
                                               plain=True))
@@ -1088,36 +1166,48 @@ def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec):
     # decode rows read their own new cell back: the cells this wave writes
     # are not read from the pool
     own = int((q_lens * (fresh == 0)).sum())
+    cell = 128 + 4 if int8 else 2 * 128
     bms, by = _ragged_bound(
         q, out, lens,
         2 * (k.numel() + v.numel()) + 4 * (cos.numel() + sin.numel())
-        + 2 * 2 * n_valid * 8 * 128 + 4 * BT, written=own)
-    log(f"K3 rope_append_attend ragged T{BT} H32/8 page{PAGE} {name}: "
+        + 2 * n_valid * 8 * cell + 4 * BT, written=own, int8=int8)
+    page = cache.k_pages.shape[3]
+    log(f"{form} rope_append_attend T{BT} H32/8 page{page} {name}: "
         f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
-        f"pool values differing 0, {n_valid} rows written, kernel_ms "
-        f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); {walk}")
+        f"pool values differing 0"
+        + (f" but {codes} codes by 1" if int8 else "")
+        + f", {n_valid} rows written, kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} bound_ms {bms:.4f} ({by}); {walk}")
     return {"max_abs_err": diff.max().item(), "err_over_tol": worst,
+            **({"codes_differing": codes} if int8 else {}),
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None, **plan,
-            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{PAGE} {name}"}
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{page}"
+                     f"{' int8' if int8 else ''} {name}"}
 
 
-def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables):
-    """K3's ragged form on the mixed wave and on the second wave."""
+def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables,
+                             int8=False):
+    """K3's ragged form on the mixed wave and on the second wave;
+    ``int8``: on an int8 cache at page 32."""
     first, second = (_k3_ragged_wave(torch, timer, k3, kv_cache,
-                                     rope_tables, SEED + 9 + 10 * i, spec)
+                                     rope_tables, SEED + 9 + 10 * i
+                                     + 100 * int8, spec, int8)
                      for i, spec in enumerate(RAGGED_WAVES))
-    return {"name": "rope_append_attend_ragged", "route": "cuda",
+    return {"name": "rope_append_attend_ragged" + ("_int8" if int8 else ""),
+            "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             **first, "second_wave": second}
 
 
-def _segment_step_inputs(torch, kv_cache, rope_tables, seed):
+def _segment_step_inputs(torch, kv_cache, rope_tables, seed, int8=False):
     """A segment step's decode rows at the batcher's shapes: the mixed
-    wave's cache at old lengths WAVE_SEQ, q (8, 32, 128), k/v (8, 8, 128),
-    cos/sin at each slot's position, every slot active but WAVE_IDLE."""
-    cache, _, _ = batcher_wave(torch, kv_cache, rope_tables, seed)
+    wave's cache (``int8``: its int8 form) at old lengths WAVE_SEQ, q (8,
+    32, 128), k/v (8, 8, 128), cos/sin at each slot's position, every slot
+    active but WAVE_IDLE."""
+    cache, _, _ = batcher_wave(torch, kv_cache, rope_tables, seed,
+                               int8=int8)
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     q = torch.randn((BB, 32, 128), generator=g, device="cuda",
                     dtype=torch.bfloat16)
@@ -1130,33 +1220,38 @@ def _segment_step_inputs(torch, kv_cache, rope_tables, seed):
     return cache, (q, k, v, cos_t[pos], sin_t[pos]), active
 
 
-def check_paged_attention(torch, timer, k10, kv_cache, rope_tables):
+def check_paged_attention(torch, timer, k10, kv_cache, rope_tables,
+                          int8=False):
     """K10 at a segment step's shape: lengths WAVE_SEQ + 1, 0 for the idle
-    slot."""
+    slot; ``int8``: on an int8 cache at page 32."""
     cache, (q, _, _, _, _), active = _segment_step_inputs(
-        torch, kv_cache, rope_tables, SEED + 10)
+        torch, kv_cache, rope_tables, SEED + 10 + 100 * int8, int8=int8)
     lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
     kp, vp = cache.k_pages[1], cache.v_pages[1]
+    sc = _scales(cache, 1)
     args = (q, kp, vp, cache.block_tables, lens)
-    out = k10.paged_attention_pure(*args)
-    ref = k10.paged_attention_reference(*args)
+    out = k10.paged_attention_pure(*args, **sc)
+    ref = k10.paged_attention_reference(*args, **sc)
     abs_ref = k10.paged_attention_reference(q, kp, vp.abs(),
-                                            cache.block_tables, lens)
+                                            cache.block_tables, lens, **sc)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
-    assert worst <= 1, f"paged_attention worst err/tol {worst:.3f}"
+    form = "paged_attention" + (" int8" if int8 else "")
+    assert worst <= 1, f"{form} worst err/tol {worst:.3f}"
     assert not out[WAVE_IDLE].any(), "the length-0 slot is not zero"
-    row = {"name": "paged_attention"}
-    walk = _walk_checks(torch, row, (*args, {}), ref,
-                        lambda: (k10.paged_attention_pure(*args),))
-    ms = timer(lambda: k10.paged_attention_pure(*args))
-    plain = timer(lambda: k10.paged_attention_reference(*args))
+    row = {"name": "paged_attention" + ("_int8" if int8 else "")}
+    walk = _walk_checks(torch, row, (*args, sc), ref,
+                        lambda: (k10.paged_attention_pure(*args, **sc),))
+    ms = timer(lambda: k10.paged_attention_pure(*args, **sc))
+    plain = timer(lambda: k10.paged_attention_reference(*args, **sc))
     cells = int(lens.sum())
-    nbytes = (2 * (q.numel() + out.numel()) + 2 * 2 * cells * 8 * 128
+    cell = 128 + 4 if int8 else 2 * 128
+    nbytes = (2 * (q.numel() + out.numel()) + 2 * cells * 8 * cell
               + 4 * (cache.block_tables.numel() + BB))
     bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
-    log(f"K10 paged_attention B{BB} H32/8 page{PAGE} lens {lens.tolist()}: "
+    page = kp.shape[2]
+    log(f"K10 {form} B{BB} H32/8 page{page} lens {lens.tolist()}: "
         f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
         f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); "
         f"{walk}")
@@ -1166,15 +1261,20 @@ def check_paged_attention(torch, timer, k10, kv_cache, rope_tables):
             "max_abs_err": diff.max().item(), "err_over_tol": worst,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
-            "shape": f"B{BB} H32 Hk8 D128 page{PAGE} lens {lens.tolist()}"}
+            "shape": f"B{BB} H32 Hk8 D128 page{page}"
+                     f"{' int8' if int8 else ''} lens {lens.tolist()}"}
 
 
-def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
+def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables,
+                             int8=False):
     """K3's decode form with an active mask at a segment step's shape: the
-    idle slot writes nothing and returns zeros."""
-    cache, rows, active = _segment_step_inputs(torch, kv_cache, rope_tables,
-                                               SEED + 11)
+    idle slot writes nothing and returns zeros; ``int8``: on an int8 cache
+    at page 32 (the int8 batcher's segment step; codes within 1 of the
+    plain chain's, scales bit-identical)."""
+    cache, rows, active = _segment_step_inputs(
+        torch, kv_cache, rope_tables, SEED + 11 + 100 * int8, int8=int8)
     layer = 1
+    form = "rope_append_attend masked" + (" int8" if int8 else "")
     ck, cp = _pool_copy(cache), _pool_copy(cache)
     out, ck = k3.fused_rope_append_attend_decode(*rows, ck, layer, active)
     ref, cp = k3.decode_reference(*rows, cp, layer, active, plain=True)
@@ -1185,13 +1285,13 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
-    assert worst <= 1, f"rope_append_attend masked worst err/tol {worst:.3f}"
+    assert worst <= 1, f"{form} worst err/tol {worst:.3f}"
     assert not out[WAVE_IDLE].any(), "the inactive slot is not zero"
     slots = torch.arange(BB, device="cuda")[active]
     written = _written_cells(torch, cache, layer, slots,
                              cache.seq_lens[active])
-    _check_pools(torch, ck, cp, cache, written, "rope_append_attend masked")
-    row = {"name": "rope_append_attend_masked"}
+    codes = _check_pools(torch, ck, cp, cache, written, form)
+    row = {"name": "rope_append_attend_masked" + ("_int8" if int8 else "")}
     lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
     walk = _walk_checks(
         torch, row, _decode_walk(kv_cache, rows, cp, layer, lens), ref,
@@ -1203,24 +1303,29 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables):
                                               plain=True))
     n_act = int(active.sum())
     cells = int((cache.seq_lens + 1)[active].sum())
+    cell = 128 + 4 if int8 else 2 * 128
     nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
               + 4 * (cos.numel() + sin.numel()) + BB
-              + 2 * 2 * (cells - n_act) * 8 * 128   # pages read
-              + 2 * 2 * n_act * 8 * 128             # the new cells written
+              + 2 * (cells - n_act) * 8 * cell   # pages read
+              + 2 * n_act * 8 * cell             # the new cells written
               + 4 * (cache.block_tables.numel() + BB))
     bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
-    log(f"K3 rope_append_attend masked B{BB} H32/8 page{PAGE} lens "
+    page = cache.k_pages.shape[3]
+    log(f"K3 {form} B{BB} H32/8 page{page} lens "
         f"{cache.seq_lens.tolist()} idle slot {WAVE_IDLE}: max_abs_err "
         f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) pool values "
-        f"differing 0, kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+        f"differing 0" + (f" but {codes} codes by 1" if int8 else "")
+        + f", kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
         f"{bms:.4f} ({by}); {walk}")
     return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             "max_abs_err": diff.max().item(), "err_over_tol": worst,
+            **({"codes_differing": codes} if int8 else {}),
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
-            "shape": f"B{BB} H32 Hk8 D128 page{PAGE} seq_lens "
+            "shape": f"B{BB} H32 Hk8 D128 page{page}"
+                     f"{' int8' if int8 else ''} seq_lens "
                      f"{list(WAVE_SEQ)} active but slot {WAVE_IDLE}"}
 
 
@@ -1544,6 +1649,55 @@ def int8_cache_attention(reference):
     return attention
 
 
+def chunk_map(prompt_len, chunk_starts, length):
+    """Per position of a request's teacher-forced sequence (``length``
+    positions): the first position whose key the row reads fresh. A prompt
+    row reads the cells before its chunk's start from the cache and its own
+    chunk fresh; a decode row (position >= ``prompt_len``) reads every key
+    from the cache, its own included. ``chunk_starts``: the prompt offsets
+    at which the batcher admitted each chunk (``GenRequest.chunk_starts``)."""
+    starts = sorted(chunk_starts)
+    assert starts and starts[0] == 0 and starts[-1] < prompt_len, starts
+    out = []
+    for i in range(length):
+        out.append(i + 1 if i >= prompt_len
+                   else max(c for c in starts if c <= i))
+    return out
+
+
+def int8_batcher_attention(reference, starts, keep=None):
+    """The plain attention of the int8 batcher's teacher-forced reference,
+    built on ``reference`` (``_reference_attention``'s signature): query i
+    sees key j <= i quantized to int8 and dequantized per (token, head)
+    cell, as the batcher reads it from its int8 cache, where j <
+    ``starts[i]`` (``chunk_map``), and at full precision where j >=
+    starts[i] (the fresh rows of its own chunk). ``keep(i, j)`` (bool
+    tensors) narrows the visible pairs for a fault control; a row left with
+    no key gives zeros, as the kernels do."""
+    import torch
+    from paddle_tpu_torch.models.kv_cache import quantize_cells
+
+    def qdq(x):
+        codes, scales = quantize_cells(x)     # per (b, s, head) cell
+        return (codes.float() * scales).to(x.dtype)
+
+    def attention(q, k, v, causal=True, scale=None):
+        s = q.shape[1]
+        i = torch.arange(s, device=q.device)[:, None]
+        j = i.T
+        st = torch.tensor(starts[:s], device=q.device)[:, None]
+        vis = j <= i
+        if keep is not None:
+            vis = vis & keep(i, j)
+        mask = torch.cat([vis & (j < st), vis & (j >= st)], dim=1)
+        out = reference(q, torch.cat([qdq(k), k], dim=1),
+                        torch.cat([qdq(v), v], dim=1), False, scale,
+                        attn_mask=mask)
+        return out * mask.any(dim=1)[None, :, None, None].to(out.dtype)
+
+    return attention
+
+
 def serve_int8(torch, kernels, profile=False):
     """Llama-3-8B int8w+int8kv greedy generate_paged at full width: the
     phase-1 model quantized on the card (int8 weights, per-channel scales),
@@ -1638,7 +1792,7 @@ def batcher_requests(vocab):
              int(rng.integers(0, 7))) for _ in range(N_REQUESTS)]
 
 
-def check_batcher_tokens(torch, cfg, prms, reqs, done, label):
+def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
     """Every emitted token against a teacher-forced plain forward of its
     request (prompt + the tokens it emitted before): at each generated
     position, the emitted token's f32 logit must lie within 2 x E of the
@@ -1650,12 +1804,20 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label):
     amplify it. Two fault controls must fail the rule somewhere: tokens
     picked by a plain bf16 forward whose decode positions miss their own
     cell (a K3/K11 that drops the own cell), and by one whose prompt rows
-    miss their own 256-token chunk (a K11 that drops the fresh source)."""
+    miss their own chunk (a K11 that drops the fresh source).
+
+    ``int8``: ``prms`` are ``quantize_for_inference``'s (int8 weights,
+    dequantized per call in both forwards: f32 keeps the codes and casts
+    the rest) and every forward's attention is
+    ``int8_batcher_attention`` over the request's own ``chunk_map``, taken
+    from the batcher's admission record (``chunk_starts``)."""
     from paddle_tpu_torch.models.llama import prompt_logits_pure
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
 
     plain_attention = k1._reference_attention
-    prms32 = {n: p.float() for n, p in prms.items()}
+    prms32 = {n: p if isinstance(p, QuantizedWeight) else p.float()
+              for n, p in prms.items()}
     worst, n_pos, n_argmax = 0.0, 0, 0
     ctl = {"missing own cell": [0, 0.0], "fresh source dropped": [0, 0.0]}
     with torch.inference_mode():
@@ -1664,8 +1826,19 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label):
             n0 = len(prompt)
             seq = torch.tensor([list(map(int, prompt)) + toks[:-1]],
                                device="cuda")
+            if int8:
+                starts = chunk_map(n0, done[rid].chunk_starts,
+                                   seq.shape[1])
 
-            def logits(params, attention=plain_attention):
+                def attention_with(keep=None):
+                    return int8_batcher_attention(plain_attention, starts,
+                                                  keep)
+            else:
+                def attention_with(keep=None):
+                    return (plain_attention if keep is None
+                            else attention_dropping(keep))
+
+            def logits(params, attention):
                 k1._reference_attention = attention
                 try:
                     return prompt_logits_pure(params, seq, cfg, plain=True)[
@@ -1673,9 +1846,9 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label):
                 finally:
                     k1._reference_attention = plain_attention
 
-            f32 = logits(prms32)
-            err = (logits(prms) - f32).abs().amax(-1)          # E per position
-            top = f32.amax(-1)
+            f32 = logits(prms32, attention_with())
+            err = (logits(prms, attention_with()) - f32).abs().amax(-1)
+            top = f32.amax(-1)                         # E per position
 
             def ratio(tokens):
                 return ((top - f32.gather(-1, tokens[:, None])[:, 0])
@@ -1686,12 +1859,18 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label):
             n_pos += len(toks)
             n_argmax += int((f32.argmax(-1).cpu()
                              == torch.tensor(toks)).sum())
+            if int8:
+                st = torch.tensor(starts, device="cuda")
+                fresh_dropped = (lambda i, j: (i >= n0)
+                                 | (j < st[i.flatten()][:, None]))
+            else:
+                fresh_dropped = (lambda i, j: (i >= n0)
+                                 | (j < i // BCHUNK * BCHUNK))
             faults = {
-                "missing own cell": missing_own_cell(n0),
-                "fresh source dropped": attention_dropping(
-                    lambda i, j: (i >= n0) | (j < i // BCHUNK * BCHUNK))}
-            for name, attention in faults.items():
-                rc = ratio(logits(prms, attention).argmax(-1))
+                "missing own cell": lambda i, j: ~((i >= n0) & (j == i)),
+                "fresh source dropped": fresh_dropped}
+            for name, keep in faults.items():
+                rc = ratio(logits(prms, attention_with(keep)).argmax(-1))
                 ctl[name][0] += int((rc > 2).sum())
                 ctl[name][1] = max(ctl[name][1], rc.max().item())
             del f32, err
@@ -1715,29 +1894,48 @@ BATCHER_PLANS = (("fused", "norm_matmul,rope_append_attend"),
                  ("unfused attention", "norm_matmul"))
 
 
-def serve_batcher(torch, kernels, profile=False):
-    """Llama-3-8B bf16 through the continuous batcher at full width, in
-    both attention-tail settings (BATCHER_PLANS)."""
+def serve_batcher(torch, kernels, profile=False, int8=False):
+    """Llama-3-8B through the continuous batcher at full width, in both
+    attention-tail settings (BATCHER_PLANS): bf16 (phase 6) or, ``int8``,
+    int8w+int8kv (phase 6b: the model quantized on the card as in phase 5,
+    its bf16 matmul weights freed, an int8 cache at page 32; 64 K4 more a
+    wave and a step)."""
     from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.inference import ContinuousBatcher
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               quantize_for_inference)
     from paddle_tpu_torch.ops.kernels import fusion
+    from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
 
     cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
     L = cfg.num_hidden_layers
     model = LlamaForCausalLM(cfg, seed=SEED)
+    kind = "int8w+int8kv" if int8 else "bf16"
+    serve_kw = dict(page_size=PAGE)
+    prms = model.param_dict()
+    if int8:
+        prms = quantize_for_inference(model)
+        for name, p in model.named_parameters():
+            if isinstance(prms[name], QuantizedWeight):
+                p.data = p.data.new_empty(0)   # the int8 model keeps codes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        serve_kw = dict(page_size=PAGE_INT8, quantized_params=prms,
+                        cache_dtype="int8")
     reqs = batcher_requests(cfg.vocab_size)
     n_tokens = sum(n for _, n, _ in reqs)
-    log(f"serving, continuous batching: {N_REQUESTS} requests, prompts "
-        f"{sum(len(p) for p, _, _ in reqs)} tokens "
+    log(f"serving, continuous batching ({kind}): {N_REQUESTS} requests, "
+        f"prompts {sum(len(p) for p, _, _ in reqs)} tokens "
         f"({min(len(p) for p, _, _ in reqs)}-"
         f"{max(len(p) for p, _, _ in reqs)}), {n_tokens} new tokens, "
-        f"arrivals {sorted(t for _, _, t in reqs)}")
+        f"arrivals {sorted(t for _, _, t in reqs)}, page "
+        f"{serve_kw['page_size']}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
     def run_once():
         eng = ContinuousBatcher(model, max_batch=BB, max_seq=BSEQ,
-                                page_size=PAGE, segment=16,
-                                prefill_chunk=BCHUNK, prefix_caching=False)
+                                segment=16, prefill_chunk=BCHUNK,
+                                prefix_caching=False, **serve_kw)
         for prompt, n_new, t in reqs:
             eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
         torch.cuda.synchronize()
@@ -1750,8 +1948,9 @@ def serve_batcher(torch, kernels, profile=False):
     old = flags.get_flag("fused_decode_fusions")
     try:
         for label, fusions in BATCHER_PLANS:
+            label_ = f"batcher {'int8 ' if int8 else ''}{label}"
             flags.set_flags({"fused_decode_fusions": fusions})
-            plan = fusion.planned_kernel_launches(L)
+            plan = fusion.planned_kernel_launches(L, quantized=int8)
             run_once()                                   # warm-up
             torch.cuda.reset_peak_memory_stats()
             kernels.reset_launch_counts()
@@ -1767,7 +1966,11 @@ def serve_batcher(torch, kernels, profile=False):
                      else "ragged_paged_attention"] = per * waves
             expected["fused_rope_attend" if fused
                      else "paged_attention"] = per * steps
-            log(f"batcher {label}: launches {counts} expected {expected}")
+            if int8:
+                assert plan["quant_matmul"] == 2 * L, plan
+                expected["quant_matmul"] = plan["quant_matmul"] * (waves
+                                                                   + steps)
+            log(f"{label_}: launches {counts} expected {expected}")
             assert plan["norm_matmul"] == 5 * L + 1 and per == L, plan
             assert counts == expected, f"{counts} != plan {expected}"
             for rid, (prompt, n_new, _) in enumerate(reqs):
@@ -1787,17 +1990,15 @@ def serve_batcher(torch, kernels, profile=False):
                    "generated_tok_s": n_tokens / wall_s,
                    "max_memory_allocated_gib": peak, "launches": counts,
                    **{k: st[k] for k in keys}}
-            log(f"batcher {label}: wall {[round(w, 3) for w in walls]} s "
+            log(f"{label_}: wall {[round(w, 3) for w in walls]} s "
                 f"(median {wall_s:.3f}), {n_tokens / wall_s:.1f} generated "
                 f"tok/s, " + ", ".join(f"{k} {st[k]}" for k in keys)
                 + f", max_memory_allocated {peak:.2f} GiB")
             if profile:
                 with torch.inference_mode():
-                    res["profile"] = profile_window(
-                        torch, run_once, f"batcher {label}")
+                    res["profile"] = profile_window(torch, run_once, label_)
             res["tokens_check"] = check_batcher_tokens(
-                torch, cfg, model.param_dict(), reqs, done,
-                f"batcher {label}")
+                torch, cfg, prms, reqs, done, label_, int8=int8)
             out[label] = res
     finally:
         flags.set_flags({"fused_decode_fusions": old})
@@ -3315,19 +3516,34 @@ def main() -> int:
            (check_paged_attention(torch, timer, k10, kv_cache, _rope_tables),
             "batcher unfused attention"),
            (check_rope_attend_masked(torch, timer, k3, kv_cache,
-                                     _rope_tables), "batcher fused")]
+                                     _rope_tables), "batcher fused"),
+           (check_ragged_attention(torch, timer, k11, kv_cache, _rope_tables,
+                                   int8=True),
+            "batcher int8 unfused attention"),
+           (check_rope_attend_ragged(torch, timer, k3, kv_cache,
+                                     _rope_tables, int8=True),
+            "batcher int8 fused"),
+           (check_paged_attention(torch, timer, k10, kv_cache, _rope_tables,
+                                  int8=True),
+            "batcher int8 unfused attention"),
+           (check_rope_attend_masked(torch, timer, k3, kv_cache,
+                                     _rope_tables, int8=True),
+            "batcher int8 fused")]
     del timer
     torch.cuda.empty_cache()
 
-    # ---- 4. serving (bf16), 5. int8w+int8kv, 6. continuous batching;
-    # each path's counts are set to 0 just before its counted run and read
-    # just after
+    # ---- 4. serving (bf16), 5. int8w+int8kv, 6. continuous batching,
+    # 6b. the int8w+int8kv batcher; each path's counts are set to 0 just
+    # before its counted run and read just after
     profile = "--profile" in sys.argv
     counts, stats = serve(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
     counts_int8, stats_int8 = serve_int8(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
     stats_batcher = serve_batcher(torch, kernels, profile=profile)
+    torch.cuda.empty_cache()
+    stats_batcher_int8 = serve_batcher(torch, kernels, profile=profile,
+                                       int8=True)
     torch.cuda.empty_cache()
 
     # ---- 7. training kernels vs plain at the train step's shapes, 8. the
@@ -3382,6 +3598,8 @@ def main() -> int:
              "generate_paged int8": counts_int8,
              **{f"batcher {label}": stats_batcher[label]["launches"]
                 for label, _ in BATCHER_PLANS},
+             **{f"batcher int8 {label}": stats_batcher_int8[label]["launches"]
+                for label, _ in BATCHER_PLANS},
              "train": counts_train, "moe train": counts_moe,
              "grad check split, mask": counts_grad_split, "sft": counts_sft,
              "rope": counts_rope}
@@ -3396,6 +3614,10 @@ def main() -> int:
                "rope_append_attend_ragged": "fused_rope_attend_ragged",
                "paged_attention": "paged_attention",
                "rope_append_attend_masked": "fused_rope_attend",
+               "ragged_paged_attention_int8": "ragged_paged_attention",
+               "rope_append_attend_ragged_int8": "fused_rope_attend_ragged",
+               "paged_attention_int8": "paged_attention",
+               "rope_append_attend_masked_int8": "fused_rope_attend",
                "flash_attention_bwd": "flash_attention_bwd",
                "rms_norm_fwd": "rms_norm_fwd",
                "rms_norm_bwd": "rms_norm_bwd",
@@ -3422,7 +3644,17 @@ def main() -> int:
         f"{stats['max_memory_allocated_gib']:.2f} GiB, int8w+int8kv "
         f"{stats_int8['max_memory_allocated_gib']:.2f} GiB, batcher "
         + ", ".join(f"{k} {v['max_memory_allocated_gib']:.2f} GiB"
-                    for k, v in stats_batcher.items()))
+                    for k, v in stats_batcher.items())
+        + ", int8w+int8kv batcher "
+        + ", ".join(f"{k} {v['max_memory_allocated_gib']:.2f} GiB"
+                    for k, v in stats_batcher_int8.items()))
+    for label, _ in BATCHER_PLANS:
+        a, b_ = stats_batcher[label], stats_batcher_int8[label]
+        log(f"batcher {label}, int8w+int8kv against bf16 (this run): wall "
+            f"{b_['wall_s']:.3f} against {a['wall_s']:.3f} s, "
+            f"{b_['generated_tok_s']:.1f} against {a['generated_tok_s']:.1f} "
+            f"generated tok/s, peak {b_['max_memory_allocated_gib']:.2f} "
+            f"against {a['max_memory_allocated_gib']:.2f} GiB")
 
     log(f"max_memory_allocated while training: Llama "
         f"{stats_train['max_memory_allocated_gib']:.2f} GiB, fine-tuning "
@@ -3432,6 +3664,7 @@ def main() -> int:
     # ---- 13. result
     log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8,
                     "serving_batcher": stats_batcher,
+                    "serving_batcher_int8w_int8kv": stats_batcher_int8,
                     "train": stats_train, "sft": stats_sft,
                     "moe_train": stats_moe}))
     log(json.dumps({"kernels": rows}))

@@ -10,10 +10,14 @@
 // in whole pages, the pages brought in by bulk copies into a ring and
 // scored in chunks on the tensor cores, and the ranks' partial softmax
 // states merged by rank 0 in rank order. The scores are (bf16 q . k) * scale in f32 (the TPU
-// kernel loads q as bf16 -> f32 * scale: the same up to rounding).
+// kernel loads q as bf16 -> f32 * scale: the same up to rounding). On an
+// int8 cache (pt_paged_attention_int8; _paged_kernel's quantized form) the
+// walk copies each page's scales beside its codes and reads a cell as
+// code * scale: S times the K scale per key, the V scale folded into P.
 //
 // Bound on an H100: bytes — each call reads every live cell's K and V once
-// (2 * len * Hk * D * 2 bytes per slot) and does ~4 * g * D flops per cell.
+// (2 * len * Hk * D * 2 bytes per slot; 2 * len * Hk * (D + 4) on an int8
+// cache) and does ~4 * g * D flops per cell.
 #include "paged_walk.cuh"
 
 using pt::bf16;
@@ -21,7 +25,10 @@ using pt::pw::kD;
 
 namespace {
 
-__global__ void __launch_bounds__(pt::pw::NT, 3) paged_attention_kernel(const pt::pw::Args<bf16> a) {
+// Pool = bf16 (verbatim pools) or signed char (int8 codes; a.k_sc / a.v_sc
+// the (Hk, P, page, 1) scale pools, which the walk copies beside each page)
+template <typename Pool>
+__global__ void __launch_bounds__(pt::pw::NT, 3) paged_attention_kernel(const pt::pw::Args<Pool> a) {
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ pt::pw::Shared sh;
   // the block-table row (cp.async), q and the slot's length, issued first
@@ -48,19 +55,16 @@ __global__ void __launch_bounds__(pt::pw::NT, 3) paged_attention_kernel(const pt
   pt::pw::merge(sh, dyn, a, w, g, out);
 }
 
-}  // namespace
-
-// q (B, H, D) bf16; k_pages/v_pages (Hk, P, page, D) bf16, 16-byte
-// aligned; block_tables (B, pps) int32; seq_lens (B,) int32; out (B, H, D)
-// bf16.
-PT_EXPORT int pt_paged_attention(const void* q, const void* k_pages, const void* v_pages,
-                                 const void* block_tables, const void* seq_lens, void* out,
-                                 int B, int H, int Hk, int P, int page, int pps, float scale,
-                                 void* stream) {
-  pt::pw::Args<bf16> a{};
+template <typename Pool>
+int launch_walk(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+                const void* v_scales, const void* block_tables, const void* seq_lens, void* out,
+                int B, int H, int Hk, int P, int page, int pps, float scale, void* stream) {
+  pt::pw::Args<Pool> a{};
   a.q = static_cast<const bf16*>(q);
-  a.k_pages = static_cast<bf16*>(const_cast<void*>(k_pages));
-  a.v_pages = static_cast<bf16*>(const_cast<void*>(v_pages));
+  a.k_pages = static_cast<Pool*>(const_cast<void*>(k_pages));
+  a.v_pages = static_cast<Pool*>(const_cast<void*>(v_pages));
+  a.k_sc = static_cast<float*>(const_cast<void*>(k_scales));
+  a.v_sc = static_cast<float*>(const_cast<void*>(v_scales));
   a.block_tables = static_cast<const int*>(block_tables);
   a.seq_lens = static_cast<const int*>(seq_lens);
   a.out = static_cast<bf16*>(out);
@@ -70,7 +74,32 @@ PT_EXPORT int pt_paged_attention(const void* q, const void* k_pages, const void*
   a.page = page;
   a.pps = pps;
   a.scale = scale;
-  return pt::pw::launch(paged_attention_kernel, a, B, static_cast<cudaStream_t>(stream));
+  return pt::pw::launch(paged_attention_kernel<Pool>, a, B, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// q (B, H, D) bf16; k_pages/v_pages (Hk, P, page, D) bf16, 16-byte
+// aligned; block_tables (B, pps) int32; seq_lens (B,) int32; out (B, H, D)
+// bf16.
+PT_EXPORT int pt_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                 const void* block_tables, const void* seq_lens, void* out,
+                                 int B, int H, int Hk, int P, int page, int pps, float scale,
+                                 void* stream) {
+  return launch_walk<bf16>(q, k_pages, v_pages, nullptr, nullptr, block_tables, seq_lens, out,
+                           B, H, Hk, P, page, pps, scale, stream);
+}
+
+// The same over an int8 cache: k_pages/v_pages (Hk, P, page, D) int8 codes,
+// k_scales/v_scales (Hk, P, page, 1) f32, each cell read as code * scale;
+// page % 4 == 0 (a page's scales are one bulk copy of whole 16 bytes).
+PT_EXPORT int pt_paged_attention_int8(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* k_scales, const void* v_scales,
+                                      const void* block_tables, const void* seq_lens, void* out,
+                                      int B, int H, int Hk, int P, int page, int pps, float scale,
+                                      void* stream) {
+  return launch_walk<signed char>(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                                  seq_lens, out, B, H, Hk, P, page, pps, scale, stream);
 }
 
 // The walk's items for walks over lens (B,) int32 at this card's plan: out

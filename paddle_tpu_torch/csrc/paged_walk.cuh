@@ -175,6 +175,16 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
 __device__ __forceinline__ unsigned codes2(const signed char* p, int stride) {
   return pack2((float)p[0], (float)p[stride]);
 }
+// kv_cache._quantize_cells, THE quantize-on-write rule, for one cell of
+// absmax amax: its scale max(amax / 127, 1e-12) ...
+__device__ __forceinline__ float cell_scale(float amax) {
+  return fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
+}
+// ... and a value's code, clip(rint(x / scale), -127, 127): IEEE division,
+// round half to even
+__device__ __forceinline__ signed char quantize(float x, float scale) {
+  return (signed char)fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f);
+}
 // the bf16 hi + lo split of a float: x ~ hi + lo to ~2^-16 of x
 __device__ __forceinline__ void split2(float a, float b, unsigned& hi, unsigned& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);

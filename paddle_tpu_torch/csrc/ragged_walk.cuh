@@ -62,7 +62,8 @@
 // (cp.async.mbarrier.arrive), so the stage completes when all the readers'
 // pieces have. A warp that finishes a stage counts itself out of it; once
 // all its readers are out, each puts its share of the page `stages` ahead
-// in flight there. No block barrier is passed a page. (Tried on the card
+// in flight there; that page's readers wait for the same count before the
+// stage's barrier. No block barrier is passed a page. (Tried on the card
 // and slower: a bulk copy a row, 32 a page, whose completions bound a
 // tile's page walk; one bulk copy a page into unpadded rows, which makes
 // ldmatrix conflict 8 ways; one warp issuing a whole page's pieces.)
@@ -84,6 +85,22 @@
 // stage's cells, fresh keys causal), an online softmax in registers, and
 // O += P V with P split into bf16 hi + lo (f32-grade sums). A walk's four
 // warps merge in warp order, then its ranks in rank order.
+//
+// On an int8 pool (Pool = signed char: codes, with one f32 scale a (head,
+// token) cell in the (L, Hk, P, page, 1) scale pools) a stage holds a
+// page's K and V codes in 144-byte rows (8 rows on distinct banks for the
+// fragment loads below) and its K and V scales, all cp.async pieces on the
+// stage's one mbarrier (the scales of a page whose cells end inside it are
+// read up to the next multiple of 4 cells: page % 4 == 0). The codes go to
+// mma.sync as exact bf16 operands, built from 2-byte code pairs (K, along
+// the row) and from two codes a row apart (V); S is scaled per key column
+// by the K scale and the V scale folds into P, as paged_walk.cuh does.
+// FUSED quantizes each written cell as kv_cache._quantize_cells does
+// (absmax over the row's 128 dims, shared by the row's 8 threads through
+// shuffles; f32 division by the scale, round half to even), and a walk's
+// own cell is patched into its landed stage as codes and scales. The fresh
+// source stays bf16: the wave's own rows are never read through the cache
+// dtype (ragged_paged_attention.py's TWO-SOURCE contract).
 #pragma once
 
 #include "paged_walk.cuh"
@@ -100,6 +117,7 @@ constexpr int ROWS = 16 * NW;               // a tile item's MMA rows
 constexpr int MAX_G = 8;
 constexpr int RSTR = kD + 8;                // a staged row, in bf16
 constexpr int ROW_BYTES = RSTR * 2;         // 272: 8 rows hit 32 distinct banks
+constexpr int I8_ROW = kD + 16;             // 144: a staged row of int8 codes
 constexpr int RING_BYTES = 52 * 1024;
 constexpr int MAX_STAGES = 16;
 // a fresh sub-chunk: 16 K and 16 V rows and, FUSED, the rows' cos and sin
@@ -160,19 +178,25 @@ __device__ inline Item decode(const int* q_lens, const int* fresh_lens, int B, i
 }
 
 // Dynamic shared memory, by byte offset: the ring of stages (K rows | V
-// rows, rows16 each; after the pages, the fresh sub-chunks; after the
+// rows, rows16 each, bf16 or int8 codes | on an int8 pool, K scales | V
+// scales, rows16 each; after the pages, the fresh sub-chunks; after the
 // walk, the warps' partials); the query rows (ROWS x RSTR bf16), which on
 // a walk's rank 0 become the ranks' partial slots (acc [g][kD], m[MAX_G],
 // l[MAX_G] each); the slot's block-table row; the B slots' q_lens,
-// fresh_lens, q_start and page_lens.
+// fresh_lens, q_start and page_lens. esz: the pool's element size.
 struct Geo {
-  int rows16, stage_bytes, stages, q_off, slot, table, lens, smem;
-  __host__ __device__ Geo(int page, int pps, int cs, int g, int B) {
+  int rows16, row_bytes, kv_bytes, sc_bytes, stage_bytes, stages, q_off, slot, table, lens, smem;
+  __host__ __device__ Geo(int page, int pps, int cs, int g, int B, int esz) {
     rows16 = (page + 15) / 16 * 16;
-    stage_bytes = 2 * rows16 * ROW_BYTES;
+    row_bytes = esz == 1 ? I8_ROW : ROW_BYTES;
+    kv_bytes = rows16 * row_bytes;
+    sc_bytes = esz == 1 ? rows16 * 4 : 0;
+    stage_bytes = 2 * (kv_bytes + sc_bytes);
     stages = RING_BYTES / stage_bytes;
     stages = stages < 2 ? 2 : stages > MAX_STAGES ? MAX_STAGES : stages;
-    q_off = stages * stage_bytes;  // >= NF fresh sub-chunks, the warps' partials
+    // the ring also holds NF fresh sub-chunks and the warps' partials
+    const int fresh = fresh_depth<true>() * fresh_bytes<true>();
+    q_off = stages * stage_bytes > fresh ? stages * stage_bytes : fresh;
     slot = (g * kD + 2 * MAX_G) * 4;
     const int qb = ROWS * ROW_BYTES, pb = cs * slot;
     table = q_off + (qb > pb ? qb : pb);
@@ -184,20 +208,24 @@ struct Geo {
 struct Shared {
   uint64_t full[MAX_STAGES];
   int done[MAX_STAGES];          // reader warps that finished the stage, ever
-  alignas(16) bf16 kself[kD];    // K3's own cell of a walk: rotated k, raw v
+  // K3's own cell of a walk: rotated k, raw v (bf16), or their codes (int8,
+  // the first kD bytes) and scales
+  alignas(16) bf16 kself[kD];
   alignas(16) bf16 vself[kD];
+  float self_sc[2];
   float wm[NW][MAX_G], wl[NW][MAX_G];  // a walk's warp partials: m, l
   uint64_t trig_full[2];               // FUSED: a fresh sub-chunk's cos and sin landed
 };
 
-// Pool = bf16 (the verbatim cache); the int8 pools are still to be added.
-// K11 passes layer 0, its pools (Hk, P, page, D), and no cos / sin /
-// row_pos.
+// Pool = bf16 (the verbatim cache) or signed char (int8 codes; k_sc / v_sc
+// the scale pools (L, Hk, P, page, 1), else unused). K11 passes layer 0,
+// its pools (Hk, P, page, D), and no cos / sin / row_pos.
 template <typename Pool>
 struct Args {
   const bf16 *q, *k, *v;  // (T, H, D); (T, Hk, D): fresh K (raw k under FUSED) and V
   const float *cos, *sin;  // (T, D), FUSED only
   Pool *k_pages, *v_pages;  // (L, Hk, P, page, D); written under FUSED
+  float *k_sc, *v_sc;       // int8 only; written under FUSED
   const int *block_tables, *row_pos, *page_lens, *q_start, *q_lens, *fresh_lens;
   bf16* out;  // (T, H, D)
   int T, B, H, Hk, P, page, pps, layer, cs, clusters;
@@ -259,15 +287,37 @@ __device__ __forceinline__ void rotate8(uint4& lo, uint4& hi, const Trig& c, con
   hi = pack8(b);
 }
 
+// The codes of 8 values of a cell whose scale is sc (pw::quantize), packed
+__device__ __forceinline__ uint2 codes8(const float* x, float sc) {
+  uint2 u;
+  signed char* c = reinterpret_cast<signed char*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) c[e] = pw::quantize(x[e], sc);
+  return u;
+}
+
+// The absmax of a row's 128 values, of which this thread holds 16 and
+// the row's other 7 threads (the 8 lanes of an aligned group) the rest
+__device__ __forceinline__ float row_absmax(const float* x) {
+  float m = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(x[e]));
+  const unsigned group = 0xffu << (threadIdx.x % 32 & 24);
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(group, m, o));
+  return m;
+}
+
 // FUSED: dims [8c, 8c + 8) and [8c + 64, 8c + 72) of a row's cell (kv
 // head kh, slot b, position pos), from the row's raw k (klo, khi), v (vlo,
-// vhi) and cos / sin there: rotated k and raw v into the pool, and into
-// kself / vself when given
+// vhi) and cos / sin there: rotated k and raw v into the pool (int8: their
+// codes, and from c == 0 the cell's scales), and into self (a walk's own
+// cell) when given. On an int8 pool the row's 8 threads (c = 0..7, an
+// aligned group of 8 lanes) call it together.
 template <typename Pool>
 __device__ __forceinline__ void write_cell(const Args<Pool>& a, int b, int kh, int pos, int c,
                                            uint4 klo, uint4 khi, uint4 vlo, uint4 vhi,
-                                           const Trig& cs, const Trig& sn, bf16* kself,
-                                           bf16* vself) {
+                                           const Trig& cs, const Trig& sn, Shared* self) {
   const size_t plane = ((size_t)a.layer * a.Hk + kh) * a.P;
   const size_t cell =
       (plane + a.block_tables[(size_t)b * a.pps + min(pos / a.page, a.pps - 1)]) * a.page +
@@ -275,10 +325,28 @@ __device__ __forceinline__ void write_cell(const Args<Pool>& a, int b, int kh, i
   rotate8<false>(klo, khi, cs, sn, 8 * c);
   Pool* kd = a.k_pages + cell * kD + 8 * c;
   Pool* vd = a.v_pages + cell * kD + 8 * c;
-  st16(kd, klo), st16(kd + HALF, khi), st16(vd, vlo), st16(vd + HALF, vhi);
-  if (kself) {
-    st16(kself + 8 * c, klo), st16(kself + HALF + 8 * c, khi);
-    st16(vself + 8 * c, vlo), st16(vself + HALF + 8 * c, vhi);
+  if constexpr (sizeof(Pool) == 1) {
+    float k[16], v[16];
+    unpack8(klo, k), unpack8(khi, k + 8), unpack8(vlo, v), unpack8(vhi, v + 8);
+    const float ks = pw::cell_scale(row_absmax(k)), vs = pw::cell_scale(row_absmax(v));
+    const uint2 kq[2] = {codes8(k, ks), codes8(k + 8, ks)};
+    const uint2 vq[2] = {codes8(v, vs), codes8(v + 8, vs)};
+    *reinterpret_cast<uint2*>(kd) = kq[0], *reinterpret_cast<uint2*>(kd + HALF) = kq[1];
+    *reinterpret_cast<uint2*>(vd) = vq[0], *reinterpret_cast<uint2*>(vd + HALF) = vq[1];
+    if (c == 0) a.k_sc[cell] = ks, a.v_sc[cell] = vs;
+    if (self) {
+      signed char* sk = reinterpret_cast<signed char*>(self->kself) + 8 * c;
+      signed char* sv = reinterpret_cast<signed char*>(self->vself) + 8 * c;
+      *reinterpret_cast<uint2*>(sk) = kq[0], *reinterpret_cast<uint2*>(sk + HALF) = kq[1];
+      *reinterpret_cast<uint2*>(sv) = vq[0], *reinterpret_cast<uint2*>(sv + HALF) = vq[1];
+      if (c == 0) self->self_sc[0] = ks, self->self_sc[1] = vs;
+    }
+  } else {
+    st16(kd, klo), st16(kd + HALF, khi), st16(vd, vlo), st16(vd + HALF, vhi);
+    if (self) {
+      st16(self->kself + 8 * c, klo), st16(self->kself + HALF + 8 * c, khi);
+      st16(self->vself + 8 * c, vlo), st16(self->vself + HALF + 8 * c, vhi);
+    }
   }
 }
 
@@ -308,33 +376,55 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 // Put share `share` of `shares` of page i of the CTA's walk (cnt cells,
 // block-table entry bts[i]) in flight into stage i % stages: its first cnt
-// K and V rows in 16-byte pieces, then each lane arrives on the stage's
-// barrier (initial count 32 shares). Every lane of the calling warp calls
-// it.
+// K and V rows in 16-byte pieces (int8: then the scales of its first cnt
+// cells, rounded up to whole pieces), then each lane arrives on the
+// stage's barrier (initial count 32 shares). Every lane of the calling
+// warp calls it.
 template <typename Pool>
 __device__ __forceinline__ void issue(Shared& sh, unsigned char* dyn, const Args<Pool>& a,
                                       const Geo& geo, const int* bts, size_t plane, int i,
                                       int cnt, int share, int shares) {
+  constexpr int PR = kD * (int)sizeof(Pool) / 16;  // pieces a row
   const int lane = threadIdx.x % 32, s = i % geo.stages;
   unsigned char* st = dyn + (size_t)s * geo.stage_bytes;
   const size_t cell0 = (plane + bts[i]) * a.page;
-  for (int p = 32 * share + lane; p < 2 * 16 * cnt; p += 32 * shares) {  // (K or V, row, piece)
-    const int kv = p >= 16 * cnt, q = kv ? p - 16 * cnt : p, r = q / 16, c = q % 16;
-    const Pool* src = (kv ? a.v_pages : a.k_pages) + (cell0 + r) * kD + 8 * c;
-    cp_async16(st + (size_t)(kv * geo.rows16 + r) * ROW_BYTES + 16 * c, src, true);
+  const int rows = 2 * PR * cnt, nsc = sizeof(Pool) == 1 ? (cnt + 3) / 4 : 0;
+  for (int p = 32 * share + lane; p < rows + 2 * nsc; p += 32 * shares) {
+    if (p < rows) {  // (K or V, row, piece)
+      const int kv = p >= PR * cnt, q = kv ? p - PR * cnt : p, r = q / PR, c = q % PR;
+      const Pool* src = (kv ? a.v_pages : a.k_pages) + (cell0 + r) * kD + 16 / sizeof(Pool) * c;
+      cp_async16(st + (size_t)kv * geo.kv_bytes + (size_t)r * geo.row_bytes + 16 * c, src, true);
+    } else {  // (K or V scales, piece)
+      const int kv = p - rows >= nsc, c = p - rows - kv * nsc;
+      const float* src = (kv ? a.v_sc : a.k_sc) + cell0 + 4 * c;
+      cp_async16(st + 2 * geo.kv_bytes + kv * geo.sc_bytes + 16 * c, src, true);
+    }
   }
   cp_async_arrive(&sh.full[s]);
 }
 
-// One sub-chunk of 16 keys (K rows at kst, V rows at vst, RSTR apart)
-// against the warp's 16 query rows (qa): this lane's rows gr and gr + 8
-// see the sub-chunk's first vis0 / vis1 keys; V rows from vmax on are
-// masked (the stage may hold anything there). The online softmax update
-// of m, l (this lane's share of the row sums) and acc (16 n8 tiles of O).
-__device__ __forceinline__ void attend16(const bf16* kst, const bf16* vst, int vis0, int vis1,
-                                         int vmax, const unsigned (&qa)[8][4], float scale,
+// Two adjacent int8 codes (2-byte aligned) as a bf16x2 MMA operand
+// register, the first in the low half (exact in bf16)
+__device__ __forceinline__ unsigned code_pair(const signed char* p) {
+  const unsigned short u = *reinterpret_cast<const unsigned short*>(p);
+  return pw::pack2((float)(signed char)(u & 0xffu), (float)(signed char)(u >> 8));
+}
+
+// One sub-chunk of 16 keys against the warp's 16 query rows (qa): this
+// lane's rows gr and gr + 8 see the sub-chunk's first vis0 / vis1 keys; V
+// rows from vmax on are masked (the stage may hold anything there). The
+// online softmax update of m, l (this lane's share of the row sums) and acc
+// (16 n8 tiles of O). Q8 = false: bf16 K rows at kst, V rows at vst, RSTR
+// apart; Q8: int8 codes I8_ROW bytes apart, each key's K and V scales at
+// ksc / vsc (rows of the stage's page; vis0 = vis1 = vmax).
+template <bool Q8>
+__device__ __forceinline__ void attend16(const void* kst, const void* vst, const float* ksc,
+                                         const float* vsc, int vis0, int vis1, int vmax,
+                                         const unsigned (&qa)[8][4], float scale,
                                          float (&acc)[16][4], float (&m)[2], float (&l)[2]) {
-  const int lane = threadIdx.x % 32, tq = lane % 4;
+  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const bf16* kbf = static_cast<const bf16*>(kst);
+  const signed char* k8 = static_cast<const signed char*>(kst) + gr * I8_ROW + 2 * tq;
   // S = Q K^T in four independent accumulator chains (n8 tile t, even or
   // odd k16 step), issued in turn, so that no mma waits on the one before
   // it (the asm statements keep their order)
@@ -342,9 +432,18 @@ __device__ __forceinline__ void attend16(const bf16* kst, const bf16* vst, int v
   float s2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
   for (int k = 0; k < 8; k += 2) {
+    // b0 / b1: keys gr / gr + 8, dims 16 k + 8 j + 2 tq (+1), j = 0..3
     unsigned b0[4], b1[4];
-    ldsm4(b0, kst + (lane % 8) * RSTR + 16 * k + (lane / 8) * 8);
-    ldsm4(b1, kst + (8 + lane % 8) * RSTR + 16 * k + (lane / 8) * 8);
+    if constexpr (Q8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b0[j] = code_pair(k8 + 16 * k + 8 * j);
+        b1[j] = code_pair(k8 + 8 * I8_ROW + 16 * k + 8 * j);
+      }
+    } else {
+      ldsm4(b0, kbf + (lane % 8) * RSTR + 16 * k + (lane / 8) * 8);
+      ldsm4(b1, kbf + (8 + lane % 8) * RSTR + 16 * k + (lane / 8) * 8);
+    }
     mma16816(s[0], qa[k], b0[0], b0[1]);
     mma16816(s[1], qa[k], b1[0], b1[1]);
     mma16816(s2[0], qa[k + 1], b0[2], b0[3]);
@@ -354,14 +453,16 @@ __device__ __forceinline__ void attend16(const bf16* kst, const bf16* vst, int v
   for (int t = 0; t < 2; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[t][e] += s2[t][e];
-  // s[t][e]: row gr (e < 2) or gr + 8, key 8 t + 2 tq + (e & 1)
+  // s[t][e]: row gr (e < 2) or gr + 8, key 8 t + 2 tq + (e & 1); int8: times
+  // the key's K scale (read only for a visible key)
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = 8 * t + 2 * tq + (e & 1);
-      s[t][e] = key < (e < 2 ? vis0 : vis1) ? s[t][e] * scale : -INFINITY;
+      const bool vis = key < (e < 2 ? vis0 : vis1);
+      s[t][e] = vis ? s[t][e] * scale * (Q8 ? ksc[key] : 1.f) : -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
     }
   float corr[2];
@@ -386,6 +487,17 @@ __device__ __forceinline__ void attend16(const bf16* kst, const bf16* vst, int v
     acc[j][0] *= corr[0], acc[j][1] *= corr[0];
     acc[j][2] *= corr[1], acc[j][3] *= corr[1];
   }
+  // int8: the V scales fold into P (0 for the keys from vmax on, whose
+  // scales may be anything)
+  if constexpr (Q8) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * t + 2 * tq + (e & 1);
+        s[t][e] = key < vmax ? s[t][e] * vsc[key] : 0.f;
+      }
+  }
   // P (16 x 16) as the A operand: rows gr / gr + 8, keys 2 tq (+1) and + 8
   unsigned ph[4], pl[4];
   pw::split2(s[0][0], s[0][1], ph[0], pl[0]);
@@ -395,15 +507,25 @@ __device__ __forceinline__ void attend16(const bf16* kst, const bf16* vst, int v
   const int kb = 2 * tq;
   const unsigned m0 = (kb < vmax ? 0xffffu : 0u) | (kb + 1 < vmax ? 0xffff0000u : 0u);
   const unsigned m1 = (kb + 8 < vmax ? 0xffffu : 0u) | (kb + 9 < vmax ? 0xffff0000u : 0u);
+  const bf16* vbf = static_cast<const bf16*>(vst);
+  // int8: keys 2 tq (+1), dim gr of each 8-dim group
+  const signed char* v8 = static_cast<const signed char*>(vst) + kb * I8_ROW + gr;
 #pragma unroll
   for (int j = 0; j < 8; j += 2) {
     // V (16 keys x dims 16 j .. 16 j + 31) as the B operands of four n8
-    // tiles; their hi products first, then the lo ones into the same four
+    // tiles (r[h]: keys 2 tq (+1) and + 8 of dims 16 (j + h) + gr and + 8);
+    // their hi products first, then the lo ones into the same four
     // accumulators (no mma right behind the one it adds to)
     unsigned r[2][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      ldsm4_t(r[h], vst + (lane % 16) * RSTR + 16 * (j + h) + (lane / 16) * 8);
+      if constexpr (Q8) {
+        const signed char* c = v8 + 16 * (j + h);
+        r[h][0] = pw::codes2(c, I8_ROW), r[h][1] = pw::codes2(c + 8 * I8_ROW, I8_ROW);
+        r[h][2] = pw::codes2(c + 8, I8_ROW), r[h][3] = pw::codes2(c + 8 * I8_ROW + 8, I8_ROW);
+      } else {
+        ldsm4_t(r[h], vbf + (lane % 16) * RSTR + 16 * (j + h) + (lane / 16) * 8);
+      }
       r[h][0] &= m0, r[h][1] &= m1, r[h][2] &= m0, r[h][3] &= m1;
     }
 #pragma unroll
@@ -423,12 +545,12 @@ __device__ __forceinline__ void attend16(const bf16* kst, const bf16* vst, int v
 
 template <bool FUSED, typename Pool>
 __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) {
-  static_assert(sizeof(Pool) == 2, "the int8 pools are still to be added to this body");
+  constexpr bool Q8 = sizeof(Pool) == 1;
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane / 4, tq = lane % 4;
   const int kh = blockIdx.y, g = a.H / a.Hk, R = ROWS / g, cs = a.cs;
-  const Geo geo(a.page, a.pps, cs, g, a.B);
+  const Geo geo(a.page, a.pps, cs, g, a.B, sizeof(Pool));
 
   // the B slots' lengths, read once and together
   int* lens = reinterpret_cast<int*>(dyn + geo.lens);
@@ -500,8 +622,7 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
         const size_t src = ((size_t)row * a.Hk + kh) * kD + 8 * c;
         const int pos = max(a.row_pos[row], 0);
         write_cell(a, b, kh, pos, c, ld16(a.k + src), ld16(a.k + src + HALF), ld16(a.v + src),
-                   ld16(a.v + src + HALF), cs_, sn, walk ? sh.kself : nullptr,
-                   walk ? sh.vself : nullptr);
+                   ld16(a.v + src + HALF), cs_, sn, walk ? &sh : nullptr);
       }
 #pragma unroll
       for (int j = 0; j < MAX_G; ++j)
@@ -568,24 +689,42 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
       const int ri = reader(i), j0 = i * spp;
       if (ri < 0) continue;
       const int s = i % geo.stages, cnt = cells(i);
+      if (i >= geo.stages) {
+        // page i goes in flight only once page i - stages has no reader
+        // left; until then the stage's barrier is still in that page's
+        // phase, and a wait on page i's parity would pass at once (a
+        // walk's reader warp rotates, so it can get here a ring ahead)
+        if (lane == 0)
+          while (*reinterpret_cast<volatile int*>(&sh.done[s]) < readers * (i / geo.stages)) {
+          }
+        __syncwarp();
+      }
       wg::mbar_wait(&sh.full[s], (i / geo.stages) & 1);
-      bf16* st = reinterpret_cast<bf16*>(dyn + (size_t)s * geo.stage_bytes);
+      unsigned char* st = dyn + (size_t)s * geo.stage_bytes;
+      float* ksc = reinterpret_cast<float*>(st + 2 * geo.kv_bytes);  // int8 only
+      float* vsc = ksc + geo.rows16;
       if (self_off >= 0 && self_off / a.page == i &&
           (j0 + (self_off % a.page) / 16) % NW == warp) {
         // K3's own cell over the copy's read of it, which may have raced
-        // with the pool write
+        // with the pool write (int8: its codes, 4 a lane, and its scales)
         const int r = self_off % a.page;
-        *reinterpret_cast<uint2*>(st + r * RSTR + 4 * lane) =
-            *reinterpret_cast<const uint2*>(sh.kself + 4 * lane);
-        *reinterpret_cast<uint2*>(st + (geo.rows16 + r) * RSTR + 4 * lane) =
-            *reinterpret_cast<const uint2*>(sh.vself + 4 * lane);
+        unsigned char* kr = st + r * geo.row_bytes;
+        unsigned char* vr = kr + geo.kv_bytes;
+        if constexpr (Q8) {
+          reinterpret_cast<unsigned*>(kr)[lane] = reinterpret_cast<const unsigned*>(sh.kself)[lane];
+          reinterpret_cast<unsigned*>(vr)[lane] = reinterpret_cast<const unsigned*>(sh.vself)[lane];
+          if (lane == 0) ksc[r] = sh.self_sc[0], vsc[r] = sh.self_sc[1];
+        } else {
+          reinterpret_cast<uint2*>(kr)[lane] = reinterpret_cast<const uint2*>(sh.kself)[lane];
+          reinterpret_cast<uint2*>(vr)[lane] = reinterpret_cast<const uint2*>(sh.vself)[lane];
+        }
         __syncwarp();
       }
       for (int k = 0; k < spp; ++k) {
         if ((walk && (j0 + k) % NW != warp) || 16 * k >= cnt) continue;
         const int vis = min(16, cnt - 16 * k);
-        attend16(st + 16 * k * RSTR, st + (geo.rows16 + 16 * k) * RSTR, vis, vis, vis, qa,
-                 a.scale, acc, m, l);
+        attend16<Q8>(st + 16 * k * geo.row_bytes, st + geo.kv_bytes + 16 * k * geo.row_bytes,
+                     ksc + 16 * k, vsc + 16 * k, vis, vis, vis, qa, a.scale, acc, m, l);
       }
       // count this warp out of the stage; once every reader is out, the
       // readers put page i + stages in flight into it, each its share
@@ -673,8 +812,8 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
       const int u0 = 16 * f;
       if (warp < live && wlast >= u0) {
         const int cap = min(16, nf - u0);
-        attend16(kb, vb, max(0, min(cap, ro0 - u0 + 1)), max(0, min(cap, ro1 - u0 + 1)), 16, qa,
-                 a.scale, acc, m, l);
+        attend16<false>(kb, vb, nullptr, nullptr, max(0, min(cap, ro0 - u0 + 1)),
+                        max(0, min(cap, ro1 - u0 + 1)), 16, qa, a.scale, acc, m, l);
       }
     }
   }
@@ -800,43 +939,44 @@ __global__ void items_kernel(const int* page_lens, const int* q_lens, const int*
 
 // ---- host side ----------------------------------------------------------------
 
-// (cs, clusters a kv head, dynamic shared memory) of a wave's grid
+// (cs, clusters a kv head, dynamic shared memory) of a wave's grid over a
+// pool of esz-byte elements (the plan itself does not depend on it)
 struct Plan {
   int cs, clusters, smem;
 };
-inline Plan plan(int T, int B, int H, int Hk, int page, int pps) {
+inline Plan plan(int T, int B, int H, int Hk, int page, int pps, int esz) {
   const int g = H / Hk;
   Plan p;
   p.cs = pw::cluster_size(B, Hk, pps, pw::sms());
   p.clusters = clusters_per_head(T, B, ROWS / g, p.cs);
-  p.smem = Geo(page, pps, p.cs, g, B).smem;
+  p.smem = Geo(page, pps, p.cs, g, B, esz).smem;
   return p;
 }
 
-template <bool FUSED>
-cudaError_t launch(Args<bf16> a, cudaStream_t stream) {
+template <bool FUSED, typename Pool>
+cudaError_t launch(Args<Pool> a, cudaStream_t stream) {
   if (a.T == 0) return cudaSuccess;
-  const Plan p = plan(a.T, a.B, a.H, a.Hk, a.page, a.pps);
+  const Plan p = plan(a.T, a.B, a.H, a.Hk, a.page, a.pps, sizeof(Pool));
   a.cs = p.cs;
   a.clusters = p.clusters;
-  return pw::launch_clusters(ragged_walk_kernel<FUSED, bf16>, dim3(p.clusters * p.cs, a.Hk), p.cs,
+  return pw::launch_clusters(ragged_walk_kernel<FUSED, Pool>, dim3(p.clusters * p.cs, a.Hk), p.cs,
                              NT, p.smem, stream, a);
 }
 
 // The plan's items into out (clusters * cs * Hk rows of 6)
 inline cudaError_t items(const int* page_lens, const int* q_lens, const int* fresh_lens, int T,
                          int B, int H, int Hk, int page, int pps, int* out, cudaStream_t stream) {
-  const Plan p = plan(T, B, H, Hk, page, pps);
+  const Plan p = plan(T, B, H, Hk, page, pps, 2);
   return pw::launch_clusters(items_kernel, dim3(p.clusters * p.cs, Hk), p.cs, 32, 0, stream,
                              page_lens, q_lens, fresh_lens, B, H / Hk, page, pps, p.cs, out);
 }
 
 // out[0..4) = (cs, clusters a kv head, dynamic shared memory bytes, the
 // most clusters of the kernel this card holds at once)
-template <bool FUSED>
+template <bool FUSED, typename Pool>
 cudaError_t describe(int T, int B, int H, int Hk, int page, int pps, int* out) {
-  const Plan p = plan(T, B, H, Hk, page, pps);
-  const void* fn = reinterpret_cast<const void*>(ragged_walk_kernel<FUSED, bf16>);
+  const Plan p = plan(T, B, H, Hk, page, pps, sizeof(Pool));
+  const void* fn = reinterpret_cast<const void*>(ragged_walk_kernel<FUSED, Pool>);
   cudaError_t err = pw::allow_smem(fn, p.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute cluster;

@@ -40,10 +40,11 @@
 // patch), never as the unquantized row. The scale pools ride the same bulk
 // copies (page * 4 bytes each: page % 4 == 0).
 //
-// Ragged form (fused_rope_append_attend, pt_rope_append_attend_ragged):
-// the continuous batcher's admission wave — ragged_walk.cuh with FUSED
-// set, which also writes down why one launch may write and read the pool.
-// bf16 pools only.
+// Ragged form (fused_rope_append_attend, pt_rope_append_attend_ragged and,
+// on an int8 cache, pt_rope_append_attend_ragged_int8): the continuous
+// batcher's admission wave — ragged_walk.cuh with FUSED set, which also
+// writes down why one launch may write and read the pool, and how the
+// int8 form quantizes its written cells and reads its pages.
 //
 // Bound on an H100: bytes — each step reads every live cell's K and V once
 // (2 * len * Hk * D * 2 bytes per slot; 2 * len * Hk * (D + 4) on an int8
@@ -71,13 +72,6 @@ __device__ __forceinline__ float absmax_d(float x, float* red) {
 #pragma unroll
   for (int w = 1; w < kD / 32; ++w) m = fmaxf(m, red[w]);
   return m;
-}
-
-// kv_cache._quantize_cells for one value of a cell with absmax `amax`:
-// (code, scale), scale = max(amax / 127, 1e-12), code = clip(rint(x / scale))
-__device__ __forceinline__ signed char quantize(float x, float amax, float* scale) {
-  *scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
-  return (signed char)fminf(fmaxf(rintf(__fdiv_rn(x, *scale)), -127.f), 127.f);
 }
 
 // Pool = bf16 (verbatim cache) or signed char (int8 codes; k_sc/v_sc are
@@ -128,8 +122,8 @@ __global__ void __launch_bounds__(pt::pw::NT, 3) rope_append_attend_kernel(const
     if constexpr (QUANT) {
       const float kmax = absmax_d(kn, sh.red[0]), vmax = absmax_d(vn, sh.red[1]);
       if (tid < kD) {
-        float ks, vs;
-        const signed char kq = quantize(kn, kmax, &ks), vq = quantize(vn, vmax, &vs);
+        const float ks = pt::pw::cell_scale(kmax), vs = pt::pw::cell_scale(vmax);
+        const signed char kq = pt::pw::quantize(kn, ks), vq = pt::pw::quantize(vn, vs);
         a.k_pages[self_cell * kD + tid] = kq;
         a.v_pages[self_cell * kD + tid] = vq;
         if (tid == 0) {
@@ -191,6 +185,42 @@ int launch_decode(const void* q, const void* k, const void* v, const void* cos_t
                         static_cast<cudaStream_t>(stream));
 }
 
+template <typename Pool>
+int launch_ragged(const void* q, const void* k, const void* v, const void* cos_t,
+                  const void* sin_t, void* k_pages, void* v_pages, void* k_scales, void* v_scales,
+                  const void* block_tables, const void* row_pos, const void* page_lens,
+                  const void* q_start, const void* q_lens, const void* fresh_lens, void* out,
+                  int T, int B, int H, int Hk, int P, int page, int pps, int layer, float scale,
+                  void* stream) {
+  pt::rw::Args<Pool> a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.cos = static_cast<const float*>(cos_t);
+  a.sin = static_cast<const float*>(sin_t);
+  a.k_pages = static_cast<Pool*>(k_pages);
+  a.v_pages = static_cast<Pool*>(v_pages);
+  a.k_sc = static_cast<float*>(k_scales);
+  a.v_sc = static_cast<float*>(v_scales);
+  a.block_tables = static_cast<const int*>(block_tables);
+  a.row_pos = static_cast<const int*>(row_pos);
+  a.page_lens = static_cast<const int*>(page_lens);
+  a.q_start = static_cast<const int*>(q_start);
+  a.q_lens = static_cast<const int*>(q_lens);
+  a.fresh_lens = static_cast<const int*>(fresh_lens);
+  a.out = static_cast<bf16*>(out);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.Hk = Hk;
+  a.P = P;
+  a.page = page;
+  a.pps = pps;
+  a.layer = layer;
+  a.scale = scale;
+  return pt::rw::launch<true>(a, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // q (B, H, D), k/v (B, Hk, D) bf16; cos/sin (B, D) f32 at each slot's
@@ -232,36 +262,32 @@ PT_EXPORT int pt_rope_append_attend_ragged(
     const void* page_lens, const void* q_start, const void* q_lens, const void* fresh_lens,
     void* out, int T, int B, int H, int Hk, int P, int page, int pps, int layer, float scale,
     void* stream) {
-  pt::rw::Args<bf16> a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.cos = static_cast<const float*>(cos_t);
-  a.sin = static_cast<const float*>(sin_t);
-  a.k_pages = static_cast<bf16*>(k_pages);
-  a.v_pages = static_cast<bf16*>(v_pages);
-  a.block_tables = static_cast<const int*>(block_tables);
-  a.row_pos = static_cast<const int*>(row_pos);
-  a.page_lens = static_cast<const int*>(page_lens);
-  a.q_start = static_cast<const int*>(q_start);
-  a.q_lens = static_cast<const int*>(q_lens);
-  a.fresh_lens = static_cast<const int*>(fresh_lens);
-  a.out = static_cast<bf16*>(out);
-  a.T = T;
-  a.B = B;
-  a.H = H;
-  a.Hk = Hk;
-  a.P = P;
-  a.page = page;
-  a.pps = pps;
-  a.layer = layer;
-  a.scale = scale;
-  return pt::rw::launch<true>(a, static_cast<cudaStream_t>(stream));
+  return launch_ragged<bf16>(q, k, v, cos_t, sin_t, k_pages, v_pages, nullptr, nullptr,
+                             block_tables, row_pos, page_lens, q_start, q_lens, fresh_lens, out,
+                             T, B, H, Hk, P, page, pps, layer, scale, stream);
+}
+
+// The same over an int8 cache: k_pages/v_pages (L, Hk, P, page, D) int8
+// codes and k_scales/v_scales (L, Hk, P, page, 1) f32, all written in
+// place; page % 4 == 0 (a page's scales are copied in 16-byte pieces).
+PT_EXPORT int pt_rope_append_attend_ragged_int8(
+    const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
+    void* k_pages, void* v_pages, void* k_scales, void* v_scales, const void* block_tables,
+    const void* row_pos, const void* page_lens, const void* q_start, const void* q_lens,
+    const void* fresh_lens, void* out, int T, int B, int H, int Hk, int P, int page, int pps,
+    int layer, float scale, void* stream) {
+  return launch_ragged<signed char>(q, k, v, cos_t, sin_t, k_pages, v_pages, k_scales, v_scales,
+                                    block_tables, row_pos, page_lens, q_start, q_lens, fresh_lens,
+                                    out, T, B, H, Hk, P, page, pps, layer, scale, stream);
 }
 
 // The ragged form's plan at a wave's shapes, into host memory out[4] (as
-// pt_ragged_paged_attention_plan).
+// pt_ragged_paged_attention_plan); int8: on an int8 cache.
 PT_EXPORT int pt_rope_append_attend_ragged_plan(int T, int B, int H, int Hk, int page, int pps,
                                                 void* out) {
-  return pt::rw::describe<true>(T, B, H, Hk, page, pps, static_cast<int*>(out));
+  return pt::rw::describe<true, bf16>(T, B, H, Hk, page, pps, static_cast<int*>(out));
+}
+PT_EXPORT int pt_rope_append_attend_ragged_int8_plan(int T, int B, int H, int Hk, int page,
+                                                     int pps, void* out) {
+  return pt::rw::describe<true, signed char>(T, B, H, Hk, page, pps, static_cast<int*>(out));
 }

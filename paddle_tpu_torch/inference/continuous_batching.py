@@ -74,6 +74,11 @@ class GenRequest:
     done: bool = False
     prefilled: int = 0                 # prompt tokens already in the cache
     started: bool = False              # first chunk has entered a wave
+    # the prompt offset at which each of its prefill chunks began, in
+    # admission order: a chunk's rows read the cells before its start from
+    # the cache and its own rows fresh (what an int8 cache's rounding
+    # depends on)
+    chunk_starts: List[int] = field(default_factory=list)
     # "ok" | "timeout" | "poisoned"
     status: str = "ok"
     deadline_s: Optional[float] = None  # wall budget from submit time
@@ -120,9 +125,8 @@ class ContinuousBatcher:
     rollout up to the summation order of the two paths (same kernels and
     math per row; exact on the CPU tests' margins). ``quantized_params``
     (``quantize_for_inference``) and ``cache_dtype="int8"`` serve the
-    weight-only / int8-KV stack; on CUDA tensors the batcher's attention
-    kernels read bf16 pools only (the int8 forms of K3-ragged, K10 and K11
-    are still to be ported), so an int8 cache runs there only on the CPU.
+    weight-only / int8-KV stack (page_size a multiple of 4 on the card,
+    where the attention kernels copy a page's scales in 16-byte pieces).
     """
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 128,
@@ -558,6 +562,7 @@ class ContinuousBatcher:
                         break
                     req.prefilled = 0
                     req.started = False
+                    req.chunk_starts.clear()
                     slots[i] = req
 
         def assign_chunk(i, req, take, ids_buf, rs_buf, ro_buf, pos, base,
@@ -576,6 +581,7 @@ class ContinuousBatcher:
                                                  req.prefilled + take]
             rs_buf[pos:pos + take] = i
             ro_buf[pos:pos + take] = np.arange(take)
+            req.chunk_starts.append(req.prefilled)
             q_start[i] = base + pos
             q_len[i] = take
             budgets[i] = req.max_new_tokens - len(req.tokens)

@@ -26,9 +26,11 @@ K10's page walk (``csrc/paged_walk.cuh``: each
 ``paged_attention.walk_plan``), the CTA whose pages hold the new cell
 writing it. On an int8 cache it quantizes the rotated k row and the raw v
 row on write (``kv_cache._quantize_cells``' rule), dequantizes every page
-cell as code * scale, and reads its own new cell back as code * scale. The
-ragged form reads bf16 pools only; on an int8 cache it raises
-``NotImplementedError`` on CUDA tensors.
+cell as code * scale, and reads its own new cell back as code * scale;
+so does the ragged form, whose chunk rows read their own chunk through the
+fresh full-precision keys (page % 4 == 0 on an int8 cache, both forms).
+A q, k or v that requires grad raises with grad enabled (the launch is
+invisible to autograd).
 
 The plain versions are the unfused chains, ``ragged_reference`` and
 ``decode_reference``: rope, the plain cache writers, then
@@ -44,6 +46,7 @@ import math
 import torch
 
 from . import _build
+from .paged_attention import check_scale_pools
 
 #: K3 launches since the last reset, decode form (incremented only where
 #: it launches)
@@ -103,14 +106,10 @@ def decode_reference(q, k, v, cos, sin, cache, layer, active=None,
     return out, cache
 
 
-def _check_cache(cache, b, layer, bf16_only=False):
+def _check_cache(cache, b, layer):
     n_layers = cache.k_pages.shape[0]
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range [0, {n_layers})")
-    if bf16_only and cache.quantized:
-        raise NotImplementedError(
-            "the ragged rope_append_attend kernel reads bf16 pools only; "
-            "its int8 form is still to be ported (ROADMAP.md, Queue 1)")
     pool_dtype = torch.int8 if cache.quantized else torch.bfloat16
     _build.check_cuda("k_pages", cache.k_pages, pool_dtype)
     _build.check_cuda("v_pages", cache.v_pages, pool_dtype,
@@ -118,9 +117,7 @@ def _check_cache(cache, b, layer, bf16_only=False):
     _build.check_cuda("block_tables", cache.block_tables, torch.int32,
                       (b, cache.block_tables.shape[1]))
     if cache.quantized:
-        s_shape = cache.k_pages.shape[:-1] + (1,)
-        _build.check_cuda("k_scales", cache.k_scales, torch.float32, s_shape)
-        _build.check_cuda("v_scales", cache.v_scales, torch.float32, s_shape)
+        check_scale_pools(cache.k_pages, cache.k_scales, cache.v_scales)
 
 
 def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
@@ -147,7 +144,7 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
     _, hk, p_total, page, _ = cache.k_pages.shape
     b, pps = cache.block_tables.shape
     check_wave_shapes(q, hk)
-    _check_cache(cache, b, layer, bf16_only=True)
+    _check_cache(cache, b, layer)
     bf, i32 = torch.bfloat16, torch.int32
     _build.check_cuda("q", q, bf)
     _build.check_cuda("k", k, bf, (t, hk, d))
@@ -158,15 +155,20 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
     for name, x in (("page_lens", page_lens), ("q_start", q_start),
                     ("q_lens", q_lens), ("fresh_lens", fresh_lens)):
         _build.check_cuda(name, x, i32, (b,))
+    _build.check_no_grad("rope_append_attend", q, k, v)
     out = torch.empty_like(q)            # K3 writes every row
-    _build.launch("pt_rope_append_attend_ragged", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                  cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-                  cache.block_tables.data_ptr(), row_pos.data_ptr(),
-                  page_lens.data_ptr(), q_start.data_ptr(),
-                  q_lens.data_ptr(), fresh_lens.data_ptr(), out.data_ptr(),
-                  t, b, h, hk, p_total, page, pps, int(layer),
-                  1.0 / math.sqrt(d), _build.stream_of(q))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr())
+    tail = (cache.block_tables.data_ptr(), row_pos.data_ptr(),
+            page_lens.data_ptr(), q_start.data_ptr(), q_lens.data_ptr(),
+            fresh_lens.data_ptr(), out.data_ptr(), t, b, h, hk, p_total, page,
+            pps, int(layer), 1.0 / math.sqrt(d), _build.stream_of(q))
+    if cache.quantized:
+        _build.launch("pt_rope_append_attend_ragged_int8", *head,
+                      cache.k_scales.data_ptr(), cache.v_scales.data_ptr(),
+                      *tail)
+    else:
+        _build.launch("pt_rope_append_attend_ragged", *head, *tail)
     ragged_launches += 1
     return out, cache
 
@@ -189,10 +191,6 @@ def fused_rope_append_attend_decode(q, k, v, cos, sin, cache, layer,
                          f"at most 8 query heads per kv head, got q "
                          f"{tuple(q.shape)} with {hk} kv heads")
     _check_cache(cache, b, layer)
-    if cache.quantized and page % 4:
-        raise ValueError(f"rope_append_attend kernel copies a page's int8 "
-                         f"scales in 16-byte units: page {page} is not a "
-                         f"multiple of 4")
     bf = torch.bfloat16
     _build.check_cuda("q", q, bf)
     _build.check_cuda("k", k, bf, (b, hk, d))
@@ -204,6 +202,7 @@ def fused_rope_append_attend_decode(q, k, v, cos, sin, cache, layer,
     if active is not None:
         _build.check_cuda("active", active, torch.bool, (b,))
         act = active.data_ptr()
+    _build.check_no_grad("rope_append_attend", q, k, v)
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), cache.k_pages.data_ptr(),

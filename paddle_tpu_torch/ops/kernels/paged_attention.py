@@ -18,8 +18,10 @@ Layout: q (B, H, D); k/v_pages (Hk, P, page, D); block_tables (B, pps)
 int32; seq_lens (B,) int32; on an int8 cache k/v_scales (Hk, P, page, 1).
 
 On CPU tensors ``paged_attention_pure`` runs the plain version; on CUDA
-tensors it launches K10 or raises (K10 reads bf16 pools only: an int8
-cache raises ``NotImplementedError``).
+tensors it launches K10 or raises: bf16 pools, or an int8 cache's codes
+with its per-cell f32 scales (page % 4 == 0, ``check_scale_pools``), each
+cell read as code * scale. A q that requires grad raises with grad
+enabled (the launch is invisible to autograd).
 """
 
 from __future__ import annotations
@@ -149,18 +151,31 @@ def split_walk_reference(q, k_pages, v_pages, block_tables, seq_lens,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def check_scale_pools(k_pages, k_scales, v_scales):
+    """An int8 cache's scale pools as the walk bodies copy them: f32, one
+    scale a cell ((..., page, 1) beside (..., page, D) codes), contiguous,
+    and a page's scales a whole number of 16-byte pieces (page % 4 == 0)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    page = k_pages.shape[-2]
+    if page % 4:
+        raise ValueError(f"the attention kernels copy a page's int8 scales "
+                         f"in 16-byte units: page {page} is not a multiple "
+                         f"of 4")
+    shape = k_pages.shape[:-1] + (1,)
+    _build.check_cuda("k_scales", k_scales, torch.float32, shape)
+    _build.check_cuda("v_scales", v_scales, torch.float32, shape)
+
+
 def paged_attention_pure(q, k_pages, v_pages, block_tables, seq_lens,
                          scale=None, k_scales=None, v_scales=None):
-    """The plain version on CPU tensors, K10 on CUDA tensors."""
+    """The plain version on CPU tensors, K10 on CUDA tensors (its int8
+    form with ``k_scales``/``v_scales``)."""
     global launches
     if not q.is_cuda:
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          seq_lens, scale, k_scales=k_scales,
                                          v_scales=v_scales)
-    if k_scales is not None:
-        raise NotImplementedError(
-            "the paged_attention kernel reads bf16 pools only; its int8 "
-            "form is still to be ported (ROADMAP.md, Queue 1)")
     b, h, d = q.shape
     hk, p_total, page, _ = k_pages.shape
     pps = block_tables.shape[1]
@@ -168,16 +183,26 @@ def paged_attention_pure(q, k_pages, v_pages, block_tables, seq_lens,
         raise ValueError(f"paged_attention kernel needs head_dim 128 and at "
                          f"most 8 query heads per kv head, got q "
                          f"{tuple(q.shape)} with {hk} kv heads")
+    quant = k_scales is not None or v_scales is not None
     bf = torch.bfloat16
+    pool = torch.int8 if quant else bf
     _build.check_cuda("q", q, bf)
-    _build.check_cuda("k_pages", k_pages, bf)
-    _build.check_cuda("v_pages", v_pages, bf, k_pages.shape)
+    _build.check_cuda("k_pages", k_pages, pool)
+    _build.check_cuda("v_pages", v_pages, pool, k_pages.shape)
+    if quant:
+        check_scale_pools(k_pages, k_scales, v_scales)
     _build.check_cuda("block_tables", block_tables, torch.int32, (b, pps))
     _build.check_cuda("seq_lens", seq_lens, torch.int32, (b,))
+    _build.check_no_grad("paged_attention", q, k_pages, v_pages)
     out = torch.empty_like(q)
-    _build.launch("pt_paged_attention", q.data_ptr(), k_pages.data_ptr(),
-                  v_pages.data_ptr(), block_tables.data_ptr(),
-                  seq_lens.data_ptr(), out.data_ptr(), b, h, hk, p_total,
-                  page, pps, scale or 1.0 / math.sqrt(d), _build.stream_of(q))
+    head = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = (block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b,
+            h, hk, p_total, page, pps, scale or 1.0 / math.sqrt(d),
+            _build.stream_of(q))
+    if quant:
+        _build.launch("pt_paged_attention_int8", *head, k_scales.data_ptr(),
+                      v_scales.data_ptr(), *tail)
+    else:
+        _build.launch("pt_paged_attention", *head, *tail)
     launches += 1
     return out

@@ -19,8 +19,10 @@ block_tables (B, pps); page_lens/q_start/q_lens/fresh_lens (B,) int32;
 k/v_fresh (T, Hk, D); on an int8 cache k/v_scales (Hk, P, page, 1).
 
 On CPU tensors ``ragged_paged_attention_pure`` runs the plain version; on
-CUDA tensors it launches K11 or raises (K11 reads bf16 pools only: an
-int8 cache raises ``NotImplementedError``).
+CUDA tensors it launches K11 or raises: bf16 pools, or an int8 cache's
+codes with its per-cell f32 scales (page % 4 == 0), each page cell read
+as code * scale while the fresh rows stay bf16. A q that requires grad
+raises with grad enabled (the launch is invisible to autograd).
 
 K11 and K3's ragged form share one body (``csrc/ragged_walk.cuh``): a grid
 that depends on shapes only, whose CTAs decode their work on the device —
@@ -40,7 +42,7 @@ import torch
 
 from . import _build
 from .grouped_matmul import H100_SMS
-from .paged_attention import walk_plan, walk_range
+from .paged_attention import check_scale_pools, walk_plan, walk_range
 
 _NEG_INF = -1e30
 
@@ -128,7 +130,8 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
                                 k_fresh, v_fresh, scale=None,
                                 k_scales=None, v_scales=None):
     """The plain version on CPU tensors (after zeroing non-finite fresh
-    K/V), K11 on CUDA tensors (which zeroes them as it loads them)."""
+    K/V), K11 on CUDA tensors (which zeroes them as it loads them; its
+    int8 form with ``k_scales``/``v_scales``, the fresh K/V still bf16)."""
     global launches
     hk, p_total, page, d = k_pages.shape
     scale = scale or (1.0 / math.sqrt(d))
@@ -138,31 +141,36 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
             q_lens, fresh_lens, zero_non_finite(k_fresh),
             zero_non_finite(v_fresh), scale, k_scales=k_scales,
             v_scales=v_scales)
-    if k_scales is not None:
-        raise NotImplementedError(
-            "the ragged_paged_attention kernel reads bf16 pools only; its "
-            "int8 form is still to be ported (ROADMAP.md, Queue 1)")
     t, h, _ = q_rows.shape
     b, pps = block_tables.shape
     check_wave_shapes(q_rows, hk)
+    quant = k_scales is not None or v_scales is not None
     bf, i32 = torch.bfloat16, torch.int32
+    pool = torch.int8 if quant else bf
     _build.check_cuda("q_rows", q_rows, bf)
-    _build.check_cuda("k_pages", k_pages, bf)
-    _build.check_cuda("v_pages", v_pages, bf, k_pages.shape)
+    _build.check_cuda("k_pages", k_pages, pool)
+    _build.check_cuda("v_pages", v_pages, pool, k_pages.shape)
+    if quant:
+        check_scale_pools(k_pages, k_scales, v_scales)
     _build.check_cuda("block_tables", block_tables, i32)
     for name, x in (("page_lens", page_lens), ("q_start", q_start),
                     ("q_lens", q_lens), ("fresh_lens", fresh_lens)):
         _build.check_cuda(name, x, i32, (b,))
     _build.check_cuda("k_fresh", k_fresh, bf, (t, hk, d))
     _build.check_cuda("v_fresh", v_fresh, bf, (t, hk, d))
+    _build.check_no_grad("ragged_paged_attention", q_rows, k_pages, v_pages,
+                         k_fresh, v_fresh)
     out = torch.empty_like(q_rows)       # K11 writes every row
-    _build.launch("pt_ragged_paged_attention", q_rows.data_ptr(),
-                  k_pages.data_ptr(), v_pages.data_ptr(),
-                  block_tables.data_ptr(), page_lens.data_ptr(),
-                  q_start.data_ptr(), q_lens.data_ptr(),
-                  fresh_lens.data_ptr(), k_fresh.data_ptr(),
-                  v_fresh.data_ptr(), out.data_ptr(), t, b, h, hk, p_total,
-                  page, pps, scale, _build.stream_of(q_rows))
+    head = (q_rows.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = (block_tables.data_ptr(), page_lens.data_ptr(), q_start.data_ptr(),
+            q_lens.data_ptr(), fresh_lens.data_ptr(), k_fresh.data_ptr(),
+            v_fresh.data_ptr(), out.data_ptr(), t, b, h, hk, p_total, page,
+            pps, scale, _build.stream_of(q_rows))
+    if quant:
+        _build.launch("pt_ragged_paged_attention_int8", *head,
+                      k_scales.data_ptr(), v_scales.data_ptr(), *tail)
+    else:
+        _build.launch("pt_ragged_paged_attention", *head, *tail)
     launches += 1
     return out
 
@@ -256,7 +264,8 @@ def ragged_items(q_lens, page_lens, fresh_lens, t, hk, g, pps, page,
 
 def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
                            page_lens, q_start, q_lens, fresh_lens, k_fresh,
-                           v_fresh, scale=None, cs=1, drop_last=False):
+                           v_fresh, scale=None, k_scales=None, v_scales=None,
+                           cs=1, drop_last=False):
     """A plain model of the ragged walk's arithmetic, in f32. A walk item
     (a slot whose one row decodes: q_lens 1, fresh_lens 0): rank r of
     ``cs`` runs an online softmax over its pages (``walk_range``), one max
@@ -266,8 +275,10 @@ def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
     a row over its pages and its causal fresh keys (u <= the row's offset,
     u < fresh_lens; ``k_fresh`` / ``v_fresh`` as given: the callers zero
     their non-finite values). out = acc / max(l, 1e-30); rows of no
-    segment and rows with no visible key are zeros. Never called by the
-    port's paths."""
+    segment and rows with no visible key are zeros. With ``k_scales`` /
+    ``v_scales`` the pages hold int8 codes, each page cell read as code *
+    scale in f32 (the fresh keys as given). Never called by the port's
+    paths."""
     hk, _, page, d = k_pages.shape
     t, h, _ = q_rows.shape
     g = h // hk
@@ -292,6 +303,9 @@ def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
                     phys = int(block_tables[bi, pg])
                     k = k_pages[:, phys, :cnt].float()
                     v = v_pages[:, phys, :cnt].float()
+                    if k_scales is not None:
+                        k = k * k_scales[:, phys, :cnt]
+                        v = v * v_scales[:, phys, :cnt]
                     s = torch.einsum("kgd,knd->kgn", qg[q0], k)
                     m_new = torch.maximum(m, s.amax(-1))
                     corr = torch.exp(m - m_new)
@@ -315,6 +329,9 @@ def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
         pages = block_tables[bi, :min(-(-n // page), pps)].long()
         k_ctx = k_pages[:, pages].reshape(hk, -1, d)[:, :n].float()
         v_ctx = v_pages[:, pages].reshape(hk, -1, d)[:, :n].float()
+        if k_scales is not None:
+            k_ctx = k_ctx * k_scales[:, pages].reshape(hk, -1, 1)[:, :n]
+            v_ctx = v_ctx * v_scales[:, pages].reshape(hk, -1, 1)[:, :n]
         k_new = k_fresh[q0:q0 + qn].float().transpose(0, 1)    # (hk, qn, d)
         v_new = v_fresh[q0:q0 + qn].float().transpose(0, 1)
         keys = torch.cat([k_ctx, k_new], dim=1)

@@ -22,9 +22,14 @@ def edge_waves(g, page):
     a walk), a decode row, an idle slot. ``walks``: decode rows that read
     1 cell (their own only), a page, a page + 1, and walks of 5, 7 and 10
     pages (the last page full, or holding 2 cells) that clusters of 2, 4
-    and 8 split in ranges of unequal size; an idle slot and a chunk."""
+    and 8 split in ranges of unequal size; an idle slot and a chunk.
+    ``long``: the batcher's second chunk of a 512-token prompt (256 rows
+    on 256 cells of context: every tile walks 256 cells, then up to 256
+    fresh keys) beside decode rows and an idle slot."""
     r = 64 // g
     return {
+        "long": [(256, 256, 256), (96, 1, 0), (7 * page - 1, 1, 0),
+                 (0, 0, 0)],
         "chunks": [(0, r - 1, r - 1), (2 * page + 3, r, r),
                    (page, r + 1, r + 1), (5, 1, 1), (3 * page - 1, 1, 0),
                    (0, 0, 0)],

@@ -12,7 +12,10 @@ runs the port in the default fused plan and with
 chains, so their tokens are identical). Configs: the tiny one and the
 head_dim-128 one of tests/test_torch_llama_serving.py. The int8 case
 serves ``quantized_params`` with ``cache_dtype="int8"`` on both sides
-(port-int8 vs reference-int8).
+(port-int8 vs reference-int8). chip_smoke.py's yardstick for the int8
+batcher on the card (``chunk_map`` of each request's ``chunk_starts``,
+then ``int8_batcher_attention``) reproduces the port's int8 batcher's
+logits here, where the batcher runs the same plain ops.
 """
 
 from __future__ import annotations
@@ -171,6 +174,130 @@ def test_int8_engine_matches_jax_int8_engine(pair):
             assert g.output_ids == solo[0].tolist(), (name, plan)
         for key in STATS:
             assert stats[key] == jeng.stats[key], (name, plan, key)
+
+
+class _Capture:
+    """Every LM-head call of a port engine's run, with the emission masks
+    and slot admissions that give each logits row its request: patched
+    over ``continuous_batching``'s ``_pure_lm_head_logits``, ``_Record``
+    and the ragged step."""
+
+    def __init__(self, monkeypatch):
+        from paddle_tpu_torch.inference import continuous_batching as cb
+
+        self.log = []
+        real_head, real_record = cb._pure_lm_head_logits, cb._Record
+        real_build = cb.ContinuousBatcher._build_ragged_step
+        log = self.log
+
+        def head(*a, **kw):
+            out = real_head(*a, **kw)
+            log.append(("logits", out.detach().clone()))
+            return out
+
+        class Record(real_record):
+            def __init__(self, *tensors):
+                super().__init__(*tensors)
+                emitted = tensors[1]
+                log.append(("emitted", emitted.reshape(-1, emitted.shape[-1])
+                            .clone()))
+
+        def build(engine):
+            rstep = real_build(engine)
+
+            def wrapped(*a):
+                log.append(("new_slot", a[9].clone()))
+                return rstep(*a)
+
+            return wrapped
+
+        monkeypatch.setattr(cb, "_pure_lm_head_logits", head)
+        monkeypatch.setattr(cb, "_Record", Record)
+        monkeypatch.setattr(cb.ContinuousBatcher, "_build_ragged_step",
+                            build)
+
+    def logits_by_request(self, rids, slots):
+        """{rid: (emitted tokens' logits rows, in order)}: requests enter
+        the slots in ``rids`` order (first come, first placed)."""
+        occupant, pending, order = [None] * slots, [], iter(rids)
+        out = {r: [] for r in rids}
+        for kind, x in self.log:
+            if kind == "new_slot":
+                for b in range(slots):
+                    if bool(x[b]):
+                        occupant[b] = next(order)
+            elif kind == "logits":
+                pending.append(x)
+            else:
+                assert len(pending) == x.shape[0]
+                for lg, em in zip(pending, x):
+                    for b in range(slots):
+                        if bool(em[b]):
+                            out[occupant[b]].append(lg[b])
+                pending = []
+        return {r: torch.stack(v) for r, v in out.items()}
+
+
+def test_chip_smoke_int8_batcher_reference_reproduces_the_batcher(
+        pair, monkeypatch):
+    """chip_smoke.py holds the card's int8w+int8kv batcher to a
+    teacher-forced plain forward of the quantized function whose attention
+    reads each key through the int8 cache (quantize->dequantize) or fresh,
+    as the batcher did: ``chunk_map`` over the request's own
+    ``chunk_starts`` (the batcher's admission record), then
+    ``int8_batcher_attention``. On the CPU, where the batcher runs those
+    same plain ops, that forward reproduces the logits of every emitted
+    token (f32, summation order only: 1e-4), in both plans, on chunks the
+    shared token budget cuts unevenly; the solo-prefill map (every prompt
+    row fresh) misses them."""
+    import chip_smoke
+    from paddle_tpu_torch.models.llama import (prompt_logits_pure,
+                                               quantize_for_inference)
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    _, _, tmodel = pair
+    qp = quantize_for_inference(tmodel)
+    kw = dict(max_batch=2, max_seq=48, segment=3, prefill_chunk=5,
+              cache_dtype="int8", quantized_params=qp)
+    prompts = _prompts(tmodel.config.vocab_size, (13, 9, 11, 4), 5)
+    news, arrivals = (6, 5, 4, 7), (0, 0, 1, 1)
+    plain = tfa._reference_attention
+    old = tflags.get_flag("fused_decode_fusions")
+    for plan in ("norm_matmul,rope_append_attend", "norm_matmul"):
+        cap = _Capture(monkeypatch)
+        tflags.set_flags({"fused_decode_fusions": plan})
+        try:
+            eng = ContinuousBatcher(tmodel, prefix_caching=False, **kw)
+            got = _serve(eng, prompts, news, arrivals)
+        finally:
+            tflags.set_flags({"fused_decode_fusions": old})
+        served = cap.logits_by_request([g.rid for g in got], 2)
+        uneven = 0
+        for g, prompt in zip(got, prompts):
+            n0, seq = len(prompt), torch.tensor([g.output_ids[:-1]])
+            starts = g.chunk_starts
+            sizes = np.diff(starts + [n0])
+            assert starts[0] == 0 and (sizes > 0).all() and (sizes <= 5).all()
+            uneven += int((sizes[:-1] < 5).any())
+            want = served[g.rid]
+            assert want.shape[0] == len(g.tokens)
+            assert want.argmax(-1).tolist() == g.tokens
+            diffs = []
+            for chunks in (starts, [0]):
+                monkeypatch.setattr(
+                    tfa, "_reference_attention",
+                    chip_smoke.int8_batcher_attention(
+                        plain, chip_smoke.chunk_map(n0, chunks,
+                                                    seq.shape[1])))
+                ref = prompt_logits_pure(qp, seq, tmodel.config,
+                                         plain=True)[0, n0 - 1:]
+                diffs.append(float((ref - want).abs().max()))
+            monkeypatch.setattr(tfa, "_reference_attention", plain)
+            assert diffs[0] <= 1e-4 + 1e-4 * float(want.abs().max()), (
+                plan, g.rid, diffs)
+            if len(starts) > 1:
+                assert diffs[1] > 1e-3, (plan, g.rid, diffs)
+        assert uneven, "no chunk was cut short by the shared budget"
 
 
 # ------------------------------------------------ contract of the engine

@@ -34,7 +34,18 @@ no rows and padding rows (the ragged forms on the edge waves of
 ``tests/ragged_wave_cases.py``, at GQA groups 1, 2, 4 and 8, pages 16
 and 32, two calls bitwise equal, and the items their CTAs decode equal to
 ``ragged_paged_attention.ragged_items``); their pools must be
-bit-identical to the plain chain's and every other cell untouched. The
+bit-identical to the plain chain's and every other cell untouched. On an
+int8 cache (codes with an f32 scale a cell) K10, K11 and K3's ragged
+form run the same waves and lengths: within the attention tolerance,
+rows of no segment zeros, K3's written codes within 1 of the plain
+chain's and its scales equal, two calls bitwise equal, the int8 plans'
+cluster sizes equal to ``ragged_plan``, the dropped-range controls of
+the split walks failing, and a page that is not a multiple of 4 (or a
+scale pool of the wrong type or missing) refused; walks long enough to
+wrap a CTA's ring of stages (bf16 and int8) give the same bits in many
+calls. Each serving attention
+wrapper raises on a q that requires grad with grad enabled and launches
+under ``torch.no_grad()``. The
 page walk K10 and K3's decode forms share (split over a cluster of CTAs)
 also runs at caps up to 640 with lengths on page and range edges (K3's
 own cell opening its CTA's range, an inactive slot), each form two calls
@@ -323,6 +334,38 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     q = _randn(gen, 1, 64, 2, 64)                         # head_dim 64
     with pytest.raises(ValueError):
         k1.flash_attention_fwd(q, q, q, causal=True)
+    # the serving attention kernels: a q that requires grad raises with grad
+    # enabled (the launch would drop its gradient) and launches under
+    # torch.no_grad()
+    b, hk, g = 6, 2, 4
+    cache, rows, wave = _wave_case(gen, b, hk, g, 16, 64, 48)
+    q, k, v, cos, sin = rows
+    dec = tuple(x[:b].contiguous() for x in rows)
+    lens = cache.seq_lens + 1
+    calls = {
+        "K10": (k10, "launches", lambda q: k10.paged_attention_pure(
+            q[:b].contiguous(), cache.k_pages[0], cache.v_pages[0],
+            cache.block_tables, lens)),
+        "K11": (k11, "launches", lambda q: k11.ragged_paged_attention_pure(
+            q, cache.k_pages[0], cache.v_pages[0], cache.block_tables,
+            *wave[3:], k, v)),
+        "K3 ragged": (k3, "ragged_launches",
+                      lambda q: k3.fused_rope_append_attend(
+                          q, k, v, cos, sin, _copy(cache), 0, *wave)),
+        "K3 decode": (k3, "launches",
+                      lambda q: k3.fused_rope_append_attend_decode(
+                          q[:b].contiguous(), *dec[1:], _copy(cache), 0)),
+    }
+    for what, (mod, counter, call) in calls.items():
+        qg = q.clone().requires_grad_()
+        n = getattr(mod, counter)
+        with pytest.raises(RuntimeError):
+            call(qg)
+            pytest.fail(f"{what} launched on a q that requires grad")
+        assert getattr(mod, counter) == n, what
+        with torch.no_grad():
+            call(qg)
+        assert getattr(mod, counter) == n + 1, what
 
 
 @pytest.mark.parametrize("fusions", ["rope_append_attend", ""])
@@ -697,16 +740,19 @@ def _wave_case(gen, b, hk, g, page, cap, t):
     return cache, rows, wave
 
 
-def _edge_case(gen, g, page, name, hk=2):
-    """A wave of ``tests/ragged_wave_cases.py`` on a 2-layer bf16 cache of
-    random K/V (block tables permuted, old lengths in ``seq_lens``): the
-    cache, the rows (q, k, v, cos, sin) and the layout (row_slot, row_pos,
-    valid, page_lens, q_start, q_lens, fresh_lens) as the attend seams
-    take them."""
-    lay = layout(edge_waves(g, page)[name])
+def _edge_case(gen, g, page, name, hk=2, int8=False):
+    """A wave of ``tests/ragged_wave_cases.py`` (``name``, or a list of
+    slots as ``layout`` takes them) on a 2-layer bf16 cache of
+    random K/V (``int8``: random codes and scales; block tables permuted,
+    old lengths in ``seq_lens``): the cache, the rows (q, k, v, cos, sin)
+    and the layout (row_slot, row_pos, valid, page_lens, q_start, q_lens,
+    fresh_lens) as the attend seams take them."""
+    lay = layout(edge_waves(g, page)[name] if isinstance(name, str)
+                 else name)
     b, cap, t = len(lay["seq"]), lay["cap"], lay["t"]
     i32 = dict(dtype=torch.int32, device="cuda")
-    cache = _bf16_cache(gen, 2, b, cap, hk, page)
+    cache = (_int8_cache(gen, 2, b, cap, hk, 128, page) if int8
+             else _bf16_cache(gen, 2, b, cap, hk, page))
     perm = torch.randperm(b * (cap // page), generator=gen, device="cuda")
     cache = cache._replace(block_tables=perm.reshape(b, -1).to(torch.int32),
                            seq_lens=torch.tensor(lay["seq"], **i32))
@@ -723,9 +769,11 @@ def _edge_case(gen, g, page, name, hk=2):
 
 _EDGE_WAVES = [(g, page, name) for g in (1, 2, 4, 8) for page in (16, 32)
                for name in ("chunks", "walks")]
+# the batcher's long second chunk, on both pages
+_LONG_WAVES = [(g, page, "long") for g in (1, 4) for page in (16, 32)]
 
 
-@pytest.mark.parametrize("g,page,name", _EDGE_WAVES)
+@pytest.mark.parametrize("g,page,name", _EDGE_WAVES + _LONG_WAVES)
 def test_ragged_attention_matches_plain(gen, g, page, name):
     """K11 on the edge waves of the CPU walk tests, for every GQA group:
     within the attention tolerance of its plain version, rows of no
@@ -745,7 +793,7 @@ def test_ragged_attention_matches_plain(gen, g, page, name):
     assert not out[~wave[2]].any()       # rows of no segment
 
 
-@pytest.mark.parametrize("g,page,name", _EDGE_WAVES)
+@pytest.mark.parametrize("g,page,name", _EDGE_WAVES + _LONG_WAVES)
 def test_rope_append_attend_ragged_matches_plain(gen, g, page, name):
     """K3's ragged form on the same waves: the output within the attention
     tolerance, rows of no segment zeros, the pools bit-identical to the
@@ -810,7 +858,9 @@ def test_ragged_items_on_the_card_match_the_model(gen, hk):
             assert out.cpu().tolist() == [list(r) for r in want], (
                 g, page, name, t, cs)
             for entry in ("pt_ragged_paged_attention_plan",
-                          "pt_rope_append_attend_ragged_plan"):
+                          "pt_rope_append_attend_ragged_plan",
+                          "pt_ragged_paged_attention_int8_plan",
+                          "pt_rope_append_attend_ragged_int8_plan"):
                 plan = (ctypes.c_int * 4)()
                 _build.launch(entry, t, b, hk * g, hk, page, pps,
                               ctypes.addressof(plan))
@@ -848,23 +898,27 @@ def test_rope_append_attend_masked_matches_plain(gen, int8, lens):
 
 
 def _walk_form(gen, form, lens, hk=2, g=4):
-    """One page-walk form on fresh inputs: K10 over walk lengths ``lens``;
-    K3's decode form at positions ``lens`` (bf16, int8 at page 32, masked
-    with every third slot inactive). Returns (run, plain): the kernel and
+    """One page-walk form on fresh inputs: K10 over walk lengths ``lens``
+    (bf16, or ``paged_int8`` on an int8 cache at page 32); K3's decode form
+    at positions ``lens`` (bf16, int8 at page 32, masked with every third
+    slot inactive). Returns (run, plain): the kernel and
     its plain version, each on its own copy of the cache, returning the
     output and the pools."""
-    page = 32 if form == "int8" else 16
+    int8 = form in ("int8", "paged_int8")
+    page = 32 if int8 else 16
     b = len(lens)
     cap = max(48, -(-(max(lens) + 1) // page) * page)
-    cache = (_int8_cache(gen, 2, b, cap, hk, 128, page) if form == "int8"
+    cache = (_int8_cache(gen, 2, b, cap, hk, 128, page) if int8
              else _bf16_cache(gen, 2, b, cap, hk, page))
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = _randn(gen, b, hk * g, 128)
-    if form == "paged":
+    if form.startswith("paged"):
         args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
                 lens_t)
-        return (lambda: (k10.paged_attention_pure(*args),),
-                lambda: (k10.paged_attention_reference(*args),))
+        kw = dict(zip(("k_scales", "v_scales"),
+                      kv_cache.layer_scales(cache, 1)))
+        return (lambda: (k10.paged_attention_pure(*args, **kw),),
+                lambda: (k10.paged_attention_reference(*args, **kw),))
     cache = cache._replace(seq_lens=lens_t)
     k, v = _randn(gen, b, hk, 128), _randn(gen, b, hk, 128)
     cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
@@ -882,7 +936,7 @@ def _walk_form(gen, form, lens, hk=2, g=4):
             lambda: call(k3.decode_reference, plain=True))
 
 
-_WALK_FORMS = ["paged", "decode", "int8", "masked"]
+_WALK_FORMS = ["paged", "decode", "int8", "masked", "paged_int8"]
 
 
 @pytest.mark.parametrize("form", _WALK_FORMS)
@@ -970,27 +1024,210 @@ def test_paged_walk_items_on_the_card_match_the_model(gen, b, hk, cap, page):
     assert out.cpu().tolist() == [list(r) for r in want], (cs, grid)
 
 
-def test_batcher_kernels_refuse_int8_pools(gen):
-    cache = _int8_cache(gen, 1, 2, 32, 1, 128, 32)
-    q = _randn(gen, 2, 4, 128)
-    seq = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
-    ks, vs = kv_cache.layer_scales(cache, 0)
-    with pytest.raises(NotImplementedError):
-        k10.paged_attention_pure(q, cache.k_pages[0], cache.v_pages[0],
-                                 cache.block_tables, seq, k_scales=ks,
-                                 v_scales=vs)
-    kf = _randn(gen, 2, 1, 128)
-    ones = torch.ones(2, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
-        k11.ragged_paged_attention_pure(
-            q, cache.k_pages[0], cache.v_pages[0], cache.block_tables, seq,
-            torch.arange(2, dtype=torch.int32, device="cuda"), ones, ones,
-            kf, kf, k_scales=ks, v_scales=vs)
-    cs = torch.zeros((2, 128), device="cuda")
-    with pytest.raises(NotImplementedError):
-        k3.fused_rope_append_attend(
-            q, kf, kf, cs, cs, cache, 0, seq, seq, seq >= 0, seq,
-            torch.arange(2, dtype=torch.int32, device="cuda"), ones, ones)
+# ---- the int8 pools of the batcher's kernels (K10, K11, K3 ragged): codes
+# with one f32 scale a cell, read as code * scale; the fresh rows stay bf16
+
+
+def _int8_wave(gen, g, page, name, hk=2):
+    """An edge wave on an int8 cache: (cache, rows, wave, K11's arguments
+    on layer 1 with its scales as keywords)."""
+    cache, rows, wave = _edge_case(gen, g, page, name, hk=hk, int8=True)
+    q, kf, vf = rows[:3]
+    args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+            *wave[3:], kf, vf)
+    kw = dict(k_scales=cache.k_scales[1], v_scales=cache.v_scales[1])
+    return cache, rows, wave, args, kw
+
+
+@pytest.mark.parametrize("g,page,name", _EDGE_WAVES + _LONG_WAVES)
+def test_ragged_attention_int8_matches_plain(gen, g, page, name):
+    """K11 on an int8 cache, on the edge waves for every GQA group: within
+    the attention tolerance of its plain version (every page cell read as
+    code * scale, the fresh rows bf16), rows of no segment exact zeros, a
+    chunk row's non-finite fresh K/V leaking into no other row."""
+    cache, (q, kf, vf, _, _), wave, args, kw = _int8_wave(gen, g, page, name)
+    slot = int((wave[6] >= 2).nonzero()[0])    # a chunk's second row
+    poisoned = int(wave[4][slot]) + 1
+    kf[poisoned], vf[poisoned] = float("nan"), float("inf")
+    out = k11.ragged_paged_attention_pure(*args, **kw)
+    ref = k11.ragged_paged_attention_reference(
+        *args[:8], k11.zero_non_finite(kf), k11.zero_non_finite(vf), **kw)
+    torch.cuda.synchronize()
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    assert not out[~wave[2]].any()       # rows of no segment
+
+
+def _int8_pools_check(new, ref, old, written):
+    """K3's int8 pools against the plain chain's: codes within 1 (a
+    rounding boundary; the differing ones counted), scales equal, every
+    cell outside ``written`` ((L, Hk, P, page) mask) as it was."""
+    for name in ("k_pages", "v_pages"):
+        dq = (getattr(new, name).int() - getattr(ref, name).int()).abs()
+        print(f"{name}: {int((dq > 0).sum())} codes differ")
+        assert int(dq.max()) <= 1, name
+    for name in ("k_scales", "v_scales"):
+        assert torch.equal(getattr(new, name), getattr(ref, name)), name
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        a, o = getattr(new, name), getattr(old, name)
+        keep = (~written)[..., None].expand_as(a)
+        assert torch.equal(a[keep], o[keep]), name
+
+
+def _written(cache, layer, wave):
+    """(L, Hk, P, page) mask of the cells a wave's segment rows write."""
+    page = cache.k_pages.shape[3]
+    mask = torch.zeros(cache.k_pages.shape[:-1], dtype=torch.bool,
+                       device="cuda")
+    valid = wave[2]
+    slots, pos = wave[0][valid].long(), wave[1][valid].long()
+    phys = cache.block_tables[slots, pos // page].long()
+    mask[layer, :, phys, pos % page] = True
+    return mask
+
+
+@pytest.mark.parametrize("g,page,name", _EDGE_WAVES + _LONG_WAVES)
+def test_rope_append_attend_ragged_int8_matches_plain(gen, g, page, name):
+    """K3's ragged form on an int8 cache, on the same waves: the output
+    within the attention tolerance (a chunk's rows see their own chunk
+    fresh, a decode row its own cell as code * scale), rows of no segment
+    zeros, every segment row's cell quantized as the plain chain does it
+    (codes within 1, scales equal), every other cell untouched."""
+    cache, rows, wave, _, _ = _int8_wave(gen, g, page, name)
+    ck, cp = _copy(cache), _copy(cache)
+    out, ck = k3.fused_rope_append_attend(*rows, ck, 1, *wave)
+    ref, cp = k3.ragged_reference(*rows, cp, 1, *wave, plain=True)
+    torch.cuda.synchronize()
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    assert not out[~wave[2]].any()
+    _int8_pools_check(ck, cp, cache, _written(cache, 1, wave))
+
+
+@pytest.mark.parametrize("g,lens", [(1, (0, 15, 16)), (4, (31, 1, 47)),
+                                    (8, (5, 32, 40)), (4, _LONG_POS),
+                                    (2, (640, 0, 1))])
+@pytest.mark.parametrize("page", [16, 32])
+def test_paged_attention_int8_matches_plain(gen, page, g, lens):
+    """K10 on an int8 cache at lengths on page edges and up to the
+    capacity: within the attention tolerance, a length-0 slot zeros."""
+    b, hk = len(lens), 2
+    cap = max(64, -(-max(lens) // page) * page)
+    cache = _int8_cache(gen, 1, b, cap, hk, 128, page)
+    q = _randn(gen, b, hk * g, 128)
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (q, cache.k_pages[0], cache.v_pages[0], cache.block_tables, seq)
+    kw = dict(k_scales=cache.k_scales[0], v_scales=cache.v_scales[0])
+    out = k10.paged_attention_pure(*args, **kw)
+    ref = k10.paged_attention_reference(*args, **kw)
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    if 0 in lens:
+        assert not out[list(lens).index(0)].any()
+
+
+@pytest.mark.parametrize("name", ["chunks", "walks"])
+def test_ragged_forms_int8_are_deterministic(gen, name):
+    """K11 and K3's ragged form on an int8 cache: two calls give the same
+    bits, K3's codes and scales included."""
+    cache, rows, wave, args, kw = _int8_wave(gen, 4, 32, name, hk=8)
+    assert torch.equal(k11.ragged_paged_attention_pure(*args, **kw),
+                       k11.ragged_paged_attention_pure(*args, **kw))
+    runs = []
+    for _ in range(2):
+        c = _copy(cache)
+        out, c = k3.fused_rope_append_attend(*rows, c, 1, *wave)
+        runs.append((out, c.k_pages, c.v_pages, c.k_scales, c.v_scales))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+# decode rows whose walks wrap a CTA's ring of stages several times
+# (clusters of 1 at 32 kv heads, of 4 at 8) beside a long prompt's second
+# chunk
+_LONG_WALKS = [(599, 1, 0), (511, 1, 0), (447, 1, 0), (383, 1, 0),
+               (255, 1, 0), (127, 1, 0), (96, 1, 0), (256, 256, 256)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hk", [8, 32])
+def test_ragged_long_walks_are_deterministic(gen, hk, int8):
+    """K11 and K3's ragged form on walks that wrap each CTA's ring several
+    times while a page's reader warp rotates: within the attention
+    tolerance, and every call of many gives the same bits (a warp that
+    reads a stage before its page has landed would not)."""
+    page = 32 if int8 else 16
+    cache, rows, wave = _edge_case(gen, 4, page, _LONG_WALKS, hk=hk,
+                                   int8=int8)
+    q, kf, vf = rows[:3]
+    args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+            *wave[3:], kf, vf)
+    kw = dict(zip(("k_scales", "v_scales"), kv_cache.layer_scales(cache, 1)))
+    ref = k11.ragged_paged_attention_reference(*args, **kw)
+    first = k11.ragged_paged_attention_pure(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(((first.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    for _ in range(50):
+        assert torch.equal(k11.ragged_paged_attention_pure(*args, **kw),
+                           first)
+    outs = [k3.fused_rope_append_attend(*rows, _copy(cache), 1, *wave)[0]
+            for _ in range(20)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_int8_dropped_range_controls_fail(gen, g):
+    """The fault control chip_smoke.py runs, on the card at int8: the split
+    walks' plain models at this card's cluster size hold the kernels within
+    the attention tolerance, and with each walk's last range left out
+    (``drop_last``) fail it on every nonempty walk: K11 on the ``walks``
+    wave, K10 over its lengths."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cache, _, wave, args, kw = _int8_wave(gen, g, 16, "walks", hk=8)
+    q, bt = args[0], args[3]
+    t, b, pps = q.shape[0], bt.shape[0], bt.shape[1]
+    cs = k11.ragged_plan(t, b, 8, g, pps, sms)[0]
+    assert cs > 1
+    out = k11.ragged_paged_attention_pure(*args, **kw).float()
+    tol = _attn_tol(out)
+    split = k11.split_ragged_reference(*args, **kw, cs=cs).float()
+    assert bool(((split - out).abs() <= tol).all())
+    ctl = k11.split_ragged_reference(*args, **kw, cs=cs,
+                                     drop_last=True).float()
+    bad = ((ctl - out).abs() > tol).flatten(1).any(1)
+    for slot, (ql, fl, n) in enumerate(zip(*(w.tolist() for w in (
+            wave[5], wave[6], wave[3])))):
+        if ql == 1 and fl == 0:
+            assert bool(bad[int(wave[4][slot])]) == (n > 0), slot
+    lens = wave[3]
+    args10 = (q[:b].contiguous(), args[1], args[2], bt, lens)
+    cs10 = k10.walk_plan(b, 8, pps, sms)[0]
+    out10 = k10.paged_attention_pure(*args10, **kw).float()
+    ctl10 = k10.split_walk_reference(*args10, **kw, cs=cs10,
+                                     drop_last=True).float()
+    bad10 = ((ctl10 - out10).abs() > _attn_tol(out10)).flatten(1).any(1)
+    assert bad10.tolist() == [n > 0 for n in lens.tolist()]
+
+
+def test_int8_batcher_wrappers_refuse_what_the_bodies_cannot_copy(gen):
+    """K10, K11 and K3's ragged form on an int8 cache raise on a page that
+    is not a multiple of 4 (a page's scales are copied in 16-byte pieces),
+    on scales without codes' partner pool, and on bf16 scale pools."""
+    cache, rows, wave = _edge_case(gen, 4, 16, "chunks", int8=True)
+    q, kf, vf = rows[:3]
+    odd = _int8_cache(gen, 2, len(wave[3]), 36, 2, 128, 6)._replace(
+        seq_lens=cache.seq_lens)
+    for c in (odd, cache._replace(k_scales=cache.k_scales.bfloat16()),
+              cache._replace(v_scales=None)):
+        ks, vs = c.k_scales, c.v_scales
+        sc = dict(k_scales=None if ks is None else ks[1],
+                  v_scales=None if vs is None else vs[1])
+        with pytest.raises(ValueError):
+            k11.ragged_paged_attention_pure(
+                q, c.k_pages[1], c.v_pages[1], c.block_tables, *wave[3:],
+                kf, vf, **sc)
+        with pytest.raises(ValueError):
+            k10.paged_attention_pure(q[:len(wave[3])].contiguous(),
+                                     c.k_pages[1], c.v_pages[1],
+                                     c.block_tables, wave[3], **sc)
+        with pytest.raises(ValueError):
+            k3.fused_rope_append_attend(*rows, _copy(c), 1, *wave)
 
 
 def test_unfused_attend_seams_launch_k10_and_k11(gen):

@@ -14,9 +14,12 @@ against the JAX package's Pallas kernels in interpret mode
 ``_pallas_fused`` through the ragged ``fused_rope_append_attend``, behind
 the port's rope and cache writers) on the waves of
 ``tests/ragged_wave_cases.py``, for GQA groups 1, 2, 4 and 8 and every
-cluster size, with a poisoned slot. Tolerances as
+cluster size, with a poisoned slot; and on an int8 cache (page cells read
+as code * scale, the fresh source at full precision) for groups 1 and 4
+and clusters of 1 and 4. Tolerances as
 ``tests/test_torch_ragged_attention.py``: 2e-5 (f32 sums in another
-order); written cells within 3e-6 (f32 rope, XLA may fuse an FMA).
+order); written cells within 3e-6 (f32 rope, XLA may fuse an FMA), int8
+codes within 1 and scales within 1e-6 relative.
 """
 
 from __future__ import annotations
@@ -44,6 +47,23 @@ from ragged_wave_cases import edge_waves, layout
 TOL = dict(rtol=2e-5, atol=2e-5)
 CLUSTERS = (1, 2, 4, 8)
 GROUPS = (1, 2, 4, 8)
+# the int8 cases: fewer groups and cluster sizes (each reruns the JAX
+# kernels in interpret mode)
+INT8_GROUPS = (1, 4)
+INT8_CLUSTERS = (1, 4)
+
+
+def _int8_cases(*axes):
+    """pytest params over ``axes`` (name, values, int8 values) twice: the
+    f32 cases under the ids they always had, then the int8 cases, their ids
+    ending in ``-int8``."""
+    out = []
+    for int8 in (False, True):
+        for combo in itertools.product(*(v8 if int8 else v
+                                         for _, v, v8 in axes)):
+            out.append(pytest.param(*combo, int8, id="-".join(
+                map(str, combo)) + ("-int8" if int8 else "")))
+    return out
 
 
 def _t(a):
@@ -165,14 +185,15 @@ def test_ragged_plan_bounds_the_work_of_every_wave():
 
 
 def _wave_case(rng, g, page, name, hk=2, int8=False):
-    """The same cache on both sides (f32, block tables permuted, K/V of
-    every slot prefilled to its page_lens), the wave's rows and layout."""
+    """The same cache on both sides (f32, or int8 codes with per-cell
+    scales; block tables permuted, K/V of every slot prefilled to its
+    page_lens), the wave's rows and layout."""
     lay = layout(edge_waves(g, page)[name])
     b, cap, t = len(lay["seq"]), lay["cap"], lay["t"]
     jc = jkv.create_paged_cache(1, b, cap, hk, 128, page_size=page,
-                                dtype=jnp.float32)
+                                dtype="int8" if int8 else jnp.float32)
     tc = tkv.create_paged_cache(1, b, cap, hk, 128, page_size=page,
-                                dtype=torch.float32)
+                                dtype=torch.int8 if int8 else torch.float32)
     perm = rng.permutation(b * (cap // page)).reshape(b, -1).astype(np.int32)
     jc = jc._replace(block_tables=jnp.asarray(perm))
     tc = tc._replace(block_tables=_t(perm))
@@ -204,15 +225,15 @@ def _poison(rows, lay):
 
 @pytest.fixture(scope="module")
 def ragged_case():
-    """Per (g, wave): the inputs and the JAX ragged kernel's output
+    """Per (g, wave, int8): the inputs and the JAX ragged kernel's output
     (Pallas in interpret mode; a spy checks that it ran). The ``chunks``
     wave carries a poisoned row."""
     done = {}
 
-    def get(g, name):
-        if (g, name) not in done:
+    def get(g, name, int8=False):
+        if (g, name, int8) not in done:
             rng = np.random.default_rng(40 + g + (name == "walks"))
-            jc, tc, rows, lay = _wave_case(rng, g, 16, name)
+            jc, tc, rows, lay = _wave_case(rng, g, 16, name, int8=int8)
             poisoned = _poison(rows, lay) if name == "chunks" else None
             q, kf, vf = rows
             calls = []
@@ -221,34 +242,39 @@ def ragged_case():
                 real = jrpa._pallas_ragged
                 mp.setattr(jrpa, "_pallas_ragged",
                            lambda *a, **kw: calls.append(1) or real(*a, **kw))
+                ks, vs = jkv.layer_scales(jc, 0)
                 j = jrpa.ragged_paged_attention_pure(
                     jnp.asarray(q), jc.k_pages[0], jc.v_pages[0],
                     jc.block_tables, *(jnp.asarray(x) for x in _lens(lay)),
-                    jnp.asarray(kf), jnp.asarray(vf))
+                    jnp.asarray(kf), jnp.asarray(vf), k_scales=ks,
+                    v_scales=vs)
             assert calls, "the Pallas ragged kernel did not run"
-            done[(g, name)] = (tc, rows, lay, poisoned, np.asarray(j))
-        return done[(g, name)]
+            done[(g, name, int8)] = (tc, rows, lay, poisoned, np.asarray(j))
+        return done[(g, name, int8)]
 
     return get
 
 
 def _split(tc, rows, lay, cs, drop_last=False):
     q, kf, vf = (_t(x) for x in rows)
+    ks, vs = tkv.layer_scales(tc, 0)
     return _np(trpa.split_ragged_reference(
         q, tc.k_pages[0], tc.v_pages[0], tc.block_tables,
         *(_t(x) for x in _lens(lay)), trpa.zero_non_finite(kf),
-        trpa.zero_non_finite(vf), cs=cs, drop_last=drop_last))
+        trpa.zero_non_finite(vf), k_scales=ks, v_scales=vs, cs=cs,
+        drop_last=drop_last))
 
 
-@pytest.mark.parametrize("cs", CLUSTERS)
-@pytest.mark.parametrize("name", ["chunks", "walks"])
-@pytest.mark.parametrize("g", GROUPS)
-def test_split_ragged_matches_jax_ragged_kernel(ragged_case, g, name, cs):
+@pytest.mark.parametrize("g,name,cs,int8", _int8_cases(
+    ("g", GROUPS, INT8_GROUPS), ("name", ("chunks", "walks"), ("chunks", "walks")),
+    ("cs", CLUSTERS, INT8_CLUSTERS)))
+def test_split_ragged_matches_jax_ragged_kernel(ragged_case, g, name, cs,
+                                                int8):
     """K11's arithmetic (walks split over cs ranks, whole tiles) vs
     ``_pallas_ragged``: rows of no segment and a walk over nothing but its
     own cell as the kernel writes them; the poisoned row's NaNs stay in
-    its own row."""
-    tc, rows, lay, poisoned, j = ragged_case(g, name)
+    its own row. ``int8``: on an int8 cache."""
+    tc, rows, lay, poisoned, j = ragged_case(g, name, int8)
     t = _split(tc, rows, lay, cs)
     keep = np.ones(len(t), bool)
     if poisoned is not None:
@@ -259,13 +285,14 @@ def test_split_ragged_matches_jax_ragged_kernel(ragged_case, g, name, cs):
     assert not t[[s < 0 for s in lay["row_slot"]]].any()
 
 
-@pytest.mark.parametrize("g", GROUPS)
-def test_split_ragged_without_its_last_range_fails(ragged_case, g):
+@pytest.mark.parametrize("g,int8", _int8_cases(
+    ("g", GROUPS, INT8_GROUPS)))
+def test_split_ragged_without_its_last_range_fails(ragged_case, g, int8):
     """The fault control ``chip_smoke.py`` runs: the last range's partial
     left out moves every nonempty walk's row far past the tolerance, and
-    no other row."""
-    tc, rows, lay, _, j = ragged_case(g, "walks")
-    for cs in CLUSTERS:
+    no other row (``int8``: on an int8 cache)."""
+    tc, rows, lay, _, j = ragged_case(g, "walks", int8)
+    for cs in INT8_CLUSTERS if int8 else CLUSTERS:
         t = _split(tc, rows, lay, cs, drop_last=True)
         err = np.abs(t - j) - (TOL["atol"] + TOL["rtol"] * np.abs(j))
         for slot, (q, f, n) in enumerate(zip(
@@ -279,20 +306,21 @@ def test_split_ragged_without_its_last_range_fails(ragged_case, g):
 
 @pytest.fixture(scope="module")
 def fused_case():
-    """Per g: the ``chunks`` wave through the JAX fused ragged kernel
-    (Pallas in interpret mode), the old lengths prefilled: output and
-    cache."""
+    """Per (g, int8): the ``chunks`` wave through the JAX fused ragged
+    kernel (Pallas in interpret mode), the old lengths prefilled: output
+    and cache."""
     done = {}
 
-    def get(g):
-        if g not in done:
+    def get(g, int8=False):
+        if (g, int8) not in done:
             rng = np.random.default_rng(60 + g)
             lay = layout(edge_waves(g, 16)["chunks"])
             b, cap, t, hk = len(lay["seq"]), lay["cap"], lay["t"], 2
             jc = jkv.create_paged_cache(1, b, cap, hk, 128, page_size=16,
-                                        dtype=jnp.float32)
-            tc = tkv.create_paged_cache(1, b, cap, hk, 128, page_size=16,
-                                        dtype=torch.float32)
+                                        dtype="int8" if int8 else jnp.float32)
+            tc = tkv.create_paged_cache(
+                1, b, cap, hk, 128, page_size=16,
+                dtype=torch.int8 if int8 else torch.float32)
             s = max(lay["seq"])
             k, v = (rng.normal(size=(b, s, hk, 128)).astype(np.float32)
                     for _ in "kv")
@@ -317,45 +345,65 @@ def fused_case():
                     *(jnp.asarray(x) for x in rows), jc, 0,
                     *(jnp.asarray(x) for x in wave))
             assert calls, "the Pallas fused kernel did not run"
-            done[g] = (tc, rows, wave, np.asarray(j_out), j_cache)
-        return done[g]
+            done[(g, int8)] = (tc, rows, wave, np.asarray(j_out), j_cache)
+        return done[(g, int8)]
 
     return get
 
 
+POOLS = ("k_pages", "v_pages", "k_scales", "v_scales")
+
+
+def _pool_copy(tc):
+    return tc._replace(**{n: getattr(tc, n).clone() for n in POOLS
+                          if getattr(tc, n) is not None})
+
+
 def _split_fused(tc, rows, wave, cs):
     """rope -> the ragged cache write -> the split walk: what K3's ragged
-    form computes."""
+    form computes (on an int8 cache: each written cell quantized, every
+    page cell read as code * scale, the chunks' own rows fresh)."""
     q, k, v, cos, sin = (_t(x) for x in rows)
     row_slot, row_pos, valid, *lens = (_t(x) for x in wave)
     q2, k2 = apply_rotary_rows(q, k, cos, sin)
-    cache = tc._replace(k_pages=tc.k_pages.clone(),
-                        v_pages=tc.v_pages.clone())
-    cache = tkv.append_tokens_ragged(cache, 0, k2, v, row_slot, row_pos,
-                                     valid)
+    cache = tkv.append_tokens_ragged(_pool_copy(tc), 0, k2, v, row_slot,
+                                     row_pos, valid)
+    ks, vs = tkv.layer_scales(cache, 0)
     out = trpa.split_ragged_reference(
         q2, cache.k_pages[0], cache.v_pages[0], cache.block_tables, *lens,
-        trpa.zero_non_finite(k2), trpa.zero_non_finite(v), cs=cs)
+        trpa.zero_non_finite(k2), trpa.zero_non_finite(v), k_scales=ks,
+        v_scales=vs, cs=cs)
     return _np(out), cache
 
 
-@pytest.mark.parametrize("cs", CLUSTERS)
-@pytest.mark.parametrize("g", GROUPS)
-def test_split_ragged_matches_jax_fused_ragged(fused_case, g, cs):
+@pytest.mark.parametrize("g,cs,int8", _int8_cases(
+    ("g", GROUPS, INT8_GROUPS), ("cs", CLUSTERS, INT8_CLUSTERS)))
+def test_split_ragged_matches_jax_fused_ragged(fused_case, g, cs, int8):
     """K3's ragged form as the split walk computes it (rope, every segment
     row's cell written, the walk) vs ``_pallas_fused`` in its ragged use:
-    outputs and the written cells; the port's fused entry (the plain chain
-    on CPU tensors) writes the same cells."""
-    tc, rows, wave, j_out, j_cache = fused_case(g)
+    outputs and the written cells (``int8``: codes within 1, the differing
+    ones counted, scales within 1e-6 relative); the port's fused entry (the
+    plain chain on CPU tensors) writes the same cells."""
+    tc, rows, wave, j_out, j_cache = fused_case(g, int8)
     t_out, t_cache = _split_fused(tc, rows, wave, cs)
     np.testing.assert_allclose(t_out, j_out, **TOL)
     assert not t_out[~wave[2]].any()
-    for name in ("k_pages", "v_pages"):
-        np.testing.assert_allclose(_np(getattr(t_cache, name)),
-                                   np.asarray(getattr(j_cache, name)),
-                                   rtol=3e-6, atol=3e-6, err_msg=name)
-    copy = tc._replace(k_pages=tc.k_pages.clone(), v_pages=tc.v_pages.clone())
+    if int8:
+        for name in ("k_pages", "v_pages"):
+            dq = np.abs(_np(getattr(t_cache, name)).astype(np.int32)
+                        - np.asarray(getattr(j_cache, name), np.int32))
+            print(f"{name}: {int((dq > 0).sum())} codes differ")
+            assert dq.max() <= 1, name
+        for name in ("k_scales", "v_scales"):
+            np.testing.assert_allclose(_np(getattr(t_cache, name)),
+                                       np.asarray(getattr(j_cache, name)),
+                                       rtol=1e-6, atol=0, err_msg=name)
+    else:
+        for name in ("k_pages", "v_pages"):
+            np.testing.assert_allclose(_np(getattr(t_cache, name)),
+                                       np.asarray(getattr(j_cache, name)),
+                                       rtol=3e-6, atol=3e-6, err_msg=name)
     _, e_cache = tfra.fused_rope_append_attend(
-        *(_t(x) for x in rows), copy, 0, *(_t(x) for x in wave))
-    for name in ("k_pages", "v_pages"):
+        *(_t(x) for x in rows), _pool_copy(tc), 0, *(_t(x) for x in wave))
+    for name in POOLS[:4 if int8 else 2]:
         assert torch.equal(getattr(e_cache, name), getattr(t_cache, name))
