@@ -185,6 +185,32 @@ class, device busy share). Phases, in order; any failure raises and the process 
                out) must fail; then a 1-layer full-width MoEForCausalLM:
                per-token losses against its plain f32 forward and the
                token copies routed to another expert.
+10b. quantized expert kernels — K13's int8/int4 forms (int8 and int4,
+               per channel and group 128) at 4096 -> 14336 and 14336 ->
+               4096 on phase 10's routing, the experts quantized on the
+               card (``quantize_grouped_weight``): each element within
+               ``grouped_matmul.quant_tolerance`` of the plain version
+               (K13's summation bound plus one bf16 rounding of each
+               weight the plain version dequantizes), two calls bitwise
+               equal, the items the card decodes equal to ``gmm_items`` at
+               the form's tile width (256, or 128 group-wise), the scales
+               shifted by 16 columns failing the rule; kernel, plain and
+               library times (dequant + ``torch._grouped_mm``), TFLOP/s,
+               bound shares, registers and spills.
+11b. quantized experts — cell mixtral-8x7b-1L-int8-experts, int8 per
+               channel and int4 group 128 (``quantize_experts`` on the
+               card): phase 11's expert check for y and dx against the
+               quantized function in f32 (kernel-vs-f32 rel L2 <= 2 x
+               plain-bf16-vs-f32; controls: a boundary moved by 64 rows,
+               the scales shifted by 16 columns, must fail); the 1-layer
+               full-width model's per-token losses against its plain f32
+               forward on the same codes, and one forward + backward whose
+               launches must equal
+               ``moe_train_kernel_launches_per_step(1, 0,
+               quantized_experts=True)`` (3 K13 int8/int4, 3 K13 dX, no
+               K14); then B=4 x S=2048 forward + backward walls (median of
+               3 after a warm-up) and peak memory, bf16 against each
+               quantized form (fp expert stacks freed).
 12. MoE training — cell mixtral-8x7b-3L-train: ``jit.TrainStep`` over
                Mixtral-8x7B widths cut to 3 layers (bf16, dropless
                routing, top-2 of 8 experts) with AdamW8bit(1e-4), B=4 x
@@ -1348,6 +1374,8 @@ def _kernel_class(name):
         return "K7 rms_norm_bwd"
     if "adamw8bit_kernel" in name:
         return "K8 adamw8bit"
+    if "GroupWalk" in name:  # quant_wgmma_kernel<..., GroupWalk<BN>>
+        return "K13 grouped_matmul (int8/int4)"
     if "grouped_matmul_kernel<false>" in name:
         return "K13 grouped_matmul (forward)"
     if "grouped_matmul_kernel<true>" in name:
@@ -3371,6 +3399,398 @@ def moe_grad_check(torch, gm):
             "one_layer_routing_flips": flips}
 
 
+# ---------------------------------------------------------------------------
+# Quantized experts (phases 10b and 11b): K13's int8/int4 forms at the
+# Mixtral-8x7B train shapes, the full-width quantized expert check, the
+# 1-layer model after ``quantize_experts`` and its forward + backward wall
+# ---------------------------------------------------------------------------
+
+#: (weight type, group size) of phase 10b's forms; the first of each type
+#: is the one phase 11b drives (its row in the kernels line)
+MOE_QUANT_FORMS = (("int8", -1), ("int8", 128), ("int4", 128), ("int4", -1))
+#: phase 11b's forms and the paths their counted runs name
+MOE_QUANT_PATHS = (("int8", -1, "moe quant int8"),
+                   ("int4", 128, "moe quant int4 g128"))
+
+
+def _form(wd, gs):
+    return wd if gs == -1 else f"{wd} g{gs}"
+
+
+def dequant_stack_bf16(torch, codes, scales, wd, gs):
+    """The library yardstick's dequantization: the whole (E, K, N) stack
+    in bf16 by the dequant rule (bf16(code) * bf16(scale)), vectorized,
+    laid out column-major as ``torch._grouped_mm`` takes B. A yardstick
+    only: the port never calls it."""
+    if wd == "int4":
+        p = codes.to(torch.int32)
+        low, high = ((p & 0xF) ^ 8) - 8, p >> 4
+        codes = torch.stack([low, high], dim=2).reshape(
+            codes.shape[0], -1, codes.shape[-1])
+    s = scales.to(torch.bfloat16)
+    s = s[:, None, :] if gs == -1 else s.repeat_interleave(gs, dim=1)
+    w = codes.to(torch.bfloat16) * s
+    return w.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _ptxas_key(wd, group_wise, bn):
+    return f"{wd} {'kGroup' if group_wise else 'kEnd'} BN{bn}"
+
+
+def ptxas_quant_report():
+    """{form: {registers, spill_stores, spill_loads}} of K13's int8/int4
+    instantiations (``quant_wgmma_kernel<false, WT, SM, GroupWalk<BN>>``)
+    from the build log."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    log = (_build.library_path().parent / "build.log").read_text()
+    rep, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            g = re.search(r"quant_wgmma_kernelILb0ELi(\d)ELi(\d)ENS\d_9"
+                          r"GroupWalkILi(\d+)", m.group(1))
+            cur = (_ptxas_key("int8" if g.group(1) == "1" else "int4",
+                              g.group(2) == "2", int(g.group(3)))
+                   if g else None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep.setdefault(cur, {})["registers"] = int(m.group(1))
+    return rep
+
+
+def check_grouped_matmul_quant(torch, timer, gm):
+    """Phase 10b: K13's int8/int4 forms (int8 and int4, per channel and
+    group 128) at 4096 -> 14336 and 14336 -> 4096 on phase 10's routing
+    (T = 16,384 rows by MOE_COUNTS), the experts quantized on the card
+    (``quantize_grouped_weight``). Each case: every element within
+    ``gm.quant_tolerance`` of the plain version (K13's summation bound plus
+    one bf16 rounding of each dequantized weight in the plain version:
+    (K/4 * 2^-24 + 2^-8) * (|x| @ |W|) + 1e-2 * |ref|, W dequantized in
+    f32), two calls bitwise equal, the items the card decodes equal to
+    ``gm.gmm_items`` at the form's tile width, the scales shifted by SHIFT
+    columns failing the rule; kernel, plain and library times (dequant
+    into a column-major bf16 stack + ``torch._grouped_mm``), TFLOP/s,
+    bound share, registers and spills. One row a weight type, headed by
+    the form phase 11b drives."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
+                       dtype=torch.int32, device="cuda")
+    t, e = MOE_T, len(MOE_COUNTS)
+    ends = off[1:].contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = ptxas_quant_report()
+    log(f"K13 int8/int4 ptxas: {ptxas}")
+    cases = {}
+    for wd, gs in MOE_QUANT_FORMS:
+        for kdim, n in ((4096, 14336), (14336, 4096)):
+            x = torch.randn((t, kdim), generator=g, device="cuda").to(
+                torch.bfloat16)
+            w = torch.randn((e, kdim, n), generator=g,
+                            device="cuda") / math.sqrt(kdim)
+            codes, scales = gm.quantize_grouped_weight(w, f"weight_only_{wd}",
+                                                       gs)
+            del w
+            args = (codes, scales, wd, gs)
+            got = gm.gmm_quant(x, off, *args)
+            ref = gm.grouped_matmul_reference(x, off, *args)
+            torch.cuda.synchronize()
+            tol = gm.quant_tolerance(x, off, *args, ref)
+            diff = (got.float() - ref.float()).abs()
+            worst, err = (diff / tol).max().item(), diff.max().item()
+            del got, diff
+            label = f"K13 {_form(wd, gs)} T{t} K{kdim} N{n}"
+            assert worst < 1.0, f"{label}: worst err/tol {worst}"
+            assert _same_bits(torch, lambda: (gm.gmm_quant(x, off, *args),)
+                              ), f"{label}: two calls differ"
+            bad = gm.gmm_quant(x, off, codes, scales.roll(SHIFT, -1)
+                               .contiguous(), wd, gs)
+            ctl = ((bad.float() - ref.float()).abs() / tol).max().item()
+            del bad
+            assert ctl > 1, f"{label}: the shifted-scale control passed"
+            bn = gm.quant_tile_n(gs)
+            want = gm.gmm_items(off.tolist(), t, kdim, n, bn)
+            items = torch.full((len(want), 6), -1, dtype=torch.int32,
+                               device="cuda")
+            _build.launch("pt_grouped_matmul_items", off.data_ptr(), t, kdim,
+                          n, e, bn, items.data_ptr(), _build.stream_of(off))
+            assert items.cpu().tolist() == [list(it) for it in want], (
+                f"{label}: the items decoded on the card differ from "
+                f"gmm_items at {bn} columns")
+            lib_fn, why = _library(torch, lambda: torch._grouped_mm(
+                x, dequant_stack_bf16(torch, *args), offs=ends), ref, tol,
+                label)
+            del ref, tol
+            ms = timer(lambda: gm.gmm_quant(x, off, *args))
+            plain = timer(lambda: gm.grouped_matmul_reference(x, off, *args),
+                          iters=5)
+            lib = timer(lib_fn) if lib_fn else None
+            if lib_fn:  # the grouped GEMM alone, on a stack dequantized once
+                dense = dequant_stack_bf16(torch, *args)
+                gemm = timer(lambda: torch._grouped_mm(x, dense, offs=ends))
+                del dense
+            else:
+                gemm = None
+            flops = 2 * t * kdim * n
+            nbytes = (2 * x.numel() + codes.numel() + 4 * scales.numel()
+                      + 2 * t * n + 4 * off.numel())
+            bms, by = bound(nbytes, flops, BF16_FLOPS)
+            row = {"shape": f"T{t} K{kdim} N{n} E{e} {_form(wd, gs)} rows "
+                            f"{MOE_COUNTS}",
+                   "max_abs_err": err, "worst_err_over_tol": worst,
+                   "control_worst_err_over_tol": ctl, "ms": ms,
+                   "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib, "library_gemm_only_ms": gemm,
+                   "library_note": ("dequant (bf16, column-major) + "
+                                    "torch._grouped_mm" if lib_fn
+                                    else f"none: {why}"),
+                   "bitwise_repeat": True, "block_n": bn,
+                   "items": len(want), "grid": min(len(want), sms),
+                   "ptxas": ptxas.get(_ptxas_key(wd, gs > 0, bn))}
+            log(f"{label}: max_abs_err {err:.3e} (worst err/tol "
+                f"{worst:.3f}) kernel_ms {ms:.4f} ({_rate(row, flops)}) "
+                f"plain_ms {plain:.4f} library_ms "
+                f"{lib if lib is None else round(lib, 4)} "
+                f"({row['library_note']}; the GEMM alone "
+                f"{gemm if gemm is None else round(gemm, 4)}) bound_ms "
+                f"{bms:.4f} ({by}); two "
+                f"calls bitwise equal; {len(want)} items of 128 x {bn} as "
+                f"gmm_items walks them; shifted-scale control worst err/tol "
+                f"{ctl:.3f} (fails, as it must); ptxas {row['ptxas']}")
+            cases.setdefault(wd, []).append(row)
+            del x, codes, scales, items
+            torch.cuda.empty_cache()
+    rows = []
+    for wd, gs, _ in MOE_QUANT_PATHS:
+        shapes = cases[wd]
+        head = next(r for r in shapes if r["shape"].endswith(
+            f"{_form(wd, gs)} rows {MOE_COUNTS}"))
+        rows.append({"name": f"grouped_matmul_{wd}", "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/grouped_matmul_quant.cu",
+                     "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:200",
+                     "max_abs_err": max(r["max_abs_err"] for r in shapes),
+                     **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "shape")},
+                     "shapes": shapes})
+    return rows
+
+
+def _moe_quant_expert_run(torch, moe, x, dy, quant, routing, dtype, plain,
+                          offsets=None, scales=None):
+    """y and dx of the expert half of one MoE layer (dispatch -> grouped
+    SwiGLU -> combine) with quantized experts ``quant`` (an
+    ``_expert_quant`` dict) under a FIXED routing, in ``dtype``;
+    ``offsets`` / ``scales`` override the routing's offsets and the
+    experts' scales (the controls)."""
+    _, wcomb, order, off = routing
+    off = off if offsets is None else offsets
+    names = ("w_gate", "w_up", "w_down")
+    codes = [quant[n][0] for n in names]
+    scales = [quant[n][1] for n in names] if scales is None else scales
+    xr = x.to(dtype).detach().requires_grad_(True)
+    xs = moe._dispatch(xr, order, 2)
+    ys = moe._grouped_swiglu(xs, off, *codes, quant["weight_dtype"],
+                             quant["group_size"], scales, plain=plain)
+    y = moe._combine(ys, order, wcomb, dtype)
+    y.backward(dy.to(dtype))
+    return [y.detach(), xr.grad]
+
+
+def _fwd_bwd_wall(torch, model, ids, label, profile):
+    """Median wall ms of 3 forward + backward passes of ``model`` on ids
+    (after one warm-up), the peak memory of those passes in GiB, and with
+    ``profile`` a traced fourth pass (``profile_window``)."""
+    def step():
+        model.loss(model(ids), ids).backward()
+        model.zero_grad(set_to_none=True)
+
+    def once():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    once()
+    torch.cuda.reset_peak_memory_stats()
+    walls = [once() for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return (statistics.median(walls), walls, peak,
+            profile_window(torch, step, label) if profile else None)
+
+
+def moe_quant(torch, kernels, gm, profile=False):
+    """Phase 11b (cell mixtral-8x7b-1L-int8-experts): for int8 per channel
+    and int4 group 128 (MOE_QUANT_PATHS), with the experts quantized on
+    the card (``MoEMLP.quantize_experts``):
+
+    - one full-width Mixtral layer's experts at B=1 x S=2048 under phase
+      11's routing, computed once in f32: y and dx of the kernel path (K13
+      int8/int4 forward; dx through the bf16 dequantized stack and K13's
+      transposed form), the plain path in bf16 and the plain path in f32
+      (the quantized function, codes dequantized in f32); kernel-vs-f32
+      relative L2 <= 2 x plain-bf16-vs-f32 (phase 8's rule), which two
+      controls must fail: K13 fed offsets with one boundary moved by MOVE
+      rows, and every scale stack shifted by SHIFT columns;
+    - a 1-layer full-width ``MoEForCausalLM`` after ``quantize_experts``:
+      per-token losses of the kernel path against its plain f32 forward
+      (the same codes and scales); one forward + backward whose launches
+      (counts set to 0 just before, read just after) must equal
+      ``fusion.moe_train_kernel_launches_per_step(1, 0,
+      quantized_experts=True)``: 3 K13 int8/int4, 3 K13 dX, no K14;
+    - B=4 x S=2048 forward + backward wall (median of 3 after a warm-up)
+      and peak memory against the same layer in bf16, in this call (the
+      fp expert stacks freed, as phase 5 frees the bf16 weights).
+
+    Returns ({path: counts}, stats)."""
+    from paddle_tpu_torch.models import moe
+    from paddle_tpu_torch.ops.kernels import fusion
+
+    cfg = mixtral_config(1)
+    h, s = cfg.hidden_size, TS
+    mlp = moe.MoEMLP(cfg, torch.bfloat16, torch.device("cuda"),
+                     torch.Generator(device="cuda").manual_seed(SEED + 31))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    x = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        routing = moe._dropless_routing(
+            (x.float() @ mlp.gate.weight.float())[None], cfg.top_k)
+    off = routing[3].tolist()
+    j = next(i for i in range(1, len(off) - 1)
+             if off[i] > off[i - 1] and off[i + 1] - off[i] >= MOVE)
+    moved = routing[3].clone()
+    moved[j] += MOVE
+
+    def rel(a, r):
+        return ((a.float() - r).norm() / r.norm()).item()
+
+    counts, stats = {}, {"routed_rows": [b - a for a, b in zip(off, off[1:])]}
+    model = moe.MoEForCausalLM(cfg, seed=SEED)
+    ids = torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                        device="cuda")
+    m32 = moe.MoEForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                             seed=SEED)
+    with torch.no_grad():
+        for p32, p in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p.float())
+    quants = {}
+    for wd, gs, path in MOE_QUANT_PATHS:
+        algo, form = f"weight_only_{wd}", _form(wd, gs)
+        quant = mlp.quantize_experts(algo, gs)._expert_quant
+        run = lambda dtype, plain, **kw: _moe_quant_expert_run(  # noqa: E731
+            torch, moe, x, dy, quant, routing, dtype, plain, **kw)
+        kern, plain, ref = (run(torch.bfloat16, False),
+                            run(torch.bfloat16, True),
+                            run(torch.float32, True))
+        ctl_a = run(torch.bfloat16, False, offsets=moved)
+        ctl_b = run(torch.bfloat16, False, scales=[
+            quant[n][1].roll(SHIFT, -1).contiguous()
+            for n in ("w_gate", "w_up", "w_down")])
+        per, worst, ctl = {}, 0.0, {"a": 0.0, "b": 0.0}
+        for i, name in enumerate(("y", "dx")):
+            ek, ep = rel(kern[i], ref[i]), rel(plain[i], ref[i])
+            ea, eb = rel(ctl_a[i], ref[i]), rel(ctl_b[i], ref[i])
+            per[name] = {"kernel": ek, "plain_bf16": ep,
+                         "kernel_over_plain": ek / ep,
+                         "moved_boundary_over_plain": ea / ep,
+                         "shifted_scales_over_plain": eb / ep}
+            worst = max(worst, ek / ep)
+            ctl["a"], ctl["b"] = max(ctl["a"], ea / ep), max(ctl["b"],
+                                                             eb / ep)
+            log(f"  moe {form} expert check {name}: rel L2 err vs f32 "
+                f"(quantized function) kernel {ek:.3e} plain bf16 {ep:.3e} "
+                f"ratio {ek / ep:.3f}; controls: moved boundary "
+                f"{ea / ep:.3f}, shifted scales {eb / ep:.3f}")
+        del kern, plain, ref, ctl_a, ctl_b
+        assert worst <= 2, f"MoE {form} kernel/plain bf16 ratio {worst}"
+        assert ctl["a"] > 2 and ctl["b"] > 2, (
+            f"a {form} control passed the rule {ctl}: the check cannot see "
+            f"a fault")
+
+        # the 1-layer model: the same codes in bf16 (kernel path) and f32
+        # (plain), per-token losses, then the counted forward + backward
+        model.quantize_experts(algo, gs)
+        quants[path] = model.layers[0].mlp._expert_quant
+        m32.layers[0].mlp._expert_quant = quants[path]
+        tok = {}
+        with torch.no_grad():
+            for label, mdl, plain_ in (("kernel", model, False),
+                                       ("f32", m32, True)):
+                logits, _ = mdl(ids, plain=plain_)
+                lg = logits[0, :-1].float()
+                tok[label] = torch.logsumexp(lg, -1) - lg.gather(
+                    1, ids[0, 1:, None])[:, 0]
+                del logits, lg
+        assert all(torch.isfinite(v).all() for v in tok.values())
+        loss_rel = rel(tok["kernel"], tok["f32"])
+        model.train()
+        kernels.reset_launch_counts()
+        model.loss(model(ids), ids).backward()                 # counted
+        torch.cuda.synchronize()
+        counts[path] = kernels.launch_counts()
+        model.zero_grad(set_to_none=True)
+        model.eval()
+        plan = fusion.moe_train_kernel_launches_per_step(
+            1, 0, quantized_experts=True)
+        expected = dict.fromkeys(counts[path], 0)
+        expected.update(plan)
+        log(f"moe {form} 1-layer model (B1 S{s}): per-token loss rel L2 err "
+            f"vs f32 {loss_rel:.3e}, mean loss kernel "
+            f"{tok['kernel'].mean():.5f} f32 {tok['f32'].mean():.5f}; "
+            f"forward + backward launches {counts[path]} expected "
+            f"{expected}")
+        assert counts[path] == expected, (
+            f"{form} launch counts {counts[path]} != plan {expected}")
+        stats[form] = {"per_tensor": per, "worst_ratio": worst,
+                       "control_worst_ratio": ctl,
+                       "one_layer_loss_rel_err": loss_rel,
+                       "launches": counts[path]}
+    del m32, mlp, x, dy
+    torch.cuda.empty_cache()
+
+    # B=4 x S=2048 forward + backward: bf16, then each quantized form with
+    # the fp expert stacks freed
+    ids4 = torch.randint(0, cfg.vocab_size, (TB, TS), generator=g,
+                         device="cuda")
+    mlp0 = model.layers[0].mlp
+    model.train()
+    mlp0._expert_quant = None
+    bf16 = _fwd_bwd_wall(torch, model, ids4, "moe 1-layer fwd+bwd bf16",
+                         profile)
+    for name in ("w_gate", "w_up", "w_down"):
+        getattr(mlp0, name).data = torch.empty(0, dtype=torch.bfloat16,
+                                               device="cuda")
+    torch.cuda.empty_cache()
+    walls = {"bf16": bf16}
+    for wd, gs, path in MOE_QUANT_PATHS:
+        mlp0._expert_quant = quants[path]
+        walls[_form(wd, gs)] = _fwd_bwd_wall(
+            torch, model, ids4, f"moe 1-layer fwd+bwd {_form(wd, gs)}",
+            profile)
+    for form, (ms, runs, peak, prof) in walls.items():
+        log(f"moe 1-layer B{TB} S{TS} forward + backward, {form} experts: "
+            f"{ms:.2f} ms (runs {[round(r, 2) for r in runs]}), peak "
+            f"{peak:.2f} GiB")
+        stats.setdefault(form, {}).update(fwd_bwd_ms=ms, fwd_bwd_runs=runs,
+                                          max_memory_allocated_gib=peak,
+                                          profile=prof)
+    del model, quants
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
 def moe_train(torch, kernels, profile=False):
     """The timed MoE train run (cell mixtral-8x7b-3L-train): Mixtral-8x7B
     widths, 3 layers, bf16, AdamW8bit(1e-4) with f32 masters, B=4 x S=2048
@@ -3592,6 +4012,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_check = moe_grad_check(torch, k1314)
     torch.cuda.empty_cache()
+
+    # ---- 10b. K13's int8/int4 forms vs plain at the Mixtral train shapes,
+    # 11b. the quantized experts: the full-width check, the 1-layer model's
+    # counted forward + backward (counts set to 0 just before it and read
+    # just after) and its wall against bf16
+    timer = ColdTimer(torch)
+    own += [(row, path) for row, (_, _, path) in zip(
+        check_grouped_matmul_quant(torch, timer, k1314), MOE_QUANT_PATHS)]
+    del timer
+    torch.cuda.empty_cache()
+    counts_quant, stats_quant = moe_quant(torch, kernels, k1314,
+                                          profile=profile)
+    torch.cuda.empty_cache()
     counts_moe, stats_moe = moe_train(torch, kernels, profile=profile)
     stats_moe["grad_check"] = moe_check
     paths = {"generate_paged bf16": counts,
@@ -3601,6 +4034,7 @@ def main() -> int:
              **{f"batcher int8 {label}": stats_batcher_int8[label]["launches"]
                 for label, _ in BATCHER_PLANS},
              "train": counts_train, "moe train": counts_moe,
+             **counts_quant,
              "grad check split, mask": counts_grad_split, "sft": counts_sft,
              "rope": counts_rope}
     counter = {"flash_attention_fwd": "flash_attention",
@@ -3625,6 +4059,8 @@ def main() -> int:
                "grouped_matmul": "grouped_matmul",
                "grouped_matmul_down": "grouped_matmul",
                "grouped_matmul_dx": "grouped_matmul",
+               "grouped_matmul_int8": "grouped_matmul_quant",
+               "grouped_matmul_int4": "grouped_matmul_quant",
                "segment_dw": "segment_dw", "segment_dw_down": "segment_dw",
                "flash_attention_fwd_bias": "flash_attention",
                "flash_attention_bwd_bias": "flash_attention_bwd",
@@ -3666,7 +4102,8 @@ def main() -> int:
                     "serving_batcher": stats_batcher,
                     "serving_batcher_int8w_int8kv": stats_batcher_int8,
                     "train": stats_train, "sft": stats_sft,
-                    "moe_train": stats_moe}))
+                    "moe_train": stats_moe,
+                    "moe_quantized_experts": stats_quant}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

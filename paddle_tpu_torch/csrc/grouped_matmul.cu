@@ -23,7 +23,7 @@
 // stages, a producer warp and two consumer warpgroups, a persistent grid.
 // x's map is 2-D (rows past T read as zeros); w's is 3-D (E, K, N) or
 // (E, N, K), so a K or N edge reads zeros, never the next expert's rows.
-// Items run in bands of row tiles (grouped_tiles.cuh swizzle), so a
+// Items run in bands of row tiles (grouped_tiles.cuh group_item), so a
 // band's x rows stay in L2 while the n-tiles stream past. The epilogue
 // writes 16-byte vectors of rows [lo, hi) only: a TMA store of the whole
 // tile would overwrite the other step's rows at a group boundary.
@@ -48,20 +48,18 @@ inline int band_for(int K) {
   return rows_fit < 1 ? 1 : (rows_fit > 16 ? 16 : rows_fit);
 }
 
-// (n_tiles + E - 1) steps x the n-tiles
-__host__ __device__ inline long item_count(int T, int N, int E) {
-  return (long)((T + BM - 1) / BM + E - 1) * ((N + BN - 1) / BN);
+// (n_tiles + E - 1) steps x the n-tiles of bn columns
+__host__ __device__ inline long item_count(int T, int N, int E, int bn = BN) {
+  return (long)((T + BM - 1) / BM + E - 1) * ((N + bn - 1) / bn);
 }
 
-// Item i: a (step, n-tile) pair in banded order; a parked step is not live
+// Item i: a (step, n-tile) pair in banded order, n-tiles of bn columns;
+// a parked step is not live
 __device__ __forceinline__ Item gmm_item(const int* __restrict__ off, int E, int T, int K, int N,
-                                         int band, int i) {
-  const int n_tiles = (T + BM - 1) / BM;
-  int step, nt;
-  gt::swizzle(i, n_tiles + E - 1, (N + BN - 1) / BN, band, &step, &nt);
-  const gt::Step s = gt::walk_step(off, E, T, BM, n_tiles, false, step);
+                                         int bn, int band, int i) {
+  const gt::GroupItem s = gt::group_item(off, E, T, N, BM, bn, band, i);
   const bool live = s.lo < s.hi;
-  return {live, live ? (K + BK - 1) / BK : 0, s.tile, s.group, s.lo, s.hi, nt};
+  return {live, live ? (K + BK - 1) / BK : 0, s.tile, s.group, s.lo, s.hi, s.nt};
 }
 
 template <bool TRANS>
@@ -74,7 +72,7 @@ struct Gmm {
 
   __device__ void setup(unsigned char*) {}
   __device__ int n_items() const { return (int)item_count(T, N, E); }
-  __device__ Item item(int i) const { return gmm_item(off, E, T, K, N, band, i); }
+  __device__ Item item(int i) const { return gmm_item(off, E, T, K, N, BN, band, i); }
   __device__ void load(unsigned char* st, uint64_t* bar, const Item& it, int kt) const {
     const int k0 = kt * BK, n0 = it.nt * BN;
     wg::tma_load_2d(st, tx, bar, k0, it.tile * BM);  // x rows: 128 x 64
@@ -117,11 +115,11 @@ __global__ void walk_kernel(const int* __restrict__ offsets, int E, int T, int b
   hi[i] = s.hi;
 }
 
-__global__ void items_kernel(const int* __restrict__ offsets, int E, int T, int K, int N, int band,
-                             int n, int* out) {
+__global__ void items_kernel(const int* __restrict__ offsets, int E, int T, int K, int N, int bn,
+                             int band, int n, int* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Item it = gmm_item(offsets, E, T, K, N, band, i);
+  const Item it = gmm_item(offsets, E, T, K, N, bn, band, i);
   int* o = out + 6 * i;
   o[0] = it.tile, o[1] = it.group, o[2] = it.lo, o[3] = it.hi, o[4] = it.nt, o[5] = it.n_k;
 }
@@ -178,14 +176,17 @@ PT_EXPORT int pt_group_tile_walk(const void* offsets, int E, int T, int bm, int 
   return cudaGetLastError();
 }
 
-// K13's work items as the kernel decodes them, in walk order: out holds
-// item_count(T, N, E) rows of (tile, group, lo, hi, n-tile, slices) int32
-// (the card tests hold it to grouped_matmul.gmm_items).
-PT_EXPORT int pt_grouped_matmul_items(const void* offsets, int T, int K, int N, int E, void* out,
-                                      void* stream) {
-  const long n = item_count(T, N, E);
+// K13's work items as its forms decode them, in walk order, for n-tiles
+// of block_n columns (256: the bf16 forms and the per-channel int8/int4
+// forms; 128: the group-wise ones): out holds item_count(T, N, E,
+// block_n) rows of (tile, group, lo, hi, n-tile, slices) int32 (the card
+// tests hold it to grouped_matmul.gmm_items).
+PT_EXPORT int pt_grouped_matmul_items(const void* offsets, int T, int K, int N, int E, int block_n,
+                                      void* out, void* stream) {
+  const long n = item_count(T, N, E, block_n);
   if (n <= 0) return cudaSuccess;
   items_kernel<<<(int)((n + 127) / 128), 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(offsets), E, T, K, N, band_for(K), (int)n, static_cast<int*>(out));
+      static_cast<const int*>(offsets), E, T, K, N, block_n, band_for(K), (int)n,
+      static_cast<int*>(out));
   return cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 // The walks the persistent wgmma bodies share: K13's and K14's (tile,
-// group) walk over expert-sorted rows (walk_step, clamp_off), and the
+// group) walk over expert-sorted rows (walk_step, clamp_off), the
 // block-order swizzle that keeps one operand's band resident in L2 (K13's
 // items and the output tiles of wgmma_quant_tiles.cuh, K2's and K4's tiled
-// body, use it). The bodies themselves are wgmma_tiles.cuh (K13, K14) and
-// wgmma_quant_tiles.cuh (K2, K4).
+// body, use it), and K13's items (group_item), which its bf16 forms
+// (wgmma_tiles.cuh) and its int8/int4 forms (wgmma_quant_tiles.cuh) both
+// walk. The bodies themselves are wgmma_tiles.cuh (K13 bf16, K14) and
+// wgmma_quant_tiles.cuh (K2, K4, K13 int8/int4).
 #pragma once
 
 #include "common.cuh"
@@ -55,6 +57,22 @@ __device__ __forceinline__ void swizzle(int bid, int n_band, int n_other, int ba
   const int local = bid - first * n_other;
   *banded = first + local % width;
   *other = local / width;
+}
+
+// K13's work item i (every form): a (step, column tile) pair of the step
+// walk over T rows in row tiles of bm, column tiles of bn, the steps
+// banded (swizzle) `band` at a time; a parked step has lo == hi
+struct GroupItem {
+  int tile, group, lo, hi, nt;
+};
+
+__device__ __forceinline__ GroupItem group_item(const int* __restrict__ off, int E, int T, int N,
+                                                int bm, int bn, int band, int i) {
+  const int n_tiles = (T + bm - 1) / bm;
+  int step, nt;
+  swizzle(i, n_tiles + E - 1, (N + bn - 1) / bn, band, &step, &nt);
+  const Step s = walk_step(off, E, T, bm, n_tiles, false, step);
+  return {s.tile, s.group, s.lo, s.hi, nt};
 }
 
 }  // namespace

@@ -59,11 +59,20 @@
 // vectors from the registers (as K13); rows past M and columns past N,
 // which TMA read as zeros, are not written.
 //
-// The grid is persistent (one block an SM): block b takes output tiles b,
-// b + grid, ... in bands of row tiles (grouped_tiles.cuh swizzle, K13's
-// band): a band's x rows and the W columns of the tiles in flight stay in
-// L2. No split-K, no atomics: two calls give the same bits.
-// quant_matmul.quant_tiles and quant_matmul.block_n model the walk.
+// The grid is persistent (one block an SM) and its walk a template
+// parameter. TileWalk (K2, K4): block b takes output tiles b, b + grid, ...
+// in bands of row tiles (grouped_tiles.cuh swizzle, K13's band): a band's
+// x rows and the W columns of the tiles in flight stay in L2
+// (quant_matmul.quant_tiles and quant_matmul.block_n model it). GroupWalk
+// (K13's int8/int4 forms, grouped_matmul_quant.cu): K13's items, one
+// (step, column tile) of the step walk over expert-sorted rows each
+// (grouped_tiles.cuh group_item), the codes read through a 3-D map with
+// the expert outermost (a K or N edge reads zeros, never the next
+// expert's codes), the item's scales at its expert's offset, and only
+// rows [lo, hi) written (the other step of a boundary tile owns the
+// rest); a parked step loads, converts and releases nothing
+// (grouped_matmul.gmm_items models it). No split-K, no atomics: two calls
+// give the same bits.
 //
 // Shared memory: STAGES x (16 KB of x + the W slice), plus three B tiles
 // when quantized: 193 KB dense at BN = 256, 225 KB int8. Registers
@@ -125,6 +134,45 @@ inline int band_for(int K) {
 __host__ __device__ inline int item_count(int M, int N, int BN) {
   return ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
 }
+
+// One work item: rows [lo, hi) of row tile `tile` against column tile nt
+// of weight `group` (K13's expert; 0 for K2 and K4). A live item runs K / BK
+// slices; a parked one (a K13 step past the walk) none.
+struct Item {
+  bool live;
+  int tile, nt, group, lo, hi;
+};
+
+// K2's and K4's walk: the output tiles of one (M, K) x (K, N) product
+template <int BN_>
+struct TileWalk {
+  static constexpr int BN = BN_;
+  static constexpr bool GROUPED = false;
+  int M, N, band;
+  __host__ __device__ int n_items() const { return item_count(M, N, BN); }
+  __device__ Item item(int i) const {
+    int mt, nt;
+    gt::swizzle(i, (M + BM - 1) / BM, (N + BN - 1) / BN, band, &mt, &nt);
+    return {true, mt, nt, 0, 0, M};
+  }
+};
+
+// K13's walk: (step, column tile) pairs of the step walk over the
+// expert-sorted rows of x (T, K), the offsets read on the card
+template <int BN_>
+struct GroupWalk {
+  static constexpr int BN = BN_;
+  static constexpr bool GROUPED = true;
+  const int* off;
+  int T, N, E, band;
+  __host__ __device__ int n_items() const {
+    return ((T + BM - 1) / BM + E - 1) * ((N + BN - 1) / BN);
+  }
+  __device__ Item item(int i) const {
+    const gt::GroupItem g = gt::group_item(off, E, T, N, BM, BN, band, i);
+    return {g.lo < g.hi, g.tile, g.nt, g.group, g.lo, g.hi};
+  }
+};
 
 // ---- the dequant stage ------------------------------------------------------
 
@@ -295,14 +343,16 @@ __device__ __forceinline__ float2 scales2(const float* __restrict__ scales, int 
 
 // ---- the kernel -----------------------------------------------------------------
 
-template <bool NORM, int WT, int SM, int BN>
+// scales: item group g's scales start at scales + g * sstride
+template <bool NORM, int WT, int SM, class Walk>
 __global__ void __launch_bounds__(wg::NT, 1)
 quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                    const bf16* __restrict__ nw, const float* __restrict__ rstd,
-                   const float* __restrict__ scales, bf16* __restrict__ y, int M, int K, int N,
-                   int gs, int band) {
-  using G = Geo<WT, BN>;
-  static_assert(SM != kGroup || BN == 128, "kGroup holds a second accumulator set");
+                   const float* __restrict__ scales, bf16* __restrict__ y, const Walk walk, int K,
+                   int N, int gs, long sstride) {
+  using G = Geo<WT, Walk::BN>;
+  static_assert(SM != kGroup || Walk::BN == 128, "kGroup holds a second accumulator set");
+  static_assert(!(G::DENSE && Walk::GROUPED), "K13's bf16 forms run wgmma_tiles.cuh");
   constexpr bool GROUP = SM == kGroup, TILE_SCALE = SM == kTile && !G::DENSE;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], normed[STAGES];
@@ -318,8 +368,7 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     wg::fence_barrier_init();
   }
   __syncthreads();
-  const int n_mt = (M + BM - 1) / BM, n_nt = (N + G::BN - 1) / G::BN;
-  const int n_items = n_mt * n_nt, n_k = K / BK;
+  const int n_items = walk.n_items(), n_k = K / BK;
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     wg::setmaxnreg_dec<NORM ? NORM_PRODUCER_REGS : wg::PRODUCER_REGS>();
@@ -328,13 +377,12 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
       int stage = 0;
       uint32_t phase = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-        int mt, nt;
-        gt::swizzle(i, n_mt, n_nt, band, &mt, &nt);
+        const Item it = walk.item(i);
         float rs[NORM_ROWS];  // rows past M (zeros) stay zeros
 #pragma unroll
         for (int j = 0; j < NORM_ROWS; ++j) {
-          const int row = mt * BM + t / 8 + NORMALIZERS / 8 * j;
-          rs[j] = row < M && row < mt * BM + BM ? rstd[row] : 0.f;
+          const int row = it.tile * BM + t / 8 + NORMALIZERS / 8 * j;
+          rs[j] = row < it.hi && row < it.tile * BM + BM ? rstd[row] : 0.f;
         }
         for (int kt = 0; kt < n_k; ++kt) {
           wg::mbar_wait(&full[stage], phase);
@@ -349,23 +397,28 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     int stage = 0;
     uint32_t phase = 0;
     for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-      int mt, nt;
-      gt::swizzle(i, n_mt, n_nt, band, &mt, &nt);
-      for (int kt = 0; kt < n_k; ++kt) {
+      const Item it = walk.item(i);
+      const int kts = it.live ? n_k : 0;  // a parked step loads nothing
+      for (int kt = 0; kt < kts; ++kt) {
         wg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds it free
         wg::mbar_arrive_expect_tx(&full[stage], G::STAGE_BYTES);
         unsigned char* st = ring + stage * G::STAGE_BYTES;
-        wg::tma_load_2d(st, &tx, &full[stage], kt * BK, mt * BM);  // x rows: 128 x 64
+        wg::tma_load_2d(st, &tx, &full[stage], kt * BK, it.tile * BM);  // x rows: 128 x 64
         if constexpr (G::DENSE) {
 #pragma unroll
           for (int b = 0; b < G::BN / 64; ++b)  // W rows k: 64 x 64 columns a box
             wg::tma_load_2d(st + G::A_BYTES + b * wg::BOX_BYTES, &tb, &full[stage],
-                            nt * G::BN + 64 * b, kt * BK);
+                            it.nt * G::BN + 64 * b, kt * BK);
         } else {
 #pragma unroll
-          for (int cb = 0; cb < G::CODE_BOXES; ++cb)  // codes: CODE_ROWS x 128 bytes
-            wg::tma_load_2d(st + G::A_BYTES + cb * G::CODE_BOX_BYTES, &tb, &full[stage],
-                            nt * G::BN + 128 * cb, kt * G::CODE_ROWS);
+          for (int cb = 0; cb < G::CODE_BOXES; ++cb) {  // codes: CODE_ROWS x 128 bytes
+            unsigned char* dst = st + G::A_BYTES + cb * G::CODE_BOX_BYTES;
+            const int c0 = it.nt * G::BN + 128 * cb, c1 = kt * G::CODE_ROWS;
+            if constexpr (Walk::GROUPED)  // the expert is the map's outer coordinate
+              wg::tma_load_3d(dst, &tb, &full[stage], c0, c1, it.group);
+            else
+              wg::tma_load_2d(dst, &tb, &full[stage], c0, c1);
+          }
         }
         if (++stage == STAGES) stage = 0, phase ^= 1;
       }
@@ -383,11 +436,12 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
   int stage = 0, buf = 0;
   uint32_t phase = 0;
   for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-    int mt, nt;
-    gt::swizzle(i, n_mt, n_nt, band, &mt, &nt);
-    const int m0 = mt * BM, n0 = nt * G::BN;
-    if (TILE_SCALE && !gs) tile_scales<G>(sc, scales, 0, n0, N, t);
-    if (G::DENSE && m0 + 64 * c >= M) {
+    const Item it = walk.item(i);
+    if (!it.live) continue;  // a parked step: no slice came, none to release
+    const int m0 = it.tile * BM, n0 = it.nt * G::BN;
+    const float* __restrict__ scl = scales + it.group * sstride;  // this weight's scales
+    if (TILE_SCALE && !gs) tile_scales<G>(sc, scl, 0, n0, N, t);
+    if (G::DENSE && m0 + 64 * c >= it.hi) {
       // dense: every row of this warpgroup lies past M (a cut last row
       // tile): walk the ring and release each stage, with no wgmma and no
       // store. (A quantized warpgroup converts its half of each shared B
@@ -414,7 +468,7 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
       unsigned char* bt = G::DENSE ? st + G::A_BYTES : btiles + buf * G::B_BYTES;
       if constexpr (!G::DENSE) {
         if (TILE_SCALE && gs && kt * BK % gs == 0)
-          tile_scales<G>(sc, scales, kt * BK / gs, n0, N, t);
+          tile_scales<G>(sc, scl, kt * BK / gs, n0, N, t);
         dequant<G, WT, TILE_SCALE>(st + G::A_BYTES, bt, t, sc);
       }
       if (NORM) wg::mbar_wait(&normed[stage], phase);  // the x slice is normalized
@@ -439,7 +493,7 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
           const int srow = kt * BK / gs, q = tw % 4;
 #pragma unroll
           for (int j = 0; j < G::NACC / 4; ++j) {
-            const float2 s = scales2(scales, srow, n0 + 8 * j + 2 * q, N);
+            const float2 s = scales2(scl, srow, n0 + 8 * j + 2 * q, N);
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               tot[4 * j + 2 * h] += acc[4 * j + 2 * h] * s.x;
@@ -464,12 +518,13 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     const int r0 = m0 + 64 * c;
     auto put = [&](int r, int col, uint4 v) {
       const int row = r0 + r, cc = n0 + col;
-      if (row < M && cc < N) *reinterpret_cast<uint4*>(y + (size_t)row * N + cc) = v;
+      if (row >= it.lo && row < it.hi && cc < N)
+        *reinterpret_cast<uint4*>(y + (size_t)row * N + cc) = v;
     };
     if constexpr (GROUP)
       wg::store_bf16(tot, wg::Uniform{1.f}, put);
     else if constexpr (SM == kEnd)  // the column's scale times the f32 sum, once
-      wg::store_bf16(acc, [&](int col) { return scales2(scales, 0, n0 + col, N); }, put);
+      wg::store_bf16(acc, [&](int col) { return scales2(scl, 0, n0 + col, N); }, put);
     else
       wg::store_bf16(acc, wg::Uniform{1.f}, put);
   }
@@ -486,20 +541,22 @@ __global__ void items_kernel(int M, int N, int BN, int band, int n, int* out) {
 
 // A map over a row-major (rows, cols) byte array cut into unswizzled boxes
 // of box_cols (a multiple of 16, <= 256) columns x box_rows; bytes past an
-// edge read as zeros. base must be 16-byte aligned and cols a multiple of
-// 16.
+// edge read as zeros. depth > 0: a 3-D map over `depth` such arrays laid
+// one after another (K13's expert stack), boxes one array deep. base must
+// be 16-byte aligned and cols a multiple of 16.
 inline cudaError_t u8_map(CUtensorMap* map, const void* base, int cols, int rows, int box_rows,
-                          int box_cols = 128) {
+                          int box_cols = 128, int depth = 0) {
   const wg::EncodeTiled fn = wg::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cudaError_t err = wg::bind_context();
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t ones[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols, (cuuint64_t)cols * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, ones,
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, depth > 0 ? 3 : 2, const_cast<void*>(base), dims,
+         strides, box, ones,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -524,10 +581,35 @@ cudaError_t launch_bn(const void* x, const void* nw, const float* rstd, const vo
     err = u8_map(&tb, w, N, K / G::PACK, G::CODE_ROWS);
   }
   if (err != cudaSuccess) return err;
-  return wg::launch_persistent(quant_wgmma_kernel<NORM, WT, SM, BN>, item_count(M, N, BN),
+  const TileWalk<BN> walk{M, N, band_for(K)};
+  return wg::launch_persistent(quant_wgmma_kernel<NORM, WT, SM, TileWalk<BN>>, walk.n_items(),
                                G::SMEM_BYTES, stream, tx, tb, static_cast<const bf16*>(nw), rstd,
-                               static_cast<const float*>(scales), static_cast<bf16*>(y), M, K, N,
-                               gs, band_for(K));
+                               static_cast<const float*>(scales), static_cast<bf16*>(y), walk, K, N,
+                               gs, 0L);
+}
+
+// K13's int8/int4 forms: y (T, N) bf16, y[r] = x[r] @ dequant(codes[g],
+// scales[g]) for the rows r of group g (offsets (E + 1) int32 on the
+// card); codes (E, K / PACK, N), scales (E, N) (kEnd) or (E, K / gs, N)
+// (kGroup). Rows of no group are not written.
+template <int WT, int SM, int BN>
+cudaError_t launch_grouped(const void* x, const int* offsets, const void* codes,
+                           const float* scales, void* y, int T, int K, int N, int E, int gs,
+                           cudaStream_t stream) {
+  using G = Geo<WT, BN>;
+  CUtensorMap tx, tb;
+  const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)T};
+  const cuuint32_t bx[2] = {64, BM};
+  cudaError_t err = wg::bf16_map(&tx, x, 2, dx, bx);
+  if (err != cudaSuccess) return err;
+  err = u8_map(&tb, codes, N, K / G::PACK, G::CODE_ROWS, 128, E);
+  if (err != cudaSuccess) return err;
+  const GroupWalk<BN> walk{offsets, T, N, E, band_for(K)};
+  const long sstride = (long)(SM == kGroup ? K / gs : 1) * N;
+  return wg::launch_persistent(quant_wgmma_kernel<false, WT, SM, GroupWalk<BN>>, walk.n_items(),
+                               G::SMEM_BYTES, stream, tx, tb, static_cast<const bf16*>(nullptr),
+                               static_cast<const float*>(nullptr), scales,
+                               static_cast<bf16*>(y), walk, K, N, gs, sstride);
 }
 
 // The block tile's columns, the one rule for every form: 128 for kGroup

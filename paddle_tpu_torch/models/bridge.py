@@ -11,6 +11,11 @@ quantized entry is any object with ``codes``, ``scales``, ``weight_dtype``,
 ``group_size`` and ``shape`` (the JAX ``QuantizedWeight`` works as is),
 read through numpy.
 
+``expert_quant_from_numpy`` carries a quantized MoE model's expert codes
+and scales across: one entry per layer, the JAX ``MoEMLP._expert_quant``
+dict (``weight_dtype``, ``group_size`` and a (codes, scales) pair for each
+of ``w_gate``, ``w_up`` and ``w_down``), read through numpy.
+
 ``optimizer_state_to_numpy`` / ``optimizer_state_from_numpy`` carry an
 AdamW or AdamW8bit state ({param name: {key: array}}, the JAX package's
 ``TrainStep._opt_state`` layout) across; the float8 (e4m3) moment codes
@@ -110,6 +115,57 @@ def quantized_params_from_numpy(model, params: dict) -> dict:
                 a = a.astype(np.float32)
             out[name] = torch.tensor(a, device=dev).to(own[name].dtype)
     return out
+
+
+def _check_expert_quant(where, eq, mlp):
+    """The (codes, scales) numpy pairs of one layer's ``_expert_quant``,
+    each expert checked as ``_check_quantized`` checks a weight against
+    the layer's (K, N) stacks."""
+    from types import SimpleNamespace
+
+    from .moe import EXPERT_STACKS
+
+    missing = sorted({"weight_dtype", "group_size", *EXPERT_STACKS}
+                     - set(eq))
+    if missing:
+        raise KeyError(f"{where}: missing {missing}")
+    out = {}
+    for name in EXPERT_STACKS:
+        e, k, n = getattr(mlp, name).shape
+        codes, scales = (np.asarray(a) for a in eq[name])
+        if len(codes) != e or len(scales) != e:
+            raise ValueError(f"{where}.{name}: {len(codes)} code and "
+                             f"{len(scales)} scale experts, expected {e}")
+        for i in range(e):
+            _check_quantized(f"{where}.{name}[{i}]", SimpleNamespace(
+                codes=codes[i], scales=scales[i], shape=(k, n),
+                weight_dtype=eq["weight_dtype"],
+                group_size=eq["group_size"]), (k, n))
+        out[name] = (codes, scales)
+    return out
+
+
+def expert_quant_from_numpy(model, quant) -> None:
+    """Set each MoE layer's quantized experts from ``quant``: one
+    ``_expert_quant`` dict a layer, in layer order (arrays read through
+    numpy), as ``MoEMLP.quantize_experts`` stores them, on the model's
+    device. Raises on a layer count, key, dtype, packed-row or scale-shape
+    mismatch or a group size not in {-1, 64, 128}; nothing changes unless
+    every layer matches."""
+    layers = list(model.layers)
+    quant = list(quant)
+    if len(quant) != len(layers):
+        raise ValueError(f"{len(quant)} layers of expert codes for "
+                         f"{len(layers)} layers")
+    arrays = [_check_expert_quant(f"layers.{i}.mlp", eq, layer.mlp)
+              for i, (eq, layer) in enumerate(zip(quant, layers))]
+    for eq, layer, arr in zip(quant, layers, arrays):
+        dev = layer.mlp.w_gate.device
+        layer.mlp._expert_quant = {
+            "weight_dtype": eq["weight_dtype"],
+            "group_size": int(eq["group_size"]),
+            **{name: (torch.tensor(c, device=dev), torch.tensor(s, device=dev))
+               for name, (c, s) in arr.items()}}
 
 
 def optimizer_state_to_numpy(optimizer) -> dict:

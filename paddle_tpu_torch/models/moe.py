@@ -23,8 +23,17 @@ shapes are the JAX package's (``layers.0.mlp.w_gate`` (E, h, m),
 ``models/bridge.py`` carries a JAX model across. As in the JAX package,
 ``config.recompute`` and ``fused_head_loss`` are not read here.
 
+``quantize_experts`` (the JAX package's) stores each layer's stacked
+expert weights as weight-only int8/int4 codes and scales
+(``grouped_matmul.quantize_grouped_weight``, per expert); the fp expert
+parameters stay, unused, as in the JAX package, and the router gate and
+shared experts stay fp. The dropless route then runs K13's int8/int4
+form forward and dX through the dequantized stack (codes and scales take
+no gradient); the dense route expands the codes with
+``grouped_matmul._expand_expert_weight`` first.
+
 Not ported: expert parallelism (``apply_moe_expert_parallel``, the ep
-ring route) and quantized experts (``quantize_experts``); both raise.
+ring route); it raises.
 """
 
 from __future__ import annotations
@@ -45,8 +54,10 @@ from .llama import LlamaAttention, LlamaConfig, _train_fused_block
 
 _NOT_PORTED_EP = ("expert parallelism (the ep ring route over NCCL) is not "
                   "ported yet (ROADMAP Queue 1 item 10)")
-_NOT_PORTED_QUANT = ("quantized experts are not ported yet (ROADMAP Queue 1 "
-                     "item 8: quantize_experts, K13's int8/int4 forms)")
+#: quantize_experts' algorithms and the weight types they store
+_EXPERT_QUANT = {"weight_only_int8": "int8", "weight_only_int4": "int4"}
+#: the stacked expert weights a layer quantizes
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
 @dataclass
@@ -255,6 +266,7 @@ class MoEMLP(Layer):
             self.shared_gate_proj = Linear(h, sm, dtype, device, gen)
             self.shared_up_proj = Linear(h, sm, dtype, device, gen)
             self.shared_down_proj = Linear(sm, h, dtype, device, gen)
+        self._expert_quant = None     # set by quantize_experts()
 
     def capacity(self, seq_len: int) -> int:
         """The dense dispatch's per-expert capacity at this sequence length
@@ -265,24 +277,61 @@ class MoEMLP(Layer):
 
     def quantize_experts(self, algo: str = "weight_only_int8",
                          group_size: int = -1):
-        """Not ported yet: weight-only quantized experts."""
-        raise NotImplementedError(_NOT_PORTED_QUANT)
+        """Store the stacked expert weights as weight-only quantized codes
+        and scales (THE shared absmax rule, per expert) in
+        ``_expert_quant``: ``weight_dtype``, ``group_size`` and a (codes,
+        scales) pair for each of ``w_gate``, ``w_up`` and ``w_down``, on
+        the weights' device. Both routes consume them; the router gate
+        and any shared experts stay fp."""
+        from ..ops.kernels.grouped_matmul import quantize_grouped_weight
+
+        wd = _EXPERT_QUANT.get(algo)
+        if wd is None:
+            raise ValueError(f"unsupported expert quant algo {algo!r}")
+        with torch.no_grad():
+            self._expert_quant = {
+                "weight_dtype": wd, "group_size": int(group_size),
+                **{name: quantize_grouped_weight(getattr(self, name), algo,
+                                                 group_size)
+                   for name in EXPERT_STACKS}}
+        return self
+
+    def _expert_weights(self, dtype):
+        """The dense route's (w_gate, w_up, w_down): the parameters, or
+        with quantized experts their codes expanded into ``dtype``."""
+        eq = self._expert_quant
+        if eq is None:
+            return self.w_gate, self.w_up, self.w_down
+        from ..ops.kernels.grouped_matmul import _expand_expert_weight
+
+        h, m = self.config.hidden_size, self.config.intermediate_size
+        return tuple(_expand_expert_weight(*eq[name], eq["weight_dtype"],
+                                           eq["group_size"], k, dtype)
+                     for name, k in zip(EXPERT_STACKS, (h, h, m)))
 
     def forward(self, x, router_probe=None, plain=False):
         """``router_probe``: a list this layer's router logits are appended
         to. ``plain``: the grouped matmuls' plain versions (the on-card
         reference)."""
         cfg = self.config
+        eq = self._expert_quant
         logits = x @ self.gate.weight                             # (B, S, E)
         if router_probe is not None:
             router_probe.append(logits.detach())
         if flags.get_flag("moe_dropless"):
-            y, aux = _dropless_route(x, logits, self.w_gate, self.w_up,
-                                     self.w_down, cfg.top_k, plain=plain)
+            if eq is None:
+                y, aux = _dropless_route(x, logits, self.w_gate, self.w_up,
+                                         self.w_down, cfg.top_k, plain=plain)
+            else:
+                y, aux = _dropless_route(
+                    x, logits, *(eq[n][0] for n in EXPERT_STACKS), cfg.top_k,
+                    weight_dtype=eq["weight_dtype"],
+                    group_size=eq["group_size"],
+                    scales=tuple(eq[n][1] for n in EXPERT_STACKS),
+                    plain=plain)
         else:
-            y, aux = _dense_route(x, logits, self.w_gate, self.w_up,
-                                  self.w_down, cfg.top_k,
-                                  self.capacity(x.shape[1]))
+            y, aux = _dense_route(x, logits, *self._expert_weights(x.dtype),
+                                  cfg.top_k, self.capacity(x.shape[1]))
         if cfg.num_shared_experts:
             y = y + (F.silu(x @ self.shared_gate_proj.weight)
                      * (x @ self.shared_up_proj.weight)
@@ -355,8 +404,11 @@ class MoEForCausalLM(Layer):
 
     def quantize_experts(self, algo: str = "weight_only_int8",
                          group_size: int = -1):
-        """Not ported yet: weight-only quantized experts."""
-        raise NotImplementedError(_NOT_PORTED_QUANT)
+        """Quantize every layer's stacked expert weights
+        (``MoEMLP.quantize_experts``); the dense trunk stays fp."""
+        for layer in self.layers:
+            layer.mlp.quantize_experts(algo, group_size)
+        return self
 
     @staticmethod
     def flops_per_token(config: MoEConfig, seq_len: int) -> float:

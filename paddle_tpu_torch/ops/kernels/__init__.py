@@ -4,8 +4,8 @@ Each module holding a kernel keeps a plain PyTorch version beside it and a
 plain-integer launch counter that only its launch site increments
 (``fused_rope_attend`` keeps one per entry form; ``flash_attention`` one
 for K1, K5 and K9 each; ``fused_norm_rope`` one per RMSNorm direction and
-one for K12, both directions; ``grouped_matmul`` one for K13, both forms,
-and one for K14). ``ROUTE_COUNTERS`` count routes that are not kernel
+one for K12, both directions; ``grouped_matmul`` one for K13's bf16
+forward and dX forms, one for its int8/int4 forms and one for K14). ``ROUTE_COUNTERS`` count routes that are not kernel
 launches: a general attention mask sent to the plain attention.
 """
 
@@ -28,6 +28,7 @@ KERNEL_COUNTERS = (
     ("rms_norm_bwd", fused_norm_rope, "bwd_launches"),
     ("adamw8bit", fused_optimizer_update, "launches"),
     ("grouped_matmul", grouped_matmul, "launches"),
+    ("grouped_matmul_quant", grouped_matmul, "quant_launches"),
     ("segment_dw", grouped_matmul, "dw_launches"),
     ("fused_rope", fused_norm_rope, "rope_launches"),
 )

@@ -61,7 +61,8 @@ _SIGNATURES = {
     "pt_grouped_matmul": [_P] * 4 + [_I] * 5 + [_P],
     "pt_group_tile_walk": [_P] + [_I] * 6 + [_P] * 5,
     "pt_segment_dw": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
-    "pt_grouped_matmul_items": [_P] + [_I] * 4 + [_P, _P],
+    "pt_grouped_matmul_quant": [_P] * 5 + [_I] * 6 + [_P],
+    "pt_grouped_matmul_items": [_P] + [_I] * 5 + [_P, _P],
     "pt_segment_dw_items": [_P] + [_I] * 4 + [_P, _P],
 }
 

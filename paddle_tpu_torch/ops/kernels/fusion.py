@@ -296,7 +296,9 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
 
 
 def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
-                                       enabled=None, attn_shape=None) -> dict:
+                                       enabled=None, attn_shape=None,
+                                       quantized_experts: bool = False
+                                       ) -> dict:
     """Kernel launches of one MoE train step (``models/moe.py``, no
     per-block recompute, as in the JAX package) by counter name: the
     attention half's plan as ``train_kernel_launches_per_step`` counts it
@@ -306,7 +308,17 @@ def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     norm in K6/K7, three K13 forward and three K13 dX a layer (gate, up,
     down), three K14 dW under ``moe_grouped_bwd`` (on the card the step
     raises with the family off), one K8 per parameter tensor
-    (``n_params``) for AdamW8bit under ``optimizer_update``."""
+    (``n_params``) for AdamW8bit under ``optimizer_update``. With
+    ``quantized_experts`` (``MoEForCausalLM.quantize_experts``) the three
+    forwards a layer are K13's int8/int4 form (``grouped_matmul_quant``),
+    the three dX still K13's transposed form, and no K14: codes take no
+    dW."""
+    if quantized_experts:
+        plan = moe_train_kernel_launches_per_step(
+            num_layers, n_params, enabled=enabled, attn_shape=attn_shape)
+        plan.update(grouped_matmul=num_layers * 3,
+                    grouped_matmul_quant=num_layers * 3, segment_dw=0)
+        return plan
     enabled = enabled_train_fusions() if enabled is None else enabled
     lp = train_layer_plan(enabled, attn_only=True)
     k1 = sum(n.kind in ("attend", "attend_epilogue") for n in lp)

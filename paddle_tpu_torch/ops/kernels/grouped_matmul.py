@@ -20,18 +20,31 @@ warpgroups, a persistent grid of one block an SM. ``gmm_items``,
 in which the blocks take their items and the rows each item reads; the
 card tests hold the kernels' own decoding to them.
 
+K13's int8/int4 forms (``csrc/grouped_matmul_quant.cu``, ``gmm_quant``)
+take weight-only quantized expert weights: codes int8 (E, K, N) or
+nibble-packed int4 (E, K/2, N), scales f32 (E, N) per channel or
+(E, K/g, N) group-wise (``quantize_grouped_weight``, the JAX package's
+layout). They run K4's body (``csrc/wgmma_quant_tiles.cuh``) on K13's
+items: the raw codes reach shared memory through a 3-D map with the
+expert outermost and become an exact bf16 tile there, the f32 sum is
+scaled once (per channel, 128 x 256 tiles) or per K-group (128 x 128),
+and an item writes its rows [lo, hi) only. ``gmm_items`` models both
+tile widths (``quant_tile_n``).
+
 ``grouped_matmul`` is the ``autograd.Function`` the MoE route calls (the
 JAX package's custom VJP): K13 forward, K13's transposed form for dX, and
 dW through ``segment_dw_pure``'s epilogue seam (K14 with the cast riding
-it), which runs K14 when the ``moe_grouped_bwd`` train family is on. On
-CUDA tensors every wrapper launches its kernel or raises (also with
+it), which runs K14 when the ``moe_grouped_bwd`` train family is on. With
+codes and scales it is the quantized VJP: K13's int8/int4 form forward;
+dX expands the codes with the dequant rule (``_expand_expert_weight``)
+and runs the fp grouped product on the same offsets (on the card a bf16
+(E, K, N) stack through K13's transposed form, elsewhere f32 as the JAX
+package does); codes, scales and offsets take no gradient. On CUDA
+tensors every wrapper launches its kernel or raises (also with
 ``flags.grouped_matmul_kernel`` or the family off); only ``plain=True``
 runs the plain versions there. On CPU tensors they run the plain
 versions, which loop over the groups' row slices with f32 accumulation
 (never the JAX reference's (E, T, K) masked tensors).
-
-Weight-only quantized expert weights (int8/int4 codes and scales) are
-not ported yet: they raise (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -41,9 +54,11 @@ import torch
 from ...framework import flags
 from . import _build
 
-#: K13 launches (both forms) and K14 launches since the last reset
-#: (incremented only where each launches)
+#: K13 launches (its bf16 forward and dX forms), K13 int8/int4 launches
+#: and K14 launches since the last reset (incremented only where each
+#: launches)
 launches = 0
+quant_launches = 0
 dw_launches = 0
 
 #: K13/K14's block tile rows and columns and their reduction slice
@@ -55,9 +70,10 @@ H100_SMS = 132
 #: epilogue op kinds the dW seam understands (JAX ``DW_EPILOGUE_OPS``)
 DW_EPILOGUE_OPS = ("scale", "cast")
 
-_NOT_PORTED_QUANT = (
-    "weight-only quantized expert weights (int8/int4) are not ported yet "
-    "(ROADMAP Queue 1 item 8: quantized experts, K13's int8/int4 forms)")
+def quant_tile_n(group_size=-1):
+    """The column tile of K13's int8/int4 forms: 128 group-wise (its
+    second accumulator set), else 256."""
+    return 128 if group_size > 0 else TILE_N
 
 
 def group_tile_walk(group_offsets, bm, n_tiles, n_groups,
@@ -105,19 +121,20 @@ def _swizzle(bid, n_band, n_other, band):
     return first + local % width, local // width
 
 
-def gmm_items(group_offsets, t, kdim, n):
+def gmm_items(group_offsets, t, kdim, n, tile_n=TILE_N):
     """K13's work items in walk order, as the kernel decodes them: one
     (tile, group, lo, hi, n_tile, slices) per (step, n-tile) of the banded
     walk over the ``group_tile_walk``'s n_tiles + E - 1 steps of 128 rows.
     The item writes rows [lo, hi) of ``tile`` against ``group``'s weight
-    in columns [256 n_tile, 256 n_tile + 256); a parked step has lo == hi
-    and no slices."""
+    in columns [tile_n n_tile, tile_n (n_tile + 1)) (``tile_n`` 256, or
+    128 for the group-wise int8/int4 forms, ``quant_tile_n``); a parked
+    step has lo == hi and no slices."""
     e = len(group_offsets) - 1
     n_tiles = -(-t // TILE_M)
     walk = [v.tolist() for v in group_tile_walk(
         torch.as_tensor(group_offsets, dtype=torch.int32), TILE_M, n_tiles,
         e)]
-    n_steps, n_nt, band = n_tiles + e - 1, -(-n // TILE_N), _band(kdim)
+    n_steps, n_nt, band = n_tiles + e - 1, -(-n // tile_n), _band(kdim)
     items = []
     for i in range(n_steps * n_nt):
         step, nt = _swizzle(i, n_steps, n_nt, band)
@@ -168,24 +185,59 @@ def _bounds(group_offsets):
     return [int(v) for v in group_offsets.tolist()]
 
 
+def _quantized(weight_dtype, scales):
+    """Whether (weight_dtype, scales) name int8/int4 codes; raises on codes
+    without scales or an unknown type (the JAX package's errors)."""
+    from .quant_matmul import WEIGHT_TYPES
+
+    if weight_dtype in (None, "fp"):
+        return False
+    if weight_dtype not in WEIGHT_TYPES:
+        raise ValueError(f"weight_dtype must be fp, int8 or int4, got "
+                         f"{weight_dtype!r}")
+    if scales is None:
+        raise ValueError(f"weight_dtype {weight_dtype!r} requires scales")
+    return True
+
+
+def _expand_expert_weight(w, scales, weight_dtype, group_size, k, dtype):
+    """Stacked (E, ...) codes + scales -> the dense (E, K, N) stack in
+    ``dtype``, each expert through THE dequant rule
+    (``quant_matmul.dequant_weight``: code and scale cast to ``dtype`` and
+    multiplied there); fp weights are only cast."""
+    from .quant_matmul import dequant_weight
+
+    if weight_dtype in (None, "fp"):
+        return w.to(dtype)
+    return torch.stack([dequant_weight(w[e], scales[e], weight_dtype,
+                                       group_size, k=k, dtype=dtype)
+                        for e in range(w.shape[0])])
+
+
 def grouped_matmul_reference(x, group_offsets, w, scales=None,
                              weight_dtype="fp", group_size=-1,
                              trans_w=False):
     """K13's plain version: for each group, its row slice times its weight
-    (``w[e]``, or ``w[e]^T`` for the (E, N, K) stack with ``trans_w``),
-    f32-accumulated, rounded once to x's dtype; rows in no group are 0."""
+    (``w[e]``, or ``w[e]^T`` for the (E, N, K) stack with ``trans_w``; with
+    int8/int4 codes the expert dequantized into x's dtype, as the JAX
+    reference lowering does), f32-accumulated, rounded once to x's dtype;
+    rows in no group are 0."""
     from ..loss_ops import _mm_f32
+    from .quant_matmul import dequant_weight
 
-    if weight_dtype not in (None, "fp") or scales is not None:
-        raise NotImplementedError(_NOT_PORTED_QUANT)
+    quant = _quantized(weight_dtype, scales)
+    if quant and trans_w:
+        raise ValueError("the quantized grouped matmul has no trans_w form")
     n = w.shape[1] if trans_w else w.shape[2]
     y = torch.zeros((x.shape[0], n), dtype=x.dtype, device=x.device)
     off = _bounds(group_offsets)
     for e in range(w.shape[0]):
         lo, hi = off[e], off[e + 1]
         if hi > lo:
-            y[lo:hi] = _mm_f32(x[lo:hi], w[e].T if trans_w else w[e]).to(
-                x.dtype)
+            we = (dequant_weight(w[e], scales[e], weight_dtype, group_size,
+                                 k=x.shape[1], dtype=x.dtype) if quant
+                  else w[e].T if trans_w else w[e])
+            y[lo:hi] = _mm_f32(x[lo:hi], we).to(x.dtype)
     return y
 
 
@@ -227,6 +279,28 @@ def tolerance(x, group_offsets, w, ref, trans_w=False):
     spread = grouped_matmul_reference(x.abs(), group_offsets, w.abs(),
                                       trans_w=trans_w).float()
     return k / 4 * 2.0 ** -24 * spread + 1e-2 * ref.float().abs() + 1e-6
+
+
+def quant_tolerance(x, group_offsets, codes, scales, weight_dtype,
+                    group_size, ref):
+    """Per-element bound on |K13 int8/int4 - plain| from the inputs. K13
+    sums the exact products x * code in f32 and scales the sum (per
+    channel) or each group's partial sum (group-wise), so before its one
+    output rounding it is the f32 product of x with the weight W
+    dequantized in f32, up to the f32 summation order (``tolerance``'s
+    K/4 * 2^-24 * S, S = |x| @ |W| per group). The plain version first
+    rounds each dequantized weight code * scale to bf16, at most 2^-8
+    relative: 2^-8 * S more. Each output is then rounded to bf16 once in
+    both: one ulp, 2^-7 * |out| -> 1e-2 * |ref|. In all
+    (K/4 * 2^-24 + 2^-8) * S + 1e-2 * |ref| (K4's ``tolerance`` with the
+    summation term)."""
+    k = x.shape[1]
+    w32 = _expand_expert_weight(codes, scales, weight_dtype, group_size, k,
+                                torch.float32)
+    spread = grouped_matmul_reference(x.float().abs(), group_offsets,
+                                      w32.abs())
+    return ((k / 4 * 2.0 ** -24 + 2.0 ** -8) * spread
+            + 1e-2 * ref.float().abs() + 1e-6)
 
 
 def dw_tolerance(x, dy, group_offsets, e, ref):
@@ -279,6 +353,45 @@ def gmm(x, group_offsets, w, trans_w=False):
                       group_offsets.data_ptr(), w.data_ptr(), y.data_ptr(),
                       t, kdim, n, e, int(trans_w), _build.stream_of(x))
         launches += 1
+    return y
+
+
+def gmm_quant(x, group_offsets, codes, scales, weight_dtype="int8",
+              group_size=-1):
+    """y (T, N) = x[r] @ dequant(codes[group(r)], scales[group(r)]) for x
+    (T, K): K13's int8/int4 form on CUDA tensors (bf16 x, K % 128 == 0,
+    N % 16 == 0, codes (E, K | K/2, N) and scales (E, N) or (E, K/g, N)
+    as ``quant_matmul.check_quantized`` takes them), the plain version on
+    CPU tensors."""
+    global quant_launches
+    if not x.is_cuda:
+        return grouped_matmul_reference(x, group_offsets, codes, scales,
+                                        weight_dtype, group_size)
+    if not flags.get_flag("grouped_matmul_kernel"):
+        raise NotImplementedError(
+            "the quantized grouped matmul runs as K13's int8/int4 form on "
+            "CUDA tensors; flags.grouped_matmul_kernel is off (plain=True "
+            "runs the plain version)")
+    from .quant_matmul import WEIGHT_TYPES, check_quantized
+
+    _build.check_no_grad("grouped_matmul_quant", x, codes, scales)
+    if x.dim() != 2 or x.shape[1] % 128:
+        raise ValueError(f"grouped_matmul_quant kernel needs x (T, K) with "
+                         f"K % 128 == 0, got {tuple(x.shape)}")
+    t, kdim = x.shape
+    e, n = codes.shape[0], codes.shape[-1]
+    check_quantized("grouped_matmul_quant", codes, scales, weight_dtype,
+                    group_size, kdim, n, n_groups=e)
+    _build.check_cuda("x", x, torch.bfloat16)
+    _build.check_cuda("group_offsets", group_offsets, torch.int32, (e + 1,))
+    y = torch.empty((t, n), dtype=x.dtype, device=x.device)
+    if t:
+        _build.launch("pt_grouped_matmul_quant", x.data_ptr(),
+                      group_offsets.data_ptr(), codes.data_ptr(),
+                      scales.data_ptr(), y.data_ptr(), t, kdim, n, e,
+                      WEIGHT_TYPES[weight_dtype], int(group_size),
+                      _build.stream_of(x))
+        quant_launches += 1
     return y
 
 
@@ -371,19 +484,66 @@ class _GroupedMatmul(torch.autograd.Function):
         return dx, None, dw, None
 
 
+class _GroupedMatmulQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_offsets, codes, scales, weight_dtype,
+                group_size, plain):
+        ctx.save_for_backward(group_offsets, codes, scales)
+        ctx.quant = (weight_dtype, group_size, x.shape[1], x.dtype)
+        ctx.plain = plain
+        if plain:
+            return grouped_matmul_reference(x, group_offsets, codes, scales,
+                                            weight_dtype, group_size)
+        return gmm_quant(x, group_offsets, codes, scales, weight_dtype,
+                         group_size)
+
+    @staticmethod
+    def backward(ctx, dy):
+        offs, codes, scales = ctx.saved_tensors
+        weight_dtype, group_size, kdim, x_dtype = ctx.quant
+        dy = dy.contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            # dx = dy @ dequant(w[g])^T on the same offsets: the dense
+            # (E, K, N) stack read transposed in place
+            if dy.is_cuda and not ctx.plain:
+                wd = _expand_expert_weight(codes, scales, weight_dtype,
+                                           group_size, kdim, dy.dtype)
+                dx = gmm(dy, offs, wd, trans_w=True)
+            else:  # the JAX package's rule: f32 throughout
+                wd = _expand_expert_weight(codes, scales, weight_dtype,
+                                           group_size, kdim, torch.float32)
+                dx = grouped_matmul_reference(dy.float(), offs, wd,
+                                              trans_w=True)
+            dx = dx.to(x_dtype)
+        return dx, None, None, None, None, None, None
+
+
 def grouped_matmul(x, group_offsets, w, scales=None, weight_dtype="fp",
                    group_size=-1, plain=False):
     """``y[r] = x[r] @ w[group_of(r)]`` for expert-sorted rows, with a
     gradient: x (T, K), group_offsets (E + 1,) int32, w (E, K, N). K13
     forward, K13's transposed form for dx, K14 for dw (``segment_dw_pure``,
     the cast to w's dtype as its epilogue); the offsets take no gradient.
+    With ``weight_dtype`` "int8" / "int4", w holds codes (E, K | K/2, N)
+    and ``scales`` their scales: K13's int8/int4 form forward, dx through
+    the dequantized stack, and no gradient for codes, scales or offsets.
     ``plain`` runs the plain versions on any device (the on-card
     reference)."""
-    if weight_dtype not in (None, "fp") or scales is not None:
-        raise NotImplementedError(_NOT_PORTED_QUANT)
+    if _quantized(weight_dtype, scales):
+        return _GroupedMatmulQuant.apply(x, group_offsets, w, scales,
+                                         weight_dtype, int(group_size),
+                                         plain)
     return _GroupedMatmul.apply(x, group_offsets, w, plain)
 
 
 def quantize_grouped_weight(w, algo="weight_only_int8", group_size=-1):
-    """Not ported yet: the stacked expert-weight quantization."""
-    raise NotImplementedError(_NOT_PORTED_QUANT)
+    """Quantize a stacked (E, K, N) expert weight per expert with THE
+    shared absmax rule (``extra_vision._weight_quantize_pure``): (codes,
+    scales) in ``grouped_matmul``'s stacked layout, on w's device."""
+    from ..extra_vision import _weight_quantize_pure
+
+    codes, scales = zip(*[_weight_quantize_pure(w[e], algo=algo,
+                                                group_size=group_size)
+                          for e in range(w.shape[0])])
+    return torch.stack(codes), torch.stack(scales)

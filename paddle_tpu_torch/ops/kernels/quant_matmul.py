@@ -167,10 +167,13 @@ def tolerance(x, codes, scales, weight_dtype, group_size, ref):
     return 2.0 ** -8 * spread + 1e-2 * ref.float().abs() + 1e-6
 
 
-def check_quantized(name, codes, scales, weight_dtype, group_size, kdim, n):
+def check_quantized(name, codes, scales, weight_dtype, group_size, kdim, n,
+                    n_groups=None):
     """Raise unless (codes, scales) are contiguous CUDA tensors laid out as
     the kernels read them for a (kdim, n) weight: int8 codes (K, N) or
-    packed (K/2, N), f32 scales (N,) or (K/g, N), N % 16 == 0."""
+    packed (K/2, N), f32 scales (N,) or (K/g, N), N % 16 == 0; with
+    ``n_groups`` a stack of that many such weights (K13's experts), each
+    shape led by it."""
     if weight_dtype not in WEIGHT_TYPES:
         raise ValueError(f"{name}: weight_dtype must be int8 or int4, "
                          f"got {weight_dtype!r}")
@@ -182,9 +185,11 @@ def check_quantized(name, codes, scales, weight_dtype, group_size, kdim, n):
         raise ValueError(f"{name}: quantized weights need N % 16 == 0, "
                          f"got N = {n}")
     rows = kdim // 2 if weight_dtype == "int4" else kdim
-    _build.check_cuda(f"{name}.codes", codes, torch.int8, (rows, n))
+    lead = () if n_groups is None else (n_groups,)
+    _build.check_cuda(f"{name}.codes", codes, torch.int8, lead + (rows, n))
     s_shape = (n,) if group_size == -1 else (kdim // group_size, n)
-    _build.check_cuda(f"{name}.scales", scales, torch.float32, s_shape)
+    _build.check_cuda(f"{name}.scales", scales, torch.float32,
+                      lead + s_shape)
 
 
 def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):

@@ -76,7 +76,14 @@ plain version, which follows the JAX package's reference lowering on
 such rows); K12 (rope) forward and backward bit-identical to
 the plain version in bf16 and f32, D = 128 and an odd half-width; the
 gradient clip's f32 scaling bit-identical to the CPU's and to numpy's.
-The MoE kernels: K13 (grouped matmul) in both forms and K14 (segment dW,
+K13's int8/int4 forms (per channel, group 64 and 128) on the same
+routings (K 128, N 144 where K13's bf16 cases leave K % 128 or N % 16),
+within ``grouped_matmul.quant_tolerance`` with a shifted-scale control
+failing it, the items their blocks decode at 256 and 128 columns equal
+to ``gmm_items``, two calls bitwise equal, from a fresh thread, their
+autograd dx (the dequantized stack through K13's transposed form)
+against the plain rule, a quantized MoE's launches against its plan, and
+the wrapper's refusals. The MoE kernels: K13 (grouped matmul) in both forms and K14 (segment dW,
 f32 and bf16 outputs, with a scale) on uneven group offsets with an empty
 first, middle or last group, one group holding every row, boundaries and
 row counts that are not multiples of the 128-row tile, and K and N that
@@ -662,6 +669,11 @@ def test_quantization_rules_match_the_cpu_bitwise(gen, algo, gs):
     for a, b in zip(kv_cache.quantize_cells(x),
                     kv_cache.quantize_cells(x.cpu())):
         assert torch.equal(a.cpu(), b)
+    # the stacked expert weights (MoEMLP.quantize_experts)
+    w = torch.randn((3, 384, 272), generator=gen, device="cuda") * 0.02
+    for a, b in zip(k1314.quantize_grouped_weight(w, algo, gs),
+                    k1314.quantize_grouped_weight(w.cpu(), algo, gs)):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
 
 
 # ------------------------------------------- the batcher's kernels (K10,
@@ -1547,7 +1559,8 @@ def test_grouped_schedules_on_the_card_match_the_model(gen, sizes, kdim, n):
     off = _offsets(sizes)
     t, e = int(off[-1]), len(sizes)
     for entry, model, args in (
-            ("pt_grouped_matmul_items", k1314.gmm_items, (t, kdim, n, e)),
+            ("pt_grouped_matmul_items", k1314.gmm_items,
+             (t, kdim, n, e, k1314.TILE_N)),
             ("pt_segment_dw_items", k1314.sdw_items, (t, kdim, n, e))):
         want = model(off.tolist(), t, kdim, n)
         out = torch.full((len(want), 6), -1, dtype=torch.int32, device="cuda")
@@ -1693,6 +1706,187 @@ def test_grouped_wrappers_raise_instead_of_falling_back(gen):
         k1314.gmm(x, off, shifted(w))
     with pytest.raises(ValueError):
         k1314.segment_dw(x, shifted(dy), off, 3)
+
+
+#: K13's int8/int4 forms take K % 128 == 0 and N % 16 == 0: the routings
+#: of ``_GROUPS + [_MANY, _WIDE]`` that meet it, and the others' routings
+#: at K 128, N 144
+_QUANT_ROUTINGS = [r for r in _GROUPS + [_MANY, _WIDE]
+                   if r[1] % 128 == 0 and r[2] % 16 == 0] + [
+    (sizes, 128, 144) for sizes, kdim, n in _GROUPS + [_NARROW]
+    if kdim % 128 or n % 16]
+#: (weight type, group size) of every quantized form
+_QUANT_FORMS = [("int8", -1), ("int8", 64), ("int8", 128), ("int4", -1),
+                ("int4", 64), ("int4", 128)]
+
+
+def _experts(gen, e, kdim, n, wd, gs):
+    """A seeded (E, K, N) expert stack quantized on the card."""
+    w = torch.randn((e, kdim, n), generator=gen, device="cuda") / math.sqrt(
+        kdim)
+    return k1314.quantize_grouped_weight(w, f"weight_only_{wd}", gs)
+
+
+def test_quant_routings_cover_every_grouping():
+    assert len(_QUANT_ROUTINGS) == 8
+    assert sorted(r[0] for r in _QUANT_ROUTINGS) == sorted(
+        r[0] for r in _GROUPS + [_MANY, _WIDE, _NARROW])
+
+
+@pytest.mark.parametrize("wd,gs", _QUANT_FORMS)
+@pytest.mark.parametrize("sizes,kdim,n", _QUANT_ROUTINGS)
+def test_grouped_matmul_quant_matches_plain(gen, sizes, kdim, n, wd, gs):
+    off = _offsets(sizes)
+    t, e = int(off[-1]), len(sizes)
+    x = _randn(gen, t, kdim)
+    codes, scales = _experts(gen, e, kdim, n, wd, gs)
+    n0, n13 = k1314.quant_launches, k1314.launches
+    got = k1314.gmm_quant(x, off, codes, scales, wd, gs)
+    assert (k1314.quant_launches - n0, k1314.launches - n13) == (1, 0)
+    ref = k1314.grouped_matmul_reference(x, off, codes, scales, wd, gs)
+    torch.cuda.synchronize()
+    tol = k1314.quant_tolerance(x, off, codes, scales, wd, gs, ref)
+    err = ((got.float() - ref.float()).abs() / tol).max().item()
+    assert err < 1.0, err
+    if t * n >= 32768:
+        # the fault control: the scales shifted by 16 columns fail the
+        # rule (a few hundred outputs may all sit inside its 2^-8 term)
+        bad = k1314.gmm_quant(x, off, codes,
+                              scales.roll(16, -1).contiguous(), wd, gs)
+        assert ((bad.float() - ref.float()).abs() / tol).max().item() > 1
+
+
+@pytest.mark.parametrize("gs", [-1, 64])
+@pytest.mark.parametrize("sizes,kdim,n", [_QUANT_ROUTINGS[0], _MANY, _WIDE,
+                                         _QUANT_ROUTINGS[-1]])
+def test_grouped_quant_items_on_the_card_match_the_model(gen, sizes, kdim, n,
+                                                        gs):
+    from paddle_tpu_torch.ops.kernels import _build
+
+    off = _offsets(sizes)
+    t, e = int(off[-1]), len(sizes)
+    bn = k1314.quant_tile_n(gs)
+    want = k1314.gmm_items(off.tolist(), t, kdim, n, bn)
+    out = torch.full((len(want), 6), -1, dtype=torch.int32, device="cuda")
+    _build.launch("pt_grouped_matmul_items", off.data_ptr(), t, kdim, n, e,
+                  bn, out.data_ptr(), _build.stream_of(off))
+    assert out.cpu().tolist() == [list(it) for it in want]
+
+
+@pytest.mark.parametrize("wd,gs", _QUANT_FORMS)
+def test_grouped_matmul_quant_is_deterministic(gen, wd, gs):
+    off = _offsets((300, 0, 517, 211))
+    x = _randn(gen, int(off[-1]), 512)
+    codes, scales = _experts(gen, 4, 512, 768, wd, gs)
+    calls = [k1314.gmm_quant(x, off, codes, scales, wd, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*calls)
+
+
+def test_grouped_matmul_quant_launches_from_a_fresh_thread(gen):
+    import threading
+
+    off = _offsets((100, 0, 200, 57))
+    x = _randn(gen, 357, 256)
+    for wd, gs in (("int8", -1), ("int4", 128)):
+        codes, scales = _experts(gen, 4, 256, 512, wd, gs)
+        got = []
+        worker = threading.Thread(target=lambda: got.append(
+            k1314.gmm_quant(x, off, codes, scales, wd, gs)))
+        worker.start()
+        worker.join()
+        torch.cuda.synchronize()
+        assert len(got) == 1 and torch.equal(
+            got[0], k1314.gmm_quant(x, off, codes, scales, wd, gs))
+
+
+@pytest.mark.parametrize("wd,gs", [("int8", -1), ("int4", 64)])
+def test_grouped_matmul_quant_autograd_matches_plain(gen, wd, gs):
+    """dx through the bf16 dequantized stack and K13's transposed form
+    against the plain rule (f32 stack, f32 dy): K13's summation bound
+    (``tolerance``) plus one bf16 rounding of each dequantized weight,
+    2^-8 * (|dy| @ |W|^T)."""
+    off = _offsets((100, 0, 200, 57))
+    x = _randn(gen, 357, 256).requires_grad_(True)
+    codes, scales = _experts(gen, 4, 256, 512, wd, gs)
+    dy = _randn(gen, 357, 512)
+    n13, nq, n14 = k1314.launches, k1314.quant_launches, k1314.dw_launches
+    k1314.grouped_matmul(x, off, codes, scales, wd, gs).backward(dy)
+    assert (k1314.launches - n13, k1314.quant_launches - nq,
+            k1314.dw_launches - n14) == (1, 1, 0)
+    xp = x.detach().clone().requires_grad_(True)
+    k1314.grouped_matmul(xp, off, codes, scales, wd, gs,
+                         plain=True).backward(dy)
+    assert (k1314.launches - n13, k1314.quant_launches - nq) == (1, 1)
+    with torch.no_grad():
+        w32 = k1314._expand_expert_weight(codes, scales, wd, gs, 256,
+                                          torch.float32)
+        spread = k1314.grouped_matmul_reference(dy.float().abs(), off,
+                                                w32.abs(), trans_w=True)
+        tol = (k1314.tolerance(dy, off, w32.to(torch.bfloat16), xp.grad,
+                               trans_w=True) + 2.0 ** -8 * spread)
+    assert ((x.grad.float() - xp.grad.float()).abs() / tol).max() < 1
+
+
+def test_quantized_moe_launches_its_plan(gen):
+    """A small bf16 MoE (every expert width a multiple of 128) after
+    ``quantize_experts``: one forward + backward launches the plan's K13
+    int8 forwards and K13 dX, no K14, and gives finite logits."""
+    from paddle_tpu_torch.models.moe import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = MoEConfig(vocab_size=512, hidden_size=256, intermediate_size=384,
+                    num_hidden_layers=2, num_attention_heads=2,
+                    num_key_value_heads=1, num_experts=4, top_k=2,
+                    dtype="bfloat16")
+    model = MoEForCausalLM(cfg, seed=0).quantize_experts("weight_only_int8")
+    model.train()
+    ids = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    logits, aux = model(ids)
+    model.loss((logits, aux), ids).backward()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(fusion.moe_train_kernel_launches_per_step(
+        2, 0, quantized_experts=True))
+    assert counts == want
+    assert torch.isfinite(logits).all()
+
+
+def test_grouped_matmul_quant_raises_instead_of_falling_back(gen):
+    off = _offsets((10, 0, 22))
+    x = _randn(gen, 32, 128)
+    codes, scales = _experts(gen, 3, 128, 64, "int8", -1)
+    old = flags.get_flag("grouped_matmul_kernel")
+    try:
+        flags.set_flags({"grouped_matmul_kernel": False})
+        with pytest.raises(NotImplementedError):
+            k1314.gmm_quant(x, off, codes, scales, "int8", -1)
+    finally:
+        flags.set_flags({"grouped_matmul_kernel": old})
+    with pytest.raises(RuntimeError):                     # grad would drop
+        k1314.gmm_quant(x.clone().requires_grad_(True), off, codes, scales,
+                        "int8", -1)
+    c4, s4 = _experts(gen, 3, 128, 64, "int4", 64)
+    for what, args in {
+            "f32 x": (x.float(), off, codes, scales, "int8", -1),
+            "K % 128": (x[:, :64].contiguous(), off,
+                        codes[:, :64].contiguous(), scales, "int8", -1),
+            "N % 16": (x, off, codes[..., :56].contiguous(),
+                       scales[..., :56].contiguous(), "int8", -1),
+            "int4 codes of K rows": (x, off, codes, s4, "int4", 64),
+            "per-channel scales for group-wise": (x, off, c4, scales,
+                                                  "int4", 64),
+            "f64 scales": (x, off, codes, scales.double(), "int8", -1),
+            "group size 32": (x, off, codes, scales, "int8", 32),
+            "uint8 codes": (x, off, codes.view(torch.uint8), scales, "int8",
+                            -1),
+            "int64 offsets": (x, off.long(), codes, scales, "int8", -1),
+            "E + 1 offsets": (x, off[:-1], codes, scales, "int8", -1),
+            "int2": (x, off, codes, scales, "int2", -1)}.items():
+        with pytest.raises(ValueError):
+            k1314.gmm_quant(*args)
+            pytest.fail(f"K13 int8/int4 accepted {what}")
 
 
 

@@ -15,7 +15,9 @@ grids smaller than the 132 SMs:
     groups come longest first, and the rows an item sums are exactly its
     group's (the last slice's rows past the group are the masked ones);
     an empty group's items run no slice;
-  * every item goes to exactly one block, min(items, SMs) blocks in all.
+  * every item goes to exactly one block, min(items, SMs) blocks in all;
+  * K13's group-wise int8/int4 forms (128-column tiles) write every
+    output once, as its 256-column forms do.
 """
 
 from __future__ import annotations
@@ -86,6 +88,34 @@ def test_gmm_items_write_every_output_once_by_its_group(sizes, kdim, n):
     # one live step per (tile, group) the rows meet, per n-tile
     meets = {(r // gm.TILE_M, grp[r]) for r in range(t)}
     assert live == len(meets) * n_nt
+
+
+@pytest.mark.parametrize("kdim,n", _SHAPES)
+@pytest.mark.parametrize("sizes", _SIZES)
+def test_gmm_items_at_the_group_wise_tile_width(sizes, kdim, n):
+    """K13's group-wise int8/int4 forms walk 128-column tiles
+    (``quant_tile_n``): every (row, column tile) written once, by an item
+    of the row's group, in the same banded step order."""
+    off = _offsets(sizes)
+    t, e = off[-1], len(sizes)
+    tile_n = gm.quant_tile_n(64)
+    assert (tile_n, gm.quant_tile_n(-1)) == (128, gm.TILE_N)
+    n_tiles, n_nt = -(-t // gm.TILE_M), -(-n // tile_n)
+    items = gm.gmm_items(off, t, kdim, n, tile_n)
+    assert len(items) == (n_tiles + e - 1) * n_nt
+    grp = _group_of_rows(off)
+    written = np.zeros((t, n_nt), dtype=np.int64)
+    for tile, g, lo, hi, nt, slices in items:
+        assert 0 <= nt < n_nt
+        if hi > lo:
+            assert (grp[lo:hi] == g).all()
+            written[lo:hi, nt] += 1
+        else:
+            assert slices == 0
+    assert (written == 1).all()
+    # the same (tile, group, lo, hi) steps as at 256 columns
+    wide = gm.gmm_items(off, t, kdim, n)
+    assert sorted({it[:4] for it in items}) == sorted({it[:4] for it in wide})
 
 
 @pytest.mark.parametrize("kdim,n", _SHAPES)

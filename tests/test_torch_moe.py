@@ -21,7 +21,9 @@ reaches a Pallas kernel, it runs in interpret mode (``_INTERPRET``), as
   * both routes (top_k 1, 2 and 3) and the model's logits, aux and
     router probe at 1e-5
     (the logits measured ~1.4e-6 here), with a shared expert too;
-  * the quantized and expert-parallel forms raise; the CPU wrappers run
+  * the quantized forms run (``tests/test_torch_moe_quant.py`` holds
+    them to the JAX package) and the expert-parallel form raises; the CPU
+    wrappers run
     their plain versions and never build; the bridge refuses a missing,
     extra or misshapen MoE parameter.
 """
@@ -185,19 +187,23 @@ def test_cpu_wrappers_run_plain_and_build_nothing():
 
 
 def test_quantized_and_expert_parallel_forms_raise():
+    """Quantized experts now run (``tests/test_torch_moe_quant.py`` holds
+    them to the JAX package); expert parallelism still raises."""
     x, w = _arrays((8, 16), (2, 16, 16))
     off = torch.tensor([0, 4, 8], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgm.grouped_matmul(torch.tensor(x), off,
-                           torch.tensor(w).to(torch.int8), torch.ones(2, 16),
+    codes = torch.tensor(w).to(torch.int8)
+    y = tgm.grouped_matmul(torch.tensor(x), off, codes, torch.ones(2, 16),
                            "int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgm.quantize_grouped_weight(torch.tensor(w))
+    torch.testing.assert_close(y[:4], torch.tensor(x[:4]) @ codes[0].float())
+    torch.testing.assert_close(y[4:], torch.tensor(x[4:]) @ codes[1].float())
+    codes, scales = tgm.quantize_grouped_weight(torch.tensor(w))
+    assert codes.shape == (2, 16, 16) and scales.shape == (2, 16)
     model = tmoe.MoEForCausalLM(tmoe.MoEConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.quantize_experts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.layers[0].mlp.quantize_experts()
+    assert model.quantize_experts() is model
+    assert model.layers[0].mlp._expert_quant["weight_dtype"] == "int8"
+    mlp = model.layers[0].mlp
+    assert mlp.quantize_experts("weight_only_int4", 64) is mlp
+    assert mlp._expert_quant["weight_dtype"] == "int4"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmoe.apply_moe_expert_parallel(model, None)
 

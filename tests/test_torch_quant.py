@@ -374,5 +374,6 @@ def test_cpu_quant_path_never_builds_kernels():
         "paged_attention": 0, "ragged_paged_attention": 0,
         "quant_matmul": 0, "flash_attention_bwd": 0, "rms_norm_fwd": 0,
         "rms_norm_bwd": 0, "adamw8bit": 0, "grouped_matmul": 0,
-        "segment_dw": 0, "flash_attention_bwd_fused": 0, "fused_rope": 0}
+        "grouped_matmul_quant": 0, "segment_dw": 0,
+        "flash_attention_bwd_fused": 0, "fused_rope": 0}
     assert "pt_quant_matmul" in _build._SIGNATURES
