@@ -58,7 +58,19 @@ class, device busy share). Phases, in order; any failure raises and the process 
                items, repeat, rows-of-no-segment and dropped-range checks
                (K3: codes within 1 of the plain chain's, counted, scales
                bit-identical, every other cell untouched) and the int8
-               byte bounds (codes and an f32 scale a cell).
+               byte bounds (codes and an f32 scale a cell). Then the
+               speculative verify wave (T = 264: a 224-row chunk on 32
+               cells, six verify segments of 1 + 4 rows and one of 1 row
+               at old lengths 92-595, 9 padding rows) through K11 and K3's
+               ragged form with ``fresh_pool_read`` on the verify slots,
+               bf16 and int8: within the attention tolerance of the plain
+               versions with the pool roundtrip, bf16 bitwise equal to
+               the unflagged call, int8 with the unflagged call further
+               from the plain version (both logged), the plan and items,
+               two calls bitwise equal, rows of no segment zero, K3's
+               pools, and the dropped-page control (the wave has no walk:
+               each tile's last page left out); and K2 at M = 40 (the
+               solo verify step) for N 1024, 4096, 14336 and 128256.
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -67,6 +79,15 @@ class, device busy share). Phases, in order; any failure raises and the process 
                teacher-forced forward in f32, with the plain bf16 forward
                as the yardstick and two controls (fp16, a K3-style
                fault); timing is the median of 3 full rollouts.
+4c. speculative decoding, solo (after phases 4 and 5, on their model)
+               — ``generate_paged(spec_decode=True, spec_k=4)``: a warm-up
+               with ``NGramDraft``, then the counted run with a draft that
+               replays the warm-up's continuations (every fourth draft
+               replaced): launches 32 K1 + 161 K2 (+ 64 K4) for the
+               prefill and 161 K2 + 32 K3-ragged (+ 64 K4) a verify step,
+               drafts accepted and rejected, every emitted token held to
+               the teacher-forced rule of phase 6 (its controls failing),
+               the median of 3 spec rollouts beside the plain ones.
 5. serving, int8w+int8kv — the same model quantized on the card
                (``quantize_for_inference``: int8 weights, per-channel
                scales), served with ``cache_dtype="int8"``, page 32; the
@@ -104,6 +125,20 @@ class, device busy share). Phases, in order; any failure raises and the process 
                from the batcher's admission record), which its two
                controls must fail; walls the median of 3 after a warm-up,
                beside phase 6's.
+6c. serving, speculative continuous batching — after each of phases 6
+               and 6b, the same 24 requests with ``spec_decode=True,
+               spec_k=4`` in both plans: once with ``NGramDraft`` (drafts
+               proposed and accepted reported), then with a draft that
+               replays that run's continuations (every fourth draft
+               replaced): a warm-up and the counted run, whose launches
+               must equal 161 K2 + 32 K3-ragged (or K11) (+ 64 K4) a wave
+               and 0 K3-masked / K10 (no segment step), every request "ok"
+               with its max_new_tokens, no wasted slot step, one readback
+               a wave, drafts both accepted and rewound, every emitted
+               token held to the teacher-forced rule (int8: through
+               ``int8_batcher_attention``, a verify row reading every key
+               as the cache serves it); walls the median of 3, beside
+               phase 6's, with tokens_per_target_step.
 7. training kernels — after the serving models are freed, each new
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
@@ -270,6 +305,15 @@ WAVE2_CHUNK = (256, 0, 0, 0, 0, 0, 0, 0)
 RAGGED_WAVES = ((WAVE_SEQ, WAVE_CHUNK, WAVE_IDLE),
                 (WAVE2_SEQ, WAVE2_CHUNK, None))
 N_REQUESTS = 24
+# speculative decoding (phases 3, 4c and 6c): drafts a verify segment
+SPEC_K = 4
+# the kernels phase's verify wave, the batcher's spec wave at T = 264: slot
+# 0 prefills a 224-row chunk on 32 cells of context, the others verify
+# their token and SPEC_K drafts (slot 4: no drafts, one row), marked
+# fresh_pool_read, at old lengths whose last verify row lands at 97-600;
+# 255 live rows, rows 255.. pad the wave
+VERIFY_SEQ = (32, 92, 123, 251, 300, 379, 507, 595)
+VERIFY_ROWS = (224, 5, 5, 5, 1, 5, 5, 5)
 
 
 def log(*a):
@@ -358,19 +402,23 @@ def check_flash(torch, timer, k1):
             "shape": f"B{b} S{s} H{h} Hk{hk} D{d} causal"}
 
 
+# M = 40: the solo verify step's projections and LM head (B = 8 rows of
+# 1 + SPEC_K)
 NM_SHAPES = [(8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024),
              (8, 4096, 128256), (16, 4096, 14336), (1024, 4096, 14336),
              (1024, 4096, 4096),
              (1024, 4096, 1024), (BT, 4096, 14336), (BT, 4096, 4096),
              (BT, 4096, 1024), (8192, 4096, 14336), (8192, 4096, 4096),
-             (8192, 4096, 1024)]
+             (8192, 4096, 1024), (40, 4096, 1024), (40, 4096, 4096),
+             (40, 4096, 14336), (40, 4096, 128256)]
 
 
 def check_norm_matmul(torch, timer, k2):
     """K2 at every projection shape of a decode step (M=8, and gate/up at
     M=16: the small-M body's n16 bucket), a solo prefill (M=1024), a
-    batcher wave (M=BT=264) and the train step's forward (M=8192: B=4 x
-    S=2048), with each row's TFLOP/s. At every shape: two calls bitwise
+    batcher wave (M=BT=264), the train step's forward (M=8192: B=4 x
+    S=2048) and a solo verify step (M=40, the LM head included), with each
+    row's TFLOP/s. At every shape: two calls bitwise
     equal, the work its CTAs decode as the Python walk model has it (the
     tiled body's tiles, or the small-M body's tiles, cluster ranks and K
     ranges), and w_norm shifted by 64 elements must fail the rule."""
@@ -982,7 +1030,7 @@ def _check_pools(torch, new, ref, old, written, label):
 
 
 def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens,
-                   scales=None):
+                   scales=None, drop_tile_page=False):
     """The ragged walk's checks for a K11 or K3-ragged wave. ``split`` =
     (q, k_pages, v_pages, block_tables, page_lens, q_start, q_lens,
     fresh_lens, k_fresh, v_fresh): the wave's attention as K11's plain
@@ -994,9 +1042,10 @@ def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens,
     the CTAs decode on the card equal to ``ragged_items``; two calls of
     ``run`` bitwise equal; and the fault control, the split walk's plain
     model with the last range of every walk left out (``scales``: an int8
-    cache's, as keywords), whose worst err/tol against ``ref`` must fail
-    the ``attention_tolerance`` rule. Returns (the plan's fields, a log
-    line)."""
+    cache's, as keywords; ``drop_tile_page``: also every tile's last page,
+    the control of a wave with no walk), whose worst err/tol against
+    ``ref`` must fail the ``attention_tolerance`` rule. Returns (the plan's
+    fields, a log line)."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -1032,7 +1081,8 @@ def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens,
                                 f"the card holds {plan[3]} at once")
     assert _same_bits(torch, run), f"{label}: two calls differ"
     control = k11.split_ragged_reference(*split, **(scales or {}), cs=cs,
-                                         drop_last=True)
+                                         drop_last=True,
+                                         drop_tile_page=drop_tile_page)
     ctl = ((control.float() - ref.float()).abs()
            / attention_tolerance(ref, abs_ref)).max().item()
     assert ctl > 1, (f"{label}: the dropped-range control passed (worst "
@@ -1046,8 +1096,8 @@ def _ragged_checks(torch, label, entry, split, ref, abs_ref, run, lens,
         f"walk CTAs), at most {pages} pages a CTA, {working} clusters with "
         f"work of {plan[3]} resident at once, {plan[2]} B of shared memory; "
         f"items on the card = ragged_items; two calls bitwise equal; "
-        f"last-range-dropped control worst err/tol {ctl:.3f} (fails, as it "
-        f"must)")
+        f"last-{'page' if drop_tile_page else 'range'}-dropped control "
+        f"worst err/tol {ctl:.3f} (fails, as it must)")
 
 
 def _wave_name(seqs, chunks, idle):
@@ -1225,6 +1275,216 @@ def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables,
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             **first, "second_wave": second}
+
+
+def verify_wave(torch, kv_cache, rope_tables, seed, int8=False):
+    """The kernels phase's verify wave (VERIFY_SEQ, VERIFY_ROWS), laid out
+    as ContinuousBatcher's spec wave lays it out: prompt chunks first, then
+    the verify segments in slot order; every segment's rows are fresh
+    (fresh_lens = q_lens) over its old context (page_lens = old length).
+    The cache as ``batcher_wave``'s (random K/V; int8: page 32, codes and
+    scales of random K/V). Returns (cache, rows, wave, flag): the flag
+    (B,) bool marks the verify segments."""
+    b, h, hk, d = BB, 32, 8, 128
+    cache, _, _ = batcher_wave(torch, kv_cache, rope_tables, seed,
+                               seqs=VERIFY_SEQ, chunks=(BT - BB,) + (0,) * 7,
+                               idle=None, int8=int8)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    row_slot, row_pos = [-1] * BT, [0] * BT
+    q_start, flag = [0] * b, [False] * b
+    row = 0
+    for i in sorted(range(b), key=lambda i: VERIFY_ROWS[i] <= SPEC_K + 1):
+        n, seq = VERIFY_ROWS[i], VERIFY_SEQ[i]
+        q_start[i], flag[i] = row, n <= SPEC_K + 1
+        row_slot[row:row + n] = [i] * n
+        row_pos[row:row + n] = range(seq, seq + n)
+        row += n
+    assert row == sum(VERIFY_ROWS) == BT - 9, row
+    i32 = dict(dtype=torch.int32, device="cuda")
+    rs, rp = torch.tensor(row_slot, **i32), torch.tensor(row_pos, **i32)
+    q_lens = torch.tensor(VERIFY_ROWS, **i32)
+    wave = (rs, rp, rs >= 0, torch.tensor(VERIFY_SEQ, **i32),
+            torch.tensor(q_start, **i32), q_lens, q_lens.clone())
+    cos_t, sin_t = rope_tables(BSEQ, d, 500000.0, device="cuda")
+    rows = tuple(torch.randn(shape, generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+                 for shape in ((BT, h, d), (BT, hk, d), (BT, hk, d)))
+    return (cache, rows + (cos_t[rp.long()], sin_t[rp.long()]), wave,
+            torch.tensor(flag, dtype=torch.bool, device="cuda"))
+
+
+VERIFY_NAME = (f"verify wave: chunk {VERIFY_ROWS[0]} on {VERIFY_SEQ[0]}, "
+               f"verify segments (rows on old length) "
+               + ", ".join(f"{n} on {s}" for n, s in zip(VERIFY_ROWS[1:],
+                                                         VERIFY_SEQ[1:])))
+
+
+def _flag_checks(torch, label, out, off, ref, abs_ref, int8):
+    """A flagged form's output against its flagged plain version: worst
+    err/tol, and on an int8 cache the same call without the flag (``off``),
+    whose distance must be larger (the flag is what makes the verify rows
+    read the pool's values). Returns (worst, flag-off worst or None)."""
+    tol = attention_tolerance(ref, abs_ref)
+    worst = ((out.float() - ref.float()).abs() / tol).max().item()
+    assert worst <= 1, f"{label} worst err/tol {worst:.3f}"
+    if not int8:
+        assert torch.equal(out, off), f"{label}: the flag changed a bit"
+        return worst, None
+    worst_off = ((off.float() - ref.float()).abs() / tol).max().item()
+    assert worst_off > worst, (f"{label}: flag off {worst_off:.3f} not "
+                               f"further than flag on {worst:.3f}")
+    return worst, worst_off
+
+
+def check_ragged_attention_verify(torch, timer, k11, kv_cache, rope_tables,
+                                  int8=False):
+    """K11 with ``fresh_pool_read`` on the verify wave (layer 1's pools; q
+    and fresh K/V random): within the attention tolerance of its plain
+    version with the pool roundtrip (``fresh_through_pool``); bf16: bitwise
+    the unflagged call; int8: the unflagged call further from it; plan,
+    items, repeat, rows of no segment zero, the dropped-page control;
+    times."""
+    cache, (q, kf, vf, _, _), wave, flag = verify_wave(
+        torch, kv_cache, rope_tables, SEED + 30 + 100 * int8, int8=int8)
+    kp, vp = cache.k_pages[1], cache.v_pages[1]
+    sc = _scales(cache, 1)
+    lens = wave[3:]
+    args = (q, kp, vp, cache.block_tables, *lens)
+    kc, vc = k11.fresh_through_pool(kf, vf, flag, lens[1], lens[2], int8,
+                                    kp.dtype)
+    out = k11.ragged_paged_attention_pure(*args, kf, vf, **sc,
+                                          fresh_pool_read=flag)
+    off = k11.ragged_paged_attention_pure(*args, kf, vf, **sc)
+    ref = k11.ragged_paged_attention_reference(*args, kc, vc, **sc)
+    abs_ref = k11.ragged_paged_attention_reference(
+        q, kp, vp.abs(), cache.block_tables, *lens, kc, vc.abs(), **sc)
+    torch.cuda.synchronize()
+    form = "K11 int8 fresh_pool_read" if int8 else "K11 fresh_pool_read"
+    worst, worst_off = _flag_checks(torch, form, out, off, ref, abs_ref,
+                                    int8)
+    assert not out[wave[0] < 0].any(), f"{form}: a padding row is not zero"
+    plan, walk = _ragged_checks(
+        torch, f"{form} ({VERIFY_NAME})",
+        "pt_ragged_paged_attention_int8_plan" if int8
+        else "pt_ragged_paged_attention_plan", (*args, kc, vc), ref, abs_ref,
+        lambda: (k11.ragged_paged_attention_pure(*args, kf, vf, **sc,
+                                                 fresh_pool_read=flag),),
+        lens, scales=sc, drop_tile_page=True)
+    assert plan["walk_items"] == 0, plan
+    ms = timer(lambda: k11.ragged_paged_attention_pure(
+        *args, kf, vf, **sc, fresh_pool_read=flag))
+    off_ms = timer(lambda: k11.ragged_paged_attention_pure(*args, kf, vf,
+                                                           **sc))
+    plain = timer(lambda: k11.ragged_paged_attention_reference(
+        *args, *k11.fresh_through_pool(kf, vf, flag, lens[1], lens[2], int8,
+                                       kp.dtype), **sc))
+    bms, by = _ragged_bound(q, out, lens,
+                            2 * (kf.numel() + vf.numel()) + BB, int8=int8)
+    diff = (out.float() - ref.float()).abs().max().item()
+    page = kp.shape[2]
+    log(f"{form} ragged_paged_attention T{BT} H32/8 page{page} "
+        f"{VERIFY_NAME}: max_abs_err {diff:.3e} (worst err/tol "
+        f"{worst:.3f}" + (f"; flag off {worst_off:.3f}" if int8 else
+                          "; flag off bitwise equal") + f") kernel_ms "
+        f"{ms:.4f} (flag off {off_ms:.4f}) plain_ms {plain:.4f} bound_ms "
+        f"{bms:.4f} ({by}); {walk}")
+    return {"name": "ragged_paged_attention" + ("_int8" if int8 else "")
+                    + "_verify",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:244",
+            "max_abs_err": diff, "err_over_tol": worst,
+            "flag_off_err_over_tol": worst_off, "ms": ms,
+            "flag_off_ms": off_ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, **plan,
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{page}"
+                     f"{' int8' if int8 else ''} {VERIFY_NAME}"}
+
+
+def check_rope_attend_ragged_verify(torch, timer, k3, kv_cache, rope_tables,
+                                    int8=False):
+    """K3's ragged form with ``fresh_pool_read`` on the verify wave: as
+    ``check_ragged_attention_verify``, plus the pools against the plain
+    chain's (bf16: bit for bit; int8: codes within 1, scales bit for bit)
+    and every other cell untouched."""
+    from paddle_tpu_torch.models.llama import apply_rotary_rows
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
+
+    cache, rows, wave, flag = verify_wave(
+        torch, kv_cache, rope_tables, SEED + 31 + 100 * int8, int8=int8)
+    layer = 1
+    ck, cp = _pool_copy(cache), _pool_copy(cache)
+    out, ck = k3.fused_rope_append_attend(*rows, ck, layer, *wave,
+                                          fresh_pool_read=flag)
+    off, _ = k3.fused_rope_append_attend(*rows, _pool_copy(cache), layer,
+                                         *wave)
+    ref, cp = k3.ragged_reference(*rows, cp, layer, *wave, plain=True,
+                                  fresh_pool_read=flag)
+    q, k, v, cos, sin = rows
+    ca = _pool_copy(cache, v=cache.v_pages.abs())
+    abs_ref, _ = k3.ragged_reference(q, k, v.abs(), cos, sin, ca, layer,
+                                     *wave, plain=True, fresh_pool_read=flag)
+    torch.cuda.synchronize()
+    form = ("K3 ragged int8 fresh_pool_read" if int8
+            else "K3 ragged fresh_pool_read")
+    worst, worst_off = _flag_checks(torch, form, out, off, ref, abs_ref,
+                                    int8)
+    valid = wave[2]
+    assert not out[~valid].any(), f"{form}: a padding row is not zero"
+    written = _written_cells(torch, cache, layer, wave[0][valid],
+                             wave[1][valid])
+    codes = _check_pools(torch, ck, cp, cache, written, form)
+    q2, k2 = apply_rotary_rows(q, k, cos, sin)
+    lens = wave[3:]
+    kc, vc = k11.fresh_through_pool(k2, v, flag, lens[1], lens[2], int8,
+                                    cache.k_pages.dtype)
+    split = (q2, cp.k_pages[layer], cp.v_pages[layer], cp.block_tables,
+             *lens, kc, vc)
+    plan, walk = _ragged_checks(
+        torch, f"{form} ({VERIFY_NAME})",
+        "pt_rope_append_attend_ragged_int8_plan" if int8
+        else "pt_rope_append_attend_ragged_plan", split, ref, abs_ref,
+        lambda: k3.fused_rope_append_attend(*rows, _pool_copy(cache), layer,
+                                            *wave, fresh_pool_read=flag)[:1],
+        lens, scales=_scales(cp, layer), drop_tile_page=True)
+    assert plan["walk_items"] == 0, plan
+    ms = timer(lambda: k3.fused_rope_append_attend(*rows, ck, layer, *wave,
+                                                   fresh_pool_read=flag))
+    off_ms = timer(lambda: k3.fused_rope_append_attend(*rows, ck, layer,
+                                                       *wave))
+    plain = timer(lambda: k3.ragged_reference(*rows, cp, layer, *wave,
+                                              plain=True,
+                                              fresh_pool_read=flag))
+    n_valid = int(valid.sum())
+    cell = 128 + 4 if int8 else 2 * 128
+    bms, by = _ragged_bound(
+        q, out, lens,
+        2 * (k.numel() + v.numel()) + 4 * (cos.numel() + sin.numel())
+        + 2 * n_valid * 8 * cell + 4 * BT + BB, int8=int8)
+    diff = (out.float() - ref.float()).abs().max().item()
+    page = cache.k_pages.shape[3]
+    log(f"{form} rope_append_attend T{BT} H32/8 page{page} {VERIFY_NAME}: "
+        f"max_abs_err {diff:.3e} (worst err/tol {worst:.3f}"
+        + (f"; flag off {worst_off:.3f}" if int8 else
+           "; flag off bitwise equal")
+        + f") pool values differing 0"
+        + (f" but {codes} codes by 1" if int8 else "")
+        + f", {n_valid} rows written, kernel_ms {ms:.4f} (flag off "
+        f"{off_ms:.4f}) plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); "
+        f"{walk}")
+    return {"name": "rope_append_attend_ragged" + ("_int8" if int8 else "")
+                    + "_verify",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
+            "max_abs_err": diff, "err_over_tol": worst,
+            "flag_off_err_over_tol": worst_off,
+            **({"codes_differing": codes} if int8 else {}),
+            "ms": ms, "flag_off_ms": off_ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": None, **plan,
+            "shape": f"T{BT} B{BB} H32 Hk8 D128 page{page}"
+                     f"{' int8' if int8 else ''} {VERIFY_NAME}"}
 
 
 def _segment_step_inputs(torch, kv_cache, rope_tables, seed, int8=False):
@@ -1582,6 +1842,153 @@ def drive(torch, kernels, model, ids, expected, label, profile, **kw):
         "max_memory_allocated_gib": peak_gib}
 
 
+def replay_draft(continuations, vocab):
+    """A ``DraftProposer`` replaying recorded continuations: for a history
+    that begins with one of ``continuations``' prompts ((prompt, tokens)
+    pairs: what a spec-off run emitted after it), the next tokens of that
+    continuation, every fourth of them replaced by its successor mod
+    ``vocab``, so that verify steps both accept drafts and reject (rewind)
+    some. It records each proposal; ``accepted(outputs)`` counts, against
+    the tokens a run finally emitted (prompt -> tokens), the proposed and
+    the accepted draft tokens (a draft is accepted while it and every draft
+    before it equal the emitted tokens)."""
+    import numpy as np
+    from paddle_tpu_torch.inference.speculative import DraftProposer
+
+    class ReplayDraft(DraftProposer):
+        def __init__(self):
+            self.table = {tuple(map(int, p)): [
+                (int(t) + 1) % vocab if i % 4 == 3 else int(t)
+                for i, t in enumerate(toks)] for p, toks in continuations}
+            self.lengths = sorted({len(p) for p in self.table})
+            self.log = []
+
+        def propose(self, history, k):
+            hist = tuple(map(int, history))
+            for n in self.lengths:
+                toks = self.table.get(hist[:n])
+                if toks is not None:
+                    done = len(hist) - n
+                    dr = np.asarray(toks[done:done + k], np.int32)
+                    self.log.append((hist[:n], done, dr))
+                    return dr
+            return np.zeros((0,), np.int32)
+
+        def accepted(self, outputs):
+            proposed = accepted = 0
+            for key, done, dr in self.log:
+                toks = outputs[key]
+                proposed += len(dr)
+                for j, d in enumerate(dr):
+                    if done + j >= len(toks) or toks[done + j] != d:
+                        break
+                    accepted += 1
+            return proposed, accepted
+
+    return ReplayDraft()
+
+
+class _Done:
+    """A finished request's fields that ``check_batcher_tokens`` reads."""
+
+    def __init__(self, tokens, chunk_starts=(0,)):
+        self.tokens, self.chunk_starts = list(tokens), list(chunk_starts)
+
+
+def serve_spec(torch, kernels, model, ids, tokens, label, profile, int8,
+               prms, **kw):
+    """Phase 4c: solo ``generate_paged(spec_decode=True, spec_k=SPEC_K)``
+    on the model and prompts of phase 4 (bf16) or 5 (``int8``): a warm-up
+    with ``NGramDraft`` (its tokens against ``tokens``, that phase's
+    spec-off run), then THE counted run with the draft replaying the
+    warm-up's own continuations (every fourth draft replaced: on random
+    bf16 weights near-ties make the spec path's tokens leave the spec-off
+    run's within a few steps, after which a replay of those is rejected
+    throughout): 32 K1 + 161 K2 (+ 64 K4) for the prefill, 161 K2 + 32
+    K3-ragged (+ 64 K4) a verify step, no K3 decode; drafts both accepted
+    and rejected; every emitted token held to ``check_batcher_tokens``'
+    teacher-forced rule; then the median of ROLLOUTS spec rollouts.
+    Returns (counts, stats)."""
+    cfg = model.config
+    steps = [0]
+    build = model._build_spec_verify_step
+
+    def counted_build(b, k):
+        step = build(b, k)
+
+        def counted(*a):
+            steps[0] += 1
+            return step(*a)
+
+        return counted
+
+    def run(draft):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate_paged(ids, max_new_tokens=NEW, spec_decode=True,
+                                   spec_k=SPEC_K, draft=draft, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model._build_spec_verify_step = counted_build
+    try:
+        first, _ = run(None)                                # warm-up
+        cont = [(ids[i].tolist(), first[i, PROMPT:].tolist())
+                for i in range(B)]
+        draft = replay_draft(cont, cfg.vocab_size)
+        steps[0] = 0
+        kernels.reset_launch_counts()
+        out, ms = run(draft)                                # THE counted run
+        counts = kernels.launch_counts()
+        n = steps[0]
+        walls = [ms] + [run(replay_draft(cont, cfg.vocab_size))[1]
+                        for _ in range(ROLLOUTS - 1)]
+        if profile:
+            with torch.inference_mode():
+                prof = profile_window(torch, lambda: run(replay_draft(
+                    cont, cfg.vocab_size)), f"{label} spec rollout")
+    finally:
+        del model._build_spec_verify_step
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_attention": 32,
+                     "fused_norm_matmul": 161 * (1 + n),
+                     "fused_rope_attend_ragged": 32 * n})
+    if int8:
+        expected["quant_matmul"] = 64 * (1 + n)
+    log(f"{label} spec: {n} verify steps, launches {counts} expected "
+        f"{expected}")
+    assert counts == expected, f"{counts} != plan {expected}"
+    assert -(-(NEW - 1) // (SPEC_K + 1)) <= n <= NEW - 1, n
+    assert tuple(out.shape) == (B, PROMPT + NEW), out.shape
+    assert bool((out[:, :PROMPT] == ids).all()), "prompt not echoed"
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all()), "bad ids"
+    outputs = {tuple(ids[i].tolist()): out[i, PROMPT:].tolist()
+               for i in range(B)}
+    proposed, accepted = draft.accepted(outputs)
+    log(f"{label} spec: drafts proposed {proposed}, accepted {accepted}, "
+        f"rejected {proposed - accepted}; tokens equal to the NGramDraft "
+        f"warm-up's {int((out == first).sum()) - B * PROMPT}/{B * NEW}, to "
+        f"the spec-off run's {int((out[:, PROMPT:] == tokens).sum())}/"
+        f"{B * NEW}")
+    assert accepted > 0 and proposed > accepted, (proposed, accepted)
+    reqs = [(ids[i].cpu().numpy(), NEW, 0) for i in range(B)]
+    done = {i: _Done(out[i, PROMPT:].tolist()) for i in range(B)}
+    check = check_batcher_tokens(torch, cfg, prms, reqs, done,
+                                 f"{label} spec", int8=int8)
+    wall = statistics.median(walls)
+    log(f"{label} spec: generate_paged(spec_decode=True, spec_k={SPEC_K}) "
+        f"B{B} prompt {PROMPT} new {NEW}: total_ms "
+        f"{[round(w, 1) for w in walls]} (median {wall:.1f}), "
+        f"{(NEW - 1) / n:.2f} tokens per row a verify step")
+    stats = {"total_ms": wall, "total_ms_runs": walls, "verify_steps": n,
+             "drafts_proposed": proposed, "drafts_accepted": accepted,
+             "tokens_per_verify_step": (NEW - 1) / n, "tokens_check": check,
+             "launches": counts}
+    if profile:
+        stats["profile"] = prof
+    return counts, stats
+
+
 def prompt_ids(torch, cfg):
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     return torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=g,
@@ -1652,7 +2059,14 @@ def serve(torch, kernels, profile=False):
 
     stats["logits_check"] = check_logits(logits, ref_f32, ref_bf16, ctl_fp16,
                                          ctl_fault, "serving")
-    return counts, stats
+    del ref_bf16, ctl_fault, ctl_fp16, ref_f32
+    # ---- 4c. the solo spec oracle on the same model and prompts
+    counts_spec, stats["spec"] = serve_spec(
+        torch, kernels, model, prompt_ids(torch, cfg), out[:, PROMPT:],
+        "serving", profile, False, prms, page_size=PAGE)
+    log(f"serving: spec rollout {stats['spec']['total_ms']:.1f} ms against "
+        f"the plain rollout's {stats['total_ms']:.1f} ms (this run)")
+    return counts, counts_spec, stats
 
 
 def int8_cache_attention(reference):
@@ -1805,7 +2219,16 @@ def serve_int8(torch, kernels, profile=False):
         ref_f32 = plain_logits(torch.float32, int8_attention)
     stats["logits_check"] = check_logits(logits, ref_f32, ref_bf16, ctl_fp16,
                                          ctl_fault, "serving int8w+int8kv")
-    return counts, stats
+    del ref_bf16, ctl_fault, ctl_fp16, ref_f32
+    # ---- 4c. the solo spec oracle, int8w+int8kv
+    counts_spec, stats["spec"] = serve_spec(
+        torch, kernels, model, prompt_ids(torch, cfg), out[:, PROMPT:],
+        "serving int8w+int8kv", profile, True, qparams,
+        page_size=PAGE_INT8, params=qparams, cache_dtype="int8")
+    log(f"serving int8w+int8kv: spec rollout "
+        f"{stats['spec']['total_ms']:.1f} ms against the plain rollout's "
+        f"{stats['total_ms']:.1f} ms (this run)")
+    return counts, counts_spec, stats
 
 
 def batcher_requests(vocab):
@@ -1960,10 +2383,10 @@ def serve_batcher(torch, kernels, profile=False, int8=False):
         f"{serve_kw['page_size']}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
-    def run_once():
+    def run_once(**spec_kw):
         eng = ContinuousBatcher(model, max_batch=BB, max_seq=BSEQ,
                                 segment=16, prefill_chunk=BCHUNK,
-                                prefix_caching=False, **serve_kw)
+                                prefix_caching=False, **serve_kw, **spec_kw)
         for prompt, n_new, t in reqs:
             eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
         torch.cuda.synchronize()
@@ -2028,9 +2451,95 @@ def serve_batcher(torch, kernels, profile=False, int8=False):
             res["tokens_check"] = check_batcher_tokens(
                 torch, cfg, prms, reqs, done, label_, int8=int8)
             out[label] = res
+        # ---- 6c. the same requests with speculative decoding, in both
+        # plans
+        for label, fusions in BATCHER_PLANS:
+            flags.set_flags({"fused_decode_fusions": fusions})
+            out[label]["spec"] = serve_batcher_spec(
+                torch, kernels, fusion, cfg, prms, reqs, run_once,
+                f"batcher {'int8 ' if int8 else ''}spec {label}", profile,
+                int8, out[label])
     finally:
         flags.set_flags({"fused_decode_fusions": old})
     return out
+
+
+def serve_batcher_spec(torch, kernels, fusion, cfg, prms, reqs, run_once,
+                       label, profile, int8, plain):
+    """Phase 6c in one plan: ``run_once(spec_decode=True, spec_k=SPEC_K)``
+    with ``NGramDraft`` (drafts proposed and accepted reported), then with
+    the replay draft over that run's own continuations (every fourth draft
+    replaced; a replay of phase 6's tokens would be rejected from the first
+    near-tie on, which random bf16 weights reach within a few tokens): a
+    warm-up and THE counted run, whose launches must equal the plan (161 K2
+    + 32 K3-ragged or K11 (+ 64 K4) a wave, no segment step: 0 K3-masked,
+    0 K10), every request "ok" with its max_new_tokens, no wasted slot
+    step, drafts both accepted and rejected (rewinds), one readback a wave,
+    every emitted token held to ``check_batcher_tokens``' rule; walls the
+    median of 3, beside ``plain``'s (phase 6 in the same plan)."""
+    from paddle_tpu_torch.inference.speculative import NGramDraft
+
+    L = cfg.num_hidden_layers
+    n_tokens = sum(n for _, n, _ in reqs)
+    spec = dict(spec_decode=True, spec_k=SPEC_K)
+
+    def checked(done, st):
+        for rid, (prompt, n_new, _) in enumerate(reqs):
+            req = done[rid]
+            assert req.status == "ok", (label, rid, req.status)
+            assert len(req.tokens) == n_new, (label, rid, len(req.tokens))
+        assert st["wasted_slot_steps"] == 0, st
+        assert st["decode_steps"] == 0 and st["segments"] == 0, st
+        assert st["host_sync_count"] == st["ragged_steps"], st
+        return {k: st[k] for k in (
+            "ragged_steps", "spec_steps", "draft_tokens_proposed",
+            "draft_tokens_accepted", "acceptance_rate",
+            "tokens_per_target_step", "host_sync_count")}
+
+    done, st, wall = run_once(**spec, draft=NGramDraft())
+    ngram = dict(checked(done, st), wall_s=wall)
+    log(f"{label}, NGramDraft: " + ", ".join(
+        f"{k} {v}" for k, v in ngram.items()))
+    cont = [(prompt, done[rid].tokens)
+            for rid, (prompt, _, _) in enumerate(reqs)]
+    run_once(**spec, draft=replay_draft(cont, cfg.vocab_size))   # warm-up
+    plan = fusion.planned_kernel_launches(L, quantized=int8)
+    kernels.reset_launch_counts()
+    done, st, wall = run_once(**spec, draft=replay_draft(
+        cont, cfg.vocab_size))                                 # THE run
+    counts = kernels.launch_counts()
+    waves = st["ragged_steps"]
+    fused = plan["rope_append_attend"] > 0
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_norm_matmul"] = plan["norm_matmul"] * waves
+    expected["fused_rope_attend_ragged" if fused
+             else "ragged_paged_attention"] = L * waves
+    if int8:
+        expected["quant_matmul"] = plan["quant_matmul"] * waves
+    log(f"{label}, replay draft: launches {counts} expected {expected}")
+    assert counts == expected, f"{counts} != plan {expected}"
+    res = checked(done, st)
+    assert 0 < res["draft_tokens_accepted"] < res["draft_tokens_proposed"], \
+        res
+    walls = [wall] + [run_once(**spec, draft=replay_draft(
+        cont, cfg.vocab_size))[2] for _ in range(2)]
+    wall_s = statistics.median(walls)
+    res.update(wall_s=wall_s, wall_s_runs=walls,
+               generated_tok_s=n_tokens / wall_s, launches=counts,
+               ngram=ngram)
+    log(f"{label}, replay draft: wall {[round(w, 3) for w in walls]} s "
+        f"(median {wall_s:.3f}) against {plain['wall_s']:.3f} s without "
+        f"spec (this run), {n_tokens / wall_s:.1f} generated tok/s, "
+        + ", ".join(f"{k} {v}" for k, v in res.items()
+                    if k not in ("wall_s", "wall_s_runs", "launches",
+                                 "generated_tok_s", "ngram")))
+    if profile:
+        with torch.inference_mode():
+            res["profile"] = profile_window(torch, lambda: run_once(
+                **spec, draft=replay_draft(cont, cfg.vocab_size)), label)
+    res["tokens_check"] = check_batcher_tokens(torch, cfg, prms, reqs, done,
+                                               label, int8=int8)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3949,6 +4458,12 @@ def main() -> int:
            (check_rope_attend_masked(torch, timer, k3, kv_cache,
                                      _rope_tables, int8=True),
             "batcher int8 fused")]
+    own += [(check(torch, timer, mod, kv_cache, _rope_tables, int8=int8),
+             f"batcher {'int8 ' if int8 else ''}spec {plan}")
+            for int8 in (False, True)
+            for check, mod, plan in (
+                (check_ragged_attention_verify, k11, "unfused attention"),
+                (check_rope_attend_ragged_verify, k3, "fused"))]
     del timer
     torch.cuda.empty_cache()
 
@@ -3956,9 +4471,10 @@ def main() -> int:
     # 6b. the int8w+int8kv batcher; each path's counts are set to 0 just
     # before its counted run and read just after
     profile = "--profile" in sys.argv
-    counts, stats = serve(torch, kernels, profile=profile)
+    counts, counts_spec, stats = serve(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
-    counts_int8, stats_int8 = serve_int8(torch, kernels, profile=profile)
+    counts_int8, counts_int8_spec, stats_int8 = serve_int8(
+        torch, kernels, profile=profile)
     torch.cuda.empty_cache()
     stats_batcher = serve_batcher(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
@@ -4029,9 +4545,17 @@ def main() -> int:
     stats_moe["grad_check"] = moe_check
     paths = {"generate_paged bf16": counts,
              "generate_paged int8": counts_int8,
+             "generate_paged spec bf16": counts_spec,
+             "generate_paged spec int8": counts_int8_spec,
              **{f"batcher {label}": stats_batcher[label]["launches"]
                 for label, _ in BATCHER_PLANS},
              **{f"batcher int8 {label}": stats_batcher_int8[label]["launches"]
+                for label, _ in BATCHER_PLANS},
+             **{f"batcher spec {label}":
+                stats_batcher[label]["spec"]["launches"]
+                for label, _ in BATCHER_PLANS},
+             **{f"batcher int8 spec {label}":
+                stats_batcher_int8[label]["spec"]["launches"]
                 for label, _ in BATCHER_PLANS},
              "train": counts_train, "moe train": counts_moe,
              **counts_quant,
@@ -4052,6 +4576,11 @@ def main() -> int:
                "rope_append_attend_ragged_int8": "fused_rope_attend_ragged",
                "paged_attention_int8": "paged_attention",
                "rope_append_attend_masked_int8": "fused_rope_attend",
+               "ragged_paged_attention_verify": "ragged_paged_attention",
+               "ragged_paged_attention_int8_verify": "ragged_paged_attention",
+               "rope_append_attend_ragged_verify": "fused_rope_attend_ragged",
+               "rope_append_attend_ragged_int8_verify":
+                   "fused_rope_attend_ragged",
                "flash_attention_bwd": "flash_attention_bwd",
                "rms_norm_fwd": "rms_norm_fwd",
                "rms_norm_bwd": "rms_norm_bwd",
@@ -4091,6 +4620,15 @@ def main() -> int:
             f"{b_['generated_tok_s']:.1f} against {a['generated_tok_s']:.1f} "
             f"generated tok/s, peak {b_['max_memory_allocated_gib']:.2f} "
             f"against {a['max_memory_allocated_gib']:.2f} GiB")
+        for kind, st in (("bf16", a), ("int8w+int8kv", b_)):
+            sp = st["spec"]
+            log(f"batcher {label} {kind}, spec (replay draft) against plain "
+                f"(this run): wall {sp['wall_s']:.3f} against "
+                f"{st['wall_s']:.3f} s, {sp['ragged_steps']} waves against "
+                f"{st['ragged_steps']} waves + {st['decode_steps']} segment "
+                f"steps, tokens_per_target_step "
+                f"{sp['tokens_per_target_step']:.3f} (NGramDraft "
+                f"{sp['ngram']['tokens_per_target_step']:.3f})")
 
     log(f"max_memory_allocated while training: Llama "
         f"{stats_train['max_memory_allocated_gib']:.2f} GiB, fine-tuning "

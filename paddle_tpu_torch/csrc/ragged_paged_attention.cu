@@ -13,7 +13,15 @@
 // brought in by cp.async pieces. On an int8 cache
 // (pt_ragged_paged_attention_int8) the pages are codes with per-cell
 // scales, dequantized in the arithmetic (ragged_walk.cuh); the fresh rows
-// stay bf16, as in the TPU kernel.
+// stay bf16, as in the TPU kernel, but for the slots a fresh_pool_read flag
+// marks (speculative verify segments): there the TPU kernel receives the
+// rows already passed through the pool's representation as an f32 fresh
+// source (fused_rope_attend.py _pool_roundtrip), which no bf16 mma.sync
+// operand carries exactly. This kernel takes the (B,) flag instead and, on
+// an int8 cache, quantizes a flagged slot's fresh rows in shared memory as
+// the cache writer does, then reads them as code * scale, like page cells
+// (ragged_walk.cuh). On a bf16 cache the flag changes nothing: a bf16 row
+// cast to the bf16 pool is itself.
 //
 // Bound on an H100: bytes for decode rows (each live cell's K and V read
 // once), operations for long prefill chunks (4 * D flops per query row and
@@ -28,7 +36,8 @@ template <typename Pool>
 int launch_wave(const void* q_rows, const void* k_pages, const void* v_pages,
                 const void* k_scales, const void* v_scales, const void* block_tables,
                 const void* page_lens, const void* q_start, const void* q_lens,
-                const void* fresh_lens, const void* k_fresh, const void* v_fresh, void* out,
+                const void* fresh_lens, const void* fresh_pool_read, const void* k_fresh,
+                const void* v_fresh, void* out,
                 int T, int B, int H, int Hk, int P, int page, int pps, float scale,
                 void* stream) {
   pt::rw::Args<Pool> a{};
@@ -44,6 +53,7 @@ int launch_wave(const void* q_rows, const void* k_pages, const void* v_pages,
   a.q_start = static_cast<const int*>(q_start);
   a.q_lens = static_cast<const int*>(q_lens);
   a.fresh_lens = static_cast<const int*>(fresh_lens);
+  a.fresh_pool_read = static_cast<const bool*>(fresh_pool_read);
   a.out = static_cast<bf16*>(out);
   a.T = T;
   a.B = B;
@@ -61,31 +71,37 @@ int launch_wave(const void* q_rows, const void* k_pages, const void* v_pages,
 
 // q_rows (T, H, D) bf16; k_pages/v_pages (Hk, P, page, D) bf16;
 // block_tables (B, pps), page_lens/q_start/q_lens/fresh_lens (B,) int32;
-// k_fresh/v_fresh (T, Hk, D) bf16; out (T, H, D) bf16, every row written
-// (rows of no segment as zeros). Every pointer 16-byte aligned.
+// fresh_pool_read (B,) bool or null (no slot flagged); k_fresh/v_fresh
+// (T, Hk, D) bf16; out (T, H, D) bf16, every row written (rows of no
+// segment as zeros). Every pointer 16-byte aligned.
 PT_EXPORT int pt_ragged_paged_attention(const void* q_rows, const void* k_pages,
                                         const void* v_pages, const void* block_tables,
                                         const void* page_lens, const void* q_start,
                                         const void* q_lens, const void* fresh_lens,
-                                        const void* k_fresh, const void* v_fresh, void* out,
+                                        const void* fresh_pool_read, const void* k_fresh,
+                                        const void* v_fresh, void* out,
                                         int T, int B, int H, int Hk, int P, int page, int pps,
                                         float scale, void* stream) {
   return launch_wave<bf16>(q_rows, k_pages, v_pages, nullptr, nullptr, block_tables,
-                           page_lens, q_start, q_lens, fresh_lens, k_fresh, v_fresh, out, T, B,
+                           page_lens, q_start, q_lens, fresh_lens, fresh_pool_read, k_fresh,
+                           v_fresh, out, T, B,
                            H, Hk, P, page, pps, scale, stream);
 }
 
 // The same over an int8 cache: k_pages/v_pages (Hk, P, page, D) int8 codes,
 // k_scales/v_scales (Hk, P, page, 1) f32; page % 4 == 0 (a page's scales
-// are copied in 16-byte pieces). The fresh K/V stay bf16.
+// are copied in 16-byte pieces). The fresh K/V stay bf16 (a flagged slot's
+// are quantized in the kernel).
 PT_EXPORT int pt_ragged_paged_attention_int8(
     const void* q_rows, const void* k_pages, const void* v_pages, const void* k_scales,
     const void* v_scales, const void* block_tables, const void* page_lens, const void* q_start,
-    const void* q_lens, const void* fresh_lens, const void* k_fresh, const void* v_fresh,
-    void* out, int T, int B, int H, int Hk, int P, int page, int pps, float scale, void* stream) {
+    const void* q_lens, const void* fresh_lens, const void* fresh_pool_read,
+    const void* k_fresh, const void* v_fresh, void* out, int T, int B, int H, int Hk, int P,
+    int page, int pps, float scale, void* stream) {
   return launch_wave<signed char>(q_rows, k_pages, v_pages, k_scales, v_scales,
-                                  block_tables, page_lens, q_start, q_lens, fresh_lens, k_fresh,
-                                  v_fresh, out, T, B, H, Hk, P, page, pps, scale, stream);
+                                  block_tables, page_lens, q_start, q_lens, fresh_lens,
+                                  fresh_pool_read, k_fresh, v_fresh, out, T, B, H, Hk, P, page,
+                                  pps, scale, stream);
 }
 
 // The ragged walk's items for a wave at this card's plan (both forms share

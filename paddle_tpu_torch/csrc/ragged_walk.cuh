@@ -100,7 +100,28 @@
 // shuffles; f32 division by the scale, round half to even), and a walk's
 // own cell is patched into its landed stage as codes and scales. The fresh
 // source stays bf16: the wave's own rows are never read through the cache
-// dtype (ragged_paged_attention.py's TWO-SOURCE contract).
+// dtype (ragged_paged_attention.py's TWO-SOURCE contract), but in the slots
+// that the (B,) bool fresh_pool_read marks (speculative verify segments).
+//
+// fresh_pool_read. A verify segment's rows must attend to one another as the
+// plain decode step would read them back from the pool. The TPU kernels take
+// that from an f32 fresh source that plain ops roundtripped through the pool
+// (fused_rope_attend.py _pool_roundtrip; _fused_kernel's static `spec`
+// variant selects it per slot by fq_ref[b]); an f32 operand cannot feed the
+// bf16 mma.sync path exactly, so here the kernel does the roundtrip. On a
+// bf16 pool it is the identity, bit for bit (a bf16 row cast to bf16;
+// FUSED's rotated k is rounded to bf16 as apply_rotary_rows rounds it), so
+// the flag changes nothing and is not read. On an int8 pool a flag launches
+// the FLAGGED instance, whose CTAs copy the flags with the lens block. Once
+// a flagged tile's fresh sub-chunk has landed (and FUSED has rotated it),
+// the row's 8 threads quantize its K and V rows with the cell writer's rule
+// (codes_in_place: absmax, pw::cell_scale, pw::quantize), write the codes
+// back in place as bf16 values (exact) and each row's K and V scales into
+// its row's padding; attend16 then scales S by the K scale per key and
+// folds the V scale into P, as it does for page cells: the flagged fresh
+// keys are exactly the cells the pool holds, codes and scales. A verify
+// segment has fresh_lens = q_lens >= 1, so it is always a tile item, never
+// a walk.
 #pragma once
 
 #include "paged_walk.cuh"
@@ -183,7 +204,8 @@ __device__ inline Item decode(const int* q_lens, const int* fresh_lens, int B, i
 // walk, the warps' partials); the query rows (ROWS x RSTR bf16), which on
 // a walk's rank 0 become the ranks' partial slots (acc [g][kD], m[MAX_G],
 // l[MAX_G] each); the slot's block-table row; the B slots' q_lens,
-// fresh_lens, q_start and page_lens. esz: the pool's element size.
+// fresh_lens, q_start, page_lens and fresh_pool_read flags. esz: the pool's
+// element size.
 struct Geo {
   int rows16, row_bytes, kv_bytes, sc_bytes, stage_bytes, stages, q_off, slot, table, lens, smem;
   __host__ __device__ Geo(int page, int pps, int cs, int g, int B, int esz) {
@@ -201,7 +223,7 @@ struct Geo {
     const int qb = ROWS * ROW_BYTES, pb = cs * slot;
     table = q_off + (qb > pb ? qb : pb);
     lens = table + (pps * 4 + 15) / 16 * 16;
-    smem = lens + 4 * B * 4;
+    smem = lens + 5 * B * 4;
   }
 };
 
@@ -227,6 +249,7 @@ struct Args {
   Pool *k_pages, *v_pages;  // (L, Hk, P, page, D); written under FUSED
   float *k_sc, *v_sc;       // int8 only; written under FUSED
   const int *block_tables, *row_pos, *page_lens, *q_start, *q_lens, *fresh_lens;
+  const bool* fresh_pool_read;  // (B,) or null: no slot flagged
   bf16* out;  // (T, H, D)
   int T, B, H, Hk, P, page, pps, layer, cs, clusters;
   float scale;
@@ -306,6 +329,21 @@ __device__ __forceinline__ float row_absmax(const float* x) {
 #pragma unroll
   for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(group, m, o));
   return m;
+}
+
+// A flagged fresh row's 16 values of this thread (bf16 lo, hi: dims
+// [8c, 8c + 8) and [8c + 64, 8c + 72)) replaced by their int8 codes as
+// bf16 values (exact), and the row's scale returned: kv_cache.
+// _quantize_cells' rule, the row's 8 threads (an aligned group of 8 lanes)
+// together, as the cell writer quantizes
+__device__ __forceinline__ float codes_in_place(uint4& lo, uint4& hi) {
+  float x[16];
+  unpack8(lo, x), unpack8(hi, x + 8);
+  const float sc = pw::cell_scale(row_absmax(x));
+#pragma unroll
+  for (int e = 0; e < 16; ++e) x[e] = (float)pw::quantize(x[e], sc);
+  lo = pack8(x), hi = pack8(x + 8);
+  return sc;
 }
 
 // FUSED: dims [8c, 8c + 8) and [8c + 64, 8c + 72) of a row's cell (kv
@@ -416,12 +454,16 @@ __device__ __forceinline__ unsigned code_pair(const signed char* p) {
 // online softmax update of m, l (this lane's share of the row sums) and acc
 // (16 n8 tiles of O). Q8 = false: bf16 K rows at kst, V rows at vst, RSTR
 // apart; Q8: int8 codes I8_ROW bytes apart, each key's K and V scales at
-// ksc / vsc (rows of the stage's page; vis0 = vis1 = vmax).
+// ksc / vsc (rows of the stage's page; vis0 = vis1 = vmax). Q8 = false
+// with ksc / vsc given: the rows hold codes as bf16 values (a flagged
+// fresh sub-chunk), each key's scales in its row's padding (ksc / vsc the
+// first key's, RSTR / 2 floats apart), the rows from vmax on masked.
 template <bool Q8>
 __device__ __forceinline__ void attend16(const void* kst, const void* vst, const float* ksc,
                                          const float* vsc, int vis0, int vis1, int vmax,
                                          const unsigned (&qa)[8][4], float scale,
                                          float (&acc)[16][4], float (&m)[2], float (&l)[2]) {
+  constexpr int SC = Q8 ? 1 : RSTR / 2;  // floats from a key's scale to the next key's
   const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
   const bf16* kbf = static_cast<const bf16*>(kst);
   const signed char* k8 = static_cast<const signed char*>(kst) + gr * I8_ROW + 2 * tq;
@@ -462,7 +504,7 @@ __device__ __forceinline__ void attend16(const void* kst, const void* vst, const
     for (int e = 0; e < 4; ++e) {
       const int key = 8 * t + 2 * tq + (e & 1);
       const bool vis = key < (e < 2 ? vis0 : vis1);
-      s[t][e] = vis ? s[t][e] * scale * (Q8 ? ksc[key] : 1.f) : -INFINITY;
+      s[t][e] = vis ? s[t][e] * scale * (Q8 || ksc ? ksc[SC * key] : 1.f) : -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
     }
   float corr[2];
@@ -489,13 +531,13 @@ __device__ __forceinline__ void attend16(const void* kst, const void* vst, const
   }
   // int8: the V scales fold into P (0 for the keys from vmax on, whose
   // scales may be anything)
-  if constexpr (Q8) {
+  if (Q8 || vsc) {
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = 8 * t + 2 * tq + (e & 1);
-        s[t][e] = key < vmax ? s[t][e] * vsc[key] : 0.f;
+        s[t][e] = key < vmax ? s[t][e] * vsc[SC * key] : 0.f;
       }
   }
   // P (16 x 16) as the A operand: rows gr / gr + 8, keys 2 tq (+1) and + 8
@@ -543,9 +585,14 @@ __device__ __forceinline__ void attend16(const void* kst, const void* vst, const
 
 // ---- the kernel --------------------------------------------------------------
 
-template <bool FUSED, typename Pool>
+// FLAGGED (int8 pools only): the instance launched when a fresh_pool_read
+// flag is given, whose tiles quantize a flagged slot's fresh rows; the
+// other instance is the plain wave's body unchanged (at 168 registers a
+// thread, the flagged path's code would make it spill).
+template <bool FUSED, typename Pool, bool FLAGGED = false>
 __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) {
   constexpr bool Q8 = sizeof(Pool) == 1;
+  static_assert(Q8 || !FLAGGED, "on a bf16 pool the flag changes nothing");
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane / 4, tq = lane % 4;
@@ -558,8 +605,12 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
   const int* fresh_lens = lens + a.B;
   const int* q_start = lens + 2 * a.B;
   const int* page_lens = lens + 3 * a.B;
-  for (int i = tid; i < 4 * a.B; i += NT) {
+  for (int i = tid; i < (FLAGGED ? 5 : 4) * a.B; i += NT) {
     const int v = i / a.B;
+    if (v == 4) {
+      lens[i] = a.fresh_pool_read[i % a.B];
+      continue;
+    }
     const int* src = v == 0 ? a.q_lens : v == 1 ? a.fresh_lens : v == 2 ? a.q_start : a.page_lens;
     lens[i] = src[i % a.B];
   }
@@ -724,7 +775,8 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
         if ((walk && (j0 + k) % NW != warp) || 16 * k >= cnt) continue;
         const int vis = min(16, cnt - 16 * k);
         attend16<Q8>(st + 16 * k * geo.row_bytes, st + geo.kv_bytes + 16 * k * geo.row_bytes,
-                     ksc + 16 * k, vsc + 16 * k, vis, vis, vis, qa, a.scale, acc, m, l);
+                     Q8 ? ksc + 16 * k : nullptr, Q8 ? vsc + 16 * k : nullptr, vis, vis, vis,
+                     qa, a.scale, acc, m, l);
       }
       // count this warp out of the stage; once every reader is out, the
       // readers put page i + stages in flight into it, each its share
@@ -779,8 +831,10 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
       if (f < nsub) fissue(f);
       cp_async_commit();
     }
-    // thread (tr, tc) prepares row tr's dims [8 tc, 8 tc + 8) and + 64
+    // thread (tr, tc) prepares row tr's dims [8 tc, 8 tc + 8) and + 64;
+    // an int8 pool's flagged slot then quantizes the row (pool_read)
     const int tr = tid / 8, tc = tid % 8;
+    const bool pool_read = FLAGGED && lens[4 * a.B + b] != 0;
 #pragma unroll 1
     for (int f = 0; f < nsub; ++f) {
       unsigned char* buf = dyn + (f % NF) * FB;
@@ -805,15 +859,30 @@ __global__ void __launch_bounds__(NT, 3) ragged_walk_kernel(const Args<Pool> a) 
         } else {
           lo = zero_non_finite8(lo), hi = zero_non_finite8(hi);
         }
-        st16(kr, lo), st16(kr + HALF, hi);
-        st16(vr, zero_non_finite8(ld16(vr))), st16(vr + HALF, zero_non_finite8(ld16(vr + HALF)));
+        if constexpr (FLAGGED) {
+          uint4 vlo = zero_non_finite8(ld16(vr)), vhi = zero_non_finite8(ld16(vr + HALF));
+          if (pool_read) {  // the row's codes in place, its scales in the rows' padding
+            const float ks = codes_in_place(lo, hi), vs = codes_in_place(vlo, vhi);
+            if (tc == 0)
+              *reinterpret_cast<float*>(kb + tr * RSTR + kD) = ks,
+              *reinterpret_cast<float*>(vb + tr * RSTR + kD) = vs;
+          }
+          st16(kr, lo), st16(kr + HALF, hi), st16(vr, vlo), st16(vr + HALF, vhi);
+        } else {
+          st16(kr, lo), st16(kr + HALF, hi);
+          st16(vr, zero_non_finite8(ld16(vr))), st16(vr + HALF, zero_non_finite8(ld16(vr + HALF)));
+        }
       }
       __syncthreads();
       const int u0 = 16 * f;
       if (warp < live && wlast >= u0) {
         const int cap = min(16, nf - u0);
-        attend16<false>(kb, vb, nullptr, nullptr, max(0, min(cap, ro0 - u0 + 1)),
-                        max(0, min(cap, ro1 - u0 + 1)), 16, qa, a.scale, acc, m, l);
+        // pool_read: the rows past cap hold no codes and no scales
+        const float* fks = pool_read ? reinterpret_cast<const float*>(kb + kD) : nullptr;
+        const float* fvs = pool_read ? reinterpret_cast<const float*>(vb + kD) : nullptr;
+        attend16<false>(kb, vb, fks, fvs, max(0, min(cap, ro0 - u0 + 1)),
+                        max(0, min(cap, ro1 - u0 + 1)), pool_read ? cap : 16, qa, a.scale,
+                        acc, m, l);
       }
     }
   }
@@ -953,14 +1022,20 @@ inline Plan plan(int T, int B, int H, int Hk, int page, int pps, int esz) {
   return p;
 }
 
+// (a bf16 pool ignores a fresh_pool_read flag: its roundtrip is the
+// identity; an int8 pool's flag takes the FLAGGED instance)
 template <bool FUSED, typename Pool>
 cudaError_t launch(Args<Pool> a, cudaStream_t stream) {
   if (a.T == 0) return cudaSuccess;
   const Plan p = plan(a.T, a.B, a.H, a.Hk, a.page, a.pps, sizeof(Pool));
   a.cs = p.cs;
   a.clusters = p.clusters;
-  return pw::launch_clusters(ragged_walk_kernel<FUSED, Pool>, dim3(p.clusters * p.cs, a.Hk), p.cs,
-                             NT, p.smem, stream, a);
+  const dim3 grid(p.clusters * p.cs, a.Hk);
+  if constexpr (sizeof(Pool) == 1)
+    if (a.fresh_pool_read)
+      return pw::launch_clusters(ragged_walk_kernel<FUSED, Pool, true>, grid, p.cs, NT, p.smem,
+                                 stream, a);
+  return pw::launch_clusters(ragged_walk_kernel<FUSED, Pool>, grid, p.cs, NT, p.smem, stream, a);
 }
 
 // The plan's items into out (clusters * cs * Hk rows of 6)
@@ -972,7 +1047,8 @@ inline cudaError_t items(const int* page_lens, const int* q_lens, const int* fre
 }
 
 // out[0..4) = (cs, clusters a kv head, dynamic shared memory bytes, the
-// most clusters of the kernel this card holds at once)
+// most clusters of the kernel this card holds at once; the FLAGGED
+// instance has the same shared memory and launch bounds)
 template <bool FUSED, typename Pool>
 cudaError_t describe(int T, int B, int H, int Hk, int page, int pps, int* out) {
   const Plan p = plan(T, B, H, Hk, page, pps, sizeof(Pool));

@@ -42,9 +42,12 @@
 //
 // Ragged form (fused_rope_append_attend, pt_rope_append_attend_ragged and,
 // on an int8 cache, pt_rope_append_attend_ragged_int8): the continuous
-// batcher's admission wave — ragged_walk.cuh with FUSED set, which also
-// writes down why one launch may write and read the pool, and how the
-// int8 form quantizes its written cells and reads its pages.
+// batcher's admission wave and the speculative verify wave —
+// ragged_walk.cuh with FUSED set, which also writes down why one launch
+// may write and read the pool, how the int8 form quantizes its written
+// cells and reads its pages, and how a fresh_pool_read slot (a verify
+// segment: the TPU kernel's static `spec` variant, selected per slot by
+// fq_ref[b]) reads its own rows as the pool holds them.
 //
 // Bound on an H100: bytes — each step reads every live cell's K and V once
 // (2 * len * Hk * D * 2 bytes per slot; 2 * len * Hk * (D + 4) on an int8
@@ -189,8 +192,9 @@ template <typename Pool>
 int launch_ragged(const void* q, const void* k, const void* v, const void* cos_t,
                   const void* sin_t, void* k_pages, void* v_pages, void* k_scales, void* v_scales,
                   const void* block_tables, const void* row_pos, const void* page_lens,
-                  const void* q_start, const void* q_lens, const void* fresh_lens, void* out,
-                  int T, int B, int H, int Hk, int P, int page, int pps, int layer, float scale,
+                  const void* q_start, const void* q_lens, const void* fresh_lens,
+                  const void* fresh_pool_read, void* out, int T, int B, int H, int Hk, int P,
+                  int page, int pps, int layer, float scale,
                   void* stream) {
   pt::rw::Args<Pool> a{};
   a.q = static_cast<const bf16*>(q);
@@ -208,6 +212,7 @@ int launch_ragged(const void* q, const void* k, const void* v, const void* cos_t
   a.q_start = static_cast<const int*>(q_start);
   a.q_lens = static_cast<const int*>(q_lens);
   a.fresh_lens = static_cast<const int*>(fresh_lens);
+  a.fresh_pool_read = static_cast<const bool*>(fresh_pool_read);
   a.out = static_cast<bf16*>(out);
   a.T = T;
   a.B = B;
@@ -254,31 +259,37 @@ PT_EXPORT int pt_rope_append_attend_decode_int8(
 // The ragged form: q (T, H, D), k/v (T, Hk, D) bf16 unrotated; cos/sin
 // (T, D) f32 at each row's position row_pos (T,) int32; k_pages/v_pages
 // (L, Hk, P, page, D) bf16, written in place; block_tables (B, pps),
-// page_lens/q_start/q_lens/fresh_lens (B,) int32; out (T, H, D) bf16,
-// every row written (rows of no segment as zeros).
+// page_lens/q_start/q_lens/fresh_lens (B,) int32; fresh_pool_read (B,)
+// bool or null: the slots whose fresh rows are read as the pool holds them
+// (on a bf16 pool the rotated k already is: no bit changes); out (T, H, D)
+// bf16, every row written (rows of no segment as zeros).
 PT_EXPORT int pt_rope_append_attend_ragged(
     const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
     void* k_pages, void* v_pages, const void* block_tables, const void* row_pos,
     const void* page_lens, const void* q_start, const void* q_lens, const void* fresh_lens,
-    void* out, int T, int B, int H, int Hk, int P, int page, int pps, int layer, float scale,
-    void* stream) {
+    const void* fresh_pool_read, void* out, int T, int B, int H, int Hk, int P, int page,
+    int pps, int layer, float scale, void* stream) {
   return launch_ragged<bf16>(q, k, v, cos_t, sin_t, k_pages, v_pages, nullptr, nullptr,
-                             block_tables, row_pos, page_lens, q_start, q_lens, fresh_lens, out,
-                             T, B, H, Hk, P, page, pps, layer, scale, stream);
+                             block_tables, row_pos, page_lens, q_start, q_lens, fresh_lens,
+                             fresh_pool_read, out, T, B, H, Hk, P, page, pps, layer, scale,
+                             stream);
 }
 
 // The same over an int8 cache: k_pages/v_pages (L, Hk, P, page, D) int8
 // codes and k_scales/v_scales (L, Hk, P, page, 1) f32, all written in
-// place; page % 4 == 0 (a page's scales are copied in 16-byte pieces).
+// place; page % 4 == 0 (a page's scales are copied in 16-byte pieces); a
+// flagged slot's fresh rows are quantized in shared memory as its cells
+// are, and read as code * scale.
 PT_EXPORT int pt_rope_append_attend_ragged_int8(
     const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
     void* k_pages, void* v_pages, void* k_scales, void* v_scales, const void* block_tables,
     const void* row_pos, const void* page_lens, const void* q_start, const void* q_lens,
-    const void* fresh_lens, void* out, int T, int B, int H, int Hk, int P, int page, int pps,
-    int layer, float scale, void* stream) {
+    const void* fresh_lens, const void* fresh_pool_read, void* out, int T, int B, int H, int Hk,
+    int P, int page, int pps, int layer, float scale, void* stream) {
   return launch_ragged<signed char>(q, k, v, cos_t, sin_t, k_pages, v_pages, k_scales, v_scales,
                                     block_tables, row_pos, page_lens, q_start, q_lens, fresh_lens,
-                                    out, T, B, H, Hk, P, page, pps, layer, scale, stream);
+                                    fresh_pool_read, out, T, B, H, Hk, P, page, pps, layer,
+                                    scale, stream);
 }
 
 // The ragged form's plan at a wave's shapes, into host memory out[4] (as

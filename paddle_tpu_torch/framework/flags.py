@@ -81,8 +81,13 @@ define_flag("prefix_caching", True,
             "batcher that resolves it on raises; pass prefix_caching=False).")
 define_flag("spec_decode", False,
             "Self-speculative decoding in the ContinuousBatcher (ragged "
-            "path only; not ported yet: a batcher that resolves it on "
-            "raises).")
+            "path, greedy only): each wave verifies every decoding slot's "
+            "current token plus up to spec_k drafted tokens "
+            "(inference/speculative.py) and keeps the longest matching "
+            "prefix plus a bonus token; tokens equal spec-off decoding.")
+define_flag("spec_k", 4,
+            "Draft tokens proposed per slot per speculative step (the "
+            "verify segment is spec_k + 1 rows).")
 define_flag("lora_serving", False,
             "Batched multi-LoRA serving in the ContinuousBatcher (ragged "
             "path only; not ported yet: a batcher that resolves it on "

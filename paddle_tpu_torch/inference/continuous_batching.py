@@ -28,6 +28,14 @@ readbacks:
   * lookahead: while no queued request can become admissible by the next
     tick, segment k+1 is enqueued before the host waits for segment k's
     record, so the host's bookkeeping and launches overlap the device.
+  * speculative decoding (``spec_decode=True``): one wave loop replaces
+    both admission and the segments. Every wave mixes prompt chunks with a
+    (1 + k_eff)-row VERIFY segment per decoding slot: its current token
+    and up to ``spec_k`` tokens drafted on the host from its own history
+    (``draft``, default ``speculative.NGramDraft``). The longest draft
+    prefix matching the target argmax plus a bonus token are emitted and
+    seq_lens rewinds past the rest (``kv_cache.advance_by``), on the
+    device; one host readback a wave. Tokens equal spec-off decoding.
 
 The page layout is the identity one (slot b owns pages [b*pps,
 (b+1)*pps)); PyTorch runs eagerly, so the JAX package's compiled-program
@@ -37,10 +45,10 @@ keys with the same meaning (docs/SERVING.md).
 Not ported yet, and refused rather than served without (ROADMAP.md,
 Queue 1): prefix caching, the host KV tier and the unified arena (the
 ``prefix_caching``/``kv_host_tier``/``unified_arena`` flags default on, so
-pass ``prefix_caching=False``), speculative decoding, multi-LoRA serving,
-sampling (``temperature > 0``), dispatch retries (``retry_policy``), the
-bucketed admission pipeline (``ragged=False``), and the fault-injection
-sites. A resolved-on feature raises ``NotImplementedError``.
+pass ``prefix_caching=False``), multi-LoRA serving, sampling
+(``temperature > 0``), dispatch retries (``retry_policy``), the bucketed
+admission pipeline (``ragged=False``), and the fault-injection sites. A
+resolved-on feature raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ import numpy as np
 import torch
 
 from ..framework import flags
-from ..models.kv_cache import advance_masked, create_paged_cache
+from ..models.kv_cache import advance_by, advance_masked, create_paged_cache
 from ..models.llama import (_logits_ok, _normalize_sampling, _pow2_bucket,
                             _pure_decoder_layer, _pure_lm_head_logits,
                             _rope_tables)
@@ -79,8 +87,13 @@ class GenRequest:
     # the cache and its own rows fresh (what an int8 cache's rounding
     # depends on)
     chunk_starts: List[int] = field(default_factory=list)
-    # "ok" | "timeout" | "poisoned"
+    # speculative decoding: drafts proposed for and accepted from this
+    # request (their ratio is its acceptance rate)
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    # "ok" | "timeout" | "poisoned" | "error"
     status: str = "ok"
+    error: Optional[str] = None         # repr of a per-request failure
     deadline_s: Optional[float] = None  # wall budget from submit time
     submit_t: float = 0.0               # engine clock at submit
 
@@ -140,6 +153,7 @@ class ContinuousBatcher:
                  ragged: Optional[bool] = None,
                  prefix_caching: Optional[bool] = None,
                  spec_decode: Optional[bool] = None,
+                 spec_k: Optional[int] = None, draft=None,
                  host_tier: Optional[bool] = None,
                  lora: Optional[bool] = None,
                  unified_arena: Optional[bool] = None):
@@ -217,7 +231,6 @@ class ContinuousBatcher:
                           "prefix_caching=False)"),
                          (host_tier, "the host KV tier"),
                          (unified_arena, "the unified HBM arena"),
-                         (spec, "speculative decoding"),
                          (lora, "multi-LoRA serving"),
                          (self.sampling is not None,
                           "sampling (temperature > 0)"),
@@ -225,6 +238,19 @@ class ContinuousBatcher:
                           "the dispatch retry policy")):
             if on:
                 raise _not_ported(what)
+        self._spec = spec
+        self._spec_k = int(flags.get_flag("spec_k") if spec_k is None
+                           else spec_k)
+        if spec and self._spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self._spec_k}")
+        if spec and draft is None:
+            from .speculative import NGramDraft
+
+            draft = NGramDraft()
+        self._draft = draft
+        # a live cap on the draft rows a verify segment may take (0: the
+        # plain decode row); the wave's shape stays keyed on spec_k
+        self._spec_k_cap: Optional[int] = None
         self._queue: deque = deque()
         self._next_rid = 0
         self.max_pending = max_pending
@@ -237,6 +263,8 @@ class ContinuousBatcher:
         measured run after a warm-up."""
         self._tbu_used = 0      # wave rows carrying real tokens
         self._tbu_cap = 0       # wave rows dispatched (ragged_steps * T)
+        self._spec_tok = 0      # tokens emitted by verify segments
+        self._spec_segs = 0     # verify segments dispatched
         self.stats = {
             "prefills": 0, "segments": 0, "prefill_dispatches": 0,
             "decode_steps": 0, "tokens_emitted": 0,
@@ -251,6 +279,14 @@ class ContinuousBatcher:
             "request_errors": 0,
             "quarantined": [],   # rids of poisoned requests, last 64
         }
+        if self._spec:
+            # tokens_per_target_step: tokens emitted per verify segment (1.0
+            # is plain decode)
+            self.stats.update({
+                "spec_steps": 0, "draft_tokens_proposed": 0,
+                "draft_tokens_accepted": 0, "acceptance_rate": 0.0,
+                "tokens_per_target_step": 0.0,
+            })
 
     # ------------------------------------------------------- reliability
 
@@ -262,6 +298,14 @@ class ContinuousBatcher:
     def reopen(self):
         """Re-enable admission after a ``drain()``."""
         self._draining = False
+
+    def _spec_k_eff(self) -> int:
+        """Draft rows a verify segment may take: ``spec_k``, unless
+        ``_spec_k_cap`` lowers it (0: the plain decode row)."""
+        cap = self._spec_k_cap
+        if cap is None:
+            return self._spec_k
+        return max(0, min(self._spec_k, int(cap)))
 
     @property
     def pending(self) -> int:
@@ -425,6 +469,108 @@ class ContinuousBatcher:
             return toks, emit, ok, tokens, active, remaining, cache
 
         return rstep
+
+    def _build_spec_wave_step(self):
+        """The speculative wave: ONE ragged dispatch over a flat wave in
+        which every participating slot is a fresh-source segment, either a
+        (1 + k_eff)-row VERIFY segment of a decoding slot (row 0 its
+        current token, rows 1.. its drafts, written provisionally) or a
+        prompt chunk as in ``_build_ragged_step``. Verify segments are
+        marked ``fresh_pool_read``, so their rows read one another as the
+        plain decode step reads them back from the pool.
+
+        On the device: per verify segment ``greedy_accept`` (with EOS, the
+        budget and the finite-logits barrier) emits the accepted drafts
+        plus the bonus token and seq_lens advances by that many
+        (``advance_by``: the rejected cells stay as stale bytes past it); a
+        verify segment's poison point is row 0. Prefill segments merge
+        exactly as in ``_build_ragged_step``. Returns sstep(prms, ids,
+        row_slot, row_off, q_start, q_len, spec_mask, drafts, k_eff,
+        chunk_done, budgets, new_slot, start_len, tokens, active,
+        remaining, cache, cos_full, sin_full) -> (cand (B, K+1), emit (B,
+        K+1) bool, ok (B,), tokens, active, remaining, cache)."""
+        from ..ops.kernels import fusion
+        from .speculative import greedy_accept, segment_row_index
+
+        cfg = self.cfg
+        L, eps = cfg.num_hidden_layers, cfg.rms_norm_eps
+        nh, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        B, T, eos = self.B, self._ragged_T, self.eos
+        K1 = self._spec_k + 1
+        tied = self.model.lm_head is None
+        i32 = torch.int32
+
+        def sstep(prms, ids, row_slot, row_off, q_start, q_len, spec_mask,
+                  drafts, k_eff, chunk_done, budgets, new_slot, start_len,
+                  tokens, active, remaining, cache, cos_full, sin_full):
+            seq = torch.where(new_slot, start_len, cache.seq_lens).to(i32)
+            cache = cache._replace(seq_lens=seq)
+            slot_c = torch.clamp(row_slot, 0, B - 1).long()
+            valid = (row_slot >= 0) & (row_off < q_len[slot_c])
+            pos = (seq[slot_c] + row_off).to(i32)                    # (T,)
+            pos_c = torch.clamp(pos.long(), max=cos_full.shape[0] - 1)
+            cos, sin = cos_full[pos_c], sin_full[pos_c]
+            hidden = prms["model.embed_tokens.weight"][ids.long()]
+            # every segment reads its old context from the pages and its
+            # own rows through the fresh source (a verify segment's row 0
+            # included: read as the pool holds it, it equals the plain
+            # decode row's read-back of its just-written cell)
+            participating = q_len > 0
+            page_lens = torch.where(participating, seq, 0).to(i32)
+            for i in range(L):
+                def attend(q, k, v, i=i):
+                    nonlocal cache
+                    out, cache = fusion.ragged_attend(
+                        q.reshape(T, nh, hd), k.reshape(T, hk, hd),
+                        v.reshape(T, hk, hd), cos, sin, cache, i, row_slot,
+                        pos, valid, page_lens, q_start, q_len, q_len,
+                        fresh_pool_read=spec_mask)
+                    return out.reshape(T, nh * hd)
+
+                hidden = _pure_decoder_layer(prms, i, hidden, eps, attend)
+            # logits at every verify row; a prefill segment reads its one
+            # row from the pinned last column
+            idx = segment_row_index(q_start, q_len, K1, T)          # (B, K1)
+            logits = _pure_lm_head_logits(prms, hidden[idx.reshape(-1)], eps,
+                                          tied)
+            cand = torch.argmax(logits, dim=-1).to(i32).reshape(B, K1)
+            fin = _logits_ok(logits).reshape(B, K1)
+            # prefill segments, as in _build_ragged_step
+            toks_pf, ok_pf = cand[:, -1], fin[:, -1]
+            fin0 = budgets <= 1
+            if eos is not None:
+                fin0 = fin0 | (toks_pf == eos)
+            emit_pf = chunk_done & ok_pf
+            # verify segments: accept on the device, rewind
+            gate = spec_mask & active
+            emit_sp, n_emit = greedy_accept(cand, drafts, k_eff, remaining,
+                                            eos=eos, fin_ok=fin, gate=gate)
+            ok_sp = fin[:, 0]
+            last = torch.clamp(n_emit - 1, min=0).long()
+            tok_sp = torch.gather(cand, 1, last[:, None])[:, 0]
+            rem_sp = remaining - n_emit
+            fin_sp = rem_sp <= 0
+            if eos is not None:
+                fin_sp = fin_sp | (emit_sp & (cand == eos)).any(dim=1)
+            col_last = torch.arange(K1, device=cand.device) == K1 - 1
+            emit = torch.where(spec_mask[:, None], emit_sp,
+                               col_last[None, :] & emit_pf[:, None])
+            tokens = torch.where(spec_mask & (n_emit > 0), tok_sp,
+                                 torch.where(emit_pf, toks_pf, tokens))
+            active = torch.where(spec_mask, gate & ~fin_sp & ok_sp,
+                                 torch.where(chunk_done, ~fin0 & ok_pf,
+                                             active))
+            remaining = torch.where(spec_mask, rem_sp,
+                                    torch.where(chunk_done, budgets - 1,
+                                                remaining)).to(i32)
+            ok = torch.where(spec_mask, ok_sp, ok_pf) | ~participating
+            delta = torch.where(spec_mask, n_emit,
+                                torch.where(participating, q_len, 0))
+            cache = advance_by(cache, delta)
+            return cand, emit, ok, tokens, active, remaining, cache
+
+        return sstep
 
     # --------------------------------------------------------------- host
 
@@ -691,6 +837,184 @@ class ContinuousBatcher:
                 if force_free:
                     deactivate(force_free)
 
+        def spec_ragged_loop():
+            """The speculative serving loop: replaces both admission and
+            the segments. Every tick is ONE ragged wave: pass 1 assigns
+            prompt chunks under the ``prefill_chunk`` budget, pass 2 a
+            verify segment to every decoding slot (its current token plus
+            up to ``spec_k`` drafts from its own history while wave rows
+            remain, each later slot's base row reserved out of the draft
+            space). One host readback a wave. A proposer that raises fails
+            its own request only. Returns when no slot holds work."""
+            nonlocal cache, dev_tokens, dev_active, dev_remaining, tick
+            K = self._spec_k
+            K1 = K + 1
+            sstep = self._build_spec_wave_step()
+            while True:
+                place_arrivals()
+                if not any(s is not None for s in slots):
+                    return
+                ids = np.zeros((T,), np.int32)
+                row_slot = np.full((T,), -1, np.int32)
+                row_off = np.zeros((T,), np.int32)
+                q_start = np.zeros((B,), np.int32)
+                q_len = np.zeros((B,), np.int32)
+                spec_mask = np.zeros((B,), bool)
+                drafts = np.full((B, K), -1, np.int32)
+                k_eff = np.zeros((B,), np.int32)
+                chunk_done = np.zeros((B,), bool)
+                budgets = np.zeros((B,), np.int32)
+                new_slot = np.zeros((B,), bool)
+                start_len = np.zeros((B,), np.int32)
+                off = 0
+                budget_left = self.prefill_chunk
+                n_started = 0
+                n_chunk_tokens = 0
+                pre_dead: List[int] = []
+                # pass 1: prompt chunks, the admission wave's assignment
+                for i in range(B):
+                    req = slots[i]
+                    if req is None or req.prefilled >= len(req.prompt):
+                        continue
+                    take = min(len(req.prompt) - req.prefilled, budget_left)
+                    if take <= 0:
+                        continue                  # budget spent this step
+                    n_started += assign_chunk(
+                        i, req, take, ids, row_slot, row_off, off, 0,
+                        q_start, q_len, chunk_done, budgets, new_slot,
+                        start_len)
+                    off += take
+                    budget_left -= take
+                    n_chunk_tokens += take
+                # pass 2: verify segments; later slots' base rows are
+                # reserved out of the draft space
+                dec = [i for i in range(B)
+                       if slots[i] is not None and q_len[i] == 0
+                       and slots[i].prefilled >= len(slots[i].prompt)]
+                n_spec = 0
+                for di, i in enumerate(dec):
+                    req = slots[i]
+                    rem_host = req.max_new_tokens - len(req.tokens)
+                    space = T - off - 1 - (len(dec) - di - 1)
+                    # drafting past remaining - 1 is useless, and the cap
+                    # keeps every provisional write inside the capacity
+                    cap_k = max(0, min(self._spec_k_eff(), rem_host - 1,
+                                       space))
+                    dr = np.zeros((0,), np.int32)
+                    if cap_k > 0:
+                        try:
+                            dr = np.asarray(self._draft.propose(
+                                np.asarray(req.output_ids, np.int32),
+                                cap_k), np.int32).reshape(-1)[:cap_k]
+                        except Exception as e:
+                            req.status = "error"
+                            req.error = repr(e)
+                            req.done = True
+                            done[req.rid] = req
+                            self.stats["request_errors"] += 1
+                            free(i)
+                            pre_dead.append(i)
+                            continue
+                    seg = 1 + len(dr)
+                    k_eff[i] = len(dr)
+                    drafts[i, :len(dr)] = dr
+                    ids[off] = req.tokens[-1]
+                    ids[off + 1:off + seg] = dr
+                    row_slot[off:off + seg] = i
+                    row_off[off:off + seg] = np.arange(seg)
+                    q_start[i] = off
+                    q_len[i] = seg
+                    spec_mask[i] = True
+                    off += seg
+                    n_spec += 1
+                    req.draft_proposed += len(dr)
+                    self.stats["draft_tokens_proposed"] += len(dr)
+                if pre_dead:
+                    deactivate(pre_dead)
+                if off == 0:
+                    continue      # every pending slot failed its draft
+                wave = [torch.as_tensor(a, device=dev) for a in (
+                    ids, row_slot, row_off, q_start, q_len, spec_mask,
+                    drafts, k_eff, chunk_done, budgets, new_slot,
+                    start_len)]
+                (cand, emitm, okm, dev_tokens, dev_active, dev_remaining,
+                 cache) = sstep(self.params, *wave, dev_tokens, dev_active,
+                                dev_remaining, cache, self.cos, self.sin)
+                self.stats["ragged_steps"] += 1
+                if n_chunk_tokens:
+                    self.stats["prefill_dispatches"] += 1
+                self.stats["prefills"] += n_started
+                self.stats["prefill_tokens_admitted"] += n_chunk_tokens
+                self._tbu_used += off
+                self._tbu_cap += T
+                self.stats["token_budget_util"] = (self._tbu_used
+                                                   / self._tbu_cap)
+                if n_spec:
+                    self.stats["spec_steps"] += 1
+                    self._spec_segs += n_spec
+                tick += 1
+                flat = _Record(cand, emitm, okm, dev_active).get()
+                cand_np = flat[:B * K1].reshape(B, K1)
+                em_np = flat[B * K1:2 * B * K1].reshape(B, K1).astype(bool)
+                ok_np = flat[2 * B * K1:2 * B * K1 + B]
+                act_np = flat[2 * B * K1 + B:]
+                self.stats["host_sync_count"] += 1
+                now = self._clock()
+                force_free: List[int] = []
+                for i in range(B):
+                    req = slots[i]
+                    if req is None:
+                        # orphan emission — the canary, 0 by construction
+                        self.stats["wasted_slot_steps"] += int(
+                            em_np[i].sum())
+                        continue
+                    if q_len[i] == 0:
+                        continue      # sat out this wave (budget spent)
+                    if not ok_np[i]:
+                        # poison (a prompt chunk, or a verify segment's row
+                        # 0): nothing emitted or advanced; fails alone
+                        self._finish_poisoned(req, done)
+                        free(i)
+                        force_free.append(i)
+                        continue
+                    n_emit_i = int(em_np[i].sum())
+                    if spec_mask[i]:
+                        acc = max(0, n_emit_i - 1)
+                        req.draft_accepted += acc
+                        self.stats["draft_tokens_accepted"] += acc
+                        self._spec_tok += n_emit_i
+                        bound[i] = max(0, bound[i] - n_emit_i)
+                    for j in range(K1):
+                        if em_np[i, j]:
+                            req.tokens.append(int(cand_np[i, j]))
+                            self.stats["tokens_emitted"] += 1
+                    if spec_mask[i]:
+                        if not act_np[i]:
+                            req.done = True
+                            done[req.rid] = req
+                            free(i)
+                    elif chunk_done[i] and n_emit_i:
+                        if finished_host(req, req.tokens[-1]):
+                            req.done = True
+                            done[req.rid] = req
+                            free(i)
+                        else:
+                            bound[i] = (req.max_new_tokens
+                                        - len(req.tokens))
+                    if slots[i] is not None and self._expired(req, now):
+                        self._finish_timeout(req, done)
+                        free(i)
+                        force_free.append(i)
+                prop = self.stats["draft_tokens_proposed"]
+                self.stats["acceptance_rate"] = (
+                    self.stats["draft_tokens_accepted"] / prop
+                    if prop else 0.0)
+                if self._spec_segs:
+                    self.stats["tokens_per_target_step"] = (
+                        self._spec_tok / self._spec_segs)
+                if force_free:
+                    deactivate(force_free)
+
         def dispatch_segment():
             """Pick the segment length covering the largest remaining
             budget, enqueue the segment, start its record's copy to the
@@ -766,10 +1090,14 @@ class ContinuousBatcher:
                 return False
             return any(r.arrival_segment <= tick + 1 for r in self._queue)
 
+        # speculative serving drafts on the host, so its decode stretch
+        # waits for every wave anyway: one wave loop, which returns with
+        # every slot drained, replaces admission and the segments
+        admit = spec_ragged_loop if self._spec else admit_ragged
         while ((self._queue and not self._draining)
                or any(s is not None for s in slots)):
             t0 = time.perf_counter()
-            admit_ragged()
+            admit()
             self.stats["prefill_s"] += time.perf_counter() - t0
             if not any(s is not None for s in slots):
                 if self._queue and not self._draining:

@@ -225,3 +225,14 @@ def advance_masked(state: PagedCacheState, active) -> PagedCacheState:
 
 def advance(state: PagedCacheState) -> PagedCacheState:
     return state._replace(seq_lens=state.seq_lens + 1)
+
+
+def advance_by(state: PagedCacheState, delta) -> PagedCacheState:
+    """Advance each slot's seq_len by ``delta`` (B,): the speculative
+    rewind. A verify step writes k + 1 cells a slot and advances by the
+    accepted length only; the rejected cells stay as stale bytes past
+    seq_len (int8: with their scales), which every reader masks and the
+    next append overwrites."""
+    return state._replace(
+        seq_lens=(state.seq_lens + torch.as_tensor(
+            delta, device=state.seq_lens.device)).to(torch.int32))

@@ -4,7 +4,10 @@ The slice ported here is greedy ``generate_paged``: a bucketed prompt
 prefill (causal flash attention, kernel K1) that fills a paged KV cache,
 then one decode step per new token whose per-layer attention tail is the
 fused rope -> append -> attend kernel (K3); every rms_norm folds into the
-matmuls that follow it (K2). With ``params=quantize_for_inference(model)``
+matmuls that follow it (K2). With ``spec_decode=True`` speculative verify
+steps replace the decode steps: one ragged wave a step over every row's
+current token and its drafts (K3's ragged form with ``fresh_pool_read``).
+With ``params=quantize_for_inference(model)``
 every matmul weight is weight-only int8/int4: K2 dequantizes it in its
 tiles and the two matmuls no norm precedes (o_proj, down_proj) run the
 weight-only matmul kernel (K4); ``cache_dtype="int8"`` stores the paged
@@ -500,7 +503,8 @@ class LlamaForCausalLM(Layer):
 
     def generate_paged(self, input_ids, max_new_tokens: int = 16,
                        page_size: int = 16, return_logits: bool = False,
-                       params=None, cache_dtype=None):
+                       params=None, cache_dtype=None,
+                       spec_decode: bool = False, spec_k=None, draft=None):
         """Greedy decode over a paged KV cache. ``input_ids`` (B, S0)
         → (B, S0 + max_new_tokens) int32 on the model's device; with
         ``return_logits`` also the (B, max_new_tokens, V) f32 logits each
@@ -513,10 +517,18 @@ class LlamaForCausalLM(Layer):
 
         The prompt pads to a power-of-two bucket W (capped at the page-
         padded capacity), one prefill fills the cache and picks the first
-        token, then each decode step appends one token per sequence."""
+        token, then each decode step appends one token per sequence.
+
+        ``spec_decode``: after the prefill, speculative verify steps
+        (``_spec_decode_loop``, the batcher's parity oracle) replace the
+        decode steps: ``spec_k`` drafts a row (default the ``spec_k``
+        flag) from ``draft`` (a ``DraftProposer``, default ``NGramDraft``);
+        the tokens equal the plain decode's. Not with ``return_logits``."""
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
+        if spec_decode and return_logits:
+            raise ValueError("spec_decode does not return logits")
         if cache_dtype is not None and cache_dtype not in ("int8",
                                                            torch.int8):
             raise ValueError(f"cache_dtype must be None or 'int8', "
@@ -540,6 +552,11 @@ class LlamaForCausalLM(Layer):
                                  device=self.device)
             logits, cache = prefill(prms, ids_pad, lengths, cos_full,
                                     sin_full)
+            if spec_decode:
+                toks = self._spec_decode_loop(
+                    prms, ids, _greedy(logits), cache, cos_full, sin_full,
+                    max_new_tokens, spec_k=spec_k, draft=draft)
+                return torch.cat([ids.to(torch.int32), toks], 1)
             kept = [logits.float()] if return_logits else None
             toks = [_greedy(logits)]
             for _ in range(max_new_tokens - 1):
@@ -595,6 +612,142 @@ class LlamaForCausalLM(Layer):
                                          tied), cache)
 
         return prefill
+
+    def _spec_decode_loop(self, prms, ids, first, cache, cos_full, sin_full,
+                          max_new_tokens, spec_k=None, draft=None):
+        """The solo speculative loop (the batcher's parity oracle): each
+        step drafts up to K tokens a row from its own prompt and generated
+        history, verifies every row's (1 + k_eff)-row segment in ONE ragged
+        wave (``_build_spec_verify_step``), keeps the longest matching
+        prefix plus the bonus token (``speculative.greedy_accept``), rewinds
+        seq_lens to it (``kv_cache.advance_by``) and reads the result back:
+        one host sync a step. Returns the (B, max_new_tokens) int32 tokens,
+        the prefill's ``first`` included."""
+        import numpy as np
+
+        from ..framework import flags
+        from ..inference.speculative import NGramDraft
+
+        b = ids.shape[0]
+        K = int(flags.get_flag("spec_k") if spec_k is None else spec_k)
+        if K < 1:
+            raise ValueError(f"spec_k must be >= 1, got {K}")
+        if draft is None:
+            draft = NGramDraft()
+        K1 = K + 1
+        step = self._build_spec_verify_step(b, K)
+        dev = ids.device
+        first_np = first.cpu().numpy()
+        ids_np = ids.cpu().numpy()
+        histories = [list(map(int, ids_np[i])) + [int(first_np[i])]
+                     for i in range(b)]
+        emitted = [[int(first_np[i])] for i in range(b)]
+        remaining = np.full((b,), max_new_tokens - 1, np.int32)
+        t_wave = -(-(b * K1) // 8) * 8
+        while int(remaining.max()) > 0:
+            drafts = np.full((b, K), -1, np.int32)
+            k_eff = np.zeros((b,), np.int32)
+            wave = np.zeros((t_wave,), np.int32)
+            for i in range(b):
+                if remaining[i] <= 0:
+                    continue
+                # drafting past remaining - 1 is useless (n_acc drafts + 1
+                # bonus <= remaining), and the cap keeps every provisional
+                # write inside the page capacity
+                cap_k = min(K, int(remaining[i]) - 1)
+                dr = np.asarray(draft.propose(
+                    np.asarray(histories[i], np.int32), cap_k),
+                    np.int32).reshape(-1)[:max(cap_k, 0)]
+                k_eff[i] = len(dr)
+                drafts[i, :len(dr)] = dr
+                wave[i * K1] = histories[i][-1]
+                wave[i * K1 + 1:i * K1 + 1 + len(dr)] = dr
+            cand, emit, n_emit, cache = step(
+                prms, *(torch.as_tensor(x, device=dev) for x in (
+                    wave, drafts, k_eff, remaining)), cache, cos_full,
+                sin_full)
+            # the step's one readback
+            flat = torch.cat([cand.reshape(-1), emit.reshape(-1).to(
+                torch.int32), n_emit]).cpu().numpy()
+            cand_np = flat[:b * K1].reshape(b, K1)
+            emit_np = flat[b * K1:2 * b * K1].reshape(b, K1)
+            ne_np = flat[2 * b * K1:]
+            for i in range(b):
+                for j in range(K1):
+                    if emit_np[i, j]:
+                        histories[i].append(int(cand_np[i, j]))
+                        emitted[i].append(int(cand_np[i, j]))
+                remaining[i] -= int(ne_np[i])
+        return torch.as_tensor(np.asarray(emitted, np.int32), device=dev)
+
+    def _build_spec_verify_step(self, b, K):
+        """The speculative verify step over (1 + K)-row segments. Wave row
+        i * (K + 1) + j holds sequence i's row j: its current token at j =
+        0, draft j at j >= 1; rows at or past q_len[i] = 1 + k_eff[i] (0
+        once its budget is spent) are wave padding and write nothing; the
+        wave is T = ceil(B (K + 1) / 8) * 8 rows. Every segment reads its
+        old context from the pages and its own rows through the fresh
+        source, marked ``fresh_pool_read`` so that the verify math reads
+        them as the plain decode step reads them back from the pool.
+        Returns step(prms, wave_ids, drafts, k_eff, remaining, cache,
+        cos_full, sin_full) -> (cand (B, K+1), emit (B, K+1) bool, n_emit
+        (B,), cache)."""
+        from ..inference.speculative import greedy_accept, segment_row_index
+        from ..ops.kernels import fusion
+        from .kv_cache import advance_by
+
+        cfg = self.config
+        tied = self.lm_head is None
+        n_layers = cfg.num_hidden_layers
+        hd, hk = cfg.head_dim, cfg.num_key_value_heads
+        nh = cfg.num_attention_heads
+        K1 = K + 1
+        T = -(-(b * K1) // 8) * 8
+
+        def step(prms, wave_ids, drafts, k_eff, remaining, cache, cos_full,
+                 sin_full):
+            dev, i32 = wave_ids.device, torch.int32
+            q_len = torch.where(remaining > 0, 1 + k_eff, 0).to(i32)
+            q_start = torch.arange(b, dtype=i32, device=dev) * K1
+            pad = T - b * K1
+            row_slot = torch.cat([
+                torch.arange(b, dtype=i32, device=dev).repeat_interleave(K1),
+                torch.full((pad,), -1, dtype=i32, device=dev)])
+            row_off = torch.cat([
+                torch.arange(K1, dtype=i32, device=dev).repeat(b),
+                torch.zeros((pad,), dtype=i32, device=dev)])
+            slot_c = torch.clamp(row_slot, 0, b - 1).long()
+            valid = (row_slot >= 0) & (row_off < q_len[slot_c])
+            pos = (cache.seq_lens[slot_c] + row_off).to(i32)
+            pos_c = torch.clamp(pos.long(), max=cos_full.shape[0] - 1)
+            cos, sin = cos_full[pos_c], sin_full[pos_c]
+            hidden = prms["model.embed_tokens.weight"][wave_ids.long()]
+            gate = q_len > 0
+            page_lens = torch.where(gate, cache.seq_lens, 0).to(i32)
+            for i in range(n_layers):
+                def attend(q, k, v, i=i):
+                    nonlocal cache
+                    out, cache = fusion.ragged_attend(
+                        q.reshape(T, nh, hd), k.reshape(T, hk, hd),
+                        v.reshape(T, hk, hd), cos, sin, cache, i, row_slot,
+                        pos, valid, page_lens, q_start, q_len, q_len,
+                        fresh_pool_read=gate)
+                    return out.reshape(T, nh * hd)
+
+                hidden = _pure_decoder_layer(prms, i, hidden,
+                                             cfg.rms_norm_eps, attend)
+            idx = segment_row_index(q_start, q_len, K1, T)        # (B, K1)
+            logits = _pure_lm_head_logits(prms, hidden[idx.reshape(-1)],
+                                          cfg.rms_norm_eps, tied)
+            cand = _greedy(logits).reshape(b, K1)
+            # no finite-logits barrier: the plain solo decode emits the
+            # argmax of whatever its logits are, so the oracle does too
+            emit, n_emit = greedy_accept(cand, drafts, k_eff, remaining,
+                                         gate=gate)
+            # rejected cells stay as stale bytes past seq_lens
+            return cand, emit, n_emit, advance_by(cache, n_emit)
+
+        return step
 
     def _build_paged_step(self, b):
         """The per-token decode step: token (B,) → (next-token logits

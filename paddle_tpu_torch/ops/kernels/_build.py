@@ -39,13 +39,13 @@ _SIGNATURES = {
     "pt_small_matmul_items": [_I, _I, _P, _P],
     "pt_rope_append_attend_decode": [_P] * 11 + [_I] * 7 + [_F, _P],
     "pt_rope_append_attend_decode_int8": [_P] * 13 + [_I] * 7 + [_F, _P],
-    "pt_rope_append_attend_ragged": [_P] * 14 + [_I] * 8 + [_F, _P],
-    "pt_rope_append_attend_ragged_int8": [_P] * 16 + [_I] * 8 + [_F, _P],
+    "pt_rope_append_attend_ragged": [_P] * 15 + [_I] * 8 + [_F, _P],
+    "pt_rope_append_attend_ragged_int8": [_P] * 17 + [_I] * 8 + [_F, _P],
     "pt_paged_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pt_paged_attention_int8": [_P] * 8 + [_I] * 6 + [_F, _P],
     "pt_paged_walk_items": [_P, _P] + [_I] * 4 + [_P],
-    "pt_ragged_paged_attention": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "pt_ragged_paged_attention_int8": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "pt_ragged_paged_attention": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "pt_ragged_paged_attention_int8": [_P] * 14 + [_I] * 7 + [_F, _P],
     "pt_ragged_items": [_P] * 4 + [_I] * 6 + [_P],
     "pt_ragged_paged_attention_plan": [_I] * 6 + [_P],
     "pt_ragged_paged_attention_int8_plan": [_I] * 6 + [_P],

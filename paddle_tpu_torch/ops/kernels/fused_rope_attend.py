@@ -28,7 +28,13 @@ writing it. On an int8 cache it quantizes the rotated k row and the raw v
 row on write (``kv_cache._quantize_cells``' rule), dequantizes every page
 cell as code * scale, and reads its own new cell back as code * scale;
 so does the ragged form, whose chunk rows read their own chunk through the
-fresh full-precision keys (page % 4 == 0 on an int8 cache, both forms).
+fresh full-precision keys (page % 4 == 0 on an int8 cache, both forms),
+except in the slots that ``fresh_pool_read`` (B,) bool marks (speculative
+verify segments): their fresh rows are read as the pool holds them, on an
+int8 cache each quantized in shared memory as the cell writer quantizes it
+and read as code * scale; on a bf16 cache the rotated k is already the
+bf16 value the pool holds (``apply_rotary_rows`` casts back, as
+``rotate8`` does), so the flag changes no bit there.
 A q, k or v that requires grad raises with grad enabled (the launch is
 invisible to autograd).
 
@@ -57,10 +63,14 @@ ragged_launches = 0
 
 def ragged_reference(q, k, v, cos, sin, cache, layer, row_slot, row_pos,
                      valid, page_lens, q_start, q_lens, fresh_lens,
-                     plain=False):
+                     fresh_pool_read=None, plain=False):
     """rope -> ragged append -> ragged paged attention, the unfused chain.
     Writes the cache's pools in place; returns (out (T, H, D), cache).
-    ``plain`` takes the attention's plain version on any device."""
+    ``fresh_pool_read`` (B,) bool: those slots' fresh K/V through the pool
+    representation (``ragged_paged_attention.fresh_through_pool``: f32
+    carriers, codes * scale on an int8 cache, the pool-dtype cast on a
+    float one); None is the plain wave. ``plain`` takes the attention's
+    plain version (on ``fresh_through_pool``'s fresh K/V) on any device."""
     from ...models.kv_cache import append_tokens_ragged, layer_scales
     from ...models.llama import apply_rotary_rows
     from . import ragged_paged_attention as rpa
@@ -69,13 +79,16 @@ def ragged_reference(q, k, v, cos, sin, cache, layer, row_slot, row_pos,
     cache = append_tokens_ragged(cache, layer, k2, v, row_slot, row_pos,
                                  valid)
     ks, vs = layer_scales(cache, layer)
-    attention = rpa.ragged_paged_attention_pure
     args = (q2, cache.k_pages[layer], cache.v_pages[layer],
             cache.block_tables, page_lens, q_start, q_lens, fresh_lens)
-    if plain:
-        attention = rpa.ragged_paged_attention_reference
-        k2, v = rpa.zero_non_finite(k2), rpa.zero_non_finite(v)
-    return attention(*args, k2, v, k_scales=ks, v_scales=vs), cache
+    if not plain:
+        return rpa.ragged_paged_attention_pure(
+            *args, k2, v, k_scales=ks, v_scales=vs,
+            fresh_pool_read=fresh_pool_read), cache
+    k2, v = rpa.fresh_through_pool(k2, v, fresh_pool_read, q_start, q_lens,
+                                   cache.quantized, cache.k_pages.dtype)
+    return rpa.ragged_paged_attention_reference(
+        *args, k2, v, k_scales=ks, v_scales=vs), cache
 
 
 def decode_reference(q, k, v, cos, sin, cache, layer, active=None,
@@ -128,17 +141,14 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
     Returns (out (T, H, D), cache) with every segment row's cell written;
     ``seq_lens`` is not advanced. Rows of a segment must be valid rows
     (the batcher's waves are); ``valid`` is read by the plain chain only.
-    ``fresh_pool_read`` (speculative verify) is not ported: it raises."""
+    ``fresh_pool_read`` (B,) bool or None: the slots whose fresh rows are
+    read as the pool holds them (speculative verify segments)."""
     global ragged_launches
-    if fresh_pool_read is not None:
-        raise NotImplementedError(
-            "fresh_pool_read belongs to speculative decoding, which is "
-            "still to be ported (ROADMAP.md, Queue 1)")
     if not q.is_cuda:
         return ragged_reference(q, k, v, cos, sin, cache, layer, row_slot,
                                 row_pos, valid, page_lens, q_start, q_lens,
-                                fresh_lens)
-    from .ragged_paged_attention import check_wave_shapes
+                                fresh_lens, fresh_pool_read)
+    from .ragged_paged_attention import check_wave_shapes, flag_pointer
 
     t, h, d = q.shape
     _, hk, p_total, page, _ = cache.k_pages.shape
@@ -155,14 +165,15 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
     for name, x in (("page_lens", page_lens), ("q_start", q_start),
                     ("q_lens", q_lens), ("fresh_lens", fresh_lens)):
         _build.check_cuda(name, x, i32, (b,))
+    fpr = flag_pointer(fresh_pool_read, b)
     _build.check_no_grad("rope_append_attend", q, k, v)
     out = torch.empty_like(q)            # K3 writes every row
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr())
     tail = (cache.block_tables.data_ptr(), row_pos.data_ptr(),
             page_lens.data_ptr(), q_start.data_ptr(), q_lens.data_ptr(),
-            fresh_lens.data_ptr(), out.data_ptr(), t, b, h, hk, p_total, page,
-            pps, int(layer), 1.0 / math.sqrt(d), _build.stream_of(q))
+            fresh_lens.data_ptr(), fpr, out.data_ptr(), t, b, h, hk, p_total,
+            page, pps, int(layer), 1.0 / math.sqrt(d), _build.stream_of(q))
     if cache.quantized:
         _build.launch("pt_rope_append_attend_ragged_int8", *head,
                       cache.k_scales.data_ptr(), cache.v_scales.data_ptr(),

@@ -520,17 +520,21 @@ def decode_attend(q, k, v, cos, sin, cache, layer, active=None):
 
 
 def ragged_attend(q, k, v, cos, sin, cache, layer, row_slot, row_pos,
-                  valid, page_lens, q_start, q_lens, fresh_lens):
-    """The ragged-wave attention tail (the batcher's admission step),
-    routed by the attend plan: K3's ragged form when the pattern is
-    enabled, the op-by-op chain (attention in K11 on CUDA tensors)
-    otherwise. Returns (out, cache)."""
+                  valid, page_lens, q_start, q_lens, fresh_lens,
+                  fresh_pool_read=None):
+    """The ragged-wave attention tail (the batcher's waves, the solo spec
+    verify step), routed by the attend plan: K3's ragged form when the
+    pattern is enabled, the op-by-op chain (attention in K11 on CUDA
+    tensors) otherwise. ``fresh_pool_read`` (B,) bool marks speculative
+    verify segments, whose fresh K/V are read as the pool holds them; None
+    is the plain wave. Returns (out, cache)."""
     from . import fused_rope_attend as fra
 
     if _fused_attend():
         return fra.fused_rope_append_attend(
             q, k, v, cos, sin, cache, layer, row_slot, row_pos, valid,
-            page_lens, q_start, q_lens, fresh_lens)
+            page_lens, q_start, q_lens, fresh_lens,
+            fresh_pool_read=fresh_pool_read)
     return fra.ragged_reference(q, k, v, cos, sin, cache, layer, row_slot,
                                 row_pos, valid, page_lens, q_start, q_lens,
-                                fresh_lens)
+                                fresh_lens, fresh_pool_read)

@@ -24,6 +24,20 @@ codes with its per-cell f32 scales (page % 4 == 0), each page cell read
 as code * scale while the fresh rows stay bf16. A q that requires grad
 raises with grad enabled (the launch is invisible to autograd).
 
+``fresh_pool_read`` (B,) bool marks slots whose fresh K/V are read through
+the pool's representation (speculative verify segments,
+``inference/speculative.py``): on an int8 cache each such row becomes the
+codes and scale it would have in the pool (``kv_cache.quantize_cells``),
+read as code * scale; on a float cache it is cast to the pool dtype, which
+for bf16 rows on a bf16 pool changes no bit. The TPU kernel takes the
+roundtripped rows as an f32 fresh source, which the JAX package's
+``fused_rope_attend._pool_roundtrip`` builds in plain ops. K11 takes the
+flag instead and quantizes the flagged rows itself, in shared memory, as
+its cell writer does: its fresh source is bf16 on the tensor cores, which
+no f32 operand feeds exactly, and plain ops on the card would do a
+kernel's work. The plain version applies the roundtrip in plain ops
+before its softmax (after zeroing non-finite values, the kernel's order).
+
 K11 and K3's ragged form share one body (``csrc/ragged_walk.cuh``): a grid
 that depends on shapes only, whose CTAs decode their work on the device —
 a walk item for each decode row (a slot with q_lens 1 and fresh_lens 0),
@@ -125,26 +139,62 @@ def zero_non_finite(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
+def pool_roundtrip(rows, quantized, pool_dtype):
+    """Fresh rows as a page read would give them back, in f32: codes *
+    scale of ``kv_cache.quantize_cells`` on an int8 pool, the pool-dtype
+    cast on a float pool (the JAX package's ``_pool_roundtrip``)."""
+    r32 = rows.float()
+    if quantized:
+        from ...models.kv_cache import quantize_cells
+
+        codes, scales = quantize_cells(r32)
+        return codes.float() * scales
+    return r32.to(pool_dtype).float()
+
+
+def fresh_through_pool(k_fresh, v_fresh, fresh_pool_read, q_start, q_lens,
+                       quantized, pool_dtype):
+    """The fresh sources (k, v) as the plain versions read them: non-finite
+    values zeroed (the kernels zero them as they load them), then, where
+    ``fresh_pool_read`` (B,) is given, as f32 carriers: the rows of the
+    slots it marks through ``pool_roundtrip``, every other row upcast
+    (exact)."""
+    k_fresh, v_fresh = zero_non_finite(k_fresh), zero_non_finite(v_fresh)
+    if fresh_pool_read is None:
+        return k_fresh, v_fresh
+    t = k_fresh.shape[0]
+    row_valid, row_slot, _ = _row_owners(t, q_start, q_lens)
+    sel = (fresh_pool_read.bool()[row_slot] & row_valid)[:, None, None]
+    return tuple(
+        torch.where(sel, pool_roundtrip(x, quantized, pool_dtype), x.float())
+        for x in (k_fresh, v_fresh))
+
+
 def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
                                 page_lens, q_start, q_lens, fresh_lens,
                                 k_fresh, v_fresh, scale=None,
-                                k_scales=None, v_scales=None):
-    """The plain version on CPU tensors (after zeroing non-finite fresh
-    K/V), K11 on CUDA tensors (which zeroes them as it loads them; its
-    int8 form with ``k_scales``/``v_scales``, the fresh K/V still bf16)."""
+                                k_scales=None, v_scales=None,
+                                fresh_pool_read=None):
+    """The plain version on CPU tensors (on the fresh K/V as
+    ``fresh_through_pool`` gives them), K11 on CUDA tensors (which zeroes
+    non-finite fresh values as it loads them; its int8 form with
+    ``k_scales``/``v_scales``, the fresh K/V still bf16, flagged slots'
+    rows quantized in the kernel)."""
     global launches
     hk, p_total, page, d = k_pages.shape
     scale = scale or (1.0 / math.sqrt(d))
+    quant = k_scales is not None or v_scales is not None
     if not q_rows.is_cuda:
+        k_fresh, v_fresh = fresh_through_pool(
+            k_fresh, v_fresh, fresh_pool_read, q_start, q_lens, quant,
+            k_pages.dtype)
         return ragged_paged_attention_reference(
             q_rows, k_pages, v_pages, block_tables, page_lens, q_start,
-            q_lens, fresh_lens, zero_non_finite(k_fresh),
-            zero_non_finite(v_fresh), scale, k_scales=k_scales,
+            q_lens, fresh_lens, k_fresh, v_fresh, scale, k_scales=k_scales,
             v_scales=v_scales)
     t, h, _ = q_rows.shape
     b, pps = block_tables.shape
     check_wave_shapes(q_rows, hk)
-    quant = k_scales is not None or v_scales is not None
     bf, i32 = torch.bfloat16, torch.int32
     pool = torch.int8 if quant else bf
     _build.check_cuda("q_rows", q_rows, bf)
@@ -158,12 +208,13 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
         _build.check_cuda(name, x, i32, (b,))
     _build.check_cuda("k_fresh", k_fresh, bf, (t, hk, d))
     _build.check_cuda("v_fresh", v_fresh, bf, (t, hk, d))
+    fpr = flag_pointer(fresh_pool_read, b)
     _build.check_no_grad("ragged_paged_attention", q_rows, k_pages, v_pages,
                          k_fresh, v_fresh)
     out = torch.empty_like(q_rows)       # K11 writes every row
     head = (q_rows.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     tail = (block_tables.data_ptr(), page_lens.data_ptr(), q_start.data_ptr(),
-            q_lens.data_ptr(), fresh_lens.data_ptr(), k_fresh.data_ptr(),
+            q_lens.data_ptr(), fresh_lens.data_ptr(), fpr, k_fresh.data_ptr(),
             v_fresh.data_ptr(), out.data_ptr(), t, b, h, hk, p_total, page,
             pps, scale, _build.stream_of(q_rows))
     if quant:
@@ -173,6 +224,15 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
         _build.launch("pt_ragged_paged_attention", *head, *tail)
     launches += 1
     return out
+
+
+def flag_pointer(fresh_pool_read, b):
+    """The device pointer of a (B,) bool ``fresh_pool_read`` for the ragged
+    kernels (checked), or 0 (NULL: no slot flagged) for None."""
+    if fresh_pool_read is None:
+        return 0
+    _build.check_cuda("fresh_pool_read", fresh_pool_read, torch.bool, (b,))
+    return fresh_pool_read.data_ptr()
 
 
 def check_wave_shapes(q_rows, hk):
@@ -265,7 +325,7 @@ def ragged_items(q_lens, page_lens, fresh_lens, t, hk, g, pps, page,
 def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
                            page_lens, q_start, q_lens, fresh_lens, k_fresh,
                            v_fresh, scale=None, k_scales=None, v_scales=None,
-                           cs=1, drop_last=False):
+                           cs=1, drop_last=False, drop_tile_page=False):
     """A plain model of the ragged walk's arithmetic, in f32. A walk item
     (a slot whose one row decodes: q_lens 1, fresh_lens 0): rank r of
     ``cs`` runs an online softmax over its pages (``walk_range``), one max
@@ -274,7 +334,10 @@ def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
     the attention checks must catch). Every other slot's rows: one softmax
     a row over its pages and its causal fresh keys (u <= the row's offset,
     u < fresh_lens; ``k_fresh`` / ``v_fresh`` as given: the callers zero
-    their non-finite values). out = acc / max(l, 1e-30); rows of no
+    their non-finite values and, for flagged slots, pass them through
+    ``fresh_through_pool``; ``drop_tile_page`` leaves each such slot's last
+    page out, the control of a wave with no walk). out = acc / max(l,
+    1e-30); rows of no
     segment and rows with no visible key are zeros. With ``k_scales`` /
     ``v_scales`` the pages hold int8 codes, each page cell read as code *
     scale in f32 (the fresh keys as given). Never called by the port's
@@ -326,6 +389,8 @@ def split_ragged_reference(q_rows, k_pages, v_pages, block_tables,
             out[q0] = at / lt.clamp_min(1e-30)[..., None]
             continue
         # every row of the slot over its pages and its causal fresh keys
+        if drop_tile_page and n:
+            n = (-(-n // page) - 1) * page
         pages = block_tables[bi, :min(-(-n // page), pps)].long()
         k_ctx = k_pages[:, pages].reshape(hk, -1, d)[:, :n].float()
         v_ctx = v_pages[:, pages].reshape(hk, -1, d)[:, :n].float()

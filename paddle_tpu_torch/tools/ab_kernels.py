@@ -42,9 +42,10 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
   * the ragged forms, K11 and K3's ragged form, on ``chip_smoke.py``'s two
     ragged waves (``RAGGED_WAVES``: T = 264, B = 8, 32/8 heads, page 16;
     the mixed wave, and a 256-row chunk on 256 cells of context with
-    seven decode rows), built by this tool's own checkout's
-    ``chip_smoke.batcher_wave`` so that both trees get the same waves,
-    and the host time of one call of each on the first wave;
+    seven decode rows) and on the same waves over an int8 cache (page
+    32), built by this tool's own checkout's ``chip_smoke.batcher_wave``
+    so that both trees get the same waves, and the host time of one call
+    of each on the first bf16 wave;
     ``--ragged`` times these alone;
 
 each the median device ms of 20 calls with the L2 flushed before each and
@@ -64,6 +65,7 @@ new over old. Needs one CUDA card and the CUDA toolkit.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -267,17 +269,23 @@ def _ragged_times(torch, flush):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     out = {}
-    for w, wave_spec in enumerate(cs.RAGGED_WAVES, 1):
+    for int8, (w, wave_spec) in itertools.product(
+            (False, True), enumerate(cs.RAGGED_WAVES, 1)):
         cache, rows, wave = cs.batcher_wave(torch, kv_cache, _rope_tables,
-                                            cs.SEED + 8, *wave_spec)
+                                            cs.SEED + 8, *wave_spec,
+                                            int8=int8)
         args = (rows[0], cache.k_pages[1], cache.v_pages[1],
                 cache.block_tables, *wave[3:], rows[1], rows[2])
-        forms = (("K11", lambda: k11.ragged_paged_attention_pure(*args)),
+        kw = ({"k_scales": cache.k_scales[1], "v_scales": cache.v_scales[1]}
+              if int8 else {})
+        forms = (("K11", lambda: k11.ragged_paged_attention_pure(*args,
+                                                                 **kw)),
                  ("K3 ragged", lambda: k3.fused_rope_append_attend(
                      *rows, cache, 1, *wave)))
         for label, fn in forms:
+            label = f"{label}{' int8' if int8 else ''}"
             out[f"{label} wave{w}"] = _cold_ms(torch, flush, fn)
-            if w == 1:
+            if w == 1 and not int8:
                 out[f"{label} wave1 host_us"] = _host_us(torch, fn)
     return out
 

@@ -314,7 +314,6 @@ def tiny():
 @pytest.mark.parametrize("kw,err", [
     ({}, NotImplementedError),                       # prefix caching on
     (dict(prefix_caching=False, ragged=False), NotImplementedError),
-    (dict(prefix_caching=False, spec_decode=True), NotImplementedError),
     (dict(prefix_caching=False, lora=True), NotImplementedError),
     (dict(prefix_caching=False, temperature=0.7), NotImplementedError),
     (dict(prefix_caching=False, retry_policy=object()), NotImplementedError),

@@ -43,7 +43,12 @@ cluster sizes equal to ``ragged_plan``, the dropped-range controls of
 the split walks failing, and a page that is not a multiple of 4 (or a
 scale pool of the wrong type or missing) refused; walks long enough to
 wrap a CTA's ring of stages (bf16 and int8) give the same bits in many
-calls. Each serving attention
+calls. K11 and K3's ragged form on a speculative verify wave with
+``fresh_pool_read`` (verify segments of 1 + 4 and of 1 rows beside an
+unflagged chunk): within the attention tolerance of the plain versions
+with the pool roundtrip, on a bf16 cache bitwise equal to the unflagged
+call, on an int8 cache moving the flagged rows only; two calls bitwise
+equal; a malformed flag refused. Each serving attention
 wrapper raises on a q that requires grad with grad enabled and launches
 under ``torch.no_grad()``. The
 page walk K10 and K3's decode forms share (split over a cluster of CTAs)
@@ -1181,6 +1186,129 @@ def test_ragged_long_walks_are_deterministic(gen, hk, int8):
     outs = [k3.fused_rope_append_attend(*rows, _copy(cache), 1, *wave)[0]
             for _ in range(20)]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+# a speculative verify wave (``fresh_pool_read``): verify segments of 1 + 4
+# rows and of one row (no drafts) at lengths across page edges, beside an
+# unflagged prompt chunk (its second tile included) and an idle slot
+_VERIFY_SLOTS = [(97, 5, 5), (31, 1, 1), (0, 0, 0), (150, 5, 5),
+                 (63, 5, 5), (70, 20, 20), (1, 1, 1), (255, 5, 5)]
+
+
+def _verify_case(gen, g, int8, hk=2):
+    """The verify wave on a bf16 (page 16) or int8 (page 32) cache: the
+    cache, rows, layout, K11's arguments on layer 1 and the scales as
+    keywords, and the flag: every slot but the chunk and the idle one."""
+    page = 32 if int8 else 16
+    cache, rows, wave = _edge_case(gen, g, page, _VERIFY_SLOTS, hk=hk,
+                                   int8=int8)
+    q, kf, vf = rows[:3]
+    args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+            *wave[3:], kf, vf)
+    kw = dict(zip(("k_scales", "v_scales"), kv_cache.layer_scales(cache, 1)))
+    kw = {k: v for k, v in kw.items() if v is not None}
+    flag = torch.tensor([q == f and 0 < q <= 5 for _, q, f in _VERIFY_SLOTS],
+                        dtype=torch.bool, device="cuda")
+    return cache, rows, wave, args, kw, flag
+
+
+def _flagged_plain(args, kw, flag, int8):
+    """K11's plain version of the flagged wave: the fresh rows zeroed where
+    non-finite, then through the pool (``fresh_through_pool``)."""
+    kf, vf = k11.fresh_through_pool(*args[8:10], flag, args[5], args[6],
+                                    int8, args[1].dtype)
+    return k11.ragged_paged_attention_reference(*args[:8], kf, vf, **kw)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_forms_fresh_pool_read_match_plain(gen, int8, g):
+    """K11 and K3's ragged form with ``fresh_pool_read`` on a verify wave:
+    within the attention tolerance of their plain versions with the
+    roundtrip, rows of no segment zeros, K3's pools as the plain chain's;
+    on an int8 cache the flag moves the flagged slots' rows (the kernels'
+    flag-off output is further from the flagged plain version) and no
+    other row."""
+    cache, rows, wave, args, kw, flag = _verify_case(gen, g, int8)
+    out = k11.ragged_paged_attention_pure(*args, **kw, fresh_pool_read=flag)
+    ref = _flagged_plain(args, kw, flag, int8)
+    ck, cp = _copy(cache), _copy(cache)
+    out3, ck = k3.fused_rope_append_attend(*rows, ck, 1, *wave,
+                                           fresh_pool_read=flag)
+    ref3, cp = k3.ragged_reference(*rows, cp, 1, *wave, plain=True,
+                                   fresh_pool_read=flag)
+    torch.cuda.synchronize()
+    for o, r in ((out, ref), (out3, ref3)):
+        assert bool(((o.float() - r.float()).abs() <= _attn_tol(r)).all())
+        assert not o[~wave[2]].any()
+    if int8:
+        _int8_pools_check(ck, cp, cache, _written(cache, 1, wave))
+        off = k11.ragged_paged_attention_pure(*args, **kw)
+        off3, _ = k3.fused_rope_append_attend(*rows, _copy(cache), 1, *wave)
+        flagged = flag[wave[0].long().clamp(min=0)] & wave[2]
+        for o, o_off, r in ((out, off, ref), (out3, off3, ref3)):
+            d_on = (o.float() - r.float()).abs().amax()
+            d_off = (o_off.float() - r.float()).abs().amax()
+            assert d_off > d_on, (float(d_off), float(d_on))
+            moved = (o != o_off).any(dim=(1, 2))
+            assert moved[flagged].any() and not moved[~flagged].any()
+    else:
+        assert torch.equal(ck.k_pages, cp.k_pages)
+        assert torch.equal(ck.v_pages, cp.v_pages)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_fresh_pool_read_changes_no_bit_on_a_bf16_cache(gen, g):
+    """On a bf16 cache the roundtrip is the identity (a bf16 row cast to a
+    bf16 pool; K3's rotated k is already rounded to bf16): K11 and K3 with
+    the flag give the unflagged bits, K3's pools included."""
+    cache, rows, wave, args, kw, flag = _verify_case(gen, g, False)
+    assert torch.equal(
+        k11.ragged_paged_attention_pure(*args, fresh_pool_read=flag),
+        k11.ragged_paged_attention_pure(*args))
+    runs = []
+    for f in (flag, None):
+        c = _copy(cache)
+        out, c = k3.fused_rope_append_attend(*rows, c, 1, *wave,
+                                             fresh_pool_read=f)
+        runs.append((out, c.k_pages, c.v_pages))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_fresh_pool_read_forms_are_deterministic(gen, int8):
+    """Two calls with the flag give the same bits, K3's pools included."""
+    cache, rows, wave, args, kw, flag = _verify_case(gen, 4, int8, hk=8)
+    assert torch.equal(
+        k11.ragged_paged_attention_pure(*args, **kw, fresh_pool_read=flag),
+        k11.ragged_paged_attention_pure(*args, **kw, fresh_pool_read=flag))
+    runs = []
+    for _ in range(2):
+        c = _copy(cache)
+        out, c = k3.fused_rope_append_attend(*rows, c, 1, *wave,
+                                             fresh_pool_read=flag)
+        runs.append((out,) + tuple(
+            getattr(c, n) for n in ("k_pages", "v_pages", "k_scales",
+                                    "v_scales") if getattr(c, n) is not None))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_fresh_pool_read_malformed_flags_raise(gen):
+    """A flag of the wrong type, length or device, or not contiguous, is
+    refused by both wrappers before any launch."""
+    cache, rows, wave, args, kw, flag = _verify_case(gen, 4, True)
+    b = flag.shape[0]
+    bad = [flag.int(), flag[:-1].contiguous(),
+           torch.ones(b + 1, dtype=torch.bool, device="cuda"), flag.cpu(),
+           torch.ones(2 * b, dtype=torch.bool, device="cuda")[::2]]
+    n11, n3 = k11.launches, k3.ragged_launches
+    for f in bad:
+        with pytest.raises(ValueError):
+            k11.ragged_paged_attention_pure(*args, **kw, fresh_pool_read=f)
+        with pytest.raises(ValueError):
+            k3.fused_rope_append_attend(*rows, _copy(cache), 1, *wave,
+                                        fresh_pool_read=f)
+    assert (k11.launches, k3.ragged_launches) == (n11, n3)
 
 
 @pytest.mark.parametrize("g", [1, 4, 8])

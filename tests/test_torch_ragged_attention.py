@@ -346,10 +346,24 @@ def test_fused_ragged_entry_matches_jax_kernel(monkeypatch):
     np.testing.assert_allclose(_np(t_out), np.asarray(j_out), **TOL)
     _assert_same_cache(t_cache, j_cache, atol=3e-6)
     assert tfra.ragged_launches == 0
-    with pytest.raises(NotImplementedError):
-        tfra.fused_rope_append_attend(*(_t(a) for a in rows), tc, 0,
-                                      *(_t(a) for a in wave),
-                                      fresh_pool_read=torch.ones(3))
+    # the fresh_pool_read form (speculative verify) against the kernel's
+    # spec variant, on an f32 and on an int8 cache
+    fpr = np.asarray([True, False, True])
+    for int8 in (False, True):
+        jc, tc, rng = _caches(seed=12, int8=int8, cap=40)
+        rows, wave = _ragged_inputs(rng, jc)
+        n_calls = len(calls)
+        j_out, j_cache = jfra.fused_rope_append_attend(
+            *(jnp.asarray(a) for a in rows), jc, 0,
+            *(jnp.asarray(a) for a in wave),
+            fresh_pool_read=jnp.asarray(fpr))
+        assert len(calls) > n_calls, "the Pallas fused kernel did not run"
+        t_out, t_cache = tfra.fused_rope_append_attend(
+            *(_t(a) for a in rows), tc, 0, *(_t(a) for a in wave),
+            fresh_pool_read=torch.tensor(fpr))
+        np.testing.assert_allclose(_np(t_out), np.asarray(j_out), **TOL)
+        if not int8:
+            _assert_same_cache(t_cache, j_cache, atol=3e-6)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["kernel", "chain"])
