@@ -1630,8 +1630,8 @@ def _kernel_class(name):
         return "K5 flash_attention_bwd"
     if "rms_fwd_kernel" in name:
         return "K6 rms_norm_fwd"
-    if "rms_bwd_kernel" in name:
-        return "K7 rms_norm_bwd"
+    if "rms_bwd_kernel" in name or "rms_dw_sum_kernel" in name:
+        return "K7 rms_norm_bwd"  # a call: the row kernel and the dw sum
     if "adamw8bit_kernel" in name:
         return "K8 adamw8bit"
     if "GroupWalk" in name:  # quant_wgmma_kernel<..., GroupWalk<BN>>
@@ -2671,7 +2671,8 @@ def check_flash_bwd(torch, timer, k1):
 
 
 def check_rms_norm(torch, timer, k67):
-    """K6 and K7 at the final norm's train shape: (B*S, 4096) bf16."""
+    """K6 and K7 at the final norm's train shape: (B*S, 4096) bf16; K7
+    two calls bitwise equal (its dw partials summed in a fixed order)."""
     n, hdim, eps = TB * TS, 4096, 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
     x, gr = (torch.randn((n, hdim), generator=g, device="cuda",
@@ -2690,6 +2691,8 @@ def check_rms_norm(torch, timer, k67):
              "dw": ((dw - r_dw).abs() / t_dw).max().item()}
     log(f"K6/K7 worst err/tol {worst}")
     assert max(worst.values()) < 1.0, f"rms_norm worst err/tol {worst}"
+    assert _same_bits(torch, lambda: k67.rms_norm_bwd(x, w, rstd, gr)), (
+        "K7: two calls differ")
     err6 = (out.float() - r_out.float()).abs().max().item()
     err7 = (dx.float() - r_dx.float()).abs().max().item()
     rms_norm = torch.nn.functional.rms_norm
@@ -3949,7 +3952,8 @@ def _ptxas_key(wd, group_wise, bn):
 def ptxas_quant_report():
     """{form: {registers, spill_stores, spill_loads}} of K13's int8/int4
     instantiations (``quant_wgmma_kernel<false, WT, SM, GroupWalk<BN>>``)
-    from the build log."""
+    and of K4's group-wise ones (``... TileWalk<128>`` with kGroup, keys
+    led by "K4 ") from the build log."""
     from paddle_tpu_torch.ops.kernels import _build
 
     log = (_build.library_path().parent / "build.log").read_text()
@@ -3957,11 +3961,13 @@ def ptxas_quant_report():
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            g = re.search(r"quant_wgmma_kernelILb0ELi(\d)ELi(\d)ENS\d_9"
-                          r"GroupWalkILi(\d+)", m.group(1))
-            cur = (_ptxas_key("int8" if g.group(1) == "1" else "int4",
-                              g.group(2) == "2", int(g.group(3)))
-                   if g else None)
+            g = re.search(r"quant_wgmma_kernelILb0ELi(\d)ELi(\d)ENS\d_"
+                          r"(9Group|8Tile)WalkILi(\d+)", m.group(1))
+            k4 = g is not None and g.group(3) == "8Tile"
+            cur = (("K4 " if k4 else "") + _ptxas_key(
+                "int8" if g.group(1) == "1" else "int4", g.group(2) == "2",
+                int(g.group(4)))
+                   if g and (not k4 or g.group(2) == "2") else None)
             continue
         if cur is None:
             continue
@@ -3974,6 +3980,17 @@ def ptxas_quant_report():
         if m:
             rep.setdefault(cur, {})["registers"] = int(m.group(1))
     return rep
+
+
+def check_group_wise_spills(ptxas):
+    """Every kGroup instance (K13's and K4's int8/int4 group-wise forms)
+    built without spills: its partial sum and total (2 x 64 f32) fit the
+    consumers' registers beside the conversion."""
+    group_wise = {k: v for k, v in ptxas.items() if "kGroup" in k}
+    assert len(group_wise) == 4, f"kGroup instances in the build log: {ptxas}"
+    spilled = {k: v for k, v in group_wise.items()
+               if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    assert not spilled, f"kGroup instances spill: {spilled}"
 
 
 def check_grouped_matmul_quant(torch, timer, gm):
@@ -3999,7 +4016,8 @@ def check_grouped_matmul_quant(torch, timer, gm):
     ends = off[1:].contiguous()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas = ptxas_quant_report()
-    log(f"K13 int8/int4 ptxas: {ptxas}")
+    log(f"K13 / K4 int8/int4 ptxas: {ptxas}")
+    check_group_wise_spills(ptxas)
     cases = {}
     for wd, gs in MOE_QUANT_FORMS:
         for kdim, n in ((4096, 14336), (14336, 4096)):

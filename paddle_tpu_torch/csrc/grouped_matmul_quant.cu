@@ -15,8 +15,11 @@
 // its high one), become an exact bf16 B tile in shared memory and meet x
 // in wgmma with f32 accumulation; a per-channel scale multiplies the f32
 // sum once at the flush (kEnd, 128 x 256 tiles), a group-wise scale each
-// K-group's partial sum (kGroup, 128 x 128 tiles, a second accumulator
-// set). Every product x * code is exact, so the only roundings are the
+// K-group's partial sum (kGroup, 128 x 128 tiles and a second register set
+// for the total: at a group's end the consumers first convert the next
+// group's first slice, then wait for the group's wgmmas and fold its sum
+// with the scale row the producer staged beside its last slice).
+// Every product x * code is exact, so the only roundings are the
 // f32 sums and the one bf16 rounding of each output, closer to the TPU's
 // f32 arithmetic than rounding each dequantized weight to bf16. An item
 // writes rows [lo, hi) only: the other step of a row tile that straddles

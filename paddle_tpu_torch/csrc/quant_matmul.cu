@@ -22,8 +22,10 @@
 //     with K2's tiled forms): the raw codes ride a TMA ring beside x,
 //     the two consumer warpgroups turn each slice's codes into a bf16 B
 //     tile in shared memory and run wgmma on it, 128 x 256 tiles per
-//     channel, 128 x 128 group-wise (a second accumulator set), on a
-//     persistent banded grid; bound by tensor-core operations (2*M*K*N).
+//     channel, 128 x 128 group-wise (each group's partial sum folded into
+//     a second register set, after the next group's first slice is
+//     converted), on a persistent banded grid; bound by tensor-core
+//     operations (2*M*K*N).
 #include "skinny_tiles.cuh"
 
 using namespace pt::mm;

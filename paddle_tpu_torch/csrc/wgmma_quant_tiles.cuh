@@ -50,12 +50,38 @@
 // s may reuse only slice s - 3's buffer.
 //
 // Scales: kEnd multiplies the f32 sum by its column's scale once, in the
-// epilogue (_qmm_kernel's flush); kGroup multiplies each K-group's f32
-// partial sum by its scales before it joins a second accumulator set
-// (so a 128-wide tile: 64 + 64 registers), waiting for the group's
-// wgmmas at each group's end; kTile scales inside the B tile. Tiles are
-// 256 wide, or 128 where 256-wide ones would fill at most half the SMs
-// (block_n, every form but kGroup). The epilogue writes 16-byte bf16
+// epilogue (_qmm_kernel's flush); kTile scales inside the B tile. kGroup
+// (K4's and K13's group-wise forms) multiplies each K-group's f32 partial
+// sum by its f32 scales before it joins the total (a second register set,
+// tot), so the partial sum must be complete, its wgmmas waited for, at
+// every group's end. What it does about that wait:
+//   - the wait comes late: a group's first slice is converted and met at
+//     the named barrier first, so its conversion overlaps the last
+//     slice's wgmmas, and only then do the consumers wait for those
+//     (wgmma_wait<0>), fold the partial sum into tot (64 FMAs a thread)
+//     and issue the slice, whose first k16 overwrites the sum (scale-d
+//     0: no zeroing);
+//   - the group's scale row rides the ring: the producer bulk-copies
+//     columns n0 .. n0 + 127 of it beside the group's last slice, on that
+//     stage's full barrier, and the fold reads it from shared memory (no
+//     global load after the wait). That stage is released after the fold,
+//     by each consumer warp (its empty barrier counts the 8 warps), so no
+//     warp's scale reads race the producer's next copy;
+//   - a group's slices are unrolled (64 or 128 wide: 1 or 2 slices).
+// Two partial-sum sets used by alternate groups, each folded while the
+// next group's wgmmas run, would need no wait at all, but ptxas then
+// serializes every wgmma (C7514: a non-wgmma instruction reads
+// accumulator registers inside the pipeline stage, also with the sets
+// pinned by fence_operand and the loop entered and left with the same
+// set in flight): 6.0-6.2 ms at the MoE shapes against this design's
+// 4.5-4.8 (H100 80GB HBM3, 700 W), and three sets spill 36-220 bytes.
+// Also slower there: folding in one warpgroup before the barrier and in
+// the other after it, the scale row loaded into registers before the
+// barrier, and splitting the first slice into two m64n64 halves around
+// the fold. Tiles stay 128 wide: a 256-wide tile's partial sum and total
+// would be 256 registers a thread, past the 255 limit.
+// Tiles are otherwise 256 wide, or 128 where 256-wide ones would fill at
+// most half the SMs (block_n). The epilogue writes 16-byte bf16
 // vectors from the registers (as K13); rows past M and columns past N,
 // which TMA read as zeros, are not written.
 //
@@ -75,13 +101,16 @@
 // give the same bits.
 //
 // Shared memory: STAGES x (16 KB of x + the W slice), plus three B tiles
-// when quantized: 193 KB dense at BN = 256, 225 KB int8. Registers
+// when quantized (kGroup: and STAGES scale rows of 512 bytes): 193 KB
+// dense at BN = 256, 225 KB int8, 147 KB int8 kGroup. Registers
 // (setmaxnreg): producer warpgroup 40, or 104 with the normalizers;
 // consumers 232, or 192 (faster at every K2 shape than 88 / 200). Bound on an H100: tensor-core operations at
 // prefill and train (2 M K N bf16 products); the norm adds a 16 KB read
 // and write of shared memory a slice to wgmma's reads, the conversion a
 // 32 KB write and a 16 KB (int8) read.
 #pragma once
+
+#include <type_traits>
 
 #include "grouped_tiles.cuh"
 #include "matmul_tiles.cuh"
@@ -123,7 +152,16 @@ struct Geo {
   // a consumer thread's 8-byte code pieces a slice, and a box's
   static constexpr int PIECES = CODE_BOXES * CODE_BOX_BYTES / 8 / CONSUMERS;
   static constexpr int BOX_PIECES = CODE_BOX_BYTES / 8 / CONSUMERS;
+  // kGroup: a stage's f32 scale row (the tile's columns), after the B tiles
+  static constexpr int SROW_BYTES = BN * 4;
 };
+
+// The kernel's dynamic shared memory
+template <int WT, int SM, int BN>
+constexpr int smem_bytes() {
+  using G = Geo<WT, BN>;
+  return G::SMEM_BYTES + (SM == kGroup ? STAGES * G::SROW_BYTES : 0);
+}
 
 // the row tiles whose x rows fill ~16 MB of L2 together (K13's band)
 inline int band_for(int K) {
@@ -294,8 +332,10 @@ __device__ __forceinline__ void normalize(unsigned char* a, const bf16* __restri
 
 // ---- wgmma and the epilogue ---------------------------------------------------
 
-// d (64 x 128 f32) += A (64 x 16, K-major) . B (16 x 128, MN-major)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// d (64 x 128 f32) = A (64 x 16, K-major) . B (16 x 128, MN-major) + d,
+// or without the "+ d" where accumulate is 0
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -315,13 +355,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // one slice's four k16 steps: A K-major (32 bytes a step), B MN-major
-// (2048 bytes a step)
+// (2048 bytes a step); fresh (m64n128 only): the first step overwrites d
 template <int NACC>
-__device__ __forceinline__ void mma_slice(float (&d)[NACC], const void* a, const void* b) {
+__device__ __forceinline__ void mma_slice(float (&d)[NACC], const void* a, const void* b,
+                                          bool fresh = false) {
   const uint64_t da = wg::operand_desc<false>(a), db = wg::operand_desc<true>(b);
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
@@ -330,7 +371,32 @@ __device__ __forceinline__ void mma_slice(float (&d)[NACC], const void* a, const
     if constexpr (NACC == 128)
       wg::wgmma_m64n256k16<0, 1>(d, ka, kb);
     else
-      wgmma_m64n128k16(d, ka, kb);
+      wgmma_m64n128k16(d, ka, kb, kk > 0 || !fresh);
+  }
+}
+
+// Pin d's registers here: the compiler may not move a read or a write of
+// them across this point, so a wgmma's accumulators are touched only
+// after the wait that retires it
+template <int NACC>
+__device__ __forceinline__ void fence_operand(float (&d)[NACC]) {
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) asm volatile("" : "+f"(d[j])::"memory");
+}
+
+// kGroup: tot += d * the group's f32 scales (srow: the tile's scale row
+// in shared memory; column 8 j + 2 q + e of d[4 j + 2 h + e], q = t % 4)
+template <int NACC>
+__device__ __forceinline__ void fold(float (&tot)[NACC], const float (&d)[NACC], const float* srow,
+                                     int q) {
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    const float2 s = *reinterpret_cast<const float2*>(srow + 8 * j + 2 * q);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tot[4 * j + 2 * h] = fmaf(d[4 * j + 2 * h], s.x, tot[4 * j + 2 * h]);
+      tot[4 * j + 2 * h + 1] = fmaf(d[4 * j + 2 * h + 1], s.y, tot[4 * j + 2 * h + 1]);
+    }
   }
 }
 
@@ -339,6 +405,83 @@ __device__ __forceinline__ float2 scales2(const float* __restrict__ scales, int 
                                           int N) {
   return n < N ? __ldg(reinterpret_cast<const float2*>(scales + (size_t)srow * N + n))
                : make_float2(0.f, 0.f);
+}
+
+// ---- kGroup's consumers ------------------------------------------------------
+
+// Consumer warpgroup c's side of every live item of a kGroup form (the
+// header's kGroup notes): one partial-sum set acc and the total tot. A
+// group's first slice is converted and met at the named barrier before
+// the consumers wait for the group before it; that wait, the fold of acc
+// (times the scale row staged with the group's last slice) into tot and
+// the release of that slice's stage come after, and the slice's first
+// wgmma overwrites acc (scale-d 0). Each consumer warp releases a stage.
+template <class G, int WT, class Walk>
+__device__ __forceinline__ void consume_grouped(const Walk& walk, uint64_t* full, uint64_t* empty,
+                                                unsigned char* ring, unsigned char* btiles,
+                                                const float* srows, bf16* __restrict__ y, int K,
+                                                int N, int gs, int c, int t) {
+  const int n_items = walk.n_items(), n_g = K / gs, q = t % 4;
+  const bool signals = t % 32 == 0;
+  const uint32_t no_scales[G::CODE_BOXES][4] = {};
+  float acc[G::NACC], tot[G::NACC];
+  int stage = 0, buf = 0, prev = -1;
+  uint32_t phase = 0;
+  auto release = [&](int s) {  // this warp's reads of stage s are done
+    __syncwarp();
+    if (signals) wg::mbar_arrive(&empty[s]);
+  };
+  auto fold_prev = [&] {  // acc's group is done: tot += acc * its scales
+    wg::wgmma_wait<0>();
+    fence_operand(acc);
+    fold(tot, acc, srows + prev * (G::SROW_BYTES / 4), q);
+    release(prev);
+  };
+  // PER (the slices of a group) at compile time: the group's slices unrolled
+  auto run = [&](auto per_c) {
+    constexpr int PER = decltype(per_c)::value;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      const Item it = walk.item(i);
+      if (!it.live) continue;  // a parked step: no slice came, none to release
+#pragma unroll
+      for (int j = 0; j < G::NACC; ++j) tot[j] = 0.f;
+      prev = -1;
+      for (int j = 0; j < n_g; ++j) {
+#pragma unroll
+        for (int s = 0; s < PER; ++s) {
+          wg::mbar_wait(&full[stage], phase);
+          unsigned char* st = ring + stage * G::STAGE_BYTES;
+          unsigned char* bt = btiles + buf * G::B_BYTES;
+          dequant<G, WT, false>(st + G::A_BYTES, bt, t, no_scales);
+          wg::fence_proxy_async();
+          wg::named_barrier(1, CONSUMERS);
+          if (s == 0 && j > 0) fold_prev(), prev = -1;
+          fence_operand(acc);
+          wg::wgmma_fence();
+          mma_slice(acc, st + c * wg::BOX_BYTES, bt, s == 0);
+          wg::wgmma_commit();
+          fence_operand(acc);
+          wg::wgmma_wait<1>();  // the slice before is done: free its stage
+          if (prev >= 0) release(prev);
+          prev = stage;
+          if (++stage == STAGES) stage = 0, phase ^= 1;
+          if (++buf == B_BUFS) buf = 0;
+        }
+      }
+      fold_prev();  // the tile's last group
+
+      const int r0 = it.tile * BM + 64 * c, n0 = it.nt * G::BN;
+      wg::store_bf16(tot, wg::Uniform{1.f}, [&](int r, int col, uint4 v) {
+        const int row = r0 + r, cc = n0 + col;
+        if (row >= it.lo && row < it.hi && cc < N)
+          *reinterpret_cast<uint4*>(y + (size_t)row * N + cc) = v;
+      });
+    }
+  };
+  if (gs == 2 * BK)
+    run(std::integral_constant<int, 2>{});
+  else
+    run(std::integral_constant<int, 1>{});
 }
 
 // ---- the kernel -----------------------------------------------------------------
@@ -351,18 +494,21 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
                    const float* __restrict__ scales, bf16* __restrict__ y, const Walk walk, int K,
                    int N, int gs, long sstride) {
   using G = Geo<WT, Walk::BN>;
-  static_assert(SM != kGroup || Walk::BN == 128, "kGroup holds a second accumulator set");
-  static_assert(!(G::DENSE && Walk::GROUPED), "K13's bf16 forms run wgmma_tiles.cuh");
   constexpr bool GROUP = SM == kGroup, TILE_SCALE = SM == kTile && !G::DENSE;
+  static_assert(!GROUP || (Walk::BN == 128 && !NORM), "kGroup: a partial sum and a total, K4/K13");
+  static_assert(!(G::DENSE && Walk::GROUPED), "K13's bf16 forms run wgmma_tiles.cuh");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], normed[STAGES];
   unsigned char* ring = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* btiles = ring + STAGES * G::STAGE_BYTES;
+  // kGroup: stage s's scale row (the group's, beside its last slice)
+  float* srows = reinterpret_cast<float*>(btiles + B_BUFS * G::B_BYTES);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(&full[s], 1);              // the producer's arrive + the stage's bytes
-      wg::mbar_init(&empty[s], 2);             // one arrive per consumer warpgroup
+      wg::mbar_init(&full[s], 1);  // the producer's arrive + the stage's bytes
+      // one arrive per consumer warpgroup; kGroup: per consumer warp
+      wg::mbar_init(&empty[s], GROUP ? CONSUMERS / 32 : 2);
       wg::mbar_init(&normed[s], NORMALIZERS);  // NORM: one arrive per normalizer
     }
     wg::fence_barrier_init();
@@ -399,9 +545,12 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
       const Item it = walk.item(i);
       const int kts = it.live ? n_k : 0;  // a parked step loads nothing
+      // kGroup: the scale row's columns of this tile (a multiple of 16)
+      const int srow_bytes = GROUP ? min(G::BN, N - it.nt * G::BN) * 4 : 0;
       for (int kt = 0; kt < kts; ++kt) {
+        const bool group_end = GROUP && (kt + 1) * BK % gs == 0;
         wg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds it free
-        wg::mbar_arrive_expect_tx(&full[stage], G::STAGE_BYTES);
+        wg::mbar_arrive_expect_tx(&full[stage], G::STAGE_BYTES + (group_end ? srow_bytes : 0));
         unsigned char* st = ring + stage * G::STAGE_BYTES;
         wg::tma_load_2d(st, &tx, &full[stage], kt * BK, it.tile * BM);  // x rows: 128 x 64
         if constexpr (G::DENSE) {
@@ -420,6 +569,12 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
               wg::tma_load_2d(dst, &tb, &full[stage], c0, c1);
           }
         }
+        if constexpr (GROUP) {
+          if (group_end)  // the group's scale row, columns n0 ..
+            wg::bulk_load(srows + stage * (G::SROW_BYTES / 4),
+                          scales + it.group * sstride + (size_t)(kt * BK / gs) * N + it.nt * G::BN,
+                          srow_bytes, &full[stage]);
+        }
         if (++stage == STAGES) stage = 0, phase ^= 1;
       }
     }
@@ -429,9 +584,12 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
   // consumer warpgroup c: rows 64 c .. 64 c + 63 of each tile
   wg::setmaxnreg_inc<NORM ? NORM_CONSUMER_REGS : wg::CONSUMER_REGS>();
   const int c = threadIdx.x / 128 - 1, t = threadIdx.x - 128, tw = t % 128;
+  if constexpr (GROUP) {
+    consume_grouped<G, WT>(walk, full, empty, ring, btiles, srows, y, K, N, gs, c, t);
+    return;
+  }
   const bool signals = tw == 0;
   float acc[G::NACC];
-  float tot[GROUP ? G::NACC : 1];
   uint32_t sc[G::CODE_BOXES][4];  // TILE_SCALE: this thread's column scales
   int stage = 0, buf = 0;
   uint32_t phase = 0;
@@ -456,10 +614,6 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     }
 #pragma unroll
     for (int j = 0; j < G::NACC; ++j) acc[j] = 0.f;
-    if constexpr (GROUP) {
-#pragma unroll
-      for (int j = 0; j < G::NACC; ++j) tot[j] = 0.f;
-    }
     int prev = -1;
     for (int kt = 0; kt < n_k; ++kt) {
       wg::mbar_wait(&full[stage], phase);
@@ -479,36 +633,9 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
       wg::wgmma_fence();
       mma_slice(acc, st + c * wg::BOX_BYTES, bt);
       wg::wgmma_commit();
-      bool flushed = false;
-      if constexpr (GROUP) {
-        if ((kt + 1) * BK % gs == 0) {
-          // the group's last slice: its f32 sum times its scales joins tot
-          wg::wgmma_wait<0>();
-          if (signals) {
-            if (prev >= 0) wg::mbar_arrive(&empty[prev]);
-            wg::mbar_arrive(&empty[stage]);
-          }
-          prev = -1;
-          flushed = true;
-          const int srow = kt * BK / gs, q = tw % 4;
-#pragma unroll
-          for (int j = 0; j < G::NACC / 4; ++j) {
-            const float2 s = scales2(scl, srow, n0 + 8 * j + 2 * q, N);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              tot[4 * j + 2 * h] += acc[4 * j + 2 * h] * s.x;
-              tot[4 * j + 2 * h + 1] += acc[4 * j + 2 * h + 1] * s.y;
-              acc[4 * j + 2 * h] = 0.f;
-              acc[4 * j + 2 * h + 1] = 0.f;
-            }
-          }
-        }
-      }
-      if (!flushed) {
-        wg::wgmma_wait<1>();  // the slice before is done: free its stage
-        if (prev >= 0 && signals) wg::mbar_arrive(&empty[prev]);
-        prev = stage;
-      }
+      wg::wgmma_wait<1>();  // the slice before is done: free its stage
+      if (prev >= 0 && signals) wg::mbar_arrive(&empty[prev]);
+      prev = stage;
       if (++stage == STAGES) stage = 0, phase ^= 1;
       if (++buf == B_BUFS) buf = 0;
     }
@@ -521,9 +648,7 @@ quant_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
       if (row >= it.lo && row < it.hi && cc < N)
         *reinterpret_cast<uint4*>(y + (size_t)row * N + cc) = v;
     };
-    if constexpr (GROUP)
-      wg::store_bf16(tot, wg::Uniform{1.f}, put);
-    else if constexpr (SM == kEnd)  // the column's scale times the f32 sum, once
+    if constexpr (SM == kEnd)  // the column's scale times the f32 sum, once
       wg::store_bf16(acc, [&](int col) { return scales2(scl, 0, n0 + col, N); }, put);
     else
       wg::store_bf16(acc, wg::Uniform{1.f}, put);
@@ -583,7 +708,8 @@ cudaError_t launch_bn(const void* x, const void* nw, const float* rstd, const vo
   if (err != cudaSuccess) return err;
   const TileWalk<BN> walk{M, N, band_for(K)};
   return wg::launch_persistent(quant_wgmma_kernel<NORM, WT, SM, TileWalk<BN>>, walk.n_items(),
-                               G::SMEM_BYTES, stream, tx, tb, static_cast<const bf16*>(nw), rstd,
+                               smem_bytes<WT, SM, BN>(), stream, tx, tb,
+                               static_cast<const bf16*>(nw), rstd,
                                static_cast<const float*>(scales), static_cast<bf16*>(y), walk, K, N,
                                gs, 0L);
 }
@@ -607,13 +733,13 @@ cudaError_t launch_grouped(const void* x, const int* offsets, const void* codes,
   const GroupWalk<BN> walk{offsets, T, N, E, band_for(K)};
   const long sstride = (long)(SM == kGroup ? K / gs : 1) * N;
   return wg::launch_persistent(quant_wgmma_kernel<false, WT, SM, GroupWalk<BN>>, walk.n_items(),
-                               G::SMEM_BYTES, stream, tx, tb, static_cast<const bf16*>(nullptr),
-                               static_cast<const float*>(nullptr), scales,
-                               static_cast<bf16*>(y), walk, K, N, gs, sstride);
+                               smem_bytes<WT, SM, BN>(), stream, tx, tb,
+                               static_cast<const bf16*>(nullptr), static_cast<const float*>(nullptr),
+                               scales, static_cast<bf16*>(y), walk, K, N, gs, sstride);
 }
 
 // The block tile's columns, the one rule for every form: 128 for kGroup
-// (its second accumulator set) and where 256-wide tiles would fill at most
+// (its partial sum and total) and where 256-wide tiles would fill at most
 // half the SMs (K2's k/v projections at prefill, q and k/v in the
 // batcher's waves), else 256
 inline int block_n(int M, int N, int sm, int sms) {
@@ -623,7 +749,7 @@ inline int block_n(int M, int N, int sm, int sms) {
 // y (M, N) bf16 = A @ B for M > 16 on a persistent grid; w: the dense
 // bf16 W (WT kBf16, SM kTile) or the codes; rstd (NORM): M floats from
 // norm_rstd_kernel. Requires K % 128 == 0, K % gs == 0, N % 8 == 0 (dense)
-// or N % 16 == 0, and 16-byte-aligned x and w.
+// or N % 16 == 0, and 16-byte-aligned x and w (kGroup: and scales).
 template <bool NORM, int WT, int SM>
 cudaError_t launch(const void* x, const void* nw, const float* rstd, const void* w,
                    const void* scales, void* y, int M, int K, int N, int gs, cudaStream_t stream) {

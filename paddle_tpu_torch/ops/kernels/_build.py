@@ -56,7 +56,7 @@ _SIGNATURES = {
     "pt_flash_attention_bwd_fused": [_P] * 12 + [_I] * 7 + [_F, _P],
     "pt_rope": [_P] * 4 + [_I] * 5 + [_P],
     "pt_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _P],
-    "pt_rms_norm_bwd": [_P] * 6 + [_I, _I, _P],
+    "pt_rms_norm_bwd": [_P] * 7 + [_I, _I, _I, _P],
     "pt_adamw8bit": [_P, _I] + [_P] * 6 + [_L] + [_F] * 9 + [_I, _P],
     "pt_grouped_matmul": [_P] * 4 + [_I] * 5 + [_P],
     "pt_group_tile_walk": [_P] + [_I] * 6 + [_P] * 5,

@@ -3,8 +3,14 @@
 Kernel K6 (``csrc/rms_norm.cu``, ``pt_rms_norm_fwd``) replaces the TPU's
 ``_pallas_rms_fwd``: out = bf16((x * rstd) * w), rounded once, saving rstd.
 Kernel K7 (``pt_rms_norm_bwd``) replaces ``_pallas_rms_bwd``:
-dx = rstd * (g*w - xhat * mean(g*w*xhat)) and per-block dw partials, summed
-here. Bound: bytes (one read of x and g, one write of out or dx).
+dx = rstd * (g*w - xhat * mean(g*w*xhat)) and dw = sum_rows(g * xhat), in
+two launches of one entry point (booked together as K7, one count a
+call): ``rms_bwd_kernel`` on min(N, SMs) CTAs, each a run of rows whose x
+and g stream into a ring of shared-memory row slots (a warp reduces a
+row with shuffles and writes its dx; every thread keeps its columns' dw
+partial), then ``rms_dw_sum_kernel``, which sums the CTAs' partials in a
+fixed order (``bwd_plan`` models the split). Bound: bytes (one read of x
+and g, one write of out or dx).
 
 ``fused_rms_norm`` is the ``autograd.Function`` over the two: on CUDA
 tensors the wrappers launch their kernel or raise, on CPU tensors they run
@@ -22,8 +28,6 @@ the JAX package's ``fused_rope``, no model path calls it. Bound: bytes.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from . import _build
@@ -37,8 +41,24 @@ rope_launches = 0
 
 #: the kernels hold a row in registers: H <= 256 threads * 8 * 4 vectors
 _MAX_H = 8192
-#: rows per K7 block (one dw partial row each)
-_BWD_ROWS = 32
+#: the H100's SMs: K7's grid is min(N, SMs) CTAs
+H100_SMS = 132
+#: K7's ring of row slots (``bwd_slots`` in ``csrc/rms_norm.cu``): each
+#: slot holds a row of x and of g (4H bytes), ~128 KB in all, 2 to 16
+_SLOT_BUDGET, _MAX_SLOTS = 128 << 10, 16
+
+
+def bwd_plan(n, h, sms=H100_SMS):
+    """K7's split of N rows of width H: (grid, slots, [(first row, rows)]
+    of each CTA). The grid is min(N, SMs); CTA b takes rows
+    N b / grid .. N (b + 1) / grid (floor), contiguous and in order, and
+    writes one dw partial row; ``slots`` rows of x and g are in flight
+    in its shared memory."""
+    grid = min(n, sms)
+    slots = min(max(_SLOT_BUDGET // (4 * h), 2), _MAX_SLOTS)
+    runs = [(n * b // grid, n * (b + 1) // grid - n * b // grid)
+            for b in range(grid)]
+    return grid, slots, runs
 
 
 def rms_norm_fwd_reference(x2, w, eps):
@@ -107,8 +127,8 @@ def rms_norm_fwd(x2, w, eps):
 
 
 def rms_norm_bwd(x2, w, rstd, g2):
-    """(dx, dw f32) — K7 on CUDA tensors (its per-block dw partials summed
-    here), the plain version on CPU tensors."""
+    """(dx, dw f32) — K7 on CUDA tensors (its CTAs' dw partials summed by
+    its second kernel), the plain version on CPU tensors."""
     global bwd_launches
     if not x2.is_cuda:
         return rms_norm_bwd_reference(x2, w, rstd, g2)
@@ -117,13 +137,18 @@ def rms_norm_bwd(x2, w, rstd, g2):
     _build.check_cuda("rstd", rstd, torch.float32, (n,))
     _build.check_cuda("g", g2, torch.bfloat16, (n, h))
     dx = torch.empty_like(x2)
-    parts = torch.empty((math.ceil(n / _BWD_ROWS), h), dtype=torch.float32,
-                        device=x2.device)
+    if not n:
+        return dx, torch.zeros((h,), dtype=torch.float32, device=x2.device)
+    dw = torch.empty((h,), dtype=torch.float32, device=x2.device)
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    grid = bwd_plan(n, h, sms)[0]
+    parts = torch.empty((grid, h), dtype=torch.float32, device=x2.device)
     _build.launch("pt_rms_norm_bwd", x2.data_ptr(), w.data_ptr(),
                   rstd.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-                  parts.data_ptr(), n, h, _build.stream_of(x2))
+                  parts.data_ptr(), dw.data_ptr(), n, h, grid,
+                  _build.stream_of(x2))
     bwd_launches += 1
-    return dx, parts.sum(dim=0)
+    return dx, dw
 
 
 class _FusedRMSNorm(torch.autograd.Function):

@@ -261,6 +261,7 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     ``core_attn`` with ``flash_save_residuals``: the first forward's
     (out, lse) are kept), K5 or K9 once per attend node (K9 where the
     backward's dispatch picks it at ``attn_shape``); the final norm in K6/K7
+    (one K7 count is one call: its row kernel and its dw sum kernel)
     when the head runs in the chunked loss (``fused_head_loss``), else in
     K2 through the head plan; one K8 per parameter tensor (``n_params``)
     for AdamW8bit with ``optimizer_update``. With no family enabled

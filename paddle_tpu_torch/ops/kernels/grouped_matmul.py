@@ -72,7 +72,7 @@ DW_EPILOGUE_OPS = ("scale", "cast")
 
 def quant_tile_n(group_size=-1):
     """The column tile of K13's int8/int4 forms: 128 group-wise (its
-    second accumulator set), else 256."""
+    partial sum and its total, 2 x 64 registers), else 256."""
     return 128 if group_size > 0 else TILE_N
 
 

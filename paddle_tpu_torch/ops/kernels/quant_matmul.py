@@ -94,7 +94,7 @@ def block_n(m, n, group_size=-1, fused_norm=False, sms=H100_SMS):
     """The tiled body's block tile columns (``block_n`` in
     ``csrc/wgmma_quant_tiles.cuh``), one rule for K4 and for K2 with a
     dense or quantized W (``fused_norm``; K2 dense is ``block_n(m, n)``):
-    128 for K4's group-wise form (its second accumulator set) and where
+    128 for K4's group-wise form (its partial sum and total) and where
     256-wide tiles would fill at most half the SMs, else 256."""
     if group_size > 0 and not fused_norm:
         return 128

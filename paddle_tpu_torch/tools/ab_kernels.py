@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time K2, K3, K4, K10, K11, K13 and K14 of two checkouts of the port on one card, in turns.
+"""Time K2, K3, K4, K7, K10, K11, K13 and K14 of two checkouts of the port on one card, in turns.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --walk [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --ragged [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --batcher [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --decode [--rounds R]
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --quant [--rounds R]
 
 Each tree is the root of a checkout (the directory that holds
 ``paddle_tpu_torch/``), e.g. the parent commit unpacked with ``git
@@ -28,10 +29,14 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
     down_proj; and the int8 (per channel) forms at the int8 prefill's
     shapes, M = 1024: K4 (``quant_matmul_qw``) for o_proj and down_proj,
     K2 (``fused_norm_matmul_pure`` on a ``QuantizedWeight``) for gate/up,
-    q and k/v;
-  * K13 (forward 4096 -> 14336 and 14336 -> 4096, and the dX form) and
-    K14 (both weight shapes, bf16 out) at phase 10's: T = 16,384 rows
-    split over 8 experts as ``MOE_COUNTS`` below;
+    q and k/v; and K4's group-wise forms, int8 and int4 group 128, at
+    down_proj, M = 1024;
+  * K13 (forward 4096 -> 14336 and 14336 -> 4096, and the dX form), its
+    int8/int4 forms (``gmm_quant``, per channel and group 128, both
+    weight shapes, the experts quantized on the card) and K14 (both
+    weight shapes, bf16 out) at phase 10's: T = 16,384 rows split over 8
+    experts as ``MOE_COUNTS`` below;
+  * K7 (``rms_norm_bwd``) at the train step's final norm, 8192 x 4096;
   * the page-walk kernels at phase 3's shapes (B = 8, 32/8 heads): K3's
     decode form at the first decode step (bf16 cache, page 16, lengths
     128) and on the int8 cache (page 32, lengths 120-159), K3's masked form
@@ -54,7 +59,10 @@ a spin kernel holding the stream while the host enqueues (as
 serves ``chip_smoke.py``'s phase-6 requests through the continuous batcher
 (Llama-3-8B, random bf16 weights, fused and unfused attention) and reads
 the untraced wall seconds of each plan (median of 3 runs after a
-warm-up). With ``--decode`` each turn runs phases 4 and 5's solo serving
+warm-up). With ``--quant`` each turn times only what the tiled
+quantized body and K7 touch: K2's dense tiled path (M = 264, 1024, 8192),
+the weight-only forms above, K13's int8/int4 forms and K7. With
+``--decode`` each turn runs phases 4 and 5's solo serving
 (Llama-3-8B, B = 8, prompt 128, 32 new tokens; bf16, then the model
 quantized to int8 weights with an int8 cache at page 32) and reads the
 untraced decode ms per step: the median of 3 full rollouts less the
@@ -91,7 +99,13 @@ QUANT_SHAPES = [("K2", 8, 4096, n, "int8", -1) for n in (1024, 4096, 14336,
     ("K4", 8, 14336, 4096, "int4", 128),
     ("K4", 1024, 4096, 4096, "int8", -1), ("K4", 1024, 14336, 4096, "int8", -1),
     ("K2", 1024, 4096, 14336, "int8", -1), ("K2", 1024, 4096, 4096, "int8", -1),
-    ("K2", 1024, 4096, 1024, "int8", -1)]
+    ("K2", 1024, 4096, 1024, "int8", -1),
+    ("K4", 1024, 14336, 4096, "int8", 128),
+    ("K4", 1024, 14336, 4096, "int4", 128)]
+#: K13's int8/int4 forms (weight type, group size) at both weight shapes
+GMM_QUANT_FORMS = [(wd, gs) for wd in ("int8", "int4") for gs in (-1, 128)]
+#: K7's shape: the train step's final norm (B * S rows of the hidden size)
+K7_SHAPE = (8192, 4096)
 #: the K4 call whose host time is read: decode's down_proj
 K4_HOST = (8, 14336, 4096)
 
@@ -310,15 +324,98 @@ def child_walk() -> None:
         print(json.dumps(_walk_times(torch, flush)), flush=True)
 
 
-def child() -> None:
-    import itertools
+def _k2_times(torch, flush, rnd, g, shapes):
+    from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
 
+    out = {}
+    for m, kdim, n in shapes:
+        x, w = rnd(m, kdim), rnd(kdim, n, scale=kdim ** -0.5)
+        nw = (torch.rand((kdim,), generator=g, device="cuda")
+              + 0.5).to(torch.bfloat16)
+        out[f"K2 M{m} K{kdim} N{n}"] = _cold_ms(
+            torch, flush, lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
+        if (m, n) in K2_HOST:
+            out[f"K2 host_us M{m} K{kdim} N{n}"] = _host_us(
+                torch, lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
+        del x, w
+    return out
+
+
+def _quant_times(torch, flush, rnd, g):
+    from paddle_tpu_torch.ops.extra_vision import _weight_quantize_pure
+    from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
+    from paddle_tpu_torch.ops.kernels import quant_matmul as k4
+
+    out = {}
+    for kind, m, kdim, n, wd, gs in QUANT_SHAPES:
+        x = rnd(m, kdim)
+        codes, scales = _weight_quantize_pure(
+            rnd(kdim, n, scale=kdim ** -0.5).float(),
+            f"weight_only_{wd}", gs)
+        qw = k4.QuantizedWeight(codes, scales, wd, gs, (kdim, n))
+        nw = (torch.rand((kdim,), generator=g, device="cuda")
+              + 0.5).to(torch.bfloat16)
+        fn = ((lambda: k4.quant_matmul_qw(x, qw)) if kind == "K4" else
+              (lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)))
+        form = wd if gs < 0 else f"{wd} g{gs}"
+        out[f"{kind} {form} M{m} K{kdim} N{n}"] = _cold_ms(torch, flush, fn)
+        if kind == "K4" and (m, kdim, n) == K4_HOST and gs < 0:
+            out[f"K4 host_us M{m} K{kdim} N{n}"] = _host_us(torch, fn)
+        del x, qw
+    return out
+
+
+def _grouped_times(torch, flush, rnd, quant_only=False):
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
+
+    out = {}
+    off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
+                       dtype=torch.int32, device="cuda")
+    t, e = sum(MOE_COUNTS), len(MOE_COUNTS)
+    for name, kdim, n, trans in [] if quant_only else GMM_FORMS:
+        x = rnd(t, kdim)
+        w = rnd(e, *((n, kdim) if trans else (kdim, n)), scale=0.02)
+        out[f"K13 {name}"] = _cold_ms(
+            torch, flush, lambda: gm.gmm(x, off, w, trans_w=trans))
+        del x, w
+    for name, kdim, n, trans in GMM_FORMS:
+        if trans:
+            continue
+        x = rnd(t, kdim)
+        for wd, gs in GMM_QUANT_FORMS:
+            codes, scales = gm.quantize_grouped_weight(
+                rnd(e, kdim, n, scale=kdim ** -0.5).float(),
+                f"weight_only_{wd}", gs)
+            form = wd if gs < 0 else f"{wd} g{gs}"
+            out[f"K13 {name} {form}"] = _cold_ms(
+                torch, flush, lambda: gm.gmm_quant(x, off, codes, scales,
+                                                   wd, gs))
+            del codes, scales
+        del x
+    for name, kdim, n in [] if quant_only else SDW_FORMS:
+        x, dy = rnd(t, kdim), rnd(t, n)
+        out[f"K14 {name}"] = _cold_ms(
+            torch, flush, lambda: gm.segment_dw(
+                x, dy, off, e, out_dtype=torch.bfloat16))
+        del x, dy
+    return out
+
+
+def _k7_times(torch, flush, rnd, g):
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
+
+    n, h = K7_SHAPE
+    x, dy = rnd(n, h), rnd(n, h)
+    w = (torch.rand((h,), generator=g, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    _, rstd = k67.rms_norm_fwd(x, w, 1e-5)
+    return {f"K7 N{n} H{h}": _cold_ms(
+        torch, flush, lambda: k67.rms_norm_bwd(x, w, rstd, dy))}
+
+
+def child(quant_only=False) -> None:
     import torch
     from paddle_tpu_torch.ops.kernels import _build
-    from paddle_tpu_torch.ops.kernels import fused_norm_matmul as k2
-    from paddle_tpu_torch.ops.extra_vision import _weight_quantize_pure
-    from paddle_tpu_torch.ops.kernels import grouped_matmul as gm
-    from paddle_tpu_torch.ops.kernels import quant_matmul as k4
 
     _build.build()
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -330,50 +427,14 @@ def child() -> None:
 
     out = {}
     with torch.no_grad():
-        for m, kdim, n in K2_SHAPES:
-            x, w = rnd(m, kdim), rnd(kdim, n, scale=kdim ** -0.5)
-            nw = (torch.rand((kdim,), generator=g, device="cuda")
-                  + 0.5).to(torch.bfloat16)
-            out[f"K2 M{m} K{kdim} N{n}"] = _cold_ms(
-                torch, flush, lambda: k2.fused_norm_matmul_pure(
-                    x, nw, 1e-5, w))
-            if (m, n) in K2_HOST:
-                out[f"K2 host_us M{m} K{kdim} N{n}"] = _host_us(
-                    torch, lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, w))
-            del x, w
-        for kind, m, kdim, n, wd, gs in QUANT_SHAPES:
-            x = rnd(m, kdim)
-            codes, scales = _weight_quantize_pure(
-                rnd(kdim, n, scale=kdim ** -0.5).float(),
-                f"weight_only_{wd}", gs)
-            qw = k4.QuantizedWeight(codes, scales, wd, gs, (kdim, n))
-            nw = (torch.rand((kdim,), generator=g, device="cuda")
-                  + 0.5).to(torch.bfloat16)
-            fn = ((lambda: k4.quant_matmul_qw(x, qw)) if kind == "K4" else
-                  (lambda: k2.fused_norm_matmul_pure(x, nw, 1e-5, qw)))
-            form = wd if gs < 0 else f"{wd} g{gs}"
-            out[f"{kind} {form} M{m} K{kdim} N{n}"] = _cold_ms(torch, flush,
-                                                             fn)
-            if kind == "K4" and (m, kdim, n) == K4_HOST and gs < 0:
-                out[f"K4 host_us M{m} K{kdim} N{n}"] = _host_us(torch, fn)
-            del x, qw
-        off = torch.tensor([0, *itertools.accumulate(MOE_COUNTS)],
-                           dtype=torch.int32, device="cuda")
-        t, e = sum(MOE_COUNTS), len(MOE_COUNTS)
-        for name, kdim, n, trans in GMM_FORMS:
-            x = rnd(t, kdim)
-            w = rnd(e, *((n, kdim) if trans else (kdim, n)), scale=0.02)
-            out[f"K13 {name}"] = _cold_ms(
-                torch, flush, lambda: gm.gmm(x, off, w, trans_w=trans))
-            del x, w
-        for name, kdim, n in SDW_FORMS:
-            x, dy = rnd(t, kdim), rnd(t, n)
-            out[f"K14 {name}"] = _cold_ms(
-                torch, flush, lambda: gm.segment_dw(
-                    x, dy, off, e, out_dtype=torch.bfloat16))
-            del x, dy
-        out.update(_walk_times(torch, flush))
-        out.update(_ragged_times(torch, flush))
+        out.update(_k2_times(torch, flush, rnd, g, [
+            s for s in K2_SHAPES if not quant_only or s[0] > 16]))
+        out.update(_quant_times(torch, flush, rnd, g))
+        out.update(_grouped_times(torch, flush, rnd, quant_only))
+        out.update(_k7_times(torch, flush, rnd, g))
+        if not quant_only:
+            out.update(_walk_times(torch, flush))
+            out.update(_ragged_times(torch, flush))
     print(json.dumps(out), flush=True)
 
 
@@ -389,14 +450,14 @@ def main() -> int:
         elif "--decode" in args:
             child_decode()
         else:
-            child()
+            child(quant_only="--quant" in args)
         return 0
     rounds = 1
     if "--rounds" in args:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
-    modes = ("--batcher", "--decode", "--walk", "--ragged")
+    modes = ("--batcher", "--decode", "--walk", "--ragged", "--quant")
     mode = [a for a in args if a in modes]
     args = [a for a in args if a not in modes]
     old, new = (os.path.abspath(a) for a in args)

@@ -440,6 +440,33 @@ def test_quant_matmul_matches_plain(gen, m, kdim, n, algo, gs):
     assert bool(((y.float() - ref.float()).abs() <= tol).all())
 
 
+#: K4's tiled body (M > 16) in its group-wise forms: K of 3 to 18
+#: slices, 640 (10 slices: the 4-stage ring wraps off its end; 5 groups of
+#: 128, an odd count) and 1152, M and N off the 128 x 128 tiles
+_GROUP_WISE_SHAPES = [(17, 384, 272), (129, 640, 144), (300, 1152, 784),
+                      (1024, 1024, 528)]
+
+
+@pytest.mark.parametrize("algo,gs", [(a, g) for a in ("weight_only_int8",
+                                                      "weight_only_int4")
+                                     for g in (64, 128)])
+@pytest.mark.parametrize("m,kdim,n", _GROUP_WISE_SHAPES)
+def test_quant_matmul_group_wise_forms_match_plain(gen, m, kdim, n, algo,
+                                                   gs):
+    """Each K-group's partial sum folded into the total while the next
+    group's products run: within K4's tolerance, two calls bitwise equal."""
+    qw = _qweight(gen, kdim, n, algo, gs)
+    x = _randn(gen, m, kdim)
+    y, again = (k4.quant_matmul_qw(x, qw) for _ in range(2))
+    ref = k4.quant_matmul_reference(x, qw.codes, qw.scales, qw.weight_dtype,
+                                    qw.group_size)
+    torch.cuda.synchronize()
+    tol = k4.tolerance(x, qw.codes, qw.scales, qw.weight_dtype,
+                       qw.group_size, ref)
+    assert bool(((y.float() - ref.float()).abs() <= tol).all())
+    assert torch.equal(y, again)
+
+
 @pytest.mark.parametrize("algo,gs", _QUANT)
 @pytest.mark.parametrize("m,kdim,n", _QUANT_SHAPES)
 def test_norm_matmul_quantized_matches_plain(gen, m, kdim, n, algo, gs):
@@ -1423,7 +1450,13 @@ def test_flash_attention_bwd_matches_plain(gen, b, sq, sk, h, hk, causal):
         assert worst <= 1.0, f"{name} worst err/tol {worst:.3f}"
 
 
-@pytest.mark.parametrize("n,h", [(37, 4096), (1, 256), (65, 1000)])
+#: K7's rows: N = 1, N below the SMs, N off the grid's split (1000 rows
+#: on 132 CTAs), H at its limit, the train step's shape plus one row
+_RMS_SHAPES = [(37, 4096), (1, 256), (65, 1000), (1, 4096), (1000, 4096),
+               (133, 8192), (8193, 4096), (300, 8)]
+
+
+@pytest.mark.parametrize("n,h", _RMS_SHAPES)
 def test_rms_norm_fwd_bwd_match_plain(gen, n, h):
     x, g = _randn(gen, n, h), _randn(gen, n, h)
     w = (torch.rand((h,), generator=gen, device="cuda") + 0.5).to(
@@ -1592,6 +1625,20 @@ def test_autograd_entries_launch_the_kernels(gen):
 
 #: (group sizes, K, N): an empty middle group with boundaries inside
 #: tiles, an empty first and last group, every row in one group, T = 1,
+@pytest.mark.parametrize("n,h", [(1, 256), (1000, 4096), (8193, 4096)])
+def test_rms_norm_bwd_is_deterministic(gen, n, h):
+    """K7 sums dw per CTA in row order and the CTAs' partials in a fixed
+    order, with no float atomics: two calls give the same bits."""
+    x, g = _randn(gen, n, h), _randn(gen, n, h)
+    w = (torch.rand((h,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    _, rstd = k67.rms_norm_fwd(x, w, 1e-5)
+    (dx0, dw0), (dx1, dw1) = (k67.rms_norm_bwd(x, w, rstd, g)
+                              for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(dx0, dx1) and torch.equal(dw0, dw1)
+
+
 #: and K / N off the 32- and 128-wide slices
 _GROUPS = [((37, 0, 200, 91), 256, 384), ((0, 300, 5, 0), 72, 200),
            ((0, 0, 513, 0), 128, 136), ((1,), 4096, 128),
@@ -1843,6 +1890,12 @@ _QUANT_ROUTINGS = [r for r in _GROUPS + [_MANY, _WIDE]
                    if r[1] % 128 == 0 and r[2] % 16 == 0] + [
     (sizes, 128, 144) for sizes, kdim, n in _GROUPS + [_NARROW]
     if kdim % 128 or n % 16]
+#: the group-wise forms' own edges: K = 1152 is 18 slices (the 4-stage
+#: ring wraps off its end) and 9 groups of 128 (an odd count) or 18 of
+#: 64; group boundaries at rows 37, 167 and 467, inside row tiles; N one
+#: 16-column piece past three 128-column tiles
+_GROUP_WISE_EDGES = ((37, 130, 0, 300), 1152, 400)
+_QUANT_ROUTINGS.append(_GROUP_WISE_EDGES)
 #: (weight type, group size) of every quantized form
 _QUANT_FORMS = [("int8", -1), ("int8", 64), ("int8", 128), ("int4", -1),
                 ("int4", 64), ("int4", 128)]
@@ -1856,9 +1909,9 @@ def _experts(gen, e, kdim, n, wd, gs):
 
 
 def test_quant_routings_cover_every_grouping():
-    assert len(_QUANT_ROUTINGS) == 8
+    assert len(_QUANT_ROUTINGS) == 9
     assert sorted(r[0] for r in _QUANT_ROUTINGS) == sorted(
-        r[0] for r in _GROUPS + [_MANY, _WIDE, _NARROW])
+        r[0] for r in _GROUPS + [_MANY, _WIDE, _NARROW, _GROUP_WISE_EDGES])
 
 
 @pytest.mark.parametrize("wd,gs", _QUANT_FORMS)

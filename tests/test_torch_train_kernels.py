@@ -158,6 +158,32 @@ def test_rms_norm_plain_matches_pallas(monkeypatch, dtype):
         assert err <= tol, f"{name}: {err:.2e} > {tol}"
 
 
+#: (N, H) of K7's split: one row, fewer rows than SMs, rows off every
+#: grid's even split, H from one vector to the kernel's limit, the train
+#: step's final norm (8192 x 4096)
+_RMS_BWD_PLANS = [(1, 8), (1, 256), (37, 4096), (131, 1000), (133, 8192),
+                  (1000, 4096), (8192, 4096), (8193, 64)]
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("n,h", _RMS_BWD_PLANS)
+def test_rms_bwd_plan_splits_rows_once(n, h, sms):
+    """K7's split (``bwd_plan``, the kernel's own arithmetic): min(N, SMs)
+    CTAs, each a non-empty run of consecutive rows, the runs in CTA order
+    covering every row once and differing by at most one row; its ring of
+    row slots (x and g, 4H bytes each) and w fit the shared memory."""
+    grid, slots, runs = k67.bwd_plan(n, h, sms)
+    assert grid == min(n, sms) == len(runs)
+    at = 0
+    for first, rows in runs:
+        assert first == at and rows >= 1
+        at += rows
+    assert at == n
+    assert max(r for _, r in runs) - min(r for _, r in runs) <= 1
+    assert 2 <= slots <= 16
+    assert 2 * h + slots * 4 * h <= 227 * 1024
+
+
 # ------------------------------------------------------------------ K8
 
 
