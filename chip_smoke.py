@@ -74,7 +74,10 @@ class, device busy share). Phases, in order; any failure raises and the process 
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
-               fully fused plan's; the logits of every generated position
+               fully fused plan's (32 K1 + 161 K2 + 64 K12 per prefill);
+               the prefill's and the prompt-logits forward's K12 calls
+               each bitwise equal to the f32 rotate-half chain
+               (``chain_rope``); the logits of every generated position
                (prefill and each decode step) are held against a plain
                teacher-forced forward in f32, with the plain bf16 forward
                as the yardstick and two controls (fp16, a K3-style
@@ -83,16 +86,17 @@ class, device busy share). Phases, in order; any failure raises and the process 
                — ``generate_paged(spec_decode=True, spec_k=4)``: a warm-up
                with ``NGramDraft``, then the counted run with a draft that
                replays the warm-up's continuations (every fourth draft
-               replaced): launches 32 K1 + 161 K2 (+ 64 K4) for the
-               prefill and 161 K2 + 32 K3-ragged (+ 64 K4) a verify step,
+               replaced): launches 32 K1 + 161 K2 + 64 K12 (+ 64 K4) for
+               the prefill and 161 K2 + 32 K3-ragged (+ 64 K4) a verify step,
                drafts accepted and rejected, every emitted token held to
                the teacher-forced rule of phase 6 (its controls failing),
                the median of 3 spec rollouts beside the plain ones.
 5. serving, int8w+int8kv — the same model quantized on the card
                (``quantize_for_inference``: int8 weights, per-channel
                scales), served with ``cache_dtype="int8"``, page 32; the
-               counts must equal 32 K1 + 161 K2 + 64 K4 per prefill and
-               32 K3 + 161 K2 + 64 K4 per decode step; the logits are held
+               counts must equal 32 K1 + 161 K2 + 64 K4 + 64 K12 per
+               prefill and 32 K3 + 161 K2 + 64 K4 per decode step; the
+               rope sites checked as in phase 4; the logits are held
                against the plain forward of the quantized function (int8
                weights dequantized per call, decode attention over
                quantize->dequantized K/V) in the same way.
@@ -160,9 +164,14 @@ class, device busy share). Phases, in order; any failure raises and the process 
                mask as the library; K5 and K9 each two calls bitwise
                equal, with TFLOP/s and bound share; K9's skipped key-tile
                blocks, which must be > 0 and equal the pure-Python model
-               of the left pads, and its dS partials' bytes), and K12 (rope) forward and backward
-               at (4, 2048, 32, 128) and (4, 2048, 8, 128), bit-equal to
-               its plain version.
+               of the left pads, and its dS partials' bytes), and K12
+               (rope) forward and transposed (its backward) at (4, 2048,
+               32, 128) and (4, 2048, 8, 128), bit-equal to its plain
+               versions, two calls bitwise equal, every instance's
+               registers and spills (none); then one layer's training
+               attend seam at those shapes with K12 and with the f32
+               rotate-half chain: q2, k2, the output and the q/k/v
+               gradients bitwise equal.
 8. gradient check — a 2-layer full-width model (B=1, S=2048): the
                per-token losses and every parameter's gradient of the
                kernel path, the plain bf16 path and a plain f32 run;
@@ -177,8 +186,9 @@ class, device busy share). Phases, in order; any failure raises and the process 
                (bf16, core_attn recompute, fused_head_loss, 4096-token loss
                chunks) with AdamW8bit(1e-4), B=4 x S=2048 random tokens:
                one warm-up step, then 3 timed steps whose K1, K2, K5, K6,
-               K7 and K8 counts must equal ``train_kernel_launches_per_step``'s
-               plan (one K8 per parameter tensor: 75); the loss must fall;
+               K7, K8 and K12 counts must equal
+               ``train_kernel_launches_per_step``'s plan (one K8 per
+               parameter tensor: 75; 6 K12 a layer); the loss must fall;
                median step ms, tokens/s, the 6N+attention model-FLOP share
                of the bf16 peak (``mfu_6n_attn``), peak memory; then the
                chunked loss's forward + backward timed alone.
@@ -191,12 +201,11 @@ class, device busy share). Phases, in order; any failure raises and the process 
                bool (B, S) mask, labels -100 on the pads and each row's
                first quarter: ``step((ids, mask), labels)``, one warm-up
                and 3 timed steps whose launches must equal the plan (16 K1
-               + 80 K2 + 8 K9 + 0 K5 + 1 K6 + 1 K7 + 75 K8 a step, no
-               plain-attention route); the loss must fall, each step's lr
-               follow the schedule and the clipped global norm be <= 1;
-               step ms, tokens/s (real and all positions),
-               ``mfu_6n_attn``, peak memory. Then K12's path: the
-               ``fused_rope`` entry with its gradient at both shapes.
+               + 80 K2 + 8 K9 + 0 K5 + 1 K6 + 1 K7 + 75 K8 + 48 K12 a
+               step, no plain-attention route); the loss must fall, each
+               step's lr follow the schedule and the clipped global norm be
+               <= 1; step ms, tokens/s (real and all positions),
+               ``mfu_6n_attn``, peak memory.
 10. MoE kernels — after the Llama train model is freed, K13 (grouped
                matmul: forward at 4096 -> 14336 and 14336 -> 4096, and its
                transposed dX form) and K14 (segment dW at both weight
@@ -250,7 +259,7 @@ class, device busy share). Phases, in order; any failure raises and the process 
                Mixtral-8x7B widths cut to 3 layers (bf16, dropless
                routing, top-2 of 8 experts) with AdamW8bit(1e-4), B=4 x
                S=2048 random tokens: one warm-up step, then 3 timed steps
-               whose K1, K2, K5, K6, K7, K8, K13 and K14 counts must
+               whose K1, K2, K5, K6, K7, K8, K12, K13 and K14 counts must
                equal ``moe_train_kernel_launches_per_step``'s plan; the
                loss must fall; median step ms, tokens/s, ``mfu_6n_attn``
                over the active (top-2) parameters, peak memory, each
@@ -1950,7 +1959,7 @@ def serve_spec(torch, kernels, model, ids, tokens, label, profile, int8,
     finally:
         del model._build_spec_verify_step
     expected = dict.fromkeys(counts, 0)
-    expected.update({"flash_attention": 32,
+    expected.update({"flash_attention": 32, "fused_rope": 64,
                      "fused_norm_matmul": 161 * (1 + n),
                      "fused_rope_attend_ragged": 32 * n})
     if int8:
@@ -2000,6 +2009,7 @@ def serve(torch, kernels, profile=False):
     from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                                prompt_logits_pure)
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
     from paddle_tpu_torch.ops.kernels import fusion
 
     cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
@@ -2017,7 +2027,7 @@ def serve(torch, kernels, profile=False):
                     "paged_attention": 0}, plan
     expected = dict.fromkeys(kernels.launch_counts(), 0)
     expected.update({
-        "flash_attention": L,
+        "flash_attention": L, "fused_rope": 2 * L,
         "fused_norm_matmul": plan["norm_matmul"] * (1 + steps),
         "fused_rope_attend": plan["rope_append_attend"] * steps})
 
@@ -2031,16 +2041,21 @@ def serve(torch, kernels, profile=False):
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; plan per token "
         f"{plan}, kernel_launches_per_token "
         f"{fusion.kernel_launches_per_token(L, fused=True)}")
-    counts, out, logits, stats = drive(torch, kernels, model,
-                                       prompt_ids(torch, cfg), expected,
+    ids = prompt_ids(torch, cfg)
+    counts, out, logits, stats = drive(torch, kernels, model, ids, expected,
                                        "serving", profile, page_size=PAGE)
+    prms = model.param_dict()
+    stats["rope_sites_check"] = check_prefill_rope(torch, k67, L, {
+        "prefill": lambda: model.generate_paged(ids, max_new_tokens=1,
+                                                page_size=PAGE),
+        "prompt logits": lambda: prompt_logits_pure(prms, ids, cfg)},
+        "serving")
 
     # ---- end-to-end check: the counted run's logits at every generated
     # position (prefill and all 31 decode steps) against one teacher-forced
     # plain forward over the tokens it produced (plain attention, no
     # paged cache, no kernel), in f32 as the yardstick and in bf16
     seq = out[:, :PROMPT + NEW - 1].long()
-    prms = model.param_dict()
 
     def plain_logits(params):
         return prompt_logits_pure(params, seq, cfg, plain=True)[
@@ -2149,6 +2164,7 @@ def serve_int8(torch, kernels, profile=False):
                                                prompt_logits_pure,
                                                quantize_for_inference)
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
     from paddle_tpu_torch.ops.kernels import fusion
     from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
 
@@ -2163,9 +2179,10 @@ def serve_int8(torch, kernels, profile=False):
     # for o_proj and down_proj, one K3 per layer
     assert plan == {"norm_matmul": 161, "rope_append_attend": 32,
                     "paged_attention": 0, "quant_matmul": 64}, plan
-    # 32 K1 + 161 K2 + 64 K4 per prefill, 32 K3 + 161 K2 + 64 K4 per step
+    # 32 K1 + 161 K2 + 64 K4 + 64 K12 per prefill, 32 K3 + 161 K2 + 64 K4
+    # per step
     expected = dict.fromkeys(kernels.launch_counts(), 0)
-    expected.update({"flash_attention": 32,
+    expected.update({"flash_attention": 32, "fused_rope": 64,
                      "fused_norm_matmul": 161 * (1 + steps),
                      "fused_rope_attend": 32 * steps,
                      "quant_matmul": 64 * (1 + steps)})
@@ -2187,11 +2204,17 @@ def serve_int8(torch, kernels, profile=False):
         f"{time.perf_counter() - t0:.1f}s; params {q_bytes / 1e9:.3f} GB, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; plan "
         f"per token {plan}")
+    ids = prompt_ids(torch, cfg)
     counts, out, logits, stats = drive(
-        torch, kernels, model, prompt_ids(torch, cfg), expected,
-        "serving int8w+int8kv", profile, page_size=PAGE_INT8,
-        params=qparams, cache_dtype="int8")
+        torch, kernels, model, ids, expected, "serving int8w+int8kv",
+        profile, page_size=PAGE_INT8, params=qparams, cache_dtype="int8")
     stats["params_gb"] = q_bytes / 1e9
+    stats["rope_sites_check"] = check_prefill_rope(torch, k67, L, {
+        "prefill": lambda: model.generate_paged(
+            ids, max_new_tokens=1, page_size=PAGE_INT8, params=qparams,
+            cache_dtype="int8"),
+        "prompt logits": lambda: prompt_logits_pure(qparams, ids, cfg)},
+        "serving int8w+int8kv")
 
     # ---- the counted run's logits against the teacher-forced plain
     # forward of the quantized function: plain dequant-matmuls (into the
@@ -3230,52 +3253,157 @@ def _rope_inputs(torch, shape, seed):
     return x, gr, cos.contiguous(), sin.contiguous()
 
 
-def rope_path(torch, kernels, k67):
-    """K12's path (no model path calls it, as in the JAX package): the
-    ``fused_rope`` entry point with its gradient, at the Llama-3-8B q and
-    k shapes; returns the launch counts of that run."""
-    kernels.reset_launch_counts()
-    for i, shape in enumerate(ROPE_SHAPES):
-        x, gr, cos, sin = _rope_inputs(torch, shape, SEED + 26 + i)
-        x.requires_grad_(True)
-        k67.fused_rope(x, cos, sin).backward(gr)
-        assert x.grad is not None and x.grad.shape == x.shape
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    log(f"rope path: launches {counts}")
-    return counts
+def chain_rope(x, cos, sin, plain=False):
+    """The f32 rotate-half chain that K12's sites must match bit for bit,
+    in ``fused_rope``'s signature: ``apply_rotary_pos_emb`` on an f32
+    copy, cast back."""
+    from paddle_tpu_torch.models.llama import apply_rotary_pos_emb
+
+    x32 = x.float()
+    return apply_rotary_pos_emb(x32, x32, cos, sin)[0].to(x.dtype)
+
+
+def rope_ptxas():
+    """{K12 instance: {registers, spill_stores, spill_loads}} of every
+    ``rope_kernel<T, VEC, TRANSPOSE>`` in the build log, keyed like
+    "bf16 x8 forward"."""
+    def name_of(mangled):
+        m = re.search(r"rope_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
+                      mangled)
+        return m and (f"{'f32' if m.group(1) == 'f' else 'bf16'} "
+                      f"x{m.group(2)} "
+                      f"{'transposed' if m.group(3) == '1' else 'forward'}")
+
+    return _ptxas(name_of)
 
 
 def check_rope(torch, timer, k67):
-    """K12 forward and backward (the same kernel with sin' =
-    -swap_halves(sin)) at the q and k shapes of the train step: bit-equal
-    to the plain version (the same separately rounded f32 ops)."""
+    """K12's forward and transposed instances (the backward: the rope with
+    sin' = -swap_halves(sin), read from sin swapped and negated) at the q
+    and k shapes of the train step: bit-equal to the plain versions (the
+    same separately rounded f32 ops; the plain backward builds
+    ``rope_bwd_table``), two calls bitwise equal; the registers and spills
+    of all eight instances (bf16 x8 / x1, f32 x4 / x1, each forward and
+    transposed), none spilling. Beside each time, ``copy_ms``: a
+    ``Tensor.copy_`` of the same input, the same bytes through the same
+    cold-L2 timer (no yardstick of the function: PyTorch has no rope)."""
+    ptxas = rope_ptxas()
+    log(f"K12 ptxas: {ptxas}")
+    assert len(ptxas) == 8, f"K12 instances in the build log: {ptxas}"
+    spilled = {k: v for k, v in ptxas.items()
+               if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    assert not spilled, f"K12 instances spill: {spilled}"
     rows = []
     for i, shape in enumerate(ROPE_SHAPES):
         x, gr, cos, sin = _rope_inputs(torch, shape, SEED + 26 + i)
-        sin_b = k67.rope_bwd_table(sin).contiguous()
-        for name, inp, tab in (("fused_rope", x, sin),
-                               ("fused_rope_bwd", gr, sin_b)):
-            got = k67.rope_fwd(inp, cos, tab)
-            ref = k67.rope_reference(inp, cos, tab)
+        plan = k67.rope_plan(*shape, x.element_size())
+        for name, inp, tr in (("fused_rope", x, False),
+                              ("fused_rope_bwd", gr, True)):
+            got = k67.rope_fwd(inp, cos, sin, transpose=tr)
+            ref = k67.rope_reference(inp, cos, k67.rope_bwd_table(sin)
+                                     if tr else sin)
+            again = k67.rope_fwd(inp, cos, sin, transpose=tr)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             assert torch.equal(got, ref), f"{name} {shape}: max_abs_err {err}"
-            ms = timer(lambda: k67.rope_fwd(inp, cos, tab))
-            plain = timer(lambda: k67.rope_reference(inp, cos, tab))
+            assert torch.equal(got, again), f"{name} {shape}: two calls"
+            ms = timer(lambda: k67.rope_fwd(inp, cos, sin, transpose=tr))
+            plain = timer(lambda: k67.rope_reference(
+                inp, cos, k67.rope_bwd_table(sin) if tr else sin))
+            copy = timer(lambda: got.copy_(inp))
             nbytes = 2 * 2 * inp.numel() + 2 * 4 * cos.numel()
             bms, by = bound(nbytes, 0, BF16_FLOPS)
-            log(f"K12 {name} {shape}: bit-equal to plain, kernel_ms "
-                f"{ms:.4f} plain_ms {plain:.4f} library_ms none bound_ms "
-                f"{bms:.4f} ({by})")
+            inst = f"bf16 x{plan[0]} {'transposed' if tr else 'forward'}"
+            log(f"K12 {name} {shape}: bit-equal to plain, two calls equal, "
+                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms none "
+                f"copy_ms {copy:.4f} bound_ms {bms:.4f} ({by}, share "
+                f"{bms / ms:.2f}; copy_ {bms / copy:.2f}); plan "
+                f"(vec, tpr, rpt, chunks, ppc, items) {plan}; {inst} "
+                f"{ptxas[inst]}")
             rows.append({"name": f"{name}_h{shape[2]}", "route": "cuda",
                          "source": "paddle_tpu_torch/csrc/rope.cu",
                          "replaces":
                              "paddle_tpu/ops/pallas/fused_norm_rope.py:211",
                          "max_abs_err": err, "ms": ms, "plain_ms": plain,
                          "bound_ms": bms, "bound_by": by, "library_ms": None,
-                         "shape": f"{shape} bf16, (S, D) f32 tables"})
+                         "copy_ms": copy,
+                         "shape": f"{shape} bf16, (S, D) f32 tables",
+                         "plan": plan, "ptxas": {inst: ptxas[inst]}})
     return rows
+
+
+def check_rope_seam(torch, k1, k67):
+    """The training attend seam at the train step's shapes (B=4 x S=2048,
+    Llama-3-8B's 32 q and 8 kv heads): one layer's ``_train_attend`` run
+    with K12 and again with ``chain_rope`` in ``fused_rope``'s place (the
+    f32 chain): the attention's inputs q2 and k2, its output and the
+    q, k and v gradients bitwise equal; 4 K12 launches (q and k, forward
+    and backward) in the first run, none in the second."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b(dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    q, k, v, dout = (torch.randn((TB, TS, n * cfg.head_dim), generator=g,
+                                 device="cuda").to(torch.bfloat16)
+                     for n in (32, 8, 8, 32))
+    attention, fused = k1.flash_attention_train, k67.fused_rope
+    runs = []
+    for rope in (fused, chain_rope):
+        seen = []
+
+        def recording(q2, k2, *a, **kw):
+            seen.extend((q2.detach(), k2.detach()))
+            return attention(q2, k2, *a, **kw)
+
+        k1.flash_attention_train, k67.fused_rope = recording, rope
+        try:
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            n = k67.rope_launches
+            out = llama._train_attend(cfg, *leaves, False, None)
+            out.backward(dout)
+            torch.cuda.synchronize()
+            runs.append((seen + [out.detach()] + [t.grad for t in leaves],
+                         k67.rope_launches - n))
+        finally:
+            k1.flash_attention_train, k67.fused_rope = attention, fused
+    (got, n_k12), (want, n_chain) = runs
+    names = ("q2", "k2", "out", "dq", "dk", "dv")
+    same = {nm: torch.equal(a, b) for nm, a, b in zip(names, got, want)}
+    log(f"rope seam (B{TB} S{TS}, 32/8 heads): K12 against the f32 chain, "
+        f"bitwise equal {same}; K12 launches {n_k12} / {n_chain}")
+    assert all(same.values()) and (n_k12, n_chain) == (4, 0), (same, n_k12)
+    return {"bitwise_equal": same, "k12_launches": n_k12}
+
+
+def check_prefill_rope(torch, k67, L, sites, label):
+    """The solo prefill and the prompt-logits forward rope q and k in K12:
+    every call's output bitwise equal to ``chain_rope`` on its input, and
+    2 K12 launches a layer. ``sites``: {name: a function running it}."""
+    fused = k67.fused_rope
+    equal = []
+
+    def recording(x, cos, sin, plain=False):
+        out = fused(x, cos, sin, plain=plain)
+        equal.append(torch.equal(out, chain_rope(x, cos, sin)))
+        return out
+
+    got = {}
+    k67.fused_rope = recording
+    try:
+        for name, run in sites.items():
+            equal.clear()
+            n = k67.rope_launches
+            with torch.inference_mode():
+                run()
+            torch.cuda.synchronize()
+            got[name] = {"k12_launches": k67.rope_launches - n,
+                         "bitwise_equal": sum(equal), "calls": len(equal)}
+    finally:
+        k67.fused_rope = fused
+    log(f"{label}: K12 at the rope sites against the f32 chain {got}")
+    assert all(r == {"k12_launches": 2 * L, "bitwise_equal": 2 * L,
+                     "calls": 2 * L} for r in got.values()), got
+    return got
 
 
 def _masked_loss_and_grads(torch, model, ids, mask, labels, plain=False):
@@ -3578,21 +3706,17 @@ def _library(torch, fn, want, tol, label):
     return None, why
 
 
-def ptxas_report(*kernels):
-    """{kernel<template args>: {registers, spill_stores, spill_loads}}
-    for the build log's entry functions whose name holds one of
-    ``kernels``."""
+def _ptxas(name_of):
+    """{key: {registers, spill_stores, spill_loads}} of the build log's
+    entry functions, keyed by ``name_of(mangled name)`` (None: skipped)."""
     from paddle_tpu_torch.ops.kernels import _build
 
     log = (_build.library_path().parent / "build.log").read_text()
     rep, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:  # mangled: ...<name>ILb0E... is <name><false>
-            cur = next((f"{k}<{'true' if b.group(1) == '1' else 'false'}>"
-                        for k in kernels
-                        for b in [re.search(k + r"ILb([01])E", m.group(1))]
-                        if b), None)
+        if m:
+            cur = name_of(m.group(1))
             continue
         if cur is None:
             continue
@@ -3605,6 +3729,19 @@ def ptxas_report(*kernels):
         if m:
             rep.setdefault(cur, {})["registers"] = int(m.group(1))
     return rep
+
+
+def ptxas_report(*kernels):
+    """{kernel<template args>: {registers, spill_stores, spill_loads}}
+    for the build log's entry functions whose name holds one of
+    ``kernels``."""
+    def name_of(mangled):  # ...<name>ILb0E... is <name><false>
+        return next((f"{k}<{'true' if b.group(1) == '1' else 'false'}>"
+                     for k in kernels
+                     for b in [re.search(k + r"ILb([01])E", mangled)] if b),
+                    None)
+
+    return _ptxas(name_of)
 
 
 def aligned_counts(counts):
@@ -3954,32 +4091,17 @@ def ptxas_quant_report():
     instantiations (``quant_wgmma_kernel<false, WT, SM, GroupWalk<BN>>``)
     and of K4's group-wise ones (``... TileWalk<128>`` with kGroup, keys
     led by "K4 ") from the build log."""
-    from paddle_tpu_torch.ops.kernels import _build
+    def name_of(mangled):
+        g = re.search(r"quant_wgmma_kernelILb0ELi(\d)ELi(\d)ENS\d_"
+                      r"(9Group|8Tile)WalkILi(\d+)", mangled)
+        k4 = g is not None and g.group(3) == "8Tile"
+        if not g or (k4 and g.group(2) != "2"):
+            return None
+        return ("K4 " if k4 else "") + _ptxas_key(
+            "int8" if g.group(1) == "1" else "int4", g.group(2) == "2",
+            int(g.group(4)))
 
-    log = (_build.library_path().parent / "build.log").read_text()
-    rep, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            g = re.search(r"quant_wgmma_kernelILb0ELi(\d)ELi(\d)ENS\d_"
-                          r"(9Group|8Tile)WalkILi(\d+)", m.group(1))
-            k4 = g is not None and g.group(3) == "8Tile"
-            cur = (("K4 " if k4 else "") + _ptxas_key(
-                "int8" if g.group(1) == "1" else "int4", g.group(2) == "2",
-                int(g.group(4)))
-                   if g and (not k4 or g.group(2) == "2") else None)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            rep.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
-                                           spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            rep.setdefault(cur, {})["registers"] = int(m.group(1))
-    return rep
+    return _ptxas(name_of)
 
 
 def check_group_wise_spills(ptxas):
@@ -4511,8 +4633,10 @@ def main() -> int:
                    "flash_attention_bwd_bias": "grad check split, mask",
                    "flash_attention_bwd_fused": "sft"}[row["name"]])
             for row in check_flash_masked(torch, timer, k1)]
-    own += [(row, "rope") for row in check_rope(torch, timer, k67)]
+    own += [(row, "train") for row in check_rope(torch, timer, k67)]
     del timer
+    torch.cuda.empty_cache()
+    rope_seam = check_rope_seam(torch, k1, k67)
     torch.cuda.empty_cache()
     grad_check = train_grad_check(torch, k1)
     torch.cuda.empty_cache()
@@ -4521,19 +4645,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_train, stats_train = train(torch, kernels, profile=profile)
     stats_train["grad_check"] = grad_check
+    stats_train["rope_seam_check"] = rope_seam
     torch.cuda.empty_cache()
 
     # ---- 9b. the fine-tuning cell (its counts set to 0 just before its
-    # counted steps and read just after), then K12's path: the fused_rope
-    # entry point with its gradient
+    # counted steps and read just after)
     counts_sft, stats_sft = sft_train(torch, kernels, profile=profile)
     stats_sft["grad_check_masked"] = masked_check
     log(f"sft step (K9, key bias) {stats_sft['step_ms']:.1f} ms against "
         f"the train step (K5, no mask) {stats_train['step_ms']:.1f} ms; "
         f"peak {stats_sft['max_memory_allocated_gib']:.2f} against "
         f"{stats_train['max_memory_allocated_gib']:.2f} GiB")
-    torch.cuda.empty_cache()
-    counts_rope = rope_path(torch, kernels, k67)
     torch.cuda.empty_cache()
 
     # ---- 10. the MoE kernels vs plain at the Mixtral train shapes, 11. the
@@ -4577,8 +4699,7 @@ def main() -> int:
                 for label, _ in BATCHER_PLANS},
              "train": counts_train, "moe train": counts_moe,
              **counts_quant,
-             "grad check split, mask": counts_grad_split, "sft": counts_sft,
-             "rope": counts_rope}
+             "grad check split, mask": counts_grad_split, "sft": counts_sft}
     counter = {"flash_attention_fwd": "flash_attention",
                "flash_attention_fwd_train": "flash_attention",
                "norm_matmul": "fused_norm_matmul",

@@ -1,12 +1,13 @@
 """Llama serving in PyTorch (``paddle_tpu/models/llama.py``, serving half).
 
 The slice ported here is greedy ``generate_paged``: a bucketed prompt
-prefill (causal flash attention, kernel K1) that fills a paged KV cache,
-then one decode step per new token whose per-layer attention tail is the
-fused rope -> append -> attend kernel (K3); every rms_norm folds into the
-matmuls that follow it (K2). With ``spec_decode=True`` speculative verify
-steps replace the decode steps: one ragged wave a step over every row's
-current token and its drafts (K3's ragged form with ``fresh_pool_read``).
+prefill (rope in K12, causal flash attention in K1) that fills a paged KV
+cache, then one decode step per new token whose per-layer attention tail
+is the fused rope -> append -> attend kernel (K3); every rms_norm folds
+into the matmuls that follow it (K2). With ``spec_decode=True``
+speculative verify steps replace the decode steps: one ragged wave a step
+over every row's current token and its drafts (K3's ragged form with
+``fresh_pool_read``).
 With ``params=quantize_for_inference(model)``
 every matmul weight is weight-only int8/int4: K2 dequantizes it in its
 tiles and the two matmuls no norm precedes (o_proj, down_proj) run the
@@ -22,9 +23,10 @@ blocks is ``inference/continuous_batching.py``.
 
 Training: ``model.train()`` turns gradients on and ``forward`` into the
 training forward. Each decoder block runs the fusion pass's TRAIN plan
-(``_train_fused_block``: K2 per norm consumer, rope + flash attention with
-its K5 backward, o-proj + residual as the attention's epilogue), under
-per-block recompute (``torch.utils.checkpoint``) when ``config.recompute``;
+(``_train_fused_block``: K2 per norm consumer, rope (K12) + flash
+attention with its K5 backward, o-proj + residual as the attention's
+epilogue), under per-block recompute (``torch.utils.checkpoint``) when
+``config.recompute``;
 with ``fused_head_loss`` the forward returns the final-normed hidden states
 (the norm in K6/K7) and ``loss`` runs the chunked ``linear_cross_entropy``.
 ``jit.TrainStep`` drives forward, loss, backward and the optimizer.
@@ -224,6 +226,7 @@ def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False,
     against."""
     from ..ops.kernels.flash_attention import (_reference_attention,
                                                flash_attention_pure)
+    from ..ops.kernels.fused_norm_rope import fused_rope
 
     attention = _reference_attention if plain else flash_attention_pure
     enabled = () if plain else None
@@ -236,11 +239,9 @@ def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False,
     cos, sin = _rope_tables(s, hd, cfg.rope_theta, device=hidden.device)
     for i in range(cfg.num_hidden_layers):
         def attend(q, k, v):
-            q = q.reshape(b, s, nh, hd)
-            k = k.reshape(b, s, hk, hd)
+            q = fused_rope(q.reshape(b, s, nh, hd), cos, sin, plain=plain)
+            k = fused_rope(k.reshape(b, s, hk, hd), cos, sin, plain=plain)
             v = v.reshape(b, s, hk, hd)
-            q, k = apply_rotary_pos_emb(q.float(), k.float(), cos, sin)
-            q, k = q.to(hidden.dtype), k.to(hidden.dtype)
             if attn_mask is None:
                 out = attention(q, k, v, causal=True)
             else:
@@ -286,22 +287,22 @@ def quantize_for_inference(params, algo="weight_only_int8", group_size=-1):
 # ---------------------------------------------------------------------------
 def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None,
                   attn_mask=None):
-    """The training attend seam: rope (f32 rotate-half, cast back) feeding
-    causal flash attention with a gradient (K1 forward, K5 or K9 backward)
-    under ``attn_mask``, on flat (B, S, ·) projections; with ``o_w`` the
-    o-proj matmul and the residual add follow as the attention's
-    epilogue."""
+    """The training attend seam: rope (K12 forward and backward: f32
+    rotate-half, cast back) feeding causal flash attention with a gradient
+    (K1 forward, K5 or K9 backward) under ``attn_mask``, on flat (B, S, ·)
+    projections; with ``o_w`` the o-proj matmul and the residual add
+    follow as the attention's epilogue."""
     from ..ops.kernels.flash_attention import flash_attention_train
+    from ..ops.kernels.fused_norm_rope import fused_rope
 
     b, s = q.shape[:2]
     nh, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     cos, sin = _rope_tables(s, hd, cfg.rope_theta, device=q.device)
-    qa, ka = q.reshape(b, s, nh, hd), k.reshape(b, s, hk, hd)
-    q2, k2 = apply_rotary_pos_emb(qa.float(), ka.float(), cos, sin)
-    out = flash_attention_train(q2.to(qa.dtype), k2.to(ka.dtype),
-                                v.reshape(b, s, hk, hd), causal=True,
-                                plain=plain, stash=stash,
+    q2 = fused_rope(q.reshape(b, s, nh, hd), cos, sin, plain=plain)
+    k2 = fused_rope(k.reshape(b, s, hk, hd), cos, sin, plain=plain)
+    out = flash_attention_train(q2, k2, v.reshape(b, s, hk, hd),
+                                causal=True, plain=plain, stash=stash,
                                 attn_mask=attn_mask)
     out = out.reshape(b, s, nh * hd)
     if o_w is None:
@@ -576,6 +577,7 @@ class LlamaForCausalLM(Layer):
         ``cache_dtype`` None keeps the activations' dtype; ``torch.int8``
         makes the quantized cache."""
         from ..ops.kernels.flash_attention import flash_attention_pure
+        from ..ops.kernels.fused_norm_rope import fused_rope
         from .kv_cache import create_paged_cache, prefill_paged_cache
 
         cfg = self.config
@@ -594,12 +596,9 @@ class LlamaForCausalLM(Layer):
             for i in range(n_layers):
                 def attend(q, k, v, i=i):
                     nonlocal cache
-                    q = q.reshape(b, w, nh, hd)
-                    k = k.reshape(b, w, hk, hd)
+                    q = fused_rope(q.reshape(b, w, nh, hd), cos, sin)
+                    k = fused_rope(k.reshape(b, w, hk, hd), cos, sin)
                     v = v.reshape(b, w, hk, hd)
-                    q, k = apply_rotary_pos_emb(q.float(), k.float(), cos,
-                                                sin)
-                    q, k = q.to(hidden.dtype), k.to(hidden.dtype)
                     out = flash_attention_pure(q, k, v, causal=True)
                     cache = prefill_paged_cache(cache, i, k, v, lengths)
                     return out.reshape(b, w, nh * hd)

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "pt_flash_bwd_delta": [_P] * 3 + [_I] * 3 + [_P],
     "pt_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
     "pt_flash_attention_bwd_fused": [_P] * 12 + [_I] * 7 + [_F, _P],
-    "pt_rope": [_P] * 4 + [_I] * 5 + [_P],
+    "pt_rope": [_P] * 4 + [_I] * 13 + [_P],
     "pt_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _P],
     "pt_rms_norm_bwd": [_P] * 7 + [_I, _I, _I, _P],
     "pt_adamw8bit": [_P, _I] + [_P] * 6 + [_L] + [_F] * 9 + [_I, _P],

@@ -22,8 +22,12 @@ Kernel K12 (``csrc/rope.cu``, ``pt_rope``) replaces ``_pallas_rope``: the
 rotate-half rope x * cos + concat(-x2, x1) * sin in f32 over (B, S, H, D)
 rows with (S, D) tables, cast back to x's dtype. ``fused_rope`` is its
 ``autograd.Function`` (the JAX package's ``_rope_core`` custom VJP): the
-backward is K12 again with sin' = -swap_halves(sin) (``_rope_bwd``). Like
-the JAX package's ``fused_rope``, no model path calls it. Bound: bytes.
+backward is K12's transposed instance, the rope with sin' =
+-swap_halves(sin) (``_rope_bwd``) read from sin itself, one launch.
+``rope_plan`` gives its split into CTAs. The training attend seam, the
+solo prefill and the prompt-logits forward (``models/llama.py``) rope q
+and k through it; its bits equal those of the f32 rotate-half chain
+(``apply_rotary_pos_emb`` on f32 copies, cast back). Bound: bytes.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ H100_SMS = 132
 #: K7's ring of row slots (``bwd_slots`` in ``csrc/rms_norm.cu``): each
 #: slot holds a row of x and of g (4H bytes), ~128 KB in all, 2 to 16
 _SLOT_BUDGET, _MAX_SLOTS = 128 << 10, 16
+#: K12: rows a thread holds in flight, and the most threads a CTA
+#: (``ROWS`` and ``THREADS`` in ``csrc/rope.cu``)
+ROPE_ROWS, ROPE_THREADS = 4, 256
 
 
 def bwd_plan(n, h, sms=H100_SMS):
@@ -193,12 +200,47 @@ def rope_reference(x, cos, sin):
             + rot * sin[None, :, None, :].float()).to(x.dtype)
 
 
-def rope_fwd(x, cos, sin):
-    """The rope of x (B, S, H, D) with (S, D) f32 tables — K12 on CUDA
-    tensors, the plain version on CPU tensors."""
+def rope_plan(b, s, h, d, itemsize):
+    """K12's split of x (B, S, H, D) with ``itemsize``-byte elements:
+    (vec, tpr, rpt, chunks, ppc, items). A thread takes ``vec`` columns of
+    a row's first half and the matching ones of its second: 16 bytes
+    (8 bf16, 4 f32) where D/2 % vec == 0 (the vector instance), else 1
+    (the scalar instance). A CTA is tpr threads a row (one a column group,
+    at most ROPE_THREADS; more groups loop) x rpt row threads x ppc
+    positions. The B x H rows of a position share its tables; a thread
+    takes ROPE_ROWS of them at once, so rpt covers a position's rows in
+    ROPE_ROWS passes where the CTA allows, and ppc fills the rest of the
+    CTA with further positions. An item is ppc positions x a chunk of
+    rpt x ROPE_ROWS rows (``chunks`` a position); the grid walks the
+    items."""
+    half = d // 2
+    vec = 16 // itemsize
+    if half % vec:
+        vec = 1
+    tpr = min(half // vec, ROPE_THREADS)
+    rows = b * h
+    rpt = max(1, min(-(-rows // ROPE_ROWS), ROPE_THREADS // tpr))
+    ppc = max(1, min(ROPE_THREADS // (tpr * rpt), s))
+    chunks = -(-rows // (rpt * ROPE_ROWS))
+    return vec, tpr, rpt, chunks, ppc, -(-s // ppc) * chunks
+
+
+def rope_bwd_table(sin):
+    """sin' = -swap_halves(sin): the rope with it is the rope's VJP
+    (``_rope_bwd``), for any table."""
+    half = sin.shape[-1] // 2
+    return -torch.cat([sin[..., half:], sin[..., :half]], dim=-1)
+
+
+def rope_fwd(x, cos, sin, transpose=False):
+    """The rope of x (B, S, H, D) with (S, D) f32 tables, or with
+    ``transpose`` its VJP (the rope with ``rope_bwd_table(sin)``) — K12 on
+    CUDA tensors (the transposed instance reads sin swapped and negated:
+    one launch), the plain version on CPU tensors."""
     global rope_launches
     if not x.is_cuda:
-        return rope_reference(x, cos, sin)
+        return rope_reference(x, cos, rope_bwd_table(sin) if transpose
+                              else sin)
     b, s, h, d = x.shape
     if d % 2:
         raise ValueError(f"rope needs an even head_dim, got {d}")
@@ -209,18 +251,14 @@ def rope_fwd(x, cos, sin):
     _build.check_cuda("cos", cos, torch.float32, (s, d))
     _build.check_cuda("sin", sin, torch.float32, (s, d))
     out = torch.empty_like(x)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _build.launch("pt_rope", x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                   out.data_ptr(), b, s, h, d,
-                  int(x.dtype == torch.bfloat16), _build.stream_of(x))
+                  int(x.dtype == torch.bfloat16), int(transpose),
+                  *rope_plan(b, s, h, d, x.element_size()), sms,
+                  _build.stream_of(x))
     rope_launches += 1
     return out
-
-
-def rope_bwd_table(sin):
-    """sin' = -swap_halves(sin): the rope with it is the rope's VJP
-    (``_rope_bwd``), for any table."""
-    half = sin.shape[-1] // 2
-    return -torch.cat([sin[..., half:], sin[..., :half]], dim=-1)
 
 
 class _FusedRope(torch.autograd.Function):
@@ -233,14 +271,16 @@ class _FusedRope(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         cos, sin = ctx.saved_tensors
-        fn = rope_reference if ctx.plain else rope_fwd
-        return fn(g.contiguous(), cos, rope_bwd_table(sin).contiguous()), \
-            None, None, None
+        if ctx.plain:
+            dx = rope_reference(g, cos, rope_bwd_table(sin))
+        else:
+            dx = rope_fwd(g.contiguous(), cos, sin, transpose=True)
+        return dx, None, None, None
 
 
 def fused_rope(x, cos, sin, plain=False):
     """Rotary position embedding of x (B, S, H, D) with (S, D) tables, with
-    a gradient for x: K12 forward and backward (plain versions on CPU
-    tensors, or with ``plain``: the on-card reference). The tables get no
-    gradient, as in the JAX package."""
+    a gradient for x: K12 forward and its transposed instance backward
+    (plain versions on CPU tensors, or with ``plain``: the on-card
+    reference). The tables get no gradient, as in the JAX package."""
     return _FusedRope.apply(x, cos, sin, plain)

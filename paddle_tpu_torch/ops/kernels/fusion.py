@@ -23,16 +23,16 @@ reference reaches that chain on the card only by passing ``enabled=()``
 explicitly.
 
 The training half (``TRAIN_CHAIN``, ``fuse_train_chain``) runs the same
-block with a rope + flash-attention attend seam: ``norm_matmul`` folds each
-norm into ALL its consumers as one ``norm_multi_matmul`` node (K2 per
-consumer forward, one VJP), ``attn_epilogue`` folds (attend, o-proj,
-residual add) into one node whose o-proj and add follow the attention
-output, and ``optimizer_update`` collapses the AdamW8bit chain into one
-sweep (K8). ``train_kernel_launches_per_step`` derives every kernel's
-launches per train step from the same plans. MoE blocks run the attention
-half alone (``TRAIN_ATTN_CHAIN``) and route their MLP through the grouped
-matmul; ``moe_train_kernel_launches_per_step`` counts their step (K13,
-and K14 under the ``moe_grouped_bwd`` family).
+block with a rope (K12) + flash-attention attend seam: ``norm_matmul``
+folds each norm into ALL its consumers as one ``norm_multi_matmul`` node
+(K2 per consumer forward, one VJP), ``attn_epilogue`` folds (attend,
+o-proj, residual add) into one node whose o-proj and add follow the
+attention output, and ``optimizer_update`` collapses the AdamW8bit chain
+into one sweep (K8). ``train_kernel_launches_per_step`` derives every
+kernel's launches per train step from the same plans. MoE blocks run the
+attention half alone (``TRAIN_ATTN_CHAIN``) and route their MLP through
+the grouped matmul; ``moe_train_kernel_launches_per_step`` counts their
+step (K13, and K14 under the ``moe_grouped_bwd`` family).
 """
 
 from __future__ import annotations
@@ -249,6 +249,15 @@ def _bwd_kernel_counts(n: int, attn_shape) -> dict:
             "flash_attention_bwd_fused": n if fused else 0}
 
 
+def rope_launches_per_step(n_attend: int, runs: int = 1) -> int:
+    """K12 launches of ``n_attend`` training attend seams
+    (``models/llama._train_attend``): q and k each roped in every forward
+    run (``runs``: 2 where per-block recompute re-runs the block, whose
+    rope the kept (out, lse) of ``flash_save_residuals`` do not skip) and
+    once in backward."""
+    return n_attend * 2 * (runs + 1)
+
+
 def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
                             recompute: bool, granularity: str = "full",
                             fused_head_loss: bool, tied: bool = False,
@@ -260,7 +269,9 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     per-block recompute re-runs the block in backward (K1 not, under
     ``core_attn`` with ``flash_save_residuals``: the first forward's
     (out, lse) are kept), K5 or K9 once per attend node (K9 where the
-    backward's dispatch picks it at ``attn_shape``); the final norm in K6/K7
+    backward's dispatch picks it at ``attn_shape``); K12 on q and k of
+    each attend node, forward (again under recompute) and backward
+    (``rope_launches_per_step``); the final norm in K6/K7
     (one K7 count is one call: its row kernel and its dw sum kernel)
     when the head runs in the chunked loss (``fused_head_loss``), else in
     K2 through the head plan; one K8 per parameter tensor (``n_params``)
@@ -276,6 +287,7 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     runs = 2 if recompute else 1
     out = {"flash_attention": num_layers * k1 * (1 if keep else runs),
            **_bwd_kernel_counts(num_layers * k1, attn_shape),
+           "fused_rope": rope_launches_per_step(num_layers * k1, runs),
            "fused_norm_matmul": num_layers * k2 * runs,
            "rms_norm_fwd": 0, "rms_norm_bwd": 0,
            "adamw8bit": (n_params if optimizer == "adamw8bit"
@@ -305,7 +317,8 @@ def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     attention half's plan as ``train_kernel_launches_per_step`` counts it
     (K2 per ``norm_multi_matmul`` consumer, K1 and K5 or K9 per attend
     node, K9 where the backward's dispatch picks it at ``attn_shape``, its
-    norm in K6/K7 when unfused), the post-attention norm and the final
+    norm in K6/K7 when unfused, K12 on q and k forward and backward), the
+    post-attention norm and the final
     norm in K6/K7, three K13 forward and three K13 dX a layer (gate, up,
     down), three K14 dW under ``moe_grouped_bwd`` (on the card the step
     raises with the family off), one K8 per parameter tensor
@@ -326,6 +339,7 @@ def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     norms = 1 + sum(n.kind == "rms_norm" for n in lp)
     return {"flash_attention": num_layers * k1,
             **_bwd_kernel_counts(num_layers * k1, attn_shape),
+            "fused_rope": rope_launches_per_step(num_layers * k1),
             "fused_norm_matmul": num_layers * sum(
                 len(n.w[1]) for n in lp if n.kind == "norm_multi_matmul"),
             "rms_norm_fwd": num_layers * norms + 1,

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time K2, K3, K4, K7, K10, K11, K13 and K14 of two checkouts of the port on one card, in turns.
+"""Time K2, K3, K4, K7, K10, K11, K12, K13 and K14 of two checkouts of the
+port on one card, in turns.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --walk [--rounds R]
@@ -7,6 +8,7 @@
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --batcher [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --decode [--rounds R]
     python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --quant [--rounds R]
+    python3 paddle_tpu_torch/tools/ab_kernels.py OLD_TREE NEW_TREE --rope [--rounds R]
 
 Each tree is the root of a checkout (the directory that holds
 ``paddle_tpu_torch/``), e.g. the parent commit unpacked with ``git
@@ -37,6 +39,12 @@ into the tree's own ``build/`` and times, on the same seeded inputs,
     weight shapes, bf16 out) at phase 10's: T = 16,384 rows split over 8
     experts as ``MOE_COUNTS`` below;
   * K7 (``rms_norm_bwd``) at the train step's final norm, 8192 x 4096;
+  * K12 (rope) at the train step's q and k, (4, 2048, 32, 128) and (4,
+    2048, 8, 128) bf16: the forward (``rope_fwd``), the backward as
+    ``fused_rope``'s autograd runs it (a tree whose backward builds the
+    swapped table in plain ops pays for them here), and the backward's
+    kernel alone (the transposed instance; in a tree without one, K12 on
+    a table built beforehand);
   * the page-walk kernels at phase 3's shapes (B = 8, 32/8 heads): K3's
     decode form at the first decode step (bf16 cache, page 16, lengths
     128) and on the int8 cache (page 32, lengths 120-159), K3's masked form
@@ -66,9 +74,15 @@ the weight-only forms above, K13's int8/int4 forms and K7. With
 (Llama-3-8B, B = 8, prompt 128, 32 new tokens; bf16, then the model
 quantized to int8 weights with an int8 cache at page 32) and reads the
 untraced decode ms per step: the median of 3 full rollouts less the
-median of 3 prefills, over the 31 steps. It prints one JSON line per turn,
-then a summary line: each key's median over the turns of each tree, and
-new over old. Needs one CUDA card and the CUDA toolkit.
+median of 3 prefills, over the 31 steps. With ``--rope`` each turn times
+K12 as above, then the paths that rope q and k: ``chip_smoke.py``'s
+phase-9 Llama train step (8 layers, B = 4, S = 2048; the median of 3
+steps after a warm-up) and phase 4's bf16 prefill (32 layers, B = 8,
+prompt 128: ``generate_paged(max_new_tokens=1)``, the median of 5 after a
+warm-up), with each one's kernel launches by counter and the device
+kernels and their device ms in one torch.profiler trace of it. It prints
+one JSON line per turn, then a summary line: each key's median over the
+turns of each tree, and new over old. Needs one CUDA card and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -108,6 +122,8 @@ GMM_QUANT_FORMS = [(wd, gs) for wd in ("int8", "int4") for gs in (-1, 128)]
 K7_SHAPE = (8192, 4096)
 #: the K4 call whose host time is read: decode's down_proj
 K4_HOST = (8, 14336, 4096)
+#: K12's shapes: the train step's q and k (B, S, heads, head_dim)
+K12_SHAPES = [(4, 2048, 32, 128), (4, 2048, 8, 128)]
 
 
 def _cold_ms(torch, flush, fn, iters=20, warmup=2):
@@ -413,6 +429,108 @@ def _k7_times(torch, flush, rnd, g):
         torch, flush, lambda: k67.rms_norm_bwd(x, w, rstd, dy))}
 
 
+def _k12_times(torch, flush, rnd):
+    import inspect
+
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.kernels import fused_norm_rope as k67
+
+    transposed = "transpose" in inspect.signature(k67.rope_fwd).parameters
+    out = {}
+    for shape in K12_SHAPES:
+        x, g = rnd(*shape), rnd(*shape)
+        cos, sin = _rope_tables(shape[1], shape[3], 500000.0, device="cuda")
+        out[f"K12 fwd {shape}"] = _cold_ms(
+            torch, flush, lambda: k67.rope_fwd(x, cos, sin))
+        with torch.enable_grad():
+            xg = x.clone().requires_grad_(True)
+            y = k67.fused_rope(xg, cos, sin)
+            out[f"K12 bwd (autograd) {shape}"] = _cold_ms(
+                torch, flush, lambda: torch.autograd.grad(y, xg, g,
+                                                          retain_graph=True))
+        if transposed:
+            fn = (lambda: k67.rope_fwd(g, cos, sin, transpose=True))
+        else:
+            table = k67.rope_bwd_table(sin).contiguous()
+            fn = (lambda: k67.rope_fwd(g, cos, table))
+        out[f"K12 bwd kernel {shape}"] = _cold_ms(torch, flush, fn)
+        del x, g, xg, y
+    return out
+
+
+def _device_kernels(torch, fn):
+    """(device events, their device ms) in a torch.profiler trace of
+    ``fn()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ev), sum(e.time_range.end - e.time_range.start
+                        for e in ev) / 1e3
+
+
+def child_rope() -> None:
+    import chip_smoke as cs
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    _build.build()
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    with torch.no_grad():
+        out = _k12_times(torch, flush, rnd)
+    del flush
+
+    def walls(label, fn, n):
+        fn()                                     # warm-up
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        kernels.reset_launch_counts()
+        fn()
+        out.update({f"{label} launches {k}": v
+                    for k, v in kernels.launch_counts().items()})
+        n_dev, dev_ms = _device_kernels(torch, fn)
+        out.update({f"{label} ms": statistics.median(times),
+                    f"{label} device kernels": n_dev,
+                    f"{label} device ms": dev_ms})
+
+    cfg = cs.train_config(cs.TRAIN_LAYERS)
+    model = LlamaForCausalLM(cfg, seed=cs.SEED)
+    step = TrainStep(model, lambda o, lb: model.loss(o, lb),
+                     AdamW8bit(learning_rate=1e-4,
+                               parameters=model.parameters()))
+    ids = torch.randint(0, cfg.vocab_size, (cs.TB, cs.TS), generator=g,
+                        device="cuda")
+    walls("train step", lambda: step(ids, ids), 3)
+    del step, model
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                             seed=cs.SEED)
+    pids = cs.prompt_ids(torch, model.config)
+    walls("prefill bf16", lambda: model.generate_paged(
+        pids, max_new_tokens=1, page_size=cs.PAGE), 5)
+    print(json.dumps(out), flush=True)
+
+
 def child(quant_only=False) -> None:
     import torch
     from paddle_tpu_torch.ops.kernels import _build
@@ -433,6 +551,7 @@ def child(quant_only=False) -> None:
         out.update(_grouped_times(torch, flush, rnd, quant_only))
         out.update(_k7_times(torch, flush, rnd, g))
         if not quant_only:
+            out.update(_k12_times(torch, flush, rnd))
             out.update(_walk_times(torch, flush))
             out.update(_ragged_times(torch, flush))
     print(json.dumps(out), flush=True)
@@ -449,6 +568,8 @@ def main() -> int:
             child_ragged()
         elif "--decode" in args:
             child_decode()
+        elif "--rope" in args:
+            child_rope()
         else:
             child(quant_only="--quant" in args)
         return 0
@@ -457,7 +578,8 @@ def main() -> int:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
-    modes = ("--batcher", "--decode", "--walk", "--ragged", "--quant")
+    modes = ("--batcher", "--decode", "--walk", "--ragged", "--quant",
+             "--rope")
     mode = [a for a in args if a in modes]
     args = [a for a in args if a not in modes]
     old, new = (os.path.abspath(a) for a in args)
@@ -476,7 +598,8 @@ def main() -> int:
     for key in runs[old][0]:
         a = statistics.median(r[key] for r in runs[old])
         b = statistics.median(r[key] for r in runs[new])
-        summary[key] = {"old_ms": a, "new_ms": b, "new_over_old": b / a}
+        summary[key] = {"old_ms": a, "new_ms": b,
+                        "new_over_old": b / a if a else None}
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

@@ -78,8 +78,11 @@ masked in one row and not in another, so skipped and computed tiles meet),
 rows that see no key included
 (dO not 0 there: every output and gradient within the tolerance of the
 plain version, which follows the JAX package's reference lowering on
-such rows); K12 (rope) forward and backward bit-identical to
-the plain version in bf16 and f32, D = 128 and an odd half-width; the
+such rows); K12 (rope) forward and its transposed instance (the
+backward, one launch) bit-identical to the plain version in bf16 and f32,
+at D/2 on both sides of the 16-byte vector, odd half-widths, and the
+train step's q and k, two calls bitwise equal, and the training attend
+seam's output and gradients bit-identical to the f32 chain; the
 gradient clip's f32 scaling bit-identical to the CPU's and to numpy's.
 K13's int8/int4 forms (per channel, group 64 and 128) on the same
 routings (K 128, N 144 where K13's bf16 cases leave K % 128 or N % 16),
@@ -2186,9 +2189,21 @@ def test_flash_fused_wrapper_raises_instead_of_falling_back(gen):
                                      out, lse, q, causal=True)
 
 
-@pytest.mark.parametrize("shape,dtype", [
+#: K12's shapes: D/2 on either side of 16 bytes of elements (8 bf16, 4 f32:
+#: the vector instance at D 16 / 8, the scalar one at D 14 / 12, 6, 250),
+#: a CTA of several positions (H 3, H 8), more column groups than threads
+#: (D 4112), and the train step's q and k
+ROPE_SHAPES = [
     ((2, 37, 3, 128), torch.bfloat16), ((1, 5, 2, 6), torch.float32),
-    ((4, 64, 8, 128), torch.float32), ((1, 9, 1, 250), torch.bfloat16)])
+    ((4, 64, 8, 128), torch.float32), ((1, 9, 1, 250), torch.bfloat16),
+    ((2, 7, 3, 16), torch.bfloat16), ((2, 7, 3, 14), torch.bfloat16),
+    ((2, 7, 3, 8), torch.float32), ((2, 7, 3, 12), torch.float32),
+    ((1, 2, 1, 4112), torch.float32)] + [
+    ((4, 2048, h, 128), dt) for h in (32, 8)
+    for dt in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", ROPE_SHAPES)
 def test_rope_matches_plain_bitwise(gen, shape, dtype):
     b, s, h, d = shape
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2199,13 +2214,22 @@ def test_rope_matches_plain_bitwise(gen, shape, dtype):
     xk = x.clone().requires_grad_(True)
     y = k67.fused_rope(xk, cos, sin)
     y.backward(g)
-    assert k67.rope_launches - n == 2
+    assert k67.rope_launches - n == 2             # forward, transposed
     xr = x.clone().requires_grad_(True)
     yr = k67.fused_rope(xr, cos, sin, plain=True)
     yr.backward(g)
     torch.cuda.synchronize()
     assert y.dtype == dtype and torch.equal(y, yr)
     assert torch.equal(xk.grad, xr.grad)
+    # the transposed instance alone: one launch, the plain route's bits
+    n = k67.rope_launches
+    dx = k67.rope_fwd(g, cos, sin, transpose=True)
+    assert k67.rope_launches - n == 1
+    assert torch.equal(dx, k67.rope_reference(g, cos,
+                                              k67.rope_bwd_table(sin)))
+    # two calls, the same bits
+    assert torch.equal(k67.rope_fwd(x, cos, sin), y)
+    assert torch.equal(k67.rope_fwd(g, cos, sin, transpose=True), dx)
     # the VJP: <rope(x), g> = <x, rope^T(g)> up to f32 rounding
     lhs = (yr.double() * g.double()).sum()
     rhs = (x.double() * xr.grad.double()).sum()
@@ -2215,15 +2239,56 @@ def test_rope_matches_plain_bitwise(gen, shape, dtype):
 def test_rope_wrapper_raises_instead_of_falling_back(gen):
     x = _randn(gen, 1, 8, 2, 128)
     cos = torch.ones((8, 128), device="cuda")
-    for bad in (dict(x=x.half()), dict(x=x.cpu()), dict(cos=cos.half()),
-                dict(cos=cos[:4]), dict(sin=cos.t().contiguous()[:8]),
-                dict(x=x.transpose(1, 2)), dict(x=_randn(gen, 1, 8, 2, 7))):
-        args = dict(x=x, cos=cos, sin=cos)
-        args.update(bad)
-        with pytest.raises((ValueError, RuntimeError)):
-            k67.rope_fwd(args["x"], args["cos"], args["sin"])
-    with pytest.raises(RuntimeError):                     # grad would drop
-        k67.rope_fwd(x.clone().requires_grad_(True), cos, cos)
+    for transpose in (False, True):
+        for bad in (dict(x=x.half()), dict(x=x.cpu()), dict(cos=cos.half()),
+                    dict(cos=cos[:4]), dict(sin=cos.t().contiguous()[:8]),
+                    dict(sin=cos.half()), dict(x=x.transpose(1, 2)),
+                    dict(x=_randn(gen, 1, 8, 2, 7))):
+            args = dict(x=x, cos=cos, sin=cos)
+            args.update(bad)
+            with pytest.raises((ValueError, RuntimeError)):
+                k67.rope_fwd(args["x"], args["cos"], args["sin"],
+                             transpose=transpose)
+        with pytest.raises(RuntimeError):                 # grad would drop
+            k67.rope_fwd(x.clone().requires_grad_(True), cos, cos,
+                         transpose=transpose)
+
+
+def test_train_attend_seam_equals_the_chain_bitwise(gen):
+    """The training attend seam ropes q and k in K12: its output and its
+    q/k/v gradients equal those of the f32 rotate-half chain it ran
+    before (``apply_rotary_pos_emb`` on f32 copies, cast back) feeding the
+    same flash attention."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(hidden_size=512, num_attention_heads=4,
+                            num_key_value_heads=2)
+    b, s, hd = 2, 256, cfg.head_dim
+    q, k, v = (_randn(gen, b, s, n * hd) for n in (4, 2, 2))
+    g = _randn(gen, b, s, 4 * hd)
+    cos, sin = _rope_tables(s, hd, cfg.rope_theta, device="cuda")
+
+    def chain(q, k, v):
+        q2, k2 = llama.apply_rotary_pos_emb(q.reshape(b, s, 4, hd).float(),
+                                            k.reshape(b, s, 2, hd).float(),
+                                            cos, sin)
+        return k1.flash_attention_train(
+            q2.to(q.dtype), k2.to(k.dtype), v.reshape(b, s, 2, hd),
+            causal=True).reshape(b, s, 4 * hd)
+
+    runs = []
+    for seam in (lambda *a: llama._train_attend(cfg, *a, False, None),
+                 chain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n = k67.rope_launches
+        out = seam(*leaves)
+        out.backward(g)
+        runs.append(([out.detach()] + [t.grad for t in leaves],
+                     k67.rope_launches - n))
+    torch.cuda.synchronize()
+    assert runs[0][1] == 4 and runs[1][1] == 0
+    for got, want in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(got, want)
 
 
 def test_clip_scale_matches_the_cpu_bitwise(gen):

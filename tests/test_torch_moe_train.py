@@ -203,8 +203,8 @@ def test_moe_train_step_adamw8bit_matches_jax(fault):
 
 def test_moe_launch_plan_counts(monkeypatch):
     """The plan at 3 layers (the chip's mixtral-8x7b-3L-train cell) with
-    every family on: 9 K2, 3 K1, 3 K5, 4 K6, 4 K7, 18 K13, 9 K14 and 33 K8
-    (10 tensors a layer + 3); with the families off no K2 and every norm
+    every family on: 9 K2, 3 K1, 3 K5, 12 K12, 4 K6, 4 K7, 18 K13, 9 K14 and
+    33 K8 (10 tensors a layer + 3); with the families off no K2 and every norm
     in K6/K7. A CPU step of the tiny model calls each kernel's plain
     version as often as its plan says the kernel launches."""
     import paddle_tpu.ops.pallas.fusion as jfusion
@@ -216,7 +216,8 @@ def test_moe_launch_plan_counts(monkeypatch):
     plan = fusion.moe_train_kernel_launches_per_step(
         3, 33, enabled=fusion.TRAIN_FUSIONS)
     assert plan == {"flash_attention": 3, "flash_attention_bwd": 3,
-                    "flash_attention_bwd_fused": 0, "fused_norm_matmul": 9, "rms_norm_fwd": 4,
+                    "flash_attention_bwd_fused": 0, "fused_rope": 12,
+                    "fused_norm_matmul": 9, "rms_norm_fwd": 4,
                     "rms_norm_bwd": 4, "grouped_matmul": 18,
                     "segment_dw": 9, "adamw8bit": 33}
     off = fusion.moe_train_kernel_launches_per_step(3, 33, enabled=())
@@ -230,6 +231,7 @@ def test_moe_launch_plan_counts(monkeypatch):
             (k2, "_reference", "fused_norm_matmul"),
             (k67, "rms_norm_fwd_reference", "rms_norm_fwd"),
             (k67, "rms_norm_bwd_reference", "rms_norm_bwd"),
+            (k67, "rope_reference", "fused_rope"),
             (k1314, "grouped_matmul_reference", "grouped_matmul"),
             (k1314, "segment_dw_reference", "segment_dw")):
         orig = getattr(mod, fn)

@@ -354,8 +354,9 @@ def test_train_launch_plan_counts():
     the plan-derived kernel launches of one train step at the chip's
     8-layer recipe: 2 K1 and 10 K2 a layer under recompute (1 K1 with
     ``flash_save_residuals``), one K5 a layer (one K9 instead under
-    ``flash_bwd_impl="fused"`` where the backward's dispatch takes it), the
-    final norm in K6/K7, one K8 per parameter tensor (9 per layer + 3)."""
+    ``flash_bwd_impl="fused"`` where the backward's dispatch takes it), 6
+    K12 a layer (q and k, forward twice, backward once), the final norm in
+    K6/K7, one K8 per parameter tensor (9 per layer + 3)."""
     import paddle_tpu.ops.pallas.fusion as jfusion
 
     for enabled in (fusion.TRAIN_FUSIONS, ("attn_epilogue",),
@@ -370,7 +371,7 @@ def test_train_launch_plan_counts():
     plan = fusion.train_kernel_launches_per_step(
         8, 9 * 8 + 3, enabled=fusion.TRAIN_FUSIONS, **kw)
     assert plan == {"flash_attention": 16, "flash_attention_bwd": 8,
-                    "flash_attention_bwd_fused": 0,
+                    "flash_attention_bwd_fused": 0, "fused_rope": 48,
                     "fused_norm_matmul": 80, "rms_norm_fwd": 1,
                     "rms_norm_bwd": 1, "adamw8bit": 75}
     with _port_flags(flash_bwd_impl="fused"):
