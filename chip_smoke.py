@@ -71,6 +71,15 @@ class, device busy share). Phases, in order; any failure raises and the process 
                pools, and the dropped-page control (the wave has no walk:
                each tile's last page left out); and K2 at M = 40 (the
                solo verify step) for N 1024, 4096, 14336 and 128256.
+               Last, the "batcher prefix" rows: K11, K3's ragged form
+               (the mixed wave), K10 and K3's masked form (the segment
+               step), bf16 and int8, on the prefix cache's table-routed
+               pool (``route_table``: a seeded permutation of B * pps +
+               pps + 1 pages, two slots sharing their first 224 tokens of
+               pages, the idle slot's row all park page, each row's tail
+               its own last page, an unreferenced page full of NaN), with
+               every check above plus: outputs finite, the park page and
+               the shared pages bitwise unchanged.
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -143,6 +152,26 @@ class, device busy share). Phases, in order; any failure raises and the process 
                ``int8_batcher_attention``, a verify row reading every key
                as the cache serves it); walls the median of 3, beside
                phase 6's, with tokens_per_target_step.
+6d. serving with the reference's defaults — the phase-6 model (a new
+               instance) through ``ContinuousBatcher(max_batch=8,
+               max_seq=640, page_size=16, segment=16, prefill_chunk=256,
+               page_pool_pages=120)`` and nothing else set: the prefix
+               cache, the host KV tier and the unified arena on; 24
+               requests sharing a 256-token system prompt, repeating
+               whole prompts, or unrelated (``prefix_requests``); the
+               counted run parks a decoding request from ``_on_tick``
+               and resumes it in a second ``run()``: launches equal to
+               the batcher's plan over both runs' waves and steps, every
+               request "ok" with its max_new_tokens, prefix hits, pages
+               saved, COW clones, demotions, promotions, recompute
+               avoided, parks and resumes all > 0, the resume admitting
+               one token, both allocators' ``check()``, every emitted
+               token held to phase 6's rule (int8: ``chunk_map`` knows a
+               matched prefix and a resumed token). bf16 in both plans,
+               int8w+int8kv (page 32, 60 pages) fused. Printed: walls and
+               tok/s with the cache on and with ``prefix_caching=False``
+               on the same requests, in turns (3 each for bf16 fused,
+               once otherwise), the stall ms, peak memory, pinned bytes.
 7. training kernels — after the serving models are freed, each new
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
@@ -323,6 +352,15 @@ SPEC_K = 4
 # 255 live rows, rows 255.. pad the wave
 VERIFY_SEQ = (32, 92, 123, 251, 300, 379, 507, 595)
 VERIFY_ROWS = (224, 5, 5, 5, 1, 5, 5, 5)
+# the "batcher prefix" rows of phase 3 (the batcher's table-routed pool):
+# the mixed wave on a pool of B * pps + pps + 1 pages whose table is a
+# seeded permutation, slots ROUTED_SHARE reading the same first
+# ROUTED_SHARED_TOKENS of pages, the idle slot's row all park page (the
+# pool's last), each row's tail repeating its own last page, and the page
+# before the park page, referenced by no row, full of NaN (a scrubbed
+# neighbour that must not leak)
+ROUTED_SHARE = (4, 6)
+ROUTED_SHARED_TOKENS = 224
 
 
 def log(*a):
@@ -942,7 +980,8 @@ def _decode_walk(kv_cache, rows, cache, layer, lens):
 
 
 def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
-                 chunks=WAVE_CHUNK, idle=WAVE_IDLE, int8=False):
+                 chunks=WAVE_CHUNK, idle=WAVE_IDLE, int8=False,
+                 routed=False):
     """The kernels phase's mixed wave at the batcher's shapes: a 2-layer
     bf16 cache (B=8, Hk=8, page 16, 40 pages per slot) of random K/V at
     the old lengths ``seqs`` (``int8``: an int8 cache at page 32, 20 pages
@@ -951,12 +990,15 @@ def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
     position) and its layout (row_slot, row_pos, valid, page_lens, q_start,
     q_lens, fresh_lens) as ContinuousBatcher._build_ragged_step lays a wave
     out: slot i prefills ``chunks[i]`` rows, or decodes one row unless it
-    is ``idle``."""
+    is ``idle``. ``routed``: the prefix cache's table-routed pool
+    (``route_table``)."""
     b, h, hk, d = BB, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(seed)
+    page = PAGE_INT8 if int8 else PAGE
     cache = kv_cache.create_paged_cache(
-        2, b, BSEQ, hk, d, PAGE_INT8 if int8 else PAGE,
-        dtype=torch.int8 if int8 else torch.bfloat16, device="cuda")
+        2, b, BSEQ, hk, d, page,
+        dtype=torch.int8 if int8 else torch.bfloat16,
+        extra_pages=-(-BSEQ // page) + 1 if routed else 0, device="cuda")
     if int8:
         for codes, scales in ((cache.k_pages, cache.k_scales),
                               (cache.v_pages, cache.v_scales)):
@@ -968,6 +1010,8 @@ def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
         pool.copy_(torch.randn(pool.shape, generator=g, device="cuda"))
     cache = cache._replace(seq_lens=torch.tensor(
         seqs, dtype=torch.int32, device="cuda"))
+    if routed:
+        cache = route_table(torch, cache, seqs, chunks, idle, seed)
     row_slot, row_pos = [-1] * BT, [0] * BT
     q_start, q_lens, fresh, page_lens = [0] * b, [0] * b, [0] * b, [0] * b
     row = b
@@ -992,6 +1036,66 @@ def batcher_wave(torch, kv_cache, rope_tables, seed, seqs=WAVE_SEQ,
                              dtype=torch.bfloat16)
                  for shape in ((BT, h, d), (BT, hk, d), (BT, hk, d)))
     return cache, rows + (cos_t[rp.long()], sin_t[rp.long()]), wave
+
+
+def route_table(torch, cache, seqs, chunks, idle, seed):
+    """The batcher's table-routed layout over ``cache``'s pool of B * pps
+    + pps + 1 pages: every slot's pages drawn from a seeded permutation of
+    the allocator's pages, slots ROUTED_SHARE reading the same pages for
+    their first ROUTED_SHARED_TOKENS, each row's entries past the slot's
+    pages repeating its own last page, the ``idle`` slot's row (an empty
+    slot) all park page, and the NaN page (``routed_pages``), which no row
+    references, full of NaN (int8: its scales)."""
+    import numpy as np
+
+    b, pps = cache.block_tables.shape
+    page = cache.k_pages.shape[3]
+    park, nan_page, _ = routed_pages(cache)
+    free = list(np.random.default_rng(seed).permutation(nan_page))
+    n_shared = ROUTED_SHARED_TOKENS // page
+    shared = [free.pop() for _ in range(n_shared)]
+    bt = np.full((b, pps), park, np.int32)
+    for i, (seq, chunk) in enumerate(zip(seqs, chunks)):
+        if i == idle:
+            continue
+        n = min(pps, -(-(seq + chunk + 1) // page) + 1)
+        own = [free.pop() for _ in range(n)]
+        if i in ROUTED_SHARE:
+            assert seq >= n_shared * page, (i, seq)
+            own[:n_shared] = shared
+        bt[i, :n] = own
+        bt[i, n:] = own[-1]
+    cache.block_tables.copy_(torch.from_numpy(bt))
+    poison = cache.k_scales if cache.quantized else cache.k_pages
+    poison[:, :, nan_page] = float("nan")
+    return cache
+
+
+def routed_pages(cache):
+    """(park page, NaN page, the pages slots ROUTED_SHARE share) of a
+    routed cache."""
+    p_total, page = cache.k_pages.shape[2], cache.k_pages.shape[3]
+    n_shared = ROUTED_SHARED_TOKENS // page
+    shared = cache.block_tables[ROUTED_SHARE[0], :n_shared].tolist()
+    return p_total - 1, p_total - 2, shared
+
+
+def _routed_checks(torch, label, out, before, after):
+    """The routed pool's checks: the output finite (the NaN page leaks
+    nowhere), and the park page and the shared pages bitwise as they were
+    (no write reaches them)."""
+    park, _, shared = routed_pages(before)
+    assert bool(torch.isfinite(out.float()).all()), \
+        f"{label}: a non-finite output (the NaN page leaked)"
+    names = ("k_pages", "v_pages") + (("k_scales", "v_scales")
+                                      if before.quantized else ())
+    for name in names:
+        a, o = getattr(after, name), getattr(before, name)
+        for pg in [park] + shared:
+            assert torch.equal(a[:, :, pg], o[:, :, pg]), \
+                f"{label}: {name} page {pg} (park or shared) changed"
+    return (f"routed: park page {park} and shared pages {shared} bitwise "
+            f"unchanged, NaN page unread")
 
 
 def _pool_copy(cache, **pools):
@@ -1023,8 +1127,12 @@ def _check_pools(torch, new, ref, old, written, label):
     codes = 0
     names = ("k_pages", "v_pages") + (("k_scales", "v_scales")
                                       if new.quantized else ())
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int8: torch.int8}
     for name in names:
-        a, b_, o = (getattr(c, name) for c in (new, ref, old))
+        # bit patterns: a NaN page compares equal to itself
+        a, b_, o = (getattr(c, name).view(bits[getattr(c, name).dtype])
+                    for c in (new, ref, old))
         if a.dtype == torch.int8:
             dq = (a.int() - b_.int()).abs()
             assert int(dq.max()) <= 1, f"{label}: a {name} code differs by > 1"
@@ -1142,11 +1250,13 @@ def _scales(cache, layer):
             "v_scales": cache.v_scales[layer]}
 
 
-def _k11_wave(torch, timer, k11, kv_cache, rope_tables, seed, spec, int8):
+def _k11_wave(torch, timer, k11, kv_cache, rope_tables, seed, spec, int8,
+              routed=False):
     """K11 on one wave (layer 1's pools; q, fresh K/V random): checks,
-    plan and times."""
+    plan and times; ``routed``: on the table-routed pool."""
     cache, (q, kf, vf, _, _), wave = batcher_wave(
-        torch, kv_cache, rope_tables, seed, *spec, int8=int8)
+        torch, kv_cache, rope_tables, seed, *spec, int8=int8, routed=routed)
+    before = _pool_copy(cache) if routed else None
     kp, vp = cache.k_pages[1], cache.v_pages[1]
     sc = _scales(cache, 1)
     lens = wave[3:]                       # page_lens, q_start, q_lens, fresh
@@ -1159,10 +1269,12 @@ def _k11_wave(torch, timer, k11, kv_cache, rope_tables, seed, spec, int8):
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
     name = _wave_name(*spec)
-    form = "K11 int8" if int8 else "K11"
+    form = ("K11 int8" if int8 else "K11") + (" routed" if routed else "")
     assert worst <= 1, f"{form} ({name}) worst err/tol {worst:.3f}"
     assert not out[wave[0] < 0].any(), \
         f"{form} ({name}): a padding row is not zero"
+    if routed:
+        name += "; " + _routed_checks(torch, form, out, before, cache)
     plan, walk = _ragged_checks(
         torch, f"{form} ({name})",
         "pt_ragged_paged_attention_int8_plan" if int8
@@ -1202,7 +1314,7 @@ def check_ragged_attention(torch, timer, k11, kv_cache, rope_tables,
 
 
 def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec,
-                    int8):
+                    int8, routed=False):
     """K3's ragged form on one wave: output, the written cells against the
     plain chain (bf16: bit for bit; int8: codes within 1, scales bit for
     bit), every other cell untouched; plan and times."""
@@ -1210,10 +1322,12 @@ def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec,
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
 
     cache, rows, wave = batcher_wave(torch, kv_cache, rope_tables, seed,
-                                     *spec, int8=int8)
+                                     *spec, int8=int8, routed=routed)
     layer = 1
     ck, cp = _pool_copy(cache), _pool_copy(cache)
     out, ck = k3.fused_rope_append_attend(*rows, ck, layer, *wave)
+    routed_note = (_routed_checks(torch, "K3 ragged routed", out, cache, ck)
+                   if routed else None)
     ref, cp = k3.ragged_reference(*rows, cp, layer, *wave, plain=True)
     q, k, v, cos, sin = rows
     ca = _pool_copy(cache, v=cache.v_pages.abs())
@@ -1223,7 +1337,10 @@ def _k3_ragged_wave(torch, timer, k3, kv_cache, rope_tables, seed, spec,
     diff = (out.float() - ref.float()).abs()
     worst = (diff / attention_tolerance(ref, abs_ref)).max().item()
     name = _wave_name(*spec)
-    form = "K3 ragged int8" if int8 else "K3 ragged"
+    form = ("K3 ragged int8" if int8 else "K3 ragged") + (
+        " routed" if routed else "")
+    if routed:
+        name += "; " + routed_note
     assert worst <= 1, f"{form} ({name}) worst err/tol {worst:.3f}"
     valid = wave[2]
     assert not out[~valid].any(), \
@@ -1284,6 +1401,25 @@ def check_rope_attend_ragged(torch, timer, k3, kv_cache, rope_tables,
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
             **first, "second_wave": second}
+
+
+def check_ragged_prefix(torch, timer, mod, kv_cache, rope_tables, int8):
+    """Phase 3's "batcher prefix" row of K11 (``mod`` the ragged attention
+    module) or K3's ragged form (the fused rope-attend module): the mixed
+    wave on the table-routed pool (``route_table``)."""
+    k11_form = hasattr(mod, "ragged_paged_attention_pure")
+    wave = (_k11_wave if k11_form else _k3_ragged_wave)
+    res = wave(torch, timer, mod, kv_cache, rope_tables,
+               SEED + 30 + 100 * int8 + 10 * k11_form, RAGGED_WAVES[0], int8,
+               routed=True)
+    name, src, tpu = (
+        ("ragged_paged_attention", "ragged_paged_attention.cu",
+         "ragged_paged_attention.py:244") if k11_form else
+        ("rope_append_attend_ragged", "rope_append_attend.cu",
+         "fused_rope_attend.py:441"))
+    return {"name": name + ("_int8" if int8 else "") + "_prefix",
+            "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": f"paddle_tpu/ops/pallas/{tpu}", **res}
 
 
 def verify_wave(torch, kv_cache, rope_tables, seed, int8=False):
@@ -1496,13 +1632,14 @@ def check_rope_attend_ragged_verify(torch, timer, k3, kv_cache, rope_tables,
                      f"{' int8' if int8 else ''} {VERIFY_NAME}"}
 
 
-def _segment_step_inputs(torch, kv_cache, rope_tables, seed, int8=False):
+def _segment_step_inputs(torch, kv_cache, rope_tables, seed, int8=False,
+                         routed=False):
     """A segment step's decode rows at the batcher's shapes: the mixed
     wave's cache (``int8``: its int8 form) at old lengths WAVE_SEQ, q (8,
     32, 128), k/v (8, 8, 128), cos/sin at each slot's position, every slot
     active but WAVE_IDLE."""
     cache, _, _ = batcher_wave(torch, kv_cache, rope_tables, seed,
-                               int8=int8)
+                               int8=int8, routed=routed)
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     q = torch.randn((BB, 32, 128), generator=g, device="cuda",
                     dtype=torch.bfloat16)
@@ -1516,11 +1653,14 @@ def _segment_step_inputs(torch, kv_cache, rope_tables, seed, int8=False):
 
 
 def check_paged_attention(torch, timer, k10, kv_cache, rope_tables,
-                          int8=False):
+                          int8=False, routed=False):
     """K10 at a segment step's shape: lengths WAVE_SEQ + 1, 0 for the idle
-    slot; ``int8``: on an int8 cache at page 32."""
+    slot; ``int8``: on an int8 cache at page 32; ``routed``: on the
+    table-routed pool (the idle slot's row the park page)."""
     cache, (q, _, _, _, _), active = _segment_step_inputs(
-        torch, kv_cache, rope_tables, SEED + 10 + 100 * int8, int8=int8)
+        torch, kv_cache, rope_tables, SEED + 10 + 100 * int8 + 50 * routed,
+        int8=int8, routed=routed)
+    before = _pool_copy(cache) if routed else None
     lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
     kp, vp = cache.k_pages[1], cache.v_pages[1]
     sc = _scales(cache, 1)
@@ -1535,7 +1675,10 @@ def check_paged_attention(torch, timer, k10, kv_cache, rope_tables,
     form = "paged_attention" + (" int8" if int8 else "")
     assert worst <= 1, f"{form} worst err/tol {worst:.3f}"
     assert not out[WAVE_IDLE].any(), "the length-0 slot is not zero"
-    row = {"name": "paged_attention" + ("_int8" if int8 else "")}
+    note = (_routed_checks(torch, form + " routed", out, before, cache)
+            + "; " if routed else "")
+    row = {"name": "paged_attention" + ("_int8" if int8 else "")
+           + ("_prefix" if routed else "")}
     walk = _walk_checks(torch, row, (*args, sc), ref,
                         lambda: (k10.paged_attention_pure(*args, **sc),))
     ms = timer(lambda: k10.paged_attention_pure(*args, **sc))
@@ -1546,10 +1689,10 @@ def check_paged_attention(torch, timer, k10, kv_cache, rope_tables,
               + 4 * (cache.block_tables.numel() + BB))
     bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
     page = kp.shape[2]
-    log(f"K10 {form} B{BB} H32/8 page{page} lens {lens.tolist()}: "
-        f"max_abs_err {diff.max().item():.3e} (worst err/tol {worst:.3f}) "
-        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}); "
-        f"{walk}")
+    log(f"K10 {form}{' routed' if routed else ''} B{BB} H32/8 page{page} "
+        f"lens {lens.tolist()}: max_abs_err {diff.max().item():.3e} (worst "
+        f"err/tol {worst:.3f}) kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+        f"bound_ms {bms:.4f} ({by}); {note}{walk}")
     return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:142",
@@ -1557,21 +1700,26 @@ def check_paged_attention(torch, timer, k10, kv_cache, rope_tables,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             "shape": f"B{BB} H32 Hk8 D128 page{page}"
-                     f"{' int8' if int8 else ''} lens {lens.tolist()}"}
+                     f"{' int8' if int8 else ''}"
+                     f"{' routed' if routed else ''} lens {lens.tolist()}"}
 
 
 def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables,
-                             int8=False):
+                             int8=False, routed=False):
     """K3's decode form with an active mask at a segment step's shape: the
     idle slot writes nothing and returns zeros; ``int8``: on an int8 cache
     at page 32 (the int8 batcher's segment step; codes within 1 of the
-    plain chain's, scales bit-identical)."""
+    plain chain's, scales bit-identical); ``routed``: on the table-routed
+    pool (the idle slot's row the park page)."""
     cache, rows, active = _segment_step_inputs(
-        torch, kv_cache, rope_tables, SEED + 11 + 100 * int8, int8=int8)
+        torch, kv_cache, rope_tables, SEED + 11 + 100 * int8 + 50 * routed,
+        int8=int8, routed=routed)
     layer = 1
     form = "rope_append_attend masked" + (" int8" if int8 else "")
     ck, cp = _pool_copy(cache), _pool_copy(cache)
     out, ck = k3.fused_rope_append_attend_decode(*rows, ck, layer, active)
+    note = (_routed_checks(torch, form + " routed", out, cache, ck) + "; "
+            if routed else "")
     ref, cp = k3.decode_reference(*rows, cp, layer, active, plain=True)
     q, k, v, cos, sin = rows
     ca = _pool_copy(cache, v=cache.v_pages.abs())
@@ -1586,7 +1734,8 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables,
     written = _written_cells(torch, cache, layer, slots,
                              cache.seq_lens[active])
     codes = _check_pools(torch, ck, cp, cache, written, form)
-    row = {"name": "rope_append_attend_masked" + ("_int8" if int8 else "")}
+    row = {"name": "rope_append_attend_masked" + ("_int8" if int8 else "")
+           + ("_prefix" if routed else "")}
     lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
     walk = _walk_checks(
         torch, row, _decode_walk(kv_cache, rows, cp, layer, lens), ref,
@@ -1606,12 +1755,12 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables,
               + 4 * (cache.block_tables.numel() + BB))
     bms, by = bound(nbytes, 4 * cells * 32 * 128, BF16_FLOPS)
     page = cache.k_pages.shape[3]
-    log(f"K3 {form} B{BB} H32/8 page{page} lens "
-        f"{cache.seq_lens.tolist()} idle slot {WAVE_IDLE}: max_abs_err "
+    log(f"K3 {form}{' routed' if routed else ''} B{BB} H32/8 page{page} "
+        f"lens {cache.seq_lens.tolist()} idle slot {WAVE_IDLE}: max_abs_err "
         f"{diff.max().item():.3e} (worst err/tol {worst:.3f}) pool values "
         f"differing 0" + (f" but {codes} codes by 1" if int8 else "")
         + f", kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-        f"{bms:.4f} ({by}); {walk}")
+        f"{bms:.4f} ({by}); {note}{walk}")
     return {**row, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rope_append_attend.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_rope_attend.py:441",
@@ -1620,7 +1769,8 @@ def check_rope_attend_masked(torch, timer, k3, kv_cache, rope_tables,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             "shape": f"B{BB} H32 Hk8 D128 page{page}"
-                     f"{' int8' if int8 else ''} seq_lens "
+                     f"{' int8' if int8 else ''}"
+                     f"{' routed' if routed else ''} seq_lens "
                      f"{list(WAVE_SEQ)} active but slot {WAVE_IDLE}"}
 
 
@@ -2111,14 +2261,27 @@ def chunk_map(prompt_len, chunk_starts, length):
     positions): the first position whose key the row reads fresh. A prompt
     row reads the cells before its chunk's start from the cache and its own
     chunk fresh; a decode row (position >= ``prompt_len``) reads every key
-    from the cache, its own included. ``chunk_starts``: the prompt offsets
-    at which the batcher admitted each chunk (``GenRequest.chunk_starts``)."""
+    from the cache, its own included. ``chunk_starts``: the wave-source
+    offsets at which the batcher admitted each chunk
+    (``GenRequest.chunk_starts``).
+
+    With the prefix cache the first chunk may start past 0: every cell
+    before it was matched, read from the pool, and written by an earlier
+    request, whose rows are taken here to have been one chunk from 0. A
+    full-prompt match's one chunk is the last prompt token, recomputed
+    over the cached (cloned) cells. A chunk that starts at or past
+    ``prompt_len`` is a resumed stream's one recomputed token: that row
+    reads the cells before it from the pool and its own key fresh."""
     starts = sorted(chunk_starts)
-    assert starts and starts[0] == 0 and starts[-1] < prompt_len, starts
+    assert starts and starts[0] < prompt_len, starts
     out = []
     for i in range(length):
-        out.append(i + 1 if i >= prompt_len
-                   else max(c for c in starts if c <= i))
+        if i >= prompt_len:
+            out.append(i if i in starts else i + 1)
+        elif i < starts[0]:
+            out.append(0)
+        else:
+            out.append(max(c for c in starts if c <= i))
     return out
 
 
@@ -2563,6 +2726,230 @@ def serve_batcher_spec(torch, kernels, fusion, cfg, prms, reqs, run_once,
     res["tokens_check"] = check_batcher_tokens(torch, cfg, prms, reqs, done,
                                                label, int8=int8)
     return res
+
+
+PREFIX_PARK_TICK = 12     # the tick phase 6d's _on_tick asks for its park
+
+
+def prefix_requests(vocab):
+    """The 24 seeded requests of phase 6d (SEED + 13), in submission
+    order: 4 that share a 256-token system prompt and add 32-256 tokens of
+    their own (a multiple of 32, so a repeat matches the whole prompt) and
+    16-24 new tokens (they retire early), 4 that repeat those prompts
+    whole (full-prompt matches: a copy-on-write clone each; queued ahead
+    of the rest, arriving at 3), 12 more on the system prompt with 32-256
+    tokens of their own and 4 unrelated prompts of 32-512 tokens, 16-64 new
+    tokens each. Arrivals in 0-6: the first request alone at 0 (the system
+    prompt's first writer)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 13)
+    system = rng.integers(0, vocab, size=256)
+
+    def on_system(n):
+        return np.concatenate([system, rng.integers(0, vocab, size=n)]
+                              ).astype(np.int32)
+
+    first = [(on_system(32 * int(rng.integers(1, 9))),
+              int(rng.integers(16, 25)), 2 * min(i, 1)) for i in range(4)]
+    repeats = [(p.copy(), int(rng.integers(16, 65)), 6) for p, _, _ in first]
+    more = [(on_system(int(rng.integers(32, 257))), int(rng.integers(16, 65)),
+             int(rng.integers(2, 6))) for _ in range(12)]
+    unrelated = [(rng.integers(0, vocab, size=int(rng.integers(32, 513)))
+                  .astype(np.int32), int(rng.integers(16, 65)),
+                  int(rng.integers(2, 7))) for _ in range(4)]
+    return first + more + unrelated + repeats
+
+
+def serve_batcher_prefix(torch, kernels, profile=False, int8=False):
+    """Phase 6d: Llama-3-8B at full width through ``ContinuousBatcher``
+    with the reference's defaults (prefix caching, the host KV tier, the
+    unified arena) on ``prefix_requests``, the pool at 3 x pps pages
+    (``page_pool_pages``), so admission defers, the tree evicts and the
+    host tier demotes and promotes. bf16 in both plans (BATCHER_PLANS),
+    or ``int8`` (int8w+int8kv, page 32) in the fused plan. The counted
+    run: a first ``run()`` whose ``_on_tick`` parks one decoding request,
+    then ``resume`` and a second ``run()``; its launches must equal the
+    plan over both runs' waves and segment steps, every request "ok" with
+    its max_new_tokens, the prefix and tier stats positive, the resumed
+    request admitting one token, the allocator's ``check()`` holding and
+    every emitted token passing ``check_batcher_tokens``' rule. Walls with
+    the cache on (no park) and with ``prefix_caching=False`` on the same
+    requests, printed: the median of 3 for bf16 fused, once otherwise."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               quantize_for_inference)
+    from paddle_tpu_torch.ops.kernels import fusion
+    from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
+
+    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    kind = "int8w+int8kv" if int8 else "bf16"
+    page = PAGE_INT8 if int8 else PAGE
+    pps = -(-BSEQ // page)
+    serve_kw = dict(page_size=page)
+    prms = model.param_dict()
+    if int8:
+        prms = quantize_for_inference(model)
+        for name, p in model.named_parameters():
+            if isinstance(prms[name], QuantizedWeight):
+                p.data = p.data.new_empty(0)   # the int8 model keeps codes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        serve_kw.update(quantized_params=prms, cache_dtype="int8")
+    reqs = prefix_requests(cfg.vocab_size)
+    n_tokens = sum(n for _, n, _ in reqs)
+    target = max(range(4, 16), key=lambda r: (reqs[r][1], -r))
+    log(f"serving, continuous batching with the prefix cache ({kind}): "
+        f"{len(reqs)} requests, prompts {sum(len(p) for p, _, _ in reqs)} "
+        f"tokens, {n_tokens} new tokens, page {page}, page_pool_pages "
+        f"{3 * pps}, park rid {target} at tick {PREFIX_PARK_TICK}")
+
+    def engine(**kw):
+        eng = ContinuousBatcher(model, max_batch=BB, max_seq=BSEQ,
+                                segment=16, prefill_chunk=BCHUNK, **kw,
+                                **serve_kw)
+        for prompt, n_new, t in reqs:
+            eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
+        return eng
+
+    def timed(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0
+
+    def on_engine():
+        eng = engine(page_pool_pages=3 * pps)
+        eng._ensure_host_arena()      # its pinned allocation is set-up
+        return eng
+
+    def counted():
+        """The park-and-resume run: (done, stats, wall, park record)."""
+        eng = on_engine()
+
+        def hook(tick):
+            if tick >= PREFIX_PARK_TICK and not asked:
+                eng.park(target)
+                asked.append(tick)
+
+        asked = []
+        eng._on_tick = hook
+        done, wall = timed(eng)
+        eng._on_tick = None
+        assert eng.parked == [target], (eng.parked, eng.stats["parks"])
+        first = dict(eng.stats)
+        eng.resume(target)
+        done2, wall2 = timed(eng)
+        assert list(done2) == [target], sorted(done2)
+        done.update(done2)
+        eng._pager.check()
+        eng._host_pager.check()
+        return done, eng, wall + wall2, first
+
+    out = {}
+    old = flags.get_flag("fused_decode_fusions")
+    plans = BATCHER_PLANS[:1] if int8 else BATCHER_PLANS
+    try:
+        for label, fusions in plans:
+            label_ = f"batcher prefix {'int8 ' if int8 else ''}{label}"
+            flags.set_flags({"fused_decode_fusions": fusions})
+            plan = fusion.planned_kernel_launches(L, quantized=int8)
+            timed(on_engine())                           # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            done, eng, wall, first = counted()          # THE counted run
+            counts = kernels.launch_counts()
+            st = eng.stats
+            waves, steps = st["ragged_steps"], st["decode_steps"]
+            fused = plan["rope_append_attend"] > 0
+            per = plan["rope_append_attend"] + plan["paged_attention"]
+            expected = dict.fromkeys(counts, 0)
+            expected["fused_norm_matmul"] = plan["norm_matmul"] * (waves
+                                                                   + steps)
+            expected["fused_rope_attend_ragged" if fused
+                     else "ragged_paged_attention"] = per * waves
+            expected["fused_rope_attend" if fused
+                     else "paged_attention"] = per * steps
+            if int8:
+                expected["quant_matmul"] = plan["quant_matmul"] * (waves
+                                                                   + steps)
+            log(f"{label_}: launches {counts} expected {expected}")
+            assert plan["norm_matmul"] == 5 * L + 1 and per == L, plan
+            assert counts == expected, f"{counts} != plan {expected}"
+            for rid, (prompt, n_new, _) in enumerate(reqs):
+                req = done[rid]
+                assert req.status == "ok", (rid, req.status)
+                assert len(req.tokens) == n_new, (rid, len(req.tokens))
+            positive = ("prefix_hits", "pages_saved", "prefix_cow_clones",
+                        "host_tier_pages_demoted",
+                        "host_tier_pages_promoted",
+                        "recompute_avoided_tokens", "resumes", "parks")
+            for key in positive:
+                # the tree's own counters (demotions) are mirrored from
+                # each run's tree: the first run's are the park run's
+                assert max(first[key], st[key]) > 0, (label_, key, st[key])
+            resumed = (st["prefill_tokens_admitted"]
+                       - first["prefill_tokens_admitted"])
+            assert resumed == 1, (label_, "resume admitted", resumed)
+            assert st["bucket_pad_tokens"] == 0, st
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            pinned = eng._host_arena.nbytes()
+            keys = ("ragged_steps", "segments", "decode_steps",
+                    "host_sync_count", "prefill_tokens_admitted",
+                    "prefix_hits", "prefix_misses", "prefix_tokens_matched",
+                    "pages_saved", "prefix_cow_clones", "prefix_evictions",
+                    "cache_full_deferrals", "host_tier_pages_demoted",
+                    "host_tier_pages_promoted", "recompute_avoided_tokens",
+                    "prefetch_stall_ms", "offload_stall_ms", "parks",
+                    "resumes", "wasted_slot_steps")
+            res = {"counted_wall_s": wall, "launches": counts,
+                   "first_run": {k: first[k] for k in keys},
+                   "max_memory_allocated_gib": peak,
+                   "host_arena_pinned_bytes": pinned,
+                   "host_arena_pinned": eng._host_arena.pinned,
+                   **{k: st[k] for k in keys}}
+            log(f"{label_}: counted run (park rid {target} asked at tick "
+                f"{PREFIX_PARK_TICK}, resumed with 1 token admitted) wall "
+                f"{wall:.3f} s, "
+                + ", ".join(f"{k} {st[k]}" for k in keys)
+                + f", max_memory_allocated {peak:.2f} GiB, host arena "
+                f"{pinned} bytes pinned={eng._host_arena.pinned}; the park "
+                f"run's tree: host_tier_pages_demoted "
+                f"{first['host_tier_pages_demoted']}, prefix_evictions "
+                f"{first['prefix_evictions']}, prefix_inserts "
+                f"{first['prefix_inserts']}")
+            res["tokens_check"] = check_batcher_tokens(
+                torch, cfg, prms, reqs, done, label_, int8=int8)
+            n_runs = 3 if (label == "fused" and not int8) else 1
+            walls = {True: [], False: []}
+            for i in range(n_runs):
+                # in turns (on, off, off, on, ...): the walls are host-bound
+                # and drift within a call
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    walls[on].append(timed(
+                        on_engine() if on
+                        else engine(prefix_caching=False))[1])
+            for on in (True, False):
+                wall_s = statistics.median(walls[on])
+                res["on" if on else "off"] = {
+                    "wall_s": wall_s, "wall_s_runs": walls[on],
+                    "generated_tok_s": n_tokens / wall_s}
+                log(f"{label_}: prefix_caching={on} wall "
+                    f"{[round(w, 3) for w in walls[on]]} s (median "
+                    f"{wall_s:.3f}), {n_tokens / wall_s:.1f} generated "
+                    f"tok/s")
+            if profile:
+                with torch.inference_mode():
+                    res["profile"] = profile_window(
+                        torch, lambda: timed(on_engine()), label_)
+            out[label] = res
+    finally:
+        flags.set_flags({"fused_decode_fusions": old})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3956,8 +4343,8 @@ def moe_grad_check(torch, gm):
 
     cfg = mixtral_config(1)
     h, s = cfg.hidden_size, TS
-    mlp = moe.MoEMLP(cfg, torch.bfloat16, torch.device("cuda"),
-                     torch.Generator(device="cuda").manual_seed(SEED + 31))
+    mlp = moe.MoEMLP(cfg, dtype=torch.bfloat16, device=torch.device("cuda"),
+                     gen=torch.Generator(device="cuda").manual_seed(SEED + 31))
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
     x = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
     dy = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
@@ -4308,8 +4695,8 @@ def moe_quant(torch, kernels, gm, profile=False):
 
     cfg = mixtral_config(1)
     h, s = cfg.hidden_size, TS
-    mlp = moe.MoEMLP(cfg, torch.bfloat16, torch.device("cuda"),
-                     torch.Generator(device="cuda").manual_seed(SEED + 31))
+    mlp = moe.MoEMLP(cfg, dtype=torch.bfloat16, device=torch.device("cuda"),
+                     gen=torch.Generator(device="cuda").manual_seed(SEED + 31))
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
     x = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
     dy = torch.randn((s, h), generator=g, device="cuda").to(torch.bfloat16)
@@ -4604,6 +4991,23 @@ def main() -> int:
             for check, mod, plan in (
                 (check_ragged_attention_verify, k11, "unfused attention"),
                 (check_rope_attend_ragged_verify, k3, "fused"))]
+    # the "batcher prefix" rows: each form on the table-routed pool; the
+    # int8 unfused forms' launches come from phase 6b (phase 6d serves
+    # int8 in the fused plan only)
+    for int8 in (False, True):
+        pre = "batcher prefix int8" if int8 else "batcher prefix"
+        unfused = ("batcher int8 unfused attention" if int8
+                   else "batcher prefix unfused attention")
+        own += [(check_ragged_prefix(torch, timer, k11, kv_cache,
+                                     _rope_tables, int8), unfused),
+                (check_ragged_prefix(torch, timer, k3, kv_cache,
+                                     _rope_tables, int8), f"{pre} fused"),
+                (check_paged_attention(torch, timer, k10, kv_cache,
+                                       _rope_tables, int8=int8,
+                                       routed=True), unfused),
+                (check_rope_attend_masked(torch, timer, k3, kv_cache,
+                                          _rope_tables, int8=int8,
+                                          routed=True), f"{pre} fused")]
     del timer
     torch.cuda.empty_cache()
 
@@ -4620,6 +5024,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     stats_batcher_int8 = serve_batcher(torch, kernels, profile=profile,
                                        int8=True)
+    torch.cuda.empty_cache()
+    # ---- 6d. the batcher with the reference's defaults: prefix cache,
+    # host tier, unified arena (bf16 in both plans, int8w+int8kv fused)
+    stats_prefix = serve_batcher_prefix(torch, kernels, profile=profile)
+    torch.cuda.empty_cache()
+    stats_prefix_int8 = serve_batcher_prefix(torch, kernels,
+                                             profile=profile, int8=True)
     torch.cuda.empty_cache()
 
     # ---- 7. training kernels vs plain at the train step's shapes, 8. the
@@ -4697,6 +5108,10 @@ def main() -> int:
              **{f"batcher int8 spec {label}":
                 stats_batcher_int8[label]["spec"]["launches"]
                 for label, _ in BATCHER_PLANS},
+             **{f"batcher prefix {label}": stats_prefix[label]["launches"]
+                for label, _ in BATCHER_PLANS},
+             "batcher prefix int8 fused":
+                 stats_prefix_int8["fused"]["launches"],
              "train": counts_train, "moe train": counts_moe,
              **counts_quant,
              "grad check split, mask": counts_grad_split, "sft": counts_sft}
@@ -4720,6 +5135,13 @@ def main() -> int:
                "rope_append_attend_ragged_verify": "fused_rope_attend_ragged",
                "rope_append_attend_ragged_int8_verify":
                    "fused_rope_attend_ragged",
+               **{f"{n}{q}_prefix": c for q in ("", "_int8")
+                  for n, c in (
+                      ("ragged_paged_attention", "ragged_paged_attention"),
+                      ("rope_append_attend_ragged",
+                       "fused_rope_attend_ragged"),
+                      ("paged_attention", "paged_attention"),
+                      ("rope_append_attend_masked", "fused_rope_attend"))},
                "flash_attention_bwd": "flash_attention_bwd",
                "rms_norm_fwd": "rms_norm_fwd",
                "rms_norm_bwd": "rms_norm_bwd",
@@ -4769,6 +5191,21 @@ def main() -> int:
                 f"{sp['tokens_per_target_step']:.3f} (NGramDraft "
                 f"{sp['ngram']['tokens_per_target_step']:.3f})")
 
+    for label, st in (*((f"bf16 {k}", v) for k, v in stats_prefix.items()),
+                      *((f"int8w+int8kv {k}", v)
+                        for k, v in stats_prefix_int8.items())):
+        log(f"batcher prefix {label}, prefix_caching on against off (this "
+            f"run, phase 6d's requests): wall {st['on']['wall_s']:.3f} "
+            f"against {st['off']['wall_s']:.3f} s, "
+            f"{st['on']['generated_tok_s']:.1f} against "
+            f"{st['off']['generated_tok_s']:.1f} generated tok/s; "
+            f"prefill_tokens_admitted (counted run) "
+            f"{st['prefill_tokens_admitted']}, prefetch_stall_ms "
+            f"{st['prefetch_stall_ms']:.3f}, offload_stall_ms "
+            f"{st['offload_stall_ms']:.3f}, max_memory_allocated "
+            f"{st['max_memory_allocated_gib']:.2f} GiB, host arena "
+            f"{st['host_arena_pinned_bytes']} bytes pinned")
+
     log(f"max_memory_allocated while training: Llama "
         f"{stats_train['max_memory_allocated_gib']:.2f} GiB, fine-tuning "
         f"{stats_sft['max_memory_allocated_gib']:.2f} GiB, MoE "
@@ -4778,6 +5215,8 @@ def main() -> int:
     log(json.dumps({"serving": stats, "serving_int8w_int8kv": stats_int8,
                     "serving_batcher": stats_batcher,
                     "serving_batcher_int8w_int8kv": stats_batcher_int8,
+                    "serving_batcher_prefix": stats_prefix,
+                    "serving_batcher_prefix_int8w_int8kv": stats_prefix_int8,
                     "train": stats_train, "sft": stats_sft,
                     "moe_train": stats_moe,
                     "moe_quantized_experts": stats_quant}))

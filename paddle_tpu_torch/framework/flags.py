@@ -77,8 +77,11 @@ define_flag("ragged_batching", True,
             "prefill pipeline (not ported yet: the batcher raises).")
 define_flag("prefix_caching", True,
             "ContinuousBatcher admission shares already-computed prompt "
-            "pages through a radix-tree prefix index (not ported yet: a "
-            "batcher that resolves it on raises; pass prefix_caching=False).")
+            "pages through a radix-tree prefix index over page-granular "
+            "token chunks (inference/prefix_cache.py): matched pages attach "
+            "to the new slot by reference (refcounted, copy-on-write on "
+            "divergence) and only the unmatched suffix is prefilled. Active "
+            "only with ragged_batching.")
 define_flag("spec_decode", False,
             "Self-speculative decoding in the ContinuousBatcher (ragged "
             "path, greedy only): each wave verifies every decoding slot's "
@@ -93,11 +96,34 @@ define_flag("lora_serving", False,
             "path only; not ported yet: a batcher that resolves it on "
             "raises).")
 define_flag("kv_host_tier", True,
-            "Second KV page arena in host RAM behind the prefix cache; "
-            "active only with prefix_caching (not ported yet).")
+            "Second KV page arena in host RAM behind the prefix cache "
+            "(models/kv_cache.HostPageArena): leaf-LRU eviction demotes "
+            "pages to host instead of freeing them, a match on a "
+            "host-resident prefix prefetches them back, and park()/resume() "
+            "move a live sequence's pages to host and back. Active only "
+            "with prefix_caching.")
+define_flag("kv_host_tier_pages", 0,
+            "Host arena size in pages for the KV host tier; 0 = auto (4x "
+            "the device page pool). Parked sequences and demoted prefix "
+            "pages share this arena.")
+define_flag("kv_prefetch_depth", 8,
+            "Pages per host->device prefetch chunk (HostPageArena.load).")
 define_flag("unified_arena", True,
-            "One typed HBM page economy across KV pages and adapter "
-            "slots; active only with prefix_caching (not ported yet).")
+            "One typed, refcounted page economy across KV pages and "
+            "(reserved) draft-weight shards (models/arena.py): every class "
+            "allocates against one global byte budget and a deficit "
+            "steals cross-class, never below arena_class_floors. Active "
+            "only with prefix_caching.")
+define_flag("arena_hbm_pages", 0,
+            "Unified-arena global budget, in KV-page units; 0 = auto (the "
+            "KV page pool).")
+define_flag("arena_class_floors", "kv=1,adapter=1,weight=0",
+            "Per-class residency floors for the unified arena's steal loop "
+            "('kv=1,adapter=1,weight=0').")
+define_flag("arena_cost_model", False,
+            "Unified-arena steal-victim scoring: ON ranks victim classes by "
+            "restore cost (unit bytes) per unit of staleness, OFF by "
+            "recency alone.")
 define_flag("fused_train", True,
             "Training forward/backward/update routes through the fusion "
             "pass's training twin (ops/kernels/fusion.py TRAIN_CHAIN): "

@@ -37,17 +37,37 @@ readbacks:
     seq_lens rewinds past the rest (``kv_cache.advance_by``), on the
     device; one host readback a wave. Tokens equal spec-off decoding.
 
-The page layout is the identity one (slot b owns pages [b*pps,
-(b+1)*pps)); PyTorch runs eagerly, so the JAX package's compiled-program
-caches have no counterpart. ``stats`` keeps the JAX package's ragged-path
-keys with the same meaning (docs/SERVING.md).
+PREFIX CACHING (``flags.prefix_caching``, default on): the pool is
+table-routed. Admission runs a longest-prefix match against a radix tree
+of page-granular token chunks (``inference/prefix_cache.py``); matched
+pages attach to the new slot by reference (refcounted by
+``kv_cache.PageAllocator``) and only the unmatched suffix enters the
+wave. The slot's private pages (suffix + decode horizon) are reserved up
+front; a full-prompt match recomputes the last prompt token on a cloned
+page (copy-on-write, ``kv_cache.clone_pages``). A slot whose prompt is
+prefilled registers its full pages with the tree. Under pool pressure
+leaf-LRU eviction runs, and admission DEFERS
+(``stats["cache_full_deferrals"]``) instead of raising. The pool's last
+page is the park page: every empty row points there, and a row's entries
+past the slot's pages repeat its own last page, so no read reaches a
+foreign page. With the HOST TIER (``flags.kv_host_tier``) eviction
+demotes pages into a pinned ``kv_cache.HostPageArena`` (a blocking
+store), a match on a host-resident prefix promotes it back (copies
+enqueued before the next wave), and ``park``/``resume`` move a live
+stream's pages to host and back without re-prefill (resume recomputes
+one token). With the UNIFIED ARENA (``flags.unified_arena``,
+``models/arena.py``) the pool's pages are the ``kv`` class of one
+budgeted page economy. Tokens are the same with each feature on or off.
+
+PyTorch runs eagerly, so the JAX package's compiled-program caches have
+no counterpart. ``stats`` keeps the JAX package's ragged-path keys with
+the same meaning (docs/SERVING.md).
 
 Not ported yet, and refused rather than served without (ROADMAP.md,
-Queue 1): prefix caching, the host KV tier and the unified arena (the
-``prefix_caching``/``kv_host_tier``/``unified_arena`` flags default on, so
-pass ``prefix_caching=False``), multi-LoRA serving, sampling
-(``temperature > 0``), dispatch retries (``retry_policy``), the bucketed
-admission pipeline (``ragged=False``), and the fault-injection sites. A
+Queue 1): multi-LoRA serving, sampling (``temperature > 0``), dispatch
+retries (``retry_policy``), the bucketed admission pipeline
+(``ragged=False``), live migration of parked streams
+(``export_parked``/``import_parked``) and the fault-injection sites. A
 resolved-on feature raises ``NotImplementedError``.
 """
 
@@ -62,10 +82,15 @@ import numpy as np
 import torch
 
 from ..framework import flags
-from ..models.kv_cache import advance_by, advance_masked, create_paged_cache
+from ..framework.contract import refuse_unported
+from ..models.kv_cache import (HostPageArena, PageAllocator,
+                               PagedCacheState, advance_by, advance_masked,
+                               clone_pages, create_paged_cache,
+                               kv_page_nbytes, scrub_pages)
 from ..models.llama import (_logits_ok, _normalize_sampling, _pow2_bucket,
                             _pure_decoder_layer, _pure_lm_head_logits,
                             _rope_tables)
+from .prefix_cache import PrefixCache
 
 
 class Backpressure(RuntimeError):
@@ -81,32 +106,57 @@ class GenRequest:
     tokens: List[int] = field(default_factory=list)  # generated only
     done: bool = False
     prefilled: int = 0                 # prompt tokens already in the cache
+    # prompt tokens served from shared pages at admission (their prefill
+    # skipped)
+    prefix_len: int = 0
     started: bool = False              # first chunk has entered a wave
-    # the prompt offset at which each of its prefill chunks began, in
-    # admission order: a chunk's rows read the cells before its start from
-    # the cache and its own rows fresh (what an int8 cache's rounding
-    # depends on)
-    chunk_starts: List[int] = field(default_factory=list)
     # speculative decoding: drafts proposed for and accepted from this
     # request (their ratio is its acceptance rate)
     draft_proposed: int = 0
     draft_accepted: int = 0
+    # a resumed (un-parked) request's wave source: prompt + generated so
+    # far; None for a request that was never parked
+    resume_src: Optional[np.ndarray] = None
+    # multi-LoRA serving (not ported: a request with an adapter raises)
+    adapter_id: Optional[object] = None
+    _adapter_slot: Optional[int] = None
     # "ok" | "timeout" | "poisoned" | "error"
     status: str = "ok"
-    error: Optional[str] = None         # repr of a per-request failure
     deadline_s: Optional[float] = None  # wall budget from submit time
     submit_t: float = 0.0               # engine clock at submit
+    error: Optional[str] = None         # repr of a per-request failure
+    # the wave-source offset at which each of its prefill chunks began, in
+    # admission order: a chunk's rows read the cells before its start from
+    # the cache and its own rows fresh (what an int8 cache's rounding
+    # depends on)
+    chunk_starts: List[int] = field(default_factory=list, kw_only=True)
 
     @property
     def output_ids(self):
         return list(map(int, self.prompt)) + self.tokens
 
 
+def _wave_src(req: GenRequest) -> np.ndarray:
+    """The token stream admission waves prefill from: the prompt, or for a
+    resumed request its prompt + history."""
+    return req.prompt if req.resume_src is None else req.resume_src
+
+
+@dataclass
+class _Parked:
+    """A live sequence parked in the host tier: its request (frozen at
+    park time), the host arena slots holding its pages [0, ceil(seq_len /
+    page)) (one reference each, owned by this record), and the consumed
+    tokens its cells cover."""
+    req: GenRequest
+    host_pages: List[int]
+    seq_len: int
+
+
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md, Queue "
-        f"1, item 4); the ContinuousBatcher refuses rather than serving "
-        f"without it")
+        f"1); the ContinuousBatcher refuses rather than serving without it")
 
 
 class _Record:
@@ -146,17 +196,30 @@ class ContinuousBatcher:
                  page_size: int = 16, segment: int = 16,
                  eos_token_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
-                 top_p: Optional[float] = None,
+                 top_p: Optional[float] = None, seed: int = 0,
                  max_pending: Optional[int] = None, retry_policy=None,
                  quantized_params=None, cache_dtype=None,
                  prefill_chunk: Optional[int] = None,
                  ragged: Optional[bool] = None,
                  prefix_caching: Optional[bool] = None,
+                 prefix_pages: Optional[int] = None,
+                 page_pool_pages: Optional[int] = None,
                  spec_decode: Optional[bool] = None,
                  spec_k: Optional[int] = None, draft=None,
                  host_tier: Optional[bool] = None,
+                 host_tier_pages: Optional[int] = None,
+                 prefetch_depth: Optional[int] = None,
                  lora: Optional[bool] = None,
-                 unified_arena: Optional[bool] = None):
+                 lora_max_rank: Optional[int] = None,
+                 lora_hbm_adapters: Optional[int] = None,
+                 adapter_pool=None,
+                 unified_arena: Optional[bool] = None,
+                 arena_hbm_pages: Optional[int] = None,
+                 arena_class_floors: Optional[str] = None):
+        refuse_unported("ContinuousBatcher",
+                        lora_max_rank=(lora_max_rank, None),
+                        lora_hbm_adapters=(lora_hbm_adapters, None),
+                        adapter_pool=(adapter_pool, None))
         self.model = model
         self.cfg = model.config
         self.B = max_batch
@@ -164,6 +227,7 @@ class ContinuousBatcher:
         self.page_size = page_size
         self.segment = segment
         self.eos = eos_token_id
+        # seed: the sampling stream's; greedy decoding draws nothing
         self.sampling = _normalize_sampling(temperature, top_k, top_p)
         self.params = (quantized_params if quantized_params is not None
                        else model.param_dict())
@@ -227,10 +291,6 @@ class ContinuousBatcher:
         # ... and whatever resolves on that the port has not got, raises
         for on, what in ((not self._ragged, "bucketed admission "
                           "(ragged=False)"),
-                         (prefix, "prefix caching (pass "
-                          "prefix_caching=False)"),
-                         (host_tier, "the host KV tier"),
-                         (unified_arena, "the unified HBM arena"),
                          (lora, "multi-LoRA serving"),
                          (self.sampling is not None,
                           "sampling (temperature > 0)"),
@@ -238,6 +298,28 @@ class ContinuousBatcher:
                           "the dispatch retry policy")):
             if on:
                 raise _not_ported(what)
+        self._prefix_caching = prefix
+        # pages beyond the identity batch * pps pool: retained prefixes
+        # live there while every slot is busy (one sequence's worth by
+        # default)
+        self._prefix_pages = ((self._pps if prefix_pages is None
+                               else int(prefix_pages)) if prefix else 0)
+        if self._prefix_pages < 0:
+            raise ValueError(f"prefix_pages must be >= 0, "
+                             f"got {prefix_pages}")
+        # an absolute pool size, which may under-provision the pool; >= pps
+        # so one request can always be placed after a full eviction
+        if page_pool_pages is not None:
+            if not prefix:
+                raise ValueError("page_pool_pages needs prefix_caching: "
+                                 "only the table-routed pool can be sized "
+                                 "away from the identity layout")
+            if page_pool_pages < self._pps:
+                raise ValueError(
+                    f"page_pool_pages must be >= pages_per_seq "
+                    f"({self._pps}) so one request can always be placed, "
+                    f"got {page_pool_pages}")
+        self._pool_pages = page_pool_pages
         self._spec = spec
         self._spec_k = int(flags.get_flag("spec_k") if spec_k is None
                            else spec_k)
@@ -251,12 +333,74 @@ class ContinuousBatcher:
         # a live cap on the draft rows a verify segment may take (0: the
         # plain decode row); the wave's shape stays keyed on spec_k
         self._spec_k_cap: Optional[int] = None
+        # the unified arena: the kv class at a physical ceiling, residency
+        # gated by one byte budget (auto: the legacy pool's bytes); the
+        # reserved weight class holds no pages
+        self._arena_on = unified_arena
+        self._arena = None
+        self._arena_kv_pages = 0
+        if unified_arena:
+            from ..models.arena import UnifiedArena, parse_class_floors
+
+            kv_unit = kv_page_nbytes(
+                self.cfg.num_hidden_layers, self.cfg.num_key_value_heads,
+                self.page_size, self.cfg.head_dim, self._cache_dtype)
+            pool = self._legacy_pool_pages()
+            floors = parse_class_floors(
+                flags.get_flag("arena_class_floors")
+                if arena_class_floors is None else arena_class_floors)
+            budget_pages = int(flags.get_flag("arena_hbm_pages")
+                               if arena_hbm_pages is None
+                               else arena_hbm_pages)
+            if budget_pages < 0:
+                raise ValueError(f"arena_hbm_pages must be >= 0 "
+                                 f"(0 = auto), got {budget_pages}")
+            budget = (budget_pages if budget_pages > 0 else pool) * kv_unit
+            kv_ceiling = min(max(pool, budget // kv_unit), 4 * pool)
+            self._arena = UnifiedArena(
+                budget, {"kv": (kv_unit, kv_ceiling), "weight": (kv_unit, 0)},
+                floors)
+            self._arena_kv_pages = kv_ceiling
+        # the host tier: its arena and pager persist across runs (parked
+        # streams keep their slots), sized on first use
+        self._host_tier = host_tier
+        self._host_tier_pages = int(
+            flags.get_flag("kv_host_tier_pages")
+            if host_tier_pages is None else host_tier_pages)
+        if self._host_tier_pages < 0:
+            raise ValueError(f"host_tier_pages must be >= 0 (0 = auto), "
+                             f"got {self._host_tier_pages}")
+        self._prefetch_depth = int(
+            flags.get_flag("kv_prefetch_depth")
+            if prefetch_depth is None else prefetch_depth)
+        if self._prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, "
+                             f"got {self._prefetch_depth}")
+        self._host_arena: Optional[HostPageArena] = None
+        self._host_pager: Optional[PageAllocator] = None
+        self._parked: Dict[int, _Parked] = {}
+        self._resuming: Dict[int, _Parked] = {}
+        self._park_req: set = set()
+        self._prefix: Optional[PrefixCache] = None   # per run
+        self._pager = None                           # per run
         self._queue: deque = deque()
         self._next_rid = 0
         self.max_pending = max_pending
         self._clock = time.monotonic
         self._draining = False
+        # optional callable(tick), run at every scheduler boundary (the
+        # outer tick, each ragged wave, each pipelined segment); park
+        # intents are serviced right after it
+        self._on_tick = None
+        # live slots as of the last scheduler boundary
+        self.active_slots = 0
         self.reset_stats()
+
+    def _legacy_pool_pages(self) -> int:
+        """The allocator's pool without the park page: the identity pool
+        plus ``prefix_pages``, or ``page_pool_pages``."""
+        return (self.B * self._pps + self._prefix_pages
+                if self._pool_pages is None else self._pool_pages)
 
     def reset_stats(self):
         """Zero the observability counters — e.g. to scope stats to a
@@ -287,6 +431,38 @@ class ContinuousBatcher:
                 "draft_tokens_accepted": 0, "acceptance_rate": 0.0,
                 "tokens_per_target_step": 0.0,
             })
+        if self._prefix_caching:
+            # hit rate is token-weighted: matched / (matched + admitted)
+            self.stats.update({
+                "prefix_hits": 0, "prefix_misses": 0,
+                "prefix_tokens_matched": 0, "prefix_hit_rate": 0.0,
+                "pages_saved": 0, "prefix_cow_clones": 0,
+                "prefix_inserts": 0, "prefix_evictions": 0,
+            })
+        if self._host_tier:
+            # recompute_avoided_tokens: prompt tokens served from the host
+            # tier instead of prefilled again; prefetch_stall_ms the host
+            # time of the promote uploads, offload_stall_ms the blocking
+            # stores (demotion and park)
+            self.stats.update({
+                "host_tier_hits": 0, "host_tier_pages_promoted": 0,
+                "host_tier_pages_demoted": 0, "host_tier_discards": 0,
+                "recompute_avoided_tokens": 0,
+                "prefetch_stall_ms": 0.0, "offload_stall_ms": 0.0,
+                "prefetch_faults": 0,
+                "parks": 0, "resumes": 0, "park_faults": 0,
+                "parked_slots": len(self._parked),
+            })
+        if self._arena is not None:
+            # mirrored from UnifiedArena.stats after every wave; the engine
+            # owns its arena, so a reset re-scopes the arena's counters
+            for k in ("demotions", "budget_deferrals"):
+                self._arena.stats[k] = 0
+            self._arena.stats["steals"] = {}
+            self.stats.update({
+                "arena_steals": {}, "arena_demotions": 0,
+                "arena_budget_deferrals": 0,
+            })
 
     # ------------------------------------------------------- reliability
 
@@ -314,6 +490,111 @@ class ContinuousBatcher:
     @property
     def draining(self) -> bool:
         return self._draining
+
+    def arena_snapshot(self) -> Optional[dict]:
+        """The unified arena's per-class residency (with each class's
+        host-resident pages: demoted and parked kv pages in the host
+        tier), the steal matrix keyed "victim->winner", the demotion and
+        deferral totals and the floors; None with the arena off."""
+        if self._arena is None:
+            return None
+        snap = self._arena.snapshot()
+        hp = self._host_pager
+        host = {"kv": int(hp.n_pages - hp.available()) if hp else 0}
+        for cls, rec in snap["classes"].items():
+            rec["host_resident"] = int(host.get(cls, 0))
+        return snap
+
+    # ---------------------------------------------------- tiered KV: park
+
+    def park(self, rid: int) -> None:
+        """Ask the engine to PARK request ``rid``'s live stream: at the
+        next scheduler boundary its KV pages move to the host tier (codes
+        and int8 scale cells together), its device pages free and its slot
+        opens for another request. The stream waits in ``parked`` until
+        ``resume``. An intent for an unknown, finished or still-prefilling
+        rid is held until it can apply and dropped at the end of
+        ``run()``. Callable from the ``_on_tick`` hook or between runs."""
+        if not self._host_tier:
+            raise ValueError(
+                "park requires kv_host_tier (and prefix_caching): only "
+                "the tiered, table-routed pool can move a live slot's "
+                "pages to host RAM")
+        self._park_req.add(int(rid))
+
+    def resume(self, rid: int) -> None:
+        """Move a parked request back to the head of the queue. Its
+        placement uploads the host-resident pages into fresh device pages
+        and the next wave recomputes exactly ONE token, the unconsumed
+        tail of its history, so decode continues without re-prefill.
+        Raises KeyError when ``rid`` is not parked."""
+        rec = self._parked.pop(int(rid))
+        req = rec.req
+        req.resume_src = np.asarray(req.output_ids, np.int32)
+        req.prefilled = rec.seq_len
+        req.started = False
+        req.arrival_segment = 0
+        self._resuming[req.rid] = rec
+        self._queue.appendleft(req)
+        self.stats["parked_slots"] = len(self._parked)
+
+    @property
+    def parked(self) -> List[int]:
+        """rids currently parked in the host tier, ascending."""
+        return sorted(self._parked)
+
+    def kv_tier_snapshot(self) -> Optional[dict]:
+        """Residency and traffic of both tiers; None with the tier off.
+        The device pager is per run (the last run's is reported); the host
+        pager persists."""
+        if not self._host_tier:
+            return None
+        pager, hp = self._pager, self._host_pager
+        return {
+            "hbm_pages": int(pager.n_pages) if pager else 0,
+            "hbm_pages_free": int(pager.available()) if pager else 0,
+            "host_pages": int(hp.n_pages) if hp else 0,
+            "host_pages_free": int(hp.available()) if hp else 0,
+            "host_tier_hits": int(self.stats.get("host_tier_hits", 0)),
+            "prefetch_stall_ms": float(
+                self.stats.get("prefetch_stall_ms", 0.0)),
+            "parked_slots": len(self._parked),
+        }
+
+    def _ensure_host_arena(self) -> None:
+        """Create the persistent host arena and its pager if this engine
+        has none yet: auto-sized to 4x the device pool, pinned when the
+        engine serves on the card."""
+        if self._host_pager is not None:
+            return
+        n_host = self._host_tier_pages or 4 * self._legacy_pool_pages()
+        shape = (self.cfg.num_hidden_layers, self.cfg.num_key_value_heads,
+                 1, self.page_size, self.cfg.head_dim)
+        quantized = self._cache_dtype == torch.int8
+
+        def empty(sh, dt):
+            return torch.empty(sh, dtype=dt, device=self.device)
+
+        s_shape = shape[:-1] + (1,)
+        template = PagedCacheState(
+            k_pages=empty(shape, self._cache_dtype),
+            v_pages=empty(shape, self._cache_dtype),
+            block_tables=empty((1, 1), torch.int32),
+            seq_lens=empty((1,), torch.int32),
+            k_scales=empty(s_shape, torch.float32) if quantized else None,
+            v_scales=empty(s_shape, torch.float32) if quantized else None)
+        self._host_arena = HostPageArena(n_host, template)
+        self._host_pager = PageAllocator(n_host)
+
+    def export_parked(self, rid: int) -> dict:
+        """Live migration of a parked stream (not ported)."""
+        raise _not_ported("live migration of parked streams "
+                          "(export_parked)")
+
+    def import_parked(self, blob: dict) -> int:
+        """Live migration of a parked stream (not ported)."""
+        raise _not_ported("live migration of parked streams "
+                          "(import_parked)")
 
     # ------------------------------------------------------------ steps
 
@@ -576,11 +857,15 @@ class ContinuousBatcher:
 
     def submit(self, prompt_ids, max_new_tokens: int = 16,
                arrival_segment: int = 0,
-               deadline_s: Optional[float] = None) -> int:
+               deadline_s: Optional[float] = None,
+               adapter_id: Optional[object] = None) -> int:
         """Queue a request. Raises Backpressure when the bounded pending
         queue (``max_pending``) is full. ``deadline_s`` is a wall budget
         from now: an expired request finishes with status "timeout" at the
-        next admission or segment boundary."""
+        next admission or segment boundary. ``adapter_id`` (multi-LoRA
+        serving) is not ported."""
+        refuse_unported("ContinuousBatcher.submit",
+                        adapter_id=(adapter_id, None))
         if (self.max_pending is not None
                 and len(self._queue) >= self.max_pending):
             self.stats["rejected"] += 1
@@ -605,11 +890,12 @@ class ContinuousBatcher:
 
     def try_submit(self, prompt_ids, max_new_tokens: int = 16,
                    arrival_segment: int = 0,
-                   deadline_s: Optional[float] = None) -> Optional[int]:
+                   deadline_s: Optional[float] = None,
+                   adapter_id: Optional[object] = None) -> Optional[int]:
         """Non-raising submit: rid, or None when the queue is full."""
         try:
             return self.submit(prompt_ids, max_new_tokens, arrival_segment,
-                               deadline_s)
+                               deadline_s, adapter_id)
         except Backpressure:
             return None
 
@@ -647,18 +933,78 @@ class ContinuousBatcher:
             return self._run()
 
     def _run(self) -> Dict[int, GenRequest]:
-        B, T = self.B, self._ragged_T
+        B, T, P = self.B, self._ragged_T, self.page_size
         cfg = self.cfg
         dev = self.device
+        if self._host_tier and self._prefix is not None:
+            # the previous run's tree dies with it, the host pager does
+            # not: release the slots it held, and its binding to the old
+            # pool
+            self._prefix.drop_host_nodes()
+            self._prefix._offload = None
+        # the table-routed pool carves its last page as the park page,
+        # which the allocator never hands out: every empty row points
+        # there. (The port's kernels write nothing for an empty slot; the
+        # page keeps the JAX package's pool layout and page ids.)
+        park = 1 if self._prefix_caching else 0
+        if self._arena is not None:
+            pool_total = self._arena_kv_pages + park
+        else:
+            pool_total = (None if self._pool_pages is None
+                          else self._pool_pages + park)
         cache = create_paged_cache(
             cfg.num_hidden_layers, B, self.cap, cfg.num_key_value_heads,
             cfg.head_dim, page_size=self.page_size, dtype=self._cache_dtype,
+            extra_pages=self._prefix_pages + park, total_pages=pool_total,
             device=dev)
         # device-resident scheduler state
         dev_tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
         dev_active = torch.zeros((B,), dtype=torch.bool, device=dev)
         dev_remaining = torch.zeros((B,), dtype=torch.int32, device=dev)
         slots: List[Optional[GenRequest]] = [None] * B
+        # prefix-cache host state, per run: the radix tree and the
+        # refcounted allocator over this run's pool; the block table is
+        # mirrored on the host and uploaded in place when a row changes.
+        # prefix None <=> caching off: the identity table stays.
+        prefix: Optional[PrefixCache] = None
+        pager = None
+        bt_host = None
+        park_page = None
+        n_pages = [0] * B           # valid entries per block-table row
+        pending_clones: List[tuple] = []    # (src, dst) COW copies due
+        bt_dirty = [False]
+        if self._prefix_caching:
+            park_page = cache.k_pages.shape[2] - 1
+            if self._arena is not None:
+                # the kv class is this run's pool: forget last run's pages
+                self._arena.reset_class("kv")
+                pager = self._arena.view("kv")
+            else:
+                pager = PageAllocator(park_page)
+            if self._host_tier:
+                self._ensure_host_arena()
+
+                def offload(device_pages, host_slots):
+                    # reads the pool at call time: the store waits for
+                    # every write enqueued before it
+                    t0 = time.perf_counter()
+                    self._host_arena.store(cache, device_pages, host_slots)
+                    self.stats["offload_stall_ms"] += (
+                        time.perf_counter() - t0) * 1e3
+
+                prefix = PrefixCache(self.page_size, pager,
+                                     host_pager=self._host_pager,
+                                     offload=offload)
+            else:
+                prefix = PrefixCache(self.page_size, pager)
+            self._prefix = prefix
+            self._pager = pager
+            if self._arena is not None:
+                # another class's deficit reclaims kv pages through this
+                # run's tree
+                self._arena.set_reclaimer("kv", prefix.reclaim)
+            bt_host = np.full((B, self._pps), park_page, np.int32)
+            bt_dirty[0] = True
         # host-side upper bound on each slot's remaining budget (exact when
         # no EOS fires) — drives segment length and lookahead without a sync
         bound = [0] * B
@@ -666,10 +1012,44 @@ class ContinuousBatcher:
         tick = 0
         rstep = self._build_ragged_step()
 
+        def release_slot_pages(i, scrub=False):
+            """Drop slot i's page references: pages the tree retains
+            survive for future matches, the rest return to the free list,
+            and the row re-parks. ``scrub`` (a poisoned request) zeroes the
+            pages that actually free: they may hold non-finite K/V."""
+            if prefix is None or n_pages[i] == 0:
+                return
+            freed = pager.release([int(p) for p in bt_host[i, :n_pages[i]]])
+            n_pages[i] = 0
+            bt_host[i, :] = park_page
+            bt_dirty[0] = True
+            if scrub and freed:
+                scrub_pages(cache, freed)
+
+        def flush_block_table():
+            """Upload the host table, in place, before any dispatch that
+            could see a rewired or re-parked row. The upload copies from a
+            pinned snapshot, so the host may edit its table at once."""
+            if bt_dirty[0]:
+                src = torch.from_numpy(bt_host.copy())
+                if cache.block_tables.is_cuda:
+                    src = src.pin_memory()
+                cache.block_tables.copy_(src, non_blocking=True)
+                bt_dirty[0] = False
+
         def arrived():
             if self._draining:
                 return []
             return [r for r in self._queue if r.arrival_segment <= tick]
+
+        def pump(t):
+            """Scheduler boundary: refresh the live-slot gauge, run the
+            ``_on_tick`` hook, then service park intents."""
+            self.active_slots = sum(s is not None for s in slots)
+            if self._on_tick is not None:
+                self._on_tick(t)
+            if self._host_tier:
+                service_parks()
 
         def finished_host(req, tok):
             if self.eos is not None and tok == self.eos:
@@ -686,11 +1066,15 @@ class ContinuousBatcher:
                 req = cands[0]
                 self._queue.remove(req)
                 if self._expired(req, self._clock()):
+                    rec = self._resuming.pop(req.rid, None)
+                    if rec is not None:
+                        self._host_pager.release(rec.host_pages)
                     self._finish_timeout(req, done)
                     continue
                 return req
 
-        def free(i):
+        def free(i, scrub=False):
+            release_slot_pages(i, scrub=scrub)
             slots[i] = None
             bound[i] = 0
 
@@ -700,40 +1084,308 @@ class ContinuousBatcher:
             keep[idx] = False
             dev_active = dev_active & torch.as_tensor(keep, device=dev)
 
+        def alloc_under_pressure(n):
+            """alloc, else leaf-LRU evict and alloc again: None means a
+            deferral, never a raise."""
+            pages = pager.alloc(n)
+            if pages is None:
+                prefix.evict(n - pager.available())
+                pages = pager.alloc(n)
+            return pages
+
+        def place(i, req):
+            """Prefix-cache placement of slot i: the longest-prefix match
+            and the slot's whole page reservation (matched pages by
+            reference, private suffix and decode pages from the free
+            list). A match that ends in host-resident pages promotes them
+            into fresh device pages (uploads enqueued before the next
+            wave). Returns "ok" or "defer" (pool exhausted even after
+            eviction: the request goes back to the queue's head)."""
+            if req.rid in self._resuming:
+                return place_resumed(i, req)
+            m_len, path = prefix.match_tiered(req.prompt)
+            # path order is hbm* host*: the device prefix attaches by
+            # reference, the host suffix by promotion
+            n_hbm = sum(1 for n in path if n.tier == "hbm")
+            m_pages = [n.page for n in path[:n_hbm]]
+            host_sfx = path[n_hbm:]
+            # a full-prompt match still admits ONE token to emit the
+            # first output: the last prompt token, recomputed inside the
+            # last attached page (the copy-on-write case)
+            start = min(m_len, len(req.prompt) - 1)
+            n_total = min(self._pps, -(-(len(req.prompt)
+                                         + req.max_new_tokens) // P))
+            cow = start < m_len
+            need = n_total - n_hbm + (1 if cow else 0)
+            # hold the match before eviction can run: eviction may remove
+            # the matched nodes, whose pages must not be handed back as
+            # this slot's private pages
+            pager.retain(m_pages)
+            host_hold = [n.page for n in host_sfx]
+            if host_hold:
+                self._host_pager.retain(host_hold)
+
+            def drop_match():
+                nonlocal m_len, path, m_pages, host_sfx, host_hold
+                nonlocal start, cow
+                pager.release(m_pages)
+                if host_hold:
+                    self._host_pager.release(host_hold)
+                m_len, path, m_pages, host_sfx, host_hold = 0, [], [], [], []
+                start, cow = 0, False
+
+            priv = alloc_under_pressure(need)
+            if priv is None and not any(s is not None for s in slots):
+                # no live slot will free pages by decoding: reset the
+                # tree, and if the held match itself does not fit, drop
+                # it (an empty pool always fits one slot)
+                prefix.evict_all()
+                priv = pager.alloc(need)
+                if priv is None:
+                    drop_match()
+                    priv = pager.alloc(n_total)
+            if priv is None:
+                drop_match()
+                self.stats["cache_full_deferrals"] += 1
+                self._queue.appendleft(req)
+                return "defer"
+            if host_sfx:
+                dst = [priv.pop(0) for _ in host_sfx]
+                flush_pending_clones()      # before any eager page write
+                t0 = time.perf_counter()
+                self._host_arena.load(cache, [n.page for n in host_sfx],
+                                      dst, self._prefetch_depth)
+                self.stats["prefetch_stall_ms"] += (
+                    time.perf_counter() - t0) * 1e3
+                for n, d in zip(host_sfx, dst):
+                    if n.parent is not None and n.tier == "host":
+                        # the tree takes over the fresh page's reference;
+                        # the slot takes its own on top
+                        prefix.promote(n, d)
+                        pager.retain([d])
+                self._host_pager.release(host_hold)
+                host_hold = []
+                m_pages = m_pages + dst
+                self.stats["host_tier_hits"] += 1
+                self.stats["host_tier_pages_promoted"] += len(dst)
+                self.stats["recompute_avoided_tokens"] += max(
+                    0, start - n_hbm * P)
+            row = bt_host[i]
+            row[:len(m_pages)] = m_pages
+            if cow:
+                # the slot's reference moves to a clone (the tree keeps
+                # the source); copied before the next dispatch
+                dst = priv.pop(0)
+                pending_clones.append((int(m_pages[-1]), dst))
+                pager.release([int(m_pages[-1])])
+                row[len(m_pages) - 1] = dst
+                self.stats["prefix_cow_clones"] += 1
+            row[len(m_pages):n_total] = priv
+            # entries past the slot's pages repeat its own last page: a
+            # reader that gathers the whole row never reaches a foreign
+            # page (a quarantined neighbour's NaN times weight 0 is NaN)
+            row[n_total:] = row[n_total - 1]
+            n_pages[i] = n_total
+            bt_dirty[0] = True
+            req.prefilled = req.prefix_len = start
+            req.started = False
+            req.chunk_starts.clear()
+            if m_len > 0:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_matched"] += start
+                self.stats["pages_saved"] += len(m_pages)
+            else:
+                self.stats["prefix_misses"] += 1
+            return "ok"
+
+        def place_resumed(i, req):
+            """Un-park placement: the slot's whole reservation, the parked
+            pages uploaded into its head, and a one-token chunk (the
+            unconsumed tail of the history) for the next wave. Every full
+            history page below the write frontier joins the tree."""
+            rec = self._resuming[req.rid]
+            n_total = min(self._pps, -(-(len(req.prompt)
+                                         + req.max_new_tokens) // P))
+            n_used = len(rec.host_pages)
+            priv = alloc_under_pressure(n_total)
+            if priv is None and not any(s is not None for s in slots):
+                prefix.evict_all()
+                priv = pager.alloc(n_total)
+            if priv is None:
+                self.stats["cache_full_deferrals"] += 1
+                self._queue.appendleft(req)     # still in _resuming
+                return "defer"
+            flush_pending_clones()          # before any eager page write
+            t0 = time.perf_counter()
+            self._host_arena.load(cache, rec.host_pages, priv[:n_used],
+                                  self._prefetch_depth)
+            self.stats["prefetch_stall_ms"] += (
+                time.perf_counter() - t0) * 1e3
+            self.stats["host_tier_hits"] += 1
+            self.stats["host_tier_pages_promoted"] += n_used
+            self.stats["recompute_avoided_tokens"] += rec.seq_len
+            n_full = rec.seq_len // P
+            if n_full:
+                prefix.insert(np.asarray(req.resume_src[:n_full * P],
+                                         np.int32),
+                              [int(p) for p in priv[:n_full]])
+                self.stats["prefix_inserts"] = prefix.stats["inserts"]
+            del self._resuming[req.rid]
+            self._host_pager.release(rec.host_pages)
+            row = bt_host[i]
+            row[:n_total] = priv
+            row[n_total:] = row[n_total - 1]
+            n_pages[i] = n_total
+            bt_dirty[0] = True
+            req.started = False
+            self.stats["resumes"] += 1
+            return "ok"
+
+        def service_parks():
+            """Apply park intents at a scheduler boundary: store the
+            slot's used pages into host slots (blocking), release its
+            device pages, free the slot and deactivate it on the device. A
+            segment already in flight may still emit for it; those tokens
+            are discarded (wasted_slot_steps) and greedy decoding emits
+            them again on resume. A park that cannot find host slots, even
+            after discarding the coldest demoted prefixes, drops the
+            intent and the stream keeps decoding."""
+            if not self._park_req or prefix is None:
+                return
+            parked_now: List[int] = []
+            for i in range(B):
+                req = slots[i]
+                if req is None or req.rid not in self._park_req:
+                    continue
+                if req.prefilled < len(_wave_src(req)) or not req.tokens:
+                    continue    # mid-prefill: park once decoding
+                self._park_req.discard(req.rid)
+                seq_len = len(req.prompt) + len(req.tokens) - 1
+                n_used = -(-seq_len // P)
+                hps = self._host_pager.alloc(n_used)
+                if hps is None:
+                    prefix.free_host_slots(
+                        n_used - self._host_pager.available())
+                    hps = self._host_pager.alloc(n_used)
+                if hps is None:
+                    self.stats["park_faults"] += 1
+                    continue    # intent dropped; the stream decodes on
+                t0 = time.perf_counter()
+                self._host_arena.store(
+                    cache, [int(p) for p in bt_host[i, :n_used]], hps)
+                self.stats["offload_stall_ms"] += (
+                    time.perf_counter() - t0) * 1e3
+                free(i)
+                self._parked[req.rid] = _Parked(req, hps, seq_len)
+                self.stats["parks"] += 1
+                parked_now.append(i)
+            self.stats["parked_slots"] = len(self._parked)
+            if parked_now:
+                deactivate(parked_now)
+
+        def flush_pending_clones():
+            """Copy the due COW clones now: before any host upload, whose
+            destination may be a clone's freed source page."""
+            if pending_clones:
+                clone_pages(cache, [s for s, _ in pending_clones],
+                            [d for _, d in pending_clones])
+                pending_clones.clear()
+
+        def cow_guard_and_flush(write_ranges):
+            """Every logical page a wave writes (a chunk's prompt pages, a
+            verify segment's draft cells) must be private (refcount 1);
+            then the due clones and the table go to the device.
+            ``write_ranges``: (slot, lo, hi) logical-page spans."""
+            for i, lo, hi in write_ranges:
+                for logical in range(lo, hi + 1):
+                    pg = int(bt_host[i, logical])
+                    if int(pager.refcount[pg]) != 1:
+                        raise RuntimeError(
+                            f"COW invariant violated: slot {i} writing "
+                            f"logical page {logical} -> physical {pg} with "
+                            f"refcount {int(pager.refcount[pg])}")
+            flush_pending_clones()
+            flush_block_table()
+
         def place_arrivals():
+            """Place arrivals into free slots; a prefix placement may
+            defer under pool pressure (retried next tick)."""
             for i in range(B):
                 if slots[i] is None and arrived():
                     req = pop_admissible()
                     if req is None:
                         break
-                    req.prefilled = 0
-                    req.started = False
-                    req.chunk_starts.clear()
+                    if prefix is not None:
+                        if place(i, req) == "defer":
+                            break
+                    else:
+                        req.prefilled = 0
+                        req.started = False
+                        req.chunk_starts.clear()
                     slots[i] = req
+
+        def note_prefix_stats():
+            """The derived prefix stats after a wave: the token-weighted
+            hit rate, the tree's counters and the arena's."""
+            m = self.stats["prefix_tokens_matched"]
+            tot = m + self.stats["prefill_tokens_admitted"]
+            self.stats["prefix_hit_rate"] = (m / tot) if tot else 0.0
+            self.stats["prefix_inserts"] = prefix.stats["inserts"]
+            self.stats["prefix_evictions"] = prefix.stats["evictions"]
+            if self._host_tier:
+                self.stats["host_tier_pages_demoted"] = \
+                    prefix.stats["demotions"]
+                self.stats["host_tier_discards"] = \
+                    prefix.stats["host_discards"]
+            if self._arena is not None:
+                a = self._arena.stats
+                self.stats["arena_steals"] = {
+                    k: int(v) for k, v in a["steals"].items()}
+                self.stats["arena_demotions"] = int(a["demotions"])
+                self.stats["arena_budget_deferrals"] = int(
+                    a["budget_deferrals"])
 
         def assign_chunk(i, req, take, ids_buf, rs_buf, ro_buf, pos, base,
                          q_start, q_len, chunk_done, budgets, new_slot,
                          start_len):
-            """Assign ``take`` prompt tokens of slot i's request into the
-            wave's chunk buffers at row ``pos`` (wave row ``base + pos``).
-            Returns 1 on the request's first chunk, else 0."""
+            """Assign ``take`` wave-source tokens of slot i's request into
+            the wave's chunk buffers at row ``pos`` (wave row ``base +
+            pos``). Returns 1 on the request's first chunk, else 0."""
             first = 0
             if not req.started:
                 new_slot[i] = True
                 start_len[i] = req.prefilled
                 req.started = True
                 first = 1
-            ids_buf[pos:pos + take] = req.prompt[req.prefilled:
-                                                 req.prefilled + take]
+            src = _wave_src(req)
+            ids_buf[pos:pos + take] = src[req.prefilled:req.prefilled + take]
             rs_buf[pos:pos + take] = i
             ro_buf[pos:pos + take] = np.arange(take)
             req.chunk_starts.append(req.prefilled)
             q_start[i] = base + pos
             q_len[i] = take
+            # the remaining budget: a resumed request's earlier tokens
+            # count against it
             budgets[i] = req.max_new_tokens - len(req.tokens)
             req.prefilled += take
-            chunk_done[i] = req.prefilled == len(req.prompt)
+            chunk_done[i] = req.prefilled == len(src)
             return first
+
+        def register_prompt_pages(req, i):
+            """Prompt prefilled: its FULL pages join the tree now, so later
+            admissions hit while this slot still decodes."""
+            n_full = len(req.prompt) // P
+            if n_full:
+                prefix.insert(req.prompt[:n_full * P],
+                              [int(p) for p in bt_host[i, :n_full]])
+                self.stats["prefix_inserts"] = prefix.stats["inserts"]
+
+        def chunk_ranges(q_len):
+            """(slot, lo, hi) logical pages each prompt chunk writes."""
+            return [(i, (slots[i].prefilled - int(q_len[i])) // P,
+                     (slots[i].prefilled - 1) // P)
+                    for i in range(B)
+                    if slots[i] is not None and q_len[i] > 0]
 
         def admit_ragged():
             """Token-budget admission: each step assigns up to
@@ -744,8 +1396,9 @@ class ContinuousBatcher:
             nonlocal cache, dev_tokens, dev_active, dev_remaining, tick
             pw = T - B
             while True:
+                pump(tick)
                 place_arrivals()
-                if not any(s is not None and s.prefilled < len(s.prompt)
+                if not any(s is not None and s.prefilled < len(_wave_src(s))
                            for s in slots):
                     return
                 chunk_ids = np.zeros((pw,), np.int32)
@@ -765,11 +1418,12 @@ class ContinuousBatcher:
                     req = slots[i]
                     if req is None:
                         continue
-                    if req.prefilled >= len(req.prompt):
+                    if req.prefilled >= len(_wave_src(req)):
                         decode_mask[i] = True     # decodes alongside
                         q_start[i] = i
                         continue
-                    take = min(len(req.prompt) - req.prefilled, budget_left)
+                    take = min(len(_wave_src(req)) - req.prefilled,
+                               budget_left)
                     if take <= 0:
                         continue                  # budget spent this step
                     n_started += assign_chunk(
@@ -778,6 +1432,10 @@ class ContinuousBatcher:
                         start_len)
                     off += take
                     budget_left -= take
+                if prefix is not None:
+                    # decode rows append past the prompt region, private by
+                    # construction
+                    cow_guard_and_flush(chunk_ranges(chunk_len))
                 wave = [torch.as_tensor(a, device=dev) for a in (
                     chunk_ids, row_slot_pf, row_off_pf, q_start, chunk_len,
                     decode_mask, chunk_done, budgets, new_slot, start_len)]
@@ -792,6 +1450,8 @@ class ContinuousBatcher:
                 self._tbu_cap += T
                 self.stats["token_budget_util"] = (self._tbu_used
                                                    / self._tbu_cap)
+                if prefix is not None:
+                    note_prefix_stats()
                 tick += 1
                 toks_np, em_np, ok_np, act_np = _Record(
                     toks, emit, okm, dev_active).get().reshape(4, B)
@@ -808,9 +1468,10 @@ class ContinuousBatcher:
                         bound[i] = max(0, bound[i] - 1)
                     if not ok_np[i]:
                         # poison (prompt chunk or decode step): the slot
-                        # never emitted the garbage token; fails alone
+                        # never emitted the garbage token; fails alone,
+                        # its freed pages scrubbed
                         self._finish_poisoned(req, done)
-                        free(i)
+                        free(i, scrub=True)
                         force_free.append(i)
                         continue
                     if em_np[i]:
@@ -823,6 +1484,8 @@ class ContinuousBatcher:
                                 done[req.rid] = req
                                 free(i)
                         elif chunk_done[i]:
+                            if prefix is not None:
+                                register_prompt_pages(req, i)
                             if finished_host(req, t):
                                 req.done = True
                                 done[req.rid] = req
@@ -851,6 +1514,7 @@ class ContinuousBatcher:
             K1 = K + 1
             sstep = self._build_spec_wave_step()
             while True:
+                pump(tick)
                 place_arrivals()
                 if not any(s is not None for s in slots):
                     return
@@ -874,9 +1538,10 @@ class ContinuousBatcher:
                 # pass 1: prompt chunks, the admission wave's assignment
                 for i in range(B):
                     req = slots[i]
-                    if req is None or req.prefilled >= len(req.prompt):
+                    if req is None or req.prefilled >= len(_wave_src(req)):
                         continue
-                    take = min(len(req.prompt) - req.prefilled, budget_left)
+                    take = min(len(_wave_src(req)) - req.prefilled,
+                               budget_left)
                     if take <= 0:
                         continue                  # budget spent this step
                     n_started += assign_chunk(
@@ -890,14 +1555,15 @@ class ContinuousBatcher:
                 # reserved out of the draft space
                 dec = [i for i in range(B)
                        if slots[i] is not None and q_len[i] == 0
-                       and slots[i].prefilled >= len(slots[i].prompt)]
+                       and slots[i].prefilled >= len(_wave_src(slots[i]))]
                 n_spec = 0
                 for di, i in enumerate(dec):
                     req = slots[i]
                     rem_host = req.max_new_tokens - len(req.tokens)
                     space = T - off - 1 - (len(dec) - di - 1)
                     # drafting past remaining - 1 is useless, and the cap
-                    # keeps every provisional write inside the capacity
+                    # keeps every provisional write inside the slot's
+                    # reserved (private) decode horizon
                     cap_k = max(0, min(self._spec_k_eff(), rem_host - 1,
                                        space))
                     dr = np.zeros((0,), np.int32)
@@ -933,6 +1599,16 @@ class ContinuousBatcher:
                     deactivate(pre_dead)
                 if off == 0:
                     continue      # every pending slot failed its draft
+                if prefix is not None:
+                    ranges = chunk_ranges(np.where(spec_mask, 0, q_len))
+                    for i in range(B):
+                        if spec_mask[i]:
+                            # the verify rows' provisional cells
+                            req = slots[i]
+                            seq0 = len(req.prompt) + len(req.tokens) - 1
+                            ranges.append((i, seq0 // P,
+                                           (seq0 + int(q_len[i]) - 1) // P))
+                    cow_guard_and_flush(ranges)
                 wave = [torch.as_tensor(a, device=dev) for a in (
                     ids, row_slot, row_off, q_start, q_len, spec_mask,
                     drafts, k_eff, chunk_done, budgets, new_slot,
@@ -949,6 +1625,8 @@ class ContinuousBatcher:
                 self._tbu_cap += T
                 self.stats["token_budget_util"] = (self._tbu_used
                                                    / self._tbu_cap)
+                if prefix is not None:
+                    note_prefix_stats()
                 if n_spec:
                     self.stats["spec_steps"] += 1
                     self._spec_segs += n_spec
@@ -974,7 +1652,7 @@ class ContinuousBatcher:
                         # poison (a prompt chunk, or a verify segment's row
                         # 0): nothing emitted or advanced; fails alone
                         self._finish_poisoned(req, done)
-                        free(i)
+                        free(i, scrub=True)
                         force_free.append(i)
                         continue
                     n_emit_i = int(em_np[i].sum())
@@ -994,6 +1672,8 @@ class ContinuousBatcher:
                             done[req.rid] = req
                             free(i)
                     elif chunk_done[i] and n_emit_i:
+                        if prefix is not None:
+                            register_prompt_pages(req, i)
                         if finished_host(req, req.tokens[-1]):
                             req.done = True
                             done[req.rid] = req
@@ -1022,6 +1702,8 @@ class ContinuousBatcher:
             nonlocal cache, dev_tokens, dev_active, dev_remaining, tick
             seg = self._seg_bucket(max(bound[i] for i in range(B)
                                        if slots[i] is not None))
+            if prefix is not None:
+                flush_block_table()
             (toks, emitted, okm, dev_tokens, dev_active, dev_remaining,
              cache) = self._build_segment(seg)(
                 self.params, dev_tokens, cache, dev_active, dev_remaining,
@@ -1051,8 +1733,8 @@ class ContinuousBatcher:
                 req = slots[i]
                 if req is None:
                     # device-emitted tokens with no owning request: 0 by
-                    # construction (a force-freed slot racing a segment in
-                    # flight is the one legitimate source)
+                    # construction (a force-freed or parked slot racing a
+                    # segment in flight is the one legitimate source)
                     self.stats["wasted_slot_steps"] += int(em_np[:, i].sum())
                     continue
                 bad_token = False
@@ -1066,7 +1748,7 @@ class ContinuousBatcher:
                         self.stats["tokens_emitted"] += 1
                 if bad_token or not ok_np[i]:
                     self._finish_poisoned(req, done)
-                    free(i)
+                    free(i, scrub=True)
                     force_free.append(i)
                     continue
                 if not act_np[i]:
@@ -1096,6 +1778,7 @@ class ContinuousBatcher:
         admit = spec_ragged_loop if self._spec else admit_ragged
         while ((self._queue and not self._draining)
                or any(s is not None for s in slots)):
+            pump(tick)
             t0 = time.perf_counter()
             admit()
             self.stats["prefill_s"] += time.perf_counter() - t0
@@ -1113,6 +1796,7 @@ class ContinuousBatcher:
                 # EOS-early drain wastes at most one no-op segment
                 rec = dispatch_segment()
                 while True:
+                    pump(tick)
                     more = any(slots[i] is not None and bound[i] > 0
                                for i in range(B))
                     nxt = (dispatch_segment()
@@ -1125,4 +1809,13 @@ class ContinuousBatcher:
                         break
                     rec = nxt
             self.stats["decode_s"] += time.perf_counter() - t0
+        self.active_slots = 0
+        if self._host_tier:
+            # this run's tree dies with it, the host pager does not: drop
+            # the tree's host slots so only parked streams keep residency,
+            # and the binding to this run's pool
+            prefix._offload = None
+            prefix.drop_host_nodes()
+            self._park_req.clear()
+            self.stats["parked_slots"] = len(self._parked)
         return done

@@ -9,19 +9,26 @@ microbatch dim) in f32 before the one update, as the JAX package's scan
 does. Under an ``LRScheduler`` the step reads ``optimizer.get_lr()`` before
 the update and steps the scheduler after it, as the JAX package's does;
 ``last_lr`` keeps the rate of the last update. Inputs are passed to the
-model positionally: ``step((ids, attn_mask), labels)``. Sharding plans and
-donation are not ported.
+model positionally: ``step((ids, attn_mask), labels)``. Sharding
+(``in_shardings``, ``mesh``, ``sharding_plan``) and ``donate=False`` are
+not ported: they raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..framework.contract import refuse_unported
 from ..optimizer.lr import LRScheduler
 
 
 class TrainStep:
-    def __init__(self, model, loss_fn, optimizer, accumulate_steps: int = 1):
+    def __init__(self, model, loss_fn, optimizer, in_shardings=None,
+                 donate: bool = True, mesh=None, sharding_plan=None,
+                 accumulate_steps: int = 1):
+        refuse_unported("TrainStep", in_shardings=(in_shardings, None),
+                        donate=(donate, True), mesh=(mesh, None),
+                        sharding_plan=(sharding_plan, None))
         self.model = model.train()
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -62,5 +69,5 @@ class TrainStep:
                     g = p.grad.float()
                     g_sum[name] = g if name not in g_sum else g_sum[name] + g
                     p.grad = None
-        self.optimizer.step({n: g / m for n, g in g_sum.items()})
+        self.optimizer.step(grads={n: g / m for n, g in g_sum.items()})
         return l_sum / m

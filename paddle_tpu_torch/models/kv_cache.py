@@ -7,9 +7,13 @@ written (head, token) cell in the scale pools ``k_scales``/``v_scales``
 ``_quantize_cells``, and ``layer_scales`` gives the readers the scales
 (``(None, None)`` on a float cache).
 
-Page pool layout: ``(L, Hk, P, page, D)`` with ``P = batch *
-pages_per_seq``; sequence b owns the contiguous physical pages
-``[b*pps, (b+1)*pps)`` and every access routes through ``block_tables``.
+Page pool layout: ``(L, Hk, P, page, D)``. By default ``P = batch *
+pages_per_seq`` and sequence b owns the contiguous physical pages
+``[b*pps, (b+1)*pps)`` (the identity layout); every access routes through
+``block_tables``. A pool with ``extra_pages`` or a ``total_pages`` size is
+table-routed only: a ``PageAllocator`` hands its pages out, the prefix
+cache shares them between rows (``clone_pages`` is the copy-on-write
+move), and ``HostPageArena`` is the host tier pages demote to and park in.
 
 Unlike the JAX package's pure updates, the writers here update the page
 pools IN PLACE (a decode step would otherwise copy the whole pool per
@@ -21,8 +25,10 @@ layer) and return the state with any new ``seq_lens``. The writers are
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from collections import deque
+from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -71,19 +77,37 @@ def layer_scales(state: PagedCacheState, layer: int):
 
 def create_paged_cache(num_layers: int, batch: int, max_len: int,
                        num_kv_heads: int, head_dim: int, page_size: int = 16,
-                       dtype=torch.float32, device=None) -> PagedCacheState:
+                       dtype=torch.float32, extra_pages: int = 0,
+                       total_pages: Optional[int] = None, *,
+                       device=None) -> PagedCacheState:
     """``dtype`` a float dtype (pages hold K/V verbatim) or ``torch.int8``
-    (code pools plus f32 scale pools (L, Hk, P, page, 1))."""
+    (code pools plus f32 scale pools (L, Hk, P, page, 1)).
+
+    ``extra_pages`` appends physical pages beyond the identity
+    ``batch * pages_per_seq``; ``total_pages`` instead sets the pool size
+    outright and may under-provision it. Either way the pool is
+    table-routed only (the identity-layout prompt write refuses it), and
+    every block-table entry starts clamped into range."""
     quantized = dtype == torch.int8
     if not (dtype.is_floating_point or quantized):
         raise ValueError(f"KV cache dtype must be a float dtype or int8, "
                          f"got {dtype}")
     pages_per_seq = -(-max_len // page_size)
-    p_total = batch * pages_per_seq
+    if extra_pages < 0:
+        raise ValueError(f"extra_pages must be >= 0, got {extra_pages}")
+    if total_pages is None:
+        p_total = batch * pages_per_seq + extra_pages
+    else:
+        if total_pages < 1:
+            raise ValueError(f"total_pages must be >= 1, "
+                             f"got {total_pages}")
+        p_total = int(total_pages)
     shape = (num_layers, num_kv_heads, p_total, page_size, head_dim)
     s_shape = shape[:-1] + (1,)
-    bt = (torch.arange(batch, device=device)[:, None] * pages_per_seq
-          + torch.arange(pages_per_seq, device=device)[None, :])
+    bt = torch.clamp(
+        torch.arange(batch, device=device)[:, None] * pages_per_seq
+        + torch.arange(pages_per_seq, device=device)[None, :],
+        max=p_total - 1)
 
     def scales():
         return (torch.zeros(s_shape, dtype=torch.float32, device=device)
@@ -236,3 +260,222 @@ def advance_by(state: PagedCacheState, delta) -> PagedCacheState:
     return state._replace(
         seq_lens=(state.seq_lens + torch.as_tensor(
             delta, device=state.seq_lens.device)).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Page sharing and the host tier: the copy-on-write clone, the host page
+# arena, and the refcounted free list that owns which row points where.
+# ---------------------------------------------------------------------------
+
+
+def _pools(state: PagedCacheState):
+    """The state's page pools: K and V, and the scale pools on int8."""
+    if state.quantized:
+        return (state.k_pages, state.v_pages, state.k_scales,
+                state.v_scales)
+    return state.k_pages, state.v_pages
+
+
+def clone_pages(state: PagedCacheState, src, dst) -> PagedCacheState:
+    """Copy whole physical pages ``src[i] -> dst[i]`` across every layer,
+    in place: K and V and, on an int8 cache, the scale cells in the same
+    move (a cloned page keeps its scales). The copy-on-write move: a slot
+    about to write into a page another reference can see gets a private
+    clone first. One gather and one scatter a pool."""
+    dev = state.k_pages.device
+    src = torch.as_tensor(np.asarray(src, np.int64), device=dev)
+    dst = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
+    for pool in _pools(state):
+        pool[:, :, dst] = pool[:, :, src]
+    return state
+
+
+def scrub_pages(state: PagedCacheState, pages) -> PagedCacheState:
+    """Zero whole physical pages (and their scale cells), in place: a
+    quarantined slot's freed pages may hold non-finite K/V, which a masked
+    read would turn into NaN (0 x NaN)."""
+    idx = torch.as_tensor(np.asarray(pages, np.int64),
+                          device=state.k_pages.device)
+    for pool in _pools(state):
+        pool[:, :, idx] = 0
+    return state
+
+
+class HostPageArena:
+    """Host-RAM page tier: one host slot holds one physical page's K and V
+    across every layer and, on an int8 cache, its scale cells (the
+    ``clone_pages`` unit, so a demoted int8 page is never re-scaled).
+
+    Storage is ONE host buffer, pinned when the pool lives on the card,
+    laid out slot-major (``k[slot]`` is one page's (L, Hk, page, D)
+    block, contiguous), so every page moves as one contiguous copy:
+
+      * ``store`` (device -> host) blocks until the pages' bytes are on the
+        host: one gather on the device, a copy a slot into its pinned
+        block, one wait. It reads what every write enqueued before it left.
+      * ``load`` (host -> device) is enqueued on the current stream, in
+        chunks of ``depth`` pages (a copy a slot into a device buffer, one
+        scatter into the pool a chunk), so the next wave reads the pages
+        after them. A later ``store`` into the same host slots waits for
+        the stream, so the caller may free the slots once ``load``
+        returns.
+
+    Which slots are live is the caller's ``PageAllocator``'s business."""
+
+    def __init__(self, n_pages: int, template: PagedCacheState):
+        if n_pages < 1:
+            raise ValueError(f"n_pages must be >= 1, got {n_pages}")
+        self.n_pages = int(n_pages)
+        layers, hk, _, page, d = template.k_pages.shape
+        self.quantized = template.quantized
+        dt = template.k_pages.dtype
+        blk = (self.n_pages, layers, hk, page, d)
+        parts = [(dt, blk), (dt, blk)]
+        if self.quantized:
+            parts += [(torch.float32, blk[:-1] + (1,))] * 2
+        sizes = [int(np.prod(sh)) * torch.empty((), dtype=t).element_size()
+                 for t, sh in parts]
+        pin = template.k_pages.is_cuda
+        self._buf = torch.zeros((sum(sizes),), dtype=torch.uint8,
+                                pin_memory=pin)
+        views, off = [], 0
+        for (t, sh), n in zip(parts, sizes):
+            views.append(self._buf[off:off + n].view(t).view(sh))
+            off += n
+        self.k, self.v = views[0], views[1]
+        if self.quantized:
+            self.k_scales, self.v_scales = views[2], views[3]
+        else:
+            self.k_scales = self.v_scales = None
+
+    def _host(self):
+        if self.quantized:
+            return self.k, self.v, self.k_scales, self.v_scales
+        return self.k, self.v
+
+    def nbytes(self) -> int:
+        return int(self._buf.numel())
+
+    @property
+    def pinned(self) -> bool:
+        return bool(self._buf.is_pinned())
+
+    def page_spec(self) -> dict:
+        """Shape and dtype of one page block."""
+        _, layers, hk, page, d = self.k.shape
+        return {"layers": int(layers), "kv_heads": int(hk),
+                "page_size": int(page), "head_dim": int(d),
+                "dtype": str(self.k.dtype).replace("torch.", ""),
+                "quantized": bool(self.quantized)}
+
+    def store(self, state: PagedCacheState, device_pages,
+              host_pages) -> None:
+        """Offload: device pages -> host slots, blocking."""
+        src = np.asarray(device_pages, np.int64).reshape(-1)
+        dst = np.asarray(host_pages, np.int64).reshape(-1)
+        if len(src) != len(dst):
+            raise ValueError(f"store of {len(src)} pages into "
+                             f"{len(dst)} host slots")
+        if len(src) == 0:
+            return
+        dev = state.k_pages.device
+        idx = torch.as_tensor(src, device=dev)
+        for pool, host in zip(_pools(state), self._host()):
+            # (n, L, Hk, page, X) contiguous on the device
+            tmp = pool[:, :, idx].movedim(2, 0).contiguous()
+            for j, slot in enumerate(dst):
+                host[int(slot)].copy_(tmp[j], non_blocking=True)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
+    def load(self, state: PagedCacheState, host_pages, device_pages,
+             depth: int = 8) -> PagedCacheState:
+        """Prefetch: host slots -> device pages, ``depth`` pages a chunk,
+        enqueued on the current stream; returns the state (updated in
+        place)."""
+        src = np.asarray(host_pages, np.int64).reshape(-1)
+        dst = np.asarray(device_pages, np.int64).reshape(-1)
+        if len(src) != len(dst):
+            raise ValueError(f"load of {len(src)} host slots into "
+                             f"{len(dst)} pages")
+        depth = max(1, int(depth))
+        dev = state.k_pages.device
+        for lo in range(0, len(src), depth):
+            s, d = src[lo:lo + depth], dst[lo:lo + depth]
+            idx = torch.as_tensor(d, device=dev)
+            for pool, host in zip(_pools(state), self._host()):
+                tmp = torch.empty((len(s),) + tuple(host.shape[1:]),
+                                  dtype=host.dtype, device=dev)
+                for j, slot in enumerate(s):
+                    tmp[j].copy_(host[int(slot)], non_blocking=True)
+                pool[:, :, idx] = tmp.movedim(0, 2)
+        return state
+
+
+class PageAllocator:
+    """Host-side refcounted free list over a pool's physical pages.
+
+    ``alloc`` hands out free pages at refcount 1, ``retain``/``release``
+    move the count for every further reference (a sharing slot, a radix
+    tree node), and a page returns to the free list exactly when its count
+    hits zero. A refcount never goes negative (``release`` raises), a page
+    is free iff its count is 0, and ``alloc`` is all-or-nothing."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 1:
+            raise ValueError(f"n_pages must be >= 1, got {n_pages}")
+        self.n_pages = int(n_pages)
+        self.refcount = np.zeros((self.n_pages,), np.int32)
+        self._free: deque = deque(range(self.n_pages))
+
+    def available(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n free pages at refcount 1, or None (all-or-nothing)."""
+        if n < 0:
+            raise ValueError(f"alloc(n) needs n >= 0, got {n}")
+        if len(self._free) < n:
+            return None
+        pages = [self._free.popleft() for _ in range(n)]
+        for p in pages:
+            self.refcount[p] = 1
+        return pages
+
+    def retain(self, pages) -> None:
+        """+1 ref per page; every page must already be live."""
+        for p in pages:
+            if self.refcount[p] <= 0:
+                raise ValueError(
+                    f"retain of page {p} with refcount "
+                    f"{int(self.refcount[p])}: only live pages are "
+                    f"shareable")
+            self.refcount[p] += 1
+
+    def release(self, pages) -> List[int]:
+        """-1 ref per page; returns the pages that hit 0 (now free)."""
+        freed: List[int] = []
+        for p in pages:
+            if self.refcount[p] <= 0:
+                raise ValueError(
+                    f"release of page {p} with refcount "
+                    f"{int(self.refcount[p])}: double free")
+            self.refcount[p] -= 1
+            if self.refcount[p] == 0:
+                self._free.append(p)
+                freed.append(p)
+        return freed
+
+    def check(self) -> None:
+        """Assert the free-list/refcount bijection."""
+        free = set(self._free)
+        if len(free) != len(self._free):
+            raise AssertionError("free list holds a duplicate page")
+        for p in range(self.n_pages):
+            rc = int(self.refcount[p])
+            if rc < 0:
+                raise AssertionError(f"page {p} refcount {rc} < 0")
+            if (rc == 0) != (p in free):
+                raise AssertionError(
+                    f"page {p}: refcount {rc} but "
+                    f"{'in' if p in free else 'not in'} free list")

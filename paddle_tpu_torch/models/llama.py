@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..framework.contract import refuse_unported
 from ..framework.dtype import to_torch_dtype
 from ..framework.place import resolve_device
 from ..framework.random import make_generator
@@ -62,6 +63,8 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 500000.0
     tie_word_embeddings: bool = False
+    # attention through the flash kernels (the only path ported)
+    use_flash_attention: bool = True
     # per-block activation recomputation in training; "full" keeps only the
     # block input, "core_attn" also the attention's (out, lse) when
     # flags.flash_save_residuals is on
@@ -73,6 +76,7 @@ class LlamaConfig:
     loss_chunk_size: int = 2048
     # ring attention over a mesh axis: not ported
     context_parallel: bool = False
+    cp_axis: str = "sp"
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -83,6 +87,8 @@ class LlamaConfig:
         if self.context_parallel:
             raise NotImplementedError(
                 "context parallelism (ring attention) is not ported")
+        refuse_unported("LlamaConfig",
+                        use_flash_attention=(self.use_flash_attention, True))
 
     @property
     def head_dim(self):
@@ -215,7 +221,7 @@ def _pow2_bucket(n: int, cap: int, floor: int = 1) -> int:
     return bucket_for(min(n, cap), default_buckets(cap, floor))
 
 
-def prompt_logits_pure(prms, ids, cfg, tied=False, plain=False,
+def prompt_logits_pure(prms, ids, cfg, tied=False, *, plain=False,
                        attn_mask=None):
     """Full-prompt logits (B, S, V): embed -> decoder blocks with causal
     flash attention -> LM head, for a params dict of dense tensors or
@@ -354,54 +360,64 @@ def _train_fused_head(model, hidden):
     return fusion.run_train_lm_head(prms, hidden, model.config.rms_norm_eps)
 
 
+def _proj(n_in, n_out, dtype, device, gen):
+    """A projection: bias-free, as the JAX package's."""
+    return Linear(n_in, n_out, bias_attr=False, dtype=dtype, device=device,
+                  generator=gen)
+
+
 class LlamaAttention(Layer):
-    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+    def __init__(self, config: LlamaConfig, *, dtype, device, gen):
         super().__init__()
-        self.config = cfg
-        h, hd = cfg.hidden_size, cfg.head_dim
-        nh, hk = cfg.num_attention_heads, cfg.num_key_value_heads
-        self.q_proj = Linear(h, nh * hd, dtype, device, gen)
-        self.k_proj = Linear(h, hk * hd, dtype, device, gen)
-        self.v_proj = Linear(h, hk * hd, dtype, device, gen)
-        self.o_proj = Linear(nh * hd, h, dtype, device, gen)
+        self.config = config
+        h, hd = config.hidden_size, config.head_dim
+        nh, hk = config.num_attention_heads, config.num_key_value_heads
+        self.q_proj = _proj(h, nh * hd, dtype, device, gen)
+        self.k_proj = _proj(h, hk * hd, dtype, device, gen)
+        self.v_proj = _proj(h, hk * hd, dtype, device, gen)
+        self.o_proj = _proj(nh * hd, h, dtype, device, gen)
 
 
 class LlamaMLP(Layer):
-    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+    def __init__(self, config: LlamaConfig, *, dtype, device, gen):
         super().__init__()
-        h, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Linear(h, m, dtype, device, gen)
-        self.up_proj = Linear(h, m, dtype, device, gen)
-        self.down_proj = Linear(m, h, dtype, device, gen)
+        h, m = config.hidden_size, config.intermediate_size
+        self.gate_proj = _proj(h, m, dtype, device, gen)
+        self.up_proj = _proj(h, m, dtype, device, gen)
+        self.down_proj = _proj(m, h, dtype, device, gen)
 
 
 class LlamaDecoderLayer(Layer):
-    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+    def __init__(self, config: LlamaConfig, *, dtype, device, gen):
         super().__init__()
-        eps = cfg.rms_norm_eps
-        self.input_layernorm = RMSNorm(cfg.hidden_size, dtype, device, eps)
-        self.self_attn = LlamaAttention(cfg, dtype, device, gen)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, dtype,
-                                                device, eps)
-        self.mlp = LlamaMLP(cfg, dtype, device, gen)
+        eps = config.rms_norm_eps
+        kw = dict(dtype=dtype, device=device, gen=gen)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, dtype=dtype,
+                                       device=device)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
+                                                dtype=dtype, device=device)
+        self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, hidden, attn_mask=None, plain=False, stash=None):
+    def forward(self, hidden, attn_mask=None, *, plain=False, stash=None):
         """Training forward through the TRAIN plan."""
         return _train_fused_block(self, hidden, attn_mask, plain, stash)
 
 
 class LlamaModel(Layer):
-    def __init__(self, cfg: LlamaConfig, dtype, device, gen):
+    def __init__(self, config: LlamaConfig, *, dtype, device, gen):
         super().__init__()
-        self.config = cfg
-        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, dtype,
-                                      device, gen)
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      dtype=dtype, device=device,
+                                      generator=gen)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(cfg, dtype, device, gen)
-             for _ in range(cfg.num_hidden_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
+            [LlamaDecoderLayer(config, dtype=dtype, device=device, gen=gen)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            dtype=dtype, device=device)
 
-    def forward(self, input_ids, attn_mask=None, final_norm=True,
+    def forward(self, input_ids, attn_mask=None, final_norm=True, *,
                 plain=False):
         """Training forward to the final hidden states (normed unless
         ``final_norm=False``, the head fusion's entry), every block's
@@ -432,19 +448,20 @@ class LlamaForCausalLM(Layer):
     weights, unit norm weights) in ``config.dtype``. Built in eval mode
     (serving); ``train()`` turns on gradients and the training forward."""
 
-    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+    def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.config = config
         self.device = resolve_device(device)
         dtype = to_torch_dtype(config.dtype)
         gen = make_generator(seed, self.device)
-        self.model = LlamaModel(config, dtype, self.device, gen)
+        self.model = LlamaModel(config, dtype=dtype, device=self.device,
+                                gen=gen)
         self.lm_head = (None if config.tie_word_embeddings else
-                        Linear(config.hidden_size, config.vocab_size, dtype,
-                               self.device, gen))
+                        _proj(config.hidden_size, config.vocab_size, dtype,
+                              self.device, gen))
         self.eval()
 
-    def forward(self, input_ids, attn_mask=None, plain=False):
+    def forward(self, input_ids, attn_mask=None, *, plain=False):
         """Eval: prompt logits (B, S, V), under inference mode. Training:
         logits with a gradient, or the final hidden states (B, S, H) under
         ``fused_head_loss`` (``loss`` then projects them chunk by chunk).
@@ -503,9 +520,11 @@ class LlamaForCausalLM(Layer):
         return 6.0 * n_params + attn
 
     def generate_paged(self, input_ids, max_new_tokens: int = 16,
-                       page_size: int = 16, return_logits: bool = False,
-                       params=None, cache_dtype=None,
-                       spec_decode: bool = False, spec_k=None, draft=None):
+                       page_size: int = 16, temperature: float = 0.0,
+                       top_k=None, top_p=None, seed: int = 0, params=None,
+                       cache_dtype=None, spec_decode: bool = False,
+                       spec_k=None, draft=None, *,
+                       return_logits: bool = False):
         """Greedy decode over a paged KV cache. ``input_ids`` (B, S0)
         → (B, S0 + max_new_tokens) int32 on the model's device; with
         ``return_logits`` also the (B, max_new_tokens, V) f32 logits each
@@ -524,7 +543,15 @@ class LlamaForCausalLM(Layer):
         (``_spec_decode_loop``, the batcher's parity oracle) replace the
         decode steps: ``spec_k`` drafts a row (default the ``spec_k``
         flag) from ``draft`` (a ``DraftProposer``, default ``NGramDraft``);
-        the tokens equal the plain decode's. Not with ``return_logits``."""
+        the tokens equal the plain decode's. Not with ``return_logits``.
+
+        Sampling (``temperature > 0``, with ``top_k``/``top_p``/``seed``)
+        is not ported: it raises."""
+        if _normalize_sampling(temperature, top_k, top_p) is not None:
+            raise NotImplementedError(
+                f"generate_paged: temperature={temperature!r} (sampling) "
+                f"is not ported to paddle_tpu_torch; only greedy decoding "
+                f"(temperature=0) is")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")

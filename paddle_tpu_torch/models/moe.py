@@ -48,9 +48,9 @@ from ..framework import flags
 from ..framework.dtype import to_torch_dtype
 from ..framework.place import resolve_device
 from ..framework.random import make_generator
-from ..nn import Embedding, Layer, Linear, RMSNorm
+from ..nn import Embedding, Layer, RMSNorm
 from ..nn.common import INIT_STD
-from .llama import LlamaAttention, LlamaConfig, _train_fused_block
+from .llama import LlamaAttention, LlamaConfig, _proj, _train_fused_block
 
 _NOT_PORTED_EP = ("expert parallelism (the ep ring route over NCCL) is not "
                   "ported yet (ROADMAP Queue 1 item 10)")
@@ -249,23 +249,21 @@ class MoEMLP(Layer):
     """Top-k routed SwiGLU experts with stacked (E, h, m) / (E, m, h)
     weights and an (h, E) router; ``forward`` returns ``(y, aux)``."""
 
-    def __init__(self, config: MoEConfig, dtype, device, gen):
+    def __init__(self, config: MoEConfig, *, dtype, device, gen):
         super().__init__()
         self.config = config
         h, m, e = (config.hidden_size, config.intermediate_size,
                    config.num_experts)
-        self.gate = Linear(h, e, dtype, device, gen)
-        self.w_gate = self.create_parameter((e, h, m), dtype, device, gen,
-                                            std=INIT_STD)
-        self.w_up = self.create_parameter((e, h, m), dtype, device, gen,
-                                          std=INIT_STD)
-        self.w_down = self.create_parameter((e, m, h), dtype, device, gen,
-                                            std=INIT_STD)
+        kw = dict(dtype=dtype, device=device, generator=gen, std=INIT_STD)
+        self.gate = _proj(h, e, dtype, device, gen)
+        self.w_gate = self.create_parameter((e, h, m), **kw)
+        self.w_up = self.create_parameter((e, h, m), **kw)
+        self.w_down = self.create_parameter((e, m, h), **kw)
         if config.num_shared_experts:
             sm = m * config.num_shared_experts
-            self.shared_gate_proj = Linear(h, sm, dtype, device, gen)
-            self.shared_up_proj = Linear(h, sm, dtype, device, gen)
-            self.shared_down_proj = Linear(sm, h, dtype, device, gen)
+            self.shared_gate_proj = _proj(h, sm, dtype, device, gen)
+            self.shared_up_proj = _proj(h, sm, dtype, device, gen)
+            self.shared_down_proj = _proj(sm, h, dtype, device, gen)
         self._expert_quant = None     # set by quantize_experts()
 
     def capacity(self, seq_len: int) -> int:
@@ -309,7 +307,7 @@ class MoEMLP(Layer):
                                            eq["group_size"], k, dtype)
                      for name, k in zip(EXPERT_STACKS, (h, h, m)))
 
-    def forward(self, x, router_probe=None, plain=False):
+    def forward(self, x, router_probe=None, *, plain=False):
         """``router_probe``: a list this layer's router logits are appended
         to. ``plain``: the grouped matmuls' plain versions (the on-card
         reference)."""
@@ -340,16 +338,18 @@ class MoEMLP(Layer):
 
 
 class MoEDecoderLayer(Layer):
-    def __init__(self, config: MoEConfig, dtype, device, gen):
+    def __init__(self, config: MoEConfig, *, dtype, device, gen):
         super().__init__()
         eps = config.rms_norm_eps
-        self.input_layernorm = RMSNorm(config.hidden_size, dtype, device, eps)
-        self.self_attn = LlamaAttention(config, dtype, device, gen)
-        self.post_attention_layernorm = RMSNorm(config.hidden_size, dtype,
-                                                device, eps)
-        self.mlp = MoEMLP(config, dtype, device, gen)
+        kw = dict(dtype=dtype, device=device, gen=gen)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, dtype=dtype,
+                                       device=device)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
+                                                dtype=dtype, device=device)
+        self.mlp = MoEMLP(config, **kw)
 
-    def forward(self, hidden, attn_mask=None, router_probe=None,
+    def forward(self, hidden, attn_mask=None, router_probe=None, *,
                 plain=False):
         """The attention half through the train plan (K2 folds, K1 and K5
         or K9, the o-proj and residual as the attention's epilogue) under
@@ -368,24 +368,25 @@ class MoEForCausalLM(Layer):
     ``seed`` (N(0, 0.02²), unit norm weights) in ``config.dtype``. Built
     in eval mode; ``train()`` turns on gradients."""
 
-    def __init__(self, config: MoEConfig, device=None, seed: int = 0):
+    def __init__(self, config: MoEConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.config = config
         self.device = resolve_device(device)
         dtype = to_torch_dtype(config.dtype)
         gen = make_generator(seed, self.device)
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      dtype, self.device, gen)
+                                      dtype=dtype, device=self.device,
+                                      generator=gen)
         self.layers = nn.ModuleList(
-            [MoEDecoderLayer(config, dtype, self.device, gen)
+            [MoEDecoderLayer(config, dtype=dtype, device=self.device, gen=gen)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, dtype, self.device,
-                            config.rms_norm_eps)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size, dtype,
-                              self.device, gen)
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            dtype=dtype, device=self.device)
+        self.lm_head = _proj(config.hidden_size, config.vocab_size, dtype,
+                             self.device, gen)
         self.eval()
 
-    def forward(self, input_ids, attn_mask=None, router_probe=None,
+    def forward(self, input_ids, attn_mask=None, router_probe=None, *,
                 plain=False):
         """(logits (B, S, V), the summed aux loss). ``attn_mask``: a mask
         for every block's attention (as ``LlamaForCausalLM``'s). ``plain``:

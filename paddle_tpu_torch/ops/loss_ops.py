@@ -16,12 +16,21 @@ import functools
 
 import torch
 
+from ..framework.contract import refuse_unported
 
-def cross_entropy(logits, label, ignore_index=-100, reduction="mean"):
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
     """Softmax cross-entropy of (N, C) logits against (N,) int labels;
     labels equal to ``ignore_index`` count for nothing ("mean" averages
-    over the others)."""
-    logp = torch.log_softmax(logits, dim=-1)
+    over the others). Class weights, soft labels, another class axis,
+    probabilities for logits and label smoothing are not ported."""
+    refuse_unported("cross_entropy", weight=(weight, None),
+                    soft_label=(soft_label, False), axis=(axis, -1),
+                    use_softmax=(use_softmax, True),
+                    label_smoothing=(label_smoothing, 0.0))
+    logp = torch.log_softmax(input, dim=-1)
     valid = label != ignore_index
     safe = torch.where(valid, label, torch.zeros_like(label)).long()
     loss = -logp.gather(-1, safe[:, None])[:, 0]
@@ -108,13 +117,15 @@ class _LinearCrossEntropy(torch.autograd.Function):
         return dh, dw.to(weight.dtype), None, None, None, None, None
 
 
-def linear_cross_entropy(hidden, weight, label, transpose_weight=False,
-                         ignore_index=-100, chunk_size=2048,
-                         reduction="mean"):
+def linear_cross_entropy(hidden, weight, label, bias=None,
+                         transpose_weight=False, ignore_index=-100,
+                         chunk_size=2048, reduction="mean"):
     """Cross-entropy of ``hidden @ weight`` against ``label`` without the
     (N, vocab) logits: ``chunk_size`` tokens at a time, each chunk's f32
     logits recomputed in backward. weight (H, V), or (V, H) with
-    ``transpose_weight`` (tied embeddings). Reductions "mean" and "sum"."""
+    ``transpose_weight`` (tied embeddings). Reductions "mean" and "sum".
+    A bias is not ported."""
+    refuse_unported("linear_cross_entropy", bias=(bias, None))
     if reduction not in ("mean", "sum"):
         raise ValueError(
             f"linear_cross_entropy supports reduction='mean'/'sum', got "

@@ -79,7 +79,7 @@ class Optimizer:
 
     # ---- application
     @torch.no_grad()
-    def step(self, grads=None):
+    def step(self, *, grads=None):
         """One update of every parameter that has a gradient (``grads``:
         optional {name: tensor} overriding ``param.grad``), all gradients
         clipped first when ``grad_clip`` is set."""
@@ -99,9 +99,13 @@ class Optimizer:
             self.update(p.data, g, self._state[name], lr, self._global_step,
                         self._decay_for(name))
 
-    def clear_grad(self):
+    def clear_grad(self, set_to_zero=False):
+        """Drop every gradient, or zero it in place (``set_to_zero``)."""
         for _, p in self._named:
-            p.grad = None
+            if set_to_zero and p.grad is not None:
+                p.grad.zero_()
+            else:
+                p.grad = None
 
     def state(self) -> dict:
         """{param name: {state key: tensor}} (the live tensors)."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.contract import refuse_unported
 from .optimizer import Optimizer, needs_master
 
 
@@ -20,12 +21,14 @@ def _t(x, like):
 
 
 class AdamW(Optimizer):
-    """Adam with decoupled weight decay, f32 moments."""
+    """Adam with decoupled weight decay, f32 moments. Per-parameter
+    learning-rate ratios (``lr_ratio``) are not ported."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  multi_precision=True, name=None):
+        refuse_unported("AdamW", lr_ratio=(lr_ratio, None))
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon

@@ -2,10 +2,11 @@
 
 A JAX ``LlamaForCausalLM`` is built from ``paddle.seed(0)``; its
 parameters go through numpy into the port (``models/bridge.py``). For the
-same submissions, the port's ``ContinuousBatcher(prefix_caching=False)``
-and the JAX package's give identical per-request greedy tokens (f32 on the
-CPU, where the two sides differ only in summation order; on these seeds
-no near-tie flips a token), which also equal the port's solo
+same submissions, the port's ``ContinuousBatcher`` and the JAX package's,
+both with default flags (prefix caching, host tier and arena on), give
+identical per-request greedy tokens (f32 on the CPU, where the two sides
+differ only in summation order; on these seeds no near-tie flips a
+token), which also equal the port's solo
 ``generate_paged``; and the ragged-path ``stats`` agree. Each case
 runs the port in the default fused plan and with
 ``fused_decode_fusions="norm_matmul"`` (on the CPU both reach the plain
@@ -107,7 +108,7 @@ def _port_runs(tmodel, kw, prompts, news, arrivals):
     for plan in ("norm_matmul,rope_append_attend", "norm_matmul"):
         tflags.set_flags({"fused_decode_fusions": plan})
         try:
-            eng = ContinuousBatcher(tmodel, prefix_caching=False, **kw)
+            eng = ContinuousBatcher(tmodel, **kw)
             runs[plan] = (_serve(eng, prompts, news, arrivals), eng.stats)
         finally:
             tflags.set_flags({"fused_decode_fusions": old})
@@ -130,7 +131,7 @@ def test_tokens_and_stats_match_jax_and_solo(pair, case):
     prompts = _prompts(tmodel.config.vocab_size, lens, seed)
     if case == "eos_mid_segment":
         kw["eos_token_id"] = _eos(jmodel, prompts[0], news[0])
-    jeng = JaxBatcher(jmodel, prefix_caching=False, **kw)
+    jeng = JaxBatcher(jmodel, **kw)
     want = _serve(jeng, prompts, news, arrivals)
     for plan, (got, stats) in _port_runs(tmodel, kw, prompts, news,
                                          arrivals).items():
@@ -161,8 +162,7 @@ def test_int8_engine_matches_jax_int8_engine(pair):
     kw = dict(max_batch=2, max_seq=48, segment=3, cache_dtype="int8")
     prompts = _prompts(tmodel.config.vocab_size, (5, 9, 13), 4)
     news, arrivals = (6, 9, 4), (0, 0, 0)
-    jeng = JaxBatcher(jmodel, prefix_caching=False, quantized_params=jq,
-                      **kw)
+    jeng = JaxBatcher(jmodel, quantized_params=jq, **kw)
     want = _serve(jeng, prompts, news, arrivals)
     runs = _port_runs(tmodel, dict(kw, quantized_params=tq), prompts, news,
                       arrivals)
@@ -267,7 +267,7 @@ def test_chip_smoke_int8_batcher_reference_reproduces_the_batcher(
         cap = _Capture(monkeypatch)
         tflags.set_flags({"fused_decode_fusions": plan})
         try:
-            eng = ContinuousBatcher(tmodel, prefix_caching=False, **kw)
+            eng = ContinuousBatcher(tmodel, **kw)
             got = _serve(eng, prompts, news, arrivals)
         finally:
             tflags.set_flags({"fused_decode_fusions": old})
@@ -312,26 +312,35 @@ def tiny():
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({}, NotImplementedError),                       # prefix caching on
-    (dict(prefix_caching=False, ragged=False), NotImplementedError),
-    (dict(prefix_caching=False, lora=True), NotImplementedError),
-    (dict(prefix_caching=False, temperature=0.7), NotImplementedError),
-    (dict(prefix_caching=False, retry_policy=object()), NotImplementedError),
-    (dict(prefix_caching=True, host_tier=False, unified_arena=False),
-     NotImplementedError),
+    (dict(lora_hbm_adapters=2), NotImplementedError),
+    (dict(ragged=False), NotImplementedError),
+    (dict(lora=True), NotImplementedError),
+    (dict(temperature=0.7), NotImplementedError),
+    (dict(retry_policy=object()), NotImplementedError),
+    (dict(adapter_pool=object()), NotImplementedError),
     (dict(prefix_caching=False, host_tier=True), ValueError),
     (dict(prefix_caching=False, unified_arena=True), ValueError),
-    (dict(prefix_caching=False, prefill_chunk=0), ValueError),
-    (dict(prefix_caching=False, cache_dtype="fp8"), ValueError),
+    (dict(prefill_chunk=0), ValueError),
+    (dict(cache_dtype="fp8"), ValueError),
 ])
 def test_unported_features_raise(tiny, kw, err):
     with pytest.raises(err):
         ContinuousBatcher(tiny, max_batch=2, max_seq=32, **kw)
 
 
+def test_defaults_build_the_reference_features(tiny):
+    """With default flags the batcher resolves prefix caching, the host
+    tier and the unified arena on, as the JAX package's does."""
+    eng = ContinuousBatcher(tiny, max_batch=2, max_seq=32)
+    assert eng._prefix_caching and eng._host_tier
+    assert eng._arena is not None and eng._arena_kv_pages == 2 * 2 + 2
+    assert "prefix_hits" in eng.stats and "parks" in eng.stats
+    assert "arena_steals" in eng.stats
+
+
 def test_submit_contract_and_drain(tiny):
     eng = ContinuousBatcher(tiny, max_batch=1, max_seq=32, segment=4,
-                            max_pending=2, prefix_caching=False)
+                            max_pending=2)
     assert eng._ragged_T == 40                # 1 + 32, padded to 8
     with pytest.raises(ValueError):
         eng.submit([], 4)
@@ -355,8 +364,7 @@ def test_submit_contract_and_drain(tiny):
 
 
 def test_deadline_expired_request_times_out(tiny):
-    eng = ContinuousBatcher(tiny, max_batch=1, max_seq=32, segment=2,
-                            prefix_caching=False)
+    eng = ContinuousBatcher(tiny, max_batch=1, max_seq=32, segment=2)
     clock = [0.0]
     eng._clock = lambda: clock[0]
     p = np.arange(3, 9, dtype=np.int32)
@@ -376,7 +384,7 @@ def test_poisoned_request_is_quarantined_alone(tiny):
     bad_tok = 7
     params["model.embed_tokens.weight"][bad_tok] = float("nan")
     eng = ContinuousBatcher(tiny, max_batch=2, max_seq=32, segment=4,
-                            quantized_params=params, prefix_caching=False)
+                            quantized_params=params)
     good = np.arange(10, 16, dtype=np.int32)
     bad = np.array([1, 2, bad_tok, 3], np.int32)
     r_good, r_bad = eng.submit(good, 5), eng.submit(bad, 5)

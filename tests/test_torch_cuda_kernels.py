@@ -56,6 +56,14 @@ also runs at caps up to 640 with lengths on page and range edges (K3's
 own cell opening its CTA's range, an inactive slot), each form two calls
 bitwise equal, and the (rank, page range) items its CTAs decode equal to
 ``paged_attention.walk_items`` for clusters of 1, 2, 4 and 8.
+The prefix cache's table-routed pool: K11, K3's ragged form (with and
+without ``fresh_pool_read``), K3's masked form and K10, bf16 and int8, on
+a permuted table whose two slots share their first pages, whose empty
+slot's row is the park page and whose unreferenced page holds NaN: within
+the attention tolerance of the plain versions, every output finite, the
+park page and the shared pages bitwise unchanged; ``clone_pages`` and the
+pinned ``HostPageArena`` store/load bitwise; and ``ContinuousBatcher``
+with default flags serving a shared-prefix workload.
 The training kernels: K5 (flash backward) at sequence lengths that are not
 multiples of its 64-row tiles, GQA groups 1, 4 and 8, Sk > Sq and Sq > Sk,
 causal and not, two calls bitwise equal; K6/K7 (RMSNorm
@@ -2319,3 +2327,232 @@ def test_clip_scale_matches_the_cpu_bitwise(gen):
         ref = g.float().cpu().numpy() * want_scale
         assert torch.equal(c, torch.from_numpy(ref).to(g.dtype))
     assert cpu_norm.item() == float(norm)
+
+
+# ------------------------------------------- the prefix cache's routed pool
+
+_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+         torch.int8: torch.int8}
+
+
+def _bits(x):
+    """Bit patterns: a NaN cell compares equal to itself."""
+    return x.view(_BITS[x.dtype])
+
+
+def _routed_case(gen, int8, page=16, g=4, hk=2, cap=128):
+    """A wave on the prefix cache's table-routed pool (B * pps + pps + 1
+    pages, the last the park page): slot 0 decodes at 40 and slot 2 at 70,
+    both reading the same first 2 pages; slot 1 prefills 10 rows on 20
+    cells; slot 3 is empty, its row all park page; each row's entries past
+    the slot's pages repeat its own last page; page P - 2, referenced by no
+    row, is full of NaN (int8: its scales). Returns (cache, rows, wave,
+    park, nan page, shared pages)."""
+    b, pps = 4, cap // page
+    p_total = b * pps + pps + 1
+    park, nan_page = p_total - 1, p_total - 2
+    cache = kv_cache.create_paged_cache(
+        2, b, cap, hk, 128, page, dtype=torch.int8 if int8 else torch.bfloat16,
+        extra_pages=pps + 1, device="cuda")
+    if int8:
+        for pool in (cache.k_pages, cache.v_pages):
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+        for pool in (cache.k_scales, cache.v_scales):
+            pool.copy_(torch.rand(pool.shape, generator=gen, device="cuda")
+                       * 0.03)
+    else:
+        for pool in (cache.k_pages, cache.v_pages):
+            pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda"))
+    free = torch.randperm(nan_page, generator=gen, device="cuda").tolist()
+    shared = [free.pop() for _ in range(2)]
+    seq, lens_q, fresh = [40, 20, 70, 0], [1, 10, 1, 0], [0, 10, 0, 0]
+    bt = torch.full((b, pps), park, dtype=torch.int32)
+    for i in range(3):
+        n = -(-(seq[i] + lens_q[i] + 1) // page)
+        own = [free.pop() for _ in range(n)]
+        if i in (0, 2):
+            own[:2] = shared
+        bt[i, :n] = torch.tensor(own)
+        bt[i, n:] = own[-1]
+    poison = cache.k_scales if int8 else cache.k_pages
+    poison[:, :, nan_page] = float("nan")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    cache = cache._replace(block_tables=bt.to("cuda"),
+                           seq_lens=torch.tensor(seq, **i32))
+    t = 16
+    q_start, row_slot, row_pos, r = [], [], [], 0
+    for i, n in enumerate(lens_q):
+        q_start.append(r if n else 0)
+        row_slot += [i] * n
+        row_pos += [seq[i] + j for j in range(n)]
+        r += n
+    row_slot += [-1] * (t - r)
+    row_pos += [0] * (t - r)
+    page_lens = [s + 1 if (n == 1 and f == 0) else (s if n else 0)
+                 for s, n, f in zip(seq, lens_q, fresh)]
+    rs = torch.tensor(row_slot, **i32)
+    wave = (rs, torch.tensor(row_pos, **i32), rs >= 0,
+            torch.tensor(page_lens, **i32), torch.tensor(q_start, **i32),
+            torch.tensor(lens_q, **i32), torch.tensor(fresh, **i32))
+    cos_t, sin_t = _rope_tables(cap, 128, 10000.0, device="cuda")
+    pos = wave[1].long()
+    rows = (_randn(gen, t, hk * g, 128), _randn(gen, t, hk, 128),
+            _randn(gen, t, hk, 128), cos_t[pos], sin_t[pos])
+    return cache, rows, wave, park, nan_page, shared
+
+
+def _routed_pools_check(new, ref, old, written, park, shared):
+    """Pools against the plain chain's (bf16 bitwise; int8 codes within 1,
+    scales bitwise), every cell outside ``written`` as it was, and the
+    park page and the shared pages bitwise unchanged."""
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        a, r, o = (getattr(c, name) for c in (new, ref, old))
+        if a is None:
+            continue
+        if a.dtype == torch.int8:
+            assert int((a.int() - r.int()).abs().max()) <= 1, name
+        else:
+            assert torch.equal(_bits(a), _bits(r)), name
+        keep = (~written)[..., None].expand_as(a)
+        assert torch.equal(_bits(a)[keep], _bits(o)[keep]), name
+        for pg in [park] + shared:
+            assert torch.equal(_bits(a[:, :, pg]), _bits(o[:, :, pg])), \
+                (name, pg)
+
+
+@pytest.mark.parametrize("form", ["K11", "K3 ragged", "K3 fresh_pool_read",
+                                  "K3 masked", "K10"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_batcher_kernels_on_a_routed_pool(gen, form, int8):
+    """The batcher's attention kernels on the prefix cache's table-routed
+    pool (``_routed_case``): within the attention tolerance of their plain
+    versions, every output finite (the NaN page, a scrubbed neighbour's,
+    leaks nowhere), rows of no segment and the empty slot zeros; K3's
+    pools as the plain chain's, and no write reaching the park page or the
+    pages two slots share."""
+    cache, rows, wave, park, nan_page, shared = _routed_case(gen, int8)
+    kw = ({"k_scales": cache.k_scales[1], "v_scales": cache.v_scales[1]}
+          if int8 else {})
+    q, kf, vf, cos, sin = rows
+    layer = 1
+    written = torch.zeros(cache.k_pages.shape[:-1], dtype=torch.bool,
+                          device="cuda")
+    new = cache
+    if form == "K11":
+        args = (q, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+                *wave[3:], kf, vf)
+        out = k11.ragged_paged_attention_pure(*args, **kw)
+        ref = k11.ragged_paged_attention_reference(*args, **kw)
+        valid = wave[2]
+    elif form == "K10":
+        active = torch.tensor([True, True, True, False], device="cuda")
+        lens = torch.where(active, cache.seq_lens + 1, 0).to(torch.int32)
+        qd = q[:4]
+        args = (qd, cache.k_pages[1], cache.v_pages[1], cache.block_tables,
+                lens)
+        out = k10.paged_attention_pure(*args, **kw)
+        ref = k10.paged_attention_reference(*args, **kw)
+        valid = active
+    elif form == "K3 masked":
+        active = torch.tensor([True, True, True, False], device="cuda")
+        pos = cache.seq_lens.long()
+        cos_t, sin_t = _rope_tables(128, 128, 10000.0, device="cuda")
+        drows = (q[:4], kf[:4], vf[:4], cos_t[pos], sin_t[pos])
+        new, cp = _copy(cache), _copy(cache)
+        out, new = k3.fused_rope_append_attend_decode(*drows, new, layer,
+                                                      active)
+        ref, cp = k3.decode_reference(*drows, cp, layer, active, plain=True)
+        page = cache.k_pages.shape[3]
+        idx = torch.arange(3, device="cuda")
+        phys = cache.block_tables[idx, pos[:3] // page].long()
+        written[layer, :, phys, pos[:3] % page] = True
+        valid = active
+    else:
+        flag = (torch.tensor([False, True, False, False], device="cuda")
+                if form == "K3 fresh_pool_read" else None)
+        new, cp = _copy(cache), _copy(cache)
+        out, new = k3.fused_rope_append_attend(*rows, new, layer, *wave,
+                                               fresh_pool_read=flag)
+        ref, cp = k3.ragged_reference(*rows, cp, layer, *wave, plain=True,
+                                      fresh_pool_read=flag)
+        written = _written(cache, layer, wave)
+        valid = wave[2]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(((out.float() - ref.float()).abs() <= _attn_tol(ref)).all())
+    assert not out[~valid].any()
+    if new is not cache:
+        _routed_pools_check(new, cp, cache, written, park, shared)
+    assert torch.equal(_bits(new.k_pages[:, :, park]),
+                       _bits(cache.k_pages[:, :, park]))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_clone_pages_and_host_arena_are_bitwise_on_the_card(gen, int8):
+    """``clone_pages`` copies a page's codes and scale cells bitwise, in
+    place; ``HostPageArena`` (one pinned buffer) stores pages to host slots
+    and loads them back into other pages bitwise, a load ordered before a
+    later store into the same slots."""
+    page, pps = 16, 4
+    cache = kv_cache.create_paged_cache(
+        2, 2, page * pps, 2, 128, page,
+        dtype=torch.int8 if int8 else torch.bfloat16, extra_pages=5,
+        device="cuda")
+    pools = [p for p in (cache.k_pages, cache.v_pages, cache.k_scales,
+                         cache.v_scales) if p is not None]
+    for p in pools:
+        if p.dtype == torch.int8:
+            p.copy_(torch.randint(-127, 128, p.shape, generator=gen,
+                                  device="cuda", dtype=torch.int8))
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda"))
+    before = [p.clone() for p in pools]
+    kv_cache.clone_pages(cache, [1, 6], [9, 3])
+    for p, b in zip(pools, before):
+        assert torch.equal(_bits(p[:, :, [9, 3]]), _bits(b[:, :, [1, 6]]))
+        keep = [i for i in range(p.shape[2]) if i not in (9, 3)]
+        assert torch.equal(_bits(p[:, :, keep]), _bits(b[:, :, keep]))
+    arena = kv_cache.HostPageArena(6, cache)
+    assert arena.pinned
+    arena.store(cache, [0, 5, 12], [4, 1, 2])
+    snap = [p[:, :, [0, 5, 12]].clone() for p in pools]
+    arena.load(cache, [4, 1, 2], [7, 8, 11], depth=2)
+    # a store into a slot the load just read waits for the load
+    arena.store(cache, [2, 2, 2], [4, 1, 2])
+    torch.cuda.synchronize()
+    for p, s in zip(pools, snap):
+        assert torch.equal(_bits(p[:, :, [7, 8, 11]]), _bits(s))
+
+
+def test_batcher_with_defaults_serves_on_the_card(gen):
+    """``ContinuousBatcher(model)`` with default flags (prefix caching,
+    host tier, unified arena) builds and serves on the card: requests that
+    share a prefix hit the tree, every request finishes with its tokens,
+    the allocator's invariant holds, and the waves ran K2 and K3's ragged
+    and masked forms."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=0)
+    eng = ContinuousBatcher(model, max_batch=2, max_seq=128, page_size=16,
+                            segment=4, prefill_chunk=32)
+    shared = torch.randint(0, 256, (48,), generator=gen,
+                           device="cuda").tolist()
+    rids = [eng.submit(shared + [i, i + 1, i + 2], 6, arrival_segment=2 * i)
+            for i in range(3)]
+    kernels.reset_launch_counts()
+    done = eng.run()
+    counts = kernels.launch_counts()
+    for r in rids:
+        assert done[r].status == "ok" and len(done[r].tokens) == 6
+    assert eng.stats["prefix_hits"] > 0 and eng.stats["pages_saved"] > 0
+    eng._pager.check()
+    assert counts["fused_norm_matmul"] > 0
+    assert counts["fused_rope_attend_ragged"] > 0
+    assert counts["fused_rope_attend"] > 0

@@ -91,7 +91,7 @@ def _serve(eng, prompts, news):
 
 def _engine(tmodel, spec, **kw):
     return ContinuousBatcher(tmodel, max_batch=2, max_seq=64, page_size=8,
-                             prefix_caching=False, spec_decode=spec, **kw)
+                             spec_decode=spec, **kw)
 
 
 # ------------------------------------------------------------- the oracle
@@ -173,8 +173,7 @@ def test_batcher_spec_tokens_and_stats_match_jax(pair, int8):
     jkw = {"quantized_params": jq, "cache_dtype": "int8"} if int8 else {}
     tkw = {"quantized_params": tq, "cache_dtype": "int8"} if int8 else {}
     jeng = JaxBatcher(jmodel, max_batch=2, max_seq=64, page_size=8,
-                      ragged=True, prefix_caching=False, spec_decode=True,
-                      spec_k=4, **jkw)
+                      ragged=True, spec_decode=True, spec_k=4, **jkw)
     want = _serve(jeng, prompts, news)
     off = _serve(_engine(tmodel, False, **tkw), prompts, news)
     for plan in PLANS:
@@ -215,11 +214,10 @@ def test_batcher_spec_mixed_wave_late_arrival_matches_jax(pair):
         done = eng.run()
         return [done[ra].tokens, done[rb].tokens]
 
-    jeng = JaxBatcher(jmodel, ragged=True, prefix_caching=False, **kw)
+    jeng = JaxBatcher(jmodel, ragged=True, **kw)
     want = serve(jeng)
     for plan in PLANS:
-        eng = _with_plan(plan, lambda: ContinuousBatcher(
-            tmodel, prefix_caching=False, **kw))
+        eng = _with_plan(plan, lambda: ContinuousBatcher(tmodel, **kw))
         assert _with_plan(plan, lambda: serve(eng)) == want, plan
         for key in STATS:
             assert eng.stats[key] == jeng.stats[key], (plan, key)
@@ -244,8 +242,7 @@ def test_batcher_spec_budget_and_eos_on_accepted_tokens(pair, eos):
                 prompts, news)
     off = _serve(_engine(tmodel, False, eos_token_id=eos_id), prompts, news)
     jon = _serve(JaxBatcher(jmodel, max_batch=2, max_seq=64, page_size=8,
-                            ragged=True, prefix_caching=False,
-                            spec_decode=True, spec_k=4,
+                            ragged=True, spec_decode=True, spec_k=4,
                             eos_token_id=eos_id), prompts, news)
     for r_on, r_off, r_j, n in zip(on, off, jon, news):
         assert r_on.tokens == r_off.tokens == r_j.tokens
@@ -281,8 +278,7 @@ def test_raising_proposer_fails_its_request_alone(pair):
 
     def run(draft):
         eng = ContinuousBatcher(tmodel, max_batch=3, max_seq=64, page_size=8,
-                                prefix_caching=False, spec_decode=True,
-                                spec_k=3, draft=draft)
+                                spec_decode=True, spec_k=3, draft=draft)
         return _serve(eng, prompts, news), eng
 
     ref, _ = run(None)
@@ -370,8 +366,7 @@ def test_spec_k_cap_zero_is_the_plain_decode_row(pair):
 def test_constructor_errors(pair, kw, err, match):
     _, tmodel, _, _ = pair
     with pytest.raises(err, match=match):
-        ContinuousBatcher(tmodel, max_batch=2, max_seq=32,
-                          prefix_caching=False, **kw)
+        ContinuousBatcher(tmodel, max_batch=2, max_seq=32, **kw)
 
 
 def test_flag_default_arms_spec_where_legal(pair):
@@ -382,8 +377,7 @@ def test_flag_default_arms_spec_where_legal(pair):
     old = {k: tflags.get_flag(k) for k in ("spec_decode", "spec_k")}
     tflags.set_flags({"spec_decode": True, "spec_k": 2})
     try:
-        armed = ContinuousBatcher(tmodel, max_batch=2, max_seq=32,
-                                  prefix_caching=False)
+        armed = ContinuousBatcher(tmodel, max_batch=2, max_seq=32)
     finally:
         tflags.set_flags(old)
     assert armed._spec and armed._spec_k == 2
@@ -391,6 +385,5 @@ def test_flag_default_arms_spec_where_legal(pair):
     rid = armed.submit(p, 4)
     assert len(armed.run()[rid].tokens) == 4
     assert "spec_steps" in armed.stats
-    plain = ContinuousBatcher(tmodel, max_batch=2, max_seq=32,
-                              prefix_caching=False)
+    plain = ContinuousBatcher(tmodel, max_batch=2, max_seq=32)
     assert not plain._spec and "spec_steps" not in plain.stats

@@ -252,7 +252,7 @@ def test_train_step_gradient_merge_matches_jax():
     seen = {}
     adam_step = step.optimizer.step
     step.optimizer.step = lambda grads: (seen.update(grads),
-                                         adam_step(grads))
+                                         adam_step(grads=grads))
     t = torch.tensor(ids)
     loss = float(step(t, t))
     np.testing.assert_allclose(loss, jl[0], rtol=1e-5)
@@ -266,7 +266,7 @@ def test_train_step_gradient_merge_matches_jax():
     load_numpy_params(ref, params)
     opt = topt.AdamW(learning_rate=1e-3,
                      parameters=list(ref.named_parameters()))
-    opt.step(seen)
+    opt.step(grads=seen)
     for (n, p), (_, r) in zip(model.named_parameters(),
                               ref.named_parameters()):
         assert torch.equal(p, r), n
