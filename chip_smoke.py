@@ -79,7 +79,13 @@ class, device busy share). Phases, in order; any failure raises and the process 
                pages, the idle slot's row all park page, each row's tail
                its own last page, an unreferenced page full of NaN), with
                every check above plus: outputs finite, the park page and
-               the shared pages bitwise unchanged.
+               the shared pages bitwise unchanged. Then K13 at the LoRA
+               delta's shapes (``check_grouped_matmul_lora``: the shrink
+               (T, 4096 | 14336) x (9, ·, 16) and the expand (T, 16) x
+               (9, 16, 1024 | 4096 | 14336), T 264 and 8, three adapters'
+               rows + the base group's): within the tolerance of the plain
+               version, two calls bitwise equal, a moved-row control that
+               must fail, host us a call, ``torch._grouped_mm`` timed.
 4. serving  — Llama-3-8B (all 32 layers, full width, seeded random bf16
                weights) greedy ``generate_paged`` for B=8, prompt 128,
                32 new tokens; the kernels' launch counts must equal the
@@ -91,6 +97,15 @@ class, device busy share). Phases, in order; any failure raises and the process 
                teacher-forced forward in f32, with the plain bf16 forward
                as the yardstick and two controls (fp16, a K3-style
                fault); timing is the median of 3 full rollouts.
+4d. sampling, solo (after phase 4, on its model and prompts) —
+               ``generate_paged(temperature=0.8, top_k=50, top_p=0.95)``:
+               ``top_p=0`` bitwise phase 4's tokens, ``top_k=1`` too up to
+               each row's first position whose bf16 logits tie at the
+               maximum; the counted sampled run's launches equal phase 4's
+               plan; every drawn token in the kept set of its own returned
+               logits; the same seed twice the same tokens; the medians of
+               3 sampled rollouts and prefills beside phase 4's, and one
+               step's filter and draw timed alone.
 4c. speculative decoding, solo (after phases 4 and 5, on their model)
                — ``generate_paged(spec_decode=True, spec_k=4)``: a warm-up
                with ``NGramDraft``, then the counted run with a draft that
@@ -152,6 +167,23 @@ class, device busy share). Phases, in order; any failure raises and the process 
                ``int8_batcher_attention``, a verify row reading every key
                as the cache serves it); walls the median of 3, beside
                phase 6's, with tokens_per_target_step.
+6e. serving, sampled continuous batching — after phase 6's checks, in
+               each plan, the same 24 requests at the sampling of 4d: the
+               counted run's waves, segment steps, launches and
+               ``host_sync_count`` equal to the greedy run's, every
+               request "ok" with its tokens; fused: a second run with the
+               same seed gives the same tokens; walls.
+6f. serving, multi-LoRA continuous batching — after 6 and 6b, fused: the
+               same 24 requests through four seeded adapters (ranks 16,
+               8, 16, 4; 6 base requests) on ``lora=True,
+               lora_max_rank=16, lora_hbm_adapters=2``: launches equal to
+               the plan + 448 K13 a wave and a step, every request "ok",
+               adapter loads, hits, evictions and deferrals > 0, every
+               emitted token held to phase 6's rule against its adapter's
+               f32 forward (``merge_lora``'s weights; int8 the quantized
+               function with the delta in f32), whose two controls (the
+               request routed to the base group, the adapter's B halved)
+               must fail; the wall beside phase 6's.
 6d. serving with the reference's defaults — the phase-6 model (a new
                instance) through ``ContinuousBatcher(max_batch=8,
                max_seq=640, page_size=16, segment=16, prefill_chunk=256,
@@ -361,6 +393,19 @@ VERIFY_ROWS = (224, 5, 5, 5, 1, 5, 5, 5)
 # neighbour that must not leak)
 ROUTED_SHARE = (4, 6)
 ROUTED_SHARED_TOKENS = 224
+# sampling (phases 4d and 6e): temperature, top_k, top_p
+SAMPLING = (0.8, 50, 0.95)
+# multi-LoRA (phases 3 and 6f): the pool's rank and, for phase 3, its
+# default 8 slots + the base group; phase 6f's four adapters' ranks, its
+# device slots, and the adapter of each of phase 6's 24 requests (6 base,
+# 18 over the four; interleaved so that admission loads, evicts, defers
+# and reorders)
+LORA_RANK = 16
+LORA_G = 9
+LORA_RANKS = (16, 8, 16, 4)
+LORA_SLOTS = 2
+LORA_OF_REQUEST = (0, 1, None, 2, 0, 3, 1, None, 2, 3, 0, None, 1, 2, None,
+                   3, 0, 1, None, 2, 3, None, 0, 1)
 
 
 def log(*a):
@@ -2148,6 +2193,124 @@ def serve_spec(torch, kernels, model, ids, tokens, label, profile, int8,
     return counts, stats
 
 
+def serve_sampled(torch, kernels, model, ids, greedy, greedy_logits,
+                  expected, plain, label, **kw):
+    """Phase 4d: ``generate_paged`` sampled at SAMPLING on phase 4's model
+    and prompts. ``top_k=1`` keeps every logit equal to the maximum (the
+    reference's filter), and bf16 logits tie at the maximum at some
+    positions: its tokens must be bitwise ``greedy`` (phase 4's) in every
+    row up to the row's first tied position of ``greedy_logits``, and
+    ``top_p=0`` (the first maximum alone) bitwise in full. THE counted
+    sampled run's launches equal ``expected`` (the draw is plain ops) and
+    every drawn token lies in the kept set of its own returned logits; the
+    same seed again gives the same tokens; 2 x ROLLOUTS sampled and greedy
+    rollouts and prefills in turns, their medians beside phase 4's
+    (``plain``)."""
+    from paddle_tpu_torch.models.llama import _filter_logits
+
+    t, k, p = SAMPLING
+    skw = dict(temperature=t, top_k=k, top_p=p, **kw)
+    top_p0 = model.generate_paged(ids, NEW, temperature=t, top_p=0.0,
+                                  seed=SEED + 50, **kw)
+    assert torch.equal(top_p0, greedy), f"{label}: top_p=0 is not greedy"
+    top1 = model.generate_paged(ids, NEW, temperature=t, top_k=1,
+                                seed=SEED + 50, **kw)
+    tied = (greedy_logits == greedy_logits.amax(-1, keepdim=True)).sum(
+        -1) > 1                                               # (B, NEW)
+    n_same = 0
+    for r in range(B):
+        first = (tied[r].nonzero()[:1, 0].tolist() or [NEW])[0]
+        assert torch.equal(top1[r, PROMPT:PROMPT + first],
+                           greedy[r, PROMPT:PROMPT + first]), (
+            f"{label}: top_k=1 row {r} differs before its first tie")
+        n_same += first
+    log(f"{label}: top_p=0 bitwise greedy; top_k=1 equal to greedy on "
+        f"{n_same}/{B * NEW} positions before each row's first tied "
+        f"maximum ({int(tied.sum())} positions tie at the maximum), "
+        f"{'bitwise in full' if torch.equal(top1, greedy) else 'not past'}")
+    kernels.reset_launch_counts()
+    out, logits = model.generate_paged(ids, NEW, seed=SEED + 51,
+                                       return_logits=True, **skw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == expected, f"{label}: {counts} != plan {expected}"
+    again = model.generate_paged(ids, NEW, seed=SEED + 51, **skw)
+    assert torch.equal(out, again), f"{label}: the same seed differs"
+    toks = out[:, PROMPT:].long()
+    filt = _filter_logits(logits, t, k, p)
+    kept = filt > -1e29
+    assert bool(kept.gather(-1, toks[..., None]).all()), (
+        f"{label}: a drawn token outside its kept set")
+    n_kept = kept.sum(-1).float()
+    argmax_share = (toks == logits.argmax(-1)).float().mean().item()
+    assert not torch.equal(out, greedy), f"{label}: sampling drew greedy"
+    # one step's filter and draw alone, on a step's (B, V) logits
+    from paddle_tpu_torch.models.llama import _gumbel_argmax
+
+    row = logits[:, 0].contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    parts = {"filter": lambda: _filter_logits(row, t, k, p),
+             "draw": lambda: _gumbel_argmax(filt[:, 0], gen)}
+    part_ms = {}
+    for name, fn in parts.items():
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        fn()
+        s0.record()
+        for _ in range(20):
+            fn()
+        s1.record()
+        s1.synchronize()
+        part_ms[name] = (s0.elapsed_time(s1) / 20,
+                         host_call_us(torch, fn, 20))
+    del logits, filt, kept
+
+    def timed(n_new, sampled):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sampled:
+            model.generate_paged(ids, n_new, seed=SEED + 52, **skw)
+        else:
+            model.generate_paged(ids, n_new, **kw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # greedy and sampled in turns (g s s g g s ...): the step is host-bound
+    # and the host's speed drifts within a call
+    runs = {False: {NEW: [], 1: []}, True: {NEW: [], 1: []}}
+    for i in range(2 * ROLLOUTS):
+        for n_new in (NEW, 1):
+            for sampled in ((False, True) if i % 2 == 0 else (True, False)):
+                runs[sampled][n_new].append(timed(n_new, sampled))
+    med = {sm: {n: statistics.median(v) for n, v in r.items()}
+           for sm, r in runs.items()}
+    step = {sm: (m[NEW] - m[1]) / (NEW - 1) for sm, m in med.items()}
+    wins = sum(a < b for a, b in zip(runs[True][NEW], runs[False][NEW]))
+    log(f"{label} sampled (T {t}, top_k {k}, top_p {p}): launches = plan, "
+        f"same seed same tokens, every token in "
+        f"its kept set (kept columns a position {n_kept.min():.0f}-"
+        f"{n_kept.max():.0f}, mean {n_kept.mean():.1f}; {argmax_share:.3f} "
+        f"of the tokens the argmax); in turns with greedy, {2 * ROLLOUTS} "
+        f"each: total_ms sampled {[round(x, 1) for x in runs[True][NEW]]} "
+        f"(median {med[True][NEW]:.1f}) greedy "
+        f"{[round(x, 1) for x in runs[False][NEW]]} (median "
+        f"{med[False][NEW]:.1f}), sampled faster in {wins}/{2 * ROLLOUTS}; "
+        f"prefill_ms median {med[True][1]:.1f} / {med[False][1]:.1f}; "
+        f"decode {step[True]:.2f} against {step[False]:.2f} ms/step (phase "
+        f"4's greedy {(plain['total_ms'] - plain['prefill_ms']) / (NEW - 1):.2f}"
+        f"); a step's filter / draw alone "
+        + ", ".join(f"{n} {d:.3f} ms back to back ({h:.1f} us of host a "
+                    f"call)" for n, (d, h) in part_ms.items()))
+    return {"total_ms": med[True][NEW], "total_ms_runs": runs[True][NEW],
+            "prefill_ms": med[True][1], "prefill_ms_runs": runs[True][1],
+            "decode_step_ms": step[True],
+            "greedy_in_turns_total_ms_runs": runs[False][NEW],
+            "greedy_in_turns_decode_step_ms": step[False],
+            "sampled_faster_turns": wins,
+            "kept_columns_mean": n_kept.mean().item(),
+            "argmax_share": argmax_share, "launches": counts,
+            "filter_draw_ms_host_us": part_ms}
+
+
 def prompt_ids(torch, cfg):
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     return torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=g,
@@ -2225,6 +2388,10 @@ def serve(torch, kernels, profile=False):
     stats["logits_check"] = check_logits(logits, ref_f32, ref_bf16, ctl_fp16,
                                          ctl_fault, "serving")
     del ref_bf16, ctl_fault, ctl_fp16, ref_f32
+    # ---- 4d. sampling on the same model and prompts
+    stats["sampled"] = serve_sampled(torch, kernels, model, ids, out,
+                                     logits, expected, stats, "serving",
+                                     page_size=PAGE)
     # ---- 4c. the solo spec oracle on the same model and prompts
     counts_spec, stats["spec"] = serve_spec(
         torch, kernels, model, prompt_ids(torch, cfg), out[:, PROMPT:],
@@ -2429,7 +2596,50 @@ def batcher_requests(vocab):
              int(rng.integers(0, 7))) for _ in range(N_REQUESTS)]
 
 
-def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
+def single_adapter_routing(torch, adapter, n_rows, *, dtype, device,
+                           scale_b=None):
+    """A routing context (``fusion._run_plan``'s ``lora``) that sends
+    ``n_rows`` rows through one adapter: its (A, B) pairs as one-slot
+    stacks in ``dtype`` on ``device`` (``scale_b`` multiplies every B, in
+    f32), the identity sort and offsets [0, n_rows] (the plain forward of
+    a request served with that adapter)."""
+    import numpy as np
+
+    params = {}
+    for name, (a, b) in adapter.items():
+        b = torch.as_tensor(np.asarray(b, np.float32))
+        if scale_b is not None:
+            b = b * scale_b
+        params[name] = (torch.as_tensor(np.asarray(a, np.float32))[None]
+                        .to(device=device, dtype=dtype),
+                        b[None].to(device=device, dtype=dtype))
+    idx = torch.arange(n_rows, dtype=torch.int32, device=device)
+    return {"sort": idx, "inv": idx,
+            "offsets": torch.tensor([0, n_rows], dtype=torch.int32,
+                                    device=device),
+            "params": params}
+
+
+class MergedParams(dict):
+    """A params dict with one LoRA adapter folded in by ``merge_lora``, one
+    weight at a time as the forward reads it (a merged f32 copy of every
+    adapted weight at once would not fit beside the model)."""
+
+    def __init__(self, prms, adapter):
+        super().__init__(prms)
+        self.adapter = adapter
+
+    def __getitem__(self, name):
+        from paddle_tpu_torch.models.lora import merge_lora
+
+        w = super().__getitem__(name)
+        if name not in self.adapter:
+            return w
+        return merge_lora({name: w}, {name: self.adapter[name]})[name]
+
+
+def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False,
+                         adapters=None):
     """Every emitted token against a teacher-forced plain forward of its
     request (prompt + the tokens it emitted before): at each generated
     position, the emitted token's f32 logit must lie within 2 x E of the
@@ -2447,7 +2657,16 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
     dequantized per call in both forwards: f32 keeps the codes and casts
     the rest) and every forward's attention is
     ``int8_batcher_attention`` over the request's own ``chunk_map``, taken
-    from the batcher's admission record (``chunk_starts``)."""
+    from the batcher's admission record (``chunk_starts``).
+
+    ``adapters`` (phase 6f): {rid: the LoRA adapter its request was served
+    with}; those requests' f32 forward runs ``merge_lora``'s weights
+    (``MergedParams``; int8: the quantized function with the delta beside
+    it in f32, the codes cannot be merged) and their bf16 forward the
+    serving math in plain ops (the delta beside each projection,
+    ``single_adapter_routing``). Their two controls replace the
+    attention ones: tokens of the bf16 forward without the delta (the
+    request routed to the base group) and with the adapter's B halved."""
     from paddle_tpu_torch.models.llama import prompt_logits_pure
     from paddle_tpu_torch.ops.kernels import flash_attention as k1
     from paddle_tpu_torch.ops.kernels.quant_matmul import QuantizedWeight
@@ -2456,9 +2675,13 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
     prms32 = {n: p if isinstance(p, QuantizedWeight) else p.float()
               for n, p in prms.items()}
     worst, n_pos, n_argmax = 0.0, 0, 0
-    ctl = {"missing own cell": [0, 0.0], "fresh source dropped": [0, 0.0]}
+    ctl = ({"routed to the base group": [0, 0.0],
+            "adapter B halved": [0, 0.0]} if adapters else
+           {"missing own cell": [0, 0.0], "fresh source dropped": [0, 0.0]})
+    n_ctl = 0
     with torch.inference_mode():
         for rid, (prompt, n_new, _) in enumerate(reqs):
+            adapter = (adapters or {}).get(rid)
             toks = done[rid].tokens
             n0 = len(prompt)
             seq = torch.tensor([list(map(int, prompt)) + toks[:-1]],
@@ -2475,16 +2698,29 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
                     return (plain_attention if keep is None
                             else attention_dropping(keep))
 
-            def logits(params, attention):
+            def logits(params, attention, lora=None):
                 k1._reference_attention = attention
                 try:
-                    return prompt_logits_pure(params, seq, cfg, plain=True)[
-                        0, n0 - 1:].float()
+                    return prompt_logits_pure(params, seq, cfg, plain=True,
+                                              lora=lora)[0, n0 - 1:].float()
                 finally:
                     k1._reference_attention = plain_attention
 
-            f32 = logits(prms32, attention_with())
-            err = (logits(prms, attention_with()) - f32).abs().amax(-1)
+            def routing(dtype, **kw):
+                return single_adapter_routing(torch, adapter, seq.numel(),
+                                              dtype=dtype, device="cuda",
+                                              **kw)
+
+            lora16 = None if adapter is None else routing(torch.bfloat16)
+            if adapter is None:
+                f32 = logits(prms32, attention_with())
+            elif int8:
+                f32 = logits(prms32, attention_with(),
+                             routing(torch.float32))
+            else:
+                f32 = logits(MergedParams(prms32, adapter), attention_with())
+            err = (logits(prms, attention_with(), lora16)
+                   - f32).abs().amax(-1)
             top = f32.amax(-1)                         # E per position
 
             def ratio(tokens):
@@ -2503,11 +2739,23 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
             else:
                 fresh_dropped = (lambda i, j: (i >= n0)
                                  | (j < i // BCHUNK * BCHUNK))
-            faults = {
-                "missing own cell": lambda i, j: ~((i >= n0) & (j == i)),
-                "fresh source dropped": fresh_dropped}
-            for name, keep in faults.items():
-                rc = ratio(logits(prms, attention_with(keep)).argmax(-1))
+            if adapters is not None:
+                # the LoRA controls, on the adapter requests
+                faults = {} if adapter is None else {
+                    "routed to the base group": lambda: logits(
+                        prms, attention_with()),
+                    "adapter B halved": lambda: logits(
+                        prms, attention_with(), routing(torch.bfloat16,
+                                                        scale_b=0.5))}
+            else:
+                faults = {
+                    "missing own cell": lambda: logits(prms, attention_with(
+                        lambda i, j: ~((i >= n0) & (j == i)))),
+                    "fresh source dropped": lambda: logits(
+                        prms, attention_with(fresh_dropped))}
+            n_ctl += bool(faults) * len(toks)
+            for name, fault in faults.items():
+                rc = ratio(fault().argmax(-1))
                 ctl[name][0] += int((rc > 2).sum())
                 ctl[name][1] = max(ctl[name][1], rc.max().item())
             del f32, err
@@ -2516,7 +2764,7 @@ def check_batcher_tokens(torch, cfg, prms, reqs, done, label, int8=False):
     log(f"{label}: teacher-forced rule over {n_pos} emitted tokens: worst "
         f"(f32 max - f32 logit of the token) / E {worst:.3f} (bound 2), "
         f"tokens equal to the f32 argmax {n_argmax}/{n_pos}; controls "
-        + ", ".join(f"{k}: {v[0]}/{n_pos} positions fail, worst {v[1]:.2f}"
+        + ", ".join(f"{k}: {v[0]}/{n_ctl} positions fail, worst {v[1]:.2f}"
                     for k, v in ctl.items()))
     assert worst <= 2, f"{label}: an emitted token fails the rule ({worst})"
     for name, (fails, _) in ctl.items():
@@ -2569,12 +2817,20 @@ def serve_batcher(torch, kernels, profile=False, int8=False):
         f"{serve_kw['page_size']}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
-    def run_once(**spec_kw):
+    def run_once(lora=None, **spec_kw):
+        """One engine over ``reqs``; ``lora`` (phase 6f): (adapters by id,
+        the adapter id of each request) on a ``lora=True`` engine."""
+        if lora is not None:
+            spec_kw.update(lora=True, lora_max_rank=LORA_RANK,
+                           lora_hbm_adapters=LORA_SLOTS)
         eng = ContinuousBatcher(model, max_batch=BB, max_seq=BSEQ,
                                 segment=16, prefill_chunk=BCHUNK,
                                 prefix_caching=False, **serve_kw, **spec_kw)
-        for prompt, n_new, t in reqs:
-            eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
+        for aid, weights in (lora[0] if lora else {}).items():
+            eng.register_adapter(aid, weights)
+        for rid, (prompt, n_new, t) in enumerate(reqs):
+            eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t,
+                       adapter_id=lora[1][rid] if lora else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = eng.run()
@@ -2593,30 +2849,10 @@ def serve_batcher(torch, kernels, profile=False, int8=False):
             kernels.reset_launch_counts()
             done, st, wall = run_once()                  # THE counted run
             counts = kernels.launch_counts()
-            waves, steps = st["ragged_steps"], st["decode_steps"]
-            fused = plan["rope_append_attend"] > 0
-            per = plan["rope_append_attend"] + plan["paged_attention"]
-            expected = dict.fromkeys(counts, 0)
-            expected["fused_norm_matmul"] = plan["norm_matmul"] * (waves
-                                                                   + steps)
-            expected["fused_rope_attend_ragged" if fused
-                     else "ragged_paged_attention"] = per * waves
-            expected["fused_rope_attend" if fused
-                     else "paged_attention"] = per * steps
-            if int8:
-                assert plan["quant_matmul"] == 2 * L, plan
-                expected["quant_matmul"] = plan["quant_matmul"] * (waves
-                                                                   + steps)
+            expected = batcher_plan(counts, plan, st, L, int8)
             log(f"{label_}: launches {counts} expected {expected}")
-            assert plan["norm_matmul"] == 5 * L + 1 and per == L, plan
             assert counts == expected, f"{counts} != plan {expected}"
-            for rid, (prompt, n_new, _) in enumerate(reqs):
-                req = done[rid]
-                assert req.status == "ok", (rid, req.status)
-                assert len(req.tokens) == n_new, (rid, len(req.tokens))
-                assert all(0 <= t < cfg.vocab_size for t in req.tokens)
-            assert st["wasted_slot_steps"] == 0, st
-            assert st["bucket_pad_tokens"] == 0, st
+            check_batcher_requests(reqs, done, st, cfg)
             walls = [wall] + [run_once()[2] for _ in range(2)]
             wall_s = statistics.median(walls)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2636,7 +2872,18 @@ def serve_batcher(torch, kernels, profile=False, int8=False):
                     res["profile"] = profile_window(torch, run_once, label_)
             res["tokens_check"] = check_batcher_tokens(
                 torch, cfg, prms, reqs, done, label_, int8=int8)
+            if not int8:
+                # ---- 6e. the same requests sampled
+                res["sampled"] = serve_batcher_sampled(
+                    torch, kernels, run_once, plan, L, cfg, reqs, done, st,
+                    label_, repeat=label == "fused")
             out[label] = res
+        # ---- 6f. the same requests through LoRA adapters, fused plan
+        flags.set_flags({"fused_decode_fusions": BATCHER_PLANS[0][1]})
+        out["fused"]["lora"] = serve_batcher_lora(
+            torch, kernels, fusion, cfg, prms, reqs, run_once,
+            f"batcher {'int8 ' if int8 else ''}lora fused", int8,
+            out["fused"])
         # ---- 6c. the same requests with speculative decoding, in both
         # plans
         for label, fusions in BATCHER_PLANS:
@@ -2648,6 +2895,132 @@ def serve_batcher(torch, kernels, profile=False, int8=False):
     finally:
         flags.set_flags({"fused_decode_fusions": old})
     return out
+
+
+def batcher_plan(counts, plan, st, L, int8, lora=False):
+    """The launches a batcher run of ``st``'s waves and segment steps must
+    count under the per-token ``plan`` (``planned_kernel_launches``):
+    161 K2 and one attention kernel a layer each (K3 ragged or K11 a wave,
+    K3 masked or K10 a step), + 64 K4 (int8), + 448 K13 (``lora``)."""
+    waves, steps = st["ragged_steps"], st["decode_steps"]
+    fused = plan["rope_append_attend"] > 0
+    per = plan["rope_append_attend"] + plan["paged_attention"]
+    assert plan["norm_matmul"] == 5 * L + 1 and per == L, plan
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_norm_matmul"] = plan["norm_matmul"] * (waves + steps)
+    expected["fused_rope_attend_ragged" if fused
+             else "ragged_paged_attention"] = per * waves
+    expected["fused_rope_attend" if fused
+             else "paged_attention"] = per * steps
+    if int8:
+        assert plan["quant_matmul"] == 2 * L, plan
+        expected["quant_matmul"] = plan["quant_matmul"] * (waves + steps)
+    if lora:
+        assert plan["grouped_matmul"] == 2 * 7 * L, plan
+        expected["grouped_matmul"] = plan["grouped_matmul"] * (waves + steps)
+    return expected
+
+
+def check_batcher_requests(reqs, done, st, cfg):
+    """Every request "ok" with exactly its max_new_tokens of valid ids, no
+    slot step wasted, no bucket padding."""
+    for rid, (prompt, n_new, _) in enumerate(reqs):
+        req = done[rid]
+        assert req.status == "ok", (rid, req.status)
+        assert len(req.tokens) == n_new, (rid, len(req.tokens))
+        assert all(0 <= t < cfg.vocab_size for t in req.tokens)
+    assert st["wasted_slot_steps"] == 0, st
+    assert st["bucket_pad_tokens"] == 0, st
+
+
+def serve_batcher_sampled(torch, kernels, run_once, plan, L, cfg, reqs,
+                          greedy_done, greedy, label, repeat):
+    """Phase 6e in one plan: the phase-6 requests sampled at SAMPLING from
+    one seed. No EOS, so the schedule is the greedy run's: THE counted
+    run's waves, segment steps, launches and ``host_sync_count`` equal the
+    greedy run's (the draw is plain ops on the device and adds no sync);
+    every request "ok" with its tokens, not the greedy ones; with
+    ``repeat`` the same seed again gives the same tokens. The walls."""
+    t, k, p = SAMPLING
+    kw = dict(temperature=t, top_k=k, top_p=p, seed=SEED + 60)
+    kernels.reset_launch_counts()
+    done, st, wall = run_once(**kw)
+    counts = kernels.launch_counts()
+    keys = ("ragged_steps", "decode_steps", "segments", "host_sync_count")
+    assert all(st[x] == greedy[x] for x in keys), (
+        {x: (st[x], greedy[x]) for x in keys})
+    expected = batcher_plan(counts, plan, st, L, False)
+    assert counts == expected, f"{label} sampled: {counts} != {expected}"
+    check_batcher_requests(reqs, done, st, cfg)
+    toks = [done[r].tokens for r in range(len(reqs))]
+    walls = [wall]
+    if repeat:
+        again, _, wall2 = run_once(**kw)
+        walls.append(wall2)
+        assert toks == [again[r].tokens for r in range(len(reqs))], (
+            f"{label} sampled: the same seed differs")
+    same = sum(a == b for r in range(len(reqs))
+               for a, b in zip(toks[r], greedy_done[r].tokens))
+    n_tok = sum(len(x) for x in toks)
+    assert same < n_tok, f"{label} sampled: every token greedy"
+    log(f"{label} sampled (T {t}, top_k {k}, top_p {p}): launches = plan, "
+        f"{st['ragged_steps']} waves + {st['decode_steps']} segment steps "
+        f"and host_sync_count {st['host_sync_count']} as the greedy run's, "
+        f"{'same seed same tokens, ' if repeat else ''}{same}/{n_tok} tokens "
+        f"equal to the greedy run's; walls "
+        f"{[round(x, 3) for x in walls]} s")
+    return {"wall_s_runs": walls, "launches": counts,
+            "greedy_token_share": same / n_tok,
+            **{x: st[x] for x in keys}}
+
+
+def serve_batcher_lora(torch, kernels, fusion, cfg, prms, reqs, run_once,
+                       label, int8, plain):
+    """Phase 6f: the phase-6 requests served through four seeded adapters
+    (ranks LORA_RANKS, each request's adapter LORA_OF_REQUEST) on a
+    ``lora=True`` engine with LORA_SLOTS device slots and rank LORA_RANK:
+    THE counted run's launches equal the batcher's plan + 448 K13 a wave
+    and a segment step; every request "ok" with its tokens; adapter loads,
+    hits, evictions and deferrals all > 0; every emitted token held to
+    phase 6's teacher-forced rule against its adapter's f32 forward (its
+    two LoRA controls failing); its wall beside phase 6's (``plain``)."""
+    from paddle_tpu_torch.models.lora import make_lora_adapter
+
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    adapters = {f"adapter{i}": make_lora_adapter(cfg, r, seed=SEED + 70 + i)
+                for i, r in enumerate(LORA_RANKS)}
+    aid_of = [None if a is None else f"adapter{a}" for a in LORA_OF_REQUEST]
+    assert len(aid_of) == len(reqs)
+    log(f"{label}: {len(adapters)} adapters of ranks {LORA_RANKS} made in "
+        f"{time.perf_counter() - t0:.1f} s; requests by adapter "
+        f"{[aid_of.count(a) for a in (None, *adapters)]} (base first)")
+    plan = fusion.planned_kernel_launches(L, quantized=int8, lora=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    done, st, wall = run_once(lora=(adapters, aid_of))   # THE counted run
+    counts = kernels.launch_counts()
+    expected = batcher_plan(counts, plan, st, L, int8, lora=True)
+    log(f"{label}: launches {counts} expected {expected}")
+    assert counts == expected, f"{counts} != plan {expected}"
+    check_batcher_requests(reqs, done, st, cfg)
+    akeys = ("adapter_loads", "adapter_hits", "adapter_evictions",
+             "adapter_deferrals", "adapter_batched", "adapter_swap_stalls")
+    for x in akeys[:4]:
+        assert st[x] > 0, (x, {y: st[y] for y in akeys})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    keys = ("ragged_steps", "decode_steps", "host_sync_count")
+    log(f"{label}: wall {wall:.3f} s against phase 6's "
+        f"{plain['wall_s']:.3f} (this run); " + ", ".join(
+            f"{x} {st[x]}" for x in keys + akeys)
+        + f"; max_memory_allocated {peak:.2f} GiB")
+    res = {"wall_s": wall, "launches": counts,
+           "max_memory_allocated_gib": peak,
+           **{x: st[x] for x in keys + akeys}}
+    res["tokens_check"] = check_batcher_tokens(
+        torch, cfg, prms, reqs, done, label, int8=int8,
+        adapters={rid: adapters[a] for rid, a in enumerate(aid_of) if a})
+    return res
 
 
 def serve_batcher_spec(torch, kernels, fusion, cfg, prms, reqs, run_once,
@@ -4141,6 +4514,105 @@ def aligned_counts(counts):
     return tuple(out)
 
 
+#: the LoRA delta's K13 shapes (phase 3): the shrink x (T, K) @ A (G, K,
+#: 16) at K 4096 (q, k, v, gate, up, o) and 14336 (down), the expand u (T,
+#: 16) @ B (G, 16, N) at N 1024 (k, v), 4096 (q, o, down), 14336 (gate,
+#: up); T 264 (a wave) and 8 (a segment step)
+LORA_KN = ((4096, LORA_RANK), (14336, LORA_RANK), (LORA_RANK, 1024),
+           (LORA_RANK, 4096), (LORA_RANK, 14336))
+#: rows per group of the two routings: a wave's three adapters, the base
+#: group (the last) with the rest and the padding rows, five slots empty;
+#: a segment step's one row a slot
+LORA_ROWS = {264: (61, 0, 0, 47, 0, 0, 33, 0, 123),
+             8: (2, 0, 0, 2, 0, 0, 1, 0, 3)}
+
+
+def host_call_us(torch, fn, n=100):
+    """The host's time a call of ``fn`` in a loop of ``n`` (the device
+    idle at the start): where the device is faster, the enqueue rate."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def check_grouped_matmul_lora(torch, timer, gm):
+    """K13 at the LoRA delta's shapes (LORA_KN, G = LORA_G, T 264 and 8,
+    LORA_ROWS): each element within ``gm.tolerance`` of the plain
+    version, two calls bitwise equal, and a fault control that must fail
+    the tolerance: the plain version with one row moved into the next
+    group. Bound: the bytes of x, the output and the weights of the groups
+    with rows; library: ``torch._grouped_mm``."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    rows = []
+    for t, counts in LORA_ROWS.items():
+        assert sum(counts) == t and len(counts) == LORA_G
+        off = torch.tensor([0, *itertools.accumulate(counts)],
+                           dtype=torch.int32, device="cuda")
+        bad = off.clone()
+        bad[1] -= 1                   # group 0's last row into group 1
+        live = sum(1 for c in counts if c)
+        for kdim, n in LORA_KN:
+            x = (torch.randn((t, kdim), generator=g, device="cuda")
+                 ).to(torch.bfloat16)
+            w = (torch.randn((LORA_G, kdim, n), generator=g, device="cuda")
+                 * kdim ** -0.5).to(torch.bfloat16)
+            got = gm.gmm(x, off, w)
+            ref = gm.grouped_matmul_reference(x, off, w)
+            torch.cuda.synchronize()
+            tol = gm.tolerance(x, off, w, ref)
+            diff = (got.float() - ref.float()).abs()
+            worst, err = (diff / tol).max().item(), diff.max().item()
+            ctl = ((gm.grouped_matmul_reference(x, bad, w).float()
+                    - ref.float()).abs() / tol).max().item()
+            assert worst < 1.0, f"K13 LoRA T{t} K{kdim} N{n}: {worst}"
+            assert ctl > 1.0, f"K13 LoRA T{t}: the moved-row control {ctl}"
+            assert _same_bits(torch, lambda: (gm.gmm(x, off, w),)), (
+                f"K13 LoRA T{t} K{kdim} N{n}: two calls differ")
+            ends = off[1:].contiguous()
+            wl = w.transpose(1, 2).contiguous().transpose(1, 2)
+            lib_fn, why = _library(torch, lambda: torch._grouped_mm(
+                x, wl, offs=ends), ref, tol, f"LoRA T{t} K{kdim} N{n}")
+            ms = timer(lambda: gm.gmm(x, off, w))
+            plain = timer(lambda: gm.grouped_matmul_reference(x, off, w),
+                          iters=5)
+            lib = timer(lib_fn) if lib_fn else None
+            host_us = host_call_us(torch, lambda: gm.gmm(x, off, w))
+            flops = 2 * t * kdim * n
+            nbytes = 2 * (x.numel() + live * kdim * n + t * n) + 4 * (
+                LORA_G + 1)
+            bms, by = bound(nbytes, flops, BF16_FLOPS)
+            name = f"grouped_matmul_lora_t{t}_k{kdim}_n{n}"
+            log(f"K13 LoRA T{t} K{kdim} N{n} G{LORA_G} rows {counts}: "
+                f"max_abs_err {err:.3e} worst err/tol {worst:.3f} "
+                f"(moved-row control {ctl:.1f}) kernel_ms {ms:.4f} (bound "
+                f"share {bms / ms:.3f}) plain_ms {plain:.4f} library_ms "
+                f"{lib if lib is None else round(lib, 4)} "
+                f"({'torch._grouped_mm' if lib_fn else why}) bound_ms "
+                f"{bms:.4f} ({by}); host {host_us:.1f} us a call; two calls "
+                f"bitwise equal")
+            rows.append({"name": name, "route": "cuda",
+                         "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
+                         "replaces":
+                             "paddle_tpu/ops/pallas/grouped_matmul.py:200",
+                         "max_abs_err": err, "worst_err_over_tol": worst,
+                         "control_err_over_tol": ctl, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                         "library_ms": lib,
+                         "library_note": ("torch._grouped_mm" if lib_fn
+                                          else f"none: {why}"),
+                         "bitwise_repeat": True, "host_us": host_us,
+                         "shape": f"T{t} K{kdim} N{n} G{LORA_G} rows "
+                                  f"{counts}"})
+            del x, w, got, ref, tol, diff, wl
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_grouped_matmul(torch, timer, gm):
     """K13 (forward at gate/up 4096 -> 14336 and down 14336 -> 4096, and
     its transposed dX form at 14336 -> 4096) and K14 (dW at both weight
@@ -4933,6 +5405,13 @@ def main() -> int:
     from paddle_tpu_torch.ops.kernels import quant_matmul as k4
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as k11
 
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def mark(name):
+        """Seconds since the start at the end of each phase group."""
+        phase_s[name] = round(time.perf_counter() - t_start, 1)
+
     # ---- 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5008,8 +5487,12 @@ def main() -> int:
                 (check_rope_attend_masked(torch, timer, k3, kv_cache,
                                           _rope_tables, int8=int8,
                                           routed=True), f"{pre} fused")]
+    # K13 at the LoRA delta's shapes: its launches come from phase 6f
+    own += [(row, "batcher lora fused")
+            for row in check_grouped_matmul_lora(torch, timer, k1314)]
     del timer
     torch.cuda.empty_cache()
+    mark("1-3 build and kernels")
 
     # ---- 4. serving (bf16), 5. int8w+int8kv, 6. continuous batching,
     # 6b. the int8w+int8kv batcher; each path's counts are set to 0 just
@@ -5017,14 +5500,18 @@ def main() -> int:
     profile = "--profile" in sys.argv
     counts, counts_spec, stats = serve(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
+    mark("4, 4c, 4d solo bf16")
     counts_int8, counts_int8_spec, stats_int8 = serve_int8(
         torch, kernels, profile=profile)
     torch.cuda.empty_cache()
+    mark("5 solo int8")
     stats_batcher = serve_batcher(torch, kernels, profile=profile)
     torch.cuda.empty_cache()
+    mark("6, 6c, 6e, 6f batcher bf16")
     stats_batcher_int8 = serve_batcher(torch, kernels, profile=profile,
                                        int8=True)
     torch.cuda.empty_cache()
+    mark("6b, 6c, 6f batcher int8")
     # ---- 6d. the batcher with the reference's defaults: prefix cache,
     # host tier, unified arena (bf16 in both plans, int8w+int8kv fused)
     stats_prefix = serve_batcher_prefix(torch, kernels, profile=profile)
@@ -5032,6 +5519,7 @@ def main() -> int:
     stats_prefix_int8 = serve_batcher_prefix(torch, kernels,
                                              profile=profile, int8=True)
     torch.cuda.empty_cache()
+    mark("6d batcher defaults")
 
     # ---- 7. training kernels vs plain at the train step's shapes, 8. the
     # full-width gradient check, 9. the timed train run (its counts set to
@@ -5058,6 +5546,7 @@ def main() -> int:
     stats_train["grad_check"] = grad_check
     stats_train["rope_seam_check"] = rope_seam
     torch.cuda.empty_cache()
+    mark("7-9 train")
 
     # ---- 9b. the fine-tuning cell (its counts set to 0 just before its
     # counted steps and read just after)
@@ -5112,6 +5601,9 @@ def main() -> int:
                 for label, _ in BATCHER_PLANS},
              "batcher prefix int8 fused":
                  stats_prefix_int8["fused"]["launches"],
+             "batcher lora fused": stats_batcher["fused"]["lora"]["launches"],
+             "batcher int8 lora fused":
+                 stats_batcher_int8["fused"]["lora"]["launches"],
              "train": counts_train, "moe train": counts_moe,
              **counts_quant,
              "grad check split, mask": counts_grad_split, "sft": counts_sft}
@@ -5151,6 +5643,8 @@ def main() -> int:
                "grouped_matmul_dx": "grouped_matmul",
                "grouped_matmul_int8": "grouped_matmul_quant",
                "grouped_matmul_int4": "grouped_matmul_quant",
+               **{f"grouped_matmul_lora_t{t}_k{kd}_n{n}": "grouped_matmul"
+                  for t in LORA_ROWS for kd, n in LORA_KN},
                "segment_dw": "segment_dw", "segment_dw_down": "segment_dw",
                "flash_attention_fwd_bias": "flash_attention",
                "flash_attention_bwd_bias": "flash_attention_bwd",
@@ -5206,6 +5700,9 @@ def main() -> int:
             f"{st['max_memory_allocated_gib']:.2f} GiB, host arena "
             f"{st['host_arena_pinned_bytes']} bytes pinned")
 
+    mark("9b-12 fine-tuning and MoE")
+    log(f"seconds since the start at the end of each phase group: "
+        f"{phase_s}")
     log(f"max_memory_allocated while training: Llama "
         f"{stats_train['max_memory_allocated_gib']:.2f} GiB, fine-tuning "
         f"{stats_sft['max_memory_allocated_gib']:.2f} GiB, MoE "

@@ -93,8 +93,23 @@ define_flag("spec_k", 4,
             "verify segment is spec_k + 1 rows).")
 define_flag("lora_serving", False,
             "Batched multi-LoRA serving in the ContinuousBatcher (ragged "
-            "path only; not ported yet: a batcher that resolves it on "
-            "raises).")
+            "path, not with spec_decode): requests carry an adapter_id, "
+            "every wave's rows are stably sorted by adapter slot and each "
+            "adapted projection adds its low-rank delta as two grouped "
+            "matmuls (K13), no per-adapter padding. Adapters live in a "
+            "host-resident AdapterPool (models/lora.py) with refcounted "
+            "device slots and LRU eviction.")
+define_flag("lora_max_rank", 16,
+            "Rank ceiling of the AdapterPool's stacked device buffers "
+            "(models/lora.py): adapters register at any rank <= this and "
+            "are zero-padded to it, so the grouped matmuls run at one "
+            "shape.")
+define_flag("lora_hbm_adapters", 8,
+            "Device-resident adapter slots in the AdapterPool: a request "
+            "whose adapter is not resident loads it into a free slot or "
+            "over the least-recently-used unreferenced one, and admission "
+            "defers (never fails) while every slot is pinned by a live "
+            "request.")
 define_flag("kv_host_tier", True,
             "Second KV page arena in host RAM behind the prefix cache "
             "(models/kv_cache.HostPageArena): leaf-LRU eviction demotes "

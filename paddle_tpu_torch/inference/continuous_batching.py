@@ -59,14 +59,33 @@ one token). With the UNIFIED ARENA (``flags.unified_arena``,
 ``models/arena.py``) the pool's pages are the ``kv`` class of one
 budgeted page economy. Tokens are the same with each feature on or off.
 
+SAMPLING (``temperature > 0``, engine-level ``top_k``/``top_p``): every
+wave and every segment step draws its tokens after the JAX package's
+filter (``llama._sample_from_logits``) from one engine generator seeded by
+``seed``, on the device: no host sync, the poison check before the draw.
+Reproducible per seed; a request's tokens then depend on the schedule
+(``top_k=1`` gives the greedy ones). Not with ``spec_decode``.
+
+MULTI-LORA SERVING (``lora=True`` or ``flags.lora_serving``; ragged, not
+with ``spec_decode``): requests carry an ``adapter_id`` registered with
+``register_adapter``; admission pins the adapter on the device through
+the ``models/lora.AdapterPool`` (refcounted slots, LRU eviction, a
+deferral when every slot is pinned, an adapter-affinity reorder within
+the first 8 arrivals), and every wave and segment step sorts its rows by
+adapter slot so that each adapted projection adds its delta as two
+grouped matmuls (K13). The routing goes up from a pinned staging buffer,
+once a wave and once a segment. The prefix cache keys its tree by
+adapter: a prefix's pages hold K/V computed with one adapter's
+projections, so only requests of that adapter (or of the base model)
+share them.
+
 PyTorch runs eagerly, so the JAX package's compiled-program caches have
 no counterpart. ``stats`` keeps the JAX package's ragged-path keys with
 the same meaning (docs/SERVING.md).
 
 Not ported yet, and refused rather than served without (ROADMAP.md,
-Queue 1): multi-LoRA serving, sampling (``temperature > 0``), dispatch
-retries (``retry_policy``), the bucketed admission pipeline
-(``ragged=False``), live migration of parked streams
+Queue 1): dispatch retries (``retry_policy``), the bucketed admission
+pipeline (``ragged=False``), live migration of parked streams
 (``export_parked``/``import_parked``) and the fault-injection sites. A
 resolved-on feature raises ``NotImplementedError``.
 """
@@ -82,14 +101,14 @@ import numpy as np
 import torch
 
 from ..framework import flags
-from ..framework.contract import refuse_unported
+from ..framework.random import make_generator
 from ..models.kv_cache import (HostPageArena, PageAllocator,
                                PagedCacheState, advance_by, advance_masked,
                                clone_pages, create_paged_cache,
                                kv_page_nbytes, scrub_pages)
-from ..models.llama import (_logits_ok, _normalize_sampling, _pow2_bucket,
-                            _pure_decoder_layer, _pure_lm_head_logits,
-                            _rope_tables)
+from ..models.llama import (_logits_ok, _normalize_sampling, _pick,
+                            _pow2_bucket, _pure_decoder_layer,
+                            _pure_lm_head_logits, _rope_tables)
 from .prefix_cache import PrefixCache
 
 
@@ -117,7 +136,9 @@ class GenRequest:
     # a resumed (un-parked) request's wave source: prompt + generated so
     # far; None for a request that was never parked
     resume_src: Optional[np.ndarray] = None
-    # multi-LoRA serving (not ported: a request with an adapter raises)
+    # multi-LoRA serving: the registered adapter this request is served
+    # through (None: the base model), and the device slot it pins while
+    # placed
     adapter_id: Optional[object] = None
     _adapter_slot: Optional[int] = None
     # "ok" | "timeout" | "poisoned" | "error"
@@ -182,11 +203,14 @@ class _Record:
 
 
 class ContinuousBatcher:
-    """Continuous-batching engine for ``LlamaForCausalLM``, greedy decode.
+    """Continuous-batching engine for ``LlamaForCausalLM``.
 
-    Each request's tokens equal its solo ``model.generate_paged`` greedy
-    rollout up to the summation order of the two paths (same kernels and
-    math per row; exact on the CPU tests' margins). ``quantized_params``
+    Greedy by default: each request's tokens equal its solo
+    ``model.generate_paged`` greedy rollout up to the summation order of
+    the two paths (same kernels and math per row; exact on the CPU tests'
+    margins). ``temperature > 0`` samples (one engine generator from
+    ``seed``, drawn once a wave and once a segment step). ``lora=True``
+    serves registered LoRA adapters per request. ``quantized_params``
     (``quantize_for_inference``) and ``cache_dtype="int8"`` serve the
     weight-only / int8-KV stack (page_size a multiple of 4 on the card,
     where the attention kernels copy a page's scales in 16-byte pieces).
@@ -216,10 +240,6 @@ class ContinuousBatcher:
                  unified_arena: Optional[bool] = None,
                  arena_hbm_pages: Optional[int] = None,
                  arena_class_floors: Optional[str] = None):
-        refuse_unported("ContinuousBatcher",
-                        lora_max_rank=(lora_max_rank, None),
-                        lora_hbm_adapters=(lora_hbm_adapters, None),
-                        adapter_pool=(adapter_pool, None))
         self.model = model
         self.cfg = model.config
         self.B = max_batch
@@ -227,7 +247,8 @@ class ContinuousBatcher:
         self.page_size = page_size
         self.segment = segment
         self.eos = eos_token_id
-        # seed: the sampling stream's; greedy decoding draws nothing
+        # engine-level sampling (None: greedy), one generator for every
+        # draw, seeded by ``seed``
         self.sampling = _normalize_sampling(temperature, top_k, top_p)
         self.params = (quantized_params if quantized_params is not None
                        else model.param_dict())
@@ -239,6 +260,8 @@ class ContinuousBatcher:
         self._cache_dtype = (torch.int8 if cache_dtype is not None else
                              self.params["model.embed_tokens.weight"].dtype)
         self.device = self.params["model.embed_tokens.weight"].device
+        self._gen = (None if self.sampling is None
+                     else make_generator(seed, self.device))
         # page-padded capacity: rope tables cover the full page pool
         self._pps = -(-max_seq // page_size)
         self._cap_pad = self._pps * page_size
@@ -271,15 +294,29 @@ class ContinuousBatcher:
                     and self.sampling is None)
         else:
             spec = bool(spec_decode)
-            if spec and (not self._ragged or self.sampling is not None):
-                raise ValueError("spec_decode requires ragged admission "
-                                 "and greedy decoding")
+            if spec and not self._ragged:
+                raise ValueError("spec_decode requires ragged admission")
+            if spec and self.sampling is not None:
+                raise ValueError(
+                    "spec_decode requires greedy decoding "
+                    "(temperature=0): the acceptance rule compares "
+                    "drafts against the target argmax — sampled "
+                    "verification is a future extension "
+                    "(docs/SERVING.md 'Speculative decoding')")
         if lora is None:
             lora = (bool(flags.get_flag("lora_serving")) and self._ragged
                     and not spec)
-        elif lora and (not self._ragged or spec):
-            raise ValueError("lora requires ragged admission and excludes "
-                             "spec_decode")
+        elif lora and not self._ragged:
+            raise ValueError(
+                "lora requires ragged (token-budget) admission: the "
+                "adapter-sorted grouped delta rides the ragged wave and "
+                "the segment steps")
+        elif lora and spec:
+            raise ValueError(
+                "lora and spec_decode are mutually exclusive for now: the "
+                "speculative verify wave has no adapter routing (and the "
+                "solo spec oracle knows no adapters)")
+        self._lora = bool(lora)
         if unified_arena is None:
             unified_arena = bool(flags.get_flag("unified_arena")) and prefix
         elif unified_arena and not prefix:
@@ -291,9 +328,6 @@ class ContinuousBatcher:
         # ... and whatever resolves on that the port has not got, raises
         for on, what in ((not self._ragged, "bucketed admission "
                           "(ragged=False)"),
-                         (lora, "multi-LoRA serving"),
-                         (self.sampling is not None,
-                          "sampling (temperature > 0)"),
                          (retry_policy is not None,
                           "the dispatch retry policy")):
             if on:
@@ -355,12 +389,52 @@ class ContinuousBatcher:
             if budget_pages < 0:
                 raise ValueError(f"arena_hbm_pages must be >= 0 "
                                  f"(0 = auto), got {budget_pages}")
-            budget = (budget_pages if budget_pages > 0 else pool) * kv_unit
+            # an injected (shared) AdapterPool keeps its own slots: its
+            # residency is not this engine's budget to steal
+            lora_owned = self._lora and adapter_pool is None
+            a_unit = a_slots = 0
+            if lora_owned:
+                from ..models.lora import adapter_slot_nbytes
+
+                a_rank = int(flags.get_flag("lora_max_rank")
+                             if lora_max_rank is None else lora_max_rank)
+                a_slots = int(flags.get_flag("lora_hbm_adapters")
+                              if lora_hbm_adapters is None
+                              else lora_hbm_adapters)
+                a_unit = adapter_slot_nbytes(
+                    self.cfg, a_rank,
+                    model.param_dict()["model.embed_tokens.weight"].dtype)
+            # auto budget: the legacy pools' bytes summed
+            budget = (budget_pages * kv_unit if budget_pages > 0
+                      else pool * kv_unit + a_slots * a_unit)
             kv_ceiling = min(max(pool, budget // kv_unit), 4 * pool)
-            self._arena = UnifiedArena(
-                budget, {"kv": (kv_unit, kv_ceiling), "weight": (kv_unit, 0)},
-                floors)
+            classes = {"kv": (kv_unit, kv_ceiling)}
+            if lora_owned:
+                # adapters may grow past the legacy slot count by stealing
+                # kv budget, up to 8 more slots
+                classes["adapter"] = (a_unit, int(min(
+                    a_slots + 8, max(a_slots, (budget - floors.get("kv", 0)
+                                               * kv_unit) // a_unit))))
+            classes["weight"] = (kv_unit, 0)
+            self._arena = UnifiedArena(budget, classes, floors)
             self._arena_kv_pages = kv_ceiling
+        if self._lora:
+            from ..models.lora import AdapterPool
+
+            # an injected (shared) pool is not this engine's to re-scope
+            self._adapter_pool_owned = adapter_pool is None
+            self._adapters = (adapter_pool if adapter_pool is not None
+                              else AdapterPool(model, lora_max_rank,
+                                               lora_hbm_adapters,
+                                               arena=self._arena))
+        else:
+            if adapter_pool is not None:
+                raise ValueError("adapter_pool needs lora serving enabled "
+                                 "(lora=True or FLAGS_lora_serving)")
+            self._adapters = None
+        # the prefix tree's namespace of each adapter id (0: the base
+        # model), assigned at first use
+        self._adapter_ns: Dict[object, int] = {}
         # the host tier: its arena and pager persist across runs (parked
         # streams keep their slots), sized on first use
         self._host_tier = host_tier
@@ -395,6 +469,17 @@ class ContinuousBatcher:
         # live slots as of the last scheduler boundary
         self.active_slots = 0
         self.reset_stats()
+
+    def _prefix_key(self, req: GenRequest, tokens) -> np.ndarray:
+        """The tokens the prefix tree matches and inserts for ``req``: its
+        own tokens for a base request, else the tokens moved into the
+        adapter's namespace (each adapter id its own 2^32 range), so a
+        prefix's pages are shared only by requests of one adapter."""
+        if req.adapter_id is None:
+            return tokens
+        ns = self._adapter_ns.setdefault(req.adapter_id,
+                                         len(self._adapter_ns) + 1)
+        return np.asarray(tokens, np.int64) + (ns << 32)
 
     def _legacy_pool_pages(self) -> int:
         """The allocator's pool without the park page: the identity pool
@@ -453,6 +538,21 @@ class ContinuousBatcher:
                 "parks": 0, "resumes": 0, "park_faults": 0,
                 "parked_slots": len(self._parked),
             })
+        if self._lora:
+            # mirrored from AdapterPool.stats after every wave; an engine-
+            # owned pool is re-scoped with the engine's stats, an injected
+            # one keeps its pool-wide counters. adapter_deferrals counts
+            # admissions deferred with every slot pinned, adapter_batched
+            # the ones the affinity reorder pulled ahead of FIFO order
+            if self._adapter_pool_owned:
+                for k in self._adapters.stats:
+                    self._adapters.stats[k] = 0
+            self.stats.update({
+                "adapters_resident": len(self._adapters.resident),
+                "adapter_hits": 0, "adapter_swap_stalls": 0,
+                "adapter_loads": 0, "adapter_evictions": 0,
+                "adapter_deferrals": 0, "adapter_batched": 0,
+            })
         if self._arena is not None:
             # mirrored from UnifiedArena.stats after every wave; the engine
             # owns its arena, so a reset re-scopes the arena's counters
@@ -491,16 +591,38 @@ class ContinuousBatcher:
     def draining(self) -> bool:
         return self._draining
 
+    # ---------------------------------------------------- multi-LoRA pool
+
+    def register_adapter(self, adapter_id, weights) -> None:
+        """Register a LoRA adapter on the host (``models/lora.py``'s format:
+        ``{full_param_name: (A, B)}``); requests may then submit with
+        ``adapter_id``. Requires lora serving on this engine."""
+        if self._adapters is None:
+            raise ValueError(
+                "register_adapter requires lora serving (lora=True or "
+                "FLAGS_lora_serving on a ragged engine)")
+        self._adapters.register(adapter_id, weights)
+
+    def adapter_snapshot(self) -> Optional[dict]:
+        """The pool's residency, swap traffic and per-adapter refcounts;
+        None with lora off."""
+        if self._adapters is None:
+            return None
+        return self._adapters.snapshot()
+
     def arena_snapshot(self) -> Optional[dict]:
         """The unified arena's per-class residency (with each class's
-        host-resident pages: demoted and parked kv pages in the host
-        tier), the steal matrix keyed "victim->winner", the demotion and
-        deferral totals and the floors; None with the arena off."""
+        host-resident units: demoted and parked kv pages in the host
+        tier, every registered adapter), the steal matrix keyed
+        "victim->winner", the demotion and deferral totals and the floors;
+        None with the arena off."""
         if self._arena is None:
             return None
         snap = self._arena.snapshot()
         hp = self._host_pager
         host = {"kv": int(hp.n_pages - hp.available()) if hp else 0}
+        if self._adapters is not None:
+            host["adapter"] = len(self._adapters.registered)
         for cls, rec in snap["classes"].items():
             rec["host_resident"] = int(host.get(cls, 0))
         return snap
@@ -608,9 +730,12 @@ class ContinuousBatcher:
         threaded through: a slot deactivates the step its budget hits zero
         or it emits EOS; a slot whose logits go non-finite deactivates that
         step, its token is not emitted, and the sticky ok mask names it.
+        Each step picks greedily or draws from the engine generator.
         Returns segment_fn(prms, tokens, cache, active, remaining,
-        cos_full, sin_full) -> (toks (seg, B), emitted (seg, B), ok (B,),
-        tokens, active, remaining, cache)."""
+        cos_full, sin_full, lora=None) -> (toks (seg, B), emitted (seg, B),
+        ok (B,), tokens, active, remaining, cache); ``lora`` is the
+        segment's adapter routing, one row a slot, fixed for the segment
+        (placement changes only at admission)."""
         from ..ops.kernels import fusion
 
         cfg = self.cfg
@@ -619,8 +744,9 @@ class ContinuousBatcher:
                       cfg.head_dim)
         B, eos = self.B, self.eos
         tied = self.model.lm_head is None
+        sampling, gen = self.sampling, self._gen
 
-        def step(prms, token, cache, active, cos_full, sin_full):
+        def step(prms, token, cache, active, cos_full, sin_full, lora):
             pos = torch.clamp(cache.seq_lens.long(),
                               max=cos_full.shape[0] - 1)
             hidden = prms["model.embed_tokens.weight"][token.long()]
@@ -635,20 +761,21 @@ class ContinuousBatcher:
                         active=active)
                     return out.reshape(B, nh * hd)
 
-                hidden = _pure_decoder_layer(prms, i, hidden, eps, attend)
+                hidden = _pure_decoder_layer(prms, i, hidden, eps, attend,
+                                             lora)
             cache = advance_masked(cache, active)
             logits = _pure_lm_head_logits(prms, hidden, eps, tied)
             ok = _logits_ok(logits) | ~active
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = _pick(logits, sampling, gen)
             return torch.where(active, nxt, token), cache, ok
 
         def segment_fn(prms, tokens, cache, active, remaining, cos_full,
-                       sin_full):
+                       sin_full, lora=None):
             okm = torch.ones_like(active)
             toks, emitted = [], []
             for _ in range(seg):
                 nxt, cache, ok = step(prms, tokens, cache, active, cos_full,
-                                      sin_full)
+                                      sin_full, lora)
                 # budget decrement + EOS after the step emitted nxt: the
                 # final/EOS token is itself emitted
                 remaining = remaining - active.to(torch.int32)
@@ -671,10 +798,12 @@ class ContinuousBatcher:
         prefills (chunk_len rows at positions seq_lens..), or sits out. A
         slot whose prompt completes emits its first token and joins the
         scheduler state; decode rows advance exactly like one segment
-        step. Returns rstep(prms, chunk_ids, row_slot_pf, row_off_pf,
+        step; its tokens are picked greedily or drawn from the engine
+        generator. Returns rstep(prms, chunk_ids, row_slot_pf, row_off_pf,
         q_start, chunk_len, decode_mask, chunk_done, budgets, new_slot,
-        start_len, tokens, active, remaining, cache, cos_full, sin_full)
-        -> (toks, emit, ok, tokens, active, remaining, cache)."""
+        start_len, tokens, active, remaining, cache, cos_full, sin_full,
+        lora=None) -> (toks, emit, ok, tokens, active, remaining, cache);
+        ``lora`` is the wave's adapter routing over its T rows."""
         from ..ops.kernels import fusion
 
         cfg = self.cfg
@@ -683,12 +812,13 @@ class ContinuousBatcher:
                       cfg.head_dim)
         B, T, eos = self.B, self._ragged_T, self.eos
         tied = self.model.lm_head is None
+        sampling, gen = self.sampling, self._gen
         i32 = torch.int32
 
         def rstep(prms, chunk_ids, row_slot_pf, row_off_pf, q_start,
                   chunk_len, decode_mask, chunk_done, budgets, new_slot,
                   start_len, tokens, active, remaining, cache, cos_full,
-                  sin_full):
+                  sin_full, lora=None):
             dev = tokens.device
             # slots being (re)admitted restart at start_len (0 here: stale
             # bytes of the slot's pages stay masked by seq_lens)
@@ -723,7 +853,8 @@ class ContinuousBatcher:
                         pos, valid, page_lens, q_start, q_len_eff, chunk_len)
                     return out.reshape(T, nh * hd)
 
-                hidden = _pure_decoder_layer(prms, i, hidden, eps, attend)
+                hidden = _pure_decoder_layer(prms, i, hidden, eps, attend,
+                                             lora)
             cache = cache._replace(seq_lens=(
                 seq + torch.where(dec_eff, 1, chunk_len)).to(i32))
             # logits at each slot's LAST wave row: the next token of a
@@ -733,7 +864,7 @@ class ContinuousBatcher:
             logits = _pure_lm_head_logits(prms, hidden[idx], eps, tied)
             participating = dec_eff | (chunk_len > 0)
             ok = _logits_ok(logits) | ~participating
-            toks = torch.argmax(logits, dim=-1).to(i32)
+            toks = _pick(logits, sampling, gen)
             fin0 = budgets <= 1
             rem_dec = remaining - 1
             fin_dec = rem_dec <= 0
@@ -862,10 +993,18 @@ class ContinuousBatcher:
         """Queue a request. Raises Backpressure when the bounded pending
         queue (``max_pending``) is full. ``deadline_s`` is a wall budget
         from now: an expired request finishes with status "timeout" at the
-        next admission or segment boundary. ``adapter_id`` (multi-LoRA
-        serving) is not ported."""
-        refuse_unported("ContinuousBatcher.submit",
-                        adapter_id=(adapter_id, None))
+        next admission or segment boundary. ``adapter_id`` serves the
+        request through that registered LoRA adapter (lora serving only;
+        None: the base model)."""
+        if adapter_id is not None:
+            if self._adapters is None:
+                raise ValueError(
+                    "adapter_id needs lora serving (lora=True or "
+                    "FLAGS_lora_serving on a ragged engine)")
+            if adapter_id not in self._adapters:
+                raise ValueError(
+                    f"adapter {adapter_id!r} is not registered "
+                    f"(register_adapter first)")
         if (self.max_pending is not None
                 and len(self._queue) >= self.max_pending):
             self.stats["rejected"] += 1
@@ -885,7 +1024,8 @@ class ContinuousBatcher:
         self._next_rid += 1
         self._queue.append(GenRequest(rid, prompt, max_new_tokens,
                                       arrival_segment, deadline_s=deadline_s,
-                                      submit_t=self._clock()))
+                                      submit_t=self._clock(),
+                                      adapter_id=adapter_id))
         return rid
 
     def try_submit(self, prompt_ids, max_new_tokens: int = 16,
@@ -895,7 +1035,7 @@ class ContinuousBatcher:
         """Non-raising submit: rid, or None when the queue is full."""
         try:
             return self.submit(prompt_ids, max_new_tokens, arrival_segment,
-                               deadline_s, adapter_id)
+                               deadline_s, adapter_id=adapter_id)
         except Backpressure:
             return None
 
@@ -1056,24 +1196,104 @@ class ContinuousBatcher:
                 return True
             return len(req.tokens) >= req.max_new_tokens
 
+        # the adapter-affinity reorder: how far past the FIFO head
+        # admission may look for a request whose adapter is resident, and
+        # how often a head may be passed over before it is served FIFO
+        REORDER_W = 8
+        bypassed: Dict[int, int] = {}
+
+        def resident(req):
+            return (req._adapter_slot is not None
+                    or self._adapters.slot_of(req.adapter_id) is not None)
+
+        def affinity_pick(cands):
+            """The FIFO head, unless its adapter would have to be loaded:
+            then the first of the next REORDER_W - 1 arrivals whose adapter
+            is resident (one load per tenant, not one per request). A head
+            passed over REORDER_W times is served next."""
+            head = cands[0]
+            if (self._adapters is None or head.adapter_id is None
+                    or bypassed.get(head.rid, 0) >= REORDER_W
+                    or resident(head)):
+                return head
+            for r in cands[1:REORDER_W]:
+                if r.adapter_id is not None and resident(r):
+                    bypassed[head.rid] = bypassed.get(head.rid, 0) + 1
+                    self.stats["adapter_batched"] += 1
+                    return r
+            return head
+
         def pop_admissible():
             """Next arrived request that has not blown its deadline
-            (expired ones finish with status "timeout" here)."""
+            (expired ones finish with status "timeout" here); with lora,
+            in adapter-affinity order."""
             while True:
                 cands = arrived()
                 if not cands:
                     return None
-                req = cands[0]
+                req = affinity_pick(cands)
                 self._queue.remove(req)
+                bypassed.pop(req.rid, None)
                 if self._expired(req, self._clock()):
                     rec = self._resuming.pop(req.rid, None)
                     if rec is not None:
                         self._host_pager.release(rec.host_pages)
+                    # a request deferred while pinned drops its pin
+                    release_adapter(req)
                     self._finish_timeout(req, done)
                     continue
                 return req
 
+        def release_adapter(req):
+            """Drop a request's adapter pin (finish, poison, timeout, park):
+            an unreferenced adapter becomes evictable."""
+            if self._adapters is not None \
+                    and req._adapter_slot is not None:
+                self._adapters.release(req.adapter_id)
+                req._adapter_slot = None
+
+        def acquire_adapter(req):
+            """Pin the request's adapter on the device before placement:
+            "ok" (base requests trivially), or "defer" (every slot pinned
+            by live requests: the request goes back to the queue's head,
+            adapter_deferrals counts it)."""
+            if (self._adapters is None or req.adapter_id is None
+                    or req._adapter_slot is not None):
+                return "ok"
+            slot = self._adapters.acquire(req.adapter_id)
+            if slot is None:
+                self.stats["adapter_deferrals"] += 1
+                self._queue.appendleft(req)
+                return "defer"
+            req._adapter_slot = slot
+            return "ok"
+
+        def note_adapter_stats():
+            """Mirror the pool's counters into the engine's stats."""
+            for k, v in self._adapters.stats.items():
+                self.stats[k] = v
+            self.stats["adapters_resident"] = len(self._adapters.resident)
+
+        def slot_groups():
+            """(B,) int32 device slot of each batch slot's adapter
+            (``hbm_slots``, the all-zeros group: empty slots and base
+            requests)."""
+            g = np.full((B,), self._adapters.hbm_slots, np.int32)
+            for i in range(B):
+                req = slots[i]
+                if req is not None and req._adapter_slot is not None:
+                    g[i] = req._adapter_slot
+            return g
+
+        def routing(row_group):
+            """The lora context of a wave or segment over ``row_group``."""
+            srt, inv, offs = self._adapters.route_rows(row_group)
+            return {"sort": srt, "inv": inv, "offsets": offs,
+                    "params": self._adapters.stacks}
+
         def free(i, scrub=False):
+            if slots[i] is not None:
+                release_adapter(slots[i])
             release_slot_pages(i, scrub=scrub)
             slots[i] = None
             bound[i] = 0
@@ -1103,7 +1323,8 @@ class ContinuousBatcher:
             eviction: the request goes back to the queue's head)."""
             if req.rid in self._resuming:
                 return place_resumed(i, req)
-            m_len, path = prefix.match_tiered(req.prompt)
+            m_len, path = prefix.match_tiered(self._prefix_key(req,
+                                                               req.prompt))
             # path order is hbm* host*: the device prefix attaches by
             # reference, the host suffix by promotion
             n_hbm = sum(1 for n in path if n.tier == "hbm")
@@ -1226,8 +1447,8 @@ class ContinuousBatcher:
             self.stats["recompute_avoided_tokens"] += rec.seq_len
             n_full = rec.seq_len // P
             if n_full:
-                prefix.insert(np.asarray(req.resume_src[:n_full * P],
-                                         np.int32),
+                prefix.insert(self._prefix_key(req,
+                                               req.resume_src[:n_full * P]),
                               [int(p) for p in priv[:n_full]])
                 self.stats["prefix_inserts"] = prefix.stats["inserts"]
             del self._resuming[req.rid]
@@ -1315,8 +1536,19 @@ class ContinuousBatcher:
                     req = pop_admissible()
                     if req is None:
                         break
+                    # the adapter pin first: the wave routes the slot's
+                    # rows to its group; a deferred request keeps it, so
+                    # the retry is a hit
+                    if acquire_adapter(req) == "defer":
+                        break
                     if prefix is not None:
                         if place(i, req) == "defer":
+                            # with no live slot left to free pages, the
+                            # request's own pin may be the residency the kv
+                            # side cannot steal: drop it
+                            if self._arena is not None and \
+                                    not any(s is not None for s in slots):
+                                release_adapter(req)
                             break
                     else:
                         req.prefilled = 0
@@ -1376,7 +1608,7 @@ class ContinuousBatcher:
             admissions hit while this slot still decodes."""
             n_full = len(req.prompt) // P
             if n_full:
-                prefix.insert(req.prompt[:n_full * P],
+                prefix.insert(self._prefix_key(req, req.prompt[:n_full * P]),
                               [int(p) for p in bt_host[i, :n_full]])
                 self.stats["prefix_inserts"] = prefix.stats["inserts"]
 
@@ -1439,9 +1671,21 @@ class ContinuousBatcher:
                 wave = [torch.as_tensor(a, device=dev) for a in (
                     chunk_ids, row_slot_pf, row_off_pf, q_start, chunk_len,
                     decode_mask, chunk_done, budgets, new_slot, start_len)]
+                lora = None
+                if self._lora:
+                    # decode rows carry their slot's group, chunk rows
+                    # their owner's, padding rows the base group
+                    sg = slot_groups()
+                    row_group = np.full((T,), self._adapters.hbm_slots,
+                                        np.int32)
+                    row_group[:B] = sg
+                    own = row_slot_pf >= 0
+                    row_group[B:][own] = sg[row_slot_pf[own]]
+                    lora = routing(row_group)
                 (toks, emit, okm, dev_tokens, dev_active, dev_remaining,
                  cache) = rstep(self.params, *wave, dev_tokens, dev_active,
-                                dev_remaining, cache, self.cos, self.sin)
+                                dev_remaining, cache, self.cos, self.sin,
+                                lora)
                 self.stats["prefill_dispatches"] += 1
                 self.stats["ragged_steps"] += 1
                 self.stats["prefills"] += n_started
@@ -1452,6 +1696,8 @@ class ContinuousBatcher:
                                                    / self._tbu_cap)
                 if prefix is not None:
                     note_prefix_stats()
+                if self._lora:
+                    note_adapter_stats()
                 tick += 1
                 toks_np, em_np, ok_np, act_np = _Record(
                     toks, emit, okm, dev_active).get().reshape(4, B)
@@ -1704,10 +1950,12 @@ class ContinuousBatcher:
                                        if slots[i] is not None))
             if prefix is not None:
                 flush_block_table()
+            # one routing for the whole segment: a row a slot
+            lora = routing(slot_groups()) if self._lora else None
             (toks, emitted, okm, dev_tokens, dev_active, dev_remaining,
              cache) = self._build_segment(seg)(
                 self.params, dev_tokens, cache, dev_active, dev_remaining,
-                self.cos, self.sin)
+                self.cos, self.sin, lora)
             self.stats["segments"] += 1
             self.stats["decode_steps"] += seg
             tick += 1

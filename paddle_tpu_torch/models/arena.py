@@ -13,9 +13,12 @@ class floor (``arena_class_floors``). Residency decides where bytes live,
 never what a wave computes. One refcount array spans every class and one
 ``check()`` asserts the free-list/refcount bijection across all of them.
 
-The batcher registers ``kv`` and the reserved ``weight`` class; the
-``adapter`` class comes with multi-LoRA serving, which is not ported. The
-``arena.steal``/``arena.demote`` fault sites are not ported either.
+The batcher registers ``kv`` and the reserved ``weight`` class, and with
+multi-LoRA serving the ``adapter`` class: the ``AdapterPool``'s device
+slots (``models/lora.py``), one unit an adapter's stacked (A, B) buffers
+over every layer, its ceiling the legacy slot count + 8, reclaimed by
+dropping unreferenced adapters' residency. The ``arena.steal`` /
+``arena.demote`` fault sites are not ported.
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
 """Llama serving in PyTorch (``paddle_tpu/models/llama.py``, serving half).
 
-The slice ported here is greedy ``generate_paged``: a bucketed prompt
+The slice ported here is ``generate_paged``: a bucketed prompt
 prefill (rope in K12, causal flash attention in K1) that fills a paged KV
 cache, then one decode step per new token whose per-layer attention tail
 is the fused rope -> append -> attend kernel (K3); every rms_norm folds
-into the matmuls that follow it (K2). With ``spec_decode=True``
+into the matmuls that follow it (K2). Each token is the argmax of its
+logits, or with ``temperature > 0`` a draw after the JAX package's
+temperature / top-k / top-p filter (``_sample_from_logits``: the filter
+in plain ops, the JAX package has no kernel for it; the draw Gumbel-max
+from a seeded generator). With ``spec_decode=True``
 speculative verify steps replace the decode steps: one ragged wave a step
 over every row's current token and its drafts (K3's ragged form with
 ``fresh_pool_read``).
@@ -172,16 +176,18 @@ def _wmm(x, w, plain=False):
     return x @ w
 
 
-def _pure_decoder_layer(prms, i, hidden, eps, attend, enabled=None,
-                        plain=False):
+def _pure_decoder_layer(prms, i, hidden, eps, attend, lora=None, *,
+                        enabled=None, plain=False):
     """One decoder block through the fusion pass (ops/kernels/fusion.py);
     ``attend`` maps the flat q/k/v projections to the flat attention
-    output. ``enabled`` overrides the flag-resolved fusion set; ``plain``
-    runs quantized matmuls through their plain version."""
+    output. ``lora`` is a wave's adapter routing (``fusion._run_plan``'s
+    ``lora_delta`` nodes), None for the base model. ``enabled`` overrides
+    the flag-resolved fusion set; ``plain`` runs quantized matmuls (and
+    the LoRA delta) through their plain versions."""
     from ..ops.kernels import fusion
 
     return fusion.run_decoder_layer(prms, i, hidden, eps, attend,
-                                    enabled=enabled, plain=plain)
+                                    enabled=enabled, plain=plain, lora=lora)
 
 
 def _pure_lm_head_logits(prms, hidden, eps, tied, enabled=None,
@@ -207,6 +213,66 @@ def _logits_ok(logits):
     return torch.isfinite(logits).all(dim=-1)
 
 
+def _filter_logits(logits, temperature, top_k=None, top_p=None):
+    """The deterministic half of the JAX package's ``_sample_from_logits``
+    on (..., V) logits: f32 logits over ``max(temperature, 1e-6)`` (a
+    0-dim f32 tensor: a true division, on the card too), then the top-k
+    filter (every logit >= the k-th largest stays), then the nucleus cut
+    (a stable descending sort, softmax, cumsum; a column stays while the
+    mass before it is below ``top_p``, the top-1 column always). Dropped
+    entries become -1e30. The two constants are filled on the device: a
+    tensor made from a Python number is copied from the host, and that
+    copy waits for the device."""
+    dev = logits.device
+    t = torch.full((), max(float(temperature), 1e-6), dtype=torch.float32,
+                   device=dev)
+    logits = logits.float() / t
+    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
+    if top_k is not None and top_k > 0:
+        kth = torch.topk(logits, int(top_k), dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg, logits)
+    if top_p is not None and top_p < 1.0:
+        # ties keep their index order, as jnp.argsort(-x) orders them
+        srt, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        probs = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        keep[..., 0] = True
+        keep = torch.zeros_like(keep).scatter(-1, idx, keep)
+        logits = torch.where(keep, logits, neg)
+    return logits
+
+
+def _gumbel_argmax(filtered, generator):
+    """The categorical draw over filtered logits as Gumbel-max:
+    argmax(filtered + g), g = -log(-log(u)), u uniform from ``generator``
+    clamped to [tiny, 1) so that g is finite. No host sync; a row whose
+    filter kept one column returns it."""
+    u = torch.rand(filtered.shape, generator=generator, dtype=torch.float32,
+                   device=filtered.device)
+    u = u.clamp_(torch.finfo(torch.float32).tiny, 1.0 - 2.0 ** -24)
+    return torch.argmax(filtered - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
+
+
+def _sample_from_logits(logits, generator, temperature, top_k=None,
+                        top_p=None):
+    """Temperature / top-k / nucleus sampling on (B, V) logits: the JAX
+    package's filter (``_filter_logits``), then one draw from
+    ``generator`` (``_gumbel_argmax``). ``top_p <= 0`` keeps only the
+    first maximum, the greedy token; ``top_k=1`` every entry equal to the
+    maximum (the greedy token unless the maximum is tied)."""
+    return _gumbel_argmax(_filter_logits(logits, temperature, top_k, top_p),
+                          generator)
+
+
+def _pick(logits, sampling, generator):
+    """The next tokens of (B, V) logits: greedy for ``sampling`` None,
+    else one draw from ``generator``."""
+    if sampling is None:
+        return _greedy(logits)
+    return _sample_from_logits(logits, generator, *sampling)
+
+
 def _normalize_sampling(temperature, top_k, top_p):
     """The (temperature, top_k, top_p) config, or None for greedy."""
     if not temperature or float(temperature) <= 0.0:
@@ -222,14 +288,16 @@ def _pow2_bucket(n: int, cap: int, floor: int = 1) -> int:
 
 
 def prompt_logits_pure(prms, ids, cfg, tied=False, *, plain=False,
-                       attn_mask=None):
+                       attn_mask=None, lora=None):
     """Full-prompt logits (B, S, V): embed -> decoder blocks with causal
     flash attention -> LM head, for a params dict of dense tensors or
     ``QuantizedWeight`` entries. ``attn_mask``: an optional mask for the
     attention (``flash_attention_pure``'s). ``plain=True`` runs every
     kernel's plain version instead (no fusion, plain attention, plain
     dequant-matmuls) — the on-card reference the kernel path is held
-    against."""
+    against. ``lora``: an adapter routing over the flattened (B * S) rows
+    (``fusion._run_plan``'s), its delta added to every adapted
+    projection."""
     from ..ops.kernels.flash_attention import (_reference_attention,
                                                flash_attention_pure)
     from ..ops.kernels.fused_norm_rope import fused_rope
@@ -256,7 +324,8 @@ def prompt_logits_pure(prms, ids, cfg, tied=False, *, plain=False,
             return out.reshape(b, s, nh * hd)
 
         hidden = _pure_decoder_layer(prms, i, hidden, cfg.rms_norm_eps,
-                                     attend, enabled=enabled, plain=plain)
+                                     attend, lora, enabled=enabled,
+                                     plain=plain)
     return _pure_lm_head_logits(prms, hidden, cfg.rms_norm_eps, tied,
                                 enabled=enabled, plain=plain)
 
@@ -525,10 +594,18 @@ class LlamaForCausalLM(Layer):
                        cache_dtype=None, spec_decode: bool = False,
                        spec_k=None, draft=None, *,
                        return_logits: bool = False):
-        """Greedy decode over a paged KV cache. ``input_ids`` (B, S0)
+        """Decode over a paged KV cache. ``input_ids`` (B, S0)
         → (B, S0 + max_new_tokens) int32 on the model's device; with
         ``return_logits`` also the (B, max_new_tokens, V) f32 logits each
         new token was picked from.
+
+        ``temperature`` 0 (the default) decodes greedily; above 0 each
+        token is drawn from its logits after the JAX package's temperature,
+        ``top_k`` and ``top_p`` filter (``_sample_from_logits``), from one
+        generator on the model's device seeded by ``seed`` and drawn once
+        a step (the prefill's first token included): the same seed gives
+        the same tokens, ``top_p <= 0`` the greedy ones (``top_k=1`` too
+        where no maximum is tied).
 
         ``params`` overrides the model's own parameters (e.g. the
         ``quantize_for_inference`` dict); ``cache_dtype="int8"`` (or
@@ -543,15 +620,15 @@ class LlamaForCausalLM(Layer):
         (``_spec_decode_loop``, the batcher's parity oracle) replace the
         decode steps: ``spec_k`` drafts a row (default the ``spec_k``
         flag) from ``draft`` (a ``DraftProposer``, default ``NGramDraft``);
-        the tokens equal the plain decode's. Not with ``return_logits``.
-
-        Sampling (``temperature > 0``, with ``top_k``/``top_p``/``seed``)
-        is not ported: it raises."""
-        if _normalize_sampling(temperature, top_k, top_p) is not None:
-            raise NotImplementedError(
-                f"generate_paged: temperature={temperature!r} (sampling) "
-                f"is not ported to paddle_tpu_torch; only greedy decoding "
-                f"(temperature=0) is")
+        the tokens equal the plain decode's. Greedy only (sampling raises
+        ``ValueError``), and not with ``return_logits``."""
+        sampling = _normalize_sampling(temperature, top_k, top_p)
+        if spec_decode and sampling is not None:
+            raise ValueError(
+                "spec_decode requires greedy decoding (temperature=0): "
+                "the acceptance rule compares drafts against the target "
+                "argmax — sampled verification is a future extension "
+                "(docs/SERVING.md 'Speculative decoding')")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
@@ -570,6 +647,8 @@ class LlamaForCausalLM(Layer):
         w = _pow2_bucket(s0, cap_pad)
         cos_full, sin_full = _rope_tables(cap_pad, cfg.head_dim,
                                           cfg.rope_theta, device=self.device)
+        gen = (None if sampling is None
+               else make_generator(seed, self.device))
         with torch.inference_mode():
             prefill = self._build_paged_prefill(
                 b, w, cap_pad, page_size,
@@ -586,13 +665,13 @@ class LlamaForCausalLM(Layer):
                     max_new_tokens, spec_k=spec_k, draft=draft)
                 return torch.cat([ids.to(torch.int32), toks], 1)
             kept = [logits.float()] if return_logits else None
-            toks = [_greedy(logits)]
+            toks = [_pick(logits, sampling, gen)]
             for _ in range(max_new_tokens - 1):
                 logits, cache = step(prms, toks[-1], cache, cos_full,
                                      sin_full)
                 if return_logits:
                     kept.append(logits.float())
-                toks.append(_greedy(logits))
+                toks.append(_pick(logits, sampling, gen))
             out = torch.cat([ids.to(torch.int32), torch.stack(toks, 1)], 1)
             return (out, torch.stack(kept, 1)) if return_logits else out
 

@@ -10,6 +10,9 @@ rewrites adjacent ops into fused kernels:
 
 A matmul left unfused (o_proj, down_proj) is ``x @ w`` for a dense weight
 and the weight-only kernel K4 (quant_matmul.py) for a ``QuantizedWeight``.
+For multi-LoRA serving ``lora_layer_plan`` adds a ``lora_delta`` node after
+each adapted projection, fused or not: two K13 launches over the wave's
+adapter-sorted rows (``models/lora.lora_delta_pure``).
 
 ``flags.fused_decode`` gates the pass and ``flags.fused_decode_fusions``
 selects patterns; with a pattern off the executor runs the unfused chain.
@@ -350,9 +353,36 @@ def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
             "adamw8bit": n_params if "optimizer_update" in enabled else 0}
 
 
-def layer_plan(enabled=None) -> tuple:
-    return fuse_chain(LAYER_CHAIN,
+@functools.lru_cache(maxsize=None)
+def lora_layer_plan(plan: tuple) -> tuple:
+    """A (possibly fused) decode plan for multi-LoRA serving: after every
+    node producing an adapted projection, a plain ``matmul`` or a
+    ``norm_matmul``, a ``lora_delta`` node adds the grouped low-rank delta
+    onto the same named value. A fused norm_matmul's delta node carries the
+    norm weight, so the executor can recompute the normed input the kernel
+    consumed in registers.
+
+    Node shape: ``OpNode("lora_delta", out, (x_in, out), (proj_w,
+    norm_w_or_None))``."""
+    from ...models.lora import LORA_PROJS
+
+    out = []
+    for node in plan:
+        out.append(node)
+        if node.kind == "matmul" and node.w in LORA_PROJS:
+            out.append(OpNode("lora_delta", node.out,
+                              (node.src[0], node.out), (node.w, None)))
+        elif node.kind == "norm_matmul" and node.w[1] in LORA_PROJS:
+            out.append(OpNode("lora_delta", node.out,
+                              (node.src[0], node.out),
+                              (node.w[1], node.w[0])))
+    return tuple(out)
+
+
+def layer_plan(enabled=None, lora: bool = False) -> tuple:
+    plan = fuse_chain(LAYER_CHAIN,
                       enabled_fusions() if enabled is None else enabled)
+    return lora_layer_plan(plan) if lora else plan
 
 
 def attend_plan(enabled=None) -> tuple:
@@ -366,24 +396,27 @@ def head_plan(enabled=None) -> tuple:
 
 
 def kernel_launches_per_token(num_layers: int, tied: bool = False,
-                              fused=None) -> int:
+                              fused=None, lora: bool = False) -> int:
     """Static dispatch count for one decode token, derived from the op
     plans (layer plan with the attend seam expanded, plus the LM-head plan
     and the embedding gather). fused: None = current flags; True/False =
-    force all/none."""
+    force all/none. ``lora``: the multi-LoRA plan, each ``lora_delta``
+    node two grouped matmuls whatever the number of adapters."""
     if fused is None:
         enabled = enabled_fusions()
     else:
         enabled = FUSIONS if fused else ()
-    lp = layer_plan(enabled)
+    lp = layer_plan(enabled, lora=lora)
     ap = attend_plan(enabled)
-    per_layer = sum(0 if n.kind == "attend" else 1 for n in lp) + len(ap)
+    cost = {"attend": 0, "lora_delta": 2}
+    per_layer = sum(cost.get(n.kind, 1) for n in lp) + len(ap)
     head = len(HEAD_CHAIN) if tied else len(head_plan(enabled))
     return num_layers * per_layer + head + 1  # +1: embedding gather
 
 
 def planned_kernel_launches(num_layers: int, tied: bool = False,
-                            enabled=None, quantized: bool = False) -> dict:
+                            enabled=None, quantized: bool = False,
+                            lora: bool = False) -> dict:
     """Kernel launches per decode token by node kind, from the same plans
     ``kernel_launches_per_token`` counts: ``{"norm_matmul": n,
     "rope_append_attend": n, "paged_attention": n}`` (``paged_attention``
@@ -393,8 +426,10 @@ def planned_kernel_launches(num_layers: int, tied: bool = False,
     wave runs them with the ragged forms of the attend kernels (K3 ragged
     for ``rope_append_attend``, K11 for ``paged_attention``).
     ``quantized`` (weight-only params) adds ``"quant_matmul"``: every
-    matmul left unfused runs the weight-only matmul kernel."""
-    lp, ap = layer_plan(enabled), attend_plan(enabled)
+    matmul left unfused runs the weight-only matmul kernel. ``lora`` (the
+    multi-LoRA plan) adds ``"grouped_matmul"``: two K13 launches per
+    ``lora_delta`` node."""
+    lp, ap = layer_plan(enabled, lora=lora), attend_plan(enabled)
     hp = () if tied else head_plan(enabled)
     kinds = ("norm_matmul", "rope_append_attend", "paged_attention")
     out = {kind: num_layers * (sum(n.kind == kind for n in lp)
@@ -404,6 +439,9 @@ def planned_kernel_launches(num_layers: int, tied: bool = False,
     n_matmul = out.pop("matmul")
     if quantized:
         out["quant_matmul"] = n_matmul
+    if lora:
+        out["grouped_matmul"] = num_layers * 2 * sum(
+            n.kind == "lora_delta" for n in lp)
     return out
 
 
@@ -413,15 +451,19 @@ def planned_kernel_launches(num_layers: int, tied: bool = False,
 
 
 def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False,
-              train=False):
+              train=False, lora=None):
     """THE plan interpreter. ``pfx`` scopes weight names (per-layer vs
-    top-level); ``plain`` runs quantized matmuls, and on a train plan the
-    norms, through their plain versions; ``train`` runs each unfused
-    rms_norm as ``fused_rms_norm`` (K6 forward, K7 backward)."""
+    top-level); ``plain`` runs quantized matmuls, the LoRA delta, and on a
+    train plan the norms, through their plain versions; ``train`` runs each
+    unfused rms_norm as ``fused_rms_norm`` (K6 forward, K7 backward).
+    ``lora`` is the wave's adapter routing that ``lora_delta`` nodes read:
+    ``{"sort", "inv", "offsets"}`` device vectors and ``"params"``, the
+    stacked per-slot (A, B) buffers by full parameter name."""
     from ...models.llama import _pure_rms, _wmm
     from .fused_norm_matmul import fused_norm_matmul_pure
     from .fused_norm_rope import fused_rms_norm
 
+    normed = {}     # a fused norm's input, recomputed once for its deltas
     for node in plan:
         if node.kind == "rms_norm":
             norm = (functools.partial(fused_rms_norm, plain=plain) if train
@@ -450,6 +492,25 @@ def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False,
             env[node.out] = attend(
                 env[node.src[0]], env[node.src[1]], env[node.src[2]],
                 residual=env[node.src[3]], o_w=prms[pfx + node.w])
+        elif node.kind == "lora_delta":
+            # two grouped matmuls over adapter-sorted rows add each row's
+            # own adapter's delta (base rows ride the all-zeros group). A
+            # fused norm_matmul's delta recomputes the normed input K2
+            # consumed in registers with _pure_rms, the unfused chain's
+            # rule, in plain ops (K6 rounds once, that rule twice)
+            from ...models.lora import lora_delta_pure
+
+            proj_w, norm_w = node.w
+            xin = env[node.src[0]]
+            if norm_w is not None:
+                key = (node.src[0], norm_w)
+                if key not in normed:
+                    normed[key] = _pure_rms(xin, prms[pfx + norm_w], eps)
+                xin = normed[key]
+            a_stack, b_stack = lora["params"][pfx + proj_w]
+            env[node.out] = env[node.src[1]] + lora_delta_pure(
+                xin, a_stack, b_stack, lora["sort"], lora["inv"],
+                lora["offsets"], plain=plain)
         elif node.kind == "add":
             env[node.out] = env[node.src[0]] + env[node.src[1]]
         elif node.kind == "silu_mul":
@@ -476,13 +537,18 @@ def _checked_plan(plan, hidden, enabled):
     return plan
 
 
-def run_decoder_layer(prms, i, hidden, eps, attend, enabled=None,
-                      plain=False):
+def run_decoder_layer(prms, i, hidden, eps, attend, lora=None, *,
+                      enabled=None, plain=False):
     """Execute the (fused) layer plan for decoder block ``i``. ``attend``
-    maps flat q/k/v projections to the flat attention output."""
-    plan = _checked_plan(layer_plan(enabled), hidden, enabled)
+    maps flat q/k/v projections to the flat attention output. ``lora`` (a
+    wave's adapter routing) runs the multi-LoRA plan: each adapted
+    projection's delta in two K13 launches on CUDA tensors (it launches
+    or raises; ``plain`` runs its plain version)."""
+    plan = _checked_plan(layer_plan(enabled, lora=lora is not None), hidden,
+                         enabled)
     env = _run_plan(plan, prms, {"hidden": hidden}, eps,
-                    pfx=f"model.layers.{i}.", attend=attend, plain=plain)
+                    pfx=f"model.layers.{i}.", attend=attend, plain=plain,
+                    lora=lora)
     return env["hidden"]
 
 

@@ -2556,3 +2556,193 @@ def test_batcher_with_defaults_serves_on_the_card(gen):
     assert counts["fused_norm_matmul"] > 0
     assert counts["fused_rope_attend_ragged"] > 0
     assert counts["fused_rope_attend"] > 0
+
+
+# ------------------------------------------------ multi-LoRA and sampling
+
+#: the LoRA delta's K13 shapes at Llama-3-8B width and rank 16: the shrink
+#: x (T, K) @ A (G, K, 16) and the expand u (T, 16) @ B (G, 16, N)
+_LORA_KN = [(4096, 16), (14336, 16), (16, 1024), (16, 4096), (16, 14336)]
+
+
+def _lora_offsets(t, groups=9, seed=0):
+    """A wave's routing over ``groups`` slots: three adapters' rows, the
+    base group (the last) with the rest, the other slots empty."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(groups, np.int64)
+    live = rng.choice(groups - 1, size=3, replace=False)
+    counts[live] = rng.multinomial(t // 2, [1 / 3] * 3)
+    counts[-1] = t - counts.sum()
+    return _offsets(counts.tolist())
+
+
+@pytest.mark.parametrize("t", [264, 8])
+@pytest.mark.parametrize("kdim,n", _LORA_KN)
+def test_grouped_matmul_at_lora_shapes_matches_plain(gen, t, kdim, n):
+    """K13 at the LoRA delta's shapes (N or K = the rank 16, 9 groups, most
+    of them empty) within its tolerance of the plain version, two calls
+    bitwise equal."""
+    off = _lora_offsets(t)
+    x = _randn(gen, t, kdim)
+    w = _randn(gen, 9, kdim, n, scale=kdim ** -0.5)
+    got = k1314.gmm(x, off, w)
+    again = k1314.gmm(x, off, w)
+    ref = k1314.grouped_matmul_reference(x, off, w)
+    torch.cuda.synchronize()
+    tol = k1314.tolerance(x, off, w, ref)
+    err = ((got.float() - ref.float()).abs() / tol).max().item()
+    assert err < 1.0, err
+    assert torch.equal(got, again)
+
+
+def test_lora_delta_on_the_card_is_two_k13_launches(gen):
+    """``lora_delta_pure`` on CUDA tensors: two K13 launches, the gathered
+    rows' products scattered back bitwise, the base rows exactly 0; with
+    the kernel flag off it raises."""
+    from paddle_tpu_torch.models.lora import lora_delta_pure
+
+    t, kdim, r, n = 264, 4096, 16, 1024
+    off = _lora_offsets(t, seed=1)
+    rows = torch.repeat_interleave(
+        torch.arange(9, device="cuda"), torch.diff(off).long())
+    perm = torch.randperm(t, generator=gen, device="cuda")
+    group = rows[perm]                          # wave order: unsorted
+    srt = torch.sort(group, stable=True).indices.to(torch.int32)
+    inv = torch.empty_like(srt)
+    inv[srt.long()] = torch.arange(t, dtype=torch.int32, device="cuda")
+    x = _randn(gen, t, kdim)
+    a = _randn(gen, 9, kdim, r, scale=kdim ** -0.5)
+    b = _randn(gen, 9, r, n, scale=r ** -0.5)
+    a[-1].zero_()
+    b[-1].zero_()
+    n0 = k1314.launches
+    got = lora_delta_pure(x, a, b, srt, inv, off)
+    assert k1314.launches - n0 == 2
+    want = k1314.gmm(k1314.gmm(x[srt.long()], off, a), off, b)[inv.long()]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[group == 8].any()
+    old = flags.get_flag("grouped_matmul_kernel")
+    flags.set_flags({"grouped_matmul_kernel": False})
+    try:
+        with pytest.raises(NotImplementedError):
+            lora_delta_pure(x, a, b, srt, inv, off)
+    finally:
+        flags.set_flags({"grouped_matmul_kernel": old})
+    plain = lora_delta_pure(x, a, b, srt, inv, off, plain=True)
+    assert k1314.launches - n0 == 4
+    assert plain.shape == got.shape
+
+
+def test_lora_batcher_serves_on_the_card(gen):
+    """The batcher with ``lora=True`` on the card: base and adapter
+    requests finish, adapters steer their tokens, and the waves and
+    segment steps ran 2 K13 per adapted projection and layer."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.lora import make_lora_adapter
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=0)
+    eng = ContinuousBatcher(model, max_batch=3, max_seq=128, page_size=16,
+                            segment=4, prefill_chunk=32, lora=True,
+                            lora_hbm_adapters=2, prefix_caching=False)
+    for i, aid in enumerate("AB"):
+        eng.register_adapter(aid, make_lora_adapter(cfg, 16 >> i, seed=i,
+                                                    scale=1.0))
+    prompt = torch.randint(0, 256, (40,), generator=gen,
+                           device="cuda").tolist()
+    kernels.reset_launch_counts()
+    rids = [eng.submit(prompt, 8, adapter_id=a) for a in (None, "A", "B")]
+    done = eng.run()
+    counts = kernels.launch_counts()
+    st = eng.stats
+    toks = [done[r].tokens for r in rids]
+    assert all(done[r].status == "ok" and len(done[r].tokens) == 8
+               for r in rids)
+    assert toks[0] != toks[1] and toks[0] != toks[2]
+    plan = fusion.planned_kernel_launches(2, lora=True)
+    assert plan["grouped_matmul"] == 28
+    assert counts["grouped_matmul"] == 28 * (st["ragged_steps"]
+                                             + st["decode_steps"])
+    assert st["adapter_loads"] == 2
+
+
+def test_gumbel_draws_on_the_card_follow_the_filtered_softmax(gen):
+    """200,000 draws from the card's generator on one filtered row: the
+    chi-square against the filtered softmax passes at p = 1e-6, with no
+    draw outside the kept set; a 10%-off temperature fails it."""
+    import numpy as np
+    import scipy.stats
+
+    from paddle_tpu_torch.models.llama import _filter_logits, _gumbel_argmax
+
+    row = torch.randn((1, 4096), generator=gen, device="cuda")
+    t, k, p = 0.8, 50, 0.95
+
+    def chi2(filt, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        draws = _gumbel_argmax(filt.expand(200_000, -1), g)
+        counts = torch.bincount(draws.long(), minlength=4096).double()
+        kept = (want_filt[0] > -1e29)
+        probs = torch.softmax(want_filt[0].double(), -1)
+        exp = probs[kept] * 200_000
+        stat = float(((counts[kept] - exp) ** 2 / exp).sum())
+        return stat, int(counts[~kept].sum()), int(kept.sum())
+
+    want_filt = _filter_logits(row, t, k, p)
+    stat, outside, n_kept = chi2(want_filt, 1)
+    bound = float(scipy.stats.chi2.ppf(1 - 1e-6, n_kept - 1))
+    assert 5 < n_kept <= k
+    assert outside == 0 and stat <= bound, (stat, bound)
+    hot, out_hot, _ = chi2(_filter_logits(row, t * 1.1, k, p), 1)
+    assert hot > bound or out_hot > 0
+    # the draw never leaves the kept set on a batch of rows either
+    rows = torch.randn((64, 4096), generator=gen, device="cuda")
+    filt = _filter_logits(rows, t, k, p)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = _gumbel_argmax(filt, g).long()
+    assert bool((filt.gather(1, toks[:, None]) > -1e29).all())
+    assert np.isfinite(stat)
+
+
+def test_sampling_and_lora_delta_make_no_host_sync(gen):
+    """The filter and the draw, the LoRA delta's two K13 launches with its
+    gather and scatter, and the pool's routing upload all enqueue without
+    waiting for the device: under ``torch.cuda.set_sync_debug_mode
+    ("error")`` none of them raises."""
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               _sample_from_logits)
+    from paddle_tpu_torch.models.lora import (AdapterPool, lora_delta_pure,
+                                              make_lora_adapter)
+
+    logits = torch.randn((8, 128256), generator=gen, device="cuda")
+    draw = torch.Generator(device="cuda").manual_seed(0)
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=1, num_attention_heads=2,
+                      num_key_value_heads=1, dtype="bfloat16")
+    pool = AdapterPool(LlamaForCausalLM(cfg, seed=0), max_rank=16,
+                       hbm_slots=2)
+    pool.register("a", make_lora_adapter(cfg, 16, seed=1))
+    pool.acquire("a")
+    a, b = pool.stacks["model.layers.0.self_attn.q_proj.weight"]
+    x = _randn(gen, 40, 256)
+    groups = np.array([0, 2] * 20, np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kw in (dict(top_k=50, top_p=0.95), dict(top_p=0.0), {}):
+            _sample_from_logits(logits, draw, 0.8, **kw)
+        srt, inv, off = pool.route_rows(groups)
+        lora_delta_pure(x, a, b, srt, inv, off)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

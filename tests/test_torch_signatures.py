@@ -145,7 +145,6 @@ def _tiny_llama():
 
 
 def _cases():
-    from paddle_tpu_torch.inference import ContinuousBatcher
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn.common import Embedding, Linear
     from paddle_tpu_torch.nn.norm import RMSNorm
@@ -155,13 +154,6 @@ def _cases():
     kw = dict(dtype=torch.float32, device="cpu")
     x = torch.zeros((2, 4))
     lab = torch.zeros((2,), dtype=torch.long)
-
-    def batcher(**k):
-        return lambda: ContinuousBatcher(_tiny_llama(), **k)
-
-    def gen(**k):
-        return lambda: _tiny_llama().generate_paged(
-            np.zeros((1, 4), np.int32), 2, **k)
 
     def step(**k):
         def go():
@@ -195,21 +187,9 @@ def _cases():
         "linear_cross_entropy.bias": (
             lambda: loss_ops.linear_cross_entropy(x, x, lab, x[0]),
             "bias"),
-        "generate_paged.temperature": (gen(temperature=0.7),
-                                       "temperature"),
         "TrainStep.in_shardings": (step(in_shardings=[None]),
                                    "in_shardings"),
         "TrainStep.mesh": (step(mesh=object()), "mesh"),
-        "ContinuousBatcher.lora_max_rank": (batcher(lora_max_rank=8),
-                                            "lora_max_rank"),
-        "ContinuousBatcher.lora_hbm_adapters": (
-            batcher(lora_hbm_adapters=2), "lora_hbm_adapters"),
-        "ContinuousBatcher.adapter_pool": (batcher(adapter_pool=object()),
-                                           "adapter_pool"),
-        "ContinuousBatcher.submit.adapter_id": (
-            lambda: ContinuousBatcher(_tiny_llama()).submit([1, 2], 2,
-                                                            adapter_id=3),
-            "adapter_id"),
     }
 
 
@@ -221,3 +201,55 @@ def test_unported_parameter_raises(case):
     call, name = _cases()[case]
     with pytest.raises(NotImplementedError, match=name):
         call()
+
+
+def _ported_cases():
+    """Reference parameters that raised until the port gained their
+    feature, each with a check of what it now does (sampling and
+    multi-LoRA serving)."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.models.lora import AdapterPool
+
+    def temperature():
+        m = _tiny_llama()
+        ids = np.arange(1, 5, dtype=np.int32)[None]
+        greedy = m.generate_paged(ids, 3)
+        assert torch.equal(m.generate_paged(ids, 3, 16, 0.7, 1, None, 0),
+                           greedy)
+        out = m.generate_paged(ids, 3, 16, 0.7, None, 0.9, 3)
+        assert out.shape == greedy.shape
+
+    def lora_max_rank():
+        eng = ContinuousBatcher(_tiny_llama(), lora=True, lora_max_rank=8)
+        assert eng._adapters.max_rank == 8
+
+    def lora_hbm_adapters():
+        eng = ContinuousBatcher(_tiny_llama(), lora=True,
+                                lora_hbm_adapters=2, unified_arena=False)
+        assert eng._adapters.hbm_slots == 2
+
+    def adapter_pool():
+        m = _tiny_llama()
+        with pytest.raises(ValueError, match="needs lora serving"):
+            ContinuousBatcher(m, adapter_pool=AdapterPool(m, 2, 2))
+        pool = AdapterPool(m, 2, 2)
+        assert ContinuousBatcher(m, lora=True,
+                                 adapter_pool=pool)._adapters is pool
+
+    def adapter_id():
+        with pytest.raises(ValueError, match="needs lora serving"):
+            ContinuousBatcher(_tiny_llama()).submit([1, 2], 2, adapter_id=3)
+        with pytest.raises(ValueError, match="not registered"):
+            ContinuousBatcher(_tiny_llama(), lora=True).submit(
+                [1, 2], 2, adapter_id=3)
+
+    return {"generate_paged.temperature": temperature,
+            "ContinuousBatcher.lora_max_rank": lora_max_rank,
+            "ContinuousBatcher.lora_hbm_adapters": lora_hbm_adapters,
+            "ContinuousBatcher.adapter_pool": adapter_pool,
+            "ContinuousBatcher.submit.adapter_id": adapter_id}
+
+
+@pytest.mark.parametrize("case", sorted(_ported_cases()))
+def test_ported_parameter_is_served(case):
+    _ported_cases()[case]()
