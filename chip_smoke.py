@@ -204,6 +204,29 @@ class, device busy share). Phases, in order; any failure raises and the process 
                tok/s with the cache on and with ``prefix_caching=False``
                on the same requests, in turns (3 each for bf16 fused,
                once otherwise), the stall ms, peak memory, pinned bytes.
+6g. the serving fleet — the phase-6 model (a new instance), bf16 fused:
+               two ``ContinuousBatcher`` replicas over one copy of the
+               weights (``make_fleet``, phase 6d's settings, a MemoryStore
+               registry at the reference's 0.5 s heartbeat and 2.0 s
+               lease TTL, ``FleetRouter(affinity=True)``), their serve
+               threads launching on the card at once, on phase 6d's 24
+               requests. Failover: replica 1 killed once one of its
+               requests streamed 3 tokens; all 24 "ok", one failover, at
+               least one request recovered, every token held to phase
+               6's rule, the survivor's allocators' ``check()``.
+               Disaggregated: roles prefill/decode,
+               ``KVMigrator("chunked")``: every request prefills on
+               replica 0 and decodes on replica 1, bytes moved = pages x
+               page bytes, one admitted token a resume, every token held
+               to the rule. Controls (a third run of 3 requests): a K
+               page zeroed in transit must fail the rule; ``kv.migrate``
+               armed once leaves its request decoding at the source, "ok"
+               within the rule. Each run's K2/K3 launches equal the plan
+               over every replica's own waves and segment steps (the
+               killed one's up to the kill). Printed: both walls and
+               tok/s, phase 6d's single engine on the same requests in
+               turns, kill -> first recovered token ms, migration ms and
+               MB a request, lease expiries, peak memory, pinned bytes.
 7. training kernels — after the serving models are freed, each new
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
@@ -342,6 +365,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 (non-tensor) FLOP/s
@@ -3325,6 +3349,368 @@ def serve_batcher_prefix(torch, kernels, profile=False, int8=False):
     return out
 
 
+FLEET_KILL_TOKENS = 3     # phase 6g kills replica 1 once one of its
+                          # requests has streamed this many tokens
+
+
+def fleet_run(torch, kernels, model, reqs, engine_kw, *, roles=None,
+              kill=False, migrator=None, on_card=True, timeout=600.0):
+    """Serve ``reqs`` ((prompt, max_new, arrival) each; the arrivals are an
+    engine's, the router submits all at once) on a two-replica fleet:
+    ``make_fleet`` over ``model`` with a MemoryStore registry at the
+    reference's heartbeat (0.5 s) and lease TTL (2.0 s), and
+    ``FleetRouter(affinity=True)`` (``disagg`` with ``roles``). ``kill``:
+    SIGKILL replica 1 once one of its requests has streamed
+    FLEET_KILL_TOKENS tokens. The launch counts are set to 0 just before
+    the workers start and read once both have stopped."""
+    from paddle_tpu_torch.distributed.store import MemoryStore
+    from paddle_tpu_torch.inference.fleet import FleetRegistry, make_fleet
+    from paddle_tpu_torch.inference.router import FleetRouter
+
+    registry = FleetRegistry(store=MemoryStore(), job_id="chip")
+    _, workers = make_fleet(model, 2, registry=registry, roles=roles,
+                            **engine_kw)
+    for w in workers:
+        w.engine._ensure_host_arena()      # its pinned allocation: set-up
+    router = FleetRouter(workers, registry, affinity=True,
+                         disagg=True if roles else None, migrator=migrator)
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for w in workers:
+        w.start()
+    t0 = time.perf_counter()
+    rids = [router.submit(p, n) for p, n, _ in reqs]
+    t_kill = t_rec = None
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            router.poll()
+            frs = [router.request(r) for r in rids]
+            if kill and t_kill is None and any(
+                    fr.replica == workers[1].name
+                    and fr.status == "dispatched"
+                    and len(fr._journal) >= FLEET_KILL_TOKENS
+                    for fr in frs):
+                workers[1].kill()
+                t_kill = time.perf_counter()
+            if t_kill is not None and t_rec is None and any(
+                    fr.failovers and (fr.done or getattr(
+                        fr._gen_req, "tokens", None)) for fr in frs):
+                t_rec = time.perf_counter()
+            if all(fr.done for fr in frs):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"fleet run outstanding after {timeout} s: "
+                    f"{[fr.rid for fr in frs if not fr.done][:8]}")
+            time.sleep(0.002)
+        wall = time.perf_counter() - t0
+    finally:
+        for w in workers:
+            if w.alive():
+                w.terminate()
+        for w in workers:
+            w.join(60)
+    if on_card:
+        torch.cuda.synchronize()
+    assert not any(w._serve_t.is_alive() for w in workers), "a serve thread"
+    counts = kernels.launch_counts()
+    return SimpleNamespace(router=router, workers=workers, registry=registry,
+                           done={r: router.request(r) for r in rids},
+                           wall=wall, counts=counts, t_kill=t_kill,
+                           t_rec=t_rec, dead=sorted(router._dead))
+
+
+def fleet_plan_counts(counts, workers, L):
+    """The fused plan's launches over every replica's own waves and
+    segment steps (a killed replica's up to its kill)."""
+    from paddle_tpu_torch.ops.kernels import fusion
+
+    plan = fusion.planned_kernel_launches(L)
+    waves = sum(w.engine.stats["ragged_steps"] for w in workers)
+    steps = sum(w.engine.stats["decode_steps"] for w in workers)
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_norm_matmul"] = plan["norm_matmul"] * (waves + steps)
+    expected["fused_rope_attend_ragged"] = plan["rope_append_attend"] * waves
+    expected["fused_rope_attend"] = plan["rope_append_attend"] * steps
+    assert plan["norm_matmul"] == 5 * L + 1, plan
+    assert plan["rope_append_attend"] == L and not plan["paged_attention"]
+    return expected, waves, steps
+
+
+def serve_fleet(torch, kernels, cfg=None, device="cuda", check_tokens=True):
+    """Phase 6g: the serving fleet on phase 6's Llama-3-8B model (random
+    bf16 weights, 32 layers), the fused plan, two ``ContinuousBatcher``
+    replicas over ONE copy of the weights with phase 6d's settings (prefix
+    cache, host tier, arena, ``page_pool_pages = 3 x pps``) on phase 6d's
+    24 requests, both serve threads launching on the card at once.
+
+    Failover: replica 1 is killed once one of its requests has streamed 3
+    tokens; all 24 end "ok" with their max_new_tokens, one failover, at
+    least one request recovered, every emitted token within phase 6's rule
+    (``check_batcher_tokens``), the survivor's allocators bijective.
+    Disaggregated: roles prefill/decode, ``KVMigrator("chunked")``; every
+    request prefills on replica 0 and decodes on replica 1 (one migration
+    each), the bytes moved equal the pages moved x the page's bytes, the
+    decode replica admits one token a resume, every token within the rule.
+    Controls, on a third run of three requests: (a) one request's last full
+    page has its K block zeroed in transit: its tokens must fail the rule;
+    (b)
+    ``kv.migrate`` armed once for another: it decodes on at the source,
+    "ok", within the rule. Each run's K2 and K3 launches equal the plan
+    over every replica's own waves and segment steps. Phase 6d's single
+    engine serves the same requests in turns with the two fleets (its
+    wall, once before and once after).
+
+    ``cfg`` / ``device="cpu"`` / ``check_tokens=False`` rehearse the
+    schedule on the CPU at a tiny width (no kernels: the launch check is
+    skipped)."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.inference.migration import KVMigrator
+    from paddle_tpu_torch.models.kv_cache import kv_page_nbytes
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.reliability import faults
+
+    on_card = device == "cuda"
+    cfg = cfg or LlamaConfig.llama3_8b(dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=SEED, device=device)
+    prms = model.param_dict()
+    reqs = prefix_requests(cfg.vocab_size)
+    n_tokens = sum(n for _, n, _ in reqs)
+    pps = -(-BSEQ // PAGE)
+    engine_kw = dict(max_batch=BB, max_seq=BSEQ, segment=16,
+                     prefill_chunk=BCHUNK, page_size=PAGE,
+                     page_pool_pages=3 * pps)
+    # the disaggregated fleet queues every request at the prefill replica
+    # (soft capacity max_batch + max_pending), so none lands on the decode
+    # replica for lack of room
+    disagg_kw = dict(engine_kw, max_pending=len(reqs))
+    page_bytes = kv_page_nbytes(L, cfg.num_key_value_heads, PAGE,
+                                cfg.head_dim,
+                                prms["model.embed_tokens.weight"].dtype)
+    log(f"serving fleet (bf16, fused): 2 replicas, {len(reqs)} requests, "
+        f"{n_tokens} new tokens, page {PAGE}, page_pool_pages {3 * pps}, "
+        f"heartbeat 0.5 s, lease TTL 2.0 s, kill after "
+        f"{FLEET_KILL_TOKENS} streamed tokens")
+
+    def single():
+        eng = ContinuousBatcher(model, **engine_kw)
+        eng._ensure_host_arena()
+        for prompt, n_new, t in reqs:
+            eng.submit(prompt, max_new_tokens=n_new, arrival_segment=t)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        if on_card:
+            torch.cuda.synchronize()
+        assert all(done[r].status == "ok" for r in range(len(reqs)))
+        return time.perf_counter() - t0
+
+    def check_launches(run, label):
+        expected, waves, steps = fleet_plan_counts(run.counts, run.workers,
+                                                   L)
+        log(f"{label}: launches {run.counts} expected {expected} "
+            f"({waves} waves + {steps} segment steps over both replicas)")
+        if on_card:
+            assert run.counts == expected, f"{run.counts} != {expected}"
+        return waves, steps
+
+    def check_served(run, label, sub=None):
+        sub = reqs if sub is None else sub
+        for rid, (_, n_new, _) in enumerate(sub):
+            fr = run.done[rid]
+            assert fr.status == "ok", (label, rid, fr.status, fr.error)
+            assert len(fr.tokens) == n_new, (label, rid, len(fr.tokens))
+
+    class _Corrupting(KVMigrator):
+        """The chunked wire, with the K block of one request's last full
+        page (16 keys before the frontier, every layer) zeroed after it
+        crossed (control a)."""
+        target = None
+
+        def transfer(self, blob, rid=None):
+            out = super().transfer(blob, rid=rid)
+            if rid == self.target:
+                pages = list(out["pages"])
+                j = blob["seq_len"] // PAGE - 1
+                pages[j] = dict(pages[j], k=torch.zeros_like(pages[j]["k"]))
+                out = {**out, "pages": pages}
+            return out
+
+    class _Recording(KVMigrator):
+        """The chunked wire, recording each delivered blob's pages."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.pages = []
+
+        def transfer(self, blob, rid=None):
+            out = super().transfer(blob, rid=rid)
+            self.pages.append((rid, len(blob["pages"]),
+                               int(blob["nbytes"])))
+            return out
+
+    old = flags.get_flag("fused_decode_fusions")
+    flags.set_flags({"fused_decode_fusions": BATCHER_PLANS[0][1]})
+    out = {}
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        single_walls = [single()]
+
+        # ---- failover
+        fo = fleet_run(torch, kernels, model, reqs, engine_kw, kill=True,
+                       on_card=on_card)
+        waves, steps = check_launches(fo, "fleet failover")
+        check_served(fo, "fleet failover")
+        st = fo.router.stats
+        assert fo.t_kill is not None, "no request streamed on replica 1"
+        assert st["failovers"] == 1, ("lease expiries", fo.dead, st)
+        assert fo.dead == [fo.workers[1].name], fo.dead
+        assert st["requests_recovered"] >= 1, st
+        survivor = fo.workers[0].engine
+        survivor._pager.check()
+        survivor._host_pager.check()
+        if survivor._prefix is not None:
+            survivor._prefix.allocator.check()
+        kill_ms = (None if fo.t_rec is None
+                   else (fo.t_rec - fo.t_kill) * 1e3)
+        out["failover"] = {
+            "wall_s": fo.wall, "generated_tok_s": n_tokens / fo.wall,
+            "launches": fo.counts, "waves": waves, "segment_steps": steps,
+            "failovers": st["failovers"], "lease_expiries": len(fo.dead),
+            "requests_recovered": st["requests_recovered"],
+            "redispatched": st["redispatched"],
+            "kill_to_first_recovered_token_ms": kill_ms,
+            "per_replica": {w.name: {k: w.engine.stats[k] for k in (
+                "ragged_steps", "decode_steps", "tokens_emitted",
+                "prefix_hits", "prefill_tokens_admitted")}
+                for w in fo.workers}}
+        log(f"fleet failover: wall {fo.wall:.3f} s, "
+            f"{n_tokens / fo.wall:.1f} generated tok/s, failovers "
+            f"{st['failovers']} (lease expiries {fo.dead}), recovered "
+            f"{st['requests_recovered']}, redispatched "
+            f"{st['redispatched']}, kill -> first recovered token "
+            f"{kill_ms} ms, per replica {out['failover']['per_replica']}")
+
+        # ---- disaggregated
+        mig = _Recording("chunked")
+        dg = fleet_run(torch, kernels, model, reqs, disagg_kw,
+                       roles=["prefill", "decode"], migrator=mig,
+                       on_card=on_card)
+        dwaves, dsteps = check_launches(dg, "fleet disagg")
+        check_served(dg, "fleet disagg")
+        st = dg.router.stats
+        pre, dec = dg.workers
+        for rid, fr in dg.done.items():
+            assert (fr.migrated, fr.replica) == (1, dec.name), (
+                rid, fr.migrated, fr.replica, dg.dead)
+        assert st["migrations"] == len(reqs) and not st["migrations_failed"]
+        assert not dg.dead and not st["failovers"], ("lease expiries",
+                                                     dg.dead)
+        n_pages = sum(n for _, n, _ in mig.pages)
+        assert mig.stats["bytes_moved"] == n_pages * page_bytes, (
+            mig.stats["bytes_moved"], n_pages, page_bytes)
+        assert all(nb == n * page_bytes for _, n, nb in mig.pages)
+        assert dec.engine.stats["prefill_tokens_admitted"] == \
+            dec.engine.stats["resumes"] == len(reqs), dec.engine.stats
+        for w in dg.workers:
+            w.engine._pager.check()
+            w.engine._host_pager.check()
+        mb = mig.stats["bytes_moved"] / 2**20
+        out["disagg"] = {
+            "wall_s": dg.wall, "generated_tok_s": n_tokens / dg.wall,
+            "launches": dg.counts, "waves": dwaves, "segment_steps": dsteps,
+            "migrations": st["migrations"], "lease_expiries": len(dg.dead),
+            "pages_moved": n_pages, "bytes_moved": mig.stats["bytes_moved"],
+            "chunks": mig.stats["chunks"],
+            "migration_ms_per_request": st["migration_stall_ms"]
+            / st["migrations"],
+            "mb_per_request": mb / st["migrations"],
+            "prefill_replica": {k: pre.engine.stats[k] for k in (
+                "ragged_steps", "decode_steps", "parks")},
+            "decode_replica": {k: dec.engine.stats[k] for k in (
+                "ragged_steps", "decode_steps", "resumes",
+                "prefill_tokens_admitted")}}
+        log(f"fleet disagg: wall {dg.wall:.3f} s, "
+            f"{n_tokens / dg.wall:.1f} generated tok/s, {st['migrations']} "
+            f"migrations, {n_pages} pages = {mb:.1f} MB over "
+            f"{mig.stats['chunks']} chunks, "
+            f"{out['disagg']['migration_ms_per_request']:.2f} ms and "
+            f"{out['disagg']['mb_per_request']:.2f} MB a request (park -> "
+            f"resume bound), lease expiries {dg.dead}, prefill replica "
+            f"{out['disagg']['prefill_replica']}, decode replica "
+            f"{out['disagg']['decode_replica']}")
+        single_walls.append(single())
+        if on_card:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        else:
+            peak = 0.0
+        pinned = sum(w.engine._host_arena.nbytes() for w in fo.workers)
+        out.update(single_engine_wall_s=single_walls,
+                   single_engine_tok_s=[n_tokens / w for w in single_walls],
+                   max_memory_allocated_gib=peak,
+                   host_arena_pinned_bytes_per_fleet=pinned)
+        log(f"phase 6d's single engine on the same requests, in turns "
+            f"(before, after): wall {[round(w, 3) for w in single_walls]} "
+            f"s, {[round(n_tokens / w, 1) for w in single_walls]} "
+            f"generated tok/s; fleet walls failover {fo.wall:.3f} s, "
+            f"disagg {dg.wall:.3f} s; max_memory_allocated {peak:.2f} GiB, "
+            f"host arenas {pinned} bytes pinned a fleet")
+
+        # ---- controls
+        ctl_reqs = [reqs[0], reqs[4], reqs[5]]
+        ctl_mig = _Corrupting("chunked")
+        ctl_mig.target = 0
+        faults.inject("kv.migrate", nth=1,
+                      when=lambda ctx: ctx.get("rid") == 1)
+        try:
+            ct = fleet_run(torch, kernels, model, ctl_reqs, disagg_kw,
+                           roles=["prefill", "decode"], migrator=ctl_mig,
+                           on_card=on_card)
+        finally:
+            faults.clear("kv.migrate")
+        check_served(ct, "fleet controls", ctl_reqs)
+        check_launches(ct, "fleet controls")
+        b = ct.done[1]
+        assert (b.migrated, b.replica) == (0, ct.workers[0].name), (
+            b.migrated, b.replica)
+        assert ct.router.stats["migrations_failed"] == 1
+        assert (ct.done[0].migrated, ct.done[2].migrated) == (1, 1)
+        out["controls"] = {"kv_migrate_request": {
+            "status": b.status, "migrated": b.migrated,
+            "replica": b.replica}}
+
+        if check_tokens:
+            out["failover"]["tokens_check"] = check_batcher_tokens(
+                torch, cfg, prms, reqs, fo.done, "fleet failover")
+            out["disagg"]["tokens_check"] = check_batcher_tokens(
+                torch, cfg, prms, reqs, dg.done, "fleet disagg")
+            out["controls"]["kv_migrate_tokens_check"] = \
+                check_batcher_tokens(torch, cfg, prms, ctl_reqs[1:],
+                                     {0: ct.done[1], 1: ct.done[2]},
+                                     "fleet control (b) kv.migrate")
+            try:
+                check_batcher_tokens(torch, cfg, prms, ctl_reqs[:1],
+                                     {0: ct.done[0]},
+                                     "fleet control (a) zeroed K page")
+            except AssertionError as e:
+                assert "fails the rule" in str(e), e
+                out["controls"]["zeroed_k_page"] = "fails the rule"
+            else:
+                raise AssertionError("control (a): a request decoded over "
+                                     "a zeroed K page passes the rule")
+        log(f"fleet: {json.dumps(out, default=str)}")
+    finally:
+        flags.set_flags({"fused_decode_fusions": old})
+        faults.clear()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Training (phases 7-9): the kernels K5-K8 at the train step's shapes, the
 # full-width gradient check, the timed 8-layer train run
@@ -5520,6 +5906,11 @@ def main() -> int:
                                              profile=profile, int8=True)
     torch.cuda.empty_cache()
     mark("6d batcher defaults")
+    # ---- 6g. the serving fleet: two replicas on one card, failover and
+    # disaggregated prefill/decode with live KV migration
+    stats_fleet = serve_fleet(torch, kernels)
+    torch.cuda.empty_cache()
+    mark("6g fleet")
 
     # ---- 7. training kernels vs plain at the train step's shapes, 8. the
     # full-width gradient check, 9. the timed train run (its counts set to
@@ -5602,6 +5993,9 @@ def main() -> int:
              "batcher prefix int8 fused":
                  stats_prefix_int8["fused"]["launches"],
              "batcher lora fused": stats_batcher["fused"]["lora"]["launches"],
+             "batcher fleet failover fused":
+                 stats_fleet["failover"]["launches"],
+             "batcher fleet disagg fused": stats_fleet["disagg"]["launches"],
              "batcher int8 lora fused":
                  stats_batcher_int8["fused"]["lora"]["launches"],
              "train": counts_train, "moe train": counts_moe,
@@ -5714,6 +6108,7 @@ def main() -> int:
                     "serving_batcher_int8w_int8kv": stats_batcher_int8,
                     "serving_batcher_prefix": stats_prefix,
                     "serving_batcher_prefix_int8w_int8kv": stats_prefix_int8,
+                    "serving_fleet": stats_fleet,
                     "train": stats_train, "sft": stats_sft,
                     "moe_train": stats_moe,
                     "moe_quantized_experts": stats_quant}))

@@ -179,3 +179,75 @@ define_flag("moe_dropless", True,
             "scale with tokens actually routed. Off = the GShard "
             "dense-einsum dispatch with capacity padding and overflow "
             "drops.")
+define_flag("fleet_prefix_affinity", True,
+            "FleetRouter steers requests to the replica whose gossiped "
+            "radix-tree page-hash digest matches the longest prefix of the "
+            "request's prompt (inference/router.py), turning the per-"
+            "process prefix_hit_rate into a fleet-wide one. Off = pure "
+            "least-loaded routing (queue depth + active slots from the "
+            "heartbeat lease).")
+define_flag("fleet_tier_edges", "2.0,30.0",
+            "Deadline-tier boundaries (seconds, comma-separated, "
+            "ascending) for the FleetRouter's admission queues: a request "
+            "whose deadline_s is <= edge k lands in tier k, everything "
+            "slower (or deadline-free) in the last tier. Dispatch drains "
+            "tiers in order and load shedding under fleet-wide "
+            "backpressure evicts from the lowest-priority tier first.")
+define_flag("fleet_digest_top_k", 32,
+            "How many radix-tree page-hash entries each replica gossips "
+            "in its heartbeat lease (hottest nodes first). Bounds the "
+            "lease payload; 0 disables the digest (prefix-affinity "
+            "routing then degrades to least-loaded).")
+define_flag("fleet_disagg", False,
+            "Disaggregated prefill/decode serving (inference/router.py): "
+            "the FleetRouter admits new requests to prefill-specialist "
+            "replicas and, once a request's prompt KV is built and it "
+            "has emitted its first token, live-migrates the sequence (KV pages + scale cells + "
+            "streamed-token record) to a decode specialist, which resumes "
+            "it recomputing exactly one token — no re-prefill. Activates "
+            "only when the fleet actually has prefill AND decode-capable "
+            "roles; an explicit disagg=True on a role-less or untiered "
+            "fleet raises.")
+define_flag("fleet_role", "both",
+            "Default replica role for FleetWorker (prefill | decode | "
+            "both), gossiped on the heartbeat lease so the router can "
+            "steer admission and migration without a direct engine read. "
+            "'prefill' replicas take new prompts and hand streams off; "
+            "'decode' replicas only receive migrated live sequences (and "
+            "failover re-dispatches); 'both' serves end-to-end — the "
+            "monolithic default, byte-identical to the pre-disagg fleet.")
+define_flag("gray_detect_factor", 4.0,
+            "Gray-failure detection sensitivity (inference/router.py): "
+            "a replica is flagged as a straggler when its gossiped "
+            "latency telemetry "
+            "(worst of inter-token EWMA and tick-duration EWMA) exceeds "
+            "this factor times the MEDIAN of its same-role healthy peers "
+            "— always fleet-relative, never an absolute threshold, so the "
+            "same knob works on any device. Needs >= 2 "
+            "healthy same-role peers with telemetry (a 2-replica fleet "
+            "has no quorum to outvote a straggler); <= 0 disables "
+            "detection entirely.")
+define_flag("fleet_retry_budget", 64,
+            "Router-level retry budget (token bucket, inference/"
+            "router.py): failover re-dispatches and quarantine "
+            "evacuations each spend one token; the bucket holds this many "
+            "and refills at capacity/60 per second. Exhaustion degrades "
+            "honestly — failovers finish as 'replica_lost', evacuations "
+            "are skipped (the stream decodes on at the slow source) — so "
+            "a correlated brown-out can never amplify into a retry "
+            "storm. < 0 = unlimited; 0 = no re-dispatch ever.")
+define_flag("fleet_worker_stall_s", 0.0,
+            "Per-tick stall injected into FleetWorker._tick (seconds; "
+            "mutable live via worker.stall_s). A chaos knob: makes a "
+            "replica slow-but-alive — heartbeats keep flowing, tokens "
+            "crawl — which is exactly the gray failure the router's "
+            "quarantine machinery must catch. 0 = off (production "
+            "default).")
+define_flag("kv_migration_chunk_pages", 8,
+            "Pages per wire chunk for KVMigrator's chunked transport "
+            "(inference/migration.py): a migrating sequence's host-tier "
+            "page blocks serialize to bytes and stream in chunks of this "
+            "many pages — the prefetch-depth idiom applied to the "
+            "cross-replica seam, bounding peak wire buffering. The "
+            "in-process MemoryStore fleet uses the zero-copy handoff "
+            "transport and never chunks.")

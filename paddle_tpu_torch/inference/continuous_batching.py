@@ -79,15 +79,29 @@ adapter: a prefix's pages hold K/V computed with one adapter's
 projections, so only requests of that adapter (or of the base model)
 share them.
 
+RELIABILITY (``paddle_tpu_torch/reliability``): per-request ``deadline_s``
+is enforced at admission and at every segment boundary; ``max_pending``
+bounds the queue; non-finite logits fail only the offending request;
+``drain()`` stops admission but finishes in-flight slots. The JAX
+package's fault sites sit at the same seams: ``engine.prefill`` (the
+ragged wave) and ``engine.dispatch`` (the spec wave and the segments)
+behind ``_gated_dispatch``, whose optional ``retry_policy`` retries the
+gate only; ``engine.admit_chunk``, ``engine.draft`` and
+``engine.readback`` fail one request alone; ``engine.park`` drops a park
+intent; ``prefix.match`` fails one request, ``prefix.evict`` aborts the
+run, ``prefix.prefetch`` falls back to a cold recompute; the arena's and
+the adapter pool's sites fail the acquiring request. ``health_digest()``
+is the fleet heartbeat's load record, and ``export_parked`` /
+``import_parked`` / ``discard_parked`` move a parked stream between
+engines (``inference/migration.py``, ``inference/fleet.py``).
+
 PyTorch runs eagerly, so the JAX package's compiled-program caches have
 no counterpart. ``stats`` keeps the JAX package's ragged-path keys with
 the same meaning (docs/SERVING.md).
 
 Not ported yet, and refused rather than served without (ROADMAP.md,
-Queue 1): dispatch retries (``retry_policy``), the bucketed admission
-pipeline (``ragged=False``), live migration of parked streams
-(``export_parked``/``import_parked``) and the fault-injection sites. A
-resolved-on feature raises ``NotImplementedError``.
+Queue 1): the bucketed admission pipeline (``ragged=False``), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -102,6 +116,7 @@ import torch
 
 from ..framework import flags
 from ..framework.random import make_generator
+from ..reliability import faults
 from ..models.kv_cache import (HostPageArena, PageAllocator,
                                PagedCacheState, advance_by, advance_masked,
                                clone_pages, create_paged_cache,
@@ -326,12 +341,8 @@ class ContinuousBatcher:
         elif host_tier and not prefix:
             raise ValueError("kv_host_tier requires prefix_caching")
         # ... and whatever resolves on that the port has not got, raises
-        for on, what in ((not self._ragged, "bucketed admission "
-                          "(ragged=False)"),
-                         (retry_policy is not None,
-                          "the dispatch retry policy")):
-            if on:
-                raise _not_ported(what)
+        if not self._ragged:
+            raise _not_ported("bucketed admission (ragged=False)")
         self._prefix_caching = prefix
         # pages beyond the identity batch * pps pool: retained prefixes
         # live there while every slot is busy (one sequence's worth by
@@ -460,6 +471,8 @@ class ContinuousBatcher:
         self._queue: deque = deque()
         self._next_rid = 0
         self.max_pending = max_pending
+        # retries the fault gate of a dispatch (``_gated_dispatch``)
+        self.retry_policy = retry_policy
         self._clock = time.monotonic
         self._draining = False
         # optional callable(tick), run at every scheduler boundary (the
@@ -469,6 +482,8 @@ class ContinuousBatcher:
         # live slots as of the last scheduler boundary
         self.active_slots = 0
         self.reset_stats()
+        from ..reliability import register_engine
+        register_engine(self)
 
     def _prefix_key(self, req: GenRequest, tokens) -> np.ndarray:
         """The tokens the prefix tree matches and inserts for ``req``: its
@@ -591,6 +606,29 @@ class ContinuousBatcher:
     def draining(self) -> bool:
         return self._draining
 
+    def health_digest(self) -> dict:
+        """One load/health record for fleet gossip, the JAX package's
+        keys: queue depth, live slots, drain state, the prefix hit rate
+        prefix-affinity routing maximizes, tokens emitted, the resident
+        adapters (adapter-affinity routing) and the arena's pressure
+        (resident / budget bytes, 0.0 with the arena off). Cheap enough
+        for a heartbeat thread."""
+        return {
+            "queue_depth": len(self._queue),
+            "active_slots": int(self.active_slots),
+            "draining": bool(self._draining),
+            "prefix_hit_rate": float(
+                self.stats.get("prefix_hit_rate", 0.0)),
+            "tokens_emitted": int(self.stats.get("tokens_emitted", 0)),
+            "adapters_resident": (
+                [str(a) for a in self._adapters.resident]
+                if self._adapters is not None else []),
+            "arena_pressure": (
+                float(self._arena.used_bytes())
+                / float(self._arena.budget_bytes)
+                if self._arena is not None else 0.0),
+        }
+
     # ---------------------------------------------------- multi-LoRA pool
 
     def register_adapter(self, adapter_id, weights) -> None:
@@ -689,34 +727,144 @@ class ContinuousBatcher:
         engine serves on the card."""
         if self._host_pager is not None:
             return
-        n_host = self._host_tier_pages or 4 * self._legacy_pool_pages()
-        shape = (self.cfg.num_hidden_layers, self.cfg.num_key_value_heads,
-                 1, self.page_size, self.cfg.head_dim)
-        quantized = self._cache_dtype == torch.int8
+        # normal tensors, even when a run() creates the arena: a migration
+        # imports into it between runs
+        with torch.inference_mode(False):
+            n_host = (self._host_tier_pages
+                      or 4 * self._legacy_pool_pages())
+            shape = (self.cfg.num_hidden_layers,
+                     self.cfg.num_key_value_heads, 1, self.page_size,
+                     self.cfg.head_dim)
+            quantized = self._cache_dtype == torch.int8
 
-        def empty(sh, dt):
-            return torch.empty(sh, dtype=dt, device=self.device)
+            def empty(sh, dt):
+                return torch.empty(sh, dtype=dt, device=self.device)
 
-        s_shape = shape[:-1] + (1,)
-        template = PagedCacheState(
-            k_pages=empty(shape, self._cache_dtype),
-            v_pages=empty(shape, self._cache_dtype),
-            block_tables=empty((1, 1), torch.int32),
-            seq_lens=empty((1,), torch.int32),
-            k_scales=empty(s_shape, torch.float32) if quantized else None,
-            v_scales=empty(s_shape, torch.float32) if quantized else None)
-        self._host_arena = HostPageArena(n_host, template)
+            s_shape = shape[:-1] + (1,)
+            template = PagedCacheState(
+                k_pages=empty(shape, self._cache_dtype),
+                v_pages=empty(shape, self._cache_dtype),
+                block_tables=empty((1, 1), torch.int32),
+                seq_lens=empty((1,), torch.int32),
+                k_scales=(empty(s_shape, torch.float32) if quantized
+                          else None),
+                v_scales=(empty(s_shape, torch.float32) if quantized
+                          else None))
+            self._host_arena = HostPageArena(n_host, template)
         self._host_pager = PageAllocator(n_host)
 
     def export_parked(self, rid: int) -> dict:
-        """Live migration of a parked stream (not ported)."""
-        raise _not_ported("live migration of parked streams "
-                          "(export_parked)")
+        """Serialize a PARKED stream into a self-contained migration blob:
+        the request record (prompt, emitted tokens, budget, the remaining
+        deadline, adapter, prefix length) and its host-tier page blocks,
+        each ``(layers, kv_heads, page, head_dim)`` K and V codes plus, on
+        an int8 cache, their scale blocks (``HostPageArena.export_pages``,
+        CPU tensors). A PEEK: the parked record and its host slots stay
+        this engine's until ``discard_parked`` (delivery confirmed) or
+        ``resume`` (a failed migration decodes on here). Raises KeyError
+        when ``rid`` is not parked."""
+        rec = self._parked[int(rid)]
+        req = rec.req
+        pages = self._host_arena.export_pages(rec.host_pages)
+        per_page = sum(int(t.numel() * t.element_size())
+                       for t in pages[0].values()) if pages else 0
+        return {
+            "spec": self._host_arena.page_spec(),
+            # typed-page tag (models/arena.py's vocabulary): a receiver
+            # lands only kv pages in its KV host tier
+            "arena_class": "kv",
+            "seq_len": int(rec.seq_len),
+            "nbytes": per_page * len(pages),
+            "pages": pages,
+            "req": {
+                "prompt": np.asarray(req.prompt, np.int32),
+                "tokens": [int(t) for t in req.tokens],
+                "max_new_tokens": int(req.max_new_tokens),
+                # the remaining wall budget: the destination restarts the
+                # clock at import
+                "deadline_s": (None if req.deadline_s is None
+                               else req.deadline_s
+                               - (self._clock() - req.submit_t)),
+                "adapter_id": req.adapter_id,
+                "prefix_len": int(req.prefix_len),
+            },
+        }
+
+    def discard_parked(self, rid: int) -> None:
+        """Drop a parked stream after its migration was confirmed
+        delivered: the record dies and its host slots free."""
+        rec = self._parked.pop(int(rid))
+        self._host_pager.release(rec.host_pages)
+        self.stats["parked_slots"] = len(self._parked)
 
     def import_parked(self, blob: dict) -> int:
-        """Live migration of a parked stream (not ported)."""
-        raise _not_ported("live migration of parked streams "
-                          "(import_parked)")
+        """Adopt a migrated stream as a PARKED record of this engine: the
+        arena class and the page spec are checked against the local arena
+        before any byte lands, host slots are allocated (discarding the
+        coldest demoted prefixes under pressure), the page blocks written
+        in, and the request rebuilt under a fresh local rid, which the
+        caller ``resume``s: the next wave recomputes one token."""
+        if not self._host_tier:
+            raise ValueError(
+                "import_parked requires kv_host_tier (and "
+                "prefix_caching): migration lands in the host arena")
+        self._ensure_host_arena()
+        cls = blob.get("arena_class", "kv")
+        if cls != "kv":
+            raise ValueError(
+                f"migration blob carries arena class {cls!r}; only "
+                f"'kv' pages land in the KV host tier")
+        spec = self._host_arena.page_spec()
+        if blob["spec"] != spec:
+            raise ValueError(
+                f"migration spec mismatch: blob {blob['spec']} vs "
+                f"local arena {spec}")
+        n = len(blob["pages"])
+        hps = self._host_pager.alloc(n)
+        if hps is None and self._prefix is not None:
+            self._prefix.free_host_slots(n - self._host_pager.available())
+            hps = self._host_pager.alloc(n)
+        if hps is None:
+            raise RuntimeError(
+                f"host arena exhausted importing migration ({n} pages)")
+        try:
+            self._host_arena.import_pages(hps, blob["pages"])
+        except Exception:
+            self._host_pager.release(hps)
+            raise
+        r = blob["req"]
+        req = GenRequest(self._next_rid, np.asarray(r["prompt"], np.int32),
+                         int(r["max_new_tokens"]),
+                         deadline_s=r.get("deadline_s"),
+                         submit_t=self._clock(),
+                         adapter_id=r.get("adapter_id"))
+        self._next_rid += 1
+        req.tokens = [int(t) for t in r["tokens"]]
+        req.prefix_len = int(r.get("prefix_len", 0))
+        self._parked[req.rid] = _Parked(req, hps, int(blob["seq_len"]))
+        self.stats["parked_slots"] = len(self._parked)
+        return req.rid
+
+    def _gated_dispatch(self, site: str, ctx: dict, thunk):
+        """Run a dispatch behind its fault gate. The retry policy covers
+        the GATE only: once the dispatch starts, its cache may already be
+        written in place, so a failure inside it is never retried — it
+        propagates. Gate retries count into ``stats["retries"]``, on
+        exhaustion too."""
+        if self.retry_policy is not None:
+            attempts = [0]
+
+            def gate():
+                attempts[0] += 1
+                faults.maybe_fail(site, **ctx)
+
+            try:
+                self.retry_policy.call(gate)
+            finally:
+                self.stats["retries"] += max(0, attempts[0] - 1)
+        else:
+            faults.maybe_fail(site, **ctx)
+        return thunk()
 
     # ------------------------------------------------------------ steps
 
@@ -1252,15 +1400,29 @@ class ContinuousBatcher:
                 self._adapters.release(req.adapter_id)
                 req._adapter_slot = None
 
+        def fail_request(req, e):
+            """A per-request fault: the request finishes with status
+            "error", alone."""
+            req.status = "error"
+            req.error = repr(e)
+            req.done = True
+            done[req.rid] = req
+            self.stats["request_errors"] += 1
+
         def acquire_adapter(req):
             """Pin the request's adapter on the device before placement:
-            "ok" (base requests trivially), or "defer" (every slot pinned
-            by live requests: the request goes back to the queue's head,
-            adapter_deferrals counts it)."""
+            "ok" (base requests trivially), "defer" (every slot pinned by
+            live requests: the request goes back to the queue's head,
+            adapter_deferrals counts it) or "failed" (an ``adapter.load``
+            / ``adapter.evict`` fault fails this request alone)."""
             if (self._adapters is None or req.adapter_id is None
                     or req._adapter_slot is not None):
                 return "ok"
-            slot = self._adapters.acquire(req.adapter_id)
+            try:
+                slot = self._adapters.acquire(req.adapter_id)
+            except Exception as e:
+                fail_request(req, e)
+                return "failed"
             if slot is None:
                 self.stats["adapter_deferrals"] += 1
                 self._queue.appendleft(req)
@@ -1304,13 +1466,24 @@ class ContinuousBatcher:
             keep[idx] = False
             dev_active = dev_active & torch.as_tensor(keep, device=dev)
 
+        def kv_alloc(n):
+            """pager.alloc under the arena's fault contract: a faulted
+            cross-class steal (``arena.steal`` / ``arena.demote``) fails
+            only the acquiring request, so on the kv side it reads as "no
+            pages" and the evict/defer ladder goes on."""
+            try:
+                return pager.alloc(n)
+            except faults.FaultError:
+                return None
+
         def alloc_under_pressure(n):
             """alloc, else leaf-LRU evict and alloc again: None means a
-            deferral, never a raise."""
-            pages = pager.alloc(n)
+            deferral, never a raise (a ``prefix.evict`` fault aside, which
+            aborts the run)."""
+            pages = kv_alloc(n)
             if pages is None:
                 prefix.evict(n - pager.available())
-                pages = pager.alloc(n)
+                pages = kv_alloc(n)
             return pages
 
         def place(i, req):
@@ -1319,12 +1492,18 @@ class ContinuousBatcher:
             reference, private suffix and decode pages from the free
             list). A match that ends in host-resident pages promotes them
             into fresh device pages (uploads enqueued before the next
-            wave). Returns "ok" or "defer" (pool exhausted even after
-            eviction: the request goes back to the queue's head)."""
+            wave). Returns "ok", "defer" (pool exhausted even after
+            eviction: the request goes back to the queue's head) or
+            "failed" (a ``prefix.match`` fault fails this request
+            alone)."""
             if req.rid in self._resuming:
                 return place_resumed(i, req)
-            m_len, path = prefix.match_tiered(self._prefix_key(req,
-                                                               req.prompt))
+            try:
+                m_len, path = prefix.match_tiered(
+                    self._prefix_key(req, req.prompt))
+            except Exception as e:
+                fail_request(req, e)
+                return "failed"
             # path order is hbm* host*: the device prefix attaches by
             # reference, the host suffix by promotion
             n_hbm = sum(1 for n in path if n.tier == "hbm")
@@ -1355,21 +1534,43 @@ class ContinuousBatcher:
                 m_len, path, m_pages, host_sfx, host_hold = 0, [], [], [], []
                 start, cow = 0, False
 
-            priv = alloc_under_pressure(need)
+            try:
+                priv = alloc_under_pressure(need)
+            except Exception:
+                # a prefix.evict fault aborts the run, but the persistent
+                # host pager must not keep this placement's holds
+                drop_match()
+                raise
             if priv is None and not any(s is not None for s in slots):
                 # no live slot will free pages by decoding: reset the
                 # tree, and if the held match itself does not fit, drop
                 # it (an empty pool always fits one slot)
                 prefix.evict_all()
-                priv = pager.alloc(need)
+                priv = kv_alloc(need)
                 if priv is None:
                     drop_match()
-                    priv = pager.alloc(n_total)
+                    priv = kv_alloc(n_total)
             if priv is None:
                 drop_match()
                 self.stats["cache_full_deferrals"] += 1
                 self._queue.appendleft(req)
                 return "defer"
+            if host_sfx:
+                try:
+                    # a faulted promotion falls back to a cold recompute
+                    # for this request alone: the match drops, the nodes
+                    # stay host-resident for the next request
+                    faults.maybe_fail("prefix.prefetch", rid=req.rid,
+                                      pages=len(host_sfx))
+                except Exception:
+                    self.stats["prefetch_faults"] += 1
+                    pager.release(priv)
+                    drop_match()
+                    priv = alloc_under_pressure(n_total)
+                    if priv is None:
+                        self.stats["cache_full_deferrals"] += 1
+                        self._queue.appendleft(req)
+                        return "defer"
             if host_sfx:
                 dst = [priv.pop(0) for _ in host_sfx]
                 flush_pending_clones()      # before any eager page write
@@ -1431,26 +1632,35 @@ class ContinuousBatcher:
             priv = alloc_under_pressure(n_total)
             if priv is None and not any(s is not None for s in slots):
                 prefix.evict_all()
-                priv = pager.alloc(n_total)
+                priv = kv_alloc(n_total)
             if priv is None:
                 self.stats["cache_full_deferrals"] += 1
                 self._queue.appendleft(req)     # still in _resuming
                 return "defer"
-            flush_pending_clones()          # before any eager page write
-            t0 = time.perf_counter()
-            self._host_arena.load(cache, rec.host_pages, priv[:n_used],
-                                  self._prefetch_depth)
-            self.stats["prefetch_stall_ms"] += (
-                time.perf_counter() - t0) * 1e3
-            self.stats["host_tier_hits"] += 1
-            self.stats["host_tier_pages_promoted"] += n_used
-            self.stats["recompute_avoided_tokens"] += rec.seq_len
-            n_full = rec.seq_len // P
-            if n_full:
-                prefix.insert(self._prefix_key(req,
-                                               req.resume_src[:n_full * P]),
-                              [int(p) for p in priv[:n_full]])
-                self.stats["prefix_inserts"] = prefix.stats["inserts"]
+            try:
+                # a faulted resume prefetch falls back to a cold recompute
+                # of the whole history (resume_src): slower, same tokens
+                faults.maybe_fail("prefix.prefetch", rid=req.rid,
+                                  pages=n_used, resume=True)
+            except Exception:
+                self.stats["prefetch_faults"] += 1
+                req.prefilled = 0
+            else:
+                flush_pending_clones()      # before any eager page write
+                t0 = time.perf_counter()
+                self._host_arena.load(cache, rec.host_pages, priv[:n_used],
+                                      self._prefetch_depth)
+                self.stats["prefetch_stall_ms"] += (
+                    time.perf_counter() - t0) * 1e3
+                self.stats["host_tier_hits"] += 1
+                self.stats["host_tier_pages_promoted"] += n_used
+                self.stats["recompute_avoided_tokens"] += rec.seq_len
+                n_full = rec.seq_len // P
+                if n_full:
+                    prefix.insert(
+                        self._prefix_key(req, req.resume_src[:n_full * P]),
+                        [int(p) for p in priv[:n_full]])
+                    self.stats["prefix_inserts"] = prefix.stats["inserts"]
             del self._resuming[req.rid]
             self._host_pager.release(rec.host_pages)
             row = bt_host[i]
@@ -1469,8 +1679,9 @@ class ContinuousBatcher:
             segment already in flight may still emit for it; those tokens
             are discarded (wasted_slot_steps) and greedy decoding emits
             them again on resume. A park that cannot find host slots, even
-            after discarding the coldest demoted prefixes, drops the
-            intent and the stream keeps decoding."""
+            after discarding the coldest demoted prefixes (or a fault at
+            ``engine.park``), drops the intent and the stream keeps
+            decoding."""
             if not self._park_req or prefix is None:
                 return
             parked_now: List[int] = []
@@ -1483,19 +1694,29 @@ class ContinuousBatcher:
                 self._park_req.discard(req.rid)
                 seq_len = len(req.prompt) + len(req.tokens) - 1
                 n_used = -(-seq_len // P)
-                hps = self._host_pager.alloc(n_used)
-                if hps is None:
-                    prefix.free_host_slots(
-                        n_used - self._host_pager.available())
+                hps = None
+                try:
+                    faults.maybe_fail("engine.park", rid=req.rid, slot=i)
                     hps = self._host_pager.alloc(n_used)
-                if hps is None:
+                    if hps is None:
+                        prefix.free_host_slots(
+                            n_used - self._host_pager.available())
+                        hps = self._host_pager.alloc(n_used)
+                    if hps is None:
+                        raise RuntimeError(
+                            f"host arena exhausted parking rid {req.rid} "
+                            f"({n_used} pages)")
+                    t0 = time.perf_counter()
+                    self._host_arena.store(
+                        cache, [int(p) for p in bt_host[i, :n_used]], hps)
+                    self.stats["offload_stall_ms"] += (
+                        time.perf_counter() - t0) * 1e3
+                except Exception:
+                    if hps is not None:
+                        # the persistent host pager keeps no stranded slot
+                        self._host_pager.release(hps)
                     self.stats["park_faults"] += 1
                     continue    # intent dropped; the stream decodes on
-                t0 = time.perf_counter()
-                self._host_arena.store(
-                    cache, [int(p) for p in bt_host[i, :n_used]], hps)
-                self.stats["offload_stall_ms"] += (
-                    time.perf_counter() - t0) * 1e3
                 free(i)
                 self._parked[req.rid] = _Parked(req, hps, seq_len)
                 self.stats["parks"] += 1
@@ -1539,10 +1760,14 @@ class ContinuousBatcher:
                     # the adapter pin first: the wave routes the slot's
                     # rows to its group; a deferred request keeps it, so
                     # the retry is a hit
-                    if acquire_adapter(req) == "defer":
+                    verdict = acquire_adapter(req)
+                    if verdict == "defer":
                         break
+                    if verdict == "failed":
+                        continue
                     if prefix is not None:
-                        if place(i, req) == "defer":
+                        verdict = place(i, req)
+                        if verdict == "defer":
                             # with no live slot left to free pages, the
                             # request's own pin may be the residency the kv
                             # side cannot steal: drop it
@@ -1550,6 +1775,9 @@ class ContinuousBatcher:
                                     not any(s is not None for s in slots):
                                 release_adapter(req)
                             break
+                        if verdict == "failed":
+                            release_adapter(req)
+                            continue
                     else:
                         req.prefilled = 0
                         req.started = False
@@ -1582,7 +1810,16 @@ class ContinuousBatcher:
                          start_len):
             """Assign ``take`` wave-source tokens of slot i's request into
             the wave's chunk buffers at row ``pos`` (wave row ``base +
-            pos``). Returns 1 on the request's first chunk, else 0."""
+            pos``). Returns 1 on the request's first chunk, 0 on a later
+            one, -1 when the ``engine.admit_chunk`` fault failed the
+            request (its slot freed; the wave goes on without it)."""
+            try:
+                faults.maybe_fail("engine.admit_chunk", rid=req.rid, slot=i,
+                                  tokens=take)
+            except Exception as e:
+                fail_request(req, e)
+                free(i)
+                return -1
             first = 0
             if not req.started:
                 new_slot[i] = True
@@ -1658,12 +1895,19 @@ class ContinuousBatcher:
                                budget_left)
                     if take <= 0:
                         continue                  # budget spent this step
-                    n_started += assign_chunk(
+                    first = assign_chunk(
                         i, req, take, chunk_ids, row_slot_pf, row_off_pf, off,
                         B, q_start, chunk_len, chunk_done, budgets, new_slot,
                         start_len)
+                    if first < 0:
+                        continue    # the fault site failed this request
+                    n_started += first
                     off += take
                     budget_left -= take
+                if off == 0:
+                    # every pending prefill failed out of the wave: freed
+                    # slots may admit queued arrivals
+                    continue
                 if prefix is not None:
                     # decode rows append past the prompt region, private by
                     # construction
@@ -1683,9 +1927,11 @@ class ContinuousBatcher:
                     row_group[B:][own] = sg[row_slot_pf[own]]
                     lora = routing(row_group)
                 (toks, emit, okm, dev_tokens, dev_active, dev_remaining,
-                 cache) = rstep(self.params, *wave, dev_tokens, dev_active,
-                                dev_remaining, cache, self.cos, self.sin,
-                                lora)
+                 cache) = self._gated_dispatch(
+                    "engine.prefill", {"tick": tick, "tokens": int(off)},
+                    lambda: rstep(self.params, *wave, dev_tokens, dev_active,
+                                  dev_remaining, cache, self.cos, self.sin,
+                                  lora))
                 self.stats["prefill_dispatches"] += 1
                 self.stats["ragged_steps"] += 1
                 self.stats["prefills"] += n_started
@@ -1790,10 +2036,13 @@ class ContinuousBatcher:
                                budget_left)
                     if take <= 0:
                         continue                  # budget spent this step
-                    n_started += assign_chunk(
+                    first = assign_chunk(
                         i, req, take, ids, row_slot, row_off, off, 0,
                         q_start, q_len, chunk_done, budgets, new_slot,
                         start_len)
+                    if first < 0:
+                        continue    # the fault site failed this request
+                    n_started += first
                     off += take
                     budget_left -= take
                     n_chunk_tokens += take
@@ -1815,15 +2064,14 @@ class ContinuousBatcher:
                     dr = np.zeros((0,), np.int32)
                     if cap_k > 0:
                         try:
+                            # a failing proposer fails this request alone
+                            faults.maybe_fail("engine.draft", rid=req.rid,
+                                              slot=i)
                             dr = np.asarray(self._draft.propose(
                                 np.asarray(req.output_ids, np.int32),
                                 cap_k), np.int32).reshape(-1)[:cap_k]
                         except Exception as e:
-                            req.status = "error"
-                            req.error = repr(e)
-                            req.done = True
-                            done[req.rid] = req
-                            self.stats["request_errors"] += 1
+                            fail_request(req, e)
                             free(i)
                             pre_dead.append(i)
                             continue
@@ -1860,8 +2108,11 @@ class ContinuousBatcher:
                     drafts, k_eff, chunk_done, budgets, new_slot,
                     start_len)]
                 (cand, emitm, okm, dev_tokens, dev_active, dev_remaining,
-                 cache) = sstep(self.params, *wave, dev_tokens, dev_active,
-                                dev_remaining, cache, self.cos, self.sin)
+                 cache) = self._gated_dispatch(
+                    "engine.dispatch",
+                    {"tick": tick, "tokens": int(off), "spec": True},
+                    lambda: sstep(self.params, *wave, dev_tokens, dev_active,
+                                  dev_remaining, cache, self.cos, self.sin))
                 self.stats["ragged_steps"] += 1
                 if n_chunk_tokens:
                     self.stats["prefill_dispatches"] += 1
@@ -1953,9 +2204,11 @@ class ContinuousBatcher:
             # one routing for the whole segment: a row a slot
             lora = routing(slot_groups()) if self._lora else None
             (toks, emitted, okm, dev_tokens, dev_active, dev_remaining,
-             cache) = self._build_segment(seg)(
-                self.params, dev_tokens, cache, dev_active, dev_remaining,
-                self.cos, self.sin, lora)
+             cache) = self._gated_dispatch(
+                "engine.dispatch", {"tick": tick, "seg": seg},
+                lambda: self._build_segment(seg)(
+                    self.params, dev_tokens, cache, dev_active,
+                    dev_remaining, self.cos, self.sin, lora))
             self.stats["segments"] += 1
             self.stats["decode_steps"] += seg
             tick += 1
@@ -1984,6 +2237,15 @@ class ContinuousBatcher:
                     # construction (a force-freed or parked slot racing a
                     # segment in flight is the one legitimate source)
                     self.stats["wasted_slot_steps"] += int(em_np[:, i].sum())
+                    continue
+                try:
+                    # the readback fault site fails this request, never the
+                    # batch (Exception: a Ctrl-C here stops the loop)
+                    faults.maybe_fail("engine.readback", rid=req.rid, slot=i)
+                except Exception as e:
+                    fail_request(req, e)
+                    free(i)
+                    force_free.append(i)
                     continue
                 bad_token = False
                 for s in range(seg):

@@ -24,9 +24,11 @@ pages along it hold that prefix's K/V. ``ContinuousBatcher`` drives it:
 A node's tier order along any path is hbm* host*, so ``match()`` (the
 single-tier view) is the path cut at its first host node. A shared page's
 bytes equal what the admitted request's own prefill would have written, so
-greedy tokens are the same with the cache on or off. The fault sites of
-the JAX package's copy (``prefix.match``/``evict``/``offload``) are not
-ported.
+greedy tokens are the same with the cache on or off. Fault sites
+(``reliability/faults.py``), as in the JAX package's copy:
+``prefix.match`` (the engine fails the request being admitted),
+``prefix.evict`` (a clean FaultError out of admission) and
+``prefix.offload`` (a demotion degrades to a discard).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from __future__ import annotations
 import hashlib
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..reliability import faults
 
 
 def page_hash_chain(tokens: Sequence[int], page_size: int) -> List[str]:
@@ -188,7 +192,9 @@ class PrefixCache:
         prefix then a host-resident suffix). The engine attaches the HBM
         nodes' pages by reference and promotes the host suffix
         (allocate HBM pages, async-prefetch the bytes, `promote` each
-        node) before any wave reads them."""
+        node) before any wave reads them. Fault site ``prefix.match``:
+        the engine fails only the request being admitted."""
+        faults.maybe_fail("prefix.match", tokens=len(tokens))
         self._tick += 1
         p = self.page_size
         node, path, i = self._root, [], 0
@@ -272,12 +278,19 @@ class PrefixCache:
         Removing a leaf whose page other slots still reference frees
         nothing immediately — the reference moves off the tree and the
         page returns to the pool when its last slot releases it — but the
-        node is still removed, so a stale suffix cannot pin tree growth."""
+        node is still removed, so a stale suffix cannot pin tree growth.
+
+        Fault site ``prefix.evict``: eviction runs under pool pressure
+        inside admission, so a fault surfaces as a clean FaultError out of
+        the engine."""
+        faults.maybe_fail("prefix.evict", need=n_pages)
         return self._evict_until(n_pages)
 
     def reclaim(self, n_pages: int) -> int:
         """The unified arena's `kv` demotion hook (models/arena.py):
-        the same leaf-LRU demote-or-discard loop as :meth:`evict`."""
+        the same leaf-LRU demote-or-discard loop as :meth:`evict`, without
+        the ``prefix.evict`` site (the arena's steal loop plants its own
+        ``arena.steal`` / ``arena.demote``)."""
         return self._evict_until(n_pages)
 
     def evict_all(self) -> int:
@@ -436,9 +449,9 @@ class PrefixCache:
         and the tree holds the ONLY reference (a page some slot still
         reads cannot move — its node just drops off the tree, old
         behavior). Host-arena pressure discards coldest host leaves
-        first; if the arena still has no slot (everything held),
-        demotion degrades to the pre-tiering discard — never a crashed
-        admission."""
+        first; if the arena still has no slot (everything held), or the
+        fault site ``prefix.offload`` fires, demotion degrades to the
+        pre-tiering discard — never a crashed admission."""
         if (self.host_pager is None or self._offload is None
                 or int(self.allocator.refcount[node.page]) != 1):
             return None
@@ -448,6 +461,12 @@ class PrefixCache:
             slot = self.host_pager.alloc(1)
             if slot is None:
                 return None
+        try:
+            faults.maybe_fail("prefix.offload", page=int(node.page))
+        except Exception:
+            self.host_pager.release(slot)
+            self.stats["offload_faults"] += 1
+            return None
         return int(slot[0])
 
     def _remove(self, node: _Node) -> List[int]:

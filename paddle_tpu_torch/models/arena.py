@@ -17,8 +17,10 @@ The batcher registers ``kv`` and the reserved ``weight`` class, and with
 multi-LoRA serving the ``adapter`` class: the ``AdapterPool``'s device
 slots (``models/lora.py``), one unit an adapter's stacked (A, B) buffers
 over every layer, its ceiling the legacy slot count + 8, reclaimed by
-dropping unreferenced adapters' residency. The ``arena.steal`` /
-``arena.demote`` fault sites are not ported.
+dropping unreferenced adapters' residency. Fault sites
+``arena.steal`` (the cross-class transfer decision) and ``arena.demote``
+(the victim's demotion) fire before any victim is touched, failing
+exactly the acquiring request.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from collections import deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+from ..reliability import faults
 
 #: the page-class vocabulary: ``kv`` = paged-KV cache pages, ``adapter``
 #: = stacked LoRA (A, B) slot shards, ``weight`` = draft-model weight
@@ -280,6 +284,10 @@ class UnifiedArena:
             if slack <= 0:
                 continue
             units = min(slack, -(-deficit // self._unit[victim]))
+            # a fault aborts the allocation before any victim is touched
+            faults.maybe_fail("arena.steal", winner=winner, victim=victim,
+                              units=units)
+            faults.maybe_fail("arena.demote", cls=victim, units=units)
             got = int(self._reclaim[victim](units))
             if got > 0:
                 key = f"{victim}->{winner}"

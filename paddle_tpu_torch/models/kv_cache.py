@@ -368,6 +368,42 @@ class HostPageArena:
                 "dtype": str(self.k.dtype).replace("torch.", ""),
                 "quantized": bool(self.quantized)}
 
+    def export_pages(self, host_pages) -> List[dict]:
+        """Host slots -> self-contained page blocks, the JAX package's
+        unit: ``k``/``v`` of shape ``(layers, kv_heads, page, head_dim)``
+        and, on a quantized arena, ``k_scales``/``v_scales`` of shape
+        ``(layers, kv_heads, page, 1)``. The blocks are COPIES (CPU
+        tensors): the slots may be freed or overwritten independently, so
+        a migration that fails in flight leaves the source intact."""
+        names = ("k", "v", "k_scales", "v_scales")
+        return [{n: t[int(p)].clone() for n, t in zip(names, self._host())}
+                for p in host_pages]
+
+    def import_pages(self, host_pages, blocks) -> None:
+        """Write exported page blocks into this arena's slots. Every block
+        is checked against the local page shape, dtype and quantization
+        before any byte lands."""
+        host_pages = [int(p) for p in host_pages]
+        if len(host_pages) != len(blocks):
+            raise ValueError(f"import of {len(blocks)} page blocks "
+                             f"into {len(host_pages)} host slots")
+        want = tuple(self.k.shape[1:])
+        for blk in blocks:
+            k, v = blk["k"], blk["v"]
+            if (tuple(k.shape) != want or tuple(v.shape) != want
+                    or k.dtype != self.k.dtype or v.dtype != self.k.dtype):
+                raise ValueError(
+                    f"incompatible page block: got {tuple(k.shape)}/"
+                    f"{k.dtype}, arena holds {want}/{self.k.dtype}")
+            if bool(self.quantized) != ("k_scales" in blk):
+                raise ValueError(
+                    "quantization mismatch: page block and arena "
+                    "disagree about scale cells")
+        names = ("k", "v", "k_scales", "v_scales")
+        for p, blk in zip(host_pages, blocks):
+            for n, t in zip(names, self._host()):
+                t[p].copy_(blk[n])
+
     def store(self, state: PagedCacheState, device_pages,
               host_pages) -> None:
         """Offload: device pages -> host slots, blocking."""

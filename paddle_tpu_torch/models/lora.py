@@ -1,6 +1,7 @@
 """Batched multi-LoRA serving (``paddle_tpu/models/lora.py``): the adapter
-format, the pool, and the grouped delta. The port's own copy, less the
-fault sites ``adapter.load`` / ``adapter.evict``.
+format, the pool, and the grouped delta. The port's own copy, with the
+fault sites ``adapter.load`` / ``adapter.evict`` (the batcher fails the
+acquiring request alone).
 
   * the ADAPTER FORMAT — per-projection low-rank (A, B) pairs for q/k/v/o
     and gate/up/down, keyed by the full parameter name
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..framework import flags
+from ..reliability import faults
 
 #: the adapted projections, layer-local names (every matmul of the decoder
 #: block; the LM head and the embedding are not adapted)
@@ -263,7 +265,8 @@ class AdapterPool:
     def acquire(self, adapter_id) -> Optional[int]:
         """Pin ``adapter_id`` on the device for one request: its slot, or
         None when every slot is pinned by live requests (the caller
-        defers). Raises KeyError for an unregistered adapter."""
+        defers). Raises KeyError for an unregistered adapter and
+        propagates ``adapter.load`` / ``adapter.evict`` faults."""
         if adapter_id not in self._host:
             raise KeyError(f"adapter {adapter_id!r} is not registered")
         slot = self._slot_of.get(adapter_id)
@@ -283,9 +286,13 @@ class AdapterPool:
         if victim is not None:
             # the host copy is the system of record: eviction only drops
             # the device residency
+            faults.maybe_fail("adapter.evict", adapter=str(victim),
+                              slot=slot)
             del self._slot_of[victim]
             self._slots[slot] = None
             self.stats["adapter_evictions"] += 1
+        faults.maybe_fail("adapter.load", adapter=str(adapter_id),
+                          slot=slot)
         self._load(adapter_id, slot)
         self._slots[slot] = adapter_id
         self._slot_of[adapter_id] = slot
@@ -307,6 +314,8 @@ class AdapterPool:
             if not evictable:
                 return None
             vslot = min(evictable, key=lambda s: self._last_used[s])
+            faults.maybe_fail("adapter.evict",
+                              adapter=str(self._slots[vslot]), slot=vslot)
             del self._slot_of[self._slots[vslot]]
             self._slots[vslot] = None
             self.stats["adapter_evictions"] += 1
@@ -314,7 +323,13 @@ class AdapterPool:
             pages = self._view.alloc(1)
             assert pages is not None
         slot = pages[0]
-        self._load(adapter_id, slot)
+        try:
+            faults.maybe_fail("adapter.load", adapter=str(adapter_id),
+                              slot=slot)
+            self._load(adapter_id, slot)
+        except Exception:
+            self._view.release(pages)  # no residency leak on a fault
+            raise
         self._slots[slot] = adapter_id
         self._slot_of[adapter_id] = slot
         self._refcount[slot] = 1

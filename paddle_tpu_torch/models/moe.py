@@ -32,6 +32,9 @@ form forward and dX through the dequantized stack (codes and scales take
 no gradient); the dense route expands the codes with
 ``grouped_matmul._expand_expert_weight`` first.
 
+Fault site ``moe.dispatch`` (``reliability/faults.py``) fires at each
+layer's routing, as in the JAX package: a clean error, never a hang.
+
 Not ported: expert parallelism (``apply_moe_expert_parallel``, the ep
 ring route); it raises.
 """
@@ -50,6 +53,7 @@ from ..framework.place import resolve_device
 from ..framework.random import make_generator
 from ..nn import Embedding, Layer, RMSNorm
 from ..nn.common import INIT_STD
+from ..reliability import faults
 from .llama import LlamaAttention, LlamaConfig, _proj, _train_fused_block
 
 _NOT_PORTED_EP = ("expert parallelism (the ep ring route over NCCL) is not "
@@ -316,7 +320,14 @@ class MoEMLP(Layer):
         logits = x @ self.gate.weight                             # (B, S, E)
         if router_probe is not None:
             router_probe.append(logits.detach())
-        if flags.get_flag("moe_dropless"):
+        path = "dropless" if flags.get_flag("moe_dropless") else "dense"
+        # the routing seam's fault site: a clean error, never a hang
+        if eq is None:
+            faults.maybe_fail("moe.dispatch", path=path)
+        else:
+            faults.maybe_fail("moe.dispatch", quant=eq["weight_dtype"],
+                              path=path)
+        if path == "dropless":
             if eq is None:
                 y, aux = _dropless_route(x, logits, self.w_gate, self.w_up,
                                          self.w_down, cfg.top_k, plain=plain)

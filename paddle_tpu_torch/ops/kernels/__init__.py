@@ -1,7 +1,8 @@
 """Kernel wrappers — counterparts of ``paddle_tpu/ops/pallas/`` by file name.
 
 Each module holding a kernel keeps a plain PyTorch version beside it and a
-plain-integer launch counter that only its launch site increments
+plain-integer launch counter that only its launch site increments (under
+``_build.count``'s lock: serving threads launch at once)
 (``fused_rope_attend`` keeps one per entry form; ``flash_attention`` one
 for K1, K5 and K9 each; ``fused_norm_rope`` one per RMSNorm direction and
 one for K12, both directions; ``grouped_matmul`` one for K13's bf16

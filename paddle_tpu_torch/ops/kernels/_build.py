@@ -155,6 +155,18 @@ def launch(name: str, *args) -> None:
                            f"({lib.pt_error_string(rc).decode()})")
 
 
+_count_lock = threading.Lock()
+
+
+def count(counters: dict, name: str = "launches") -> None:
+    """Add one to the launch counter ``name`` of a kernel module
+    (``counters``: its ``globals()``), under one lock for every module:
+    serving threads launch on one card at once and the ctypes call
+    releases the GIL, so a bare ``+= 1`` could lose an increment."""
+    with _count_lock:
+        counters[name] += 1
+
+
 def stream_of(t) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     import torch

@@ -209,7 +209,6 @@ def _check_attention(name, q, k, v, bias):
 def flash_attention_fwd(q, k, v, causal=False, scale=None, bias=None):
     """(out, lse) — K1 on CUDA tensors, the plain version on CPU tensors.
     ``bias``: an optional (B, Sk) f32 key bias (``_key_bias_from_mask``)."""
-    global launches
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     scale = scale or (1.0 / math.sqrt(d))
@@ -225,7 +224,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, bias=None):
                   v.data_ptr(), _bias_arg(bias), _bias_arg(live),
                   out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hk,
                   int(bool(causal)), float(scale), _build.stream_of(q))
-    launches += 1
+    _build.count(globals())
     if _may_have_dead_rows(sq, sk, causal, bias):
         out = _fill_dead_rows(out, v, lse)
     return out, lse
@@ -369,7 +368,6 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
                         bias=None):
     """(dq, dk, dv) — K5 on CUDA tensors, the plain version on CPU
     tensors."""
-    global bwd_launches
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     scale = scale or (1.0 / math.sqrt(d))
@@ -389,7 +387,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h,
                   hk, int(bool(causal)), float(scale), _build.stream_of(q))
-    bwd_launches += 1
+    _build.count(globals(), "bwd_launches")
     if _may_have_dead_rows(sq, sk, causal, bias):
         dv = _add_dead_rows_dv(dv, do, lse)
     return dq, dk, dv
@@ -495,7 +493,6 @@ def flash_attention_bwd_fused(q, k, v, out, lse, do, causal=False,
     tensors. The dS tiles (B*H, live pairs, 64, 64) bf16 are scratch
     allocated here and freed on return (0.52 GiB at B=4, S=2048, H=32,
     causal)."""
-    global bwd_fused_launches
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     scale = scale or (1.0 / math.sqrt(d))
@@ -519,7 +516,7 @@ def flash_attention_bwd_fused(q, k, v, out, lse, do, causal=False,
                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), parts.data_ptr(), n_pairs, b, sq, sk, h, hk,
                   int(bool(causal)), float(scale), _build.stream_of(q))
-    bwd_fused_launches += 1
+    _build.count(globals(), "bwd_fused_launches")
     if _may_have_dead_rows(sq, sk, causal, bias):
         dv = _add_dead_rows_dv(dv, do, lse)
     return dq, dk, dv

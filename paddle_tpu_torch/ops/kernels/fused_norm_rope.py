@@ -119,7 +119,6 @@ def _check_shapes(name, x2, w):
 def rms_norm_fwd(x2, w, eps):
     """(out, rstd) for x2 (N, H) — K6 on CUDA tensors, the plain version on
     CPU tensors."""
-    global fwd_launches
     if not x2.is_cuda:
         return rms_norm_fwd_reference(x2, w, eps)
     _build.check_no_grad("rms_norm_fwd", x2, w)
@@ -129,14 +128,13 @@ def rms_norm_fwd(x2, w, eps):
     _build.launch("pt_rms_norm_fwd", x2.data_ptr(), w.data_ptr(),
                   out.data_ptr(), rstd.data_ptr(), n, h, float(eps),
                   _build.stream_of(x2))
-    fwd_launches += 1
+    _build.count(globals(), "fwd_launches")
     return out, rstd
 
 
 def rms_norm_bwd(x2, w, rstd, g2):
     """(dx, dw f32) — K7 on CUDA tensors (its CTAs' dw partials summed by
     its second kernel), the plain version on CPU tensors."""
-    global bwd_launches
     if not x2.is_cuda:
         return rms_norm_bwd_reference(x2, w, rstd, g2)
     _build.check_no_grad("rms_norm_bwd", x2, w, g2)
@@ -154,7 +152,7 @@ def rms_norm_bwd(x2, w, rstd, g2):
                   rstd.data_ptr(), g2.data_ptr(), dx.data_ptr(),
                   parts.data_ptr(), dw.data_ptr(), n, h, grid,
                   _build.stream_of(x2))
-    bwd_launches += 1
+    _build.count(globals(), "bwd_launches")
     return dx, dw
 
 
@@ -237,7 +235,6 @@ def rope_fwd(x, cos, sin, transpose=False):
     ``transpose`` its VJP (the rope with ``rope_bwd_table(sin)``) — K12 on
     CUDA tensors (the transposed instance reads sin swapped and negated:
     one launch), the plain version on CPU tensors."""
-    global rope_launches
     if not x.is_cuda:
         return rope_reference(x, cos, rope_bwd_table(sin) if transpose
                               else sin)
@@ -257,7 +254,7 @@ def rope_fwd(x, cos, sin, transpose=False):
                   int(x.dtype == torch.bfloat16), int(transpose),
                   *rope_plan(b, s, h, d, x.element_size()), sms,
                   _build.stream_of(x))
-    rope_launches += 1
+    _build.count(globals(), "rope_launches")
     return out
 
 

@@ -124,7 +124,6 @@ def adamw8bit_update(param, grad, state, lr, step, weight_decay, lr_scale,
     """Update ``param`` (a tensor, in place) and ``state`` (in place) by one
     AdamW8bit step. K8 on CUDA tensors (with the ``optimizer_update`` train
     fusion on), the plain version on CPU tensors or with ``plain=True``."""
-    global launches
     from . import fusion
 
     _check_weight_only_rule(param)
@@ -173,4 +172,4 @@ def adamw8bit_update(param, grad, state, lr, step, weight_decay, lr_scale,
         state["v_s"].data_ptr(), param.numel(), s["b1"], s["omb1"], s["b2"],
         s["omb2"], s["lrls"], s["bc1"], s["bc2"], s["eps"], s["wdm"],
         int(bool(weight_decay)), _build.stream_of(param))
-    launches += 1
+    _build.count(globals())

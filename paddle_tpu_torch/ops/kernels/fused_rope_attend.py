@@ -143,7 +143,6 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
     (the batcher's waves are); ``valid`` is read by the plain chain only.
     ``fresh_pool_read`` (B,) bool or None: the slots whose fresh rows are
     read as the pool holds them (speculative verify segments)."""
-    global ragged_launches
     if not q.is_cuda:
         return ragged_reference(q, k, v, cos, sin, cache, layer, row_slot,
                                 row_pos, valid, page_lens, q_start, q_lens,
@@ -180,7 +179,7 @@ def fused_rope_append_attend(q, k, v, cos, sin, cache, layer, row_slot,
                       *tail)
     else:
         _build.launch("pt_rope_append_attend_ragged", *head, *tail)
-    ragged_launches += 1
+    _build.count(globals(), "ragged_launches")
     return out, cache
 
 
@@ -191,7 +190,6 @@ def fused_rope_append_attend_decode(q, k, v, cos, sin, cache, layer,
     None for all slots: an inactive slot writes nothing and returns zeros.
     Returns (out (B, H, D), cache) with the new cells written; ``seq_lens``
     is not advanced."""
-    global launches
     if not q.is_cuda:
         return decode_reference(q, k, v, cos, sin, cache, layer, active)
     b, h, d = q.shape
@@ -227,5 +225,5 @@ def fused_rope_append_attend_decode(q, k, v, cos, sin, cache, layer,
                       *tail)
     else:
         _build.launch("pt_rope_append_attend_decode", *args, *tail)
-    launches += 1
+    _build.count(globals())
     return out, cache

@@ -46,6 +46,7 @@ from collections import namedtuple
 import torch
 
 from ...framework import flags
+from ...reliability import faults
 
 OpNode = namedtuple("OpNode", ["kind", "out", "src", "w"])
 
@@ -608,9 +609,11 @@ def ragged_attend(q, k, v, cos, sin, cache, layer, row_slot, row_pos,
     pattern is enabled, the op-by-op chain (attention in K11 on CUDA
     tensors) otherwise. ``fresh_pool_read`` (B,) bool marks speculative
     verify segments, whose fresh K/V are read as the pool holds them; None
-    is the plain wave. Returns (out, cache)."""
+    is the plain wave. Returns (out, cache). Fault site ``ragged.dispatch``
+    fires at every call (a clean error out of the wave, never a hang)."""
     from . import fused_rope_attend as fra
 
+    faults.maybe_fail("ragged.dispatch", tokens=int(q.shape[0]))
     if _fused_attend():
         return fra.fused_rope_append_attend(
             q, k, v, cos, sin, cache, layer, row_slot, row_pos, valid,

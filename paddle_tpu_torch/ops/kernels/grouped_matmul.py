@@ -333,7 +333,6 @@ def gmm(x, group_offsets, w, trans_w=False):
     """y (T, N) = x[r] @ w[group(r)] for x (T, K) and w (E, K, N) (or x[r] @
     w[group(r)]^T for w (E, N, K) with ``trans_w``): K13 on CUDA tensors,
     the plain version on CPU tensors."""
-    global launches
     if not x.is_cuda:
         return grouped_matmul_reference(x, group_offsets, w, trans_w=trans_w)
     if not flags.get_flag("grouped_matmul_kernel"):
@@ -352,7 +351,7 @@ def gmm(x, group_offsets, w, trans_w=False):
         _build.launch("pt_grouped_matmul", x.data_ptr(),
                       group_offsets.data_ptr(), w.data_ptr(), y.data_ptr(),
                       t, kdim, n, e, int(trans_w), _build.stream_of(x))
-        launches += 1
+        _build.count(globals())
     return y
 
 
@@ -363,7 +362,6 @@ def gmm_quant(x, group_offsets, codes, scales, weight_dtype="int8",
     N % 16 == 0, codes (E, K | K/2, N) and scales (E, N) or (E, K/g, N)
     as ``quant_matmul.check_quantized`` takes them), the plain version on
     CPU tensors."""
-    global quant_launches
     if not x.is_cuda:
         return grouped_matmul_reference(x, group_offsets, codes, scales,
                                         weight_dtype, group_size)
@@ -391,14 +389,13 @@ def gmm_quant(x, group_offsets, codes, scales, weight_dtype="int8",
                       scales.data_ptr(), y.data_ptr(), t, kdim, n, e,
                       WEIGHT_TYPES[weight_dtype], int(group_size),
                       _build.stream_of(x))
-        quant_launches += 1
+        _build.count(globals(), "quant_launches")
     return y
 
 
 def segment_dw(x, dy, group_offsets, e, scale=None, out_dtype=torch.float32):
     """dw (E, K, N) = scale * x_g^T @ dy_g per group, cast to ``out_dtype``
     (f32 or bf16): K14 on CUDA tensors, the plain version on CPU tensors."""
-    global dw_launches
     epilogue = ((() if scale is None else (("scale", scale),))
                 + (("cast", out_dtype),))
     if not x.is_cuda:
@@ -419,7 +416,7 @@ def segment_dw(x, dy, group_offsets, e, scale=None, out_dtype=torch.float32):
                   group_offsets.data_ptr(), dw.data_ptr(), t, kdim, n, e,
                   float(1.0 if scale is None else scale),
                   int(out_dtype == torch.float32), _build.stream_of(x))
-    dw_launches += 1
+    _build.count(globals(), "dw_launches")
     return dw
 
 

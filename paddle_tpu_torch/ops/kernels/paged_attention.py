@@ -171,7 +171,6 @@ def paged_attention_pure(q, k_pages, v_pages, block_tables, seq_lens,
                          scale=None, k_scales=None, v_scales=None):
     """The plain version on CPU tensors, K10 on CUDA tensors (its int8
     form with ``k_scales``/``v_scales``)."""
-    global launches
     if not q.is_cuda:
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          seq_lens, scale, k_scales=k_scales,
@@ -204,5 +203,5 @@ def paged_attention_pure(q, k_pages, v_pages, block_tables, seq_lens,
                       v_scales.data_ptr(), *tail)
     else:
         _build.launch("pt_paged_attention", *head, *tail)
-    launches += 1
+    _build.count(globals())
     return out

@@ -195,7 +195,6 @@ def check_quantized(name, codes, scales, weight_dtype, group_size, kdim, n,
 def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
     """y = x @ dequant(codes, scales); x (..., K). K4 on CUDA tensors (bf16
     x, K % 128 == 0, N % 16 == 0), the plain version on CPU tensors."""
-    global launches
     if not x.is_cuda:
         return quant_matmul_reference(x, codes, scales, weight_dtype,
                                       group_size)
@@ -215,7 +214,7 @@ def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
                       scales.data_ptr(), y.data_ptr(), m, kdim, n,
                       WEIGHT_TYPES[weight_dtype], int(group_size),
                       _build.stream_of(x))
-        launches += 1
+        _build.count(globals())
     return y.reshape(x.shape[:-1] + (n,))
 
 

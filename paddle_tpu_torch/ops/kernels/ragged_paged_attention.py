@@ -180,7 +180,6 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
     non-finite fresh values as it loads them; its int8 form with
     ``k_scales``/``v_scales``, the fresh K/V still bf16, flagged slots'
     rows quantized in the kernel)."""
-    global launches
     hk, p_total, page, d = k_pages.shape
     scale = scale or (1.0 / math.sqrt(d))
     quant = k_scales is not None or v_scales is not None
@@ -222,7 +221,7 @@ def ragged_paged_attention_pure(q_rows, k_pages, v_pages, block_tables,
                       k_scales.data_ptr(), v_scales.data_ptr(), *tail)
     else:
         _build.launch("pt_ragged_paged_attention", *head, *tail)
-    launches += 1
+    _build.count(globals())
     return out
 
 

@@ -316,7 +316,7 @@ def tiny():
     (dict(ragged=False), NotImplementedError),
     (dict(lora=True), None),
     (dict(temperature=0.7), None),
-    (dict(retry_policy=object()), NotImplementedError),
+    (dict(retry_policy=object()), None),
     (dict(adapter_pool=object()), ValueError),
     (dict(prefix_caching=False, host_tier=True), ValueError),
     (dict(prefix_caching=False, unified_arena=True), ValueError),

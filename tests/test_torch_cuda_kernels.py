@@ -2746,3 +2746,146 @@ def test_sampling_and_lora_delta_make_no_host_sync(gen):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ serving fleet
+
+
+def _fleet_model(int8=False):
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaForCausalLM,
+                                               quantize_for_inference)
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=0)
+    kw = {}
+    if int8:
+        kw = dict(quantized_params=quantize_for_inference(model),
+                  cache_dtype="int8")
+    return model, kw
+
+
+def test_fleet_launch_counter_is_exact_under_two_threads(gen):
+    """Two threads launch K2 2,000 times each at once: the counter gains
+    exactly 4,000 (the increment is under ``_build.count``'s lock; the
+    ctypes call releases the GIL)."""
+    import threading
+
+    x = _randn(gen, 8, 256)
+    w = _randn(gen, 256, 256, scale=0.05)
+    nw = torch.ones(256, device="cuda", dtype=torch.bfloat16)
+    want = k2.fused_norm_matmul_pure(x, nw, 1e-5, w)
+    before = k2.launches
+    outs = []
+
+    def worker():
+        y = None
+        for _ in range(2000):
+            y = k2.fused_norm_matmul_pure(x, nw, 1e-5, w)
+        torch.cuda.current_stream().synchronize()
+        outs.append(y)
+
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert k2.launches - before == 4000
+    for y in outs:
+        assert torch.equal(_bits(y), _bits(want))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_fleet_parked_stream_crosses_the_chunked_wire_bitwise(gen, int8):
+    """A parked stream's pages leave engine A's pinned host tier, cross
+    the chunked wire as raw bytes and land in engine B's host tier
+    bitwise (codes and, on int8, scales); B resumes it with one admitted
+    token and serves it to its budget."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.inference.migration import KVMigrator
+
+    model, kw = _fleet_model(int8)
+    ekw = dict(max_batch=2, max_seq=128, page_size=16, segment=4,
+               prefill_chunk=32, **kw)
+    prompt = torch.randint(0, 256, (40,), generator=gen,
+                           device="cuda").tolist()
+    a = ContinuousBatcher(model, **ekw)
+    rid = a.submit(prompt, 12)
+    asked = []
+
+    def hook(t):
+        if not asked:
+            a.park(rid)
+            asked.append(t)
+
+    a._on_tick = hook
+    a.run()
+    assert a.parked == [rid]
+    blob = a.export_parked(rid)
+    src = a._host_arena.export_pages(a._parked[rid].host_pages)
+    wired = KVMigrator("chunked", chunk_pages=1).transfer(blob, rid=rid)
+    b = ContinuousBatcher(model, **ekw)
+    rid_b = b.import_parked(wired)
+    landed = b._host_arena.export_pages(b._parked[rid_b].host_pages)
+    assert len(landed) == len(src) == len(blob["pages"])
+    for got, want in zip(landed, src):
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert torch.equal(_bits(got[name]), _bits(want[name])), name
+    a.discard_parked(rid)
+    b.resume(rid_b)
+    done = b.run()
+    assert done[rid_b].status == "ok" and len(done[rid_b].tokens) == 12
+    assert b.stats["prefill_tokens_admitted"] == 1
+    a._host_pager.check()
+    b._host_pager.check()
+
+
+def test_fleet_kill_leaves_the_survivor_serving(gen):
+    """Two replicas on one card; one killed mid-run (its in-flight work
+    left to finish on the stream): every request completes on the
+    survivor, and the survivor's next wave runs free of CUDA errors."""
+    import time
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference.fleet import make_fleet
+    from paddle_tpu_torch.inference.router import FleetRouter
+
+    model, _ = _fleet_model()
+    registry, workers = make_fleet(model, 2, heartbeat_interval=0.05,
+                                   lease_ttl=0.5, max_batch=2, max_seq=128,
+                                   page_size=16, segment=4, prefill_chunk=32)
+    for w in workers:
+        w.start()
+    try:
+        router = FleetRouter(workers, registry)
+        rng = np.random.default_rng(0)
+        rids = [router.submit(rng.integers(0, 256, size=30), 24)
+                for _ in range(4)]
+        deadline = time.monotonic() + 60
+        while not any(router.request(r).replica == "replica1"
+                      and len(router.request(r)._journal) >= 3
+                      for r in rids):
+            assert time.monotonic() < deadline
+            router.poll()
+            time.sleep(0.002)
+        workers[1].kill()
+        done = router.join(timeout=120)
+        assert all(done[r].status == "ok" and len(done[r].tokens) == 24
+                   for r in rids)
+        assert router.stats["failovers"] == 1
+        torch.cuda.synchronize()
+        nxt = router.submit(rng.integers(0, 256, size=30), 8)
+        assert router.join(timeout=60)[nxt].status == "ok"
+        torch.cuda.synchronize()
+        workers[0].engine._pager.check()
+    finally:
+        for w in workers:
+            if w.alive():
+                w.terminate()
+        for w in workers:
+            w.join(10)

@@ -13,9 +13,9 @@ tokens and ``stats``: a prefix served from the host tier, park/resume
 across runs admitting one token, a park freeing the slot for a
 neighbour, the digest of a host-resident prefix, and the constructor's
 contract. The fault sites' chaos cases (``prefix.prefetch``,
-``prefix.offload``, ``engine.park``) and live migration
-(``export_parked``/``import_parked``) wait for ROADMAP.md's Queue 1
-item 6.
+``prefix.offload``, ``engine.park``) are in
+``tests/test_torch_fault_sites.py``, live migration
+(``export_parked``/``import_parked``) in ``tests/test_torch_disagg.py``.
 """
 
 from __future__ import annotations
@@ -473,8 +473,13 @@ def test_park_contract_and_the_flag_default(pair):
     finally:
         tflags.set_flags({"kv_host_tier": True})
         jflags.set_flags({"kv_host_tier": True})
-    eng = ContinuousBatcher(tmodel, max_batch=1)
-    for call in (lambda: eng.export_parked(0),
-                 lambda: eng.import_parked({})):
-        with pytest.raises(NotImplementedError, match="migration"):
-            call()
+    # live migration's contract, as the reference's: nothing parked under
+    # the rid, a blob without a spec, and no host tier to land in
+    for cls, m in ((JaxBatcher, jmodel), (ContinuousBatcher, tmodel)):
+        eng = cls(m, max_batch=1)
+        for call in (lambda: eng.export_parked(0),
+                     lambda: eng.import_parked({})):
+            with pytest.raises(KeyError):
+                call()
+        with pytest.raises(ValueError, match="kv_host_tier"):
+            cls(m, max_batch=1, host_tier=False).import_parked({})
