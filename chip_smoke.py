@@ -227,6 +227,29 @@ class, device busy share). Phases, in order; any failure raises and the process 
                tok/s, phase 6d's single engine on the same requests in
                turns, kill -> first recovered token ms, migration ms and
                MB a request, lease expiries, peak memory, pinned bytes.
+6h. the autoscaled fleet — 6g's model, bf16 fused, phase 6d's settings,
+               a MemoryStore registry, ``FleetRouter(affinity=True)`` and
+               ``FleetAutoscaler(min_replicas=1, max_replicas=2)`` (cooldown
+               0.5 s, streak 3). The single engine serves the trace's 48
+               requests at once: its requests/s R sets the base rate to
+               0.4 R. ``loadgen.run_trace`` replays a ``TraceSpec`` at
+               Llama-3-8B widths (vocab 128256; prompts lognormal mean 96,
+               16-384; 8-64 new tokens, mean 24; 8 tenants, Zipf 1.2, a
+               64-token tenant prefix; three deadline tiers; a 5x burst at
+               0.3-0.6 of a 15 s horizon) against one replica; then two
+               192-token tail streams, one a replica, and the floor comes
+               down. Asserts a scale-up, a brownout level entered and the
+               ladder back at 0, a scale-down whose evacuated streams all
+               resumed (survivor resumes = evacuations >= 1, one admitted
+               token each), no ``replica_lost``, no lease expiry, sheds in
+               the lowest tier only, every "ok" request's tokens within
+               phase 6's rule, K2/K3 launches equal to the plan over every
+               replica's waves and segment steps (spawned and retired
+               included), the surviving allocators' ``check()``. Printed:
+               wall and tok/s, per-tier p50/p99 TTFT and inter-token ms,
+               the scale and brownout events with their times, replicas
+               over time, peak memory, pinned bytes, the single engine's
+               wall in turns.
 7. training kernels — after the serving models are freed, each new
                kernel against its plain version at the Llama-3-8B train
                step's shapes, with times, bounds and library yardsticks:
@@ -256,6 +279,22 @@ class, device busy share). Phases, in order; any failure raises and the process 
                attend seam at those shapes with K12 and with the f32
                rotate-half chain: q2, k2, the output and the q/k/v
                gradients bitwise equal.
+7b. quantized weights under autograd — one Llama-3-8B decoder layer +
+               the final norm and LM head in ``quantize_for_inference``
+               form (int8 per channel, int4 group 128) at B=4 x S=2048:
+               forward + backward of a seeded cotangent on the logits
+               through ``run_train_decoder_layer`` / ``run_train_lm_head``
+               (K6 + K4s for the q/k/v and gate/up groups, K4 for the o-
+               and down-proj, K2's quantized form for the head; the
+               weight-only rule backward). dh, the logits and the norm
+               weights' gradients against a plain f32 chain over the
+               dequantized weights within phase 8's rule; a backward that
+               reads every scale 16 columns on must fail it; the forward
+               bitwise the no-grad call's; launches equal
+               ``fusion.quantized_train_launches(1)``. Times K2's int8 and
+               int4 g128 forms at M 8192 for N 4096 / 14336 / 128256
+               beside dense K2 and the bound, K4 at M 8192, the backward's
+               dequant + matmul.
 8. gradient check — a 2-layer full-width model (B=1, S=2048): the
                per-token losses and every parameter's gradient of the
                kernel path, the plain bf16 path and a plain f32 run;
@@ -3439,7 +3478,8 @@ def fleet_plan_counts(counts, workers, L):
     return expected, waves, steps
 
 
-def serve_fleet(torch, kernels, cfg=None, device="cuda", check_tokens=True):
+def serve_fleet(torch, kernels, cfg=None, device="cuda", check_tokens=True,
+                model=None):
     """Phase 6g: the serving fleet on phase 6's Llama-3-8B model (random
     bf16 weights, 32 layers), the fused plan, two ``ContinuousBatcher``
     replicas over ONE copy of the weights with phase 6d's settings (prefix
@@ -3463,6 +3503,7 @@ def serve_fleet(torch, kernels, cfg=None, device="cuda", check_tokens=True):
     engine serves the same requests in turns with the two fleets (its
     wall, once before and once after).
 
+    ``model`` (phase 6h shares it) defaults to a new one at ``cfg``;
     ``cfg`` / ``device="cpu"`` / ``check_tokens=False`` rehearse the
     schedule on the CPU at a tiny width (no kernels: the launch check is
     skipped)."""
@@ -3474,9 +3515,12 @@ def serve_fleet(torch, kernels, cfg=None, device="cuda", check_tokens=True):
     from paddle_tpu_torch.reliability import faults
 
     on_card = device == "cuda"
-    cfg = cfg or LlamaConfig.llama3_8b(dtype="bfloat16")
+    if model is None:
+        model = LlamaForCausalLM(
+            cfg or LlamaConfig.llama3_8b(dtype="bfloat16"), seed=SEED,
+            device=device)
+    cfg = model.config
     L = cfg.num_hidden_layers
-    model = LlamaForCausalLM(cfg, seed=SEED, device=device)
     prms = model.param_dict()
     reqs = prefix_requests(cfg.vocab_size)
     n_tokens = sum(n for _, n, _ in reqs)
@@ -3708,6 +3752,326 @@ def serve_fleet(torch, kernels, cfg=None, device="cuda", check_tokens=True):
     finally:
         flags.set_flags({"fused_decode_fusions": old})
         faults.clear()
+    return out
+
+
+#: phase 6h: three deadline tiers (router edges 10 s and 60 s: interactive,
+#: standard, batch), the ladder's cooldown and the autoscaler's streak
+AUTOSCALE_TIERS = ((10.0, 0.25), (60.0, 0.5), (None, 0.25))
+AUTOSCALE_TIER_EDGES = "10.0,60.0"
+AUTOSCALE_COOLDOWN_S = 0.5
+AUTOSCALE_STREAK = 3
+AUTOSCALE_TAIL_NEW = 192    # new tokens of each of the two tail streams
+
+
+def autoscale_spec_kw(base_rate, vocab=128256):
+    """Phase 6h's ``TraceSpec`` fields at Llama-3-8B widths: 48 requests
+    over a 15 s horizon at ``base_rate`` requests/s (no diurnal swing) with
+    one 5x burst at 0.3-0.6 of the horizon; lognormal prompts (mean 96,
+    16-384 tokens) and new tokens (mean 24, 8-64); 8 tenants under Zipf
+    1.2, each owning a 64-token prefix (four pages at page 16); three
+    deadline tiers; no adapters. The requests themselves do not depend on
+    the rate (each arrival is one exponential draw, scaled)."""
+    return dict(seed=SEED + 24, n_requests=48, horizon_s=15.0,
+                base_rate=float(base_rate), diurnal_amp=0.0,
+                bursts=((0.3, 0.6, 5.0),), prompt_mean=96.0,
+                prompt_sigma=0.6, prompt_min=16, prompt_cap=384,
+                new_mean=24.0, new_sigma=0.5, new_min=8, new_cap=64,
+                n_tenants=8, zipf_alpha=1.2, tenant_prefix_len=64,
+                n_adapters=0, tiers=AUTOSCALE_TIERS, vocab=int(vocab))
+
+
+def serve_autoscale(torch, kernels, model=None, cfg=None, device="cuda",
+                    check_tokens=True):
+    """Phase 6h: the autoscaled fleet on phase 6g's model (Llama-3-8B,
+    random bf16 weights), the fused plan, phase 6d's engine settings, a
+    MemoryStore registry (heartbeat 0.5 s, lease TTL 2.0 s),
+    ``FleetRouter(affinity=True)`` and ``FleetAutoscaler(min_replicas=1,
+    max_replicas=2)`` (cooldown 0.5 s, streak 3).
+
+    The single engine first serves the trace's 48 requests all at once: its
+    sustained requests/s R sets the trace's base rate to 0.4 R (a 5x burst
+    at 0.3-0.6 of the horizon). ``run_trace`` replays the trace against one
+    replica while the autoscaler scales up, climbs the brownout ladder and
+    comes back down; the floor is held at 2 replicas until two long tail
+    streams stream on distinct replicas, then lowered to 1, so the
+    scale-down has live streams to evacuate. The single engine serves the
+    trace again after the fleet (its walls in turns).
+
+    Asserts: a scale-up, a brownout level entered and the ladder back at 0,
+    a scale-down that completed with every evacuated stream resumed
+    (survivor resumes = ``router.stats["evacuations"]`` >= 1, each resume
+    admitting one token), no ``replica_lost`` and no failover (0 lease
+    expiries), sheds only in the lowest tier, every "ok" request's tokens
+    within phase 6's rule (``check_batcher_tokens``), K2 and K3 launches
+    equal to the plan over every replica's own waves and segment steps
+    (spawned and retired included), every surviving allocator's check.
+
+    ``cfg`` / ``device="cpu"`` / ``check_tokens=False`` rehearse the
+    schedule on the CPU at a tiny width (no kernels: the launch check is
+    logged, not asserted)."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.store import MemoryStore
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.inference.autoscaler import FleetAutoscaler
+    from paddle_tpu_torch.inference.fleet import FleetRegistry, make_fleet
+    from paddle_tpu_torch.inference.loadgen import (TraceSpec,
+                                                    generate_trace,
+                                                    run_trace)
+    from paddle_tpu_torch.inference.router import FleetRouter
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    on_card = device == "cuda"
+    if model is None:
+        model = LlamaForCausalLM(
+            cfg or LlamaConfig.llama3_8b(dtype="bfloat16"), seed=SEED,
+            device=device)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    prms = model.param_dict()
+    pps = -(-BSEQ // PAGE)
+    engine_kw = dict(max_batch=BB, max_seq=BSEQ, segment=16,
+                     prefill_chunk=BCHUNK, page_size=PAGE,
+                     page_pool_pages=3 * pps)
+    probe = generate_trace(TraceSpec(**autoscale_spec_kw(1.0,
+                                                         cfg.vocab_size)))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def single():
+        eng = ContinuousBatcher(model, **engine_kw)
+        eng._ensure_host_arena()
+        for r in probe:
+            eng.submit(np.asarray(r.prompt, np.int32),
+                       max_new_tokens=r.max_new)
+        sync()
+        t0 = time.perf_counter()
+        done = eng.run()
+        sync()
+        assert all(d.status == "ok" for d in done.values())
+        return time.perf_counter() - t0
+
+    old = {k: flags.get_flag(k) for k in ("fused_decode_fusions",
+                                          "fleet_tier_edges")}
+    flags.set_flags({"fused_decode_fusions": BATCHER_PLANS[0][1],
+                     "fleet_tier_edges": AUTOSCALE_TIER_EDGES})
+    workers, auto, out = [], None, {}
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        single_walls = [single()]
+        rate = len(probe) / single_walls[0]
+        spec = TraceSpec(**autoscale_spec_kw(0.4 * rate, cfg.vocab_size))
+        trace = generate_trace(spec)
+        assert [r.prompt for r in trace] == [r.prompt for r in probe]
+        log(f"autoscaled fleet (bf16, fused): the single engine serves the "
+            f"trace's {len(trace)} requests at once in "
+            f"{single_walls[0]:.3f} s = {rate:.3f} requests/s; base rate "
+            f"{spec.base_rate:.3f}/s, burst x5 at 0.3-0.6 of "
+            f"{spec.horizon_s} s, last arrival {trace[-1].t:.3f} s")
+
+        registry = FleetRegistry(store=MemoryStore(), job_id="chip-auto")
+        _, workers = make_fleet(model, 1, registry=registry,
+                                heartbeat_interval=0.5, **engine_kw)
+        workers[0].engine._ensure_host_arena()
+        router = FleetRouter(workers, registry, affinity=True)
+        # each request's last engine binding, kept as the router finishes
+        # it (the one-token resume check reads its admission record)
+        final_gr = {}
+        finish = router._finish
+
+        def keep_binding(fr, status, tokens=None, error=None):
+            final_gr[fr.rid] = fr._gen_req
+            finish(fr, status, tokens=tokens, error=error)
+
+        router._finish = keep_binding
+        auto = FleetAutoscaler(router, model, engine_kw=engine_kw,
+                               min_replicas=1, max_replicas=2,
+                               cooldown_s=AUTOSCALE_COOLDOWN_S,
+                               streak=AUTOSCALE_STREAK,
+                               heartbeat_interval=0.5)
+        # the floor holds the grown fleet until the tail streams are live
+        auto.min_replicas = 2
+        timeline = []
+        t_mono = time.monotonic()
+
+        class Tracked:
+            """The autoscaler, with the live replica count recorded on
+            each change."""
+
+            def step(self):
+                auto.step()
+                n = len(auto._live_workers())
+                if not timeline or timeline[-1][1] != n:
+                    timeline.append((round(time.monotonic() - t_mono, 3),
+                                     n))
+
+        tracked = Tracked()
+
+        def pump(cond, timeout, with_auto=True):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"6h: not reached in {timeout} s: "
+                                       f"{auto.events}")
+                router.poll()
+                if with_auto:
+                    tracked.step()
+                time.sleep(0.002)
+
+        sync()
+        kernels.reset_launch_counts()
+        workers[0].start()
+        pump(lambda: (router._state.get(workers[0].name) or {}).get(
+            "fresh"), 30, with_auto=False)
+        t_mono = time.monotonic()
+        report = run_trace(router, trace, autoscaler=tracked,
+                           settle_timeout_s=300.0)
+        assert auto.stats["scale_ups"] >= 1, auto.events
+        assert auto.stats["brownout"]["enters"][0] >= 1, auto.events
+        pump(lambda: auto.stats["brownout"]["level"] == 0, 60)
+        assert len(auto._live_workers()) == 2, auto.events
+
+        # the tail: two long streams, one on each replica, then the floor
+        # comes down and the autoscaler drains one replica out
+        if not on_card:
+            # the tiny CPU model outruns the card's schedule: stall its
+            # serve loops so the tail streams are still live when the
+            # drain begins
+            for w in auto._live_workers():
+                w.stall_s = 0.02
+        rng = np.random.default_rng(SEED + 25)
+        tail_p = [rng.integers(0, cfg.vocab_size, size=128).astype(np.int32)
+                  for _ in range(2)]
+        tail = []
+        for p in tail_p:
+            tail.append(router.submit(p, AUTOSCALE_TAIL_NEW,
+                                      deadline_s=30.0))
+            pump(lambda: len({router.request(r).replica for r in tail
+                              if router.request(r).status == "dispatched"
+                              and len(router.request(r)._journal) >= 2})
+                 == len(tail), 60, with_auto=False)
+        auto.min_replicas = 1
+        pump(lambda: auto.stats["scale_downs"] >= 1 and all(
+            router.request(r).done for r in tail)
+            and len(auto._live_workers()) == 1, 90)
+        wall = time.monotonic() - t_mono
+        for w in workers + auto.spawned:
+            if w.alive():
+                w.terminate()
+        for w in workers + auto.spawned:
+            w.join(60)
+        sync()
+        everyone = workers + auto.spawned
+        assert not any(w._serve_t.is_alive() for w in everyone), \
+            "a serve thread"
+        counts = kernels.launch_counts()
+        single_walls.append(single())
+    finally:
+        for w in workers + (auto.spawned if auto is not None else []):
+            if w.alive():
+                w.kill()
+        flags.set_flags(old)
+
+    # ---- checks
+    st = router.stats
+    trace_rids = sorted(rid for rid in router._reqs if rid not in tail)
+    assert len(trace_rids) == len(trace)
+    frs = {r.idx: router.request(rid) for r, rid in zip(trace, trace_rids)}
+    statuses = [fr.status for fr in router._reqs.values()]
+    assert not router._dead and not st["failovers"], (router._dead, st)
+    assert set(statuses) <= {"ok", "shed", "timeout"}, statuses
+    last = router.n_tiers - 1
+    shed = [fr for fr in router._reqs.values() if fr.status == "shed"]
+    assert all(fr.tier == last for fr in shed), [fr.tier for fr in shed]
+    assert not any(st["shed_by_tier"][t] for t in range(last)), \
+        st["shed_by_tier"]
+    assert auto.stats["brownout"]["level"] == 0
+    assert router.brownout_shed_tiers == 0
+    for r in tail:
+        fr = router.request(r)
+        assert fr.status == "ok" and len(fr.tokens) == AUTOSCALE_TAIL_NEW
+    evac = st["evacuations"]
+    resumes = sum(w.engine.stats["resumes"] for w in everyone)
+    assert evac >= 1 and resumes == evac, (evac, resumes)
+    assert auto.stats["evacuations_started"] == evac
+    moved = [fr for fr in router._reqs.values() if fr.migrated]
+    assert len(moved) == evac, (len(moved), evac)
+    for fr in moved:
+        gr = final_gr[fr.rid]
+        assert gr.resume_src is not None and gr.chunk_starts == [
+            len(gr.resume_src) - 1], (fr.rid, gr.chunk_starts)
+    expected, waves, steps = fleet_plan_counts(counts, everyone, L)
+    log(f"autoscaled fleet: launches {counts} expected {expected} ({waves} "
+        f"waves + {steps} segment steps over {len(everyone)} replicas)")
+    if on_card:
+        assert counts == expected, f"{counts} != {expected}"
+    for w in everyone:
+        if w in auto.retired:
+            continue
+        w.engine._pager.check()
+        w.engine._host_pager.check()
+        if w.engine._prefix is not None:
+            w.engine._prefix.allocator.check()
+    ok = [(fr, r) for r, fr in ((r, frs[r.idx]) for r in trace)
+          if fr.status == "ok"]
+    for fr, r in ok:
+        assert len(fr.tokens) == r.max_new, (r.idx, len(fr.tokens))
+    n_ok_tokens = sum(len(fr.tokens) for fr, _ in ok) + 2 * AUTOSCALE_TAIL_NEW
+    t0 = t_mono
+    events = [{**e, "t": round(e["t"] - t0, 3)} for e in auto.events]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    pinned = sum(w.engine._host_arena.nbytes() for w in everyone
+                 if w.engine._host_arena is not None)
+    tiers = {str(k): v for k, v in report["tiers"].items()}
+    out.update(
+        trace_spec=spec.to_json(), single_engine_requests_per_s=rate,
+        trace_wall_s=report["wall_s"], wall_s=wall,
+        generated_tok_s=n_ok_tokens / wall, tokens_ok=n_ok_tokens,
+        tiers=tiers, statuses={s: statuses.count(s) for s in set(statuses)},
+        scale_ups=auto.stats["scale_ups"],
+        scale_downs=auto.stats["scale_downs"],
+        brownout=auto.stats["brownout"],
+        flap_suppressed=auto.stats["flap_suppressed"],
+        evacuations=evac, resumes=resumes, events=events,
+        replicas_over_time=timeline, launches=counts, waves=waves,
+        segment_steps=steps, lease_expiries=len(router._dead),
+        max_queue=max((q for _, q, _ in report["queue_curve"]), default=0),
+        max_memory_allocated_gib=peak, host_arena_pinned_bytes=pinned,
+        single_engine_wall_s=single_walls,
+        per_replica={w.name: {k: w.engine.stats[k] for k in (
+            "ragged_steps", "decode_steps", "tokens_emitted", "resumes",
+            "parks", "prefix_hits")} for w in everyone})
+    log(f"autoscaled fleet: wall {wall:.3f} s (trace replay "
+        f"{report['wall_s']:.3f} s), {n_ok_tokens / wall:.1f} tok/s of "
+        f"'ok' requests, statuses {out['statuses']}, scale-ups "
+        f"{out['scale_ups']}, scale-downs {out['scale_downs']}, brownout "
+        f"{out['brownout']}, flap_suppressed {out['flap_suppressed']}, "
+        f"evacuations {evac} = resumes {resumes}, replicas over time "
+        f"{timeline}, peak {peak:.2f} GiB, host arenas {pinned} bytes "
+        f"pinned")
+    for k, rec in tiers.items():
+        log(f"autoscaled fleet tier {k}: n {rec['n']} ok {rec['ok']} shed "
+            f"{rec['shed']} timeout {rec['timeout']} replica_lost "
+            f"{rec['replica_lost']}; TTFT p50/p99 {rec['ttft_p50_ms']} / "
+            f"{rec['ttft_p99_ms']} ms, inter-token p50/p99 "
+            f"{rec['itl_p50_ms']} / {rec['itl_p99_ms']} ms")
+    log(f"autoscaled fleet events (s from the trace's start): {events}")
+    log(f"the single engine on the trace's requests at once, in turns "
+        f"(before, after): {[round(w, 3) for w in single_walls]} s; the "
+        f"fleet's trace replay {report['wall_s']:.3f} s")
+    if check_tokens:
+        reqs = [(np.asarray(r.prompt, np.int32), r.max_new, 0)
+                for _, r in ok] + [(p, AUTOSCALE_TAIL_NEW, 0)
+                                   for p in tail_p]
+        done = {i: fr for i, fr in enumerate(
+            [fr for fr, _ in ok] + [router.request(r) for r in tail])}
+        out["tokens_check"] = check_batcher_tokens(
+            torch, cfg, prms, reqs, done, "autoscaled fleet")
     return out
 
 
@@ -4049,6 +4413,251 @@ def train_grad_check(torch, k1):
         f"check cannot see a broken backward")
     return {"losses": losses, "worst_ratio": worst,
             "fault_worst_ratio": fault_worst, "per_tensor": rows}
+
+
+#: phase 7b's weight-only forms: (name, quantize_for_inference algo, group)
+QUANT_TRAIN_FORMS = (("int8", "weight_only_int8", -1),
+                     ("int4 g128", "weight_only_int4", 128))
+#: phase 7b's layer-local weight names and the head's
+QUANT_TRAIN_NORMS = ("input_layernorm.weight",
+                     "post_attention_layernorm.weight", "model.norm.weight")
+
+
+def _quant_train_run(torch, fusion, cfg, prms, h0, cot, plain=False,
+                     grad=True):
+    """One forward (+ backward of ``cot`` on the logits) of a decoder layer
+    and the final norm + LM head in ``prms`` (layer-local names and the
+    head's) through ``run_train_decoder_layer`` / ``run_train_lm_head``:
+    the fused plan on the kernels, or with ``plain`` the unfused plan on
+    the plain versions. Returns (logits, dh, {norm: grad}) (grads None
+    under ``grad=False``)."""
+    from paddle_tpu_torch.models.llama import _train_attend
+
+    h = h0.detach().clone().requires_grad_(grad)
+    norms = {n: prms[n].detach().clone().requires_grad_(grad)
+             for n in QUANT_TRAIN_NORMS}
+    p = {**prms, **norms}
+    enabled = () if plain else None
+
+    def attend(q, k, v, residual=None, o_w=None):
+        return _train_attend(cfg, q, k, v, plain, None, residual, o_w)
+
+    out = fusion.run_train_decoder_layer(
+        {n: v for n, v in p.items() if not n.startswith(("model.", "lm_"))},
+        h, cfg.rms_norm_eps, attend, enabled=enabled, plain=plain)
+    logits = fusion.run_train_lm_head(
+        {n: p[n] for n in ("model.norm.weight", "lm_head.weight")}, out,
+        cfg.rms_norm_eps, enabled=enabled, plain=plain)
+    if not grad:
+        return logits, None, None
+    logits.backward(cot.to(logits.dtype))
+    return logits.detach(), h.grad, {n: t.grad for n, t in norms.items()}
+
+
+def train_quant(torch, kernels, k2, k4):
+    """Phase 7b: quantized weights under autograd. One Llama-3-8B decoder
+    layer + the final norm and LM head in ``quantize_for_inference`` form
+    (int8 per channel, then int4 group 128), random N(0, 0.02^2) weights,
+    at the train step's shape (B=4 x S=2048, M 8192): forward + backward of
+    a seeded random cotangent on the logits through the train executors
+    (the fused plan: the q/k/v and gate/up groups in K6 + K4 each, the
+    o-proj inside the attention epilogue and the down-proj in K4, the head
+    in K2's quantized form; backward K7, K5, K12 and the weight-only rule
+    in plain ops). dh, the logits and the three norm weights' gradients
+    against a plain f32 chain over the dequantized weights: kernel rel L2
+    <= 2 x the plain bf16 chain's (phase 8's rule); a control whose
+    backward reads every scale 16 columns on must fail it; the forward is
+    bitwise the ``torch.no_grad()`` call's; the launches equal
+    ``fusion.quantized_train_launches(1)``. Then times K2's int8 and int4
+    g128 forms at M 8192 for N 4096 / 14336 / 128256 beside dense K2 and
+    the bound, K4 at M 8192, and the backward's dequant + matmul."""
+    from paddle_tpu_torch.models.llama import quantize_for_inference
+    from paddle_tpu_torch.ops.kernels import fusion
+
+    cfg = train_config(1)
+    hdim, inter, vocab = cfg.hidden_size, cfg.intermediate_size, \
+        cfg.vocab_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    shapes = {"input_layernorm.weight": (hdim,),
+              "self_attn.q_proj.weight": (hdim, hdim),
+              "self_attn.k_proj.weight": (hdim, kv),
+              "self_attn.v_proj.weight": (hdim, kv),
+              "self_attn.o_proj.weight": (hdim, hdim),
+              "post_attention_layernorm.weight": (hdim,),
+              "mlp.gate_proj.weight": (hdim, inter),
+              "mlp.up_proj.weight": (hdim, inter),
+              "mlp.down_proj.weight": (inter, hdim),
+              "model.norm.weight": (hdim,),
+              "lm_head.weight": (hdim, vocab)}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    raw = {}
+    for name, shape in shapes.items():
+        if len(shape) == 1:
+            raw[name] = (1.0 + 0.05 * torch.randn(
+                shape, generator=g, device="cuda")).to(torch.bfloat16)
+        else:
+            raw[name] = (0.02 * torch.randn(
+                shape, generator=g, device="cuda")).to(torch.bfloat16)
+    h = torch.randn((TB, TS, hdim), generator=g, device="cuda").to(
+        torch.bfloat16)
+    cot = torch.randn((TB, TS, vocab), generator=g, device="cuda").to(
+        torch.bfloat16)
+    plan = fusion.quantized_train_launches(1)
+    names = ["logits", "dh", *QUANT_TRAIN_NORMS]
+    out = {"plan": plan}
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    def errs(run, ref):
+        tensors = [run[0], run[1], *(run[2][n] for n in QUANT_TRAIN_NORMS)]
+        refs = [ref[0], ref[1], *(ref[2][n] for n in QUANT_TRAIN_NORMS)]
+        return [rel(a, b) for a, b in zip(tensors, refs)]
+
+    for label, algo, gs in QUANT_TRAIN_FORMS:
+        qp = quantize_for_inference(raw, algo, gs)
+        _quant_train_run(torch, fusion, cfg, qp, h, cot)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        kern = _quant_train_run(torch, fusion, cfg, qp, h, cot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = dict.fromkeys(counts, 0)
+        want.update(plan)
+        assert counts == want, f"7b {label}: launches {counts} != {want}"
+        with torch.no_grad():
+            nograd = _quant_train_run(torch, fusion, cfg, qp, h, cot,
+                                      grad=False)[0]
+        assert torch.equal(kern[0], nograd), f"7b {label}: forward bits"
+        del nograd
+        rule = k4.quant_matmul_dx
+        k4.quant_matmul_dx = lambda gg, codes, scales, *a: rule(
+            gg, codes, scales.roll(SHIFT, -1), *a)
+        try:
+            ctl = _quant_train_run(torch, fusion, cfg, qp, h, cot)
+        finally:
+            k4.quant_matmul_dx = rule
+        plain = _quant_train_run(torch, fusion, cfg, qp, h, cot, plain=True)
+        p32 = {n: (k4.dequant_weight(v.codes, v.scales, v.weight_dtype,
+                                     v.group_size, k=v.shape[0],
+                                     dtype=torch.float32)
+                   if isinstance(v, k4.QuantizedWeight) else v.float())
+               for n, v in qp.items()}
+        ref = _quant_train_run(torch, fusion, cfg, p32, h.float(),
+                               cot.float(), plain=True)
+        del p32
+        ek, ep, ec = errs(kern, ref), errs(plain, ref), errs(ctl, ref)
+        rows = {n: {"kernel": a, "plain_bf16": b, "control": c,
+                    "kernel_over_plain": a / b, "control_over_plain": c / b}
+                for n, a, b, c in zip(names, ek, ep, ec)}
+        worst = max(r["kernel_over_plain"] for r in rows.values())
+        ctl_worst = max(r["control_over_plain"] for r in rows.values())
+        for n, r in rows.items():
+            log(f"  7b {label} {n}: rel L2 err vs f32 kernel "
+                f"{r['kernel']:.3e} plain bf16 {r['plain_bf16']:.3e} "
+                f"ratio {r['kernel_over_plain']:.3f}; shifted-scale "
+                f"backward control {r['control_over_plain']:.3f}")
+        log(f"7b {label}: forward + backward (1 layer + head, B{TB} "
+            f"S{TS}, after one warm-up) {wall * 1e3:.1f} ms wall, launches "
+            f"{counts} = plan, "
+            f"forward bitwise the no-grad call's, worst kernel/plain "
+            f"{worst:.3f}, control {ctl_worst:.3f}, peak {peak:.2f} GiB")
+        assert worst <= 2, f"7b {label}: kernel/plain error ratio {worst}"
+        assert ctl_worst > 2, (f"7b {label}: the shifted-scale control "
+                               f"passed the rule ({ctl_worst:.3f})")
+        out[label] = {"launches": counts, "worst_ratio": worst,
+                      "control_worst_ratio": ctl_worst, "per_tensor": rows,
+                      "wall_ms": wall * 1e3,
+                      "max_memory_allocated_gib": peak}
+        del kern, ctl, plain, ref, qp
+        torch.cuda.empty_cache()
+    del cot, raw
+    torch.cuda.empty_cache()
+    out["times"] = quant_train_times(torch, k2, k4)
+    return out
+
+
+def quant_train_times(torch, k2, k4):
+    """K2's int8 and int4 g128 forms at M 8192 (K 4096; N 4096, 14336,
+    128256) beside dense K2 and the bound; K4 at M 8192 (the o-proj and
+    down-proj, int8 and int4 g128); the backward's dequant + matmul
+    (``quant_matmul_dx``) at the head's and the down-proj's shapes. Cold
+    L2, median device ms (5 calls at N 128256, else 20)."""
+    timer = ColdTimer(torch)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    m, eps, times = TB * TS, 1e-5, {}
+    x = torch.randn((m, 4096), generator=g, device="cuda").to(torch.bfloat16)
+    nw = (torch.rand((4096,), generator=g, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    for n in (4096, 14336, 128256):
+        iters = 5 if n > 20000 else 20
+        w = (torch.randn((4096, n), generator=g, device="cuda")
+             / 64.0).to(torch.bfloat16)
+        flops = 2 * m * n * 4096
+        dense = timer(lambda: k2.fused_norm_matmul_pure(x, nw, eps, w),
+                      iters=iters)
+        dbound = bound(2 * (m * 4096 + 4096 + m * n + 4096 * n), flops,
+                       BF16_FLOPS)
+        row = {"dense_ms": dense, "dense_bound_ms": dbound[0]}
+        for label, algo, gs in QUANT_TRAIN_FORMS:
+            qw, _ = _quantize(torch, g, 4096, n, algo.split("_")[-1], gs)
+            ms = timer(lambda: k2.fused_norm_matmul_pure(x, nw, eps, qw),
+                       iters=iters)
+            b = bound(2 * (m * 4096 + 4096 + m * n) + qw.codes.numel()
+                      + 4 * qw.scales.numel(), flops, BF16_FLOPS)
+            row[label] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1]}
+            if n == 128256:
+                gy = torch.randn((m, n), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                row[label]["backward_dequant_matmul_ms"] = timer(
+                    lambda: k4.quant_matmul_dx(
+                        gy, qw.codes, qw.scales, qw.weight_dtype, gs, 4096,
+                        torch.bfloat16), iters=iters)
+                del gy
+            del qw
+        times[f"K2 M{m} K4096 N{n}"] = row
+        log(f"7b K2 M{m} K4096 N{n}: dense {dense:.4f} ms (bound "
+            f"{dbound[0]:.4f}, {dbound[1]}); "
+            + "; ".join(f"{lb} {row[lb]['ms']:.4f} ms (bound "
+                        f"{row[lb]['bound_ms']:.4f}, {row[lb]['bound_by']})"
+                        + (f", backward dequant + matmul "
+                           f"{row[lb]['backward_dequant_matmul_ms']:.4f} ms"
+                           if "backward_dequant_matmul_ms" in row[lb]
+                           else "")
+                        for lb, _, _ in QUANT_TRAIN_FORMS))
+        del w
+    for kdim in (4096, 14336):
+        xk = torch.randn((m, kdim), generator=g, device="cuda").to(
+            torch.bfloat16)
+        row = {}
+        for label, algo, gs in QUANT_TRAIN_FORMS:
+            qw, _ = _quantize(torch, g, kdim, 4096, algo.split("_")[-1], gs)
+            ms = timer(lambda: k4.quant_matmul_qw(xk, qw))
+            b = bound(2 * (m * kdim + m * 4096) + qw.codes.numel()
+                      + 4 * qw.scales.numel(), 2 * m * 4096 * kdim,
+                      BF16_FLOPS)
+            gy = torch.randn((m, 4096), generator=g, device="cuda").to(
+                torch.bfloat16)
+            dx = timer(lambda: k4.quant_matmul_dx(
+                gy, qw.codes, qw.scales, qw.weight_dtype, gs, kdim,
+                torch.bfloat16))
+            row[label] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                          "backward_dequant_matmul_ms": dx}
+            del qw, gy
+        times[f"K4 M{m} K{kdim} N4096"] = row
+        log(f"7b K4 M{m} K{kdim} N4096: " + "; ".join(
+            f"{lb} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['bound_by']}), backward dequant + matmul "
+            f"{r['backward_dequant_matmul_ms']:.4f} ms"
+            for lb, r in row.items()))
+        del xk
+    del timer, x
+    torch.cuda.empty_cache()
+    return times
 
 
 def time_loss(torch, cfg, timer):
@@ -5908,9 +6517,18 @@ def main() -> int:
     mark("6d batcher defaults")
     # ---- 6g. the serving fleet: two replicas on one card, failover and
     # disaggregated prefill/decode with live KV migration
-    stats_fleet = serve_fleet(torch, kernels)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    fleet_model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                                   seed=SEED, device="cuda")
+    stats_fleet = serve_fleet(torch, kernels, model=fleet_model)
     torch.cuda.empty_cache()
     mark("6g fleet")
+    # ---- 6h. the autoscaled fleet under trace-driven load on 6g's model
+    stats_autoscale = serve_autoscale(torch, kernels, model=fleet_model)
+    del fleet_model
+    torch.cuda.empty_cache()
+    mark("6h autoscaled fleet")
 
     # ---- 7. training kernels vs plain at the train step's shapes, 8. the
     # full-width gradient check, 9. the timed train run (its counts set to
@@ -5926,6 +6544,11 @@ def main() -> int:
     own += [(row, "train") for row in check_rope(torch, timer, k67)]
     del timer
     torch.cuda.empty_cache()
+    # ---- 7b. quantized weights under autograd (its counts set to 0 just
+    # before each form's counted forward + backward and read just after)
+    stats_quant_train = train_quant(torch, kernels, k2, k4)
+    torch.cuda.empty_cache()
+    mark("7b quantized train")
     rope_seam = check_rope_seam(torch, k1, k67)
     torch.cuda.empty_cache()
     grad_check = train_grad_check(torch, k1)
@@ -5996,6 +6619,10 @@ def main() -> int:
              "batcher fleet failover fused":
                  stats_fleet["failover"]["launches"],
              "batcher fleet disagg fused": stats_fleet["disagg"]["launches"],
+             "batcher fleet autoscaled fused": stats_autoscale["launches"],
+             **{f"train quantized {label}":
+                stats_quant_train[label]["launches"]
+                for label, _, _ in QUANT_TRAIN_FORMS},
              "batcher int8 lora fused":
                  stats_batcher_int8["fused"]["lora"]["launches"],
              "train": counts_train, "moe train": counts_moe,
@@ -6109,6 +6736,8 @@ def main() -> int:
                     "serving_batcher_prefix": stats_prefix,
                     "serving_batcher_prefix_int8w_int8kv": stats_prefix_int8,
                     "serving_fleet": stats_fleet,
+                    "serving_fleet_autoscaled": stats_autoscale,
+                    "train_quantized": stats_quant_train,
                     "train": stats_train, "sft": stats_sft,
                     "moe_train": stats_moe,
                     "moe_quantized_experts": stats_quant}))

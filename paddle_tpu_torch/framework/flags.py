@@ -243,6 +243,32 @@ define_flag("fleet_worker_stall_s", 0.0,
             "crawl — which is exactly the gray failure the router's "
             "quarantine machinery must catch. 0 = off (production "
             "default).")
+define_flag("fleet_min_replicas", 1,
+            "Elastic-fleet floor (inference/autoscaler.py): the "
+            "FleetAutoscaler never drains the fleet below this many "
+            "live replicas, whatever demand says.")
+define_flag("fleet_max_replicas", 4,
+            "Elastic-fleet ceiling (inference/autoscaler.py): the "
+            "FleetAutoscaler never spawns past this many live replicas; "
+            "sustained saturation AT the ceiling is what escalates the "
+            "brownout ladder instead.")
+define_flag("autoscale_cooldown_s", 2.0,
+            "Minimum wall time between FleetAutoscaler scale/brownout "
+            "decisions (inference/autoscaler.py): a decision inside the "
+            "window is counted as flap_suppressed and NOT taken, which "
+            "is what makes the non-flapping property checkable — the "
+            "chaos gate asserts no two scale events land closer than "
+            "this.")
+define_flag("brownout_ladder", True,
+            "Brownout degradation ladder when the fleet is saturated at "
+            "fleet_max_replicas (inference/autoscaler.py): ordered, "
+            "reversible, host-side-only steps — L1 shrinks speculative-"
+            "decode k toward plain decode, L2 shrinks the prefill-chunk "
+            "admission budget, L3 sheds the lowest deadline tier at "
+            "admission — each entered/exited on the same hysteresis "
+            "that gates scaling and counted per step in health. Off = "
+            "saturation at max replicas degrades the old way (queue "
+            "growth, then queue-pressure shedding).")
 define_flag("kv_migration_chunk_pages", 8,
             "Pages per wire chunk for KVMigrator's chunked transport "
             "(inference/migration.py): a migrating sequence's host-tier "

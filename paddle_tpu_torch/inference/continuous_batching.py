@@ -375,9 +375,12 @@ class ContinuousBatcher:
 
             draft = NGramDraft()
         self._draft = draft
-        # a live cap on the draft rows a verify segment may take (0: the
-        # plain decode row); the wave's shape stays keyed on spec_k
+        # brownout levers, live caps the serving loops read each wave: the
+        # draft rows a verify segment may take (0: the plain decode row)
+        # and the prompt tokens a wave admits. Neither changes a shape: the
+        # wave stays keyed on (T, spec_k)
         self._spec_k_cap: Optional[int] = None
+        self._admit_budget_cap: Optional[int] = None
         # the unified arena: the kv class at a physical ceiling, residency
         # gated by one byte budget (auto: the legacy pool's bytes); the
         # reserved weight class holds no pages
@@ -589,6 +592,15 @@ class ContinuousBatcher:
     def reopen(self):
         """Re-enable admission after a ``drain()``."""
         self._draining = False
+
+    def _admit_budget(self) -> int:
+        """Prompt tokens a wave may admit: ``prefill_chunk``, unless
+        ``_admit_budget_cap`` lowers it; never below 1 (admission always
+        progresses) and never above the wave's compiled chunk width."""
+        cap = self._admit_budget_cap
+        if cap is None:
+            return self.prefill_chunk
+        return max(1, min(self.prefill_chunk, int(cap)))
 
     def _spec_k_eff(self) -> int:
         """Draft rows a verify segment may take: ``spec_k``, unless
@@ -1881,7 +1893,7 @@ class ContinuousBatcher:
                 new_slot = np.zeros((B,), bool)
                 start_len = np.zeros((B,), np.int32)
                 off = 0
-                budget_left = self.prefill_chunk
+                budget_left = self._admit_budget()
                 n_started = 0
                 for i in range(B):
                     req = slots[i]
@@ -2023,7 +2035,7 @@ class ContinuousBatcher:
                 new_slot = np.zeros((B,), bool)
                 start_len = np.zeros((B,), np.int32)
                 off = 0
-                budget_left = self.prefill_chunk
+                budget_left = self._admit_budget()
                 n_started = 0
                 n_chunk_tokens = 0
                 pre_dead: List[int] = []

@@ -366,7 +366,9 @@ def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None,
     rotate-half, cast back) feeding causal flash attention with a gradient
     (K1 forward, K5 or K9 backward) under ``attn_mask``, on flat (B, S, ·)
     projections; with ``o_w`` the o-proj matmul and the residual add
-    follow as the attention's epilogue."""
+    follow as the attention's epilogue (a ``QuantizedWeight`` o_w through
+    ``_wmm``: K4 under the weight-only rule, as the JAX package's
+    epilogue)."""
     from ..ops.kernels.flash_attention import flash_attention_train
     from ..ops.kernels.fused_norm_rope import fused_rope
 
@@ -382,7 +384,7 @@ def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None,
     out = out.reshape(b, s, nh * hd)
     if o_w is None:
         return out
-    return residual + out @ o_w
+    return residual + _wmm(out, o_w, plain=plain)
 
 
 def _train_fused_block(layer, hidden, attn_mask=None, plain=False,

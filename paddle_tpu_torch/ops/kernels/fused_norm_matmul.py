@@ -29,7 +29,11 @@ norm, all its matmul consumers) as an ``autograd.Function``: K2 once per
 consumer forward, and a backward that differentiates the plain chain
 (``_multi_reference``) with plain matmuls, as the JAX package's
 ``_fnm_multi_call`` custom VJP does outside any kernel; the norm weight gets
-ONE gradient.
+ONE gradient. Weight-only quantized weights train too (x and the norm
+weight take gradients, codes and scales none): a single ``QuantizedWeight``
+under ``_NormMatmulQuant`` (K2's quantized form forward, the JAX package's
+``_fnm_kc_bwd`` backward); a group with quantized consumers as the JAX
+package routes it, the norm then one weight-only matmul (K4) each.
 """
 
 from __future__ import annotations
@@ -53,9 +57,9 @@ def _reference(x, norm_w, eps, w):
     return _wmm(_pure_rms(x, norm_w, eps), w, plain=True)
 
 
-def fused_norm_matmul_pure(x, norm_w, eps, w):
-    """y = rms_norm(x, norm_w, eps) @ w; x (..., K), w (K, N) dense or a
-    ``QuantizedWeight`` of logical shape (K, N)."""
+def _norm_matmul(x, norm_w, eps, w):
+    """The forward with no gradient: K2 on CUDA tensors, the unfused chain
+    on CPU tensors."""
     if not x.is_cuda:
         return _reference(x, norm_w, eps, w)
     quantized = isinstance(w, QuantizedWeight)
@@ -67,7 +71,7 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
                          f"{tuple(w.shape)}")
     x2 = x.reshape(m, kdim)
     _build.check_no_grad("norm_matmul", x2, norm_w,
-                         w.codes if quantized else w)
+                         *((w.codes, w.scales) if quantized else (w,)))
     _build.check_cuda("x", x2, torch.bfloat16)
     _build.check_cuda("norm_w", norm_w, torch.bfloat16, (kdim,))
     if quantized:
@@ -94,6 +98,50 @@ def fused_norm_matmul_pure(x, norm_w, eps, w):
                           kdim, n, float(eps), _build.stream_of(x))
         _build.count(globals())
     return y.reshape(x.shape[:-1] + (n,))
+
+
+class _NormMatmulQuant(torch.autograd.Function):
+    """K2's quantized form (or the unfused chain on CPU tensors) forward;
+    the backward differentiates the unfused chain for dx and d norm_w, the
+    matmul's part by the weight-only rule (the JAX package's
+    ``_fnm_kc_bwd``). Codes and scales take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, norm_w, eps, qw):
+        ctx.eps, ctx.qw = eps, qw
+        ctx.save_for_backward(x, norm_w)
+        return _norm_matmul(x, norm_w, eps, qw)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...models.llama import _pure_rms
+        from .quant_matmul import quant_matmul_dx
+
+        x, norm_w = ctx.saved_tensors
+        qw = ctx.qw
+        with torch.enable_grad():
+            xa = x.detach().requires_grad_(True)
+            nwa = norm_w.detach().requires_grad_(True)
+            xn = _pure_rms(xa, nwa, ctx.eps)
+        dxn = quant_matmul_dx(g, qw.codes, qw.scales, qw.weight_dtype,
+                              qw.group_size, qw.shape[0], xn.dtype)
+        dx, dnw = torch.autograd.grad(xn, (xa, nwa), dxn.reshape(xn.shape))
+        return dx, dnw, None, None
+
+
+def fused_norm_matmul_pure(x, norm_w, eps, w):
+    """y = rms_norm(x, norm_w, eps) @ w; x (..., K), w (K, N) dense or a
+    ``QuantizedWeight`` of logical shape (K, N). A ``QuantizedWeight``
+    with a gradient on x or norm_w runs under ``_NormMatmulQuant`` (on
+    CUDA tensors, codes or scales that require grad raise); a dense w with
+    a gradient raises on CUDA tensors (training reaches K2 through
+    ``fused_norm_multi_matmul_pure``)."""
+    if (isinstance(w, QuantizedWeight) and torch.is_grad_enabled()
+            and (x.requires_grad or norm_w.requires_grad)):
+        if x.is_cuda:
+            _build.check_no_grad("norm_matmul", w.codes, w.scales)
+        return _NormMatmulQuant.apply(x, norm_w, eps, w)
+    return _norm_matmul(x, norm_w, eps, w)
 
 
 def _multi_reference(x, norm_w, eps, ws):
@@ -135,6 +183,19 @@ class _NormMultiMatmul(torch.autograd.Function):
 
 def fused_norm_multi_matmul_pure(x, norm_w, eps, ws):
     """The training plan's grouped norm->matmul node: rms_norm folded into
-    every matmul consumer in ``ws`` (dense weights). Returns the outputs in
-    consumer order, with a gradient."""
-    return _NormMultiMatmul.apply(x, norm_w, eps, *ws)
+    every matmul consumer in ``ws``. Returns the outputs in consumer order,
+    with a gradient. Dense weights: ``_NormMultiMatmul`` (K2 per consumer,
+    one VJP). With a ``QuantizedWeight`` consumer the JAX package's route:
+    the norm (K6 forward, K7 backward on CUDA tensors), then each consumer
+    through its own matmul (K4 under the weight-only rule for a quantized
+    one); a group of one quantized consumer (the LM head) is K2's quantized
+    form with the unfused chain's backward, the same function fused."""
+    if not any(isinstance(w, QuantizedWeight) for w in ws):
+        return _NormMultiMatmul.apply(x, norm_w, eps, *ws)
+    if len(ws) == 1:
+        return (fused_norm_matmul_pure(x, norm_w, eps, ws[0]),)
+    from ...models.llama import _wmm
+    from .fused_norm_rope import fused_rms_norm
+
+    xn = fused_rms_norm(x, norm_w, eps)
+    return tuple(_wmm(xn, w) for w in ws)

@@ -312,6 +312,47 @@ def train_kernel_launches_per_step(num_layers: int, n_params: int, *,
     return out
 
 
+def quantized_train_launches(num_layers: int, *, head: bool = True,
+                             enabled=None, attn_shape=None) -> dict:
+    """Kernel launches of one forward + backward (no recompute, no
+    optimizer: codes take no update) of ``num_layers`` decoder blocks in
+    ``quantize_for_inference`` form through ``run_train_decoder_layer``,
+    and with ``head`` the final norm + LM head through
+    ``run_train_lm_head``, by counter name. A ``norm_multi_matmul`` group of
+    one quantized consumer is K2's quantized form (its backward plain ops);
+    a larger group is the norm in K6/K7, then one K4 a consumer; every
+    other matmul (the o-proj, also inside ``attend_epilogue``, and the
+    down-proj) is a K4; the backward of a quantized matmul is the
+    weight-only rule in plain ops. K1, K5 or K9 and K12 as in
+    ``train_kernel_launches_per_step``. ``enabled`` overrides the
+    flag-resolved families (``()``: the unfused plan, every norm in
+    K6/K7)."""
+    enabled = enabled_train_fusions() if enabled is None else enabled
+    plans = [fuse_train_chain(TRAIN_CHAIN, enabled)] * num_layers
+    if head:
+        plans.append(train_head_plan(enabled))
+    k2 = k4 = k6 = k1 = 0
+    for plan in plans:
+        for n in plan:
+            if n.kind == "norm_multi_matmul":
+                if len(n.w[1]) == 1:
+                    k2 += 1
+                else:
+                    k6 += 1
+                    k4 += len(n.w[1])
+            elif n.kind == "rms_norm":
+                k6 += 1
+            elif n.kind == "matmul":
+                k4 += 1
+            elif n.kind in ("attend", "attend_epilogue"):
+                k1 += 1
+                k4 += n.kind == "attend_epilogue"
+    return {"flash_attention": k1, **_bwd_kernel_counts(k1, attn_shape),
+            "fused_rope": rope_launches_per_step(k1),
+            "fused_norm_matmul": k2, "quant_matmul": k4,
+            "rms_norm_fwd": k6, "rms_norm_bwd": k6, "adamw8bit": 0}
+
+
 def moe_train_kernel_launches_per_step(num_layers: int, n_params: int, *,
                                        enabled=None, attn_shape=None,
                                        quantized_experts: bool = False

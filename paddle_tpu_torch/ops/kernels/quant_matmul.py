@@ -23,7 +23,11 @@ scales f32 (N,) per output channel or (ceil(K/g), N) group-wise.
 
 On CPU tensors ``quant_matmul_pure`` runs the plain version
 (``quant_matmul_reference``); on CUDA tensors it launches K4 or raises.
-The JAX ``weight_only_kernel`` flag has no counterpart here.
+With a gradient on x it runs under an ``autograd.Function`` whose forward
+is that same call and whose backward is the JAX package's weight-only rule
+(``quant_matmul_dx``: the f32 product with the dequantized weight, codes
+and scales constants). The JAX ``weight_only_kernel`` flag has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -192,9 +196,20 @@ def check_quantized(name, codes, scales, weight_dtype, group_size, kdim, n,
                       lead + s_shape)
 
 
-def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
-    """y = x @ dequant(codes, scales); x (..., K). K4 on CUDA tensors (bf16
-    x, K % 128 == 0, N % 16 == 0), the plain version on CPU tensors."""
+def quant_matmul_dx(g, codes, scales, weight_dtype, group_size, kdim,
+                    dtype):
+    """The weight-only backward rule (the JAX package's
+    ``_pallas_with_vjp``): dx = (g in f32) @ dequant(codes, scales)^T in
+    f32, cast to x's ``dtype``. Codes and scales are constants. Plain ops:
+    the reference computes this product outside any kernel too."""
+    w = dequant_weight(codes, scales, weight_dtype, group_size, k=kdim,
+                       dtype=torch.float32)
+    return (g.float() @ w.T).to(dtype)
+
+
+def _quant_matmul(x, codes, scales, weight_dtype, group_size):
+    """The forward with no gradient: K4 on CUDA tensors, the plain version
+    on CPU tensors."""
     if not x.is_cuda:
         return quant_matmul_reference(x, codes, scales, weight_dtype,
                                       group_size)
@@ -205,7 +220,7 @@ def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
         raise ValueError(f"quant_matmul kernel needs K % 128 == 0, got x "
                          f"{tuple(x.shape)}")
     x2 = x.reshape(m, kdim)
-    _build.check_no_grad("quant_matmul", x2, codes)
+    _build.check_no_grad("quant_matmul", x2, codes, scales)
     _build.check_cuda("x", x2, torch.bfloat16)
     check_quantized("w", codes, scales, weight_dtype, group_size, kdim, n)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -216,6 +231,36 @@ def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
                       _build.stream_of(x))
         _build.count(globals())
     return y.reshape(x.shape[:-1] + (n,))
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """K4 (or its plain version) forward, the weight-only rule backward."""
+
+    @staticmethod
+    def forward(ctx, x, codes, scales, weight_dtype, group_size):
+        ctx.save_for_backward(codes, scales)
+        ctx.meta = (weight_dtype, group_size, x.shape[-1], x.dtype)
+        return _quant_matmul(x, codes, scales, weight_dtype, group_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, scales = ctx.saved_tensors
+        return (quant_matmul_dx(g, codes, scales, *ctx.meta), None, None,
+                None, None)
+
+
+def quant_matmul_pure(x, codes, scales, weight_dtype="int8", group_size=-1):
+    """y = x @ dequant(codes, scales); x (..., K). K4 on CUDA tensors (bf16
+    x, K % 128 == 0, N % 16 == 0), the plain version on CPU tensors. With
+    a gradient on x, its backward is ``quant_matmul_dx``; codes and scales
+    take none (on CUDA tensors, codes or scales that require grad
+    raise)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        if x.is_cuda:
+            _build.check_no_grad("quant_matmul", codes, scales)
+        return _QuantMatmul.apply(x, codes, scales, weight_dtype,
+                                  group_size)
+    return _quant_matmul(x, codes, scales, weight_dtype, group_size)
 
 
 def quant_matmul_qw(x, qw: QuantizedWeight):

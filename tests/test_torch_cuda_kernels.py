@@ -1554,8 +1554,14 @@ def test_training_wrappers_raise_instead_of_falling_back(gen):
         k67.rms_norm_fwd(xg, x[0], 1e-5)
     with pytest.raises(RuntimeError):
         k2.fused_norm_matmul_pure(xg, x[0], 1e-5, _randn(gen, 256, 8))
-    with pytest.raises(RuntimeError):               # K4 would drop it too
-        k4.quant_matmul_qw(xg, _qweight(gen, 256, 16, "weight_only_int8", -1))
+    # K4 and K2's quantized forms differentiate x (and norm_w) under their
+    # autograd.Functions; scales that require grad would drop theirs
+    qw = _qweight(gen, 256, 16, "weight_only_int8", -1)
+    qw.scales.requires_grad_(True)
+    with pytest.raises(RuntimeError):
+        k4.quant_matmul_qw(xg, qw)
+    with pytest.raises(RuntimeError):
+        k2.fused_norm_matmul_pure(xg, x[0], 1e-5, qw)
     with pytest.raises(RuntimeError):
         k1.flash_attention_fwd(q.clone().requires_grad_(True), q, q)
     p = _randn(gen, 100)
@@ -2889,3 +2895,125 @@ def test_fleet_kill_leaves_the_survivor_serving(gen):
                 w.terminate()
         for w in workers:
             w.join(10)
+
+
+# ---------------------------------------------------------------------------
+# Quantized weights under autograd: K4 and K2's quantized forms forward,
+# the weight-only rule backward
+# ---------------------------------------------------------------------------
+
+#: the small-M body (M 8) and the tiled body (M 300, off its tiles)
+_QUANT_GRAD = [(m, algo, gs) for m in (8, 300)
+               for algo, gs in (("weight_only_int8", -1),
+                                ("weight_only_int4", 128))]
+
+
+def _rel(a, ref):
+    return ((a.float() - ref).norm() / ref.norm()).item()
+
+
+def _shift_the_backward(monkeypatch):
+    """The control: the weight-only rule reads every column's scale from
+    the column 16 places on (the forward stays as it is)."""
+    rule = k4.quant_matmul_dx
+    monkeypatch.setattr(k4, "quant_matmul_dx",
+                        lambda g, codes, scales, *a: rule(
+                            g, codes, scales.roll(16, -1), *a))
+
+
+@pytest.mark.parametrize("m,algo,gs", _QUANT_GRAD)
+def test_quant_grad_k4_forward_bitwise_and_dx_rule(gen, monkeypatch, m,
+                                                   algo, gs):
+    """K4 under autograd: the forward is the launch, bitwise equal to the
+    no-grad call (one launch each); dx (the weight-only rule) against plain
+    f32 within twice the plain bf16 chain's relative L2 error; the rule with
+    the scales shifted fails it."""
+    kdim, n = 512, 784
+    qw = _qweight(gen, kdim, n, algo, gs)
+    x = _randn(gen, m, kdim)
+    g = _randn(gen, m, n)
+    n0 = k4.launches
+    with torch.no_grad():
+        y0 = k4.quant_matmul_qw(x, qw)
+    xk = x.clone().requires_grad_(True)
+    y = k4.quant_matmul_qw(xk, qw)
+    assert k4.launches - n0 == 2
+    assert torch.equal(y, y0)
+    y.backward(g)
+    w32 = k4.dequant_weight(qw.codes, qw.scales, qw.weight_dtype, gs,
+                            k=kdim, dtype=torch.float32)
+    ref = g.float() @ w32.T
+    xp = x.clone().requires_grad_(True)
+    k4.quant_matmul_reference(xp, qw.codes, qw.scales, qw.weight_dtype,
+                              gs).backward(g)
+    ek, ep = _rel(xk.grad, ref), _rel(xp.grad, ref)
+    assert ek <= 2 * ep, (ek, ep)
+    _shift_the_backward(monkeypatch)
+    xc = x.clone().requires_grad_(True)
+    k4.quant_matmul_qw(xc, qw).backward(g)
+    assert _rel(xc.grad, ref) > 2 * ep
+
+
+@pytest.mark.parametrize("m,algo,gs", _QUANT_GRAD)
+def test_quant_grad_k2_forward_bitwise_and_grads_rule(gen, monkeypatch, m,
+                                                      algo, gs):
+    """K2's quantized form under autograd (a single consumer) and a
+    quantized consumer group (the norm in K6/K7, one K4 each): forwards
+    bitwise equal to the no-grad calls; dx and d norm_w against the plain
+    f32 chain within twice the plain bf16 chain's error; the backward with
+    the scales shifted fails it."""
+    kdim, n, eps = 512, 784, 1e-5
+    qw = _qweight(gen, kdim, n, algo, gs)
+    qw2 = _qweight(gen, kdim, 272, algo, gs)
+    x = _randn(gen, m, kdim)
+    nw = (torch.rand((kdim,), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    g, g2 = _randn(gen, m, n), _randn(gen, m, 272)
+
+    def run(fn, dtype=None, ws=(qw, qw2)):
+        xa = (x if dtype is None else x.to(dtype)).clone().requires_grad_()
+        na = (nw if dtype is None else nw.to(dtype)).clone().requires_grad_()
+        outs = fn(xa, na, ws)
+        sum((o.float() * gg.float()).sum()
+            for o, gg in zip(outs, (g, g2))).backward()
+        return outs, xa.grad, na.grad
+
+    n2, n4 = k2.launches, k4.launches
+    with torch.no_grad():
+        y0 = k2.fused_norm_matmul_pure(x, nw, eps, qw)
+        m0 = k2.fused_norm_multi_matmul_pure(x, nw, eps, (qw, qw2))
+    (y,), dx1, dn1 = run(lambda a, b, ws: (k2.fused_norm_matmul_pure(
+        a, b, eps, ws[0]),))
+    assert (k2.launches - n2, k4.launches - n4) == (2, 2)
+    assert torch.equal(y, y0)
+    outs, dxm, dnm = run(lambda a, b, ws: k2.fused_norm_multi_matmul_pure(
+        a, b, eps, ws))
+    assert all(torch.equal(a, b) for a, b in zip(outs, m0))
+    assert k4.launches - n4 == 4
+
+    def f32_chain(a, b, ws):
+        xn = (a * torch.rsqrt(a.square().mean(-1, keepdim=True) + eps)) * b
+        return tuple(xn @ k4.dequant_weight(
+            w.codes, w.scales, w.weight_dtype, w.group_size, k=kdim,
+            dtype=torch.float32) for w in ws)
+
+    def plain_chain(a, b, ws):
+        return tuple(k2._reference(a, b, eps, w) for w in ws)
+
+    for label, fn, ws in (("single", k2.fused_norm_matmul_pure, (qw,)),
+                          ("group", None, (qw, qw2))):
+        def kern(a, b, ws_, fn=fn):
+            if fn is not None:
+                return (fn(a, b, eps, ws_[0]),)
+            return k2.fused_norm_multi_matmul_pure(a, b, eps, ws_)
+
+        _, rx, rn = run(f32_chain, torch.float32, ws)
+        _, px, pn = run(plain_chain, None, ws)
+        _, kx, kn = run(kern, None, ws)
+        assert _rel(kx, rx) <= 2 * _rel(px, rx), label
+        assert _rel(kn, rn) <= 2 * _rel(pn, rn), label
+        _shift_the_backward(monkeypatch)
+        _, cx, _ = run(kern, None, ws)
+        monkeypatch.undo()
+        assert _rel(cx, rx) > 2 * _rel(px, rx), label
+    del dx1, dn1, dxm, dnm

@@ -93,6 +93,11 @@ def _callables():
                         continue
                     if mname == "__init__" and rm is object.__init__:
                         continue
+                    # a class or static method compares unbound, as
+                    # ``_methods`` gives the port's
+                    static = inspect.getattr_static(robj, mname)
+                    if isinstance(static, (staticmethod, classmethod)):
+                        rm = static.__func__
                     out.append((f"{label}.{mname}", tm, rm))
     return out
 
