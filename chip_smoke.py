@@ -294,7 +294,8 @@ class, device busy share). Phases, in order; any failure raises and the process 
                ``fusion.quantized_train_launches(1)``. Times K2's int8 and
                int4 g128 forms at M 8192 for N 4096 / 14336 / 128256
                beside dense K2 and the bound, K4 at M 8192, the backward's
-               dequant + matmul.
+               dequant + matmul; each quantized form beside its plain
+               version and the library's dequant + ``torch.matmul``.
 8. gradient check — a 2-layer full-width model (B=1, S=2048): the
                per-token losses and every parameter's gradient of the
                kernel path, the plain bf16 path and a plain f32 run;
@@ -329,6 +330,26 @@ class, device busy share). Phases, in order; any failure raises and the process 
                step's lr follow the schedule and the clipped global norm be
                <= 1; step ms, tokens/s (real and all positions),
                ``mfu_6n_attn``, peak memory.
+9c. data parallelism and ZeRO — K8's shard form at gate_proj (2 and 4
+               ranks' block cuts, and a 2-block norm weight over 4
+               ranks: bitwise the whole-tensor launch, a moved shard map
+               must differ; timed), then the 2-layer full-width model of
+               phase 8 (phase 9's recipe) in children started through
+               ``paddle_tpu_torch.distributed.launch`` (``chip_smoke.py
+               --dp-child a|b <dir>``): 9c-a, one rank over NCCL, the
+               plain ``TrainStep`` then ``DataParallel``, ``os``,
+               ``os_g``, ``p_g_os``, each step-1 loss, parameters,
+               masters and codes bitwise the plain step's and launches =
+               the plan (one K8 a non-empty shard); 9c-b, two ranks on the
+               card over gloo (``--devices 0,0``), phase 8's masked B=2
+               batch a row a rank: the reduced gradients within phase 8's
+               rule against rank 0's plain f32 run of the global batch
+               (a local-means and a dropped-bucket reducer must fail it),
+               the sharded steps' gathered parameters, codes and scales
+               bitwise rank 0's unsharded K8 step (a moved shard map must
+               fail it), ``os_g``'s optimizer state <= 0.55 x
+               ``DataParallel``'s; each rank's step ms, exposed flush ms,
+               peak memory and state bytes printed.
 10. MoE kernels — after the Llama train model is freed, K13 (grouped
                matmul: forward at 4096 -> 14336 and 14336 -> 4096, and its
                transposed dX form) and K14 (segment dW at both weight
@@ -396,6 +417,7 @@ Needs a CUDA device and the CUDA toolkit; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -4585,8 +4607,14 @@ def quant_train_times(torch, k2, k4):
     """K2's int8 and int4 g128 forms at M 8192 (K 4096; N 4096, 14336,
     128256) beside dense K2 and the bound; K4 at M 8192 (the o-proj and
     down-proj, int8 and int4 g128); the backward's dequant + matmul
-    (``quant_matmul_dx``) at the head's and the down-proj's shapes. Cold
-    L2, median device ms (5 calls at N 128256, else 20)."""
+    (``quant_matmul_dx``) at the head's and the down-proj's shapes. Each
+    quantized form also beside its plain version and the library's
+    dequant (``dequant_weight`` into bf16) + ``torch.matmul`` (K2: after
+    ``F.rms_norm``). Cold L2, median device ms (5 calls at N 128256, else
+    20)."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import dequant_weight
+
+    rms_norm = torch.nn.functional.rms_norm
     timer = ColdTimer(torch)
     g = torch.Generator(device="cuda").manual_seed(SEED + 27)
     m, eps, times = TB * TS, 1e-5, {}
@@ -4607,9 +4635,16 @@ def quant_train_times(torch, k2, k4):
             qw, _ = _quantize(torch, g, 4096, n, algo.split("_")[-1], gs)
             ms = timer(lambda: k2.fused_norm_matmul_pure(x, nw, eps, qw),
                        iters=iters)
+            plain = timer(lambda: k2._reference(x, nw, eps, qw),
+                          iters=iters)
+            lib = timer(lambda: torch.matmul(
+                rms_norm(x, (4096,), nw, eps), dequant_weight(
+                    qw.codes, qw.scales, qw.weight_dtype, gs, k=4096,
+                    dtype=torch.bfloat16)), iters=iters)
             b = bound(2 * (m * 4096 + 4096 + m * n) + qw.codes.numel()
                       + 4 * qw.scales.numel(), flops, BF16_FLOPS)
-            row[label] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1]}
+            row[label] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                          "plain_ms": plain, "library_ms": lib}
             if n == 128256:
                 gy = torch.randn((m, n), generator=g, device="cuda").to(
                     torch.bfloat16)
@@ -4623,7 +4658,9 @@ def quant_train_times(torch, k2, k4):
         log(f"7b K2 M{m} K4096 N{n}: dense {dense:.4f} ms (bound "
             f"{dbound[0]:.4f}, {dbound[1]}); "
             + "; ".join(f"{lb} {row[lb]['ms']:.4f} ms (bound "
-                        f"{row[lb]['bound_ms']:.4f}, {row[lb]['bound_by']})"
+                        f"{row[lb]['bound_ms']:.4f}, {row[lb]['bound_by']}; "
+                        f"plain {row[lb]['plain_ms']:.4f}, library dequant "
+                        f"+ matmul {row[lb]['library_ms']:.4f})"
                         + (f", backward dequant + matmul "
                            f"{row[lb]['backward_dequant_matmul_ms']:.4f} ms"
                            if "backward_dequant_matmul_ms" in row[lb]
@@ -4637,6 +4674,11 @@ def quant_train_times(torch, k2, k4):
         for label, algo, gs in QUANT_TRAIN_FORMS:
             qw, _ = _quantize(torch, g, kdim, 4096, algo.split("_")[-1], gs)
             ms = timer(lambda: k4.quant_matmul_qw(xk, qw))
+            plain = timer(lambda: k4.quant_matmul_reference(
+                xk, qw.codes, qw.scales, qw.weight_dtype, gs))
+            lib = timer(lambda: xk @ dequant_weight(
+                qw.codes, qw.scales, qw.weight_dtype, gs, k=kdim,
+                dtype=torch.bfloat16))
             b = bound(2 * (m * kdim + m * 4096) + qw.codes.numel()
                       + 4 * qw.scales.numel(), 2 * m * 4096 * kdim,
                       BF16_FLOPS)
@@ -4646,12 +4688,14 @@ def quant_train_times(torch, k2, k4):
                 gy, qw.codes, qw.scales, qw.weight_dtype, gs, kdim,
                 torch.bfloat16))
             row[label] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                          "plain_ms": plain, "library_ms": lib,
                           "backward_dequant_matmul_ms": dx}
             del qw, gy
         times[f"K4 M{m} K{kdim} N4096"] = row
         log(f"7b K4 M{m} K{kdim} N4096: " + "; ".join(
             f"{lb} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
-            f"{r['bound_by']}), backward dequant + matmul "
+            f"{r['bound_by']}; plain {r['plain_ms']:.4f}, library dequant + "
+            f"matmul {r['library_ms']:.4f}), backward dequant + matmul "
             f"{r['backward_dequant_matmul_ms']:.4f} ms"
             for lb, r in row.items()))
         del xk
@@ -5413,6 +5457,582 @@ def _sft_train(torch, kernels, profile, TrainStep, LlamaForCausalLM,
     del step, opt, model, clip
     torch.cuda.empty_cache()
     return counts, stats
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism and ZeRO (phase 9c): K8's shard form in this process,
+# then the 2-layer full-width train step in child processes started through
+# the port's launcher: one rank over NCCL (9c-a), two ranks on the one card
+# over gloo with CUDA tensors (9c-b). A child runs ``chip_smoke.py
+# --dp-child <a|b> <dir>`` and writes ``<dir>/rank<r>.json``.
+# ---------------------------------------------------------------------------
+DP_PLACEMENTS = ("dp", "os", "os_g", "p_g_os")
+DP_LR = 1e-4                      # AdamW8bit(1e-4), phase 9's recipe
+DP_OPT_KW = dict(weight_decay=0.01, lr_scale=1.0, beta1=0.9, beta2=0.999,
+                 eps=1e-8)        # AdamW8bit's defaults, for the K8 replays
+
+
+def k8_shards(k8, p, cuts, shift=0):
+    """The shards of ``p`` over the block ranges [cuts[i], cuts[i + 1])
+    as a ZeRO rank's optimizer holds them: (lo, hi, the shard's own fresh
+    state, ``init_state`` of the flat range) for each non-empty range.
+    ``shift`` > 0 is the moved shard map of the control: every range after
+    the first lies ``shift`` blocks later."""
+    from paddle_tpu_torch.distributed.sharding import Q8_BLOCK
+
+    pf, out = p.view(-1), []
+    for i, (b0, b1) in enumerate(zip(cuts, cuts[1:])):
+        d = shift if i else 0
+        lo, hi = (min((b + d) * Q8_BLOCK, pf.numel()) for b in (b0, b1))
+        if hi > lo:
+            out.append((lo, hi, k8.init_state(pf[lo:hi], master=True)))
+    return out
+
+
+def k8_by_shards(k8, p, g, shards, plain=False):
+    """K8 on each shard of ``k8_shards`` (flat views of ``p`` and ``g``),
+    one launch a shard, as ZeRO ranks run it."""
+    pf, gf = p.view(-1), g.reshape(-1)
+    for lo, hi, st in shards:
+        k8.adamw8bit_update(pf[lo:hi], gf[lo:hi], st, DP_LR, 1,
+                            plain=plain, **DP_OPT_KW)
+
+
+def k8_gathered(torch, shards):
+    """The shards' states end to end, as a gather onto one rank lays them:
+    the whole tensor's flat state layout."""
+    return {k: torch.cat([st[k].reshape(-1) for _, _, st in shards])
+            for k in shards[0][2]}
+
+
+def _k8_state_equal(torch, a, b):
+    return all(torch.equal(_as_bytes(torch, a[k]).reshape(-1),
+                           _as_bytes(torch, b[k]).reshape(-1)) for k in a)
+
+
+def _k8_err(torch, p, st, p_ref, st_ref, step):
+    """K8's error against its plain version: codes bit-identical, scales
+    within 3e-7 relative, master within step * 3e-7 (``check_adamw8bit``'s
+    bars); returns the max abs error of the parameter and the master."""
+    for key in ("m_q", "v_q"):
+        diff = (_as_bytes(torch, st[key]).reshape(-1)
+                != _as_bytes(torch, st_ref[key]).reshape(-1)).sum().item()
+        assert diff == 0, f"K8 shards: {diff} {key} codes differ from plain"
+    for key in ("m_s", "v_s"):
+        rel = ((st[key] - st_ref[key]).abs()
+               / st_ref[key].abs().clamp(min=1e-30)).max().item()
+        assert rel <= 3e-7, f"K8 shards: {key} rel err {rel} against plain"
+    merr = (st["master"].reshape(-1)
+            - st_ref["master"].reshape(-1)).abs().max().item()
+    assert merr <= step * 3e-7, f"K8 shards: master err {merr} against plain"
+    return max(merr, (p.float() - p_ref.float()).abs().max().item())
+
+
+def check_adamw8bit_shards(torch, timer, k8):
+    """K8's shard form at the train step's shapes: a gate_proj-shaped bf16
+    param with its f32 master (28,672 blocks) cut as 2 and 4 ZeRO ranks
+    cut it, and a 4096-element norm weight (2 blocks) cut for 4 ranks (two
+    own none and launch nothing), each shard with its own state as the
+    optimizer makes it: parameter, master, codes and scales (the shards'
+    states gathered) bitwise equal to the whole-tensor launch, and held to
+    the plain version with ``check_adamw8bit``'s bars (the row's
+    ``max_abs_err``); the moved-shard control must differ. Times the
+    2-rank cut's two launches (plain: the same two ranges)."""
+    from paddle_tpu_torch.distributed.sharding import block_shard
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    row, launched, err = None, 0, 0.0
+    for shape in ((4096, 14336), (4096,)):
+        p0 = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        gr = (torch.randn(shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        whole, st_whole = p0.clone(), k8.init_state(p0, master=True)
+        k8.adamw8bit_update(whole, gr, st_whole, DP_LR, 1, **DP_OPT_KW)
+        plain, st_plain = p0.clone(), k8.init_state(p0, master=True)
+        k8.adamw8bit_update(plain, gr, st_plain, DP_LR, 1, plain=True,
+                            **DP_OPT_KW)
+        for world in ((2, 4) if len(shape) == 2 else (4,)):
+            cuts = [block_shard(p0.numel(), world, r)[0] // 2048
+                    for r in range(world)] + [-(-p0.numel() // 2048)]
+            p = p0.clone()
+            shards = k8_shards(k8, p, cuts)
+            before = k8.launches
+            k8_by_shards(k8, p, gr, shards)
+            launched = k8.launches - before
+            assert launched == sum(1 for a, b in zip(cuts, cuts[1:])
+                                   if b > a), (shape, world, launched)
+            torch.cuda.synchronize()
+            st = k8_gathered(torch, shards)
+            assert torch.equal(p, whole) and _k8_state_equal(
+                torch, st, st_whole), f"K8 shards {shape} x{world} differ"
+            err = max(err, _k8_err(torch, p, st, plain, st_plain, 1))
+            moved = p0.clone()
+            k8_by_shards(k8, moved, gr, k8_shards(k8, moved, cuts, shift=1))
+            assert not torch.equal(moved, whole), "moved shards passed"
+            log(f"K8 shard form {shape} over {world} ranks (block cuts "
+                f"{cuts}): {launched} launches, bitwise the whole-tensor "
+                f"launch, max_abs_err {err:.3e} against plain; moved-shard "
+                f"control differs")
+            del shards, st, moved
+        if len(shape) == 2:
+            cuts = [0, p0.numel() // 2048 // 2, p0.numel() // 2048]
+            p = p0.clone()
+            shards = k8_shards(k8, p, cuts)
+            ms = timer(lambda: k8_by_shards(k8, p, gr, shards))
+            pp = p0.clone()
+            shards_p = k8_shards(k8, pp, cuts)
+            plain_ms = timer(lambda: k8_by_shards(k8, pp, gr, shards_p,
+                                                  plain=True), iters=5)
+            n, nb = p0.numel(), p0.numel() // 2048
+            bms, by = bound(16 * n + 16 * nb, 0, BF16_FLOPS)
+            row = {"name": "adamw8bit_shard", "route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/adamw8bit.cu",
+                   "replaces":
+                       "paddle_tpu/ops/pallas/fused_optimizer_update.py:173",
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": None,
+                   "shape": f"{shape[0]}x{shape[1]} bf16 + f32 master, two "
+                            f"ZeRO shards of {nb // 2} blocks"}
+            log(f"K8 shard form, 2 shards of {shape}: kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} bound_ms {bms:.4f} ({by})")
+            del p, pp, shards, shards_p
+        del p0, gr, whole, st_whole, plain, st_plain
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = err
+    return row
+
+
+def dp_launch(mode, nproc, devices, out_dir, timeout):
+    """Run ``--dp-child mode`` on ``nproc`` ranks through the port's
+    launcher; returns each rank's JSON. Raises with the logs' tails when a
+    rank fails (the launcher stops the others)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--devices", devices,
+           "--log_dir", out_dir, os.path.abspath(__file__), "--dp-child",
+           mode, out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    tails = "".join(
+        f"\n-- rank {r}:\n" + open(f"{out_dir}/workerlog.{r}").read()[-4000:]
+        for r in range(nproc) if os.path.exists(f"{out_dir}/workerlog.{r}"))
+    if proc.returncode != 0:
+        raise RuntimeError(f"9c-{mode} failed ({proc.returncode}): "
+                           f"{proc.stderr[-4000:]}{tails}")
+    for r in range(nproc):
+        for line in open(f"{out_dir}/workerlog.{r}").read().splitlines():
+            if line.startswith("9c"):
+                log(line)
+    log(f"9c-{mode}: {nproc} ranks in {time.perf_counter() - t0:.1f}s "
+        f"(launcher, process start and build load included)")
+    return [json.load(open(f"{out_dir}/rank{r}.json"))
+            for r in range(nproc)]
+
+
+def _dp_model(torch, cfg, place, opt_cls, device):
+    """The seed's 2-layer model, its AdamW8bit and the placement's
+    wrapping: (model to step, the inner model, the optimizer, the plan)."""
+    from paddle_tpu_torch.distributed import (DataParallel,
+                                              group_sharded_parallel)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    m = LlamaForCausalLM(cfg, seed=SEED, device=device)
+    opt = opt_cls(learning_rate=DP_LR, parameters=m.parameters())
+    model = m
+    if place == "dp":
+        model = DataParallel(m)
+    elif place != "single":
+        model, opt, _ = group_sharded_parallel(m, opt, place)
+    return model, m, opt, getattr(model, "_zero_plan", None)
+
+
+def _dp_step(torch, kernels, cfg, place, inputs, labels, *, control=None,
+             device="cuda"):
+    """One ``TrainStep`` of the 2-layer model at ``place``: its loss, the
+    reduced gradients the optimizer took, launches, step ms, the exposed
+    flush ms (``finish``: from backward's end until every flush landed),
+    peak memory, optimizer-state bytes. ``control``: "local means" (the
+    loss divides by this rank's own count: ``count_group`` dropped), "drop
+    last bucket". On the CPU (a rehearsal) no kernel launches and nothing
+    is timed."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.kernels import fusion
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    model, m, opt, plan = _dp_model(torch, cfg, place, AdamW8bit, device)
+    loss_fn = m.loss
+    if control == "local means":
+        def loss_fn(o, lb, count_group=None):
+            return m.loss(o, lb)
+    step = TrainStep(model, loss_fn, opt)
+    red = getattr(model, "_grad_reducer", None)
+    seen, flush_ms = {}, []
+    inner_step = opt.step
+
+    def recording_step(*, grads=None):
+        seen.update(grads if grads is not None else
+                    {n: p.grad for n, p in m.named_parameters()})
+        inner_step(grads=grads)
+
+    opt.step = recording_step
+    if red is not None:
+        finish = red.finish
+
+        def timed_finish():
+            sync()
+            t = time.perf_counter()
+            out = finish()
+            sync()
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        red.finish = timed_finish
+    if control == "drop last bucket":
+        flush = red._flush
+
+        def dropping(b, grads=None):
+            if b is red._buckets[-1]:
+                b.flushed = True
+                return
+            flush(b, grads)
+
+        red._flush = dropping
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    loss = step(inputs, labels)
+    sync()
+    step_ms = (time.perf_counter() - t) * 1e3
+    counts = kernels.launch_counts()
+    names = [n for n, _ in m.named_parameters()]
+    if control == "drop last bucket":
+        for n, p in m.named_parameters():   # its local gradients stay
+            seen.setdefault(n, p.grad)
+    owned = (len(names) if plan is None else
+             sum(1 for n in names if plan.layouts[n].hi > plan.layouts[n].lo))
+    want = fusion.train_kernel_launches_per_step(
+        cfg.num_hidden_layers, len(names), recompute=cfg.recompute,
+        granularity=cfg.recompute_granularity,
+        fused_head_loss=cfg.fused_head_loss)
+    want["adamw8bit"] = owned
+    expected = dict.fromkeys(counts, 0)
+    expected.update(want if cuda else {})
+    state_bytes = sum(t.numel() * t.element_size()
+                      for st in opt._state.values() for t in st.values())
+    return {"loss": loss.item(), "loss_bits": loss.float().view(
+                torch.int32).item(), "grads": seen, "counts": counts,
+            "expected": expected, "step_ms": step_ms,
+            "flush_ms": flush_ms[0] if flush_ms else None,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+            "state_bytes": state_bytes, "model": m, "opt": opt,
+            "plan": plan}
+
+
+def _gather0(torch, plan, name, t, per_block):
+    """Every rank's shard ``t`` of ``name`` (``per_block`` elements a
+    quantization block) onto rank 0, in the full flat layout (padded to
+    whole segments; gloo moves float8 as bytes); None elsewhere."""
+    import torch.distributed as dist
+
+    lay = plan.layouts[name]
+    seg = lay.seg // 2048 * per_block
+    dtype = t.dtype
+    t = t.view(torch.uint8) if dtype == torch.float8_e4m3fn else t
+    buf = torch.zeros(seg, dtype=t.dtype, device=t.device)
+    buf[:t.numel()] = t.reshape(-1)
+    root = plan.group.rank == 0
+    parts = [torch.empty_like(buf) for _ in range(plan.group.nranks)] \
+        if root else None
+    dist.gather(buf, parts, dst=plan.group.ranks[0],
+                group=plan.group.process_group)
+    return torch.cat(parts).view(dtype) if root else None
+
+
+def _as_bytes(torch, t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def dp_checks(torch, k8, cfg, run, refs, rank, device, bitwise):
+    """Tensor by tensor (the card holds two ranks): each reduced gradient
+    (shards gathered onto rank 0) against phase 8's references, and, with
+    ``bitwise``, the sharded step's parameters, codes and scales (gathered
+    onto rank 0) against rank 0's unsharded K8 step of the seed's
+    parameters on the same gradient, plus the moved-shard control on the
+    first tensor of 3 to 2048 blocks (a k_proj at full width). Returns
+    (the worst kernel/plain
+    ratio, the tensors that differ, whether the control differed) on rank
+    0, Nones elsewhere."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    plan, opt = run["plan"], run["opt"]
+    fresh = (dict(LlamaForCausalLM(cfg, seed=SEED, device=device)
+                  .named_parameters()) if bitwise and rank == 0 else None)
+    worst, bad, control = 0.0, [], None
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    for n, p in run["model"].named_parameters():
+        g = run["grads"][n]
+        if plan is not None and plan.stage >= 2:
+            g = _gather0(torch, plan, n, g, 2048)
+        if rank == 0:
+            g = g.reshape(-1)[:plan.layouts[n].numel if plan else g.numel()]
+            plain, f32 = refs[0][n], refs[1][n]
+            worst = max(worst, rel(g.view(f32.shape), f32)
+                        / max(rel(plain, f32), 1e-30))
+        if not bitwise:
+            continue
+        st = opt._state.get(n)
+        got = {"param": _gather0(torch, plan, n, plan.param_shard(n, p), 2048)}
+        for k, per in (("m_q", 2048), ("v_q", 2048), ("m_s", 1),
+                       ("v_s", 1)):
+            t = st[k] if st is not None else torch.zeros(
+                0, dtype=torch.float8_e4m3fn if per == 2048 else
+                torch.float32, device=device)
+            got[k] = _gather0(torch, plan, n, t, per)
+        if rank != 0:
+            continue
+        p0 = fresh[n].detach()
+        ref_st = k8.init_state(p0, master=True)
+        nb = ref_st["m_s"].numel()
+        # the control on the first tensor of 3 to 2048 blocks (k_proj)
+        moved = (p0.clone() if control is None and 3 <= nb <= 2048
+                 else None)
+        ref_p = p0.clone()
+        k8.adamw8bit_update(ref_p, g.view(p0.shape), ref_st, DP_LR, 1,
+                            **DP_OPT_KW)
+        same = torch.equal(got["param"][:p0.numel()], ref_p.view(-1)) and \
+            all(torch.equal(_as_bytes(torch, got[k][:ref_st[k].numel()]),
+                            _as_bytes(torch, ref_st[k]))
+                for k in ("m_q", "v_q", "m_s", "v_s"))
+        if not same:
+            bad.append(n)
+        if moved is not None:
+            shards = k8_shards(k8, moved, [0, nb // 2, nb], shift=1)
+            k8_by_shards(k8, moved, g, shards)
+            control = not (torch.equal(moved.view(-1), ref_p.view(-1))
+                           and _k8_state_equal(
+                               torch, {"m_q": k8_gathered(torch, shards)[
+                                   "m_q"]}, ref_st))
+            del shards
+        fresh[n].data = torch.empty(0, dtype=p0.dtype, device=device)
+        del p0, ref_p, ref_st, moved, got
+    if rank != 0:
+        return None, None, None
+    return worst, bad, control
+
+
+def dp_child(mode, out_dir, rehearse=False) -> int:
+    """One rank of phase 9c (``--dp-child``): 9c-a (one rank, NCCL) runs
+    the plain ``TrainStep`` and every placement on phase 8's B=1 batch
+    and holds the placements to it bitwise; 9c-b (two ranks on one card,
+    gloo) runs phase 8's masked B=2 batch, row r on rank r, holds the
+    reduced gradients to the f32 reference with phase 8's rule (two
+    controls must fail it) and the sharded steps to rank 0's unsharded K8
+    step bitwise. ``rehearse``: the same on the CPU at tiny widths (S 32,
+    f32, ``--rehearse``), where the plain versions run, nothing is counted
+    and the error rule is printed, not asserted."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import fused_optimizer_update as k8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_child = time.perf_counter()
+    device = "cpu" if rehearse else "cuda"
+    init_parallel_env(backend="gloo" if mode == "b" else None,
+                      device="cpu" if rehearse else None)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg, ts = train_config(2), TS
+    if rehearse:
+        from paddle_tpu_torch.models.llama import LlamaConfig
+
+        cfg, ts = LlamaConfig.tiny(
+            recompute=True, recompute_granularity="core_attn",
+            fused_head_loss=True, loss_chunk_size=24), 32
+    result = {"rank": rank, "world": world,
+              "backend": dist.get_backend()}
+    if mode == "a":
+        g = torch.Generator(device=device).manual_seed(SEED + 23)
+        ids = torch.randint(0, cfg.vocab_size, (1, ts), generator=g,
+                            device=device)
+        ref = _dp_step(torch, kernels, cfg, "single", ids, ids,
+                       device=device)
+        want = {n: p.detach().clone()
+                for n, p in ref["model"].named_parameters()}
+        want_st = {n: {k: v.clone() for k, v in st.items()}
+                   for n, st in ref["opt"]._state.items()}
+        assert ref["counts"] == ref["expected"], (ref["counts"],
+                                                  ref["expected"])
+        del ref["model"], ref["opt"], ref["grads"]
+        gc.collect()
+        result["single"] = {k: v for k, v in ref.items() if k != "plan"}
+        for place in DP_PLACEMENTS:
+            run = _dp_step(torch, kernels, cfg, place, ids, ids,
+                           device=device)
+            plan = run["plan"]
+            diff = []
+            for n, p in run["model"].named_parameters():
+                full = plan.full_param(n) if plan is not None else p.detach()
+                if not torch.equal(full.view(-1), want[n].view(-1)):
+                    diff.append(n + ".param")
+                for k, v in run["opt"]._state[n].items():
+                    a, b = v, want_st[n][k].view(-1)
+                    if a.dtype == torch.float8_e4m3fn:
+                        a, b = a.view(torch.uint8), b.view(torch.uint8)
+                    if not torch.equal(a.view(-1), b.view(-1)):
+                        diff.append(f"{n}.{k}")
+            same_loss = run["loss_bits"] == ref["loss_bits"]
+            print(f"9c-a {place} (at {time.perf_counter() - t_child:.1f}s): "
+                  f"step-1 loss {run['loss']:.6f} "
+                  f"{'bitwise' if same_loss else 'DIFFERS'}, tensors "
+                  f"differing {len(diff)} {diff[:4]}, launches "
+                  f"{run['counts']} (plan {run['counts'] == run['expected']}"
+                  f"), step_ms {run['step_ms']:.1f}, flush_ms "
+                  f"{run['flush_ms']}", flush=True)
+            assert same_loss and not diff, (place, run["loss"],
+                                            ref["loss"], diff)
+            assert run["counts"] == run["expected"], (place, run["counts"],
+                                                      run["expected"])
+            result[place] = {k: v for k, v in run.items() if k not in (
+                "model", "opt", "grads", "plan")}
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        result.update(_dp_child_b(torch, kernels, k8, cfg, rank, ts,
+                                  device, t_child))
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_child_b(torch, kernels, k8, cfg, rank, ts, device, t_child):
+    """9c-b on one rank (see ``dp_child``)."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    g = torch.Generator(device=device).manual_seed(SEED + 27)
+    ids = torch.randint(0, cfg.vocab_size, (2, ts), generator=g,
+                        device=device)
+    real = GRAD_PAD_REAL * ts // TS
+    mask = torch.arange(ts, device=device)[None, :] >= torch.tensor(
+        [0, ts - real], device=device)[:, None]
+    ids = ids.masked_fill(~mask, 0)
+    labels = ids.masked_fill(~mask, -100)
+    mine = slice(rank, rank + 1)
+    out, refs = {}, None
+    if rank == 0:
+        # phase 8's references of the global batch: plain bf16 and plain f32
+        model = LlamaForCausalLM(cfg, seed=SEED, device=device).train()
+        plain = _masked_loss_and_grads(torch, model, ids, mask, labels,
+                                       plain=True)[2]
+        m32 = LlamaForCausalLM(dc.replace(cfg, dtype="float32"),
+                               seed=SEED, device=device).train()
+        with torch.no_grad():
+            for (_, p32), (_, p) in zip(m32.named_parameters(),
+                                        model.named_parameters()):
+                p32.copy_(p.float())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32 = _masked_loss_and_grads(torch, m32, ids, mask, labels,
+                                     plain=True)[2]
+        del m32
+        torch.cuda.empty_cache()
+        refs = (plain, f32)
+        print(f"9c-b rank 0: phase 8's references of the global batch at "
+              f"{time.perf_counter() - t_child:.1f}s", flush=True)
+    dist.barrier()
+
+    inputs = ((ids[mine], mask[mine]), labels[mine])
+    runs = [(p, None) for p in DP_PLACEMENTS] + [
+        ("dp", "local means"), ("dp", "drop last bucket")]
+    for place, control in runs:
+        label = place if control is None else f"{place} {control}"
+        run = _dp_step(torch, kernels, cfg, place, *inputs, control=control,
+                       device=device)
+        rec = {k: run[k] for k in ("loss", "counts", "expected", "step_ms",
+                                   "flush_ms", "max_memory_allocated_gib",
+                                   "state_bytes")}
+        assert control is not None or run["counts"] == run["expected"], (
+            label, run["counts"], run["expected"])
+        bitwise = place != "dp" and control is None
+        worst, bad, moved = dp_checks(torch, k8, cfg, run, refs, rank,
+                                      device, bitwise)
+        if rank == 0:
+            rec["worst_ratio"] = worst
+            if bitwise:
+                rec["bitwise_differs"] = bad
+                rec["moved_control_differs"] = moved
+                assert not bad and moved, (label, bad, moved)
+        print(f"9c-b rank {rank} {label} (at "
+              f"{time.perf_counter() - t_child:.1f}s): loss "
+              f"{rec['loss']:.6f}, "
+              f"worst kernel/plain ratio {rec.get('worst_ratio')}, "
+              f"bitwise {rec.get('bitwise_differs', 'n/a')}, moved "
+              f"control {rec.get('moved_control_differs', 'n/a')}, "
+              f"launches {run['counts']}, step_ms {rec['step_ms']:.1f}, "
+              f"exposed flush ms {rec['flush_ms']}, max_memory_allocated "
+              f"{rec['max_memory_allocated_gib']:.2f} GiB, optimizer "
+              f"state {rec['state_bytes']} bytes", flush=True)
+        out[label] = rec
+        del run
+        gc.collect()        # the reducer's hooks and stage 3's units hold
+        torch.cuda.empty_cache()    # the model in reference cycles
+        dist.barrier()
+    if rank == 0 and device == "cuda":
+        for place in ("dp", "os", "os_g"):
+            assert out[place]["worst_ratio"] <= 2, (place, out[place])
+        for ctl in ("dp local means", "dp drop last bucket"):
+            assert out[ctl]["worst_ratio"] > 2, (
+                f"the {ctl} control passed the rule: {out[ctl]}")
+    assert device != "cuda" or out["os_g"]["state_bytes"] <= 0.55 * out[
+        "dp"]["state_bytes"], (out["os_g"]["state_bytes"],
+                               out["dp"]["state_bytes"])
+    return out
+
+
+def dp_zero(torch, kernels, k8):
+    """Phase 9c: K8's shard form here, then 9c-a and 9c-b in children.
+    Returns (the K8 shard row, rank 0's 9c-b os_g launches, the stats)."""
+    timer = ColdTimer(torch)
+    row = check_adamw8bit_shards(torch, timer, k8)
+    del timer
+    torch.cuda.empty_cache()
+    a = dp_launch("a", 1, "0", "build/dp9c_a", 300)
+    b = dp_launch("b", 2, "0,0", "build/dp9c_b", 600)
+    for r in b:
+        log(f"9c-b rank {r['rank']} ({r['backend']}): optimizer state "
+            + ", ".join(f"{p} {r[p]['state_bytes']}" for p in DP_PLACEMENTS)
+            + " bytes; max_memory_allocated "
+            + ", ".join(f"{p} {r[p]['max_memory_allocated_gib']:.2f}"
+                        for p in DP_PLACEMENTS) + " GiB; step ms "
+            + ", ".join(f"{p} {r[p]['step_ms']:.1f}" for p in DP_PLACEMENTS)
+            + "; exposed flush ms "
+            + ", ".join(f"{p} {r[p]['flush_ms']}" for p in DP_PLACEMENTS))
+    return row, b[0]["os_g"]["counts"], {"a": a, "b": b}
 
 
 # ---------------------------------------------------------------------------
@@ -6571,6 +7191,16 @@ def main() -> int:
         f"peak {stats_sft['max_memory_allocated_gib']:.2f} against "
         f"{stats_train['max_memory_allocated_gib']:.2f} GiB")
     torch.cuda.empty_cache()
+    mark("9b fine-tuning")
+
+    # ---- 9c. data parallelism and ZeRO: K8's shard form here, then the
+    # 2-layer step on one rank (NCCL) and on two ranks of this card (gloo),
+    # children of the port's launcher (each child's counts set to 0 just
+    # before its counted step and read just after)
+    row_k8_shard, counts_dp, stats_dp = dp_zero(torch, kernels, k8)
+    own.append((row_k8_shard, "dp zero os_g rank 0"))
+    torch.cuda.empty_cache()
+    mark("9c data parallel and ZeRO")
 
     # ---- 10. the MoE kernels vs plain at the Mixtral train shapes, 11. the
     # MoE gradient check, 12. the timed MoE train run (its counts set to 0
@@ -6627,7 +7257,8 @@ def main() -> int:
                  stats_batcher_int8["fused"]["lora"]["launches"],
              "train": counts_train, "moe train": counts_moe,
              **counts_quant,
-             "grad check split, mask": counts_grad_split, "sft": counts_sft}
+             "grad check split, mask": counts_grad_split, "sft": counts_sft,
+             "dp zero os_g rank 0": counts_dp}
     counter = {"flash_attention_fwd": "flash_attention",
                "flash_attention_fwd_train": "flash_attention",
                "norm_matmul": "fused_norm_matmul",
@@ -6658,7 +7289,7 @@ def main() -> int:
                "flash_attention_bwd": "flash_attention_bwd",
                "rms_norm_fwd": "rms_norm_fwd",
                "rms_norm_bwd": "rms_norm_bwd",
-               "adamw8bit": "adamw8bit",
+               "adamw8bit": "adamw8bit", "adamw8bit_shard": "adamw8bit",
                "grouped_matmul": "grouped_matmul",
                "grouped_matmul_down": "grouped_matmul",
                "grouped_matmul_dx": "grouped_matmul",
@@ -6721,7 +7352,7 @@ def main() -> int:
             f"{st['max_memory_allocated_gib']:.2f} GiB, host arena "
             f"{st['host_arena_pinned_bytes']} bytes pinned")
 
-    mark("9b-12 fine-tuning and MoE")
+    mark("10-12 MoE")
     log(f"seconds since the start at the end of each phase group: "
         f"{phase_s}")
     log(f"max_memory_allocated while training: Llama "
@@ -6739,7 +7370,7 @@ def main() -> int:
                     "serving_fleet_autoscaled": stats_autoscale,
                     "train_quantized": stats_quant_train,
                     "train": stats_train, "sft": stats_sft,
-                    "moe_train": stats_moe,
+                    "moe_train": stats_moe, "data_parallel_zero": stats_dp,
                     "moe_quantized_experts": stats_quant}))
     log(json.dumps({"kernels": rows}))
     log(smi)
@@ -6750,4 +7381,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 3 and sys.argv[1] == "--dp-child":
+        sys.exit(dp_child(sys.argv[2], sys.argv[3],
+                          rehearse="--rehearse" in sys.argv))
     sys.exit(main())

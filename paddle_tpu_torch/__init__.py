@@ -28,6 +28,19 @@ hand-written CUDA kernels live under ``csrc/``:
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.
+
+Training across ranks (``distributed``: data parallelism and ZeRO stages
+1-3, one process a rank) starts with
+``python -m paddle_tpu_torch.distributed.launch``; ``DataParallel`` is
+also here, as in the JAX package.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name == "DataParallel":
+        from .distributed.data_parallel import DataParallel
+
+        return DataParallel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -9,12 +9,33 @@ microbatch dim) in f32 before the one update, as the JAX package's scan
 does. Under an ``LRScheduler`` the step reads ``optimizer.get_lr()`` before
 the update and steps the scheduler after it, as the JAX package's does;
 ``last_lr`` keeps the rate of the last update. Inputs are passed to the
-model positionally: ``step((ids, attn_mask), labels)``. Sharding
-(``in_shardings``, ``mesh``, ``sharding_plan``) and ``donate=False`` are
-not ported: they raise.
+model positionally: ``step((ids, attn_mask), labels)``.
+
+Data parallelism and ZeRO (one process a rank): as the JAX package, the
+step picks up ``model._grad_reducer`` (``distributed.DataParallel``,
+``group_sharded_parallel`` stages 1 and 2) and ``model._zero_plan``
+(``group_sharded_parallel``; or ``sharding_plan=``). Then ``loss_fn`` is
+called as ``loss_fn(outputs, *labels, count_group=group)`` with the
+data-parallel group, which it passes to the mean losses it runs (the
+models' ``loss`` take it), so that a "mean" counts the whole group's valid
+targets (``ops/loss_ops.py``); a loss function that cannot take it raises
+at construction. The reducer's buckets flush during backward and the step
+waits for every flush before the optimizer reads a gradient; the step
+refuses to run inside ``DataParallel.no_sync`` (it reduces every step:
+its gradient merge is ``accumulate_steps``). With ``accumulate_steps`` > 1
+the flushes are held and the merged gradients reduced once, one flush a
+bucket, as the JAX package averages inside its scan and then reduces
+(stage 3 reduce-scatters each microbatch's gradients into the shards: its
+full gradients do not outlive a backward). The returned loss is the
+group's mean, the JAX package's global loss. ``mesh`` is kept; the inputs
+are each rank's local batch. ``in_shardings`` and ``donate=False`` are not
+ported: they raise.
 """
 
 from __future__ import annotations
+
+import contextlib
+import inspect
 
 import torch
 
@@ -27,47 +48,96 @@ class TrainStep:
                  donate: bool = True, mesh=None, sharding_plan=None,
                  accumulate_steps: int = 1):
         refuse_unported("TrainStep", in_shardings=(in_shardings, None),
-                        donate=(donate, True), mesh=(mesh, None),
-                        sharding_plan=(sharding_plan, None))
+                        donate=(donate, True))
         self.model = model.train()
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.mesh = mesh
+        self._plan = sharding_plan or getattr(model, "_zero_plan", None)
+        self._reducer = getattr(model, "_grad_reducer", None)
+        if self._plan is not None:
+            inner = getattr(optimizer, "_inner", optimizer)
+            if getattr(inner, "_zero_plan", None) is None:
+                inner._zero_plan = self._plan
+        self._group = (self._reducer.group if self._reducer is not None
+                       else self._plan.group if self._plan is not None
+                       else None)
+        if self._group is not None:
+            params = inspect.signature(loss_fn).parameters.values()
+            if not any(p.name == "count_group" or p.kind == p.VAR_KEYWORD
+                       for p in params):
+                raise TypeError(
+                    "under data parallelism or ZeRO, TrainStep calls "
+                    "loss_fn(outputs, *labels, count_group=group): give it "
+                    "a count_group keyword and pass it to the mean losses "
+                    "(e.g. the model's loss)")
         self.accumulate_steps = int(accumulate_steps)
         self._named = list(model.named_parameters())
         optimizer.register_named(self._named)
         self.last_lr = None
 
     def _loss(self, inputs, labels):
-        return self.loss_fn(self.model(*inputs), *labels)
+        kw = {} if self._group is None else {"count_group": self._group}
+        return self.loss_fn(self.model(*inputs), *labels, **kw)
 
     def __call__(self, inputs, labels):
         """One step; returns the (microbatch-mean) loss, detached."""
+        if self._reducer is not None and self._reducer.suppressing:
+            raise RuntimeError(
+                "TrainStep reduces its gradients every step and cannot run "
+                "inside no_sync; merge gradients with accumulate_steps")
         inputs = inputs if isinstance(inputs, (tuple, list)) else (inputs,)
         labels = labels if isinstance(labels, (tuple, list)) else (labels,)
         self.optimizer.clear_grad()
         self.last_lr = self.optimizer.get_lr()
         loss = self._update(inputs, labels)
+        if self._group is not None:
+            from ..distributed.collective import ReduceOp, all_reduce
+
+            loss = all_reduce(loss.clone(), ReduceOp.AVG, self._group)
         if isinstance(self.optimizer._lr, LRScheduler):
             self.optimizer._lr.step()
         return loss
 
-    def _update(self, inputs, labels):
-        m = self.accumulate_steps
-        if m == 1:
+    def _backward(self, inputs, labels):
+        """Forward, loss and backward of one (micro)batch, the stage-3
+        root gathered around them."""
+        if self._plan is not None:
+            self._plan.begin_step()
+        try:
             loss = self._loss(inputs, labels)
             loss.backward()
-            self.optimizer.step()
-            return loss.detach()
+        finally:
+            if self._plan is not None:
+                self._plan.end_step()
+        return loss.detach()
+
+    def _update(self, inputs, labels):
+        m, red = self.accumulate_steps, self._reducer
+        if m == 1:
+            if red is not None:
+                red.prepare()
+            loss = self._backward(inputs, labels)
+            grads = red.finish() if red is not None else None
+            self.optimizer.step(grads=grads)
+            return loss
         g_sum, l_sum = {}, 0.0
-        for i in range(m):
-            loss = self._loss(tuple(x[i] for x in inputs),
-                              tuple(y[i] for y in labels))
-            loss.backward()
-            l_sum = l_sum + loss.detach().float()
-            for name, p in self._named:
-                if p.grad is not None:
-                    g = p.grad.float()
-                    g_sum[name] = g if name not in g_sum else g_sum[name] + g
-                    p.grad = None
-        self.optimizer.step(grads={n: g / m for n, g in g_sum.items()})
+        held = red.suppressed() if red is not None else \
+            contextlib.nullcontext()
+        with held:
+            for i in range(m):
+                loss = self._backward(tuple(x[i] for x in inputs),
+                                      tuple(y[i] for y in labels))
+                l_sum = l_sum + loss.float()
+                for name, p in self._named:
+                    if p.grad is not None:
+                        g = p.grad.float()
+                        g_sum[name] = (g if name not in g_sum
+                                       else g_sum[name] + g)
+                        p.grad = None
+        grads = {n: g / m for n, g in g_sum.items()}
+        if red is not None:
+            red.prepare()
+            grads = red.reduce_grads(grads)
+        self.optimizer.step(grads=grads)
         return l_sum / m

@@ -560,10 +560,12 @@ class LlamaForCausalLM(Layer):
             return hidden @ self.model.embed_tokens.weight.T
         return hidden @ self.lm_head.weight
 
-    def loss(self, out, labels):
+    def loss(self, out, labels, *, count_group=None):
         """Next-token loss of the forward output: (B, S, V) logits, or the
         (B, S, H) final hidden states under ``fused_head_loss`` in training
-        (projected inside the chunked ``linear_cross_entropy``)."""
+        (projected inside the chunked ``linear_cross_entropy``).
+        ``count_group``: the data-parallel group whose valid targets the
+        mean counts (``ops/loss_ops.py``; ``jit.TrainStep`` passes it)."""
         from ..ops.loss_ops import cross_entropy, linear_cross_entropy
 
         labels = torch.as_tensor(labels, device=out.device).long()
@@ -574,9 +576,11 @@ class LlamaForCausalLM(Layer):
                  else self.lm_head.weight)
             return linear_cross_entropy(
                 out[:, :-1, :], w, labels[:, 1:], transpose_weight=tied,
-                chunk_size=self.config.loss_chunk_size)
+                chunk_size=self.config.loss_chunk_size,
+                count_group=count_group)
         return cross_entropy(out[:, :-1, :].reshape(b * (s - 1), v),
-                             labels[:, 1:].reshape(b * (s - 1)))
+                             labels[:, 1:].reshape(b * (s - 1)),
+                             count_group=count_group)
 
     @staticmethod
     def flops_per_token(config: LlamaConfig, seq_len: int) -> float:

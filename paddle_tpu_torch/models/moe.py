@@ -439,9 +439,11 @@ class MoEForCausalLM(Layer):
         attn = 12 * L * h * seq_len / 2  # causal: half the S^2 term
         return 6.0 * n_active + attn
 
-    def loss(self, outputs, labels):
+    def loss(self, outputs, labels, *, count_group=None):
         """Next-token cross-entropy of the logits plus
-        ``moe_aux_loss_coef`` times the aux loss."""
+        ``moe_aux_loss_coef`` times the aux loss (``count_group``: the
+        data-parallel group whose valid targets the mean counts,
+        ``ops/loss_ops.py``)."""
         from ..ops.loss_ops import cross_entropy
 
         logits, aux = (outputs if isinstance(outputs, (tuple, list))
@@ -449,7 +451,8 @@ class MoEForCausalLM(Layer):
         labels = torch.as_tensor(labels, device=logits.device).long()
         b, s, v = logits.shape
         lm = cross_entropy(logits[:, :-1, :].reshape(b * (s - 1), v),
-                           labels[:, 1:].reshape(b * (s - 1)))
+                           labels[:, 1:].reshape(b * (s - 1)),
+                           count_group=count_group)
         if aux is not None:
             return lm + aux * self.config.moe_aux_loss_coef
         return lm

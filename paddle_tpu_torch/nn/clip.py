@@ -14,6 +14,11 @@ f32 ``scale``: a bf16 gradient is multiplied in f32 and cast back
 the scale to bf16 first). The clip ratio divides tensor by tensor: PyTorch
 turns a Python scalar over a tensor into a multiplication by a reciprocal,
 an ulp off the IEEE quotient the JAX package computes.
+
+Under ZeRO (``distributed/sharding.py``) the optimizer hands each rank's
+gradient shards with ``group=``: the norm-based clips all-reduce their
+squared sums over the group before the scale (every rank calls the
+all-reduce, with zeros where it holds no shard).
 """
 
 from __future__ import annotations
@@ -35,8 +40,17 @@ def _apply_scale(g, scale):
     return (g.float() * scale).to(g.dtype)
 
 
+def _group_sum(sq, group, device):
+    """``sq`` (f32, or None for nothing) summed over ``group``'s ranks."""
+    from ..distributed.collective import all_reduce
+
+    sq = torch.zeros((), dtype=torch.float32, device=device) \
+        if sq is None else sq
+    return all_reduce(sq, group=group)
+
+
 class ClipGradBase:
-    def __call__(self, params_grads):
+    def __call__(self, params_grads, *, group=None):
         raise NotImplementedError
 
 
@@ -47,7 +61,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = max
         self.min = -max if min is None else min
 
-    def __call__(self, params_grads):
+    def __call__(self, params_grads, *, group=None):
         return [(p, torch.clamp(g, self.min, self.max) if _clipped(p, g)
                  else g) for p, g in params_grads]
 
@@ -58,14 +72,24 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
-    def __call__(self, params_grads):
+    def __call__(self, params_grads, *, group=None):
+        params_grads = list(params_grads)
+        sums = [torch.sum(torch.square(g.float())) if _clipped(p, g)
+                else None for p, g in params_grads]
+        if group is not None and params_grads:
+            dev = params_grads[0][1].device
+            live = [s for s in sums if s is not None]
+            vec = _group_sum(torch.stack(live) if live else
+                             torch.zeros((0,), device=dev), group, dev)
+            it = iter(vec)
+            sums = [None if s is None else next(it) for s in sums]
         out = []
-        for p, g in params_grads:
-            if not _clipped(p, g):
+        for (p, g), s in zip(params_grads, sums):
+            if s is None:
                 out.append((p, g))
                 continue
-            norm = torch.sqrt(torch.sum(torch.square(g.float())))
-            out.append((p, _apply_scale(g, _scale_for(self.clip_norm, norm))))
+            out.append((p, _apply_scale(g, _scale_for(self.clip_norm,
+                                                      torch.sqrt(s)))))
         return out
 
 
@@ -79,19 +103,23 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = clip_norm
         self.last_global_norm = None
 
-    def global_norm(self, params_grads):
+    def global_norm(self, params_grads, *, group=None):
         """The f32 L2 norm over every clipped gradient, summed per tensor
-        in list order; None when there is none."""
+        in list order (then over ``group``'s ranks); None when there is
+        none."""
         sq = None
         for p, g in params_grads:
             if _clipped(p, g):
                 s = torch.sum(torch.square(g.float()))
                 sq = s if sq is None else sq + s
+        if group is not None:
+            dev = params_grads[0][1].device if params_grads else "cpu"
+            sq = _group_sum(sq, group, dev)
         return None if sq is None else torch.sqrt(sq)
 
-    def __call__(self, params_grads):
+    def __call__(self, params_grads, *, group=None):
         params_grads = list(params_grads)
-        norm = self.global_norm(params_grads)
+        norm = self.global_norm(params_grads, group=group)
         self.last_global_norm = norm
         if norm is None:
             return params_grads

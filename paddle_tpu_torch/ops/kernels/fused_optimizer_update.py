@@ -23,6 +23,17 @@ On CUDA tensors ``adamw8bit_update`` launches K8 or raises, also when the
 work as plain ops); only ``plain=True`` runs the plain version there (the
 on-card reference). Integer params raise (the weight-only rule: quantized
 codes are constants of the forward, never optimizer targets).
+
+A ZeRO shard (``distributed/sharding.py``) is a parameter of its own to
+this module: flat contiguous views of the parameter, its master and its
+gradient over whole blocks [b0, b1) of the full layout (the last rank's
+last block short, as an unsharded parameter's last block is: the kernel's
+``e < n`` guard), with the state of those blocks only. Each block is
+updated alone, so the sharded update is bitwise the unsharded one, and
+the kernel source needs no change for it. The shard's state is its own
+(``init_state`` of the shard, as the optimizer makes it), so every tensor
+the kernel reads starts on a 16-byte boundary. An empty parameter (a rank
+that owns no block of a small one) is no update and no launch.
 """
 
 from __future__ import annotations
@@ -127,6 +138,8 @@ def adamw8bit_update(param, grad, state, lr, step, weight_decay, lr_scale,
     from . import fusion
 
     _check_weight_only_rule(param)
+    if param.numel() == 0:
+        return
     if not param.is_cuda or plain:
         new_p, new_st = adamw8bit_reference(param, grad, state, lr, step,
                                             weight_decay, lr_scale, beta1,

@@ -8,6 +8,17 @@ each tile and forms its gradient, so peak memory is one chunk's tile
 (4096 x 128256 f32, ~2 GiB, at the Llama-3-8B train step), as the JAX
 package's scan under ``jax.checkpoint`` does. All of it is plain PyTorch:
 the JAX package computes it in XLA, with no Pallas kernel.
+
+Data parallelism: the JAX package's "mean" divides by the valid targets of
+the whole (global) batch, one program over every device. Given
+``count_group=`` (a ``distributed.Group``; ``jit.TrainStep`` passes its
+data-parallel group to its loss function, and the models' ``loss`` pass it
+on), a "mean" here divides the local sum by the group's total of valid
+targets and multiplies by the group's size; the reducer's mean over the
+ranks then gives the global loss and its gradient, also where ranks hold
+different numbers of valid targets (padded batches). The total is one
+blocking all-reduce of the count, so every rank of the group makes the same
+such calls in the same order.
 """
 
 from __future__ import annotations
@@ -18,13 +29,24 @@ import torch
 
 from ..framework.contract import refuse_unported
 
+def _mean_divisor(count, group):
+    """(divisor, factor) of a "mean" over ``count`` local valid targets:
+    ``group``'s total and its size, else (count, None)."""
+    if group is None:
+        return count, None
+    from ..distributed.collective import all_reduce
+
+    return all_reduce(count.clone(), group=group), float(group.nranks)
+
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
+                  use_softmax=True, label_smoothing=0.0, *,
+                  count_group=None):
     """Softmax cross-entropy of (N, C) logits against (N,) int labels;
     labels equal to ``ignore_index`` count for nothing ("mean" averages
-    over the others). Class weights, soft labels, another class axis,
+    over the others; over every rank of ``count_group``, see the module
+    docstring). Class weights, soft labels, another class axis,
     probabilities for logits and label smoothing are not ported."""
     refuse_unported("cross_entropy", weight=(weight, None),
                     soft_label=(soft_label, False), axis=(axis, -1),
@@ -36,7 +58,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     loss = -logp.gather(-1, safe[:, None])[:, 0]
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":
-        return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+        count, factor = _mean_divisor(valid.sum(), count_group)
+        out = loss.sum() / count.clamp(min=1).to(loss.dtype)
+        return out if factor is None else out * factor
     if reduction == "sum":
         return loss.sum()
     return loss
@@ -69,7 +93,8 @@ def _chunk_logits(hc, weight, transpose):
 
 class _LinearCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, weight, lbl, transpose, ignore_index, chunk, mean):
+    def forward(ctx, h, weight, lbl, transpose, ignore_index, chunk, mean,
+                count_group):
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         valid = lbl != ignore_index
         safe = torch.where(valid, lbl, torch.zeros_like(lbl))
@@ -81,11 +106,17 @@ class _LinearCrossEntropy(torch.autograd.Function):
                               torch.zeros_like(lse))
             total = total + tok.sum()
             del logits
-        count = valid.sum().to(torch.float32).clamp(min=1.0)
+        count, factor = (_mean_divisor(valid.sum(), count_group) if mean
+                         else (None, None))
         ctx.save_for_backward(h, weight, lbl)
         ctx.transpose, ctx.ignore_index = transpose, ignore_index
         ctx.chunk, ctx.mean = chunk, mean
-        return total / count if mean else total
+        if not mean:
+            return total
+        ctx.count = count.to(torch.float32).clamp(min=1.0)
+        ctx.factor = factor
+        out = total / ctx.count
+        return out if factor is None else out * factor
 
     @staticmethod
     def backward(ctx, g):
@@ -94,7 +125,9 @@ class _LinearCrossEntropy(torch.autograd.Function):
         safe = torch.where(valid, lbl, torch.zeros_like(lbl))
         scale = g.float()
         if ctx.mean:
-            scale = scale / valid.sum().to(torch.float32).clamp(min=1.0)
+            scale = scale / ctx.count
+            if ctx.factor is not None:
+                scale = scale * ctx.factor
         dh = torch.empty_like(h)
         dw = torch.zeros(weight.shape, dtype=torch.float32,
                          device=weight.device)
@@ -114,17 +147,19 @@ class _LinearCrossEntropy(torch.autograd.Function):
                 dh[c0:c0 + n] = dl @ weight.T
                 dw += _mm_f32(hc.T, dl)
             del dl
-        return dh, dw.to(weight.dtype), None, None, None, None, None
+        return dh, dw.to(weight.dtype), None, None, None, None, None, None
 
 
 def linear_cross_entropy(hidden, weight, label, bias=None,
                          transpose_weight=False, ignore_index=-100,
-                         chunk_size=2048, reduction="mean"):
+                         chunk_size=2048, reduction="mean", *,
+                         count_group=None):
     """Cross-entropy of ``hidden @ weight`` against ``label`` without the
     (N, vocab) logits: ``chunk_size`` tokens at a time, each chunk's f32
     logits recomputed in backward. weight (H, V), or (V, H) with
-    ``transpose_weight`` (tied embeddings). Reductions "mean" and "sum".
-    A bias is not ported."""
+    ``transpose_weight`` (tied embeddings). Reductions "mean" (over every
+    rank of ``count_group``, see the module docstring) and "sum". A bias is
+    not ported."""
     refuse_unported("linear_cross_entropy", bias=(bias, None))
     if reduction not in ("mean", "sum"):
         raise ValueError(
@@ -135,4 +170,4 @@ def linear_cross_entropy(hidden, weight, label, bias=None,
     chunk = max(1, min(int(chunk_size), h.shape[0]))
     return _LinearCrossEntropy.apply(h, weight, lbl, transpose_weight,
                                      ignore_index, chunk,
-                                     reduction == "mean")
+                                     reduction == "mean", count_group)

@@ -1522,6 +1522,47 @@ def test_adamw8bit_matches_plain_bitwise(gen, n, dtype, master, zero):
         assert st["m_s"][0].item() == pytest.approx(1e-30)
 
 
+@pytest.mark.parametrize("n,world", [(3 * 2048 + 100, 2), (4096, 4),
+                                     (100, 2), (9 * 2048, 4)])
+def test_adamw8bit_shard_form_is_bitwise_the_whole_launch(gen, n, world):
+    """K8 on ZeRO's block-aligned shards (``sharding.block_shard``): one
+    launch a non-empty shard over flat views of the parameter and gradient,
+    with the shard's own state (``init_state`` of the shard, as the
+    optimizer makes it); a rank that owns no block launches nothing. Three
+    steps, the shards' states gathered end to end, bitwise equal to the
+    whole-tensor launch."""
+    from paddle_tpu_torch.distributed.sharding import block_shard
+
+    p, st_whole, grads = _adam_case(gen, n, torch.bfloat16, True, False)
+    whole = p.clone()
+    ranges = [block_shard(n, world, r)[:2] for r in range(world)]
+    shards = [(lo, hi, k8.init_state(p[lo:hi], True))
+              for lo, hi in ranges if hi > lo]
+    for step, g in enumerate(grads, start=1):
+        k8.adamw8bit_update(whole, g, st_whole, 1e-3, step, 0.01, 1.0, 0.9,
+                            0.999, 1e-8)
+        before = k8.launches
+        for lo, hi, st in shards:
+            k8.adamw8bit_update(p[lo:hi], g[lo:hi], st, 1e-3, step, 0.01,
+                                1.0, 0.9, 0.999, 1e-8)
+        assert k8.launches - before == sum(hi > lo for lo, hi in ranges)
+        torch.cuda.synchronize()
+        assert torch.equal(p, whole), step
+        for key in st_whole:
+            got = torch.cat([st[key] for _, _, st in shards])
+            if key in ("m_q", "v_q"):
+                got, want = got.view(torch.uint8), st_whole[key].view(
+                    torch.uint8)
+            else:
+                want = st_whole[key]
+            assert torch.equal(got, want), (key, step)
+    empty = torch.zeros(0, dtype=torch.bfloat16, device="cuda")
+    before = k8.launches
+    k8.adamw8bit_update(empty, empty, k8.init_state(empty, True), 1e-3, 1,
+                        0.01, 1.0, 0.9, 0.999, 1e-8)
+    assert k8.launches == before
+
+
 def test_training_wrappers_raise_instead_of_falling_back(gen):
     q = _randn(gen, 1, 64, 2, 128)
     out, lse = k1.flash_attention_fwd(q, q, q, causal=True)

@@ -35,10 +35,13 @@ POSITIONAL = (P.POSITIONAL_ONLY, P.POSITIONAL_OR_KEYWORD)
 
 def _module_pairs():
     """(port module name, reference module name) for every port module
-    whose path exists in the reference."""
+    whose path exists in the reference (``__main__`` entry scripts
+    aside)."""
     out = []
     for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                       "paddle_tpu_torch."):
+        if info.name.endswith(".__main__"):
+            continue    # an entry script: importing it runs it
         ref = "paddle_tpu." + info.name[len("paddle_tpu_torch."):]
         try:
             spec = importlib.util.find_spec(ref)
@@ -194,7 +197,7 @@ def _cases():
             "bias"),
         "TrainStep.in_shardings": (step(in_shardings=[None]),
                                    "in_shardings"),
-        "TrainStep.mesh": (step(mesh=object()), "mesh"),
+        "TrainStep.donate": (step(donate=False), "donate"),
     }
 
 
@@ -211,7 +214,8 @@ def test_unported_parameter_raises(case):
 def _ported_cases():
     """Reference parameters that raised until the port gained their
     feature, each with a check of what it now does (sampling and
-    multi-LoRA serving)."""
+    multi-LoRA serving; ``TrainStep``'s ``mesh``, kept as the reference
+    keeps it, since data parallelism)."""
     from paddle_tpu_torch.inference import ContinuousBatcher
     from paddle_tpu_torch.models.lora import AdapterPool
 
@@ -248,7 +252,19 @@ def _ported_cases():
             ContinuousBatcher(_tiny_llama(), lora=True).submit(
                 [1, 2], 2, adapter_id=3)
 
-    return {"generate_paged.temperature": temperature,
+    def train_step_mesh():
+        from paddle_tpu_torch.jit import TrainStep
+        from paddle_tpu_torch.nn.common import Linear
+        from paddle_tpu_torch.optimizer import AdamW
+
+        m = Linear(4, 4, dtype=torch.float32, device="cpu")
+        mesh = object()
+        step = TrainStep(m, lambda o, t: o.sum(), AdamW(
+            parameters=m.parameters()), mesh=mesh)
+        assert step.mesh is mesh and step._plan is None
+
+    return {"TrainStep.mesh": train_step_mesh,
+            "generate_paged.temperature": temperature,
             "ContinuousBatcher.lora_max_rank": lora_max_rank,
             "ContinuousBatcher.lora_hbm_adapters": lora_hbm_adapters,
             "ContinuousBatcher.adapter_pool": adapter_pool,
