@@ -350,6 +350,29 @@ class, device busy share). Phases, in order; any failure raises and the process 
                fail it), ``os_g``'s optimizer state <= 0.55 x
                ``DataParallel``'s; each rank's step ms, exposed flush ms,
                peak memory and state bytes printed.
+9d. tensor and sequence parallelism — K1 and K5 at mp 2's per-rank
+               shape (B=1, S=2048, 16/4 heads, D=128) against their plain
+               versions, SDPA and its backward timed beside them; then
+               phase 8's 2-layer full-width model (phase 9's recipe, the
+               train fusions off as the JAX package turns them off under
+               TP) in children of ``paddle_tpu_torch.distributed.launch``
+               (``chip_smoke.py --tp-child a|b <dir>``): 9d-a, one rank
+               over NCCL, ``apply_llama_tensor_parallel`` at mp 1: the
+               step-1 loss, gradients and parameters (AdamW) bitwise the
+               plain ``TrainStep`` of the unfused plan, launches = that
+               plan; 9d-b, two ranks on the card over gloo (``--devices
+               0,0``, ``collective_matmul`` off: gloo carries no CUDA
+               point-to-point transfer, and the ring is shown to refuse),
+               mp 2 with SP off and on on phase 8's B=1 batch: the
+               per-token losses and every gathered gradient within phase
+               8's rule against rank 0's plain f32 run of the unsharded
+               model, which two controls (layer 0's o_proj all-reduce
+               skipped; SP's norm-gradient all-reduce hooks removed) must
+               fail; launches = the plan at 16/4 heads; then an AdamW8bit
+               step (K8 on every local shard, loss finite) and a timed
+               one: step ms, exposed collective ms, peak memory and
+               parameter bytes (about half a DataParallel rank's) each
+               rank.
 10. MoE kernels — after the Llama train model is freed, K13 (grouped
                matmul: forward at 4096 -> 14336 and 14336 -> 4096, and its
                transposed dX form) and K14 (segment dW at both weight
@@ -4122,10 +4145,11 @@ def _same_bits(torch, fn):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def check_flash_train_fwd(torch, timer, k1, q, k, v):
+def check_flash_train_fwd(torch, timer, k1, q, k, v, suffix=""):
     """K1 at the train step's attention shape without a mask (B=4,
-    S=2048, 32/8 heads, causal) against its plain version, with SDPA
-    causal (``is_causal=True, enable_gqa=True``) as the library."""
+    S=2048, 32/8 heads, causal; or the shape of ``q``, ``k``: ``suffix``
+    names the row) against its plain version, with SDPA causal
+    (``is_causal=True, enable_gqa=True``) as the library."""
     b, s, h, d = q.shape
     hk = k.shape[2]
     out, lse = k1.flash_attention_fwd(q, k, v, causal=True)
@@ -4150,7 +4174,7 @@ def check_flash_train_fwd(torch, timer, k1, q, k, v):
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
         + 4 * lse.numel()
     bms, by = bound(nbytes, flops, BF16_FLOPS)
-    row = {"name": "flash_attention_fwd_train", "route": "cuda",
+    row = {"name": "flash_attention_fwd_train" + suffix, "route": "cuda",
            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:481",
            "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
@@ -4164,17 +4188,19 @@ def check_flash_train_fwd(torch, timer, k1, q, k, v):
     return row
 
 
-def check_flash_bwd(torch, timer, k1):
+def check_flash_bwd(torch, timer, k1, shape=(TB, TS, 32, 8, 128),
+                    suffix=""):
     """K5 at the train step's attention shape: B=4, S=2048, 32/8 heads,
-    D=128, causal, dO random; against its plain version from K1's own
-    (out, lse), each gradient element within ``k1.bwd_tolerance``; two
+    D=128 (or ``shape`` = (B, S, H, Hk, D), its rows named with
+    ``suffix``), causal, dO random; against its plain version from K1's
+    own (out, lse), each gradient element within ``k1.bwd_tolerance``; two
     calls bitwise equal. Also K1 there without a mask
     (``check_flash_train_fwd``). Returns both rows."""
-    b, s, h, hk, d = TB, TS, 32, 8, 128
+    b, s, h, hk, d = shape
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda",
                                dtype=torch.bfloat16) for n in (h, hk, hk, h))
-    fwd_row = check_flash_train_fwd(torch, timer, k1, q, k, v)
+    fwd_row = check_flash_train_fwd(torch, timer, k1, q, k, v, suffix)
     torch.cuda.empty_cache()
     out, lse = k1.flash_attention_fwd(q, k, v, causal=True)
     got = k1.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
@@ -4211,7 +4237,7 @@ def check_flash_bwd(torch, timer, k1):
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                   + out.numel() + do.numel()) + 4 * lse.numel()
     bms, by = bound(nbytes, flops, BF16_FLOPS)
-    row = {"name": "flash_attention_bwd", "route": "cuda",
+    row = {"name": "flash_attention_bwd" + suffix, "route": "cuda",
            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:533",
            "max_abs_err": err, "worst_err_over_tol": worst, "ms": ms,
@@ -5603,10 +5629,12 @@ def check_adamw8bit_shards(torch, timer, k8):
     return row
 
 
-def dp_launch(mode, nproc, devices, out_dir, timeout):
-    """Run ``--dp-child mode`` on ``nproc`` ranks through the port's
-    launcher; returns each rank's JSON. Raises with the logs' tails when a
-    rank fails (the launcher stops the others)."""
+def dp_launch(mode, nproc, devices, out_dir, timeout, child="--dp-child",
+              tag="9c"):
+    """Run ``child mode`` (``--dp-child``: phase 9c, ``--tp-child``: 9d) on
+    ``nproc`` ranks through the port's launcher; returns each rank's JSON.
+    Raises with the logs' tails when a rank fails (the launcher stops the
+    others)."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5614,7 +5642,7 @@ def dp_launch(mode, nproc, devices, out_dir, timeout):
     env = dict(os.environ, PYTHONPATH=root)
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", str(nproc), "--devices", devices,
-           "--log_dir", out_dir, os.path.abspath(__file__), "--dp-child",
+           "--log_dir", out_dir, os.path.abspath(__file__), child,
            mode, out_dir]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
@@ -5623,13 +5651,13 @@ def dp_launch(mode, nproc, devices, out_dir, timeout):
         f"\n-- rank {r}:\n" + open(f"{out_dir}/workerlog.{r}").read()[-4000:]
         for r in range(nproc) if os.path.exists(f"{out_dir}/workerlog.{r}"))
     if proc.returncode != 0:
-        raise RuntimeError(f"9c-{mode} failed ({proc.returncode}): "
+        raise RuntimeError(f"{tag}-{mode} failed ({proc.returncode}): "
                            f"{proc.stderr[-4000:]}{tails}")
     for r in range(nproc):
         for line in open(f"{out_dir}/workerlog.{r}").read().splitlines():
-            if line.startswith("9c"):
+            if line.startswith(tag):
                 log(line)
-    log(f"9c-{mode}: {nproc} ranks in {time.perf_counter() - t0:.1f}s "
+    log(f"{tag}-{mode}: {nproc} ranks in {time.perf_counter() - t0:.1f}s "
         f"(launcher, process start and build load included)")
     return [json.load(open(f"{out_dir}/rank{r}.json"))
             for r in range(nproc)]
@@ -6033,6 +6061,437 @@ def dp_zero(torch, kernels, k8):
             + "; exposed flush ms "
             + ", ".join(f"{p} {r[p]['flush_ms']}" for p in DP_PLACEMENTS))
     return row, b[0]["os_g"]["counts"], {"a": a, "b": b}
+
+
+# ---------------------------------------------------------------------------
+# Tensor and sequence parallelism (phase 9d): K1 and K5 at the per-rank
+# shape of mp 2, then the 2-layer full-width train step in child processes
+# started through the port's launcher: one rank over NCCL at mp 1 (9d-a),
+# two ranks on the one card over gloo at mp 2, SP off and on (9d-b). A
+# child runs ``chip_smoke.py --tp-child <a|b> <dir>`` and writes
+# ``<dir>/rank<r>.json``.
+# ---------------------------------------------------------------------------
+TP_SHAPE = (1, TS, 16, 4, 128)    # K1/K5 per rank at mp 2: B, S, H, Hk, D
+#: gloo's point-to-point path takes no CUDA tensor, so the ring products
+#: cannot run on two ranks of one card; 9d-b runs the monolithic forms
+TP_RING_NOTE = ("collective_matmul off: the rings' hops are point-to-point "
+                "transfers, which gloo does not carry on CUDA tensors (NCCL "
+                "refuses two ranks on one card)")
+
+
+class _CollectiveTimer:
+    """Seconds the step spends in the tensor-parallel collectives: each
+    call of the port's collective helpers (``overlap._all_reduce``,
+    ``_gather_dim``, ``_scatter_dim``, ``collective.all_reduce``) timed
+    from a synchronize before it to one after it. gloo stages CUDA tensors
+    through the host, so the device waits for each; the time is exposed."""
+
+    def __init__(self, torch, device):
+        from paddle_tpu_torch.distributed import collective, overlap
+
+        self.sync = (torch.cuda.synchronize if device == "cuda"
+                     else (lambda: None))
+        self.ms = 0.0
+        self.calls = 0
+        self._saved = []
+        for mod, name in ((overlap, "_all_reduce"), (overlap, "_gather_dim"),
+                          (overlap, "_scatter_dim"),
+                          (collective, "all_reduce")):
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def run(*a, **k):
+            self.sync()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            self.sync()
+            self.ms += (time.perf_counter() - t) * 1e3
+            self.calls += 1
+            return out
+        return run
+
+    def restore(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _tp_model(torch, cfg, device, mp, sp=False):
+    """The seed's model (train mode) cut for this rank at ``mp`` (a hybrid
+    group of mp ranks)."""
+    from paddle_tpu_torch.distributed import create_hybrid_group
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               apply_llama_tensor_parallel)
+
+    m = LlamaForCausalLM(cfg, seed=SEED, device=device)
+    hcg = create_hybrid_group(mp=mp)
+    apply_llama_tensor_parallel(m, hcg.mesh, sequence_parallel=sp)
+    return m.train(), hcg
+
+
+def _tp_plan(kernels, cfg, counts, device, n_k8=0):
+    """The launches of one forward + backward (+ ``n_k8`` K8 launches) of
+    the unfused TRAIN plan, the plan a TP block runs, on this device's
+    counters."""
+    from paddle_tpu_torch.ops.kernels import fusion
+
+    want = fusion.train_kernel_launches_per_step(
+        cfg.num_hidden_layers, 0, recompute=cfg.recompute,
+        granularity=cfg.recompute_granularity,
+        fused_head_loss=cfg.fused_head_loss, enabled=(),
+        attn_shape=TP_SHAPE[:3] + TP_SHAPE[4:])
+    want["adamw8bit"] = n_k8
+    expected = dict.fromkeys(counts, 0)
+    expected.update(want if device == "cuda" else {})
+    return expected
+
+
+def _tp_adamw_step(torch, kernels, cfg, ids, device, tp):
+    """One ``TrainStep`` with ``AdamW`` of the seed's 2-layer model: the
+    plain step with the train fusions off (the unfused plan, the one a TP
+    block runs), or ``apply_llama_tensor_parallel`` at mp 1 with the flags
+    at their defaults. Returns its loss bits, gradients, parameters and
+    launches."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if tp:
+        m, _ = _tp_model(torch, cfg, device, 1)
+    else:
+        m = LlamaForCausalLM(cfg, seed=SEED, device=device)
+    opt = AdamW(learning_rate=DP_LR, parameters=m.parameters())
+    step = TrainStep(m, m.loss, opt)
+    seen = {}
+    inner = opt.step
+
+    def recording_step(*, grads=None):
+        seen.update({n: p.grad.detach().clone()
+                     for n, p in m.named_parameters()})
+        inner(grads=grads)
+
+    opt.step = recording_step
+    old = flags.get_flag("fused_train")
+    flags.set_flags({"fused_train": bool(tp)})
+    try:
+        sync()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        loss = step(ids, ids)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = kernels.launch_counts()
+    finally:
+        flags.set_flags({"fused_train": old})
+    out = {"loss": loss.item(),
+           "loss_bits": loss.float().view(torch.int32).item(),
+           "grads": seen, "counts": counts, "step_ms": ms,
+           "expected": _tp_plan(kernels, cfg, counts, device),
+           "params": {n: p.detach().clone() for n, p in m.named_parameters()}}
+    del m, opt, step
+    gc.collect()
+    return out
+
+
+def _tp_child_a(torch, kernels, cfg, ids, device, t_child):
+    """9d-a on one rank: ``apply_llama_tensor_parallel`` at mp 1 bitwise
+    the plain step of the unfused plan; launches = that plan."""
+    ref = _tp_adamw_step(torch, kernels, cfg, ids, device, tp=False)
+    run = _tp_adamw_step(torch, kernels, cfg, ids, device, tp=True)
+    diff = [n + ".grad" for n in ref["grads"]
+            if not torch.equal(run["grads"][n], ref["grads"][n])]
+    diff += [n + ".param" for n in ref["params"]
+             if not torch.equal(run["params"][n], ref["params"][n])]
+    same_loss = run["loss_bits"] == ref["loss_bits"]
+    print(f"9d-a mp 1 (at {time.perf_counter() - t_child:.1f}s): step-1 "
+          f"loss {run['loss']:.6f} {'bitwise' if same_loss else 'DIFFERS'} "
+          f"the plain unfused step's, tensors differing {len(diff)} "
+          f"{diff[:4]}, launches {run['counts']} (plan "
+          f"{run['counts'] == run['expected']}; plain step "
+          f"{ref['counts'] == ref['expected']}), step_ms {run['step_ms']:.1f}"
+          f" against {ref['step_ms']:.1f}", flush=True)
+    assert same_loss and not diff, (run["loss"], ref["loss"], diff)
+    assert run["counts"] == run["expected"], (run["counts"],
+                                              run["expected"])
+    assert ref["counts"] == ref["expected"], (ref["counts"],
+                                              ref["expected"])
+    return {"loss": run["loss"], "bitwise": True, "counts": run["counts"],
+            "step_ms": run["step_ms"], "plain_step_ms": ref["step_ms"]}
+
+
+def _tp_grads(torch, kernels, cfg, ids, device, sp, control=None):
+    """One forward + backward of the mp-2 model: this rank's per-token
+    losses (the vocab-parallel head in f32), the loss, {name: gradient
+    shard} and the launches. ``control``: "skip row all-reduce" (layer
+    0's o_proj output never all-reduced), "skip sp hooks" (the norm
+    weights' sequence-parallel all-reduce removed)."""
+    from paddle_tpu_torch.distributed import overlap
+    from paddle_tpu_torch.ops.loss_ops import cross_entropy
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    m, hcg = _tp_model(torch, cfg, device, 2, sp)
+    real = overlap.matmul_ar
+    if control == "skip row all-reduce":
+        o_proj = m.model.layers[0].self_attn.o_proj.weight
+        overlap.matmul_ar = (lambda x, w, *a, **k: x @ w if w is o_proj
+                             else real(x, w, *a, **k))
+    if control == "skip sp hooks":
+        for h in m._sp_hooks:
+            h.remove()
+    try:
+        sync()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        hidden = m(ids)
+        loss = m.loss(hidden, ids)
+        loss.backward()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = kernels.launch_counts()
+    finally:
+        overlap.matmul_ar = real
+    with torch.no_grad():
+        logits = hidden[0, :-1].float() @ m.lm_head.weight.float()
+        tok = cross_entropy(logits, ids[0, 1:], reduction="none",
+                            vocab_group=hcg.get_model_parallel_group())
+        del logits, hidden
+    grads = {n: p.grad for n, p in m.named_parameters()}
+    return {"tok": tok, "loss": loss.item(), "grads": grads, "model": m,
+            "counts": counts, "ms": ms,
+            "expected": _tp_plan(kernels, cfg, counts, device)}
+
+
+def _tp_worst(torch, run, refs, rank):
+    """Phase 8's rule on every gathered gradient and the per-token losses
+    (kernel-vs-f32 relative L2 over plain-bf16-vs-f32, per tensor): the
+    worst ratio on rank 0, None elsewhere."""
+    from paddle_tpu_torch.models.bridge import gather_tp_params
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    worst = 0.0
+    if rank == 0:
+        worst = rel(run["tok"], refs[1][0]) / max(
+            rel(refs[0][0], refs[1][0]), 1e-30)
+    for n, g in run["grads"].items():       # one tensor at a time
+        full = gather_tp_params(run["model"], {n: g})[n]
+        if rank == 0:
+            worst = max(worst, rel(full, refs[1][2][n])
+                        / max(rel(refs[0][2][n], refs[1][2][n]), 1e-30))
+        del full
+    return worst if rank == 0 else None
+
+
+def _param_bytes(m):
+    return sum(p.numel() * p.element_size() for p in m.parameters())
+
+
+def _tp_child_b(torch, kernels, cfg, ids, rank, device, t_child):
+    """9d-b on one rank (see ``tp_child``)."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import create_hybrid_group, overlap
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW8bit
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out, refs = {}, None
+    if rank == 0:
+        # phase 8's references of the unsharded model: plain bf16, plain f32
+        model = LlamaForCausalLM(cfg, seed=SEED, device=device).train()
+        plain = _loss_and_grads(torch, model, ids, plain=True)
+        full_bytes = _param_bytes(model)
+        m32 = LlamaForCausalLM(dc.replace(cfg, dtype="float32"),
+                               seed=SEED, device=device).train()
+        with torch.no_grad():
+            for (_, p32), (_, p) in zip(m32.named_parameters(),
+                                        model.named_parameters()):
+                p32.copy_(p.float())
+        del model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        refs = (plain, _loss_and_grads(torch, m32, ids, plain=True))
+        del m32
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["full_param_bytes"] = full_bytes
+        print(f"9d-b rank 0: phase 8's references of the unsharded model at "
+              f"{time.perf_counter() - t_child:.1f}s", flush=True)
+    dist.barrier()
+    # the ring on this group refuses, naming gloo, before any transfer
+    hcg = create_hybrid_group(mp=2)
+    x = torch.ones((1, 4, 8), device=device)
+    try:
+        overlap.matmul_ar(x, torch.ones((8, 8), device=device), hcg.mesh,
+                          "mp")
+        refused = "no" if device == "cuda" else "(CPU rehearsal: ran)"
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"9d-b rank {rank}: the ring with collective_matmul on: "
+          f"{refused}; {TP_RING_NOTE}", flush=True)
+    assert device != "cuda" or "gloo" in refused, refused
+    flags.set_flags({"collective_matmul": False})
+    for label, sp, control in (("tp", False, None), ("sp", True, None),
+                               ("tp skip row all-reduce", False,
+                                "skip row all-reduce"),
+                               ("sp skip sp hooks", True, "skip sp hooks")):
+        run = _tp_grads(torch, kernels, cfg, ids, device, sp, control)
+        worst = _tp_worst(torch, run, refs, rank)
+        rec = {"loss": run["loss"], "counts": run["counts"],
+               "expected": run["expected"], "fwd_bwd_ms": run["ms"],
+               "worst_ratio": worst}
+        if control is None:
+            assert run["counts"] == run["expected"], (label, run["counts"],
+                                                      run["expected"])
+        print(f"9d-b rank {rank} {label} (at "
+              f"{time.perf_counter() - t_child:.1f}s): loss "
+              f"{run['loss']:.6f}, worst kernel/plain ratio {worst}, "
+              f"launches {run['counts']} (plan "
+              f"{run['counts'] == run['expected']}), forward + backward ms "
+              f"{run['ms']:.1f}", flush=True)
+        out[label] = rec
+        del run
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    if rank == 0 and device == "cuda":
+        for label in ("tp", "sp"):
+            assert out[label]["worst_ratio"] <= 2, (label, out[label])
+        for label in ("tp skip row all-reduce", "sp skip sp hooks"):
+            assert out[label]["worst_ratio"] > 2, (
+                f"the {label} control passed the rule: {out[label]}")
+    # one AdamW8bit step (K8 on each local shard), then one timed step
+    m, hcg = _tp_model(torch, cfg, device, 2)
+    step = TrainStep(m, m.loss, AdamW8bit(learning_rate=DP_LR,
+                                          parameters=m.parameters()))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    timer = _CollectiveTimer(torch, device)
+    try:
+        kernels.reset_launch_counts()
+        loss = step(ids, ids).item()
+        counts = kernels.launch_counts()
+    finally:
+        timer.restore()
+    n_params = sum(1 for _ in m.parameters())
+    expected = _tp_plan(kernels, cfg, counts, device, n_k8=n_params)
+    sync()
+    t = time.perf_counter()
+    loss2 = step(ids, ids).item()
+    sync()
+    step_ms = (time.perf_counter() - t) * 1e3
+    rec = {"loss": loss, "loss_2": loss2, "counts": counts,
+           "expected": expected, "step_ms": step_ms,
+           "collective_ms": timer.ms, "collective_calls": timer.calls,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30
+               if device == "cuda" else 0.0,
+           "param_bytes": _param_bytes(m)}
+    assert math.isfinite(loss) and math.isfinite(loss2), (loss, loss2)
+    assert counts == expected, ("adamw8bit", counts, expected)
+    print(f"9d-b rank {rank} AdamW8bit (at "
+          f"{time.perf_counter() - t_child:.1f}s): loss {loss:.6f} then "
+          f"{loss2:.6f}, launches {counts} (plan {counts == expected}), "
+          f"step_ms {step_ms:.1f} (second step), exposed collective ms "
+          f"{timer.ms:.1f} over {timer.calls} calls (first step, "
+          f"synchronized), max_memory_allocated "
+          f"{rec['max_memory_allocated_gib']:.2f} GiB, parameter bytes "
+          f"{rec['param_bytes']}", flush=True)
+    out["adamw8bit"] = rec
+    del m, step
+    gc.collect()
+    return out
+
+
+def tp_child(mode, out_dir, rehearse=False) -> int:
+    """One rank of phase 9d (``--tp-child``). 9d-a (one rank, NCCL):
+    ``apply_llama_tensor_parallel`` at mp 1 against the plain step of the
+    unfused TRAIN plan, on phase 8's B=1 batch: loss, gradients and
+    parameters bitwise, launches = the plan. 9d-b (two ranks on one card,
+    gloo, ``collective_matmul`` off): mp 2 with SP off and on, the
+    per-token losses and every gathered gradient against rank 0's plain
+    f32 run of the unsharded model on phase 8's rule, which the two
+    controls must fail; launches = the plan at 16 / 4 heads; then one
+    AdamW8bit step (K8 on every local shard) and a timed one.
+    ``rehearse``: the same on the CPU at tiny widths (S 32, f32), where
+    the plain versions run, nothing is counted and the rule is printed,
+    not asserted."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_child = time.perf_counter()
+    device = "cpu" if rehearse else "cuda"
+    init_parallel_env(backend="gloo" if mode == "b" else None,
+                      device="cpu" if rehearse else None)
+    rank = dist.get_rank()
+    cfg, ts = train_config(2), TS
+    if rehearse:
+        from paddle_tpu_torch.models.llama import LlamaConfig
+
+        cfg, ts = LlamaConfig.tiny(
+            recompute=True, recompute_granularity="core_attn",
+            fused_head_loss=True, loss_chunk_size=24), 32
+    g = torch.Generator(device=device).manual_seed(SEED + 23)
+    ids = torch.randint(0, cfg.vocab_size, (1, ts), generator=g,
+                        device=device)
+    result = {"rank": rank, "world": dist.get_world_size(),
+              "backend": dist.get_backend()}
+    if mode == "a":
+        result.update(_tp_child_a(torch, kernels, cfg, ids, device, t_child))
+    else:
+        result.update(_tp_child_b(torch, kernels, cfg, ids, rank, device,
+                                  t_child))
+    result["child_s"] = time.perf_counter() - t_child
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_sp(torch, kernels, k1):
+    """Phase 9d: K1 and K5 at mp 2's per-rank shape here (SDPA beside
+    them), then 9d-a and 9d-b in children. Returns (the K1 and K5 rows,
+    rank 0's 9d-b launches with SP off, the stats)."""
+    t0 = time.perf_counter()
+    timer = ColdTimer(torch)
+    rows = check_flash_bwd(torch, timer, k1, shape=TP_SHAPE, suffix="_tp")
+    del timer
+    torch.cuda.empty_cache()
+    log(f"9d: {TP_RING_NOTE}")
+    a = dp_launch("a", 1, "0", "build/tp9d_a", 300, child="--tp-child",
+                  tag="9d")
+    b = dp_launch("b", 2, "0,0", "build/tp9d_b", 600, child="--tp-child",
+                  tag="9d")
+    full = b[0]["full_param_bytes"]
+    for r in b:
+        st = r["adamw8bit"]
+        log(f"9d-b rank {r['rank']} ({r['backend']}): step_ms "
+            f"{st['step_ms']:.1f}, exposed collective ms "
+            f"{st['collective_ms']:.1f}, max_memory_allocated "
+            f"{st['max_memory_allocated_gib']:.2f} GiB, parameter bytes "
+            f"{st['param_bytes']} = {st['param_bytes'] / full:.3f} x the "
+            f"unsharded model's {full} (a DataParallel rank holds all of "
+            f"them)")
+    seconds = time.perf_counter() - t0
+    log(f"9d: {seconds:.1f}s (kernel rows, 9d-a and 9d-b)")
+    return rows, b[0]["tp"]["counts"], {"a": a, "b": b, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -7202,6 +7661,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("9c data parallel and ZeRO")
 
+    # ---- 9d. tensor and sequence parallelism: K1 and K5 at mp 2's per-rank
+    # shape here, then the 2-layer step at mp 1 (NCCL) and at mp 2 on two
+    # ranks of this card (gloo), children of the port's launcher (each
+    # child's counts set to 0 just before its counted run and read just
+    # after)
+    rows_tp, counts_tp, stats_tp = tp_sp(torch, kernels, k1)
+    own += [(row, "tp 9d-b rank 0") for row in rows_tp]
+    torch.cuda.empty_cache()
+    mark("9d tensor and sequence parallel")
+
     # ---- 10. the MoE kernels vs plain at the Mixtral train shapes, 11. the
     # MoE gradient check, 12. the timed MoE train run (its counts set to 0
     # just before its counted steps and read just after)
@@ -7258,7 +7727,7 @@ def main() -> int:
              "train": counts_train, "moe train": counts_moe,
              **counts_quant,
              "grad check split, mask": counts_grad_split, "sft": counts_sft,
-             "dp zero os_g rank 0": counts_dp}
+             "dp zero os_g rank 0": counts_dp, "tp 9d-b rank 0": counts_tp}
     counter = {"flash_attention_fwd": "flash_attention",
                "flash_attention_fwd_train": "flash_attention",
                "norm_matmul": "fused_norm_matmul",
@@ -7287,6 +7756,8 @@ def main() -> int:
                       ("paged_attention", "paged_attention"),
                       ("rope_append_attend_masked", "fused_rope_attend"))},
                "flash_attention_bwd": "flash_attention_bwd",
+               "flash_attention_fwd_train_tp": "flash_attention",
+               "flash_attention_bwd_tp": "flash_attention_bwd",
                "rms_norm_fwd": "rms_norm_fwd",
                "rms_norm_bwd": "rms_norm_bwd",
                "adamw8bit": "adamw8bit", "adamw8bit_shard": "adamw8bit",
@@ -7371,6 +7842,7 @@ def main() -> int:
                     "train_quantized": stats_quant_train,
                     "train": stats_train, "sft": stats_sft,
                     "moe_train": stats_moe, "data_parallel_zero": stats_dp,
+                    "tensor_sequence_parallel": stats_tp,
                     "moe_quantized_experts": stats_quant}))
     log(json.dumps({"kernels": rows}))
     log(smi)
@@ -7383,5 +7855,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 3 and sys.argv[1] == "--dp-child":
         sys.exit(dp_child(sys.argv[2], sys.argv[3],
+                          rehearse="--rehearse" in sys.argv))
+    if len(sys.argv) > 3 and sys.argv[1] == "--tp-child":
+        sys.exit(tp_child(sys.argv[2], sys.argv[3],
                           rehearse="--rehearse" in sys.argv))
     sys.exit(main())

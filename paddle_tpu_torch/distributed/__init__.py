@@ -18,10 +18,14 @@ the chip check read the two through one mapping:
 
 Ported here: ``env`` (``init_parallel_env``), ``mesh``, ``placement``,
 ``collective``, ``data_parallel`` (``GradReducer``, ``DataParallel``),
-``sharding`` (ZeRO stages 1-3), ``topology``, ``fleet`` (dp and sharding
-degrees), ``launch`` (one node), beside ``store``, ``gossip`` and
-``recompute``. The DTensor surface (``api.py``), sharded checkpoints,
-tensor / sequence / pipeline / expert parallelism and elastic runs are
+``sharding`` (ZeRO stages 1-3), ``topology``, ``fleet`` (dp, sharding,
+sep and mp degrees), ``launch`` (one node), tensor and sequence
+parallelism (``overlap``, ``mp_layers``, ``tensor_parallel``,
+``sequence_parallel``), beside ``store``, ``gossip`` and ``recompute``.
+Under tensor parallelism rank r holds its shard of each cut parameter:
+the reference's parameter is the ranks' shards concatenated along the cut
+dim in mp-rank order. The DTensor surface (``api.py``), sharded
+checkpoints, pipeline / expert / context parallelism and elastic runs are
 later slices.
 """
 
@@ -32,12 +36,16 @@ from .collective import (  # noqa: F401
     irecv, is_initialized, isend, new_group, recv, reduce, reduce_scatter,
     scatter, send)
 from .data_parallel import DataParallel  # noqa: F401
+from .mp_layers import (  # noqa: F401
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding)
 from .env import ParallelEnv, get_rank, get_world_size, init_parallel_env  # noqa: F401
 from .mesh import ProcessMesh, get_mesh, init_mesh, set_mesh  # noqa: F401
 from .placement import Partial, Placement, Replicate, Shard  # noqa: F401
 from .recompute import recompute  # noqa: F401
 from .sharding import (  # noqa: F401
     group_sharded_parallel, save_group_sharded_model, zero_sharding_plan)
+from .tensor_parallel import TensorParallel  # noqa: F401
 from .topology import (  # noqa: F401
     CommunicateTopology, HybridCommunicateGroup, create_hybrid_group,
     get_hybrid_communicate_group)

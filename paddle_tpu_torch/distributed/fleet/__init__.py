@@ -7,7 +7,10 @@ pass through) and the hybrid group of ``strategy.hybrid_configs``;
 ``distributed_model`` wraps the model by parallel mode: data ->
 ``DataParallel`` (``sharding_configs["comm_buffer_size_MB"]`` a bucket),
 sharding -> ``group_sharded_parallel`` at ``sharding_configs["stage"]``
-(1 ``os``, 2 ``os_g``, 3 ``p_g_os``) over the sharding group;
+(1 ``os``, 2 ``os_g``, 3 ``p_g_os``) over the sharding group; hybrid (an mp
+or sep degree above 1) -> ``TensorParallel`` (the model holds its shards
+already: ``models.llama.apply_llama_tensor_parallel`` or ``mp_layers``),
+with a dp reducer where the dp degree is above 1;
 ``distributed_optimizer`` wraps the optimizer in a
 ``HybridParallelOptimizer`` and gives it the model's ZeRO plan. The
 parameter-server role makers and the data generators are not ported.
@@ -105,6 +108,14 @@ class _Fleet:
         mode = hcg.get_parallel_mode()
         cfg = (self._strategy.sharding_configs
                if self._strategy is not None else {})
+        if mode == "hybrid":
+            from ..tensor_parallel import TensorParallel
+
+            if hcg.get_sharding_parallel_world_size() > 1:
+                raise NotImplementedError(
+                    "a sharding degree beside tensor parallelism is not "
+                    "ported")
+            return TensorParallel(model, hcg, self._strategy)
         if mode == "data":
             return DataParallel(
                 model, group=hcg.get_data_parallel_group(),

@@ -7,7 +7,10 @@ wrapper adds is the global-norm clip over every rank's share. Under ZeRO
 stages 2 and 3 each rank holds gradient shards, and the optimizer hands
 them to the clip with the sharding group: the sum of squares over the
 local shards is all-reduced before the scale (``nn/clip.py``), so every
-parameter counts once. A plain ``ClipGradByGlobalNorm`` on the inner
+parameter counts once. Under tensor parallelism (an mp degree above 1)
+the hybrid clip sums the squares of the cut gradients (parameters marked
+``mp_cut``) over the model-parallel group and counts the whole
+ones (the norms) once. A plain ``ClipGradByGlobalNorm`` on the inner
 optimizer is replaced by the hybrid one, as in the reference.
 """
 
@@ -22,6 +25,13 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
     def __init__(self, clip, hcg):
         super().__init__(clip.clip_norm)
         self._hcg = hcg
+
+    def __call__(self, params_grads, *, group=None, mp_group=None):
+        if mp_group is None and self._hcg is not None and \
+                self._hcg.get_model_parallel_world_size() > 1:
+            mp_group = self._hcg.get_model_parallel_group()
+        return super().__call__(params_grads, group=group,
+                                mp_group=mp_group)
 
 
 class HybridParallelOptimizer:

@@ -32,6 +32,11 @@ followed by zeros.
     unit's forward runs again in backward, gather included, so no hook is
     needed there. The other parameters (embedding, final norm, LM head)
     are gathered once a step by ``begin_step`` and held until ``end_step``.
+    Under ``jit.TrainStep`` (``prefetch``) a unit's first forward of a step
+    also starts the asynchronous all-gather of the next unit's shards
+    (``overlap.zero_prefetch``, with the ``zero_prefetch`` and
+    ``collective_matmul`` flags on), so the next unit's forward waits for
+    a gather already in flight; the bytes gathered are the same.
 """
 
 from __future__ import annotations
@@ -137,6 +142,11 @@ class ShardingPlan:
         self._alias = {}
         self._root = []
         self._swapped = []
+        self._units = []            # each unit's parameter names, in order
+        self._first_done = set()    # units whose first forward ran
+        self._prefetched = {}       # name -> (work, buffer) in flight
+        self.prefetch = False
+        self.prefetches = 0         # gathers started ahead of their unit
 
     # ---- shards
     def shard_range(self, name):
@@ -219,15 +229,32 @@ class ShardingPlan:
         for work, _ in works:
             work.wait()
 
-    def _gather_padded(self, name):
-        """Stage 3: a new (nranks x seg,) buffer of ``name``'s padded
-        segments, i.e. the flat parameter then zeros."""
+    def _start_gather(self, name):
+        """Stage 3: start the asynchronous gather of ``name``'s padded
+        segments; ``_gather_padded`` waits for it."""
         seg_buf = self._padded[name]
         out = torch.empty(self.group.nranks * seg_buf.numel(),
                           dtype=seg_buf.dtype, device=seg_buf.device)
-        dist.all_gather_into_tensor(out, seg_buf,
-                                    group=self.group.process_group)
+        work = dist.all_gather_into_tensor(out, seg_buf, async_op=True,
+                                           group=self.group.process_group)
+        self._prefetched[name] = (work, out)
         return out
+
+    def _gather_padded(self, name):
+        """Stage 3: a new (nranks x seg,) buffer of ``name``'s padded
+        segments, i.e. the flat parameter then zeros (the prefetched one
+        where a gather is in flight)."""
+        if name not in self._prefetched:
+            self._start_gather(name)
+        work, out = self._prefetched.pop(name)
+        work.wait()
+        return out
+
+    def _drain_prefetch(self):
+        """Wait for and drop every gather still in flight."""
+        for work, _ in self._prefetched.values():
+            work.wait()
+        self._prefetched.clear()
 
     def _scatter_grad(self, name, g):
         """Stage 3: the group's mean of the full gradient ``g``, this rank's
@@ -264,7 +291,9 @@ class ShardingPlan:
                     in_unit.update(names)
                     unit.forward = _unit_forward(
                         self, unit.forward,
-                        [(owner[id(self.params[n])], n) for n in names])
+                        [(owner[id(self.params[n])], n) for n in names],
+                        len(self._units))
+                    self._units.append(names)
         self._root = [(owner[id(p)], n) for n, p in self.params.items()
                       if n not in in_unit]
         for name, p in self.params.items():
@@ -275,10 +304,12 @@ class ShardingPlan:
         step's forward and backward (``jit.TrainStep`` calls it around
         both; a no-op at the other stages)."""
         if self.stage >= 3 and not self._swapped:
+            self._first_done.clear()
             self._swapped = _swap(self, self._root)
 
     def end_step(self):
         """Put the root's shard parameters back after backward."""
+        self._drain_prefetch()
         if self._swapped:
             _restore(self._swapped)
             self._swapped = []
@@ -317,13 +348,19 @@ def _restore(swapped):
         mod._parameters[leaf] = p
 
 
-def _unit_forward(plan, forward, entries):
-    """A unit's forward with its parameters gathered and swapped in (see
-    the module docstring)."""
+def _unit_forward(plan, forward, entries, index):
+    """Unit ``index``'s forward with its parameters gathered and swapped in
+    (see the module docstring); its first forward of a step prefetches
+    the next unit's (``plan.prefetch``)."""
+    from . import overlap
     from .recompute import recomputing
 
     def run(*args, **kwargs):
         swapped = _swap(plan, entries)
+        if plan.prefetch and index not in plan._first_done:
+            plan._first_done.add(index)
+            if index + 1 < len(plan._units):
+                overlap.zero_prefetch(plan._units[index + 1], plan)
         try:
             if recomputing():
                 return forward(*args, **kwargs)

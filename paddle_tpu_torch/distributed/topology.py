@@ -4,10 +4,10 @@
 ``CommunicateTopology`` is the reference's (rank <-> coordinate, the rank
 lists of each axis). ``HybridCommunicateGroup`` lays the world's ranks on
 the mesh (dp, pp, sharding, sep, mp) and gives this rank its coordinate
-and the ``collective.Group`` of each axis. This slice ports the data and
-sharding degrees; a pipe, sep or model degree above 1 raises (tensor and
-sequence parallelism and the pipeline schedules are later slices of the
-port).
+and the ``collective.Group`` of each axis. The data, sharding, sep and
+model degrees are ported (the mp axis is the fastest: ranks 2k and 2k + 1
+share an mp group at mp 2); a pipe degree above 1 raises (the pipeline
+schedules are a later slice of the port).
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ from .mesh import ProcessMesh, set_mesh
 _HYBRID_AXES = ["data", "pipe", "sharding", "sep", "model"]
 _SHORT = {"data": "dp", "pipe": "pp", "sharding": "sharding", "sep": "sep",
           "model": "mp"}
-_LATER = {"pipe": "the pipeline schedules", "sep": "sequence parallelism",
-          "model": "tensor parallelism (mp_layers)"}
+_LATER = {"pipe": "the pipeline schedules"}
 
 
 class CommunicateTopology:
@@ -81,12 +80,12 @@ class HybridCommunicateGroup:
         import torch.distributed as dist
 
         self._topo = topology
-        for axis in ("pipe", "sep", "model"):
+        for axis in _LATER:
             if topology.get_dim(axis) > 1:
                 raise NotImplementedError(
                     f"a {axis} degree of {topology.get_dim(axis)}: "
-                    f"{_LATER[axis]} is not ported yet (data and sharding "
-                    f"degrees are)")
+                    f"{_LATER[axis]} is not ported yet (data, sharding, sep "
+                    f"and model degrees are)")
         self.nranks = topology.world_size()
         world = dist.get_world_size() if dist.is_initialized() else 1
         if self.nranks != world:
@@ -172,6 +171,9 @@ class HybridCommunicateGroup:
 
     def get_model_parallel_group_src_rank(self):
         return self._groups["mp"].ranks[0]
+
+    def get_sep_parallel_group_src_rank(self):
+        return self._groups["sep"].ranks[0]
 
     def get_parallel_mode(self):
         if self._mp_degree > 1 or self._pp_degree > 1 or self._sep_degree > 1:

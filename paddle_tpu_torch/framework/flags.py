@@ -277,3 +277,14 @@ define_flag("kv_migration_chunk_pages", 8,
             "cross-replica seam, bounding peak wire buffering. The "
             "in-process MemoryStore fleet uses the zero-copy handoff "
             "transport and never chunks.")
+define_flag("collective_matmul", True,
+            "Decompose all-gather->matmul / matmul->reduce-scatter chains "
+            "into rings of point-to-point hops over the model-parallel "
+            "group (distributed/overlap.py): each hop's transfer is in "
+            "flight while the previous chunk's partial matmul runs. Active "
+            "only on groups of size > 1 with divisible shapes; off = one "
+            "monolithic collective.")
+define_flag("zero_prefetch", True,
+            "ZeRO stage 3: start the all-gather of decoder layer k+1's "
+            "parameter shards asynchronously before layer k's forward "
+            "runs (requires collective_matmul; off = gather on use).")

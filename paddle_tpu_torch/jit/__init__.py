@@ -30,6 +30,20 @@ full gradients do not outlive a backward). The returned loss is the
 group's mean, the JAX package's global loss. ``mesh`` is kept; the inputs
 are each rank's local batch. ``in_shardings`` and ``donate=False`` are not
 ported: they raise.
+
+ZeRO stage 3: the step turns on the plan's prefetch (``plan.prefetch``;
+``overlap.zero_prefetch`` under the ``zero_prefetch`` flag, as the JAX
+package's step calls it), so each decoder layer's gather is in flight
+while the layer before it runs.
+
+Tensor parallelism (``models.llama.apply_llama_tensor_parallel``, or
+``distributed.TensorParallel`` around it for hybrid dp x mp): each rank's
+parameters are its shards and the optimizer updates them as they are (K8
+on each local shard for ``AdamW8bit``); the step hands the optimizer the
+model-parallel group for its clip (``_mp_group``). The reducer, the
+``count_group`` and the returned loss's mean are the data-parallel
+group's: the mp ranks of a dp group see the same batch. ZeRO together
+with tensor parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +73,15 @@ class TrainStep:
             inner = getattr(optimizer, "_inner", optimizer)
             if getattr(inner, "_zero_plan", None) is None:
                 inner._zero_plan = self._plan
+        tp = getattr(model, "_tp_overlap", None) or getattr(
+            getattr(model, "_layers", None), "_tp_overlap", None)
+        if tp is not None and self._plan is not None:
+            raise NotImplementedError("ZeRO together with tensor "
+                                      "parallelism is not ported")
+        if tp is not None and tp["group"] is not None:
+            getattr(optimizer, "_inner", optimizer)._mp_group = tp["group"]
+        if self._plan is not None and self._plan.stage >= 3:
+            self._plan.prefetch = True
         self._group = (self._reducer.group if self._reducer is not None
                        else self._plan.group if self._plan is not None
                        else None)

@@ -21,6 +21,12 @@ AdamW or AdamW8bit state ({param name: {key: array}}, the JAX package's
 ``TrainStep._opt_state`` layout) across; the float8 (e4m3) moment codes
 travel as ``uint8`` views (ml_dtypes on the JAX side, ``float8_e4m3fn``
 here).
+
+``tp_shards_from_numpy`` cuts a full parameter tree to rank r's shards
+under a tensor-parallel plan (``llama.llama_sharding_plan``), to load into
+a model after ``apply_llama_tensor_parallel``; ``gather_tp_params`` gathers
+a tensor-parallel model's shards back into the full tensors (every rank
+gets them; each rank of the model-parallel group must call it).
 """
 
 from __future__ import annotations
@@ -212,3 +218,51 @@ def optimizer_state_from_numpy(optimizer, state: dict,
     optimizer._state.update(new)
     if global_step is not None:
         optimizer._global_step = int(global_step)
+
+
+def tp_shards_from_numpy(params: dict, plan: dict, mp_axis: str, n: int,
+                         rank: int) -> dict:
+    """{name: rank ``rank``'s shard} of the full ``params`` ({name:
+    ndarray}): each parameter whose ``plan`` spec names ``mp_axis`` cut
+    into ``n`` equal parts along that dim, the others whole."""
+    out = {}
+    for name, arr in params.items():
+        a = np.asarray(arr)
+        spec = tuple(plan[name])
+        if n > 1 and mp_axis in spec:
+            dim = spec.index(mp_axis)
+            size = a.shape[dim] // n
+            a = np.take(a, range(rank * size, (rank + 1) * size), axis=dim)
+        out[name] = a
+    return out
+
+
+def gather_tp_params(model, tensors=None) -> dict:
+    """{name: full tensor} of a model after ``apply_llama_tensor_parallel``:
+    each cut parameter's shards all-gathered over the model-parallel group
+    and concatenated along the cut dim in rank order (a copy of the others).
+    ``tensors`` ({name: tensor shaped as the parameter's shard}, e.g. the
+    gradients) is gathered in place of the parameters. Every rank of the
+    group calls it."""
+    import torch.distributed as dist
+
+    from .llama import llama_sharding_plan
+
+    ctx = getattr(model, "_tp_overlap", None)
+    named = (list(model.named_parameters()) if tensors is None
+             else list(tensors.items()))
+    if ctx is None or ctx["group"] is None:
+        return {n: p.detach().clone() for n, p in named}
+    plan = llama_sharding_plan(model, ctx["mesh"], mp_axis=ctx["axis"])
+    g = ctx["group"]
+    out = {}
+    for name, p in named:
+        spec = tuple(plan[name])
+        t = p.detach().contiguous()
+        if ctx["axis"] not in spec:
+            out[name] = t.clone()
+            continue
+        parts = [torch.empty_like(t) for _ in range(g.nranks)]
+        dist.all_gather(parts, t, group=g.process_group)
+        out[name] = torch.cat(parts, dim=spec.index(ctx["axis"]))
+    return out

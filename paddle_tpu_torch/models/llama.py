@@ -39,6 +39,23 @@ with ``fused_head_loss`` the forward returns the final-normed hidden states
 flash kernels as a key bias, in training and in eval alike.
 ``forward(ids, plain=True)`` runs every kernel's plain version and the
 unfused plans (the on-card reference).
+
+Tensor and sequence parallelism (``apply_llama_tensor_parallel``, one
+process a rank): each rank keeps its shards of the reference's cut
+points (``llama_sharding_plan``: q/k/v/gate/up on columns, o/down on
+rows, the embedding and the LM head on the vocab). As the JAX package
+turns the train fusions off under a TP context, each block runs the
+unfused TRAIN plan (norms in K6/K7, rope in K12, attention in K1 and
+K5/K9 on its local heads, ``torch.matmul`` on the local shards) with the
+block's collectives (``_TPBlock``: a column-cut input's all-reduce
+backward, the row-cut o/down products through ``distributed/overlap.py``);
+the head runs vocab-parallel (``ops/loss_ops.py``'s ``vocab_group``). With
+``sequence_parallel`` the residual stream lives sequence-cut between the
+blocks: ``shard_seq`` after the embedding, a gather at each block's
+entry and before the head, ``matmul_rs`` at each block's exit; the norm
+weights then get their block's share of the gradient, all-reduced by
+``register_sequence_parallel_allreduce_hooks``. Serving a TP model is not
+ported.
 """
 
 from __future__ import annotations
@@ -361,20 +378,21 @@ def quantize_for_inference(params, algo="weight_only_int8", group_size=-1):
 # Modules (parameter containers with the JAX package's names)
 # ---------------------------------------------------------------------------
 def _train_attend(cfg, q, k, v, plain, stash, residual=None, o_w=None,
-                  attn_mask=None):
+                  attn_mask=None, heads=None):
     """The training attend seam: rope (K12 forward and backward: f32
     rotate-half, cast back) feeding causal flash attention with a gradient
     (K1 forward, K5 or K9 backward) under ``attn_mask``, on flat (B, S, ·)
     projections; with ``o_w`` the o-proj matmul and the residual add
     follow as the attention's epilogue (a ``QuantizedWeight`` o_w through
     ``_wmm``: K4 under the weight-only rule, as the JAX package's
-    epilogue)."""
+    epilogue). ``heads``: this rank's (q, kv) head counts under tensor
+    parallelism, else the config's."""
     from ..ops.kernels.flash_attention import flash_attention_train
     from ..ops.kernels.fused_norm_rope import fused_rope
 
     b, s = q.shape[:2]
-    nh, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
+    nh, hk = heads or (cfg.num_attention_heads, cfg.num_key_value_heads)
+    hd = cfg.head_dim
     cos, sin = _rope_tables(s, hd, cfg.rope_theta, device=q.device)
     q2 = fused_rope(q.reshape(b, s, nh, hd), cos, sin, plain=plain)
     k2 = fused_rope(k.reshape(b, s, hk, hd), cos, sin, plain=plain)
@@ -471,7 +489,10 @@ class LlamaDecoderLayer(Layer):
         self.mlp = LlamaMLP(config, **kw)
 
     def forward(self, hidden, attn_mask=None, *, plain=False, stash=None):
-        """Training forward through the TRAIN plan."""
+        """Training forward through the TRAIN plan (the tensor-parallel
+        block under ``apply_llama_tensor_parallel``)."""
+        if _tp_ctx(self.self_attn) is not None:
+            return _tp_block(self, hidden, attn_mask, plain, stash)
         return _train_fused_block(self, hidden, attn_mask, plain, stash)
 
 
@@ -501,7 +522,20 @@ class LlamaModel(Layer):
         from ..framework import flags
 
         cfg = self.config
-        hidden = self.embed_tokens(input_ids)
+        ctx = _tp_ctx(self)
+        if ctx is None:
+            hidden = self.embed_tokens(input_ids)
+        else:
+            from ..distributed import overlap
+            from ..distributed.mp_layers import vocab_parallel_lookup
+
+            hidden = vocab_parallel_lookup(input_ids,
+                                           self.embed_tokens.weight,
+                                           ctx["group"])
+            if ctx["sp"]:
+                # the residual stream lives sequence-cut between blocks
+                hidden = overlap.shard_seq(hidden, ctx["mesh"], ctx["axis"],
+                                           dim=1)
         keep = (cfg.recompute_granularity == "core_attn"
                 and bool(flags.get_flag("flash_save_residuals")))
         for layer in self.layers:
@@ -543,15 +577,20 @@ class LlamaForCausalLM(Layer):
         ids = torch.as_tensor(input_ids, device=self.device)
         if attn_mask is not None:
             attn_mask = torch.as_tensor(attn_mask, device=self.device)
+        ctx = _tp_ctx(self)
         if not self.training:
+            _refuse_tp_serving(ctx)
             with torch.inference_mode():
                 return prompt_logits_pure(self.param_dict(), ids,
                                           self.config,
                                           tied=self.lm_head is None,
                                           plain=plain, attn_mask=attn_mask)
-        fuse_head = not plain and _train_head_fusion_active(self)
+        fuse_head = (not plain and ctx is None
+                     and _train_head_fusion_active(self))
         hidden = self.model(ids.long(), attn_mask, final_norm=not fuse_head,
                             plain=plain)
+        if ctx is not None:
+            hidden = _tp_head_input(ctx, hidden)
         if self.config.fused_head_loss:
             return hidden
         if fuse_head:
@@ -565,9 +604,14 @@ class LlamaForCausalLM(Layer):
         (B, S, H) final hidden states under ``fused_head_loss`` in training
         (projected inside the chunked ``linear_cross_entropy``).
         ``count_group``: the data-parallel group whose valid targets the
-        mean counts (``ops/loss_ops.py``; ``jit.TrainStep`` passes it)."""
+        mean counts (``ops/loss_ops.py``; ``jit.TrainStep`` passes it).
+        Under tensor parallelism ``out`` holds this rank's vocab slice of
+        the logits (or the head is its vocab slice) and the loss runs
+        vocab-parallel over the model-parallel group."""
         from ..ops.loss_ops import cross_entropy, linear_cross_entropy
 
+        ctx = _tp_ctx(self)
+        vocab = ctx["group"] if ctx is not None else None
         labels = torch.as_tensor(labels, device=out.device).long()
         b, s, v = out.shape
         if self.config.fused_head_loss and self.training:
@@ -577,10 +621,10 @@ class LlamaForCausalLM(Layer):
             return linear_cross_entropy(
                 out[:, :-1, :], w, labels[:, 1:], transpose_weight=tied,
                 chunk_size=self.config.loss_chunk_size,
-                count_group=count_group)
+                count_group=count_group, vocab_group=vocab)
         return cross_entropy(out[:, :-1, :].reshape(b * (s - 1), v),
                              labels[:, 1:].reshape(b * (s - 1)),
-                             count_group=count_group)
+                             count_group=count_group, vocab_group=vocab)
 
     @staticmethod
     def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
@@ -628,6 +672,7 @@ class LlamaForCausalLM(Layer):
         flag) from ``draft`` (a ``DraftProposer``, default ``NGramDraft``);
         the tokens equal the plain decode's. Greedy only (sampling raises
         ``ValueError``), and not with ``return_logits``."""
+        _refuse_tp_serving(_tp_ctx(self))
         sampling = _normalize_sampling(temperature, top_k, top_p)
         if spec_decode and sampling is not None:
             raise ValueError(
@@ -893,3 +938,180 @@ class LlamaForCausalLM(Layer):
 
         return step
 
+
+
+# ---------------------------------------------------------------------------
+# Tensor and sequence parallelism (one process a rank)
+# ---------------------------------------------------------------------------
+#: the row-cut projections (their input's last dim is cut over mp)
+_ROW_CUT = ("self_attn.o_proj.weight", "mlp.down_proj.weight")
+
+
+def _tp_ctx(layer):
+    """The tensor-parallel context planted by
+    ``apply_llama_tensor_parallel`` ({"mesh", "axis", "sp", "seq_axis",
+    "n", "group"}), or None."""
+    return getattr(layer, "_tp_overlap", None)
+
+
+def _refuse_tp_serving(ctx):
+    if ctx is not None:
+        raise NotImplementedError(
+            "serving a tensor-parallel model (eval forward, generate_paged) "
+            "is not ported; the TP path is the training forward")
+
+
+class _TPBlock:
+    """One decoder block's collectives (``fusion._run_plan``'s ``tp``):
+    each norm's output enters the column-cut projections (SP: the
+    sequence blocks gathered, reduce-scatter backward; TP: identity,
+    all-reduce backward); the row-cut o/down products leave the block
+    through ``overlap.matmul_rs`` (SP) or ``overlap.matmul_ar`` (TP); the
+    column-cut ones are local matmuls."""
+
+    def __init__(self, ctx, plain):
+        self.ctx, self.plain = ctx, plain
+
+    def enter(self, x):
+        from ..distributed import overlap
+        from ..distributed.mp_layers import copy_to_model_parallel
+
+        c = self.ctx
+        if c["sp"]:
+            return overlap.ring_all_gather(x, c["mesh"], c["axis"], dim=1)
+        return copy_to_model_parallel(x, c["group"])
+
+    def matmul(self, name, x, w):
+        from ..distributed import overlap
+
+        c = self.ctx
+        if name not in _ROW_CUT:
+            return _wmm(x, w, plain=self.plain)
+        if c["sp"]:
+            return overlap.matmul_rs(x, w, c["mesh"], c["axis"])
+        return overlap.matmul_ar(x, w, c["mesh"], c["axis"])
+
+
+def _tp_block(layer, hidden, attn_mask=None, plain=False, stash=None):
+    """Training forward of one tensor-parallel decoder block: the unfused
+    TRAIN plan (``enabled=()``: the JAX package turns the train fusions off
+    under a TP context) on this rank's heads and shards, with the block's
+    collectives (``_TPBlock``)."""
+    from ..ops.kernels import fusion
+
+    cfg = layer.self_attn.config
+    ctx = _tp_ctx(layer.self_attn)
+    heads = (cfg.num_attention_heads // ctx["n"],
+             cfg.num_key_value_heads // ctx["n"])
+
+    def attend(q, k, v, residual=None, o_w=None):
+        return _train_attend(cfg, q, k, v, plain, stash, residual, o_w,
+                             attn_mask, heads=heads)
+
+    return fusion.run_train_decoder_layer(
+        dict(layer.named_parameters()), hidden, cfg.rms_norm_eps, attend,
+        enabled=(), plain=plain, tp=_TPBlock(ctx, plain))
+
+
+def _tp_head_input(ctx, hidden):
+    """The final hidden states into the vocab-cut head: SP gathers the
+    sequence blocks (reduce-scatter backward), TP is the column-cut
+    input's identity with an all-reduce backward."""
+    from ..distributed import overlap
+    from ..distributed.mp_layers import copy_to_model_parallel
+
+    if ctx["sp"]:
+        return overlap.ring_all_gather(hidden, ctx["mesh"], ctx["axis"],
+                                       dim=1)
+    return copy_to_model_parallel(hidden, ctx["group"])
+
+
+def llama_sharding_plan(model: LlamaForCausalLM, mesh, mp_axis="mp",
+                        dp_axis="dp", fsdp_axis=None):
+    """{parameter name: PartitionSpec}: the reference's Megatron cut points
+    over ``mesh`` (q/k/v/gate/up on the out dim, o/down on the in dim, the
+    embedding on the vocab rows, the LM head (H, V) on the vocab columns,
+    norms replicated)."""
+    from ..distributed.placement import PartitionSpec as P
+
+    mp = mp_axis if mp_axis in mesh.dim_names else None
+    fsdp = fsdp_axis if (fsdp_axis and fsdp_axis in mesh.dim_names) else None
+    plan = {}
+    for name, p in model.named_parameters():
+        spec = P()
+        if any(k in name for k in ("q_proj", "k_proj", "v_proj",
+                                   "gate_proj", "up_proj")):
+            spec = P(fsdp, mp)
+        elif "o_proj" in name or "down_proj" in name:
+            spec = P(mp, fsdp)
+        elif "embed_tokens" in name:
+            spec = P(mp, fsdp)
+        elif "lm_head" in name:
+            spec = P(fsdp, mp)
+        plan[name] = spec
+    return plan
+
+
+def _check_tp_widths(cfg, n):
+    if cfg.num_key_value_heads < n:
+        raise NotImplementedError(
+            f"tensor parallelism: an mp degree of {n} above the "
+            f"{cfg.num_key_value_heads} key/value heads (the reference "
+            f"reshards the kv heads there) is not ported")
+    for what, size in (("num_attention_heads", cfg.num_attention_heads),
+                       ("num_key_value_heads", cfg.num_key_value_heads),
+                       ("intermediate_size", cfg.intermediate_size),
+                       ("vocab_size", cfg.vocab_size)):
+        if size % n:
+            raise ValueError(f"tensor parallelism: {what} ({size}) does "
+                             f"not divide over {n} model-parallel ranks")
+
+
+def apply_llama_tensor_parallel(model: LlamaForCausalLM, mesh, mp_axis="mp",
+                                fsdp_axis=None, sequence_parallel=False):
+    """Cut ``model``'s parameters to this rank's shards under
+    ``llama_sharding_plan`` (the rank's coordinate on ``mesh``'s
+    ``mp_axis``), mark them ``mp_cut`` and plant the TP context on
+    the model and its blocks: the training forward then runs the
+    tensor-parallel blocks and the vocab-parallel head (module docstring).
+    ``sequence_parallel`` keeps the residual stream sequence-cut between
+    blocks and registers the norm weights' all-reduce hooks. The mp degree
+    must divide the heads, the kv heads, ``intermediate_size`` and the
+    vocab; ``fsdp_axis`` is not ported. Returns the plan."""
+    from ..distributed import overlap
+    from ..distributed.sequence_parallel import (
+        mark_as_sequence_parallel_parameter,
+        register_sequence_parallel_allreduce_hooks)
+
+    if fsdp_axis is not None and fsdp_axis in mesh.dim_names:
+        raise NotImplementedError("apply_llama_tensor_parallel: fsdp_axis "
+                                  "is not ported")
+    plan = llama_sharding_plan(model, mesh, mp_axis=mp_axis,
+                               fsdp_axis=fsdp_axis)
+    if mp_axis not in mesh.dim_names:
+        return plan
+    n = mesh.get_dim_size(mp_axis)
+    _check_tp_widths(model.config, n)
+    group = overlap._group(mesh, mp_axis) if n > 1 else None
+    rank = group.rank if group is not None else 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            spec = tuple(plan[name])
+            if n > 1 and mp_axis in spec:
+                dim = spec.index(mp_axis)
+                size = p.shape[dim] // n
+                p.data = p.data.narrow(dim, rank * size, size).contiguous()
+                p.mp_cut = True
+    ctx = {"mesh": mesh, "axis": mp_axis, "sp": bool(sequence_parallel),
+           "seq_axis": None, "n": n, "group": group}
+    model._tp_overlap = ctx
+    model.model._tp_overlap = ctx
+    for layer in model.model.layers:
+        layer.self_attn._tp_overlap = ctx
+        layer.mlp._tp_overlap = ctx
+    if sequence_parallel:
+        for name, p in model.named_parameters():
+            if "layernorm" in name or name == "model.norm.weight":
+                mark_as_sequence_parallel_parameter(p)
+        register_sequence_parallel_allreduce_hooks(model)
+    return plan

@@ -19,6 +19,13 @@ Under ZeRO (``distributed/sharding.py``) the optimizer hands each rank's
 gradient shards with ``group=``: the norm-based clips all-reduce their
 squared sums over the group before the scale (every rank calls the
 all-reduce, with zeros where it holds no shard).
+
+Under tensor parallelism (``mp_group=``, the model-parallel group) a
+parameter marked ``mp_cut`` holds this rank's shard of a tensor
+cut over the group, and the others (the norms) are whole on every rank:
+the norm-based clips all-reduce the squared sums of the cut tensors over
+the group and count the whole ones once (Paddle's
+``HybridParallelClipGrad``).
 """
 
 from __future__ import annotations
@@ -49,8 +56,12 @@ def _group_sum(sq, group, device):
     return all_reduce(sq, group=group)
 
 
+def _cut(p, mp_group) -> bool:
+    return mp_group is not None and getattr(p, "mp_cut", False)
+
+
 class ClipGradBase:
-    def __call__(self, params_grads, *, group=None):
+    def __call__(self, params_grads, *, group=None, mp_group=None):
         raise NotImplementedError
 
 
@@ -61,7 +72,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = max
         self.min = -max if min is None else min
 
-    def __call__(self, params_grads, *, group=None):
+    def __call__(self, params_grads, *, group=None, mp_group=None):
         return [(p, torch.clamp(g, self.min, self.max) if _clipped(p, g)
                  else g) for p, g in params_grads]
 
@@ -72,17 +83,21 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
-    def __call__(self, params_grads, *, group=None):
+    def __call__(self, params_grads, *, group=None, mp_group=None):
         params_grads = list(params_grads)
         sums = [torch.sum(torch.square(g.float())) if _clipped(p, g)
                 else None for p, g in params_grads]
-        if group is not None and params_grads:
+        for grp, which in ((group, lambda p: True),
+                           (mp_group, lambda p: _cut(p, mp_group))):
+            if grp is None or not params_grads:
+                continue
             dev = params_grads[0][1].device
-            live = [s for s in sums if s is not None]
-            vec = _group_sum(torch.stack(live) if live else
-                             torch.zeros((0,), device=dev), group, dev)
-            it = iter(vec)
-            sums = [None if s is None else next(it) for s in sums]
+            idx = [i for i, (p, _) in enumerate(params_grads)
+                   if sums[i] is not None and which(p)]
+            vec = _group_sum(torch.stack([sums[i] for i in idx]) if idx
+                             else torch.zeros((0,), device=dev), grp, dev)
+            for i, v in zip(idx, vec):
+                sums[i] = v
         out = []
         for (p, g), s in zip(params_grads, sums):
             if s is None:
@@ -103,23 +118,31 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = clip_norm
         self.last_global_norm = None
 
-    def global_norm(self, params_grads, *, group=None):
+    def global_norm(self, params_grads, *, group=None, mp_group=None):
         """The f32 L2 norm over every clipped gradient, summed per tensor
-        in list order (then over ``group``'s ranks); None when there is
-        none."""
-        sq = None
+        in list order (then over ``group``'s ranks; the ``mp_cut``
+        shards' sum over ``mp_group``'s, added to the whole tensors'
+        sum); None when there is none."""
+        sq, cut = None, None
         for p, g in params_grads:
             if _clipped(p, g):
                 s = torch.sum(torch.square(g.float()))
-                sq = s if sq is None else sq + s
+                if _cut(p, mp_group):
+                    cut = s if cut is None else cut + s
+                else:
+                    sq = s if sq is None else sq + s
+        dev = params_grads[0][1].device if params_grads else "cpu"
+        if mp_group is not None:
+            cut = _group_sum(cut, mp_group, dev)
+            sq = cut if sq is None else sq + cut
         if group is not None:
-            dev = params_grads[0][1].device if params_grads else "cpu"
             sq = _group_sum(sq, group, dev)
         return None if sq is None else torch.sqrt(sq)
 
-    def __call__(self, params_grads, *, group=None):
+    def __call__(self, params_grads, *, group=None, mp_group=None):
         params_grads = list(params_grads)
-        norm = self.global_norm(params_grads, group=group)
+        norm = self.global_norm(params_grads, group=group,
+                                mp_group=mp_group)
         self.last_global_norm = norm
         if norm is None:
             return params_grads

@@ -493,11 +493,14 @@ def planned_kernel_launches(num_layers: int, tied: bool = False,
 
 
 def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False,
-              train=False, lora=None):
+              train=False, lora=None, tp=None):
     """THE plan interpreter. ``pfx`` scopes weight names (per-layer vs
     top-level); ``plain`` runs quantized matmuls, the LoRA delta, and on a
     train plan the norms, through their plain versions; ``train`` runs each
     unfused rms_norm as ``fused_rms_norm`` (K6 forward, K7 backward).
+    ``tp`` (tensor parallelism, ``models/llama._TPBlock``) takes each
+    rms_norm's output into the block (``tp.enter``) and runs each matmul
+    (``tp.matmul(name, x, w)``: the row-cut ones with their collective).
     ``lora`` is the wave's adapter routing that ``lora_delta`` nodes read:
     ``{"sort", "inv", "offsets"}`` device vectors and ``"params"``, the
     stacked per-slot (A, B) buffers by full parameter name."""
@@ -511,9 +514,15 @@ def _run_plan(plan, prms, env, eps, pfx="", attend=None, plain=False,
             norm = (functools.partial(fused_rms_norm, plain=plain) if train
                     else _pure_rms)
             env[node.out] = norm(env[node.src[0]], prms[pfx + node.w], eps)
+            if tp is not None:
+                env[node.out] = tp.enter(env[node.out])
         elif node.kind == "matmul":
-            env[node.out] = _wmm(env[node.src[0]], prms[pfx + node.w],
-                                 plain=plain)
+            if tp is not None:
+                env[node.out] = tp.matmul(node.w, env[node.src[0]],
+                                          prms[pfx + node.w])
+            else:
+                env[node.out] = _wmm(env[node.src[0]], prms[pfx + node.w],
+                                     plain=plain)
         elif node.kind == "norm_matmul":
             nw, mw = node.w
             env[node.out] = fused_norm_matmul_pure(
@@ -602,7 +611,7 @@ def run_lm_head(prms, hidden, eps, enabled=None, plain=False):
 
 
 def run_train_decoder_layer(prms, hidden, eps, attend, enabled=None,
-                            plain=False, attn_only=False):
+                            plain=False, attn_only=False, *, tp=None):
     """Execute the (fused) TRAIN plan for one decoder block over its own
     params (layer-local names). ``attend`` maps flat q/k/v to the flat
     attention output (rope + flash attention); under ``attn_epilogue`` it
@@ -610,11 +619,16 @@ def run_train_decoder_layer(prms, hidden, eps, attend, enabled=None,
     half (the MoE block's share) and returns the post-attention residual
     stream. On CUDA tensors a flag-resolved plan with an unfused norm
     raises; an explicit ``enabled=()`` runs the unfused plan (norms in
-    K6/K7, or their plain versions with ``plain``)."""
+    K6/K7, or their plain versions with ``plain``). ``tp``: the block's
+    tensor-parallel collectives (``_run_plan``), on the unfused plan
+    only."""
+    if tp is not None and enabled != ():
+        raise ValueError("a tensor-parallel block runs the unfused plan: "
+                         "pass enabled=()")
     plan = _checked_plan(train_layer_plan(enabled, attn_only), hidden,
                          enabled)
     return _run_plan(plan, prms, {"hidden": hidden}, eps, attend=attend,
-                     plain=plain, train=True)["hidden"]
+                     plain=plain, train=True, tp=tp)["hidden"]
 
 
 def run_train_lm_head(prms, hidden, eps, enabled=None, plain=False):

@@ -19,6 +19,11 @@ all-reduced one at stage 1, the reduce-scattered one at stage 2, the
 shard parameter's own at stage 3), skips a parameter whose shard is empty,
 clips with the squared sums all-reduced over the group, then all-gathers
 the parameters (stages 1 and 2). ``state_dict`` carries the shard ranges.
+
+Under tensor parallelism each rank's parameters are its shards, and the
+optimizer updates them as whole tensors (K8's blocks are the shard's);
+``_mp_group`` (set by ``jit.TrainStep`` from the model's tensor-parallel
+plan) makes the clips sum the shards' squares over the group.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ class Optimizer:
         self._apply_decay_param_fun = None
         self._multi_precision = True
         self._zero_plan = None
+        self._mp_group = None
 
     def register_named(self, named_params) -> None:
         """Name this optimizer's parameters after ``named_params`` (e.g.
@@ -125,8 +131,10 @@ class Optimizer:
         if self._grad_clip is not None:
             order = sorted(range(len(named)), key=lambda i: named[i][0])
             pairs = [(named[i][1], named[i][3]) for i in order]
-            clipped = (self._grad_clip(pairs) if plan is None else
-                       self._grad_clip(pairs, group=plan.group))
+            kw = {} if plan is None else {"group": plan.group}
+            if self._mp_group is not None:
+                kw["mp_group"] = self._mp_group
+            clipped = self._grad_clip(pairs, **kw)
             for i, (_, g) in zip(order, clipped):
                 named[i] = named[i][:3] + (g,)
         for name, p, data, g in named:

@@ -426,20 +426,37 @@ def test_sigkill_prefill_mid_migration(ns):
 def test_sigkill_decode_after_migration(ns):
     """SIGKILL the decode specialist after it adopted migrated streams:
     failover recovers every request on the prefill survivor from the
-    journal spanning both replicas, exact."""
+    journal spanning both replicas, exact. The decode specialist holds at
+    its first scheduler boundary after it adopted a stream (``held_tick``)
+    until the kill, so the drill reaches a migrated stream that is not done
+    however fast the replica runs (under the full suite's load the
+    stream could finish before the router's poll saw it)."""
     rng = np.random.default_rng(59)
     ps = [rng.integers(0, 128, size=6).astype(np.int32) for _ in range(3)]
     NEW = 24
 
     def drill(n):
         registry, workers = _fleet(n, ["prefill", "decode"], ttl=1.0)
+        release, held = threading.Event(), threading.Event()
+        dec = next(w for w in workers if w.name == "replica1")
+        tick = dec.engine._on_tick
+
+        def held_tick(t):
+            tick(t)
+            if dec._mig_rids and not release.is_set():
+                held.set()
+                release.wait(120)
+
+        dec.engine._on_tick = held_tick
         try:
             router = n.FleetRouter(workers, registry, disagg=True)
             rids = [router.submit(p, NEW) for p in ps]
+            wait(held.is_set, router=router)
             wait(lambda: any(router.request(r).migrated >= 1
                              and not router.request(r).done for r in rids),
                  router=router)
             router.workers["replica1"].kill()
+            release.set()
             done = router.join(timeout=120)
             check_allocators(workers, skip=("replica1",))
             return dict(ids=[done[r].output_ids for r in rids],
@@ -447,6 +464,7 @@ def test_sigkill_decode_after_migration(ns):
                         failovers=router.stats["failovers"],
                         recovered=router.stats["requests_recovered"])
         finally:
+            release.set()
             stop(workers)
 
     jr, tr = both(*ns, drill)
@@ -476,7 +494,7 @@ def test_drain_prefill_is_free(ns):
                              for r in rids), router=router)
             router.workers["replica0"].terminate()
             done = router.join(timeout=120)
-            dec = workers[1]
+            dec = next(w for w in workers if w.name == "replica1")
             wait(lambda: registry.retired("replica0"))
             check_allocators(workers, skip=("replica0",))
             return dict(ids=[done[r].output_ids for r in rids],

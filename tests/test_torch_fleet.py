@@ -18,14 +18,16 @@ are admitted, whatever the host's load.
 
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
 import pytest
 
-from torch_fleet_pairs import (CAP, PAGE, both, check_allocators,
-                               clear_faults, fleet, make_namespaces, pick,
-                               prompts, solo, stop, wait)
+from torch_fleet_pairs import (CAP, PAGE, FrozenClock, both,
+                               check_allocators, clear_faults, fleet,
+                               make_namespaces, pick, prompts, solo, stop,
+                               wait)
 from torch_fleet_pairs import warm as warm_jax
 
 
@@ -184,6 +186,13 @@ def test_lease_payload_keys_match_the_reference(ns):
 
 def _tiers(n):
     registry, workers = fleet(n, 1)
+    router_mod = sys.modules[n.FleetRouter.__module__]
+    clock = FrozenClock()
+    saved = (router_mod.time, n.fleet_mod.time,
+             [w.engine._clock for w in workers])
+    router_mod.time = n.fleet_mod.time = clock
+    for w in workers:
+        w.engine._clock = clock.monotonic
     try:
         router = n.FleetRouter(workers, registry, max_queue=2)
         tiers = [router.tier_for(x) for x in (10.0, 100.0, 1000.0, None)]
@@ -194,7 +203,10 @@ def _tiers(n):
         early = [router.request(r).status for r in (r_batch, r_int)]
         r_b2 = router.submit(p, 4)
         early.append(router.request(r_b2).status)
-        done = router.join(timeout=60)
+        rids = (r_batch, r_std, r_int, r_b2)
+        wait(lambda: all(router.request(r).done for r in rids), timeout=60,
+             router=router)
+        done = router.join(timeout=0.0)
         return dict(tiers=tiers, early=early,
                     status={r: done[r].status for r in done},
                     tokens={r: done[r].output_ids for r in done
@@ -202,13 +214,21 @@ def _tiers(n):
                     stats=pick(router.stats))
     finally:
         stop(workers)
+        router_mod.time, n.fleet_mod.time = saved[:2]
+        for w, c in zip(workers, saved[2]):
+            w.engine._clock = c
 
 
 def test_deadline_tiers_and_shedding(ns):
     """Tiers follow fleet_tier_edges; under fleet-wide backpressure the
     lowest-priority tier sheds first ("shed", per-tier counters). The
     edges are 20 s and 300 s here (the reference's are 2 s and 30 s, with
-    a 1 s deadline that a loaded host can blow), on both packages."""
+    a 1 s deadline that a loaded host can blow), on both packages. The
+    router, the fleet and the engines read a ``FrozenClock``: a request's
+    deadline budget stays what its submission gave it, so a loaded host
+    cannot time out the 10 s request (the JAX fleet's did once under the
+    full suite's load); the drill waits for the requests on the wall
+    clock (60 s, as its join did)."""
     from paddle_tpu.framework import flags as jflags
 
     from paddle_tpu_torch.framework import flags as tflags

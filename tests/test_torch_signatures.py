@@ -133,7 +133,15 @@ def test_the_walk_covers_the_shared_surface():
                  "models.llama.LlamaForCausalLM.generate_paged",
                  "nn.norm.RMSNorm.__init__", "nn.common.Linear.__init__",
                  "optimizer.optimizers.AdamW.__init__",
-                 "ops.loss_ops.cross_entropy", "jit.TrainStep.__init__"):
+                 "ops.loss_ops.cross_entropy", "jit.TrainStep.__init__",
+                 "distributed.overlap.ag_matmul",
+                 "distributed.overlap.zero_prefetch",
+                 "distributed.mp_layers.ColumnParallelLinear.__init__",
+                 "distributed.mp_layers.ParallelCrossEntropy.forward",
+                 "distributed.sequence_parallel.ulysses_attention",
+                 "distributed.tensor_parallel.TensorParallel.__init__",
+                 "models.llama.apply_llama_tensor_parallel",
+                 "models.llama.llama_sharding_plan"):
         assert must in labels, must
 
 
@@ -198,6 +206,41 @@ def _cases():
         "TrainStep.in_shardings": (step(in_shardings=[None]),
                                    "in_shardings"),
         "TrainStep.donate": (step(donate=False), "donate"),
+        **_tp_cases(),
+    }
+
+
+def _tp_cases():
+    """The tensor- and sequence-parallel surface's unported parameters."""
+    from paddle_tpu_torch.distributed import mp_layers, overlap
+    from paddle_tpu_torch.distributed import sequence_parallel as sp
+    from paddle_tpu_torch.distributed.mesh import ProcessMesh
+    from paddle_tpu_torch.models.llama import apply_llama_tensor_parallel
+
+    x = torch.zeros((1, 2, 4))
+    mesh = ProcessMesh(np.arange(1).reshape(1, 1), ["fsdp", "mp"])
+    return {
+        "ColumnParallelLinear.weight_attr": (
+            lambda: mp_layers.ColumnParallelLinear(4, 4, "w"),
+            "weight_attr"),
+        "RowParallelLinear.fuse_matmul_bias": (
+            lambda: mp_layers.RowParallelLinear(4, 4, None, True, False,
+                                                True), "fuse_matmul_bias"),
+        "VocabParallelEmbedding.weight_attr": (
+            lambda: mp_layers.VocabParallelEmbedding(8, 4, "w"),
+            "weight_attr"),
+        "RowSequenceParallelLinear.input_is_parallel": (
+            lambda: sp.RowSequenceParallelLinear(4, 4, None, True, False),
+            "input_is_parallel"),
+        "register_sequence_parallel_allreduce_hooks.accumulation_steps": (
+            lambda: sp.register_sequence_parallel_allreduce_hooks(
+                _tiny_llama(), 2), "accumulation_steps"),
+        "matmul_ar.seq_axis": (
+            lambda: overlap.matmul_ar(x, x[0], mesh, "mp", "dp", "sp"),
+            "seq_axis"),
+        "apply_llama_tensor_parallel.fsdp_axis": (
+            lambda: apply_llama_tensor_parallel(_tiny_llama(), mesh, "mp",
+                                                "fsdp"), "fsdp_axis"),
     }
 
 

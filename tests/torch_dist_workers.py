@@ -11,11 +11,19 @@ runs, on the same inputs, which it writes to ``<out>/inputs.npz``.
 
 Inputs (``inputs.npz``): ``ids`` and ``labels`` / ``prompt_labels`` (the
 global batch, split over the ranks in rank order) and ``p.<name>`` (the
-initial parameters; ``t.<name>``: of the tied-embedding model).
+initial parameters; ``t.<name>``: of the tied-embedding model; the tensor-
+parallel tests add ``h.<name>``: of the 8-head model, and ``L.<name>``:
+the per-layer gates' arrays).
+
+Tensor parallelism: a rank's parameters are its shards, and the tests
+read every result gathered over the model-parallel group
+(``bridge.gather_tp_params``); the dp ranks split the global batch in
+dp-rank order and the mp ranks of one dp group take the same rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -78,6 +86,19 @@ def load(out_dir, case, rank=0):
 # ---------------------------------------------------------------------------
 # inside a rank
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _flags_set(**values):
+    """The port's flags at ``values`` inside, restored after."""
+    from paddle_tpu_torch.framework import flags
+
+    old = {k: flags.get_flag(k) for k in values}
+    flags.set_flags(values)
+    try:
+        yield
+    finally:
+        flags.set_flags(old)
+
+
 def _save(out_dir, case, rank, **arrays):
     np.savez(os.path.join(out_dir, f"{case}.{rank}.npz"), **arrays)
 
@@ -169,12 +190,20 @@ def _gathered_params(model, plan):
 def case_train(rank, world, out_dir, inputs, spec):
     """A few ``TrainStep``s at one placement: ``spec`` holds placement
     (single, dp, os, os_g, p_g_os, fleet_dp, fleet_sharding), opt (AdamW,
-    AdamW8bit), steps, accumulate, clip, cfg (LlamaConfig.tiny kw), tag."""
+    AdamW8bit), steps, accumulate, clip, cfg (LlamaConfig.tiny kw), flags
+    (set for this case only), tag."""
     from paddle_tpu_torch import nn, optimizer
     from paddle_tpu_torch.distributed import (DataParallel, fleet,
                                               group_sharded_parallel)
     from paddle_tpu_torch.jit import TrainStep
 
+    with _flags_set(**spec.get("flags", {})):
+        _train(rank, world, out_dir, inputs, spec, nn, optimizer,
+               DataParallel, fleet, group_sharded_parallel, TrainStep)
+
+
+def _train(rank, world, out_dir, inputs, spec, nn, optimizer, DataParallel,
+           fleet, group_sharded_parallel, TrainStep):
     m, torch = _model(spec.get("cfg", {}), inputs)
     clip = (nn.ClipGradByGlobalNorm(spec["clip"]) if spec.get("clip")
             else None)
@@ -220,6 +249,8 @@ def case_train(rank, world, out_dir, inputs, spec):
         out["buckets"] = np.asarray(len(red._buckets))
     if clip is not None:
         out["global_norm"] = np.asarray(float(opt._grad_clip.last_global_norm))
+    if plan is not None:
+        out["prefetches"] = np.asarray(plan.prefetches)
     if rank == 0 or spec.get("all_ranks"):
         _save(out_dir, spec["tag"], rank, **out)
 
@@ -425,6 +456,331 @@ def case_save(rank, world, out_dir, inputs, spec):
     _save(out_dir, spec["tag"], rank, ranges=np.asarray(
         sorted((n, lo, hi) for n, (lo, hi) in st["shard_ranges"].items()),
         dtype=object))
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+def _tp_model(spec, inputs):
+    """The tiny Llama of ``spec["cfg"]`` loaded with the ``spec["prefix"]``
+    parameters (default ``p.``)."""
+    from paddle_tpu_torch.models.bridge import load_numpy_params
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    pre = spec.get("prefix", "p.")
+    m = LlamaForCausalLM(LlamaConfig.tiny(**spec.get("cfg", {})),
+                         device="cpu")
+    load_numpy_params(m, {k[len(pre):]: v for k, v in inputs.items()
+                          if k.startswith(pre)})
+    return m
+
+
+def case_tp_train(rank, world, out_dir, inputs, spec):
+    """``TrainStep``s of the tiny Llama under tensor parallelism: ``spec``
+    holds dp, mp, sp (sequence parallelism), cm (``collective_matmul``),
+    cfg and prefix (the model), opt (AdamW, AdamW8bit), steps, clip, fleet
+    (through ``fleet.init`` / ``distributed_model``), control ("skip row
+    all-reduce": layer 0's o_proj output never all-reduced; "skip sp
+    hooks": the norm weights' sequence-parallel all-reduce removed) and
+    tag. Saves the losses, the gathered parameters
+    (``p.``), the gathered step-1 gradients (``g.``) and the clip's norm."""
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import (TensorParallel,
+                                              create_hybrid_group, fleet,
+                                              overlap)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bridge import (gather_tp_params,
+                                                tp_shards_from_numpy)
+    from paddle_tpu_torch.models.llama import (apply_llama_tensor_parallel,
+                                               llama_sharding_plan)
+
+    dp, mp = spec.get("dp", 1), spec["mp"]
+    with _flags_set(collective_matmul=spec.get("cm", True)):
+        m = _tp_model(spec, inputs)
+        clip = (nn.ClipGradByGlobalNorm(spec["clip"]) if spec.get("clip")
+                else None)
+        opt = getattr(optimizer, spec.get("opt", "AdamW"))(
+            learning_rate=1e-3, parameters=m.parameters(), grad_clip=clip)
+        if spec.get("fleet"):
+            strategy = fleet.DistributedStrategy()
+            strategy.hybrid_configs = dict(strategy.hybrid_configs,
+                                           dp_degree=dp, mp_degree=mp)
+            fleet.init(is_collective=True, strategy=strategy, device="cpu")
+            hcg = fleet.get_hybrid_communicate_group()
+            apply_llama_tensor_parallel(m, hcg.mesh,
+                                        sequence_parallel=spec.get("sp"))
+            model = fleet.distributed_model(m)
+            opt = fleet.distributed_optimizer(opt)
+        else:
+            hcg = create_hybrid_group(dp=dp, mp=mp)
+            apply_llama_tensor_parallel(m, hcg.mesh,
+                                        sequence_parallel=spec.get("sp"))
+            model = TensorParallel(m, hcg) if dp > 1 else m
+        step = TrainStep(model, m.loss, opt)
+        applied = {n: p.detach().numpy().copy()
+                   for n, p in m.named_parameters()}
+        control = spec.get("control")
+        if control == "skip sp hooks":
+            for h in m._sp_hooks:
+                h.remove()
+        restore = None
+        if control == "skip row all-reduce":
+            real = overlap.matmul_ar
+            o_proj = m.model.layers[0].self_attn.o_proj.weight
+
+            def skipping(x, w, *a, **k):
+                return x @ w if w is o_proj else real(x, w, *a, **k)
+
+            overlap.matmul_ar, restore = skipping, real
+        seen = {}
+        inner = opt.step
+
+        def recording_step(*, grads=None):
+            if not seen:
+                seen.update({n: (grads[n] if grads is not None
+                                 else p.grad).detach().clone()
+                             for n, p in m.named_parameters()})
+            inner(grads=grads)
+
+        opt.step = recording_step
+        ids, labels = _local(inputs, hcg.get_data_parallel_rank(), dp, 1)
+        try:
+            losses = [float(step(ids, labels))
+                      for _ in range(spec.get("steps", 3))]
+        finally:
+            if restore is not None:
+                overlap.matmul_ar = restore
+        out = {"losses": np.asarray(losses),
+               "wrapped": np.asarray(type(model).__name__)}
+        out.update({"p." + k: v.float().numpy()
+                    for k, v in gather_tp_params(m).items()})
+        out.update({"g." + k: v.float().numpy()
+                    for k, v in gather_tp_params(m, seen).items()})
+        if clip is not None:
+            out["global_norm"] = np.asarray(
+                float(opt._grad_clip.last_global_norm))
+        out["distributed"] = np.asarray(sorted(
+            n for n, p in m.named_parameters()
+            if getattr(p, "mp_cut", False)))
+        # the bridge's cut of the full tree is this rank's shards
+        cut = tp_shards_from_numpy(
+            {k[len(spec.get("prefix", "p.")):]: v for k, v in inputs.items()
+             if k.startswith(spec.get("prefix", "p."))},
+            llama_sharding_plan(m, hcg.mesh), "mp", mp,
+            hcg.get_model_parallel_rank())
+        out["bridge_cut_ok"] = np.asarray(all(
+            np.array_equal(cut[n], applied[n]) for n in applied))
+    if rank == 0:
+        _save(out_dir, spec["tag"], rank, **out)
+
+
+def case_tp_topology(rank, world, out_dir, inputs, spec):
+    """This rank's groups under ``create_hybrid_group`` at ``spec``'s
+    degrees (dp, sep, mp): each axis's rank list and this rank's
+    coordinate."""
+    from paddle_tpu_torch.distributed import create_hybrid_group
+
+    hcg = create_hybrid_group(dp=spec.get("dp", 1), sep=spec.get("sep", 1),
+                              mp=spec.get("mp", 1))
+    _save(out_dir, spec["tag"], rank,
+          mp=np.asarray(hcg.get_model_parallel_group().ranks),
+          dp=np.asarray(hcg.get_data_parallel_group().ranks),
+          sep=np.asarray(hcg.get_sep_parallel_group().ranks),
+          coord=np.asarray([hcg.get_data_parallel_rank(),
+                            hcg.get_sep_parallel_rank(),
+                            hcg.get_model_parallel_rank()]),
+          mode=np.asarray(hcg.get_parallel_mode()))
+
+
+class _FakeCuda:
+    """Stands for a CUDA tensor where there is none: what the collectives'
+    backend check reads."""
+    is_cuda = True
+
+    def contiguous(self):
+        return self
+
+
+def case_tp_refusals(rank, world, out_dir, inputs, spec):
+    """The ring's hop refuses a CUDA tensor on a gloo group (gloo has no
+    point-to-point transfer of CUDA tensors): NotImplementedError, and no
+    switch to the monolithic form."""
+    from paddle_tpu_torch.distributed import create_hybrid_group, overlap
+
+    hcg = create_hybrid_group(mp=world)
+    try:
+        overlap._Hop(_FakeCuda(), hcg.get_model_parallel_group(), -1,
+                     "ag_matmul", 0)
+        msg = ""
+    except NotImplementedError as e:
+        msg = str(e)
+    _save(out_dir, "tp_refusals", rank, ring_cuda_gloo=np.asarray(msg))
+
+
+def _shard(a, dim, rank, n):
+    size = a.shape[dim] // n
+    return np.take(a, range(rank * size, (rank + 1) * size), axis=dim)
+
+
+def _share(a, rank, n):
+    """Rank ``rank``'s share of a cotangent whose shares sum to ``a``
+    (the per-rank cotangent behind a column-cut consumer)."""
+    return a * (rank + 1) / (n * (n + 1) / 2)
+
+
+def case_tp_layers(rank, world, out_dir, inputs, spec):
+    """The per-layer gates on ``L.*`` inputs with ``collective_matmul`` at
+    ``spec["cm"]``: each layer's forward and input / weight gradients for
+    the cotangent ``L.cot_*``, gathered over the group (results under
+    ``<layer>.<what>``); mp layers and overlap products over an mp group
+    of ``world`` ranks, ``ulysses_attention`` over a sep group."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import (create_hybrid_group, mp_layers,
+                                              overlap)
+    from paddle_tpu_torch.distributed import sequence_parallel as SP
+    from paddle_tpu_torch.nn.layer import Layer
+
+    L = {k[2:]: v for k, v in inputs.items() if k.startswith("L.")}
+    n, out = world, {}
+    T = torch.tensor
+
+    def gather(t, dim):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.detach().contiguous())
+        return torch.cat(parts, dim).numpy()
+
+    def leaf(a):
+        return T(np.ascontiguousarray(a)).requires_grad_(True)
+
+    def load(layer, w, b, wdim, bdim):
+        with torch.no_grad():
+            layer.weight.copy_(T(w if wdim is None else _shard(w, wdim,
+                                                               rank, n)))
+            if getattr(layer, "bias", None) is not None:
+                layer.bias.copy_(T(b if bdim is None else _shard(b, bdim,
+                                                                 rank, n)))
+        layer.train()
+
+    def record(name, y, y_dim, cot, x, x_dim, layer=None, w_dim=None,
+               b_dim=None):
+        (y * T(np.ascontiguousarray(cot))).sum().backward()
+        out[name + ".y"] = gather(y, y_dim) if y_dim is not None else             y.detach().numpy()
+        out[name + ".dx"] = gather(x.grad, x_dim) if x_dim is not None             else x.grad.numpy()
+        if layer is not None:
+            out[name + ".dw"] = gather(layer.weight.grad, w_dim)                 if w_dim is not None else layer.weight.grad.numpy()
+            if layer.bias is not None:
+                out[name + ".db"] = gather(layer.bias.grad, b_dim)                     if b_dim is not None else layer.bias.grad.numpy()
+
+    with _flags_set(collective_matmul=spec["cm"]):
+        hcg = create_hybrid_group(mp=n)
+        x, cot = L["x"], L["cot_col"]            # (B, S, K), (B, S, F)
+        # ColumnParallelLinear, gathered output
+        col = mp_layers.ColumnParallelLinear(16, 32, gather_output=True,
+                                             device="cpu")
+        load(col, L["w_col"], L["b_col"], 1, 0)
+        xi = leaf(x)
+        record("col_gather", col(xi), None, cot, xi, None, col, 1, 0)
+        # ColumnParallelLinear, output left cut
+        col = mp_layers.ColumnParallelLinear(16, 32, gather_output=False,
+                                             device="cpu")
+        load(col, L["w_col"], L["b_col"], 1, 0)
+        xi = leaf(x)
+        record("col_cut", col(xi), 2, _shard(cot, 2, rank, n), xi, None,
+               col, 1, 0)
+        # RowParallelLinear on a cut input / on a replicated one
+        xr, cot_r = L["x_row"], L["cot_row"]       # (B, S, F), (B, S, K)
+        for name, par in (("row_par", True), ("row_rep", False)):
+            row = mp_layers.RowParallelLinear(32, 16, input_is_parallel=par,
+                                              device="cpu")
+            load(row, L["w_row"], L["b_row"], 0, None)
+            xi = leaf(_shard(xr, 2, rank, n) if par else xr)
+            record(name, row(xi), None, cot_r, xi, 2 if par else None, row,
+                   0, None)
+        # VocabParallelEmbedding
+        emb = mp_layers.VocabParallelEmbedding(64, 16, device="cpu")
+        load(emb, L["w_emb"], None, 0, None)
+        y = emb(T(L["ids"]))
+        (y * T(L["cot_emb"])).sum().backward()
+        out["emb.y"] = y.detach().numpy()
+        out["emb.dw"] = gather(emb.weight.grad, 0)
+        # ParallelCrossEntropy on vocab-cut logits
+        lg = leaf(_shard(L["logits"], 1, rank, n))
+        loss = mp_layers.ParallelCrossEntropy()(lg, T(L["labels"]))
+        (loss * T(L["cot_ce"])).sum().backward()
+        out["ce.y"] = loss.detach().numpy()
+        out["ce.dx"] = gather(lg.grad, 1)
+        # the sequence-parallel pair
+        csp = SP.ColumnSequenceParallelLinear(16, 32, device="cpu")
+        load(csp, L["w_col"], L["b_col"], 1, 0)
+        xi = leaf(_shard(x, 1, rank, n))
+        record("col_sp", csp(xi), 2, _shard(cot, 2, rank, n), xi, 1, csp,
+               1, 0)
+
+        class Holder(Layer):
+            def __init__(self, inner):
+                super().__init__()
+                self.inner = inner
+
+        rsp = SP.RowSequenceParallelLinear(32, 16, device="cpu")
+        load(rsp, L["w_row"], L["b_row"], 0, None)
+        SP.register_sequence_parallel_allreduce_hooks(Holder(rsp))
+        xi = leaf(_shard(xr, 2, rank, n))
+        record("row_sp", rsp(xi), 1, _shard(cot_r, 1, rank, n), xi, 2, rsp,
+               0, None)
+        # scatter and all_gather
+        xi = leaf(x)
+        record("scatter", SP.scatter(xi), 1, _shard(L["cot_x"], 1, rank, n),
+               xi, None)
+        xi = leaf(_shard(x, 1, rank, n))
+        record("all_gather", SP.all_gather(xi), None, _share(L["cot_x"],
+                                                             rank, n), xi, 1)
+        # the overlap products
+        mesh = hcg.mesh
+        wc, wr = T(L["w_col"]), T(L["w_row"])
+        xi, wi = leaf(_shard(x, 1, rank, n)), leaf(_shard(L["w_col"], 1,
+                                                          rank, n))
+        y = overlap.ag_matmul(xi, wi, mesh, "mp")
+        (y * T(_shard(cot, 2, rank, n))).sum().backward()
+        out.update({"ag_matmul.y": gather(y, 2),
+                    "ag_matmul.dx": gather(xi.grad, 1),
+                    "ag_matmul.dw": gather(wi.grad, 1)})
+        xi, wi = leaf(_shard(xr, 2, rank, n)), leaf(_shard(L["w_row"], 0,
+                                                           rank, n))
+        y = overlap.matmul_rs(xi, wi, mesh, "mp")
+        (y * T(_shard(cot_r, 1, rank, n))).sum().backward()
+        out.update({"matmul_rs.y": gather(y, 1),
+                    "matmul_rs.dx": gather(xi.grad, 2),
+                    "matmul_rs.dw": gather(wi.grad, 0)})
+        xi, wi = leaf(_shard(xr, 2, rank, n)), leaf(_shard(L["w_row"], 0,
+                                                           rank, n))
+        y = overlap.matmul_ar(xi, wi, mesh, "mp")
+        (y * T(cot_r)).sum().backward()
+        out.update({"matmul_ar.y": y.detach().numpy(),
+                    "matmul_ar.dx": gather(xi.grad, 2),
+                    "matmul_ar.dw": gather(wi.grad, 0)})
+        xi = leaf(_shard(x, 2, rank, n))
+        y = overlap.ring_all_gather(xi, mesh, "mp", dim=2)
+        (y * T(_share(L["cot_x"], rank, n))).sum().backward()
+        out.update({"ring_all_gather.y": y.detach().numpy(),
+                    "ring_all_gather.dx": gather(xi.grad, 2)})
+        xi = leaf(x)
+        y = overlap.shard_seq(xi, mesh, "mp", dim=1)
+        (y * T(_shard(L["cot_x"], 1, rank, n))).sum().backward()
+        out.update({"shard_seq.y": gather(y, 1),
+                    "shard_seq.dx": xi.grad.numpy()})
+        del wc, wr
+        # Ulysses over a sep group of the same ranks
+        hcg = create_hybrid_group(sep=n)
+        qkv = [leaf(_shard(L[k], 1, rank, n)) for k in ("q", "k", "v")]
+        y = SP.ulysses_attention(*qkv)
+        (y * T(_shard(L["cot_att"], 1, rank, n))).sum().backward()
+        out["ulysses.y"] = gather(y, 1)
+        for k, t in zip("qkv", qkv):
+            out[f"ulysses.d{k}"] = gather(t.grad, 1)
+    if rank == 0:
+        _save(out_dir, spec["tag"], rank, **out)
 
 
 def main(argv):

@@ -196,6 +196,23 @@ def both(jax_ns, port_ns, drill, *args, **kw):
     return tuple(out)
 
 
+class FrozenClock:
+    """A ``time`` whose ``monotonic()`` stands still at its creation's
+    reading (``sleep`` is the real one).
+    Installed as the router and fleet modules' ``time`` and as every
+    engine's ``_clock``, it keeps a request's deadline budget and queue
+    age at what submission gave them however slow the host runs, so a
+    drill's statuses do not depend on the load. Waits that must end are
+    timed by the test's own wall clock (``wait``)."""
+
+    def __init__(self):
+        self.t = time.monotonic()
+        self.sleep = time.sleep
+
+    def monotonic(self):
+        return self.t
+
+
 class TickClock:
     """A per-replica virtual ``time.monotonic`` for the fleet module: on a
     replica's serve thread every call advances that replica's clock by
